@@ -1,0 +1,77 @@
+"""Contracts of the port as a package: it never imports JAX, its entry
+points run on the CPU, and ``chip_smoke.py`` refuses to run without a card."""
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "autobzcore_torch"
+ENV = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
+
+
+def _run(args, cwd, timeout=240):
+    return subprocess.run([sys.executable, *args], capture_output=True, text=True,
+                          timeout=timeout, env=ENV, cwd=cwd)
+
+
+def test_import_leaves_jax_out():
+    modules = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
+                     for p in PACKAGE.rglob("*.py") if p.name != "__init__.py")
+    code = ("import sys, importlib\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'autobzcore_tpu'))]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    out = _run(["-c", code], cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PACKAGE.rglob("*.py"))
+                         + ["chip_smoke.py", "examples/aps_example_torch.py"])
+def test_no_source_imports_jax(path):
+    """Also the imports inside functions, which an import test cannot see."""
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "autobzcore_tpu"), (path, name)
+
+
+def test_example_runs_flagship_on_cpu(tmp_path):
+    out = _run([str(REPO / "examples" / "aps_example_torch.py"), "--flagship", "--device", "cpu",
+                "--npt", "6", "--eta", "0.3", "--out", str(tmp_path / "dos.npz")],
+               cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "PTR(npt=6) interpolant" in out.stderr
+    assert out.stdout.startswith("PTR DOS(0.5 eV) = ")
+    assert (tmp_path / "dos.npz").exists()
+
+
+def _assert_refused(out):
+    assert out.returncode != 0
+    lines = out.stdout.strip().splitlines()
+    assert not lines or '"ok"' not in lines[-1]
+    for line in lines:
+        if line.startswith("{"):
+            assert not json.loads(line).get("ok")
+
+
+def test_chip_smoke_refuses_without_cuda():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; chip_smoke.py would run")
+    _assert_refused(_run([str(REPO / "chip_smoke.py")], cwd=REPO))
+
+
+def test_chip_smoke_refuses_without_the_package(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    _assert_refused(_run(["chip_smoke.py"], cwd=tmp_path))
