@@ -1,16 +1,22 @@
 """autobzcore_torch: the PyTorch/CUDA port of autobzcore_tpu.
 
 Same module layout and public names as the JAX package, for the parts ported
-so far: the PTR leg of the flagship DOS workload (Fourier series on a
-symmetry-reduced PTR grid, the broadened DOS trace, ``SweepSolver`` under
-``hchebinterp``). Everything computes in float64/complex128 on the device
-the caller names. Two hand-written CUDA kernels carry the device work:
-Fourier evaluation at points (``ops.fourier_eval.fourier_points``) and the
-fused DOS-trace k-sum (``models.observables.dos_trace_weighted_sum``).
-This package never imports JAX.
+so far: the PTR leg and the cold IAI leg of the flagship DOS workload
+(Fourier series on a symmetry-reduced PTR grid or under nested adaptive
+Gauss-Kronrod, the broadened DOS trace, ``SweepSolver`` under
+``hchebinterp``). Everything computes in float64/complex128, on the card
+unless the caller names the CPU. Hand-written CUDA kernels carry the device
+work: Fourier evaluation at points (K1, ``ops.fourier_eval.fourier_points``),
+the fused DOS-trace k-sum (K2, ``models.observables.dos_trace_weighted_sum``),
+the lane-batched series contraction (K3, ``ops.fourier_eval.fourier_contract``),
+the fused leaf DOS rule (K4, ``models.observables.gk_leaf_dos``) and the
+interval-pool step (K5, ``ops.adaptive``). This package never imports JAX.
 """
+from .algorithms.gk import AuxQuadGKJL, QuadGKJL
+from .algorithms.nested import NestedQuad
 from .brillouin import (
     FBZ,
+    IAI,
     AbstractSymRep,
     CubicSymIBZ,
     InversionSymIBZ,
@@ -44,11 +50,12 @@ from .wrappers import BatchIntegrand, InplaceIntegrand
 __version__ = "0.1.0"
 
 __all__ = [
-    "AbstractSymRep", "Basis", "BatchIntegrand", "CubicLimits", "CubicSymIBZ", "FBZ",
-    "FourierIntegrand", "FourierSeries", "FourierValue", "HyperCube", "InplaceIntegrand",
-    "IntegralCache", "IntegralProblem", "IntegralSolution", "IntegralSolver",
-    "InversionSymIBZ", "LatticeRep", "MixedParameters", "MonkhorstPack", "NullParameters",
-    "PTR", "ParameterIntegrand", "SymmetricBZ", "TetrahedralLimits", "TrivialRep",
+    "AbstractSymRep", "AuxQuadGKJL", "Basis", "BatchIntegrand", "CubicLimits", "CubicSymIBZ",
+    "FBZ", "FourierIntegrand", "FourierSeries", "FourierValue", "HyperCube", "IAI",
+    "InplaceIntegrand", "IntegralCache", "IntegralProblem", "IntegralSolution", "IntegralSolver",
+    "InversionSymIBZ", "LatticeRep", "MixedParameters", "MonkhorstPack", "NestedQuad",
+    "NullParameters", "PTR", "ParameterIntegrand", "QuadGKJL", "SymmetricBZ",
+    "TetrahedralLimits", "TrivialRep",
     "UnknownRep", "canonical_reciprocal_basis", "init", "load_bz", "nsyms", "solve",
     "solve_", "sym_rep", "symmetrize",
 ]

@@ -2,8 +2,9 @@
 
 The port computes in float64/complex128 everywhere: the H100 has native FP64,
 so none of the reference's split-complex or two-float emulation is needed.
-Devices are always named by the caller; nothing here picks a device on its
-own, and a CUDA device that is not present raises instead of degrading.
+Every entry point that places data takes ``device=`` and defaults to the
+card (``DEFAULT_DEVICE``); the CPU runs only when the caller names it, and a
+CUDA device that is not present raises instead of degrading.
 """
 from __future__ import annotations
 
@@ -11,11 +12,12 @@ import torch
 
 REAL = torch.float64
 COMPLEX = torch.complex128
+DEFAULT_DEVICE = "cuda"
 
 
-def as_device(device) -> torch.device:
-    """``torch.device`` for ``device`` (a string, index or device), raising if
-    it names a CUDA device this process cannot use."""
+def as_device(device=DEFAULT_DEVICE) -> torch.device:
+    """``torch.device`` for ``device`` (a string, index or device), raising
+    ``RuntimeError`` if it names a CUDA device this process cannot use."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")

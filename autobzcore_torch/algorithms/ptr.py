@@ -56,7 +56,7 @@ def _dos_lanes(p, device):
     return om.reshape(-1).contiguous(), eta.reshape(-1).contiguous(), om.shape
 
 
-def build_ptr_run(f, dom: Basis, npt: int, syms, device="cpu"):
+def build_ptr_run(f, dom: Basis, npt: int, syms, device="cuda"):
     """Build a fixed-npt PTR sum for integrand ``f`` over ``dom``.
 
     Returns ``(run(p), numevals, run_c(consts, p), consts)``. The value is
@@ -121,12 +121,13 @@ def build_ptr_run(f, dom: Basis, npt: int, syms, device="cpu"):
 class MonkhorstPack(IntegralAlgorithm):
     """Fixed-npt periodic trapezoidal rule over a lattice ``Basis``; with
     ``syms`` the sum runs over host-computed weighted representatives.
-    ``device`` places the rule of integrands that carry no series."""
+    ``device`` (the card by default) places the rule of integrands that
+    carry no series."""
 
-    def __init__(self, npt=50, syms=None, device="cpu"):
+    def __init__(self, npt=50, syms=None, device="cuda"):
         self.npt = npt
         self.syms = syms
-        self.device = device
+        self.device = as_device(device)
 
     def init_cacheval(self, f, dom, p):
         run, numevals, run_c, consts = build_ptr_run(f, dom, self.npt, self.syms, self.device)
@@ -137,7 +138,8 @@ class MonkhorstPack(IntegralAlgorithm):
         return IntegralSolution(cacheval["run"](p), None, True, cacheval["numevals"])
 
     def solve_fn(self, cacheval, lanes=False):
-        """fn(p, atol, rtol) -> (u, resid, converged, numevals)."""
+        """fn(p, atol, rtol) -> (u, resid, converged, numevals); ``lanes`` is
+        accepted for the BZ layer's signature (``p`` may carry a lane axis)."""
         fn, consts = self.solve_fn_consts(cacheval, lanes)
         return lambda p, atol, rtol: fn(consts, p, atol, rtol)
 

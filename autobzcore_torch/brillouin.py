@@ -9,9 +9,9 @@ The BZ algorithms
 4. re-solve on the full zone, with a warning, when the integrand's symmetry
    representation is unknown and its result is not a scalar.
 
-This slice ports the PTR rule; ``IAI``, ``AutoPTR``, ``TAI`` and their
-combinations come with later slices (ROADMAP A4, A5, A7), and ``IBZ`` with
-the geometry slice (ROADMAP A8).
+The PTR rule and the cold IAI are ported; ``AutoPTR``, ``TAI``, ``PTR_IAI``
+and ``AutoPTR_IAI`` come with later slices (ROADMAP A4, A5, A7), and ``IBZ``
+with the geometry slice (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -21,9 +21,12 @@ import numpy as np
 import torch
 
 from .algorithms.base import IntegralAlgorithm
+from .algorithms.gk import AuxQuadGKJL
+from .algorithms.nested import NestedQuad
 from .algorithms.ptr import MonkhorstPack
 from .domains import Basis
 from .interfaces import IntegralSolution
+from ._device import as_device
 from .limits import CubicLimits, TetrahedralLimits
 from .ops.symptr import cube_automorphism_syms, inversion_syms
 from .utils.tree import tree_leaves, tree_map
@@ -231,8 +234,10 @@ class AutoBZAlgorithm(IntegralAlgorithm):
         integrand's symmetry rep must be Trivial, declared, or the result
         scalar. With ``lanes`` the parameter carries a leading lane axis (a
         sweep chunk), which the result carries too and which the scalar
-        test does not count."""
-        return self._wrap_inner(cacheval, cacheval["alg"].solve_fn(cacheval["inner"]), lanes)
+        test does not count; for algorithms that solve lanes independently
+        (``solves_lanes``) the parameter is a
+        :class:`~autobzcore_torch.parameters.LaneParams` instead."""
+        return self._wrap_inner(cacheval, cacheval["alg"].solve_fn(cacheval["inner"], lanes), lanes)
 
     def solve_fn_consts(self, cacheval, lanes=False):
         """(fn(consts, p, atol, rtol), consts): the rule data passed as an
@@ -309,11 +314,58 @@ class AutoBZAlgorithm(IntegralAlgorithm):
 
 class PTR(AutoBZAlgorithm):
     """Fixed-npt periodic trapezoidal rule. The rule lives on the series'
-    device for a FourierIntegrand, on ``device`` otherwise."""
+    device for a FourierIntegrand, on ``device`` (the card by default)
+    otherwise."""
 
-    def __init__(self, npt=50, device="cpu"):
+    def __init__(self, npt=50, device="cuda"):
         self.npt = npt
-        self.device = device
+        self.device = as_device(device)
 
     def bz_to_standard(self, bz):
         return bz, Basis(np.eye(bz.ndim)), MonkhorstPack(npt=self.npt, syms=bz.syms, device=self.device)
+
+
+class IAI(AutoBZAlgorithm):
+    """Iterated adaptive integration over the zone's limits, most efficient
+    for localized integrands (reference ``IAI``, cold start).
+
+    ``algs`` (default ``AuxQuadGKJL(nbisect=1)`` at every level, pure
+    worst-first refinement) and ``inner_cap``/``inner_nbisect`` set each
+    level's pool; ``leaf_nbisect``, ``leaf_presplit`` and ``nest_presplit``
+    are the reference's depth and anti-aliasing knobs. ``precision`` is
+    accepted: "split" and "guided" were the reference's emulated-f64 tiers
+    on a TPU and run as the native complex128 tier here, which is what they
+    certify. ``host_outer`` is accepted and the outer level runs on the
+    device. ``warm_start`` (the IAI warm slice) and ``checkpoint`` (the
+    host-side heap) raise. ``device`` (the card by default) places the
+    pools of integrands without a series; ``plain_kernels`` runs the nest on
+    the kernels' plain versions."""
+
+    solves_lanes = True
+
+    def __init__(self, algs=None, inner_cap=512, inner_nbisect=2, precision="complex",
+                 host_outer=False, host_nbisect=None, checkpoint=None,
+                 leaf_nbisect=None, leaf_presplit=None, nest_presplit=None,
+                 guide_rfloor="auto", guide_patience=6, guide_slack=1.0,
+                 warm_start=False, warm_width=None, inner_seed_width=None,
+                 device="cuda", plain_kernels=False):
+        if precision not in ("complex", "split", "guided"):
+            raise ValueError("precision must be 'complex', 'split', or 'guided'")
+        self.device = as_device(device)
+        self.algs = algs if algs is not None else AuxQuadGKJL(nbisect=1)
+        self.precision = precision
+        if host_nbisect is None:
+            host_nbisect = 1 if precision == "guided" else 4
+        self.knobs = dict(inner_cap=inner_cap, inner_nbisect=inner_nbisect,
+                          split=precision != "complex", host_outer=host_outer,
+                          host_nbisect=host_nbisect, checkpoint=checkpoint,
+                          leaf_nbisect=leaf_nbisect, leaf_presplit=leaf_presplit,
+                          nest_presplit=nest_presplit, guide_rfloor=guide_rfloor,
+                          guide_patience=guide_patience, guide_slack=guide_slack,
+                          warm_start=warm_start, warm_width=warm_width,
+                          inner_seed_width=inner_seed_width, plain_kernels=plain_kernels)
+        self.bz_to_standard(None)  # refuse the unported knobs now, not at the first solve
+
+    def bz_to_standard(self, bz):
+        lims = None if bz is None else bz.lims
+        return bz, lims, NestedQuad(self.algs, device=self.device, **self.knobs)

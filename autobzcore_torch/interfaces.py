@@ -9,6 +9,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
+
 from .parameters import MixedParameters, NullParameters, ParameterIntegrand
 
 
@@ -24,13 +26,52 @@ class IntegralSolution:
 
 
 class IntegralProblem:
-    """``IntegralProblem(f, dom[, p])``: integrand ``f(x, p)``, domain and
-    parameters."""
+    """``IntegralProblem(f, dom[, p])`` or ``IntegralProblem(f, a, b[, p])``:
+    integrand ``f(x, p)``, domain and parameters. Scalar endpoints ``a, b``
+    give the interval as its breakpoints ``(a, b)``, vector ones a
+    :class:`~autobzcore_torch.domains.HyperCube`."""
 
-    def __init__(self, f, dom, p=NullParameters()):
+    def __init__(self, f, *args):
+        if len(args) == 1:
+            dom, p = args[0], NullParameters()
+        elif len(args) == 2:
+            if _is_domainlike(args[0]):
+                dom, p = args
+            else:
+                dom, p = _interval_or_cube(*args), NullParameters()
+        elif len(args) == 3:
+            dom, p = _interval_or_cube(args[0], args[1]), args[2]
+        else:
+            raise TypeError("IntegralProblem(f, dom[, p]) or IntegralProblem(f, a, b[, p])")
         self.f = f
         self.dom = dom
         self.p = p
+
+    @classmethod
+    def of(cls, f, dom, p):
+        """The problem of ``f`` over the domain ``dom`` as given (no
+        endpoint-pair reading of the arguments)."""
+        prob = cls.__new__(cls)
+        prob.f, prob.dom, prob.p = f, dom, p
+        return prob
+
+
+def _is_domainlike(x):
+    from .domains import Domain
+
+    if isinstance(x, Domain):
+        return True
+    # zones and iterated limits duck-type via `ndim`
+    return (hasattr(x, "ndim") and not isinstance(x, (int, float, complex, np.ndarray))
+            and not hasattr(x, "shape"))
+
+
+def _interval_or_cube(a, b):
+    from .domains import HyperCube
+
+    if np.ndim(a) == 0:
+        return (float(a), float(b))
+    return HyperCube(a, b)
 
 
 _ALLOWED_KWARGS = ("abstol", "reltol", "maxiters")
@@ -75,11 +116,21 @@ def solve_(cache: IntegralCache) -> IntegralSolution:
 
 
 class IntegralSolver:
-    """Functor ``solver(p) -> u``. For :class:`ParameterIntegrand` and
-    ``FourierIntegrand`` integrands the call is ``solver(*args, **kwargs)``
-    and the parameters merge with the integrand's preset ones."""
+    """Functor ``solver(p) -> u``: ``IntegralSolver(f, dom, alg)``,
+    ``IntegralSolver(f, a, b, alg)`` or ``IntegralSolver(prob, alg)``. For
+    :class:`ParameterIntegrand` and ``FourierIntegrand`` integrands the call
+    is ``solver(*args, **kwargs)`` and the parameters merge with the
+    integrand's preset ones."""
 
-    def __init__(self, f, dom, alg, **kwargs):
+    def __init__(self, f, *args, **kwargs):
+        if isinstance(f, IntegralProblem) and len(args) == 1:
+            f, args = f.f, (f.dom, args[0])
+        if len(args) == 3:
+            dom, alg = _interval_or_cube(args[0], args[1]), args[2]
+        elif len(args) == 2:
+            dom, alg = args
+        else:
+            raise TypeError("IntegralSolver(f, dom, alg), (f, a, b, alg) or (prob, alg)")
         checkkwargs(kwargs)
         self.f = f
         self.dom = dom
@@ -89,7 +140,7 @@ class IntegralSolver:
 
     def solve_p(self, p) -> IntegralSolution:
         if self.cache is None:
-            self.cache = init(IntegralProblem(self.f, self.dom, p), self.alg, **self.kwargs)
+            self.cache = init(IntegralProblem.of(self.f, self.dom, p), self.alg, **self.kwargs)
             return solve_(self.cache)
         _, self.cache.p = _resolve_parameters(self.f, p)
         return solve_(self.cache)

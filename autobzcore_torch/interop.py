@@ -11,7 +11,7 @@ from .limits import CubicLimits, TetrahedralLimits
 from .ops.symptr import as_integer_syms, cube_automorphism_syms, inversion_syms
 
 
-def series_from_arrays(c, offset, period, ndim, device="cpu"):
+def series_from_arrays(c, offset, period, ndim, device="cuda"):
     """A :class:`FourierSeries` from coefficients ``c`` (n_1..n_d, *val),
     offsets, periods and the spatial dimension ``ndim``."""
     return FourierSeries(np.asarray(c), period=period, offset=offset, ndim=ndim, device=device)

@@ -39,7 +39,7 @@ def read_w90_hrdat(path):
     return {"Rvectors": R, "Rdegens": degens, "H": H, "num_wann": num_wann}
 
 
-def hamiltonian_fourier_series(hrdat, period=1.0, dtype=COMPLEX, device="cpu"):
+def hamiltonian_fourier_series(hrdat, period=1.0, dtype=COMPLEX, device="cuda"):
     """The coefficient tensor of ``H(k) = sum_R H_R/degen_R e^{2 pi i R.k}``
     on the bounding R-box, as a :class:`FourierSeries` on ``device``."""
     from ..fourier import FourierSeries

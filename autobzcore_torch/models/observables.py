@@ -8,6 +8,11 @@ leading axes, which become new leading axes of the result.
 ``dos_trace_weighted_sum`` is the wrapper of kernel K2
 (``csrc/dos_trace.cu``): the PTR rule's weighted k-sum of ``dos_trace``,
 fused so that the (W, K) matrix of traces never exists.
+
+``gk_leaf_dos`` is the wrapper of kernel K4 (``csrc/gk_leaf_dos.cu``): the
+innermost level of a nested Gauss-Kronrod solve of ``dos_trace``, fused from
+the 1-D series values at the Kronrod nodes, the trace and the rule's
+reduction, so that node values never reach device memory.
 """
 from __future__ import annotations
 
@@ -18,7 +23,9 @@ import torch
 from .._device import COMPLEX, REAL, check_tensor
 from ..brillouin import TrivialRep
 from ..fourier import FourierIntegrand, FourierSeries, FourierValue
+from ..ops.adaptive import gk_nodes, gk_rule_reduce_plain
 from ..ops.cuda_lib import check_launch, load_kernels
+from ..ops.fourier_eval import fourier_contract_plain
 
 
 def _trace_inv_small(M):
@@ -116,3 +123,103 @@ def dos_trace_weighted_sum(H, w, omega, eta, scale):
 
 
 dos_trace_weighted_sum.launches = 0
+
+
+def gk_leaf_dos_plain(c, cmap, offset, period, ca, cb, om, eta, active, xk, wk, wg):
+    """Plain PyTorch version of K4: per lane l of L, the 1-D series with
+    coefficients c[cmap[l]] (n, m*m) complex128 evaluated at the Kronrod
+    nodes of the intervals (ca[l], cb[l]) (I of them), ``dos_trace`` at
+    frequency om[l] and broadening eta[l], reduced by the rule. Returns
+    val, err, l1 (L, I) and count (L,): I * npts for active lanes; inactive
+    lanes give zeros."""
+    L, I = ca.shape
+    P = xk.shape[0]
+    m = math.isqrt(c.shape[-1])
+    nodes, half = gk_nodes(ca, cb, xk)
+    H = fourier_contract_plain(c, cmap, nodes.reshape(L, I * P), offset, period)
+    D = dos_trace(FourierValue(None, H.reshape(L, I, P, m, m)), om[:, None, None],
+                  eta=eta[:, None, None])
+    val, err, l1, count = gk_rule_reduce_plain(D, None, half, wk, wg)
+    zero = torch.zeros((), dtype=REAL, device=ca.device)
+    live = active[:, None]
+    return (torch.where(live, val, zero), torch.where(live, err, zero),
+            torch.where(live, l1, zero), torch.where(active, count, zero))
+
+
+def gk_leaf_dos(c, cmap, offset, period, ca, cb, om, eta, active, xk, wk, wg):
+    """The innermost rule evaluation of a nested DOS solve (see
+    :func:`gk_leaf_dos_plain`): c (Lc, n, m*m) complex128 with m <= 3, cmap
+    (L,) int64, ca/cb (L, I), om/eta (L,) float64, active (L,) bool, and the
+    rule's xk/wk/wg (npts,) float64.
+
+    CPU tensors take the plain version; CUDA tensors launch K4, which takes
+    m <= 3 and raises on anything else it does not take."""
+    check_tensor(ca, "ca", dtype=REAL, ndim=2)
+    L, I = ca.shape
+    dev = ca.device
+    check_tensor(cb, "cb", device=dev, dtype=REAL, shape=(L, I), ndim=2)
+    check_tensor(c, "c", device=dev, dtype=COMPLEX, ndim=3)
+    check_tensor(cmap, "cmap", device=dev, dtype=torch.int64, shape=(L,), ndim=1)
+    for name, t in (("om", om), ("eta", eta)):
+        check_tensor(t, name, device=dev, dtype=REAL, shape=(L,), ndim=1)
+    check_tensor(active, "active", device=dev, dtype=torch.bool, shape=(L,), ndim=1)
+    P = xk.shape[0]
+    for name, t in (("xk", xk), ("wk", wk), ("wg", wg)):
+        check_tensor(t, name, device=dev, dtype=REAL, shape=(P,), ndim=1)
+    m = math.isqrt(c.shape[-1])
+    if m * m != c.shape[-1]:
+        raise ValueError(f"c must hold square values, got V = {c.shape[-1]}")
+    offset, period = int(offset), float(period)
+    if dev.type == "cpu":
+        return gk_leaf_dos_plain(c, cmap, offset, period, ca, cb, om, eta, active, xk, wk, wg)
+    if dev.type != "cuda":
+        raise ValueError(f"gk_leaf_dos runs on cpu or cuda tensors, got {dev}")
+    if m > 3:
+        raise NotImplementedError(
+            f"the CUDA leaf DOS kernel takes m <= 3 bands, got m = {m} "
+            "(the eigenvalue form for larger m comes with ROADMAP B2)")
+    if P > 64:
+        raise ValueError(f"gk_leaf_dos takes at most 64 Kronrod nodes, got {P}")
+    val = torch.empty((L, I), dtype=REAL, device=dev)
+    err = torch.empty_like(val)
+    l1 = torch.empty_like(val)
+    count = torch.empty((L,), dtype=REAL, device=dev)
+    if L == 0 or I == 0:
+        return val.zero_(), err.zero_(), l1.zero_(), count.zero_()
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.gk_leaf_dos_launch(
+        c.data_ptr(), cmap.data_ptr(), ca.data_ptr(), cb.data_ptr(), om.data_ptr(),
+        eta.data_ptr(), active.data_ptr(), xk.data_ptr(), wk.data_ptr(), wg.data_ptr(),
+        val.data_ptr(), err.data_ptr(), l1.data_ptr(), count.data_ptr(),
+        L, c.shape[0], I, P, c.shape[1], m, offset, period, stream)
+    check_launch(rc, "gk_leaf_dos")
+    gk_leaf_dos.launches += 1
+    return val, err, l1, count
+
+
+gk_leaf_dos.launches = 0
+
+
+def dos_lanes(params, L, device):
+    """(om, eta) (L,) of a ``dos_trace`` integrand whose lanes' parameters
+    are ``params`` (a :class:`~autobzcore_torch.parameters.LaneParams`), or
+    None when a lane's frequency or broadening is not a single number (an
+    omega block), which the fused leaf does not take."""
+    import inspect
+
+    q = params.merged()
+    try:
+        bound = inspect.signature(dos_trace).bind(None, *q.args, **q.kwargs)
+    except (TypeError, AttributeError):
+        return None
+    om, eta = bound.arguments["om"], bound.arguments.get("eta")
+    if eta is None:
+        return None
+    om = torch.as_tensor(om, dtype=REAL, device=device)
+    eta = torch.as_tensor(eta, dtype=REAL, device=device)
+    lane = params.x is not None
+    if om.ndim > int(lane) or eta.ndim > int(lane):
+        return None
+    om, eta = torch.broadcast_tensors(om, eta)
+    return om.expand(L).contiguous(), eta.expand(L).contiguous()

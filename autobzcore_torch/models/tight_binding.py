@@ -21,14 +21,14 @@ def integer_lattice(n, coeff=None):
     return C
 
 
-def tb_integer(n, t=1.0, period=1.0, device="cpu"):
+def tb_integer(n, t=1.0, period=1.0, device="cuda"):
     """n-dim integer-lattice tight-binding Hamiltonian as a 1x1 series:
     H(k) = 2t sum_i cos(2 pi k_i)."""
     C = integer_lattice(n, coeff=t)[..., None, None]
     return FourierSeries(C, period=period, offset=(-1,) * n, ndim=n, device=device)
 
 
-def tb_graphene(t=1.0, period=1.0, device="cpu"):
+def tb_graphene(t=1.0, period=1.0, device="cuda"):
     """Graphene 2-band tight-binding model on the 2D hexagonal lattice in
     fractional coordinates."""
     C = np.zeros((5, 5, 2, 2), dtype=np.complex128)  # offsets -2..2
@@ -39,7 +39,7 @@ def tb_graphene(t=1.0, period=1.0, device="cpu"):
     return FourierSeries(C, period=period, offset=(-2, -2), ndim=2, device=device)
 
 
-def synthetic_wannier(nbands, nr=5, ndim=3, decay=1.0, seed=0, period=1.0, device="cpu"):
+def synthetic_wannier(nbands, nr=5, ndim=3, decay=1.0, seed=0, period=1.0, device="cuda"):
     """Random Hermitian-symmetric Wannier-like model: ``nbands`` bands with
     exponentially decaying real-space hoppings on an ``nr^ndim`` R-box."""
     rng = np.random.default_rng(seed)
@@ -59,7 +59,7 @@ def synthetic_wannier(nbands, nr=5, ndim=3, decay=1.0, seed=0, period=1.0, devic
     return FourierSeries(Ch, period=period, offset=(o,) * ndim, ndim=ndim, device=device)
 
 
-def flagship_series(device="cpu"):
+def flagship_series(device="cuda"):
     """The flagship's synthetic 3-band Hermitian series: 5x5x5 real
     coefficients from ``numpy.random.default_rng(0)`` with a radial decay,
     symmetrized so that H(k) is Hermitian. It has the footprint of the SrVO3

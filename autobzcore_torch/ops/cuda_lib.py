@@ -1,16 +1,19 @@
 """Build and bind the port's CUDA kernels.
 
-All of ``autobzcore_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, loaded with ``ctypes``.
-The build runs at the first kernel launch in a process (never at import),
-into ``build/autobzcore_torch/``, and again only when a source is newer than
-the library.
+All of ``autobzcore_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``,
+one compiler process per source, all started together, and link into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+runs at the first kernel launch in a process (never at import), into
+``build/autobzcore_torch/``, and again only when a source or header is
+newer than the library.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import shutil
+import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -18,9 +21,10 @@ from pathlib import Path
 from .._build import BUILD_DIR, PACKAGE_DIR, build_shared, is_stale
 
 SOURCES = tuple(sorted((PACKAGE_DIR / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((PACKAGE_DIR / "csrc").glob("*.cuh")))
 LIBRARY = BUILD_DIR / "libautobz_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -48,15 +52,47 @@ def _bind(lib):
     lib.dos_trace_weighted_sum_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i,
                                                   dbl, vp]
     lib.dos_trace_weighted_sum_launch.restype = i
+    lib.fourier_contract_launch.argtypes = [vp] * 4 + [ll, i, ll, i, i, ll, i, dbl, vp]
+    lib.fourier_contract_launch.restype = i
+    lib.gk_leaf_dos_launch.argtypes = [vp] * 14 + [ll, ll, i, i, i, i, i, dbl, vp]
+    lib.gk_leaf_dos_launch.restype = i
+    lib.gk_pool_select_launch.argtypes = [vp] * 11 + [ll, i, i, dbl, vp]
+    lib.gk_pool_select_launch.restype = i
+    lib.gk_pool_update_launch.argtypes = [vp] * 19 + [ll, i, i, i, dbl, i, vp]
+    lib.gk_pool_update_launch.restype = i
+    lib.gk_rule_reduce_launch.argtypes = [vp] * 9 + [ll, i, i, i, i, vp]
+    lib.gk_rule_reduce_launch.restype = i
     return lib
 
 
-def build_kernels():
-    """Compile the kernel library from the sources; returns (seconds, the
-    compiler's output, which holds ptxas' register and spill report)."""
+def build_kernels(timeout=600):
+    """Compile the kernel library from the sources, one ``nvcc -c`` per
+    source in parallel, then link; returns (seconds, the compilers' output,
+    which holds ptxas' register and spill report)."""
     t0 = time.perf_counter()
-    log = build_shared([nvcc_path(), *NVCC_FLAGS], SOURCES, LIBRARY)
-    return time.perf_counter() - t0, log
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs, failed = [], []
+        try:
+            for src, proc in zip(SOURCES, procs):
+                out, _ = proc.communicate(timeout=timeout)
+                logs.append(f"{src.name}:\n{out}")
+                if proc.returncode != 0:
+                    failed.append(src.name)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(logs))
+        logs.append(build_shared([nvcc, *ARCH, "-shared"], objs, LIBRARY, timeout=timeout))
+    return time.perf_counter() - t0, "\n".join(logs)
 
 
 def load_kernels():
@@ -64,7 +100,7 @@ def load_kernels():
     global _LIB
     with _LOCK:
         if _LIB is None:
-            if is_stale(LIBRARY, SOURCES):
+            if is_stale(LIBRARY, SOURCES + HEADERS):
                 build_kernels()
             _LIB = _bind(ctypes.CDLL(str(LIBRARY)))
         return _LIB

@@ -8,8 +8,14 @@ integer offsets ``o`` and periods ``t``; the series is
 ``fourier_points`` is the wrapper of kernel K1 (``csrc/fourier_points.cu``):
 on CUDA tensors it launches the kernel, on CPU tensors it runs
 ``fourier_points_plain``, the dimension-by-dimension contraction of the
-reference. The grid, ``contract`` and Jacobian forms come with later slices
-(ROADMAP A3).
+reference.
+
+``fourier_contract`` is the wrapper of kernel K3 (``csrc/fourier_contract.cu``),
+the lane-batched form of the reference's ``contract``: per-lane coefficient
+tensors have their last spatial variable fixed at per-lane points, which is
+how the nested solver contracts the series once per outer node.
+``fourier_contract_plain`` is its plain version. The grid and Jacobian forms
+come with later slices (ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -24,9 +30,9 @@ _PLAIN_CHUNK = 1 << 15  # points per contraction in the plain version
 
 
 def phase_matrix(x, n, offset, period):
-    """(K, n) matrix ``exp(2 pi i f x / t)``, f = offset + 0..n-1."""
+    """(*x.shape, n) phases ``exp(2 pi i f x / t)``, f = offset + 0..n-1."""
     f = offset + torch.arange(n, dtype=REAL, device=x.device)
-    ang = (2 * math.pi) * torch.outer(x / period, f)
+    ang = (2 * math.pi) * ((x / period)[..., None] * f)
     return torch.polar(torch.ones_like(ang), ang)
 
 
@@ -88,6 +94,75 @@ def fourier_points(c, X, offsets, periods):
 
 
 fourier_points.launches = 0
+
+
+def fourier_contract_plain(c, cmap, x, offset, period):
+    """Plain PyTorch version of K3: ``out[l, j, r, v] = sum_n c[cmap[l], r, n,
+    v] exp(2 pi i (offset + n) x[l, j] / period)`` for c (Lc, n_1..n_k, V),
+    cmap (L,) and x (L, J); returns (L, J, n_1..n_{k-1}, V)."""
+    L, J = x.shape
+    n, V = c.shape[-2], c.shape[-1]
+    rest = tuple(c.shape[1:-2])
+    ph = phase_matrix(x, n, offset, period)  # (L, J, n)
+    cl = c.reshape(c.shape[0], -1, n, V)[cmap]  # (L, R, n, V)
+    out = torch.einsum("ljn,lrnv->ljrv", ph, cl)
+    return out.reshape((L, J) + rest + (V,))
+
+
+def fourier_contract(c, cmap, x, offset, period):
+    """Fix the last spatial variable of per-lane coefficient tensors at
+    per-lane points: c (Lc, n_1..n_k, V) complex128, the lane map cmap (L,)
+    int64 into c's first axis, and x (L, J) float64 give (L, J, n_1..n_{k-1},
+    V). With k = 1 this evaluates 1-D series at the points.
+
+    CPU tensors take the plain version; CUDA tensors launch K3, and anything
+    the kernel does not take raises."""
+    check_tensor(x, "x", dtype=REAL, ndim=2)
+    L, J = x.shape
+    check_tensor(c, "c", device=x.device, dtype=COMPLEX)
+    check_tensor(cmap, "cmap", device=x.device, dtype=torch.int64, ndim=1, shape=(L,))
+    if c.ndim < 3:
+        raise ValueError(f"c must be (Lc, n_1..n_k, V), got {tuple(c.shape)}")
+    offset, period = int(offset), float(period)
+    if x.device.type == "cpu":
+        return fourier_contract_plain(c, cmap, x, offset, period)
+    if x.device.type != "cuda":
+        raise ValueError(f"fourier_contract runs on cpu or cuda tensors, got {x.device}")
+    n, V = c.shape[-2], c.shape[-1]
+    if n > _CONTRACT_MAX_N:
+        raise ValueError(f"fourier_contract takes at most {_CONTRACT_MAX_N} frequencies, got {n}")
+    R = math.prod(c.shape[1:-2])
+    out = torch.empty((L, J) + tuple(c.shape[1:-2]) + (V,), dtype=COMPLEX, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.fourier_contract_launch(c.data_ptr(), cmap.data_ptr(), x.data_ptr(), out.data_ptr(),
+                                      L, J, R, n, V, c.shape[0], offset, period, stream)
+    check_launch(err, "fourier_contract")
+    fourier_contract.launches += 1
+    return out
+
+
+fourier_contract.launches = 0
+_CONTRACT_MAX_N = 1024  # frequencies of the contracted axis that K3 keeps in shared memory
+
+
+def contract(c, spatial_ndim, x, offsets, periods, derivs=None, dtype=COMPLEX):
+    """Fix the last spatial variable at scalar ``x``: the coefficient tensor
+    (n_1..n_{d-1}, *val) of the remaining (d-1)-dim series (the reference's
+    signature; one lane of :func:`fourier_contract`)."""
+    if derivs is not None and any(derivs):
+        raise NotImplementedError("derivative contraction is not ported yet (ROADMAP A3, B1 Jacobian)")
+    if dtype != COMPLEX:
+        raise ValueError("contract takes complex128 series")
+    d = spatial_ndim
+    vshape = tuple(c.shape[d:])
+    c1 = c.reshape((1,) + tuple(c.shape[:d]) + (-1,))
+    xl = torch.as_tensor(x, dtype=REAL, device=c.device).reshape(1, 1)
+    cmap = torch.zeros(1, dtype=torch.int64, device=c.device)
+    out = fourier_contract(c1.contiguous(), cmap, xl, offsets[d - 1], periods[d - 1])
+    return out.reshape(tuple(c.shape[:d - 1]) + vshape)
 
 
 def evaluate_points(c, spatial_ndim, X, offsets, periods, derivs=None, dtype=COMPLEX):

@@ -1,11 +1,13 @@
 """Parameter containers and the ParameterIntegrand protocol (reference
 ``autobzcore_tpu/parameters.py``).
 
-A parameter sweep hands its lanes to a solve as one tensor whose leading
-axis is the lane axis, so the containers need no batching support of their
-own.
+A PTR sweep hands its lanes to one solve as one tensor whose leading axis is
+the lane axis. Adaptive solvers run one solve per lane instead; their lanes'
+parameters travel as :class:`LaneParams`.
 """
 from __future__ import annotations
+
+from torch.func import vmap
 
 
 class NullParameters:
@@ -94,3 +96,35 @@ class ParameterIntegrand:
     def with_parameters(self, p):
         """(bare integrand, merged parameters) for cache re-solves."""
         return ParameterIntegrand(self.f), merge_parameters(self.p, p)
+
+
+class LaneParams:
+    """Parameters of a batch of independent solves: ``p`` is shared by every
+    lane, and ``x`` (L,) or None holds one value per lane, merged into ``p``
+    as the next positional argument (``merge``, for ParameterIntegrand and
+    FourierIntegrand problems) or standing alone as the lane's parameter."""
+
+    def __init__(self, p, x=None, merge=True):
+        self.p = p
+        self.x = x
+        self.merge = merge
+
+    def take(self, idx):
+        """The parameters of the lanes ``idx``."""
+        return self if self.x is None else LaneParams(self.p, self.x[idx], self.merge)
+
+    def at(self, xv):
+        """One lane's parameter, for the value ``xv`` of ``x``."""
+        return merge_parameters(self.p, xv) if self.merge else xv
+
+    def merged(self):
+        """The shared parameters with the whole lane vector merged in."""
+        return self.p if self.x is None else self.at(MixedParameters(self.x) if self.merge else self.x)
+
+    def map_points(self, g, args, lanes):
+        """``g(*point_args, q)`` over points, vectorized: ``args`` are tensors
+        with a leading point axis and ``lanes`` (N,) names each point's lane,
+        whose parameter ``q`` the point gets."""
+        if self.x is None:
+            return vmap(lambda *a: g(*a, self.p))(*args)
+        return vmap(lambda *a: g(*a[:-1], self.at(a[-1])))(*args, self.x[lanes])

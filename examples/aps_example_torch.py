@@ -1,10 +1,19 @@
-"""Wannier DOS, PTR leg, on the PyTorch port (``autobzcore_torch``).
+"""Wannier DOS, PTR and cold IAI legs, on the PyTorch port (``autobzcore_torch``).
 
-The PTR leg of ``examples/aps_example.py``: the Lorentzian-broadened DOS
-``-Im Tr (w + i eta - H(k))^-1 / pi`` integrated with a fixed PTR rule and
-interpolated over w by ``hchebinterp`` (atol 1e-2), evaluated by
-``SweepSolver`` chunks of 264 frequencies. On a CUDA device the series goes
-through kernel K1 at the rule points and every chunk through kernel K2.
+The legs of ``examples/aps_example.py``: the Lorentzian-broadened DOS
+``-Im Tr (w + i eta - H(k))^-1 / pi`` interpolated over w by ``hchebinterp``
+(atol 1e-2).
+
+- PTR leg: a fixed PTR rule, evaluated by ``SweepSolver`` chunks of 264
+  frequencies. On a CUDA device the series goes through kernel K1 at the
+  rule points and every chunk through kernel K2.
+- IAI leg (``--with-iai --cold-iai``): nested adaptive Gauss-Kronrod over
+  the zone's limits, ``IAI(inner_cap=64, inner_nbisect=4)`` under a cold
+  ``SweepSolver(scan=True)`` in chunks of 33 frequencies, each frequency
+  one independent solve to ``--abstol``. On a CUDA device it runs kernels
+  K3 (series contraction), K4 (fused leaf DOS rule) and K5 (interval pool).
+  The warm start across frequencies is not ported yet, so ``--with-iai``
+  needs ``--cold-iai``.
 
 Two models:
 - ``--hr svo_hr.dat --wout svo.wout``: a Wannier90 model on the CubicSymIBZ,
@@ -12,9 +21,12 @@ Two models:
 - ``--flagship``: the synthetic 3-band series on the full zone (it has no
   point symmetry), over w in [-6, 7] eV, which holds its bands.
 
+The computation runs on the CUDA card unless ``--device cpu`` is given.
+
 Usage:
-    python examples/aps_example_torch.py --flagship --device cuda --npt 100
-    python examples/aps_example_torch.py --hr svo_hr.dat --wout svo.wout --device cuda
+    python examples/aps_example_torch.py --flagship --npt 100
+    python examples/aps_example_torch.py --flagship --with-iai --cold-iai --eta 0.05
+    python examples/aps_example_torch.py --hr svo_hr.dat --wout svo.wout
 """
 import argparse
 import os
@@ -28,7 +40,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--device", required=True, help="torch device, e.g. cuda or cpu")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu on request)")
     p.add_argument("--flagship", action="store_true",
                    help="the synthetic 3-band series on the full zone instead of --hr/--wout")
     p.add_argument("--hr", default="svo_hr.dat")
@@ -36,12 +48,25 @@ def main(argv=None):
     p.add_argument("--eta", type=float, default=1e-2)
     p.add_argument("--npt", type=int, default=100)
     p.add_argument("--atol-interp", type=float, default=1e-2)
+    p.add_argument("--abstol", type=float, default=1e-3, help="IAI absolute tolerance")
+    p.add_argument("--skip-ptr", action="store_true", help="run the IAI leg only")
+    p.add_argument("--with-iai", action="store_true", help="also run the IAI leg")
+    p.add_argument("--cold-iai", action="store_true",
+                   help="solve every frequency cold (the only IAI form ported so far)")
+    p.add_argument("--iai-chunk", type=int, default=33, help="frequencies per IAI sweep chunk")
+    p.add_argument("--iai-inner-cap", type=int, default=64, help="inner-level pool capacity")
+    p.add_argument("--iai-inner-nbisect", type=int, default=4, help="inner-level bisection width")
+    p.add_argument("--iai-order", type=int, default=None,
+                   help="Gauss-Kronrod order of every IAI level (default 7, 15 points)")
     p.add_argument("--out", default=None, help="write omega and the DOS to this .npz")
     args = p.parse_args(argv)
+    if args.with_iai and not args.cold_iai:
+        raise NotImplementedError("the warm-started IAI sweep is not ported yet (ROADMAP, IAI "
+                                  "warm slice): pass --cold-iai")
 
     import torch
 
-    from autobzcore_torch import FBZ, PTR, CubicSymIBZ, IntegralProblem, load_bz
+    from autobzcore_torch import FBZ, IAI, PTR, AuxQuadGKJL, CubicSymIBZ, IntegralProblem, load_bz
     from autobzcore_torch.models.observables import dos_integrand
     from autobzcore_torch.parallel.sweep import SweepSolver
     from autobzcore_torch.utils.chebinterp import hchebinterp
@@ -67,21 +92,42 @@ def main(argv=None):
     print(f"loaded {label}, {bz}, on {device}", file=sys.stderr)
 
     prob = IntegralProblem(dos_integrand(h, args.eta), bz)
-    t0 = time.perf_counter()
-    sweep = SweepSolver(prob, PTR(npt=args.npt), chunk=264)
-    dos = hchebinterp(sweep, *window, atol=args.atol_interp)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t_ptr = time.perf_counter() - t0
-    print(f"PTR(npt={args.npt}) interpolant: {dos.numevals} omegas, {len(dos.panels)} panels, "
-          f"{sweep.numevals} integrand evals, {t_ptr:.3f} s", file=sys.stderr)
     ws = np.linspace(*window, 1001)
     mid = 0.5 * (window[0] + window[1])
+    out = {"omega": ws}
+    dos = None
+    if not args.skip_ptr:
+        t0 = time.perf_counter()
+        sweep = SweepSolver(prob, PTR(npt=args.npt, device=device), chunk=264)
+        dos = hchebinterp(sweep, *window, atol=args.atol_interp)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t_ptr = time.perf_counter() - t0
+        print(f"PTR(npt={args.npt}) interpolant: {dos.numevals} omegas, {len(dos.panels)} panels, "
+              f"{sweep.numevals} integrand evals, {t_ptr:.3f} s", file=sys.stderr)
+        out.update(dos_ptr=dos(ws), t_ptr=t_ptr)
+    if args.with_iai:
+        algs = AuxQuadGKJL(order=args.iai_order, nbisect=1, device=device) if args.iai_order else None
+        alg = IAI(algs=algs, inner_cap=args.iai_inner_cap, inner_nbisect=args.iai_inner_nbisect,
+                  device=device)
+        t0 = time.perf_counter()
+        isweep = SweepSolver(prob, alg, abstol=args.abstol, chunk=args.iai_chunk, scan=True)
+        dos_iai = hchebinterp(isweep, *window, atol=args.atol_interp)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t_iai = time.perf_counter() - t0
+        ne = isweep.numevals
+        print(f"IAI interpolant (cold, complex128): {t_iai:.2f} s, {ne:.3g} integrand evals over "
+              f"{dos_iai.numevals} omegas ({ne / max(dos_iai.numevals, 1):.3g}/omega), "
+              f"retcode {isweep.retcode}", file=sys.stderr)
+        out.update(dos_iai=dos_iai(ws), t_iai=t_iai)
     if args.out:
-        np.savez(args.out, omega=ws, dos_ptr=dos(ws), t_ptr=t_ptr)
-    print(f"PTR DOS({mid:g} eV) = {float(dos(mid)):.6f}")
+        np.savez(args.out, **out)
+    if dos is not None:
+        print(f"PTR DOS({mid:g} eV) = {float(dos(mid)):.6f}")
+    if args.with_iai:
+        print(f"IAI DOS({mid:g} eV) = {float(dos_iai(mid)):.6f}")
     return dos
-
 
 if __name__ == "__main__":
     main()

@@ -19,12 +19,12 @@ torch.set_num_threads(2)
 
 # (JAX builder, port builder) pairs of every in-repo model
 MODELS = {
-    "tb_integer1": (lambda: jtb.tb_integer(1), lambda: ttb.tb_integer(1)),
-    "tb_integer2": (lambda: jtb.tb_integer(2), lambda: ttb.tb_integer(2)),
-    "tb_integer3": (lambda: jtb.tb_integer(3), lambda: ttb.tb_integer(3)),
-    "tb_graphene": (lambda: jtb.tb_graphene(), lambda: ttb.tb_graphene()),
-    "synthetic_wannier3": (lambda: jtb.synthetic_wannier(3), lambda: ttb.synthetic_wannier(3)),
-    "flagship": (lambda: __graft_entry__._flagship_series(jnp.complex128), ttb.flagship_series),
+    "tb_integer1": (lambda: jtb.tb_integer(1), lambda: ttb.tb_integer(1, device="cpu")),
+    "tb_integer2": (lambda: jtb.tb_integer(2), lambda: ttb.tb_integer(2, device="cpu")),
+    "tb_integer3": (lambda: jtb.tb_integer(3), lambda: ttb.tb_integer(3, device="cpu")),
+    "tb_graphene": (lambda: jtb.tb_graphene(), lambda: ttb.tb_graphene(device="cpu")),
+    "synthetic_wannier3": (lambda: jtb.synthetic_wannier(3), lambda: ttb.synthetic_wannier(3, device="cpu")),
+    "flagship": (lambda: __graft_entry__._flagship_series(jnp.complex128), lambda: ttb.flagship_series(device="cpu")),
 }
 
 
@@ -38,7 +38,7 @@ def test_builders_match_reference_coefficients(name):
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_points_match_evaluate_points(name):
     js = MODELS[name][0]()
-    ts = series_from_arrays(np.asarray(js.c), js.offset, js.period, js.sndim)
+    ts = series_from_arrays(np.asarray(js.c), js.offset, js.period, js.sndim, device="cpu")
     X = np.random.default_rng(7).uniform(-1.0, 2.0, size=(300, js.sndim))
     want = np.asarray(evaluate_points(js.c, js.sndim, jnp.asarray(X), js.offset, js.period))
     got = ts.eval_points(torch.as_tensor(X)).numpy()
@@ -63,7 +63,7 @@ def test_points_match_evaluate_grid(name):
 def test_chunked_plain_version_matches_one_chunk(monkeypatch):
     from autobzcore_torch.ops import fourier_eval
 
-    s = ttb.synthetic_wannier(2, nr=4)
+    s = ttb.synthetic_wannier(2, nr=4, device="cpu")
     X = torch.rand(50, 3, dtype=torch.float64)
     whole = fourier_points_plain(s.c, X, s.offset, s.period)
     monkeypatch.setattr(fourier_eval, "_PLAIN_CHUNK", 7)

@@ -68,7 +68,7 @@ def test_hrdat_and_series_match_reference(files):
     want, got = jw.read_w90_hrdat(hr), tw.read_w90_hrdat(hr)
     for key in ("Rvectors", "Rdegens", "H"):
         np.testing.assert_array_equal(got[key], want[key])
-    js, ts = jw.hamiltonian_fourier_series(want), tw.hamiltonian_fourier_series(got)
+    js, ts = jw.hamiltonian_fourier_series(want), tw.hamiltonian_fourier_series(got, device="cpu")
     np.testing.assert_array_equal(ts.c.numpy(), np.asarray(js.c))
     assert (ts.offset, ts.period, ts.sndim) == (js.offset, js.period, js.sndim)
 
@@ -91,10 +91,10 @@ def test_wannier_dos_solve_matches_reference(files):
 
     hr, wout = files
     js = jw.hamiltonian_fourier_series(jw.read_w90_hrdat(hr))
-    ts = tw.hamiltonian_fourier_series(tw.read_w90_hrdat(hr))
+    ts = tw.hamiltonian_fourier_series(tw.read_w90_hrdat(hr), device="cpu")
     om = np.linspace(10.5, 12.5, 4)
     want = J.solve(J.IntegralProblem(jdos(js, 0.1), J.load_bz(J.CubicSymIBZ(), wout), om), J.PTR(npt=8))
-    got = T.solve(T.IntegralProblem(tdos(ts, 0.1), T.load_bz(T.CubicSymIBZ(), wout), om), T.PTR(npt=8))
+    got = T.solve(T.IntegralProblem(tdos(ts, 0.1), T.load_bz(T.CubicSymIBZ(), wout), om), T.PTR(npt=8, device="cpu"))
     np.testing.assert_allclose(got.u.numpy(), np.asarray(want.u), rtol=1e-10, atol=0)
     assert got.numevals == want.numevals
 

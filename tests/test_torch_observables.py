@@ -77,7 +77,7 @@ def test_dos_integrand_declares_trivial_rep():
     from autobzcore_torch import TrivialRep
     from autobzcore_torch.models.tight_binding import tb_integer
 
-    fi = tobs.dos_integrand(tb_integer(2), 0.1)
+    fi = tobs.dos_integrand(tb_integer(2, device="cpu"), 0.1)
     assert isinstance(fi.rep, TrivialRep)
     assert fi.pf.f is tobs.dos_trace and fi.p.eta == 0.1
     # one k-point through the pointwise fallback equals the closed form

@@ -1,5 +1,6 @@
 """Contracts of the port as a package: it never imports JAX, its entry
-points run on the CPU, and ``chip_smoke.py`` refuses to run without a card."""
+points run on the CPU when asked to, and ``chip_smoke.py`` refuses to run
+without a card."""
 import ast
 import json
 import os
@@ -53,6 +54,18 @@ def test_example_runs_flagship_on_cpu(tmp_path):
     assert "PTR(npt=6) interpolant" in out.stderr
     assert out.stdout.startswith("PTR DOS(0.5 eV) = ")
     assert (tmp_path / "dos.npz").exists()
+
+
+def test_example_runs_cold_iai_leg_on_cpu(tmp_path):
+    args = [str(REPO / "examples" / "aps_example_torch.py"), "--flagship", "--device", "cpu",
+            "--skip-ptr", "--with-iai", "--eta", "0.5", "--abstol", "1.0", "--iai-inner-cap", "16",
+            "--atol-interp", "5"]
+    warm = _run(args, cwd=tmp_path)
+    assert warm.returncode != 0 and "warm slice" in warm.stderr
+    out = _run(args + ["--cold-iai"], cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "IAI interpolant (cold, complex128)" in out.stderr and "retcode True" in out.stderr
+    assert out.stdout.startswith("IAI DOS(0.5 eV) = ")
 
 
 def _assert_refused(out):

@@ -33,7 +33,7 @@ def _bzs(kind, d):
 @pytest.mark.parametrize("kind", KINDS)
 def test_integral_of_one_is_the_zone_volume(kind, d):
     _, bz = _bzs(kind, d)
-    sol = T.solve(T.IntegralProblem(lambda x, p: torch.ones((), dtype=torch.float64), bz), T.PTR(npt=7))
+    sol = T.solve(T.IntegralProblem(lambda x, p: torch.ones((), dtype=torch.float64), bz), T.PTR(npt=7, device="cpu"))
     assert abs(float(sol.u) - (2 * math.pi) ** d) <= 1e-12 * (2 * math.pi) ** d
 
 
@@ -46,11 +46,11 @@ def test_dos_solve_matches_reference(case, block):
     model, kind, npt = case
     js = {"flagship": lambda: __graft_entry__._flagship_series(jnp.complex128),
           "tb_integer3": lambda: jtb.tb_integer(3), "tb_graphene": jtb.tb_graphene}[model]()
-    ts = series_from_arrays(np.asarray(js.c), js.offset, js.period, js.sndim)
+    ts = series_from_arrays(np.asarray(js.c), js.offset, js.period, js.sndim, device="cpu")
     jbz, tbz = _bzs(kind, js.sndim)
     om = np.linspace(-2.0, 2.0, 5) if block else 0.45
     want = J.solve(J.IntegralProblem(jdos_integrand(js, 0.2), jbz, jnp.asarray(om)), J.PTR(npt=npt))
-    got = T.solve(T.IntegralProblem(tdos_integrand(ts, 0.2), tbz, om), T.PTR(npt=npt))
+    got = T.solve(T.IntegralProblem(tdos_integrand(ts, 0.2), tbz, om), T.PTR(npt=npt, device="cpu"))
     u = got.u.numpy()
     assert u.shape == np.shape(want.u)
     assert np.max(np.abs(u - np.asarray(want.u)) / np.abs(np.asarray(want.u))) <= 1e-10
@@ -62,7 +62,7 @@ def test_dos_solve_matches_reference(case, block):
 @pytest.mark.parametrize("kind", KINDS)
 def test_numevals_counts_rule_points(kind, npt):
     _, bz = _bzs(kind, 3)
-    sol = T.solve(T.IntegralProblem(tdos_integrand(ttb.tb_integer(3), 0.3), bz, 0.1), T.PTR(npt=npt))
+    sol = T.solve(T.IntegralProblem(tdos_integrand(ttb.tb_integer(3, device="cpu"), 0.3), bz, 0.1), T.PTR(npt=npt, device="cpu"))
     want = npt**3 if bz.is_full else len(symptr_rule(npt, 3, bz.syms)[0])
     assert sol.numevals == want
 
@@ -73,12 +73,12 @@ def test_generic_fourier_integrand_matches_reference():
         return hv.s[0, 0].real * om + hv.x[0]
 
     js = jtb.synthetic_wannier(2, nr=3)
-    ts = series_from_arrays(np.asarray(js.c), js.offset, js.period, js.sndim)
+    ts = series_from_arrays(np.asarray(js.c), js.offset, js.period, js.sndim, device="cpu")
     jbz, tbz = _bzs("CubicSymIBZ", 3)
     want = J.solve(J.IntegralProblem(J.FourierIntegrand(kernel, js, rep=J.TrivialRep()), jbz, 1.5),
                    J.PTR(npt=6))
     got = T.solve(T.IntegralProblem(T.FourierIntegrand(kernel, ts, rep=T.TrivialRep()), tbz, 1.5),
-                  T.PTR(npt=6))
+                  T.PTR(npt=6, device="cpu"))
     assert abs(float(got.u) - float(want.u)) <= 1e-12 * abs(float(want.u))
     assert got.numevals == want.numevals
 
@@ -89,11 +89,11 @@ def test_unknown_rep_array_result_recomputes_on_full_zone():
     def kernel(hv, om):
         return torch.stack([hv.s[0, 0].real, hv.s[0, 0].real * om])
 
-    ts = ttb.tb_integer(3)
+    ts = ttb.tb_integer(3, device="cpu")
     bz_ibz, bz_fbz = T.load_bz(T.CubicSymIBZ(), np.eye(3)), T.load_bz(T.FBZ(), np.eye(3))
     with pytest.warns(UserWarning, match="full BZ"):
-        got = T.solve(T.IntegralProblem(T.FourierIntegrand(kernel, ts), bz_ibz, 0.5), T.PTR(npt=6))
-    want = T.solve(T.IntegralProblem(T.FourierIntegrand(kernel, ts), bz_fbz, 0.5), T.PTR(npt=6))
+        got = T.solve(T.IntegralProblem(T.FourierIntegrand(kernel, ts), bz_ibz, 0.5), T.PTR(npt=6, device="cpu"))
+    want = T.solve(T.IntegralProblem(T.FourierIntegrand(kernel, ts), bz_fbz, 0.5), T.PTR(npt=6, device="cpu"))
     assert torch.allclose(got.u, want.u, rtol=0, atol=1e-12)
     assert got.numevals == 6**3
 
@@ -129,12 +129,12 @@ def test_parameter_merge_algebra_matches_reference():
 
 
 def test_integral_solver_functor_and_resolve():
-    ts = ttb.tb_integer(2)
+    ts = ttb.tb_integer(2, device="cpu")
     bz = T.load_bz(T.FBZ(), np.eye(2))
-    solver = T.IntegralSolver(tdos_integrand(ts, 0.2), bz, T.PTR(npt=12))
+    solver = T.IntegralSolver(tdos_integrand(ts, 0.2), bz, T.PTR(npt=12, device="cpu"))
     a, b = solver(0.3), solver(-0.7)
     for om, val in ((0.3, a), (-0.7, b)):
-        want = T.solve(T.IntegralProblem(tdos_integrand(ts, 0.2), bz, om), T.PTR(npt=12)).u
+        want = T.solve(T.IntegralProblem(tdos_integrand(ts, 0.2), bz, om), T.PTR(npt=12, device="cpu")).u
         assert float(val) == float(want)
 
 
@@ -167,7 +167,7 @@ def test_integrand_wrappers_match_reference(wrapper):
 
     jbz, tbz = _bzs("FBZ", 3)
     want = J.solve(J.IntegralProblem(build(J, jnp), jbz, 0.7), J.PTR(npt=5))
-    got = T.solve(T.IntegralProblem(build(T, torch), tbz, 0.7), T.PTR(npt=5))
+    got = T.solve(T.IntegralProblem(build(T, torch), tbz, 0.7), T.PTR(npt=5, device="cpu"))
     np.testing.assert_allclose(np.asarray(got.u), np.asarray(want.u), rtol=1e-12, atol=0)
     assert got.numevals == want.numevals == 125
 
@@ -205,10 +205,10 @@ def test_solve_fn_and_unwrap_integrand():
     and count; unwrap_integrand evaluates a batch integrand pointwise."""
     from autobzcore_torch.wrappers import unwrap_integrand
 
-    prob = T.IntegralProblem(tdos_integrand(ttb.tb_integer(3), 0.2), T.load_bz(T.CubicSymIBZ(), np.eye(3)))
-    cache = T.init(prob, T.PTR(npt=8))
+    prob = T.IntegralProblem(tdos_integrand(ttb.tb_integer(3, device="cpu"), 0.2), T.load_bz(T.CubicSymIBZ(), np.eye(3)))
+    cache = T.init(prob, T.PTR(npt=8, device="cpu"))
     u, resid, conv, ne = cache.alg.solve_fn(cache.cacheval)(merge_parameters(cache.p, 0.4), None, None)
-    want = T.solve(T.IntegralProblem(prob.f, prob.dom, 0.4), T.PTR(npt=8))
+    want = T.solve(T.IntegralProblem(prob.f, prob.dom, 0.4), T.PTR(npt=8, device="cpu"))
     assert float(u) == float(want.u) and conv and ne == want.numevals and resid == 0.0
     g = unwrap_integrand(T.BatchIntegrand(lambda xs, p: xs.sum(-1) * p))
     assert float(g(torch.tensor([1.0, 2.0], dtype=torch.float64), 3.0)) == 9.0
