@@ -19,15 +19,27 @@ Per-level tolerances follow the reference: an inner solve at node ``x`` gets
 own tolerance. Counts at non-leaf levels are the sums of the inner solves'
 counts.
 
-Not ported here: the warm start and its mid-level carry (the IAI warm
-slice), the guided and split tiers (``precision`` runs this complex128
-tier), the host-side outer heap (``host_outer=True`` runs on the device),
-fixed-rule and pole levels (ROADMAP A7).
+The warm form (:meth:`NestedQuad.solve_fn_warm`, for
+``SweepSolver(warm=True)``) solves one parameter from a carried
+:class:`WarmPool`: the outermost pool starts from the previous solve's
+final partition (coarsened by K6), and every pool of the level below starts
+from one carried partition in normalized coordinates (:class:`MidSeed`,
+remapped per lane, not coarsened); deeper levels start cold.
+:meth:`NestedQuad.harvest_fn` refreshes that partition with one seeded
+solve at the worst outer interval's midpoint.
+
+Not ported here: the guided and split tiers (``precision`` runs this
+complex128 tier), the host-side outer heap (``host_outer=True`` runs on the
+device; ``warm_start=True`` seeded that heap and raises), fixed-rule and pole
+levels (ROADMAP A7).
 """
 from __future__ import annotations
 
+import math
 import warnings
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .._device import REAL, as_device
@@ -67,6 +79,71 @@ def assemble_points(xs, coords):
     already-fixed outer coordinates ``coords`` ((L,) each, outermost first)."""
     cols = [xs] + [c[:, None].expand(xs.shape) for c in reversed(coords)]
     return torch.stack(cols, dim=-1)
+
+
+class MidSeed(NamedTuple):
+    """A carried inner-level partition in normalized coordinates ``t`` in
+    [0, 1] (reference ``mid_seed = (ta, tb, te, tn)``): ``ta, tb, te``
+    (capm,) tensors on the pools' device, ``tn`` the host's count of live
+    slots (0 = the cold sentinel: seed from the breakpoints)."""
+
+    ta: torch.Tensor
+    tb: torch.Tensor
+    te: torch.Tensor
+    tn: int
+
+
+class WarmPool(NamedTuple):
+    """The state a warm sweep carries from solve to solve (the reference's
+    pool tuple ``(a, b, err, n[, mid_seed])``): the outermost level's final
+    pool ``a, b, e`` (cap,) with ``n`` live slots (a one-element int64
+    tensor on the device), and for nests the :class:`MidSeed` of the level
+    below (None in 1-D)."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+    e: torch.Tensor
+    n: torch.Tensor
+    mid: MidSeed | None = None
+
+
+def _mid_seed_pool(mid, segs2):
+    """Denormalize a carried partition onto each lane's inner domain (the
+    reference's ``_mid_seed_pool``, per lane): returns the lanes' pools
+    ``(A, B, E, N)`` ((L, capm) each, N (L,)) and N's host value. Rows past
+    the live count are zero-width, and ``tn == 0`` seeds from the lanes'
+    breakpoints with errors +inf."""
+    L, S1 = segs2.shape
+    dev = segs2.device
+    capm = mid.ta.shape[0]
+    lo, hi = segs2[:, :1], segs2[:, -1:]
+    length = torch.clamp(hi - lo, min=_TINY)
+    if mid.tn > 0:
+        A = lo + mid.ta[None] * length
+        B = lo + mid.tb[None] * length
+        E = mid.te[None].expand(L, capm)
+        N = mid.tn
+    else:
+        N = S1 - 1
+        A = torch.zeros((L, capm), dtype=REAL, device=dev)
+        B = torch.zeros((L, capm), dtype=REAL, device=dev)
+        A[:, :N] = segs2[:, :-1]
+        B[:, :N] = segs2[:, 1:]
+        E = torch.full((L, capm), math.inf, dtype=REAL, device=dev)
+    live = torch.arange(capm, device=dev)[None, :] < N
+    zero = torch.zeros((), dtype=REAL, device=dev)
+    pool = (torch.where(live, A, zero), torch.where(live, B, zero), torch.where(live, E, zero),
+            torch.full((L,), N, dtype=torch.int64, device=dev))
+    return pool, N
+
+
+def _mid_seed_norm(state, segs2):
+    """Normalize lane 0 of a solve's final pool for carrying (the inverse of
+    :func:`_mid_seed_pool`); reads its live count on the host once."""
+    lo, hi = segs2[0, 0], segs2[0, -1]
+    length = torch.clamp(hi - lo, min=_TINY)
+    return MidSeed((state.a[0] - lo) / length, (state.b[0] - lo) / length, state.err[0].clone(),
+                   int(state.n[0]))
 
 
 class PlainCarrier:
@@ -148,8 +225,9 @@ class NestedQuad(IntegralAlgorithm):
                  warm_start=False, warm_width=None, inner_seed_width=None,
                  device="cuda", plain_kernels=False):
         if warm_start:
-            raise NotImplementedError("warm-started nests are the IAI warm slice, not ported yet "
-                                      "(ROADMAP A5, IAI warm slice)")
+            raise NotImplementedError(
+                "warm_start=True seeds the host-side outer heap, which is not ported (ROADMAP A5, "
+                "'Not to port'); the warm slice's on-device form is SweepSolver(warm=True)")
         if checkpoint is not None:
             raise NotImplementedError("the host-side outer heap and its checkpoints are not ported "
                                       "(ROADMAP A5, 'Not to port')")
@@ -166,11 +244,12 @@ class NestedQuad(IntegralAlgorithm):
         self.leaf_nbisect = leaf_nbisect
         self.leaf_presplit = leaf_presplit
         self.nest_presplit = nest_presplit
-        # cold-start knobs of the guided tier and the warm seeds are unused
-        # by the cold complex128 tier, as the reference's cold solves leave them
+        # the guided tier's knobs are unused by the complex128 tier
         self.guide_rfloor = guide_rfloor
         self.guide_patience = guide_patience
         self.guide_slack = guide_slack
+        # seed chunk widths of warm solves: the outermost level's, and the
+        # level below it when it seeds from a carried partition
         self.warm_width = warm_width
         self.inner_seed_width = inner_seed_width
         self.device = as_device(device)
@@ -227,8 +306,31 @@ class NestedQuad(IntegralAlgorithm):
             carrier = PlainCarrier(f)
             device = self.device
             fused = False
-        return {"dom": dom, "algs": algs, "carrier": carrier, "device": device,
-                "fused_dos": fused, "kernels": kernels, "stats": LoopStats()}
+        cacheval = {"dom": dom, "algs": algs, "carrier": carrier, "device": device,
+                    "fused_dos": fused, "kernels": kernels, "stats": LoopStats()}
+        if self.split != "guided":
+            # the warm form: the guided tier has none in the reference
+            cacheval["carry_mid"] = dom.ndim > 1
+            cacheval["warm_pool0"] = self._warm_pool0(dom, algs, device)
+        return cacheval
+
+    def _warm_pool0(self, dom, algs, device):
+        """The cold seed (reference ``warm_pool0``): the outermost
+        breakpoints in pool form with errors +inf, so the first solve's
+        coarsening keeps them, and for nests the cold mid sentinel tn = 0."""
+        ndim = dom.ndim
+        cap0, _ = self._level_knobs(algs[ndim - 1], ndim, ndim)
+        segs0 = dom.outer_segments().cpu().numpy()
+        nseg0 = len(segs0) - 1
+        a0, b0 = np.zeros(cap0), np.zeros(cap0)
+        a0[:nseg0], b0[:nseg0] = segs0[:-1], segs0[1:]
+        put = lambda x: torch.as_tensor(x, dtype=REAL, device=device)  # noqa: E731
+        mid = None
+        if ndim > 1:
+            capm, _ = self._level_knobs(algs[ndim - 2], ndim - 1, ndim)
+            mid = MidSeed(put(np.zeros(capm)), put(np.zeros(capm)), put(np.zeros(capm)), 0)
+        return WarmPool(put(a0), put(b0), put(np.full(cap0, np.inf)),
+                        torch.full((1,), nseg0, dtype=torch.int64, device=device), mid)
 
     # --- the lane-batched solve --------------------------------------------
     def solve_lanes(self, cacheval, params, atol, rtol, maxiters=None):
@@ -247,7 +349,13 @@ class NestedQuad(IntegralAlgorithm):
         segs = dom.outer_segments(device).expand(L, -1).contiguous()
         return self._solve_level(cacheval, level, segs, dom.ndim, float(rtol), maxiters)
 
-    def _solve_level(self, cacheval, level, segs, d_rem, rtol, maxiters):
+    def _solve_level(self, cacheval, level, segs, d_rem, rtol, maxiters, init_pool=None,
+                     seed_n=None, mid_seed=None, coarsen_seed=None, return_state=False):
+        """Solve the lanes of one level (reference ``solve_level``). A warm
+        start takes ``init_pool`` (with ``seed_n``, see
+        :func:`~autobzcore_torch.ops.adaptive.gk_adaptive_lanes`); the pools
+        of the level below seed from ``mid_seed`` when given. The outermost
+        level's seed is coarsened unless ``coarsen_seed`` says otherwise."""
         algs, ndim = cacheval["algs"], cacheval["dom"].ndim
         alg = algs[d_rem - 1]
         cap, nbisect = self._level_knobs(alg, d_rem, ndim)
@@ -258,7 +366,8 @@ class NestedQuad(IntegralAlgorithm):
         xk, wk, wg = gk_rule(alg.order, segs.device)
         sync_every = 1
         if d_rem > 1:
-            rule = self._nonleaf_rule(cacheval, level, xk, wk, wg, d_rem, rtol, maxiters, kernels)
+            rule = self._nonleaf_rule(cacheval, level, xk, wk, wg, d_rem, rtol, maxiters, kernels,
+                                      mid_seed)
         else:
             lanes = None
             if cacheval["fused_dos"]:
@@ -274,9 +383,13 @@ class NestedQuad(IntegralAlgorithm):
         return gk_adaptive_lanes(rule, segs, level.atol, cap=cap, nbisect=nbisect, rtol=rtol,
                                  maxiters=maxiters, presplit=self._presplit_for(d_rem),
                                  sync_every=sync_every, kernels=kernels,
-                                 stats=cacheval["stats"], level=d_rem)
+                                 stats=cacheval["stats"], level=d_rem, init_pool=init_pool,
+                                 seed_width=self.warm_width if d_rem == ndim else self.inner_seed_width,
+                                 seed_coarsen=d_rem == ndim if coarsen_seed is None else coarsen_seed,
+                                 seed_n=seed_n, return_state=return_state)
 
-    def _nonleaf_rule(self, cacheval, level, xk, wk, wg, d_rem, rtol, maxiters, kernels):
+    def _nonleaf_rule(self, cacheval, level, xk, wk, wg, d_rem, rtol, maxiters, kernels,
+                      mid_seed=None):
         def rule(ca, cb, active, live):
             if live is None:
                 live = active.nonzero().squeeze(1)
@@ -284,7 +397,11 @@ class NestedQuad(IntegralAlgorithm):
             P = xk.shape[0]
             nodes, half = gk_nodes(ca[live], cb[live], xk)
             inner, segs2 = level.take(live).spawn(nodes.reshape(live.numel(), I * P))
-            val, _, ne, _ = self._solve_level(cacheval, inner, segs2, d_rem - 1, rtol, maxiters)
+            # a carried partition seeds this level's inner pools, every one
+            # with the same live count; it is not passed deeper
+            seed = (None, None) if mid_seed is None else _mid_seed_pool(mid_seed, segs2)
+            val, _, ne, _ = self._solve_level(cacheval, inner, segs2, d_rem - 1, rtol, maxiters,
+                                              init_pool=seed[0], seed_n=seed[1])
             La = live.numel()
             fx = val.reshape((La, I, P) + tuple(val.shape[1:])).contiguous()
             out = kernels.rule_reduce(fx, ne.reshape(La, I, P).contiguous(), half.contiguous(),
@@ -314,6 +431,80 @@ class NestedQuad(IntegralAlgorithm):
             if lanes:
                 return val, err, conv, ne
             return val[0], err[0], bool(conv[0]), int(ne[0])
+
+        return fn
+
+    # --- the warm form -----------------------------------------------------------
+    def _top_level(self, cacheval, params, atol):
+        """The outermost level of one solve and its breakpoints (1, S+1)."""
+        dom, device = cacheval["dom"], cacheval["device"]
+        if params.x is not None:
+            if params.x.shape[0] != 1:
+                raise ValueError("a warm solve takes one parameter")
+            params = LaneParams(params.p, params.x.to(device=device, dtype=REAL), params.merge)
+        carrier = cacheval["carrier"]
+        if hasattr(carrier, "lanes"):
+            carrier = carrier.lanes(1)
+        level = _Level(dom, carrier, (), params, torch.full((1,), float(atol), dtype=REAL,
+                                                            device=device))
+        return level, dom.outer_segments(device).expand(1, -1).contiguous()
+
+    def solve_warm(self, cacheval, params, atol, rtol, maxiters, pool):
+        """One solve seeded from the carried :class:`WarmPool` (reference
+        ``run_warm``): returns (val (1, *V), err (1,), numevals (1,),
+        converged (1,), new_pool). The mid seed passes through unchanged;
+        :meth:`harvest` refreshes it."""
+        level, segs = self._top_level(cacheval, params, atol)
+        init = (pool.a[None], pool.b[None], pool.e[None], pool.n.reshape(1))
+        val, err, ne, conv, state = self._solve_level(
+            cacheval, level, segs, cacheval["dom"].ndim, float(rtol), maxiters, init_pool=init,
+            mid_seed=pool.mid if cacheval["carry_mid"] else None, return_state=True)
+        new_pool = WarmPool(state.a[0], state.b[0], state.err[0], state.n[:1].clone(), pool.mid)
+        return val, err, ne, conv, new_pool
+
+    def harvest(self, cacheval, params, atol, rtol, maxiters, pool):
+        """Refresh the carried mid seed (reference ``harvest_mid``): one solve
+        of the level below the outermost at the midpoint of the worst live
+        outer interval (the first, on ties), seeded from the mid seed and
+        coarsened; its final pool, normalized, is the new mid seed. Returns
+        (new_pool, numevals (1,))."""
+        level, _ = self._top_level(cacheval, params, atol)
+        cap = pool.a.shape[0]
+        live = torch.arange(cap, device=pool.a.device) < pool.n
+        widx = torch.argmax(torch.where(live, pool.e, -math.inf))
+        xh = ((pool.a[widx] + pool.b[widx]) / 2).reshape(1, 1)
+        inner, segs2 = level.spawn(xh)
+        init, n0 = _mid_seed_pool(pool.mid, segs2)
+        _, _, ne, _, state = self._solve_level(
+            cacheval, inner, segs2, cacheval["dom"].ndim - 1, float(rtol), maxiters,
+            init_pool=init, seed_n=n0, coarsen_seed=True, return_state=True)
+        return pool._replace(mid=_mid_seed_norm(state, segs2)), ne
+
+    def solve_fn_warm(self, cacheval):
+        """Warm sweep form (reference ``solve_fn_warm``): ``(fn(p, atol, rtol,
+        pool) -> (u, resid, converged, numevals, new_pool), pool0)``, ``p`` a
+        one-lane :class:`LaneParams` and ``pool0`` the cold
+        :class:`WarmPool`. None where the nest has no warm form (the guided
+        tier)."""
+        if "warm_pool0" not in cacheval:
+            return None
+
+        def fn(p, atol, rtol, pool):
+            val, err, ne, conv, new_pool = self.solve_warm(cacheval, p, atol, rtol, _budget(None),
+                                                           pool)
+            return val, err, conv, ne, new_pool
+
+        return fn, cacheval["warm_pool0"]
+
+    def harvest_fn(self, cacheval):
+        """Mid-seed refresh form (reference ``harvest_fn``): ``fn(p, atol,
+        rtol, pool) -> (new_pool, numevals (1,))``; None where the nest
+        carries no mid seed (1-D) or has no warm form."""
+        if not cacheval.get("carry_mid"):
+            return None
+
+        def fn(p, atol, rtol, pool):
+            return self.harvest(cacheval, p, atol, rtol, _budget(None), pool)
 
         return fn
 

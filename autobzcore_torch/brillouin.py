@@ -9,9 +9,10 @@ The BZ algorithms
 4. re-solve on the full zone, with a warning, when the integrand's symmetry
    representation is unknown and its result is not a scalar.
 
-The PTR rule and the cold IAI are ported; ``AutoPTR``, ``TAI``, ``PTR_IAI``
-and ``AutoPTR_IAI`` come with later slices (ROADMAP A4, A5, A7), and ``IBZ``
-with the geometry slice (ROADMAP A8).
+The PTR rule and the IAI (cold solves and warm sweeps) are ported;
+``AutoPTR``, ``TAI``, ``PTR_IAI`` and ``AutoPTR_IAI`` come with later
+slices (ROADMAP A4, A5, A7), and ``IBZ`` with the geometry slice (ROADMAP
+A8).
 """
 from __future__ import annotations
 
@@ -239,6 +240,37 @@ class AutoBZAlgorithm(IntegralAlgorithm):
         :class:`~autobzcore_torch.parameters.LaneParams` instead."""
         return self._wrap_inner(cacheval, cacheval["alg"].solve_fn(cacheval["inner"], lanes), lanes)
 
+    def solve_fn_warm(self, cacheval):
+        """Warm sweep form (see ``NestedQuad.solve_fn_warm``): the carried
+        pool threads through the symmetrization wrapper untouched. None when
+        the inner algorithm has no warm form."""
+        sub = getattr(cacheval["alg"], "solve_fn_warm", None)
+        got = None if sub is None else sub(cacheval["inner"])
+        if got is None:
+            return None
+        inner_fn, pool0 = got
+        atol_in, out = self._symmetrizer(cacheval, lanes=True)
+
+        def fn(p, atol, rtol, pool):
+            u, e, conv, ne, new_pool = inner_fn(p, atol_in(atol), rtol, pool)
+            return out(u, e) + (conv, ne, new_pool)
+
+        return fn, pool0
+
+    def harvest_fn(self, cacheval):
+        """Mid-seed refresh (see ``NestedQuad.harvest_fn``) at the warm
+        solves' tolerance, ``atol / (|det B| nsyms)``."""
+        sub = getattr(cacheval["alg"], "harvest_fn", None)
+        got = None if sub is None else sub(cacheval["inner"])
+        if got is None:
+            return None
+        atol_in, _ = self._symmetrizer(cacheval, lanes=True)
+
+        def fn(p, atol, rtol, pool):
+            return got(p, atol_in(atol), rtol, pool)
+
+        return fn
+
     def solve_fn_consts(self, cacheval, lanes=False):
         """(fn(consts, p, atol, rtol), consts): the rule data passed as an
         argument, as the sweeps call it."""
@@ -251,18 +283,33 @@ class AutoBZAlgorithm(IntegralAlgorithm):
         return fn, consts
 
     def _wrap_inner(self, cacheval, inner, lanes=False):
+        atol_in, out = self._symmetrizer(cacheval, lanes)
+
+        def fn(p, atol, rtol):
+            u, e, conv, ne = inner(p, atol_in(atol), rtol)
+            return out(u, e) + (conv, ne)
+
+        return fn
+
+    def _symmetrizer(self, cacheval, lanes):
+        """(atol_in, out): the inner solve's tolerance from the caller's
+        (``atol / (|det B| nsyms)``), and the caller's (u, resid) from the
+        inner solve's (scaled, or symmetrized and scaled)."""
         bz_ = cacheval["bz_"]
         f = cacheval["f"]
         j = abs(np.linalg.det(bz_.B))
         ns = bz_.nsyms
         rep = sym_rep(f)
         lane_ndim = 1 if lanes else 0
+
+        def atol_in(atol):
+            return None if atol is None else atol / (j * ns)
+
         if bz_.is_full or isinstance(rep, (TrivialRep, UnknownRep)):
             factor = j * ns
             check_unknown = not bz_.is_full and isinstance(rep, UnknownRep)
 
-            def fn(p, atol, rtol):
-                u, e, conv, ne = inner(p, None if atol is None else atol / (j * ns), rtol)
+            def out(u, e):
                 if check_unknown and any(_ndim(leaf) > lane_ndim for leaf in tree_leaves(u)):
                     raise ValueError(
                         "solve over a symmetric BZ with an array-valued integrand "
@@ -271,18 +318,15 @@ class AutoBZAlgorithm(IntegralAlgorithm):
                         "the integrand's `rep` (e.g. TrivialRep() or LatticeRep()) "
                         "or load the full BZ."
                     )
-                return (tree_map(lambda v: factor * v, u), tree_map(lambda v: factor * v, e),
-                        conv, ne)
+                return tree_map(lambda v: factor * v, u), tree_map(lambda v: factor * v, e)
 
-            return fn
+            return atol_in, out
 
-        def fn(p, atol, rtol):
-            u, e, conv, ne = inner(p, None if atol is None else atol / (j * ns), rtol)
-            u = tree_map(lambda v: j * v, rep.symmetrize(bz_, u))
-            e = tree_map(lambda v: j * v, rep.symmetrize(bz_, e))
-            return u, e, conv, ne
+        def out(u, e):
+            return (tree_map(lambda v: j * v, rep.symmetrize(bz_, u)),
+                    tree_map(lambda v: j * v, rep.symmetrize(bz_, e)))
 
-        return fn
+        return atol_in, out
 
     def do_solve(self, f, bz, p, cacheval, abstol=None, reltol=None, maxiters=None):
         bz_ = cacheval["bz_"]
@@ -336,8 +380,10 @@ class IAI(AutoBZAlgorithm):
     accepted: "split" and "guided" were the reference's emulated-f64 tiers
     on a TPU and run as the native complex128 tier here, which is what they
     certify. ``host_outer`` is accepted and the outer level runs on the
-    device. ``warm_start`` (the IAI warm slice) and ``checkpoint`` (the
-    host-side heap) raise. ``device`` (the card by default) places the
+    device. ``warm_width``/``inner_seed_width`` set the seed widths of warm
+    sweeps (``SweepSolver(warm=True)``), which the guided tier has none of,
+    as in the reference. ``warm_start`` and ``checkpoint`` belong to the
+    host-side heap and raise. ``device`` (the card by default) places the
     pools of integrands without a series; ``plain_kernels`` runs the nest on
     the kernels' plain versions."""
 
@@ -357,7 +403,8 @@ class IAI(AutoBZAlgorithm):
         if host_nbisect is None:
             host_nbisect = 1 if precision == "guided" else 4
         self.knobs = dict(inner_cap=inner_cap, inner_nbisect=inner_nbisect,
-                          split=precision != "complex", host_outer=host_outer,
+                          split={"complex": False, "split": True, "guided": "guided"}[precision],
+                          host_outer=host_outer,
                           host_nbisect=host_nbisect, checkpoint=checkpoint,
                           leaf_nbisect=leaf_nbisect, leaf_presplit=leaf_presplit,
                           nest_presplit=nest_presplit, guide_rfloor=guide_rfloor,

@@ -20,7 +20,15 @@
 //    lane in totals mode), tot_val and tot_err over the whole pool and
 //    tol = max(atol, rtol |tot_val|_2), summed in a fixed order;
 //  * rule reduce: node values (L, I, npts, V) and per-node counts to val,
-//    err = |vK - vG|_2, l1 and a count per lane, dead intervals exactly 0.
+//    err = |vK - vG|_2, l1 and a count per lane, dead intervals exactly 0;
+//  * seed: the warm start's chunk write (autobzcore_tpu/ops/adaptive.py:
+//    309-359, seed_body :344-353): per seeding lane, a chunk of C
+//    re-evaluated seed intervals to the contiguous slots start..start+C-1,
+//    n = n0, evals += the chunk's count (every slot counts, dead ones and
+//    re-evaluated overlap too); then every lane's totals and tolerance. The
+//    seed pools' per-lane affine remap and dead-slot masking
+//    (autobzcore_tpu/algorithms/nested.py:198-231 _mid_seed_pool) stay plain
+//    tensor ops in the caller, as does the choice of start = min(k C, cap - C).
 //
 // What bounds it on an H100: a select reads a lane's cap errors nbisect times
 // and an update reads its cap (V + 1) pool entries once, ~a few KB per lane:
@@ -116,6 +124,35 @@ gk_pool_select_kernel(const double* __restrict__ a, const double* __restrict__ b
   }
 }
 
+// tot_val, tot_err over lane l's whole pool and tol = max(atol, rtol |tot|),
+// reduced in a fixed tree order; every thread of the block calls it
+__device__ void lane_totals(const double* __restrict__ err, const double* __restrict__ val,
+                            double* __restrict__ tot_val, double* __restrict__ tot_err,
+                            double* __restrict__ tol, const double* __restrict__ atol,
+                            double* red, int64_t l, int cap, int V, double rtol) {
+  double norm2 = 0.0;
+  for (int f = -1; f < V; ++f) {
+    double s = 0.0;
+    for (int q = threadIdx.x; q < cap; q += blockDim.x)
+      s += f < 0 ? err[l * cap + q] : val[(l * cap + q) * V + f];
+    red[threadIdx.x] = s;
+    __syncthreads();
+    for (int w = blockDim.x / 2; w > 0; w >>= 1) {
+      if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+      __syncthreads();
+    }
+    const double tot = red[0];
+    __syncthreads();
+    if (f < 0) {
+      if (threadIdx.x == 0) tot_err[l] = tot;
+    } else {
+      if (threadIdx.x == 0) tot_val[l * V + f] = tot;
+      norm2 += tot * tot;
+    }
+  }
+  if (threadIdx.x == 0) tol[l] = fmax(atol[l], rtol * sqrt(norm2));
+}
+
 // One block per lane. With `update`, only live lanes act: the two scatters,
 // n and evals, then their totals; without it (totals mode), every lane
 // recomputes its totals.
@@ -170,28 +207,46 @@ gk_pool_update_kernel(double* __restrict__ a, double* __restrict__ b, double* __
       evals[l] += count[l];
     }
   }
-  // totals over the whole pool, in a fixed order
-  double norm2 = 0.0;
-  for (int f = -1; f < V; ++f) {
-    double s = 0.0;
-    for (int q = threadIdx.x; q < cap; q += blockDim.x)
-      s += f < 0 ? err[l * cap + q] : val[(l * cap + q) * V + f];
-    red[threadIdx.x] = s;
-    __syncthreads();
-    for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-      if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-      __syncthreads();
+  lane_totals(err, val, tot_val, tot_err, tol, atol, red, l, cap, V, rtol);
+}
+
+// One block per lane: a seeding lane writes its chunk (ca, cb, cval, cerr,
+// cl1) (L, C) to slots start..start+C-1, sets n = n0 and adds the chunk's
+// count to evals; then every lane recomputes its totals.
+__global__ void __launch_bounds__(kThreads)
+gk_pool_seed_kernel(double* __restrict__ a, double* __restrict__ b, double* __restrict__ err,
+                    double* __restrict__ l1, double* __restrict__ val, int64_t* __restrict__ n,
+                    double* __restrict__ evals, double* __restrict__ tot_val,
+                    double* __restrict__ tot_err, double* __restrict__ tol,
+                    const double* __restrict__ atol, const bool* __restrict__ seeding,
+                    const int64_t* __restrict__ n0, const double* __restrict__ ca,
+                    const double* __restrict__ cb, const double* __restrict__ cval,
+                    const double* __restrict__ cerr, const double* __restrict__ cl1,
+                    const double* __restrict__ count, int cap, int V, int C, int start,
+                    double rtol) {
+  __shared__ double red[kThreads];
+  const int64_t l = blockIdx.x;
+  if (seeding[l]) {
+    const int64_t base = l * cap + start;
+    const int64_t c0 = l * C;
+    for (int q = threadIdx.x; q < C * (V + 4); q += blockDim.x) {
+      const int j = q % C;
+      const int f = q / C;  // 0..3: a, b, err, l1; 4..: value entries
+      const int64_t slot = base + j;
+      const int64_t ch = c0 + j;
+      if (f == 0) a[slot] = ca[ch];
+      else if (f == 1) b[slot] = cb[ch];
+      else if (f == 2) err[slot] = cerr[ch];
+      else if (f == 3) l1[slot] = cl1[ch];
+      else val[slot * V + (f - 4)] = cval[ch * V + (f - 4)];
     }
-    const double tot = red[0];
-    __syncthreads();
-    if (f < 0) {
-      if (threadIdx.x == 0) tot_err[l] = tot;
-    } else {
-      if (threadIdx.x == 0) tot_val[l * V + f] = tot;
-      norm2 += tot * tot;
+    if (threadIdx.x == 0) {
+      n[l] = n0[l];
+      evals[l] += count[l];
     }
+    __syncthreads();
   }
-  if (threadIdx.x == 0) tol[l] = fmax(atol[l], rtol * sqrt(norm2));
+  lane_totals(err, val, tot_val, tot_err, tol, atol, red, l, cap, V, rtol);
 }
 
 // One thread per (lane, interval). fx: (L, I, P, V) doubles, or V complex
@@ -293,6 +348,33 @@ extern "C" int gk_pool_select_launch(const void* a, const void* b, const void* e
 // the children idx, ca, cb, cerr, cl1: (L, 2 nb), cval: (L, 2 nb, V), count:
 // (L,). With update = 0 the child pointers may be null and only the totals
 // are recomputed, for every lane.
+// Pools as in update; seeding: (L,) bool; n0: (L,) int64; the chunk ca, cb,
+// cerr, cl1: (L, C), cval: (L, C, V); count: (L,). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue when the
+// chunk does not fit slots 0..cap-1.
+extern "C" int gk_pool_seed_launch(void* a, void* b, void* err, void* l1, void* val, void* n,
+                                   void* evals, void* tot_val, void* tot_err, void* tol,
+                                   const void* atol, const void* seeding, const void* n0,
+                                   const void* ca, const void* cb, const void* cval,
+                                   const void* cerr, const void* cl1, const void* count,
+                                   long long L, int cap, int V, int C, int start, double rtol,
+                                   void* stream) {
+  if (L <= 0) return static_cast<int>(cudaGetLastError());
+  if (L > 0x7fffffffLL || C < 1 || start < 0 || start + C > cap)
+    return static_cast<int>(cudaErrorInvalidValue);
+  gk_pool_seed_kernel<<<static_cast<unsigned>(L), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<double*>(a), static_cast<double*>(b), static_cast<double*>(err),
+      static_cast<double*>(l1), static_cast<double*>(val), static_cast<int64_t*>(n),
+      static_cast<double*>(evals), static_cast<double*>(tot_val), static_cast<double*>(tot_err),
+      static_cast<double*>(tol), static_cast<const double*>(atol),
+      static_cast<const bool*>(seeding), static_cast<const int64_t*>(n0),
+      static_cast<const double*>(ca), static_cast<const double*>(cb),
+      static_cast<const double*>(cval), static_cast<const double*>(cerr),
+      static_cast<const double*>(cl1), static_cast<const double*>(count), cap, V, C, start, rtol);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int gk_pool_update_launch(void* a, void* b, void* err, void* l1, void* val, void* n,
                                      void* evals, void* tot_val, void* tot_err, void* tol,
                                      const void* atol, const void* active, const void* idx,

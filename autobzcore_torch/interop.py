@@ -22,6 +22,34 @@ def _same_group(syms, group):
     return len(syms) == len(group) and key(syms) == key(group)
 
 
+def pool_from_arrays(pool, device="cuda"):
+    """A :class:`~autobzcore_torch.algorithms.nested.WarmPool` from the JAX
+    package's warm pool tuple ``(a, b, err, n[, (ta, tb, te, tn)])`` as numpy
+    arrays and numbers."""
+    import torch
+
+    from .algorithms.nested import MidSeed, WarmPool
+
+    put = lambda x: torch.as_tensor(np.array(x, dtype=np.float64), device=device)  # noqa: E731
+    mid = None
+    if len(pool) > 4:
+        ta, tb, te, tn = pool[4]
+        mid = MidSeed(put(ta), put(tb), put(te), int(tn))
+    n = torch.full((1,), int(pool[3]), dtype=torch.int64, device=device)
+    return WarmPool(put(pool[0]), put(pool[1]), put(pool[2]), n, mid)
+
+
+def pool_to_arrays(pool):
+    """The inverse of :func:`pool_from_arrays`: the JAX package's pool tuple
+    layout as numpy arrays and ints."""
+    out = tuple(t.detach().cpu().numpy() for t in (pool.a, pool.b, pool.e)) + (int(pool.n[0]),)
+    if pool.mid is not None:
+        m = pool.mid
+        out += ((m.ta.detach().cpu().numpy(), m.tb.detach().cpu().numpy(),
+                 m.te.detach().cpu().numpy(), int(m.tn)),)
+    return out
+
+
 def bz_from_arrays(A, B, syms=None):
     """A :class:`SymmetricBZ` from lattice ``A``, reciprocal lattice ``B``
     and symmetry matrices ``syms`` (None for the full zone). The limits

@@ -25,11 +25,20 @@ beside its plain PyTorch version:
   ``evals += count``, and the totals and tolerance recomputed over the whole
   pool.
 
+The warm start seeds a pool from an inherited partition instead of the
+domain's breakpoints (reference ``gk_adaptive(init_pool=...)``):
+
+- :func:`coarsen_pool` (kernel K6, ``csrc/gk_coarsen.cu``): sort each lane's
+  pool by left endpoint, merge dyadic sibling pairs that are stale or that
+  cap pressure gives up, and compact the survivors to the front;
+- :func:`gk_pool_seed` (K5's seed entry): write one chunk of re-evaluated
+  seed intervals to contiguous slots, ``n = n0``, ``evals += count``, and the
+  totals and tolerance.
+
 Counters are float64 (``_count_dtype``), as in the reference.
 :func:`gk_adaptive` keeps the reference's single-pool signature over one
-lane. The warm start (``init_pool``, ``coarsen_pool``), the guided tier's
-noise floor and stall detector, and ``fixed_rule_eval`` come with later
-slices.
+lane. The guided tier's noise floor and stall detector and
+``fixed_rule_eval`` come with later slices.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ import math
 from dataclasses import dataclass, field
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from .._device import COMPLEX, REAL, check_tensor
@@ -293,8 +303,10 @@ def gk_pool_update(pool, nbisect, idx, ca, cb, cval, cerr, cl1, count):
     return None
 
 
-def _pool_call(pool, entry, idx, ca, cb, cval, cerr, cl1, count, nbisect, update):
-    """Launch one of K5's pool entry points on a CUDA pool."""
+def _pool_call(pool, entry, idx, ca, cb, cval, cerr, cl1, count, nbisect, update, seed=None):
+    """Launch one of K5's pool entry points on a CUDA pool (``nbisect`` is
+    the chunk width C for the seed entry, ``seed`` its (start, n0,
+    seeding))."""
     if pool.a.device.type != "cuda":
         raise ValueError(f"gk_pool runs on cpu or cuda tensors, got {pool.a.device}")
     L, cap = pool.a.shape
@@ -321,6 +333,15 @@ def _pool_call(pool, entry, idx, ca, cb, cval, cerr, cl1, count, nbisect, update
             pool.evals.data_ptr(), pool.tot_err.data_ptr(), pool.tol.data_ptr(),
             pool.active.data_ptr(), idx.data_ptr(), ca.data_ptr(), cb.data_ptr(),
             L, cap, nbisect, float(pool.max_evals), stream)
+    elif entry == "seed":
+        start, n0, seeding = seed
+        rc = lib.gk_pool_seed_launch(
+            pool.a.data_ptr(), pool.b.data_ptr(), pool.err.data_ptr(), pool.l1.data_ptr(),
+            val.data_ptr(), pool.n.data_ptr(), pool.evals.data_ptr(), tot_val.data_ptr(),
+            pool.tot_err.data_ptr(), pool.tol.data_ptr(), pool.atol.data_ptr(), seeding.data_ptr(),
+            n0.data_ptr(), ca.data_ptr(), cb.data_ptr(), cval_r.data_ptr(), cerr.data_ptr(),
+            cl1.data_ptr(), count.data_ptr(), L, cap, V, nbisect, int(start), float(pool.rtol),
+            stream)
     else:
         rc = lib.gk_pool_update_launch(
             pool.a.data_ptr(), pool.b.data_ptr(), pool.err.data_ptr(), pool.l1.data_ptr(),
@@ -356,35 +377,251 @@ def _check_pool(pool):
 
 
 _POOL_MAX_CAP = 1 << 16  # the pool kernels keep a lane's reduction in one block
-gk_pool_launches = {"select": 0, "update": 0, "totals": 0}
+gk_pool_launches = {"select": 0, "update": 0, "totals": 0, "seed": 0}
+
+
+# --- the warm start: K6 (coarsening) and K5's seed entry ------------------------------
+def coarsen_pool_plain(a, b, e, n, segs, tol, merge_factor=1e-3, target_mult=2.0):
+    """Plain PyTorch version of K6: the reference's ``coarsen_pool`` over L
+    lanes, operation for operation. ``a, b, e`` (L, cap) are pools with
+    ``n`` (L,) live slots, unsorted, dead slots zero-width; ``segs`` (L, S+1)
+    or (S+1,) the original breakpoints and ``tol`` (L,) the absolute
+    tolerance each pool certifies against. Returns (a2, b2 (L, cap), n2 (L,)
+    int64): survivors in left-endpoint order at the front, zeros behind."""
+    L, cap = a.shape
+    dev = a.device
+    segs = segs.expand(L, -1) if segs.ndim == 1 else segs
+    nseg = segs.shape[1] - 1
+    inf = torch.tensor(math.inf, dtype=REAL, device=dev)
+    zero = torch.zeros((), dtype=REAL, device=dev)
+    live = torch.arange(cap, device=dev)[None, :] < n[:, None]
+    # stable argsorts, as jnp.argsort: ties keep index order
+    order = torch.sort(torch.where(live, a, inf), dim=1, stable=True).indices
+    a_s, b_s, e_s = a.gather(1, order), b.gather(1, order), e.gather(1, order)
+    w = b_s - a_s
+    live_s = live.gather(1, order) & (w > 0)  # zero-width dead slots drop
+    span = segs[:, -1] - segs[:, 0]
+    seg_id = torch.clamp(torch.searchsorted(segs.contiguous(), a_s.contiguous(), right=True) - 1,
+                         0, nseg - 1)
+    s0 = segs.gather(1, seg_id)
+    # dyadic left-child test: (a - s0) / w is an even integer (torch.round
+    # rounds half to even, as jnp.round)
+    k = (a_s - s0) / torch.where(w > 0, w, torch.ones((), dtype=REAL, device=dev))
+    is_left = torch.abs(k - torch.round(k / 2) * 2) < 1e-6
+
+    def shift(x, fill):
+        return torch.cat([x[:, 1:], torch.full((L, 1), fill, dtype=x.dtype, device=dev)], dim=1)
+
+    a_n, b_n, e_n = shift(a_s, 0.0), shift(b_s, 0.0), shift(e_s, 0.0)
+    w_n = b_n - a_n
+    live_n = shift(live_s, False)
+    seg_n = shift(seg_id, -1)
+    eps_w = 1e-9 * torch.maximum(w, w_n)
+    siblings = (live_s & live_n & is_left & (w > 0) & (torch.abs(b_s - a_n) <= eps_w)
+                & (torch.abs(w - w_n) <= eps_w) & (seg_id == seg_n))
+    lsafe = torch.clamp(span, min=torch.finfo(REAL).tiny)[:, None]
+    tol = tol[:, None]
+    share = tol * (w + w_n) / lsafe
+    cost = e_s + e_n
+    merge_abs = siblings & (cost < merge_factor * share)
+    # cap pressure: the cheapest sibling pairs merge until the pool fits
+    # target_mult x its load-bearing count
+    n_live = live_s.sum(dim=1)
+    load = (live_s & (e_s > 0.1 * tol * w / lsafe)).sum(dim=1)
+    target = torch.clamp((target_mult * load.to(REAL)).to(torch.int64), min=max(nseg + 1, 8))
+    need = torch.clamp(n_live - target, 0, cap)
+    csort = torch.sort(torch.where(siblings, cost, inf), dim=1).values
+    kth = csort.gather(1, torch.clamp(need - 1, 0, cap - 1)[:, None])
+    merge_cap = siblings & (need > 0)[:, None] & (cost <= kth) & torch.isfinite(kth)
+    merge = merge_abs | merge_cap
+    merged_right = torch.cat([torch.zeros((L, 1), dtype=torch.bool, device=dev), merge[:, :-1]], dim=1)
+    keep = live_s & ~merged_right
+    new_b = torch.where(merge, b_n, b_s)
+    order2 = torch.sort((~keep).to(torch.uint8), dim=1, stable=True).indices  # kept first
+    live2 = keep.gather(1, order2)
+    a2 = torch.where(live2, a_s.gather(1, order2), zero)
+    b2 = torch.where(live2, new_b.gather(1, order2), zero)
+    return a2, b2, keep.sum(dim=1)
+
+
+def coarsen_pool(a, b, e, n, segs, tol, merge_factor=1e-3, target_mult=2.0):
+    """Error-guided sibling coarsening of L warm-start pools (see
+    :func:`coarsen_pool_plain`). CPU pools take the plain version; CUDA
+    pools launch K6, one thread block per lane (cap <= 2048)."""
+    L, cap = a.shape
+    dev = a.device
+    if segs.ndim == 1:
+        segs = segs.expand(L, -1)
+    segs = segs.contiguous()
+    for name, t in (("a", a), ("b", b), ("e", e)):
+        check_tensor(t, name, device=dev, dtype=REAL, ndim=2, shape=(L, cap))
+    check_tensor(n, "n", device=dev, dtype=torch.int64, ndim=1, shape=(L,))
+    check_tensor(segs, "segs", device=dev, dtype=REAL, ndim=2)
+    check_tensor(tol, "tol", device=dev, dtype=REAL, ndim=1, shape=(L,))
+    if segs.shape[0] != L or segs.shape[1] < 2:
+        raise ValueError(f"segs must be (L, S+1) with S >= 1, got {tuple(segs.shape)}")
+    if dev.type == "cpu":
+        return coarsen_pool_plain(a, b, e, n, segs, tol, merge_factor, target_mult)
+    if dev.type != "cuda":
+        raise ValueError(f"coarsen_pool runs on cpu or cuda tensors, got {dev}")
+    if cap > COARSEN_MAX_CAP or segs.shape[1] > COARSEN_MAX_SEGS:
+        raise ValueError(f"the CUDA coarsening takes cap <= {COARSEN_MAX_CAP} and at most "
+                         f"{COARSEN_MAX_SEGS} breakpoints, got cap {cap}, {segs.shape[1]}")
+    a2 = torch.empty_like(a)
+    b2 = torch.empty_like(b)
+    n2 = torch.empty_like(n)
+    if L == 0:
+        return a2, b2, n2
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.gk_coarsen_launch(
+        a.contiguous().data_ptr(), b.contiguous().data_ptr(), e.contiguous().data_ptr(),
+        n.contiguous().data_ptr(), segs.data_ptr(), tol.contiguous().data_ptr(), a2.data_ptr(),
+        b2.data_ptr(), n2.data_ptr(), L, cap, segs.shape[1], float(merge_factor),
+        float(target_mult), stream)
+    check_launch(rc, "gk_coarsen")
+    coarsen_pool.launches += 1
+    return a2, b2, n2
+
+
+coarsen_pool.launches = 0
+COARSEN_MAX_CAP = 2048  # K6 keeps a lane's sort keys in shared memory
+COARSEN_MAX_SEGS = 64
+
+
+def gk_pool_seed_plain(pool, start, ca, cb, cval, cerr, cl1, count, n0, seeding):
+    """Plain PyTorch version of K5's seed entry, in place: for the lanes that
+    ``seeding`` (L,) marks, the chunk's intervals (ca, cb) (L, C), values,
+    errors and l1 go to slots ``start..start+C-1``, ``n = n0`` and ``evals +=
+    count`` (every slot of the chunk counts, dead or re-evaluated); then every
+    lane's totals and tolerance."""
+    live = seeding.nonzero().squeeze(1)
+    if live.numel():
+        C = ca.shape[1]
+        rows = live[:, None]
+        slots = start + torch.arange(C, device=live.device)
+        for arr, c in ((pool.a, ca), (pool.b, cb), (pool.err, cerr), (pool.l1, cl1), (pool.val, cval)):
+            arr[rows, slots] = c[live]
+        pool.n[live] = n0[live]
+        pool.evals[live] += count[live]
+    gk_pool_totals_plain(pool)
+
+
+def gk_pool_seed(pool, start, ca, cb, cval, cerr, cl1, count, n0, seeding):
+    """Write one seed chunk into the seeding lanes' pools (see
+    :func:`gk_pool_seed_plain`). CPU pools take the plain version; CUDA pools
+    launch K5's seed entry."""
+    L, cap = pool.a.shape
+    dev = pool.a.device
+    C = ca.shape[1] if ca.ndim == 2 else -1
+    if not (0 <= start and start + C <= cap and C > 0):
+        raise ValueError(f"seed chunk of {C} slots at {start} does not fit cap {cap}")
+    for name, t in (("ca", ca), ("cb", cb), ("cerr", cerr), ("cl1", cl1)):
+        check_tensor(t, name, device=dev, dtype=REAL, shape=(L, C), ndim=2)
+    check_tensor(cval, "cval", device=dev, dtype=pool.val.dtype,
+                 shape=(L, C) + tuple(pool.val.shape[2:]), ndim=pool.val.ndim)
+    check_tensor(count, "count", device=dev, dtype=REAL, shape=(L,), ndim=1)
+    check_tensor(n0, "n0", device=dev, dtype=torch.int64, shape=(L,), ndim=1)
+    check_tensor(seeding, "seeding", device=dev, dtype=torch.bool, shape=(L,), ndim=1)
+    if dev.type == "cpu":
+        return gk_pool_seed_plain(pool, start, ca, cb, cval, cerr, cl1, count, n0, seeding)
+    _pool_call(pool, "seed", None, ca, cb, cval, cerr, cl1, count, C, update=True,
+               seed=(start, n0, seeding))
+    return None
 
 
 def pool_kernels(plain=False):
-    """The pool step's functions: K5's wrappers, or with ``plain`` their
-    plain versions, which run on any device (to hold a whole solve on the
-    card against the kernels)."""
+    """The pool step's functions: the wrappers of K5 and K6, or with
+    ``plain`` their plain versions, which run on any device (to hold a whole
+    solve on the card against the kernels)."""
     if plain:
         return SimpleNamespace(select=gk_pool_select_plain, update=gk_pool_update_plain,
-                               totals=gk_pool_totals_plain, rule_reduce=gk_rule_reduce_plain)
+                               totals=gk_pool_totals_plain, rule_reduce=gk_rule_reduce_plain,
+                               coarsen=coarsen_pool_plain, seed=gk_pool_seed_plain)
     return SimpleNamespace(select=gk_pool_select, update=gk_pool_update, totals=gk_pool_totals,
-                           rule_reduce=gk_rule_reduce)
+                           rule_reduce=gk_rule_reduce, coarsen=coarsen_pool, seed=gk_pool_seed)
 
 
 @dataclass
 class LoopStats:
-    """Trips of each nest level (index 0 = innermost) and host syncs."""
+    """Refinement trips and seed trips of each nest level (index 1 =
+    innermost), and host syncs."""
 
     trips: dict = field(default_factory=dict)
+    seed_trips: dict = field(default_factory=dict)
     syncs: int = 0
 
     def trip(self, level):
         self.trips[level] = self.trips.get(level, 0) + 1
 
+    def seed_trip(self, level):
+        self.seed_trips[level] = self.seed_trips.get(level, 0) + 1
+
+
+def seed_chunk_width(seed_width, nbisect, cap):
+    """The reference's seed chunk ``C = min(max(seed_width or 2 nbisect,
+    2 nbisect, 2), cap)``."""
+    return min(max(seed_width or 2 * nbisect, 2 * nbisect, 2), cap)
+
+
+def _seeded_pool(rule, segs, atol, init_pool, *, cap, nbisect, rtol, maxiters, kernels, stats,
+                 level, seed_width, seed_coarsen, seed_n):
+    """The warm start (reference ``gk_adaptive`` with ``init_pool``): the
+    inherited pools, coarsened when ``seed_coarsen``, re-evaluated in chunks
+    of C intervals at ``start = min(k C, cap - C)``, every chunk's count
+    added. ``seed_n`` is the host's count of the most live seed slots of any
+    lane where the caller knows it (then the trip count needs no sync), else
+    None."""
+    a_in, b_in, e_in, n_in = init_pool
+    L = segs.shape[0]
+    dev = segs.device
+    if a_in.shape != (L, cap):
+        raise ValueError(f"init_pool must hold (L, cap) = {(L, cap)} pools, got {tuple(a_in.shape)}")
+    if seed_coarsen:
+        a_c, b_c, n0 = kernels.coarsen(a_in, b_in, e_in, n_in, segs, atol)
+        seed_n = None
+    else:
+        a_c, b_c, n0 = a_in, b_in, n_in
+    C = seed_chunk_width(seed_width, nbisect, cap)
+    if seed_n is None:
+        if stats is not None:
+            stats.syncs += 1
+        seed_n = int(n0.max())
+    if seed_n <= 0:
+        raise ValueError("a warm-start pool needs at least one live interval")
+    everyone = torch.ones(L, dtype=torch.bool, device=dev)
+    pool = None
+    k = 0
+    while k * C < seed_n:
+        start = min(k * C, cap - C)
+        seeding = k * C < n0  # a lane seeds while chunks of it remain
+        live = seeding.nonzero().squeeze(1)
+        if stats is not None:
+            stats.syncs += 1
+        ca = a_c[:, start:start + C].contiguous()
+        cb = b_c[:, start:start + C].contiguous()
+        cval, cerr, cl1, count = rule(ca, cb, seeding, live)
+        if pool is None:
+            val = torch.zeros((L, cap) + tuple(cval.shape[2:]), dtype=cval.dtype, device=dev)
+            pool = GKPool(a=a_c.clone(), b=b_c.clone(), err=torch.zeros((L, cap), dtype=REAL, device=dev),
+                          l1=torch.zeros((L, cap), dtype=REAL, device=dev), val=val,
+                          n=torch.zeros(L, dtype=torch.int64, device=dev),
+                          evals=torch.zeros(L, dtype=_count_dtype(), device=dev),
+                          atol=atol.contiguous(), rtol=float(rtol),
+                          max_evals=_as_eval_budget(maxiters), active=everyone.clone())
+        kernels.seed(pool, start, ca, cb, cval.contiguous(), cerr.contiguous(), cl1.contiguous(),
+                     count.contiguous(), n0.contiguous(), seeding)
+        k += 1
+        if stats is not None:
+            stats.seed_trip(level)
+    return pool
+
 
 def gk_adaptive_lanes(rule, segs, atol, *, cap, nbisect, rtol=0.0, maxiters=None, presplit=1,
-                      sync_every=1, kernels=None, stats=None, level=0):
+                      sync_every=1, kernels=None, stats=None, level=0, init_pool=None,
+                      seed_width=None, seed_coarsen=True, seed_n=None, return_state=False):
     """Adaptive GK integration of L independent lanes (the reference's
-    ``gk_adaptive`` under ``vmap``, cold start).
+    ``gk_adaptive`` under ``vmap``).
 
     ``rule(ca, cb, active, live)`` evaluates the rule on the intervals
     (ca, cb) (L, I) of the lanes that ``active`` (L,) marks, and returns
@@ -394,11 +631,54 @@ def gk_adaptive_lanes(rule, segs, atol, *, cap, nbisect, rtol=0.0, maxiters=None
     tolerance. ``presplit=P`` starts from P uniform pieces per segment,
     clamped to leave refinement room.
 
+    ``init_pool=(a, b, e, n)`` ((L, cap) each, ``n`` (L,) int64) warm-starts
+    every lane from an inherited partition instead (``presplit`` is then
+    ignored): coarsened by K6 when ``seed_coarsen``, re-evaluated in chunks of
+    ``seed_chunk_width(seed_width, nbisect, cap)`` intervals, each chunk's
+    full count added, before the loop runs (the seed phase ignores
+    ``maxiters``); ``seed_n``, the most live seed slots of any lane where
+    the caller knows it on the host, spares a sync (see :func:`_seeded_pool`).
+
     The host tests whether any lane is live every ``sync_every`` trips (with
     1, it also hands ``rule`` the live lanes); trips past the last live lane
     change nothing. Returns (tot_val (L, *V), tot_err (L,), evals (L,),
-    converged (L,) bool)."""
+    converged (L,) bool), and with ``return_state`` the final
+    :class:`GKPool` as well."""
     kernels = kernels or pool_kernels()
+    L, S1 = segs.shape
+    if init_pool is not None:
+        pool = _seeded_pool(rule, segs, atol, init_pool, cap=cap, nbisect=nbisect, rtol=rtol,
+                            maxiters=maxiters, kernels=kernels, stats=stats, level=level,
+                            seed_width=seed_width, seed_coarsen=seed_coarsen, seed_n=seed_n)
+    else:
+        pool = _cold_pool(rule, segs, atol, cap=cap, nbisect=nbisect, rtol=rtol, maxiters=maxiters,
+                          presplit=presplit, kernels=kernels)
+    trips = 0
+    while True:
+        idx, ca, cb = kernels.select(pool, nbisect)
+        live = None
+        if trips % sync_every == 0:
+            if stats is not None:
+                stats.syncs += 1
+            if sync_every == 1:
+                live = pool.active.nonzero().squeeze(1)
+                if live.numel() == 0:
+                    break
+            elif not bool(pool.active.any()):
+                break
+        cval, cerr, cl1, count = rule(ca, cb, pool.active, live)
+        kernels.update(pool, nbisect, idx, ca, cb, cval.contiguous(), cerr.contiguous(),
+                       cl1.contiguous(), count.contiguous())
+        trips += 1
+        if stats is not None:
+            stats.trip(level)
+    out = (pool.tot_val, pool.tot_err, pool.evals, pool.tot_err <= pool.tol)
+    return out + (pool,) if return_state else out
+
+
+def _cold_pool(rule, segs, atol, *, cap, nbisect, rtol, maxiters, presplit, kernels):
+    """The cold start: the breakpoints' segments (P-presplit), evaluated in
+    one trip."""
     L, S1 = segs.shape
     nseg = S1 - 1
     P = max(1, min(int(presplit), (cap - 2 * nbisect) // max(nseg, 1)))
@@ -423,26 +703,7 @@ def gk_adaptive_lanes(rule, segs, atol, *, cap, nbisect, rtol=0.0, maxiters=None
                   evals=count0.to(_count_dtype()).clone(), atol=atol.contiguous(),
                   rtol=float(rtol), max_evals=_as_eval_budget(maxiters), active=everyone.clone())
     kernels.totals(pool)
-    trips = 0
-    while True:
-        idx, ca, cb = kernels.select(pool, nbisect)
-        live = None
-        if trips % sync_every == 0:
-            if stats is not None:
-                stats.syncs += 1
-            if sync_every == 1:
-                live = pool.active.nonzero().squeeze(1)
-                if live.numel() == 0:
-                    break
-            elif not bool(pool.active.any()):
-                break
-        cval, cerr, cl1, count = rule(ca, cb, pool.active, live)
-        kernels.update(pool, nbisect, idx, ca, cb, cval.contiguous(), cerr.contiguous(),
-                       cl1.contiguous(), count.contiguous())
-        trips += 1
-        if stats is not None:
-            stats.trip(level)
-    return pool.tot_val, pool.tot_err, pool.evals, pool.tot_err <= pool.tol
+    return pool
 
 
 def _gk_tolerances(abstol, reltol):
@@ -458,14 +719,15 @@ def gk_adaptive(batch_f, p, segs, *, order=7, cap=256, nbisect=4, abstol=None, r
                 stall_patience=0, init_pool=None, seed_width=None, seed_coarsen=True, presplit=1,
                 _return_state=False):
     """Adaptive GK integration of ``batch_f(xs, p)`` over the breakpoints
-    ``segs`` (S+1,): the reference's single-pool ``gk_adaptive``, cold start,
-    as one lane of :func:`gk_adaptive_lanes`. Returns (val, err, numevals,
-    converged). The warm start (``init_pool``, ``seed_width``, the returned
-    state) is the IAI warm slice, and ``noise_rfloor``/``stall_patience`` the
-    guided tier; both raise, as does a custom ``norm`` (the pools use the
-    2-norm)."""
-    if init_pool is not None or seed_width is not None or _return_state:
-        raise NotImplementedError("warm-started pools are not ported yet (ROADMAP A5, IAI warm slice)")
+    ``segs`` (S+1,): the reference's single-pool ``gk_adaptive`` as one lane
+    of :func:`gk_adaptive_lanes`. Returns (val, err, numevals, converged).
+
+    ``init_pool=(a, b, e, n)`` (cap-length arrays, ``n`` live slots)
+    warm-starts the pool, coarsened when ``seed_coarsen`` and re-evaluated
+    ``seed_width``-wide chunks at a time. ``_return_state`` adds the final
+    state ``(a, b, val, err, l1, n, evals)``, indexed as the reference's.
+    ``noise_rfloor``/``stall_patience`` belong to the guided tier and raise,
+    as does a custom ``norm`` (the pools use the 2-norm)."""
     if noise_rfloor or stall_patience:
         raise NotImplementedError("the noise floor and stall detector belong to the guided tier, "
                                   "which is not ported (ROADMAP A5)")
@@ -479,10 +741,23 @@ def gk_adaptive(batch_f, p, segs, *, order=7, cap=256, nbisect=4, abstol=None, r
         out = gk_rule_eval(batch_f, p, ca[0], cb[0], xk, wk, wg, node_builder, stats)
         return tuple(o[None] for o in out)
 
-    val, err, evals, conv = gk_adaptive_lanes(
+    if init_pool is not None:
+        a_in, b_in, e_in, n_in = (t if isinstance(t, torch.Tensor) else torch.tensor(np.asarray(t))
+                                  for t in init_pool)
+        init_pool = tuple(t.to(device=segs.device, dtype=REAL)[None].contiguous()
+                          for t in (a_in, b_in, e_in)) + (
+            n_in.to(device=segs.device, dtype=torch.int64).reshape(1),)
+    out = gk_adaptive_lanes(
         rule, segs[None].contiguous(), torch.full((1,), atol, dtype=REAL, device=segs.device),
-        cap=cap, nbisect=nbisect, rtol=rtol, maxiters=maxiters, presplit=presplit)
-    return val[0], err[0], evals[0], conv[0]
+        cap=cap, nbisect=nbisect, rtol=rtol, maxiters=maxiters, presplit=presplit,
+        init_pool=init_pool, seed_width=seed_width, seed_coarsen=seed_coarsen,
+        return_state=_return_state)
+    val, err, evals, conv = (o[0] for o in out[:4])
+    if _return_state:
+        pool = out[4]
+        return val, err, evals, conv, (pool.a[0], pool.b[0], pool.val[0], pool.err[0], pool.l1[0],
+                                       pool.n[0], pool.evals[0])
+    return val, err, evals, conv
 
 
 def scatter_lanes(L, live, *outs):

@@ -62,6 +62,10 @@ def _bind(lib):
     lib.gk_pool_update_launch.restype = i
     lib.gk_rule_reduce_launch.argtypes = [vp] * 9 + [ll, i, i, i, i, vp]
     lib.gk_rule_reduce_launch.restype = i
+    lib.gk_pool_seed_launch.argtypes = [vp] * 19 + [ll, i, i, i, i, dbl, vp]
+    lib.gk_pool_seed_launch.restype = i
+    lib.gk_coarsen_launch.argtypes = [vp] * 9 + [ll, i, i, dbl, dbl, vp]
+    lib.gk_coarsen_launch.restype = i
     return lib
 
 

@@ -18,12 +18,19 @@ Two forms, by algorithm:
   solves give the same per-lane results either way). Pad lanes are not
   solved.
 
-Either way ``numevals`` sums the real lanes and ``retcode`` is their AND, so
-a sweep's totals equal the reference's exactly.
+- **Warm sweeps (``warm=True``, IAI and NestedQuad).** The reference's
+  sequential chain: parameters in sorted order, each solve seeded from the
+  previous one's final pool, chunks seeded from the nearest carried pool or
+  library entry, one mid-seed harvest per chunk. One parameter runs at a
+  time (its inner levels still run as lanes), pads included, as the
+  reference's scan solves them.
 
-Not ported yet: ``warm``/``block``/``group`` sweeps (ROADMAP A5, the IAI
-warm slice), ``mesh`` sharding (ROADMAP A10) and the AutoPTR ladder
-(ROADMAP A4).
+Either way ``numevals`` sums the real lanes and ``retcode`` is their AND, so
+a sweep's totals equal the reference's exactly. ``group`` only shapes the
+reference's lockstep batches, so it is checked as there and changes nothing.
+
+Not ported yet: ``block`` sweeps (ROADMAP A5, omega blocks), ``mesh``
+sharding (ROADMAP A10) and the AutoPTR ladder (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -50,12 +57,26 @@ def _solve_fn_with_consts(prob, alg, cache):
     return fnc, consts
 
 
-def _check_sweep_knobs(mesh=None, warm=False, block=1, group=1):
+def _check_sweep_knobs(mesh=None, scan=False, chunk=1, warm=False, block=1, group=1):
+    """The reference's ValueErrors for knob combinations it refuses, then
+    NotImplementedError for the knobs not ported."""
     if mesh is not None:
         raise NotImplementedError("mesh-sharded sweeps are not ported yet (ROADMAP A10)")
-    if warm or int(block) != 1 or int(group) != 1:
-        raise NotImplementedError(
-            "warm, block and group sweeps are not ported yet (ROADMAP A5, IAI warm slice)")
+    g, blk = int(group), int(block)
+    if g > 1 and not scan:
+        raise ValueError("group > 1 requires scan=True")
+    if blk > 1:
+        if not scan or g != 1:
+            raise ValueError("block > 1 requires scan=True, group=1, and no mesh")
+        if chunk % blk:
+            raise ValueError(f"chunk {chunk} must divide into blocks of {blk}")
+        raise NotImplementedError("omega-block sweeps (block > 1) are not ported yet "
+                                  "(ROADMAP A5, omega blocks)")
+    if warm and (not scan or g != 1):
+        raise ValueError("warm=True requires scan=True and group=1 "
+                         "(the pool carry is a sequential chain per device)")
+    if scan and chunk % g:
+        raise ValueError(f"chunk {chunk} must divide into groups of {g}")
 
 
 def _find(cacheval, key):
@@ -121,27 +142,55 @@ class SweepSolver:
     solvers ``self.stats`` holds the trips of each level and the host syncs
     (:class:`~autobzcore_torch.ops.adaptive.LoopStats`), and for adaptive
     solvers ``self.lane_numevals`` the last call's count of each parameter.
+
+    ``warm=True`` (with ``scan=True``) runs the reference's warm chain: the
+    parameters of a call in stable sorted order, the carried pool threading
+    from solve to solve and from call to call, each chunk seeded by the
+    nearest of the carried pool and the ``warm_lib`` library entries
+    (strictly nearer wins; the cold pool before any), one mid-seed harvest
+    per chunk at its last sorted parameter, whose evaluations count in
+    ``numevals``. Each chunk appends its real solves' evaluations to
+    ``self.chunk_evals`` and ``(x_first, x_last, seed distance)`` to
+    ``self.chunk_meta``.
     """
 
     def __init__(self, prob, alg, abstol=None, reltol=None, chunk=256, mesh=None,
-                 scan=False, group=1, warm=False, block=1):
-        _check_sweep_knobs(mesh=mesh, warm=warm, block=block, group=group)
+                 scan=False, group=1, warm=False, warm_lib=12, block=1):
+        _check_sweep_knobs(mesh=mesh, scan=scan, chunk=int(chunk), warm=warm, block=block,
+                           group=group)
         cache = init(prob, alg)
         self.numevals = 0
+        self.chunk_evals = []
+        self.chunk_meta = []
         self.retcode = None  # set by __call__
         self.lane_numevals = None
         self.chunk = int(chunk)
         self.scan = bool(scan)
         self._atol, self._rtol = effective_tolerances(abstol, reltol)
         self._lanes = getattr(alg, "solves_lanes", False)
+        self._p, self._merge = cache.p, _takes_mixed_parameters(prob.f)
         if self._lanes:
             self._fn = alg.solve_fn(cache.cacheval, lanes=True)
-            self._p, self._merge = cache.p, _takes_mixed_parameters(prob.f)
         else:
             self._fn, self._consts = _solve_fn_with_consts(prob, alg, cache)
         self._wrap = MixedParameters if _takes_mixed_parameters(prob.f) else (lambda x: x)
         self.device = _find(cache.cacheval, "device") or torch.device("cpu")
         self.stats = _find(cache.cacheval, "stats")
+        self._warm = None
+        if warm:
+            sfw = getattr(alg, "solve_fn_warm", None)
+            got = None if sfw is None else sfw(cache.cacheval)
+            if got is None:
+                raise ValueError(
+                    f"{type(alg).__name__} has no warm-pool solve form (warm=True needs an "
+                    "adaptive-outer NestedQuad/IAI with precision='complex'/'split', on-device)")
+            hfn = getattr(alg, "harvest_fn", None)
+            self._warm, self._pool0 = got
+            self._harvest = None if hfn is None else hfn(cache.cacheval)
+            self._pool = None
+            self._pool_x = None
+            self._pool_lib = []
+            self._warm_lib = int(warm_lib)
 
     def __call__(self, xs):
         xs = np.asarray(xs.cpu() if isinstance(xs, torch.Tensor) else xs, dtype=np.float64)
@@ -150,6 +199,8 @@ class SweepSolver:
             self.retcode = True
             return np.zeros((0,))
         c = self.chunk
+        if self._warm is not None:
+            return self._solve_warm(xs, n, c)
         if self._lanes:
             return self._solve_lanes(xs, n, c)
         npad = -(-n // c) * c
@@ -178,3 +229,70 @@ class SweepSolver:
         self.numevals += int(self.lane_numevals.sum())
         self.retcode = all(convs)
         return tree_map(lambda *vs: torch.cat(vs).cpu().numpy(), *outs)
+
+    # --- the warm chain ------------------------------------------------------------
+    def _select_seed(self, x0):
+        """(pool, distance) for a chunk starting at ``x0``: the nearest of the
+        carried pool and the library (host keys, no sync; the carried pool
+        wins ties). When none is strictly nearer than inf (none yet, or a
+        non-finite key), the carried pool if there is one, else the cold pool,
+        and inf."""
+        best, best_d = None, np.inf
+        carried = [] if self._pool is None or self._pool_x is None else [(self._pool_x, self._pool)]
+        for xk, pk in carried + self._pool_lib:
+            d = abs(x0 - xk)
+            if d < best_d:
+                best, best_d = pk, d
+        if best is None:
+            return (self._pool if self._pool is not None else self._pool0), np.inf
+        return best, best_d
+
+    def _lib_insert(self, x, pool):
+        """Add an (x, pool) snapshot; at capacity the entry nearest the
+        newcomer gives way."""
+        if self._warm_lib <= 0:
+            return
+        if len(self._pool_lib) < self._warm_lib:
+            self._pool_lib.append((x, pool))
+            return
+        j = min(range(len(self._pool_lib)), key=lambda k: abs(self._pool_lib[k][0] - x))
+        self._pool_lib[j] = (x, pool)
+
+    def _solve_warm(self, xs, n, c):
+        npad = -(-n // c) * c
+        xp = np.full(npad, xs[n - 1])
+        xp[:n] = xs
+        perm = np.argsort(xp, kind="stable")
+        is_real_s = perm < n
+        xs_s = xp[perm]
+        outs, convs, counts, hnes = [], [], [], []
+        for i in range(0, npad, c):
+            pool, seed_d = self._select_seed(float(xs_s[i]))
+            for j in range(i, i + c):
+                x = torch.tensor([xs_s[j]], dtype=torch.float64, device=self.device)
+                u, _, conv, ne, pool = self._warm(LaneParams(self._p, x, self._merge), self._atol,
+                                                  self._rtol, pool)
+                outs.append(u)
+                convs.append(conv)
+                counts.append(ne)
+            if self._harvest is not None:
+                x = torch.tensor([xs_s[i + c - 1]], dtype=torch.float64, device=self.device)
+                pool, h = self._harvest(LaneParams(self._p, x, self._merge), self._atol,
+                                        self._rtol, pool)
+                hnes.append(h)
+            xl = float(xs_s[i + c - 1])
+            self._lib_insert(xl, pool)
+            self._pool, self._pool_x = pool, xl
+            self.chunk_meta.append((float(xs_s[i]), xl, seed_d))
+        ne_s = torch.cat(counts).cpu().numpy()
+        self.chunk_evals.extend(float(np.sum(ne_s[i:i + c][is_real_s[i:i + c]]))
+                                for i in range(0, npad, c))
+        self.numevals += int(float(np.sum([float(h.sum()) for h in hnes])) if hnes else 0)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(npad)
+        real = inv[:n]  # sorted positions of the caller's parameters
+        conv_s = torch.cat(convs).cpu().numpy()
+        self.lane_numevals = ne_s[real].astype(np.int64)
+        self.numevals += int(np.sum(ne_s[real]))
+        self.retcode = bool(np.all(conv_s[real]))
+        return tree_map(lambda *vs: torch.cat(vs).cpu().numpy()[real], *outs)

@@ -13,7 +13,8 @@ non-zero):
    compiler per source, in parallel), timed;
 3. kernels K1, K2: each against its plain PyTorch version on the card, in
    FP64, at stated tolerances; K2 run twice must be bit-identical; kernel
-   and plain times at the flagship shapes (K = 1e6 points, W = 264);
+   and plain times at the flagship shapes (K = 1e6 points, W = 264), and
+   K1's library time (``torch.matmul`` of the precomputed phases);
 4. PTR main path: the flagship PTR leg at full width through the public
    entry points (synthetic 3-band series on the full zone, PTR(npt=100),
    eta = 0.05, SweepSolver(chunk=264) under hchebinterp over [-6, 7] eV,
@@ -27,14 +28,29 @@ non-zero):
    IAI(inner_cap=64, inner_nbisect=4) under SweepSolver(abstol=1e-3,
    chunk=33, scan=True) at 33 frequencies in [-6, 7] eV, eta = 0.05, with
    K3/K4/K5's launch counts, trips, host syncs and peak memory; checks: the
-   retcode, 3 frequencies against the same solve on the plain versions
+   retcode, 1 frequency against the same solve on the plain versions
    (within abstol) and all 33 against PTR(npt=400) (within 1e-2 max|D|);
 8. cubic IBZ through IAI: tb_integer(3) on CubicSymIBZ against the full
-   zone at 4 frequencies, eta = 0.1, abstol 1e-3 (within 2 abstol).
+   zone at 4 frequencies, eta = 0.1, abstol 1e-3 (within 2 abstol);
+9. kernels K6 (coarsening) and K5's seed entry against their plain versions
+   on the card: pools from phase 10's first call (the carried outer pool,
+   cap 2048, and the harvest's mid pool, cap 64) and random dyadic pools;
+   identical pools required; kernel and plain times. It runs between phase
+   10's two calls, whose launch counts exclude it;
+10. warm IAI main path: the flagship IAI leg as the reference runs it by
+   default, IAI(inner_cap=64, inner_nbisect=4, warm_width=8) under
+   SweepSolver(abstol=1e-3, chunk=33, scan=True, warm=True): call 1 at the
+   33 frequencies of phase 7, call 2 at their 32 midpoints (the next
+   interpolation frontier), seeded from the pools call 1 left; wall, evals
+   against phase 7's cold chunk, trips, syncs, launches of K3-K6; checks:
+   retcodes, values within 2 abstol of phase 7's, both calls against
+   PTR(npt=400), and a 2-frequency warm chain on the plain versions against
+   the kernels (identical counts and carried pools, values within abstol).
 
-With ``--profile``, the PTR and IAI main paths each run once more under
-``torch.profiler`` (after their checks), which prints their device busy
-time, its share of the wall and the device time of the leading kernels.
+With ``--profile``, the PTR, IAI and warm IAI main paths each run once more
+under ``torch.profiler`` (after their checks), which prints their device
+busy time, its share of the wall and the device time of the leading
+kernels.
 
 The second-to-last line is a JSON object with each kernel's numbers, the
 last line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -156,7 +172,7 @@ def main():
             dos_integrand, dos_trace_weighted_sum, dos_trace_weighted_sum_plain)
         from autobzcore_torch.models.tight_binding import flagship_series, tb_integer
         from autobzcore_torch.ops import cuda_lib
-        from autobzcore_torch.ops.fourier_eval import fourier_points, fourier_points_plain
+        from autobzcore_torch.ops.fourier_eval import fourier_points, fourier_points_plain, phase_matrix
         from autobzcore_torch.parallel.sweep import SweepSolver
         from autobzcore_torch.utils.chebinterp import hchebinterp
     except ImportError as e:
@@ -241,8 +257,18 @@ def main():
         "k2": cuda_ms(lambda: dos_trace_weighted_sum(Hg, wg, omg, etag, sc), 10),
         "k2_plain": cuda_ms(lambda: dos_trace_weighted_sum_plain(Hg, wg, omg, etag, sc), 2),
     }
+    # K1's library call: one complex matmul of the precomputed (K, 125) phase
+    # matrix by the (125, 9) coefficients, the phases made outside the timed call
+    ph = [phase_matrix(Xg[:, j].contiguous(), h.c.shape[j], h.offset[j], h.period[j]) for j in range(3)]
+    Pm = (ph[0][:, :, None, None] * ph[1][:, None, :, None] * ph[2][:, None, None, :]).reshape(Xg.shape[0], -1)
+    del ph
+    cm = h.c.reshape(Pm.shape[1], -1)
+    k1_lib_abs = float((torch.matmul(Pm, cm).reshape(Hg.shape) - Hp).abs().max())
+    t["k1_library"] = cuda_ms(lambda: torch.matmul(Pm, cm), 10)
+    del Pm
     print(f"kernels at K={Hg.shape[0]}, W={W_FLAGSHIP}: K1 {t['k1']:.3f} ms (plain "
-          f"{t['k1_plain']:.3f} ms, max|dH| {k1_abs:.3e}); K2 {t['k2']:.3f} ms (plain "
+          f"{t['k1_plain']:.3f} ms, max|dH| {k1_abs:.3e}; torch.matmul of the phases {t['k1_library']:.3f} "
+          f"ms, max|dH| {k1_lib_abs:.3e}); K2 {t['k2']:.3f} ms (plain "
           f"{t['k2_plain']:.3f} ms, max|dD| {k2_abs:.3e})", flush=True)
     del Hp
 
@@ -322,7 +348,7 @@ def main():
          "replaces": "autobzcore_tpu/ops/fourier_eval.py:78",
          "launches": launches["fourier_points"], "max_abs_err": k1_abs,
          "ms": t["k1"], "plain_ms": t["k1_plain"], "bound_ms": b1[0], "bound_by": b1[1],
-         "library_ms": None},
+         "library_ms": t["k1_library"]},
         {"name": "dos_trace_weighted_sum", "route": "cuda", "source": src + "dos_trace.cu",
          "replaces": "autobzcore_tpu/models/observables.py:149",
          "launches": launches["dos_trace_weighted_sum"], "max_abs_err": k2_abs,
@@ -331,7 +357,9 @@ def main():
     ]
     del Hg, Xg, wg
     torch.cuda.empty_cache()
-    kernels += iai_phases(np, torch, dev, h)
+    cold, k_iai = iai_phases(np, torch, dev, h)
+    kernels += k_iai
+    kernels += warm_phases(np, torch, dev, h, cold)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -450,7 +478,7 @@ def iai_phases(np, torch, dev, h):
         return tad.GKPool(**{k: (v.clone() if isinstance(v, torch.Tensor) else v)
                              for k, v in pool.__dict__.items()})
 
-    checks5 = []
+    checks5, e5s = [], 0.0
     for L, nb in ((900, 1), (900, 4), (L_leaf, 1)):
         pool = random_pool(L, nb)
         ref = clone(pool)
@@ -460,6 +488,8 @@ def iai_phases(np, torch, dev, h):
         if not (torch.equal(pool.active, live) and torch.equal(idx[live], ridx[live])
                 and torch.equal(ca, rca) and torch.equal(cb, rcb)):
             fail(f"K5 select at {L} lanes, nbisect {nb}: picks differ from the plain version")
+        e5s = max(e5s, float((idx[live] - ridx[live]).abs().max()), float((ca - rca).abs().max()),
+                  float((cb - rcb).abs().max()))
         cval = torch.as_tensor(rng.normal(size=(L, 2 * nb)), device=dev)
         cerr = torch.as_tensor(rng.random((L, 2 * nb)), device=dev)
         count = torch.full((L,), 30.0 * nb, dtype=torch.float64, device=dev)
@@ -477,14 +507,14 @@ def iai_phases(np, torch, dev, h):
     # times at the leaf level's widest trip (the last pool above)
     pool_s, nb = sel_in
     upd_args = (nb, idx, ca, cb, cval, cerr, cerr, count)
-    t5s = {"ms": cuda_ms(lambda: tad.gk_pool_select(clone(pool_s), nb), 30),
-           "plain_ms": cuda_ms(lambda: tad.gk_pool_select_plain(clone(pool_s), nb), 10),
-           "clone_ms": cuda_ms(lambda: clone(pool_s), 30)}
-    t5u = {"ms": cuda_ms(lambda: tad.gk_pool_update(clone(pool_s), *upd_args), 30),
-           "plain_ms": cuda_ms(lambda: tad.gk_pool_update_plain(clone(pool_s), *upd_args), 10)}
-    for t5 in (t5s, t5u):  # each timed call clones the pool first
-        t5["ms"] = max(t5["ms"] - t5s["clone_ms"], 0.0)
-        t5["plain_ms"] = max(t5["plain_ms"] - t5s["clone_ms"], 0.0)
+    # select only narrows `active`, so it repeats on one pool unchanged
+    pool_k, pool_p = clone(pool_s), clone(pool_s)
+    t5s = {"ms": cuda_ms(lambda: tad.gk_pool_select(pool_k, nb), 30),
+           "plain_ms": cuda_ms(lambda: tad.gk_pool_select_plain(pool_p, nb), 10)}
+    # an update moves n on, so each timed call clones the pool first
+    clone_ms = cuda_ms(lambda: clone(pool_s), 30)
+    t5u = {"ms": cuda_ms(lambda: tad.gk_pool_update(clone(pool_s), *upd_args), 30) - clone_ms,
+           "plain_ms": cuda_ms(lambda: tad.gk_pool_update_plain(clone(pool_s), *upd_args), 10) - clone_ms}
     b5s = bound(0, nbytes(pool_s.err, pool_s.n, pool_s.evals, pool_s.tot_err, pool_s.tol, pool_s.active)
                 + 2 * 2 * L_leaf * 8 + nbytes(idx, ca, cb))
     b5u = bound(L_leaf * 64 * 2, nbytes(ca, cb, cval, cerr, cerr, count, idx) + 2 * L_leaf * 2 * 5 * 8
@@ -549,8 +579,9 @@ def iai_phases(np, torch, dev, h):
                                                      abstol=IAI_ABSTOL, chunk=IAI_OMEGAS,
                                                      scan=True)(oms))
 
-    # the same solve through the plain versions, at 3 frequencies
-    pick = sorted({int(np.argmax(d_iai)), IAI_OMEGAS // 4, (3 * IAI_OMEGAS) // 4})
+    # the same solve through the plain versions, at one frequency (phase 10
+    # holds the warm chain against them too, within the time limit)
+    pick = [IAI_OMEGAS // 4]
     t0 = time.perf_counter()
     psweep = SweepSolver(prob, IAI(inner_cap=64, inner_nbisect=4, plain_kernels=True),
                          abstol=IAI_ABSTOL, chunk=IAI_OMEGAS, scan=True)
@@ -593,7 +624,9 @@ def iai_phases(np, torch, dev, h):
         fail(f"CubicSymIBZ and FBZ differ through IAI by {d4:.3e}")
 
     rep = "autobzcore_tpu/ops/adaptive.py:"
-    return [
+    cold = {"oms": oms, "d": d_iai, "ne": ne, "numevals": sweep.numevals, "wall": wall,
+            "d_ptr": d_ptr, "bz": bz}
+    return cold, [
         {"name": "fourier_contract", "route": "cuda", "source": src + "fourier_contract.cu",
          "replaces": "autobzcore_tpu/ops/fourier_eval.py:104", "launches": launches["fourier_contract"],
          "max_abs_err": max(e3a, e3), "ms": t3["ms"], "plain_ms": t3["plain_ms"],
@@ -603,7 +636,7 @@ def iai_phases(np, torch, dev, h):
          "max_abs_err": e4, "ms": t4["ms"], "plain_ms": t4["plain_ms"],
          "bound_ms": b4[0], "bound_by": b4[1], "library_ms": None},
         {"name": "gk_pool_select", "route": "cuda", "source": src + "gk_pool.cu",
-         "replaces": rep + "427", "launches": launches["gk_pool_select"], "max_abs_err": 0.0,
+         "replaces": rep + "427", "launches": launches["gk_pool_select"], "max_abs_err": e5s,
          "ms": t5s["ms"], "plain_ms": t5s["plain_ms"], "bound_ms": b5s[0], "bound_by": b5s[1],
          "library_ms": None},
         {"name": "gk_pool_update", "route": "cuda", "source": src + "gk_pool.cu",
@@ -615,6 +648,225 @@ def iai_phases(np, torch, dev, h):
          "ms": t5r["ms"], "plain_ms": t5r["plain_ms"], "bound_ms": b5r[0], "bound_by": b5r[1],
          "library_ms": None},
     ]
+
+
+def warm_phases(np, torch, dev, h, cold):
+    """Phases 9-10: the warm IAI main path (two calls) with K6 and K5's seed
+    entry checked against their plain versions between them. Returns the
+    two kernels' JSON entries."""
+    import copy
+
+    from autobzcore_torch import IAI, PTR, IntegralProblem, solve
+    from autobzcore_torch.algorithms.nested import _mid_seed_pool
+    from autobzcore_torch.interop import pool_to_arrays
+    from autobzcore_torch.models.observables import dos_integrand, gk_leaf_dos
+    from autobzcore_torch.ops import adaptive as tad
+    from autobzcore_torch.ops.fourier_eval import fourier_contract
+    from autobzcore_torch.parallel.sweep import SweepSolver
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_parity import dyadic_pools
+
+    src = "autobzcore_torch/csrc/"
+    bz, oms = cold["bz"], cold["oms"]
+    prob = IntegralProblem(dos_integrand(h, ETA), bz)
+
+    def warm_sweep(chunk, plain=False):
+        return SweepSolver(prob, IAI(inner_cap=64, inner_nbisect=4, warm_width=8, plain_kernels=plain),
+                           abstol=IAI_ABSTOL, chunk=chunk, scan=True, warm=True)
+
+    def reset():
+        fourier_contract.launches = gk_leaf_dos.launches = 0
+        tad.gk_rule_reduce.launches = tad.coarsen_pool.launches = 0
+        for key in tad.gk_pool_launches:
+            tad.gk_pool_launches[key] = 0
+
+    def launches():
+        return {"fourier_contract": fourier_contract.launches, "gk_leaf_dos": gk_leaf_dos.launches,
+                "gk_pool_select": tad.gk_pool_launches["select"],
+                "gk_pool_update": tad.gk_pool_launches["update"] + tad.gk_pool_launches["totals"],
+                "gk_rule_reduce": tad.gk_rule_reduce.launches,
+                "gk_pool_seed": tad.gk_pool_launches["seed"], "coarsen_pool": tad.coarsen_pool.launches}
+
+    def run(sweep, xs):
+        before = copy.deepcopy(sweep.stats)
+        ne0, nchunks = sweep.numevals, len(sweep.chunk_evals)
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        d = sweep(xs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = sweep.stats
+        delta = lambda new, old: {k: v - old.get(k, 0) for k, v in sorted(new.items(), reverse=True)}  # noqa: E731
+        ne = sweep.numevals - ne0
+        out = {"d": d, "wall": wall, "launches": launches(), "numevals": ne,
+               "harvest": ne - sum(sweep.chunk_evals[nchunks:]), "trips": delta(st.trips, before.trips),
+               "seed_trips": delta(st.seed_trips, before.seed_trips), "syncs": st.syncs - before.syncs,
+               "peak": torch.cuda.max_memory_allocated() / 2**20}
+        pool = pool_to_arrays(sweep._pool)
+        print(f"warm IAI call ({len(xs)} omegas in [{xs.min():.4g}, {xs.max():.4g}]): wall {wall:.3f} s "
+              f"({wall / len(xs):.4f} s/omega); numevals {ne} (harvests {out['harvest']:.0f}); retcode "
+              f"{sweep.retcode}; trips (level 3 outer, 2 mid, 1 leaf) {out['trips']}, seed trips "
+              f"{out['seed_trips']}; host syncs {out['syncs']} ({out['syncs'] / len(xs):.1f} per omega); "
+              f"launches {out['launches']}; carried pool: outer n {pool[3]}, mid tn {pool[4][3]}; "
+              f"chunk evals {sweep.chunk_evals[nchunks:]}; peak device memory {out['peak']:.1f} MiB",
+              flush=True)
+        if not sweep.retcode or d.shape != xs.shape or not np.all(np.isfinite(d)):
+            fail(f"warm IAI sweep: retcode {sweep.retcode}, shape {d.shape}")
+        return out
+
+    # 10, call 1: the 33 frequencies of phase 7's cold chunk ----------------------
+    sweep = warm_sweep(IAI_OMEGAS)
+    c1 = run(sweep, oms)
+    ratio = c1["numevals"] / cold["numevals"]
+    dcold = float(np.max(np.abs(c1["d"] - cold["d"])))
+    dptr = float(np.max(np.abs(c1["d"] - cold["d_ptr"])))
+    print(f"warm call 1 vs phase 7's cold chunk on the same omegas: evals {c1['numevals']} vs "
+          f"{cold['numevals']} (warm/cold {ratio:.4f}); wall {c1['wall']:.3f} s vs {cold['wall']:.3f} s; "
+          f"max|d D| {dcold:.3e} (<= 2 abstol); vs PTR(npt=400) max|d| {dptr:.4e} (<= "
+          f"{1e-2 * np.max(np.abs(cold['d_ptr'])):.4e})", flush=True)
+    if not dcold <= 2 * IAI_ABSTOL:
+        fail(f"warm and cold IAI values differ by {dcold:.3e}")
+    if not dptr <= 1e-2 * np.max(np.abs(cold["d_ptr"])):
+        fail(f"warm IAI and PTR(npt=400) differ by {dptr:.3e}")
+
+    # 9. K6 and K5's seed entry against their plain versions ----------------------
+    pool = sweep._pool
+    scale = abs(float(np.linalg.det(bz.B))) * bz.nsyms
+    tol = torch.full((1,), IAI_ABSTOL / scale, dtype=torch.float64, device=dev)
+    segs = torch.tensor([[0.0, 1.0]], dtype=torch.float64, device=dev)
+    outer = (pool.a[None].contiguous(), pool.b[None].contiguous(), pool.e[None].contiguous(),
+             pool.n.clone(), segs, tol)
+    # the harvest's pool before its coarsening: the carried mid seed on the
+    # mid level's domain, [0, 1] on the full zone at every outer node
+    (ma, mb, me, mn), _ = _mid_seed_pool(pool.mid, segs)
+    mid = (ma, mb, me, mn, segs, tol)
+    rng = np.random.default_rng(9)
+    cases = [("outer pool", outer), ("harvest pool", mid)]
+    for cap, sg in ((64, [0.0, 0.3, 1.0]), (2048, [0.0, 0.125, 0.5])):
+        a, b, e, n = dyadic_pools(rng, 40, cap, sg, dev)
+        cases.append((f"40 random pools, cap {cap}",
+                      (a, b, e, n, torch.tensor(sg, dtype=torch.float64, device=dev).expand(40, -1).contiguous(),
+                       torch.as_tensor(10 ** rng.uniform(-7, -2, 40), device=dev))))
+    merged, e6 = [], 0.0
+    for name, args in cases:
+        got, want = tad.coarsen_pool(*args), tad.coarsen_pool_plain(*args)
+        if not all(torch.equal(g, wv) for g, wv in zip(got, want)):
+            fail(f"K6 coarsen_pool vs plain on the {name}: pools differ")
+        e6 = max([e6] + [float((g - wv).abs().max()) for g, wv in zip(got, want)])
+        merged.append(f"{name}: n {args[3].tolist()[:3]} -> {want[2].tolist()[:3]}")
+    t6 = {"ms": cuda_ms(lambda: tad.coarsen_pool(*outer), 200),
+          "plain_ms": cuda_ms(lambda: tad.coarsen_pool_plain(*outer), 20)}
+    cap_o = pool.a.shape[0]
+    b6 = bound(cap_o * 24, nbytes(*outer) + 2 * cap_o * 8 + 8)
+    # the seed entry: the coarsened outer pool seeded chunk by chunk (C = 8)
+    # with random chunk values, then the mid shape of an outer seed trip
+    # (120 lanes = 8 intervals x 15 nodes, cap 64, C = 2), some lanes idle
+    a_c, b_c, n0 = tad.coarsen_pool(*outer)
+
+    def seeded(seed_fn, L, cap, C, a_s, b_s, n_s, trips, seeding):
+        g = np.random.default_rng(10)
+        pl = tad.GKPool(a=a_s.clone(), b=b_s.clone(), err=torch.zeros((L, cap), dtype=torch.float64, device=dev),
+                        l1=torch.zeros((L, cap), dtype=torch.float64, device=dev),
+                        val=torch.zeros((L, cap), dtype=torch.float64, device=dev),
+                        n=torch.zeros(L, dtype=torch.int64, device=dev),
+                        evals=torch.zeros(L, dtype=torch.float64, device=dev),
+                        atol=torch.full((L,), 1e-6, dtype=torch.float64, device=dev), rtol=0.0,
+                        max_evals=1e18, active=torch.ones(L, dtype=torch.bool, device=dev))
+        for k in range(trips):
+            start = min(k * C, cap - C)
+            ch = [torch.as_tensor(g.random((L, C)), device=dev) for _ in range(3)]
+            seed_fn(pl, start, a_s[:, start:start + C].contiguous(), b_s[:, start:start + C].contiguous(),
+                    ch[0], ch[1], ch[2], torch.full((L,), 15.0 * C, dtype=torch.float64, device=dev),
+                    n_s, seeding)
+        return pl
+
+    n0h = int(n0[0])
+    shapes = [(1, cap_o, 8, a_c, b_c, n0, -(-n0h // 8), torch.ones(1, dtype=torch.bool, device=dev))]
+    ra, rb, _, rn = dyadic_pools(rng, 120, 64, [0.0, 1.0], dev)
+    shapes.append((120, 64, 2, ra, rb, rn, 16, torch.as_tensor(rng.random(120) > 0.1, device=dev)))
+    fields = ("a", "b", "err", "l1", "val", "n", "evals", "tot_val", "tot_err", "tol")
+    e5d = 0.0
+    for L, cap, C, a_s, b_s, n_s, trips, seeding in shapes:
+        got = seeded(tad.gk_pool_seed, L, cap, C, a_s, b_s, n_s, trips, seeding)
+        want = seeded(tad.gk_pool_seed_plain, L, cap, C, a_s, b_s, n_s, trips, seeding)
+        same = all(torch.equal(getattr(got, k), getattr(want, k)) for k in fields[:7])
+        # the totals and tolerance to a relative 1e-14 per lane (the kernel
+        # sums in another order)
+        rel = max(float(((getattr(got, k) - getattr(want, k)).reshape(L, -1).abs().amax(1)
+                         / getattr(want, k).reshape(L, -1).abs().amax(1).clamp_min(1e-300)).max())
+                  for k in fields[7:])
+        if not (same and rel <= 1e-14):
+            fail(f"K5 seed entry vs plain at {L} lanes x cap {cap}: pools identical {same}, "
+                 f"totals and tol rel {rel:.3e}")
+        e5d = max([e5d] + [float((getattr(got, k) - getattr(want, k)).abs().max())
+                           for k in fields])
+    L, cap, C = 120, 64, 2
+    sp = seeded(tad.gk_pool_seed, L, cap, C, ra, rb, rn, 1, shapes[1][7])
+    chunk = [torch.as_tensor(rng.random((L, C)), device=dev) for _ in range(5)]
+    cnt = torch.full((L,), 30.0, dtype=torch.float64, device=dev)
+    seed_args = (sp, 4, *chunk, cnt, rn, shapes[1][7])
+    t5d = {"ms": cuda_ms(lambda: tad.gk_pool_seed(*seed_args), 200),
+           "plain_ms": cuda_ms(lambda: tad.gk_pool_seed_plain(*seed_args), 50)}
+    b5d = bound(L * cap * 2, nbytes(*chunk, cnt, rn, shapes[1][7]) + 5 * L * C * 8 + 2 * L * cap * 8
+                + L * 4 * 8)
+    print(f"K6 coarsen_pool vs plain: identical a2, b2, n2 (max|d| {e6:.3e}) on {'; '.join(merged)}; "
+          f"at 1 lane x cap "
+          f"{cap_o}: {t6['ms']:.4f} ms (plain {t6['plain_ms']:.4f}; bound {b6[0]:.6f} ms by {b6[1]}). "
+          f"K5 seed vs plain: identical seeded pools, max|d| over pools, totals and tol {e5d:.3e} (outer: "
+          f"{-(-n0h // 8)} chunks of 8 into cap "
+          f"{cap_o}; mid: 120 lanes x cap 64, C = 2); at 120 x 64: {t5d['ms']:.4f} ms (plain "
+          f"{t5d['plain_ms']:.4f}; bound {b5d[0]:.6f} ms by {b5d[1]})", flush=True)
+
+    # 10, call 2: the midpoints, as the next interpolation frontier -----------------
+    mids = (oms[:-1] + oms[1:]) / 2
+    c2 = run(sweep, mids)
+    d_ptr2 = solve(IntegralProblem(dos_integrand(h, ETA), bz, torch.as_tensor(mids, device=dev)),
+                   PTR(npt=400)).u.cpu().numpy()
+    dptr2 = float(np.max(np.abs(c2["d"] - d_ptr2)))
+    print(f"warm call 2 vs PTR(npt=400) at the midpoints: max|d| {dptr2:.4e} (<= "
+          f"{1e-2 * np.max(np.abs(d_ptr2)):.4e}); both calls: {c1['wall'] + c2['wall']:.3f} s for "
+          f"{len(oms) + len(mids)} omegas", flush=True)
+    if not dptr2 <= 1e-2 * np.max(np.abs(d_ptr2)):
+        fail(f"warm IAI and PTR(npt=400) differ by {dptr2:.3e} at the midpoints")
+    total = {k: c1["launches"][k] + c2["launches"][k] for k in c1["launches"]}
+    if min(total.values()) <= 0:
+        fail(f"the warm IAI main path did not go through every kernel: {total}")
+    if "--profile" in sys.argv[1:]:
+        profile("warm IAI chunk", lambda: warm_sweep(IAI_OMEGAS)(oms))
+
+    # the warm chain on the plain versions, at the two cheapest neighbours
+    i = int(np.argmin(cold["ne"]))
+    j = i + 1 if i + 1 < len(oms) and (i == 0 or cold["ne"][i + 1] <= cold["ne"][i - 1]) else i - 1
+    pair = np.sort(oms[[i, j]])
+    res = []
+    for plain in (False, True):
+        t0 = time.perf_counter()
+        sw = warm_sweep(2, plain)
+        res.append((sw(pair), sw.numevals, pool_to_arrays(sw._pool), sw.retcode, time.perf_counter() - t0))
+    (dk, nk, pk, rk, tk), (dp, npl, pp, rp, tp) = res
+    same_pool = (pk[3] == pp[3] and pk[4][3] == pp[4][3] and np.array_equal(pk[0], pp[0])
+                 and np.array_equal(pk[1], pp[1]) and np.array_equal(pk[4][0], pp[4][0]))
+    dpair = float(np.max(np.abs(dk - dp)))
+    print(f"warm chain on the plain versions at omegas {pair.round(4).tolist()}: numevals {npl} vs {nk} "
+          f"(kernels), carried pools identical {same_pool}, max|d D| {dpair:.3e} (<= abstol); "
+          f"plain {tp:.3f} s, kernels {tk:.3f} s", flush=True)
+    if not (npl == nk and same_pool and dpair <= IAI_ABSTOL and rk and rp):
+        fail(f"warm IAI kernels vs plain path: numevals {nk} vs {npl}, pools {same_pool}, max|d| {dpair:.3e}")
+
+    return [
+        {"name": "coarsen_pool", "route": "cuda", "source": src + "gk_coarsen.cu",
+         "replaces": "autobzcore_tpu/ops/adaptive.py:143", "launches": total["coarsen_pool"],
+         "max_abs_err": e6, "ms": t6["ms"], "plain_ms": t6["plain_ms"], "bound_ms": b6[0],
+         "bound_by": b6[1], "library_ms": None},
+        {"name": "gk_pool_seed", "route": "cuda", "source": src + "gk_pool.cu",
+         "replaces": "autobzcore_tpu/ops/adaptive.py:344", "launches": total["gk_pool_seed"],
+         "max_abs_err": e5d, "ms": t5d["ms"], "plain_ms": t5d["plain_ms"], "bound_ms": b5d[0],
+         "bound_by": b5d[1], "library_ms": None},
+    ]
+
 
 if __name__ == "__main__":
     main()

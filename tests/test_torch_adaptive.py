@@ -221,11 +221,26 @@ def test_single_pool_gk_adaptive_matches_reference(kw):
     assert float(got[2]) == float(np.asarray(want[2])) and bool(got[3]) == bool(np.asarray(want[3]))
 
 
-@pytest.mark.parametrize("kw", [dict(init_pool=(None,) * 4), dict(seed_width=8), dict(noise_rfloor=1e-6),
+@pytest.mark.parametrize("kw", [dict(init_pool=True), dict(seed_width=8), dict(noise_rfloor=1e-6),
                                 dict(stall_patience=4), dict(norm=lambda v: v)])
 def test_single_pool_refuses_later_slices(kw):
-    with pytest.raises(NotImplementedError, match="A5"):
-        tad.gk_adaptive(lambda xs, p: xs, None, [0.0, 1.0], **kw)
+    """The guided tier's knobs and custom norms raise (ROADMAP A5); the warm
+    start's run as the reference's: a pool left at p = 0.3 seeds the solve
+    at p = 0.77, and ``seed_width`` without a pool leaves the cold start as
+    it is."""
+    if "init_pool" not in kw and "seed_width" not in kw:
+        with pytest.raises(NotImplementedError, match="A5"):
+            tad.gk_adaptive(lambda xs, p: xs, None, [0.0, 1.0], **kw)
+        return
+    segs, opts = [0.0, 0.4, 1.0], dict(cap=64, nbisect=2, abstol=1e-8)
+    if "init_pool" in kw:
+        st = jad.gk_adaptive(_jax_f, 0.3, jnp.asarray(segs), _return_state=True, **opts)[4]
+        kw = dict(init_pool=(np.asarray(st[0]), np.asarray(st[1]), np.asarray(st[3]), int(st[5])))
+    want = jad.gk_adaptive(_jax_f, 0.77, jnp.asarray(segs), **kw, **opts)
+    got = tad.gk_adaptive(_torch_f, 0.77, segs, **kw, **opts)
+    val = float(np.asarray(want[0]))
+    assert abs(float(got[0]) - val) <= 1e-12 * abs(val)
+    assert float(got[2]) == float(np.asarray(want[2])) and bool(got[3]) == bool(np.asarray(want[3])) is True
 
 
 # --- QuadGKJL -----------------------------------------------------------------------

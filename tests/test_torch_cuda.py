@@ -409,3 +409,104 @@ def test_kernels_refuse_out_of_range_maps_and_slots(cuda_device):
     assert torch.isfinite(pool.tot_err[0]) and torch.isnan(pool.tot_err[1:]).all()
     for name in ("a", "b", "err", "val", "n", "evals"):
         assert torch.equal(getattr(pool, name)[1:], getattr(before, name)[1:]), name
+
+
+# --- the warm start: K6 coarsen_pool and K5's seed entry ---------------------------
+from torch_parity import dyadic_pools  # noqa: E402
+
+
+def test_warm_wrappers_take_plain_versions_on_cpu_without_counting():
+    rng = np.random.default_rng(60)
+    a, b, e, n = dyadic_pools(rng, 5, 64, [0.0, 0.3, 1.0], "cpu")
+    segs = torch.tensor([0.0, 0.3, 1.0], dtype=torch.float64)
+    tol = torch.full((5,), 1e-6, dtype=torch.float64)
+    before = tad.coarsen_pool.launches
+    got = tad.coarsen_pool(a, b, e, n, segs, tol)
+    assert tad.coarsen_pool.launches == before
+    for g, w in zip(got, tad.coarsen_pool_plain(a, b, e, n, segs, tol)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        tad.coarsen_pool(a, b, e, n.to(torch.int32), segs, tol)
+    with pytest.raises(ValueError):
+        tad.coarsen_pool(a, b, e[:, :8], n, segs, tol)
+    pool = _random_pool(rng, "cpu", L=5, cap=16, nb=1)
+    ch = torch.ones((5, 4), dtype=torch.float64)
+    seeding = torch.ones(5, dtype=torch.bool)
+    before = tad.gk_pool_launches["seed"]
+    tad.gk_pool_seed(pool, 12, ch, ch, ch.clone(), ch.clone(), ch.clone(), ch[:, 0].clone(),
+                     pool.n.clone(), seeding)
+    assert tad.gk_pool_launches["seed"] == before
+    with pytest.raises(ValueError, match="does not fit"):
+        tad.gk_pool_seed(pool, 13, ch, ch, ch, ch, ch, ch[:, 0], pool.n, seeding)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [64, 2048])
+def test_coarsen_kernel_matches_plain_on_card(cuda_device, cap):
+    """K6 against its plain version on dyadic pools with interior
+    breakpoints, +inf, noise-floored and tied errors, dead slots and junk
+    past n: identical a2, b2 and n2, per-lane segments and tolerances."""
+    rng = np.random.default_rng(61 + cap)
+    for segs in ([0.0, 1.0], [0.0, 0.3, 1.0], [0.0, 0.125, 0.5]):
+        L = 40
+        a, b, e, n = dyadic_pools(rng, L, cap, segs, cuda_device)
+        seg_t = torch.tensor(segs, dtype=torch.float64, device=cuda_device).expand(L, -1).contiguous()
+        tol = torch.as_tensor(10 ** rng.uniform(-7, -2, L), device=cuda_device)
+        before = tad.coarsen_pool.launches
+        got = tad.coarsen_pool(a, b, e, n, seg_t, tol)
+        assert tad.coarsen_pool.launches == before + 1
+        want = tad.coarsen_pool_plain(a, b, e, n, seg_t, tol)
+        for g, w, name in zip(got, want, ("a2", "b2", "n2")):
+            assert torch.equal(g, w), (segs, name)
+        assert bool((want[2] < n).any())  # some pools did merge
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,complex_vals", [((), False), ((3,), True)], ids=["real", "complex3"])
+def test_pool_seed_kernel_matches_plain_on_card(cuda_device, V, complex_vals):
+    """K5's seed entry against its plain version: a chunk written to the
+    seeding lanes' contiguous slots, n = n0, evals += count, the totals."""
+    rng = np.random.default_rng(70)
+    pool = _random_pool(rng, cuda_device, L=300, cap=64, nb=1, V=V, complex_vals=complex_vals)
+    ref = _clone_pool(pool)
+    L, C, start = pool.nlanes, 8, 56
+    ca = torch.as_tensor(rng.random((L, C)), device=cuda_device)
+    cb = ca + torch.as_tensor(rng.random((L, C)), device=cuda_device)
+    cval = torch.as_tensor(rng.normal(size=(L, C) + V), device=cuda_device).to(pool.val.dtype)
+    cerr = torch.as_tensor(rng.random((L, C)), device=cuda_device)
+    count = torch.full((L,), 8.0 * 15, dtype=torch.float64, device=cuda_device)
+    n0 = torch.as_tensor(rng.integers(50, 64, L), device=cuda_device)
+    seeding = torch.as_tensor(rng.random(L) > 0.2, device=cuda_device)
+    before = tad.gk_pool_launches["seed"]
+    tad.gk_pool_seed(pool, start, ca, cb, cval, cerr, cerr * 3, count, n0, seeding)
+    assert tad.gk_pool_launches["seed"] == before + 1
+    tad.gk_pool_seed_plain(ref, start, ca, cb, cval, cerr, cerr * 3, count, n0, seeding)
+    for name in ("a", "b", "err", "l1", "val", "n", "evals"):
+        assert torch.equal(getattr(pool, name), getattr(ref, name)), name
+    assert float(((pool.tot_err - ref.tot_err).abs() / ref.tot_err.abs().clamp_min(1e-300)).max()) <= 1e-14
+    tv, rv = pool.tot_val.reshape(L, -1), ref.tot_val.reshape(L, -1)
+    assert float(((tv - rv).abs().amax(1) / rv.abs().amax(1).clamp_min(1e-300)).max()) <= 1e-14
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["FBZ", "CubicSymIBZ"])
+def test_warm_iai_on_card_matches_cpu(cuda_device, kind):
+    """The warm chain through K3-K6 against the CPU's plain path, two calls:
+    the same numevals, chunk telemetry, retcode and carried pools, values
+    within 1e-10."""
+    from autobzcore_torch.interop import pool_to_arrays
+
+    out = []
+    for dev in ("cpu", cuda_device):
+        prob = T.IntegralProblem(tobs.dos_integrand(ttb.tb_integer(3, device=dev), 0.5),
+                                 T.load_bz(getattr(T, kind)(), np.eye(3)))
+        sweep = SweepSolver(prob, T.IAI(inner_cap=32, inner_nbisect=2, device=dev), abstol=1e-3,
+                            chunk=2, scan=True, warm=True)
+        vals = [sweep(np.array([-1.3, 0.4, 2.1])), sweep(np.array([-0.7, 1.6]))]
+        out.append((vals, sweep.numevals, sweep.chunk_evals, sweep.retcode, pool_to_arrays(sweep._pool)))
+    (vc, nc, cc, rc, pc), (vg, ng, cg, rg, pg) = out
+    assert ng == nc and cg == cc and rg is rc is True
+    for g, w in zip(vg, vc):
+        assert rel_err(g, w) <= 1e-10
+    assert pg[3] == pc[3] and pg[4][3] == pc[4][3]
+    assert np.max(np.abs(pg[0] - pc[0])) <= 1e-15 and np.max(np.abs(pg[4][0] - pc[4][0])) <= 1e-15

@@ -81,9 +81,33 @@ def test_interpolated_cold_iai_curve_matches_reference():
     assert np.max(np.abs(got(ws) - np.asarray(want(ws)))) <= 1e-10 * np.max(np.abs(got(ws)))
 
 
-@pytest.mark.parametrize("knob,item", [(dict(warm=True), "warm slice"), (dict(block=3), "warm slice"),
-                                       (dict(group=3), "warm slice"), (dict(mesh="m"), "A10")])
+@pytest.mark.parametrize("knob,item", [(dict(block=3), "omega blocks"), (dict(mesh="m"), "A10")])
 def test_unported_iai_sweep_knobs_raise(knob, item):
     _, tprob = _probs()
     with pytest.raises(NotImplementedError, match=item):
         SweepSolver(tprob, _iai_pair()[1], abstol=1e-3, chunk=3, scan=True, **knob)
+
+
+@pytest.mark.parametrize("knob", [dict(warm=True), dict(group=3)], ids=["warm", "group"])
+def test_warm_and_group_iai_sweeps_match_reference(knob):
+    """The warm chain, and lockstep groups (which change no per-solve result),
+    as the reference's scan sweep: values, numevals and retcode."""
+    jprob, tprob = _probs()
+    jalg, talg = _iai_pair()
+    xs = np.array([-3.1, -0.6, 0.45, 2.2])
+    jsw = JSweepSolver(jprob, jalg, abstol=1e-4, chunk=3, scan=True, **knob)
+    tsw = SweepSolver(tprob, talg, abstol=1e-4, chunk=3, scan=True, **knob)
+    want, got = np.asarray(jsw(xs)), tsw(xs)
+    assert np.max(np.abs(got - want) / np.abs(want)) <= 1e-10
+    assert tsw.numevals == jsw.numevals and tsw.retcode == jsw.retcode is True
+    assert tsw.chunk_evals == jsw.chunk_evals
+
+
+def test_warm_iai_sweep_refuses_what_the_reference_refuses():
+    _, tprob = _probs()
+    with pytest.raises(ValueError, match="requires scan=True"):
+        SweepSolver(tprob, _iai_pair()[1], chunk=3, warm=True)
+    with pytest.raises(ValueError, match="group=1"):
+        SweepSolver(tprob, _iai_pair()[1], chunk=3, scan=True, warm=True, group=3)
+    with pytest.raises(ValueError, match="no warm-pool solve form"):
+        SweepSolver(tprob, T.IAI(precision="guided", device="cpu"), chunk=3, scan=True, warm=True)

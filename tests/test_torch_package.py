@@ -57,15 +57,19 @@ def test_example_runs_flagship_on_cpu(tmp_path):
 
 
 def test_example_runs_cold_iai_leg_on_cpu(tmp_path):
+    """The IAI leg, warm by default and cold with --cold-iai; omega blocks
+    are refused, naming their ROADMAP item."""
     args = [str(REPO / "examples" / "aps_example_torch.py"), "--flagship", "--device", "cpu",
             "--skip-ptr", "--with-iai", "--eta", "0.5", "--abstol", "1.0", "--iai-inner-cap", "16",
             "--atol-interp", "5"]
-    warm = _run(args, cwd=tmp_path)
-    assert warm.returncode != 0 and "warm slice" in warm.stderr
-    out = _run(args + ["--cold-iai"], cwd=tmp_path)
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert "IAI interpolant (cold, complex128)" in out.stderr and "retcode True" in out.stderr
-    assert out.stdout.startswith("IAI DOS(0.5 eV) = ")
+    for extra, tier in (([], "warm"), (["--cold-iai"], "cold")):
+        out = _run(args + extra, cwd=tmp_path)
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert f"IAI interpolant ({tier}, complex128)" in out.stderr and "retcode True" in out.stderr
+        assert out.stdout.startswith("IAI DOS(0.5 eV) = ")
+        assert ("IAI chunk seeds: " in out.stderr) == (tier == "warm")
+    blocked = _run(args + ["--iai-block", "3"], cwd=tmp_path)
+    assert blocked.returncode != 0 and "omega blocks" in blocked.stderr
 
 
 def _assert_refused(out):

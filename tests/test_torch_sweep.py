@@ -88,12 +88,22 @@ def test_unknown_rep_array_output_raises_inside_sweep():
 
 
 @pytest.mark.parametrize("knob,item", [
-    ({"group": 2}, "A5"), ({"warm": True}, "A5"), ({"block": 2}, "A5"), ({"mesh": object()}, "A10"),
+    ({"group": 2}, "requires scan"), ({"warm": True}, "requires scan"), ({"block": 2}, "requires scan"),
+    ({"mesh": object()}, "A10"), ({"warm": True, "scan": True}, "no warm-pool solve form"),
 ])
 def test_unported_sweep_knobs_raise(knob, item):
-    _, tprob = _pair("tb_integer3", "FBZ")
-    with pytest.raises(NotImplementedError, match=item):
+    """A fixed rule with the knobs of adaptive sweeps: the reference's
+    ValueErrors (a PTR has no warm form), and mesh sharding, not ported."""
+    jprob, tprob = _pair("tb_integer3", "FBZ")
+    if "mesh" in knob:
+        with pytest.raises(NotImplementedError, match=item):
+            SweepSolver(tprob, T.PTR(npt=4, device="cpu"), **knob)
+        return
+    with pytest.raises(ValueError, match=item) as want:
+        JSweepSolver(jprob, J.PTR(npt=4), **knob)
+    with pytest.raises(ValueError, match=item) as got:
         SweepSolver(tprob, T.PTR(npt=4, device="cpu"), **knob)
+    assert str(got.value) == str(want.value)
 
 
 def test_scan_sweep_of_a_fixed_rule_is_the_plain_sweep():
