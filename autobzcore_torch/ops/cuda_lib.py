@@ -66,6 +66,14 @@ def _bind(lib):
     lib.gk_pool_seed_launch.restype = i
     lib.gk_coarsen_launch.argtypes = [vp] * 9 + [ll, i, i, dbl, dbl, vp]
     lib.gk_coarsen_launch.restype = i
+    lib.eigvalsh_small_launch.argtypes = [vp, vp, ll, i, vp]
+    lib.eigvalsh_small_launch.restype = i
+    lib.lorentz_num_blocks.argtypes = [ll, i]
+    lib.lorentz_num_blocks.restype = ll
+    lib.lorentzian_sum_launch.argtypes = [vp, vp, ll, i, vp, i, dbl, dbl, vp, vp, vp]
+    lib.lorentzian_sum_launch.restype = i
+    lib.fullgrid_tail_launch.argtypes = [vp, vp, ll, ll, i, i, vp, i, dbl, dbl, vp, vp, vp]
+    lib.fullgrid_tail_launch.restype = i
     return lib
 
 

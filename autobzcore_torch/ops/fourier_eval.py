@@ -14,8 +14,11 @@ reference.
 the lane-batched form of the reference's ``contract``: per-lane coefficient
 tensors have their last spatial variable fixed at per-lane points, which is
 how the nested solver contracts the series once per outer node.
-``fourier_contract_plain`` is its plain version. The grid and Jacobian forms
-come with later slices (ROADMAP A3).
+``fourier_contract_plain`` is its plain version.
+
+``evaluate_grid`` is the grid form: one complex128 product per dimension,
+plain large matrix products as the reference leaves them to XLA. The
+Jacobian form comes with a later slice (ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -163,6 +166,27 @@ def contract(c, spatial_ndim, x, offsets, periods, derivs=None, dtype=COMPLEX):
     cmap = torch.zeros(1, dtype=torch.int64, device=c.device)
     out = fourier_contract(c1.contiguous(), cmap, xl, offsets[d - 1], periods[d - 1])
     return out.reshape(tuple(c.shape[:d - 1]) + vshape)
+
+
+def evaluate_grid(c, spatial_ndim, nodes, offsets, periods, derivs=None, dtype=COMPLEX):
+    """Evaluate on the tensor grid ``nodes[0] x ... x nodes[d-1]``: returns
+    (len(nodes[0]), ..., len(nodes[d-1]), *valshape), one dimension at a
+    time, each a complex128 product against a (len(nodes[j]), n_j) phase
+    matrix (the reference's signature; derivatives come with ROADMAP A3)."""
+    if derivs is not None and any(derivs):
+        raise NotImplementedError("derivative evaluation is not ported yet (ROADMAP A3, B1 Jacobian)")
+    if dtype != COMPLEX:
+        raise ValueError("evaluate_grid takes complex128 series")
+    d = spatial_ndim
+    vshape = tuple(c.shape[d:])
+    v = c.reshape(tuple(c.shape[:d]) + (-1,))
+    for j in range(d - 1, -1, -1):
+        # after each contraction one grid axis prepends and one spatial axis
+        # drops, so the axis holding n_j is always position d-1
+        x = torch.as_tensor(nodes[j], dtype=REAL, device=c.device)
+        ph = phase_matrix(x, v.shape[d - 1], offsets[j], periods[j])
+        v = torch.tensordot(ph, v, dims=([1], [d - 1]))
+    return v.reshape(tuple(v.shape[:d]) + vshape)
 
 
 def evaluate_points(c, spatial_ndim, X, offsets, periods, derivs=None, dtype=COMPLEX):

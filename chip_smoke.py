@@ -45,11 +45,28 @@ non-zero):
    against phase 7's cold chunk, trips, syncs, launches of K3-K6; checks:
    retcodes, values within 2 abstol of phase 7's, both calls against
    PTR(npt=400), and a 2-frequency warm chain on the plain versions against
-   the kernels (identical counts and carried pools, values within abstol).
+   the kernels (identical counts and carried pools, values within abstol);
+11. kernels K7 (fused eigenvalue + Lorentzian tail of a full-grid slab), K8
+   (Lorentzian sum) and K9 (closed-form small eigenvalues), each against its
+   plain version at the main path's shapes: K7 on one slab of the npt=400
+   rung of phase 12 at 1024 omegas (bit-identical on repeat), K9 on the
+   flagship's 1e6 matrices of the 100^3 grid (and numpy on a subsample), K8
+   on their eigenvalues at 1000 omegas; kernel, plain and (K9) library times;
+12. full-grid main path: the flagship's full-grid ladder at full width,
+   LorentzianFullGrid(0.05, nmin=400, nmax=2000) over 1000 omegas in
+   [-6, 7] eV, abstol 1e-3, through DOSProblem/init/dos_sweep; wall, rungs
+   (npt, seconds, delta), evals, K7 launches, the stage products' time and
+   peak memory; checks: the retcode, the npt=400 rung at phase 7's 33
+   omegas against phase 7's PTR(npt=400) (within 1e-10 max|D|), a second
+   sweep at the 999 midpoints replaying the certifying pair, and an npt=64
+   rung through the plain tail against the kernel (1e-12);
+13. bench lane: H(k) of the flagship on the 100^3 grid (``evaluate_grid``)
+   and its eigenvalues by K9, k-points/s over 20 chained repetitions, then
+   the 1000-omega Lorentzian sweep over [10, 15] eV at eta 0.01 by K8.
 
-With ``--profile``, the PTR, IAI and warm IAI main paths each run once more
-under ``torch.profiler`` (after their checks), which prints their device
-busy time, its share of the wall and the device time of the leading
+With ``--profile``, the PTR, IAI, warm IAI and full-grid main paths each run
+once more under ``torch.profiler`` (after their checks), which prints their
+device busy time, its share of the wall and the device time of the leading
 kernels.
 
 The second-to-last line is a JSON object with each kernel's numbers, the
@@ -76,6 +93,19 @@ PEAK_BYTES = 3.35e12
 # FP64 operations (an FMA counts 2) of Im Tr (z - H)^-1 by the closed forms
 # of csrc/small_trace.cuh, per matrix: m = 1, 2, 3
 TRACE_FLOPS = {1: 9, 2: 27, 3: 120}
+# FP64 operations of one Lorentzian term eta / ((w - e)^2 + eta^2) summed
+# with its weight (csrc/lorentzian.cuh): a subtraction (1), an FMA (2), the
+# reciprocal, counted as the four DFMAs of its Newton sequence (8), and the
+# FMA into the sum (2)
+LORENTZ_FLOPS = 13
+# FP64 operations of one closed-form 3x3 eigenvalue solve
+# (csrc/small_eigen.cuh): ~60 multiplies and adds, a square root and three
+# divisions at 8 each, and arccos and two cosines at ~40 each
+EIG3_FLOPS = 210
+FULLGRID_OMEGAS = 1000
+FULLGRID_ABSTOL = 1e-3
+FULLGRID_NMIN, FULLGRID_NMAX = 400, 2000  # the ladder; phase 7's PTR runs at FULLGRID_NMIN
+FULLGRID_PLAIN_NPT = 64  # the rung held against the plain tail
 
 
 def fail(msg):
@@ -360,6 +390,7 @@ def main():
     cold, k_iai = iai_phases(np, torch, dev, h)
     kernels += k_iai
     kernels += warm_phases(np, torch, dev, h, cold)
+    kernels += fullgrid_phases(np, torch, dev, h, cold)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -865,6 +896,237 @@ def warm_phases(np, torch, dev, h, cold):
          "replaces": "autobzcore_tpu/ops/adaptive.py:344", "launches": total["gk_pool_seed"],
          "max_abs_err": e5d, "ms": t5d["ms"], "plain_ms": t5d["plain_ms"], "bound_ms": b5d[0],
          "bound_by": b5d[1], "library_ms": None},
+    ]
+
+
+def fullgrid_phases(np, torch, dev, h, cold):
+    """Phases 11-13: K7, K8 and K9 against their plain versions, the
+    full-grid ladder main path and the bench lane. Returns the three
+    kernels' JSON entries."""
+    from autobzcore_torch import FBZ, DOSProblem, load_bz
+    from autobzcore_torch.dos import LorentzianFullGrid
+    from autobzcore_torch.dos import init as dos_init
+    from autobzcore_torch.ops import eigh3
+    from autobzcore_torch.ops import grid_sweep as gs
+    from autobzcore_torch.ops.fourier_eval import evaluate_grid
+
+    src = "autobzcore_torch/csrc/"
+    eta = ETA
+    ws = np.linspace(*WINDOW, FULLGRID_OMEGAS)
+    bz = load_bz(FBZ(), np.eye(3))
+    det_b = abs(float(np.linalg.det(bz.B)))
+    u100 = [np.arange(NPT) / NPT] * 3
+
+    # 11. K9, K8, K7 against their plain versions ----------------------------------
+    Hg = evaluate_grid(h.c, 3, u100, h.offset, h.period).reshape(-1, 3, 3).contiguous()
+    K = Hg.shape[0]
+    e9 = eigh3.eigvalsh_small(Hg)
+    p9 = eigh3.eigvalsh_small_plain(Hg)
+    torch.cuda.synchronize()
+    scale9 = float(p9.abs().max())
+    err9 = float((e9 - p9).abs().max())
+    sub = torch.arange(0, K, max(1, K // 4096), device=dev)[:4096]
+    err9np = float(np.abs(e9[sub].cpu().numpy() - np.linalg.eigvalsh(Hg[sub].cpu().numpy())).max())
+    if not (err9 <= 1e-12 * scale9 and err9np <= 1e-12 * scale9):
+        fail(f"K9 eigvalsh_small: max|d| vs plain {err9:.3e}, vs numpy {err9np:.3e} > 1e-12 x {scale9:.3e}")
+    t9 = {"ms": cuda_ms(lambda: eigh3.eigvalsh_small(Hg), 20),
+          "plain_ms": cuda_ms(lambda: eigh3.eigvalsh_small_plain(Hg), 5)}
+    # the library: torch.linalg.eigvalsh, whose batched cuSOLVER path refuses
+    # large batches; the largest batch it takes, then all K in such batches
+    refused, lib_batch = [], None
+    for B in (K, 1 << 18, 1 << 16, 1 << 15, 1 << 14, 1 << 13, 1 << 12):
+        try:
+            torch.linalg.eigvalsh(Hg[:B])
+            torch.cuda.synchronize()
+            lib_batch = B
+            break
+        except RuntimeError as ex:
+            refused.append(f"{B}: {str(ex).splitlines()[0][:60]}")
+    if lib_batch is None:
+        fail(f"torch.linalg.eigvalsh refused every batch tried: {refused}")
+    lib_one = cuda_ms(lambda: torch.linalg.eigvalsh(Hg[:lib_batch]), 5)
+    elib = float((eigh3.eigvalsh_chunked(Hg, lib_batch) - p9).abs().max())
+    t9["library_ms"] = cuda_ms(lambda: eigh3.eigvalsh_chunked(Hg, lib_batch), 2)
+    b9 = bound(K * EIG3_FLOPS, nbytes(Hg, e9))
+    print(f"K9 eigvalsh_small: {K} flagship 3x3 matrices (100^3 grid): max|d| vs plain {err9:.3e}, vs numpy "
+          f"on 4096 {err9np:.3e} (<= 1e-12 x {scale9:.4f}); {t9['ms']:.4f} ms (plain {t9['plain_ms']:.4f}; "
+          f"bound {b9[0]:.4f} ms by {b9[1]}); torch.linalg.eigvalsh refused {refused or 'nothing'}, took "
+          f"{lib_batch} in {lib_one:.4f} ms, all {K} in batches of {lib_batch}: {t9['library_ms']:.4f} ms "
+          f"(max|d| {elib:.3e})", flush=True)
+
+    om = torch.as_tensor(ws, device=dev)
+    k8 = gs.lorentzian_sum(e9, None, om, eta, 1 / (math.pi * K))
+    k8b = gs.lorentzian_sum(e9, None, om, eta, 1 / (math.pi * K))
+    p8 = gs.lorentzian_sum_plain(e9, None, om, eta, 1 / (math.pi * K))
+    torch.cuda.synchronize()
+    err8 = float((k8 - p8).abs().max())
+    if not (err8 <= 1e-12 * float(p8.abs().max()) and torch.equal(k8, k8b)):
+        fail(f"K8 lorentzian_sum vs plain: max|d| {err8:.3e}, repeat identical {torch.equal(k8, k8b)}")
+    t8 = {"ms": cuda_ms(lambda: gs.lorentzian_sum(e9, None, om, eta), 10),
+          "plain_ms": cuda_ms(lambda: gs.lorentzian_sum_plain(e9, None, om, eta), 2)}
+    b8 = bound(e9.numel() * FULLGRID_OMEGAS * LORENTZ_FLOPS, nbytes(e9, om) + 8 * FULLGRID_OMEGAS)
+    print(f"K8 lorentzian_sum: ({K}, 3) eigenvalues x {FULLGRID_OMEGAS} omegas: max|d| vs plain {err8:.3e} "
+          f"(<= 1e-12 max|D|), repeat bit-identical; {t8['ms']:.4f} ms (plain {t8['plain_ms']:.4f}; bound "
+          f"{b8[0]:.4f} ms by {b8[1]})", flush=True)
+    del p9
+
+    # K7: one slab of the npt = 400 rung at the ladder's padded width
+    fg = LorentzianFullGrid(eta, nmin=FULLGRID_NMIN, nmax=FULLGRID_NMAX)
+    cache = dos_init(DOSProblem(h, ws, bz), fg, abstol=FULLGRID_ABSTOL)
+    eng = fg._engine(cache.cacheval, ws)
+    W = eng.omegas.size
+    prep = eng._prepare(FULLGRID_NMIN)
+    planes, wrow = eng.slab_planes(prep, prep["nslab"] // 2)
+
+    def tail(fn):
+        return fn(planes, 3, wrow, FULLGRID_NMIN, eng._om, eta, torch.zeros(W, dtype=torch.float64, device=dev))
+
+    k7, k7b, p7 = tail(gs.fullgrid_tail), tail(gs.fullgrid_tail), tail(gs.fullgrid_tail_plain)
+    torch.cuda.synchronize()
+    err7 = float((k7 - p7).abs().max())
+    rel7 = err7 / float(p7.abs().max())
+    if not (rel7 <= 1e-12 and torch.equal(k7, k7b)):
+        fail(f"K7 fullgrid_tail vs plain: max rel {rel7:.3e}, repeat identical {torch.equal(k7, k7b)}")
+    t7 = {"ms": cuda_ms(lambda: tail(gs.fullgrid_tail), 10), "plain_ms": cuda_ms(lambda: tail(gs.fullgrid_tail_plain), 1)}
+    npts7 = planes.shape[1]
+    b7 = bound(npts7 * (3 * W * LORENTZ_FLOPS + EIG3_FLOPS), nbytes(planes, wrow, eng._om) + 2 * 8 * W)
+    print(f"K7 fullgrid_tail: one npt={FULLGRID_NMIN} slab ({npts7} points, {eng.slab} rows) x {W} omegas: max rel vs plain "
+          f"{rel7:.3e} (<= 1e-12), repeat bit-identical; {t7['ms']:.4f} ms (plain {t7['plain_ms']:.4f}; bound "
+          f"{b7[0]:.4f} ms by {b7[1]})", flush=True)
+    del planes, prep, Hg, e9
+    torch.cuda.empty_cache()
+
+    # 12. the full-grid ladder main path -------------------------------------------
+    # the stage products' own time over the npt = 400 rung's slabs
+    prep = eng._prepare(FULLGRID_NMIN)
+    t_stages = cuda_ms(lambda: [eng.slab_planes(prep, i) for i in range(prep["nslab"])], 2)
+    # their bound: the complex products' operations (8 per multiply-add) and
+    # bytes (I3 and the phase tables read, every slab's planes written once)
+    S, n1, n2, ne, npt0 = eng.slab, eng.n1, eng.n2, eng.ne, FULLGRID_NMIN
+    nslab = prep["nslab"]
+    b_st = bound(nslab * 8 * (S * n1 * n2 * ne * npt0 + ne * npt0 * n2 * S * npt0),
+                 nbytes(prep["I3"], prep["P1"], prep["P2"]) + nslab * ne * npt0 * S * npt0 * 16)
+    # the whole rung: every point's eigenvalues and Lorentzian terms, and the
+    # stage products; it reads the coefficients and writes W values
+    b_rung = bound(npt0**3 * (3 * W * LORENTZ_FLOPS + EIG3_FLOPS) + b_st[0] * PEAK_FP64 / 1e3,
+                   nbytes(eng.c6) + 2 * 8 * W)
+    del prep
+    fg = LorentzianFullGrid(eta, nmin=FULLGRID_NMIN, nmax=FULLGRID_NMAX)
+    cache = dos_init(DOSProblem(h, ws, bz), fg, abstol=FULLGRID_ABSTOL)
+    gs.fullgrid_tail.launches = gs.lorentzian_sum.launches = eigh3.eigvalsh_small.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    D, ok = fg.dos_sweep(cache.cacheval, ws, abstol=FULLGRID_ABSTOL, with_status=True)
+    D = D * det_b
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches12 = gs.fullgrid_tail.launches
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log = list(cache.cacheval["rung_log"])
+    nev = sum(r["npt"] ** 3 for r in log)
+    i125 = int(np.argmin(np.abs(ws - 0.5)))
+    rung_txt = "; ".join(f"npt {r['npt']}: {r['seconds']:.3f} s, delta "
+                         + ("-" if r["delta"] is None else f"{r['delta']:.3e}") for r in log)
+    print(f"full-grid main path: flagship FBZ, eta {eta}, {FULLGRID_OMEGAS} omegas in {list(WINDOW)}, abstol "
+          f"{FULLGRID_ABSTOL}: wall {wall:.3f} s; rungs [{rung_txt}]; retcode {ok}; numevals {nev}; K7 "
+          f"launches {launches12}; stage products of the npt={FULLGRID_NMIN} rung {t_stages:.3f} ms (bound "
+          f"{b_st[0]:.3f} ms by {b_st[1]}); rung bound {b_rung[0]:.3f} ms by {b_rung[1]}; peak device memory "
+          f"{peak:.1f} MiB; hint {cache.cacheval.get('ladder_hint')}; DOS({ws[i125]:.4f}) = {D[i125]:.6f}",
+          flush=True)
+    if launches12 <= 0:
+        fail("the full-grid main path did not go through K7")
+    if not ok or D.shape != (FULLGRID_OMEGAS,) or not np.all(np.isfinite(D)):
+        fail(f"full-grid ladder: retcode {ok}, shape {D.shape}")
+    if "--profile" in sys.argv[1:]:
+        def ladder():
+            f2 = LorentzianFullGrid(eta, nmin=FULLGRID_NMIN, nmax=FULLGRID_NMAX)
+            c2 = dos_init(DOSProblem(h, ws, bz), f2, abstol=FULLGRID_ABSTOL)
+            f2.dos_sweep(c2.cacheval, ws, abstol=FULLGRID_ABSTOL)
+
+        profile("full-grid main path", ladder)
+
+    # the npt = 400 rung at phase 7's 33 omegas against PTR(npt=400): the same
+    # nodes arange(npt)/npt, reached through K1 + K2's adjugate trace
+    e33 = gs.FullGridSpectralSweep(h, cold["oms"], eta)
+    d33 = det_b * e33.rung(FULLGRID_NMIN) / FULLGRID_NMIN**3
+    dmax = float(np.max(np.abs(cold["d_ptr"])))
+    dptr = float(np.max(np.abs(d33 - cold["d_ptr"])))
+    print(f"full-grid npt={FULLGRID_NMIN} rung vs PTR(npt={FULLGRID_NMIN}) at {len(cold['oms'])} omegas: max|d| {dptr:.3e} (<= 1e-10 "
+          f"max|D| = {1e-10 * dmax:.3e})", flush=True)
+    if not dptr <= 1e-10 * dmax:
+        fail(f"the full-grid rung and PTR(npt={FULLGRID_NMIN}) differ by {dptr:.3e}")
+
+    # a second sweep at the midpoints replays the certifying pair
+    hint = cache.cacheval["ladder_hint"]
+    mids = (ws[:-1] + ws[1:]) / 2
+    t0 = time.perf_counter()
+    sol = fg.dos_solve(h, mids, bz, cache.cacheval, abstol=FULLGRID_ABSTOL)
+    t_mid = time.perf_counter() - t0
+    want = hint[0] ** 3 + hint[1] ** 3
+    print(f"full-grid sweep at the {mids.size} midpoints: numevals {sol.numevals} (the pair {hint[:2]}: "
+          f"{want}), retcode {sol.retcode}, {t_mid:.3f} s", flush=True)
+    if not (sol.retcode and sol.numevals == want and np.all(np.isfinite(sol.u))):
+        fail(f"the midpoint sweep did not replay the certifying pair: numevals {sol.numevals} vs {want}")
+
+    # an npt = 64 rung through the plain tail against the kernel's
+    wpad = eng.omegas
+    t64 = []
+    for plain in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t64.append(gs.FullGridSpectralSweep(h, wpad, eta, plain_kernels=plain).rung(FULLGRID_PLAIN_NPT))
+        t64.append(time.perf_counter() - t0)
+    r_k, tk64, r_p, tp64 = t64
+    rel64 = float(np.max(np.abs(r_k - r_p)) / np.max(np.abs(r_p)))
+    print(f"full-grid npt={FULLGRID_PLAIN_NPT} rung, kernel vs plain tail at {wpad.size} omegas: max rel {rel64:.3e} "
+          f"(<= 1e-12); kernel tail {tk64 * 1e3:.2f} ms, plain tail {tp64 * 1e3:.2f} ms", flush=True)
+    if not rel64 <= 1e-12:
+        fail(f"the npt={FULLGRID_PLAIN_NPT} rung's kernel and plain tails differ by {rel64:.3e}")
+    torch.cuda.empty_cache()
+
+    # 13. the bench lane: H(k) + eigenvalues, then the 1000-omega sweep -------------
+    gs.fullgrid_tail.launches = gs.lorentzian_sum.launches = eigh3.eigvalsh_small.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e = eigh3.eigvalsh_small(evaluate_grid(h.c, 3, u100, h.offset, h.period).reshape(-1, 3, 3))
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    reps = 20
+    t0 = time.perf_counter()
+    chk = torch.zeros((), dtype=torch.float64, device=dev)
+    for _ in range(reps):
+        chk = chk + eigh3.eigvalsh_small(evaluate_grid(h.c, 3, u100, h.offset, h.period).reshape(-1, 3, 3)).sum()
+    float(chk)
+    t_amort = (time.perf_counter() - t0) / reps
+    omb = torch.linspace(10.0, 15.0, 1000, dtype=torch.float64, device=dev)
+    d = gs.lorentzian_sum(e, None, omb, 0.01, 1 / (math.pi * e.shape[0]))
+    float(d.sum())
+    t0 = time.perf_counter()
+    d = gs.lorentzian_sum(e, None, omb, 0.01, 1 / (math.pi * e.shape[0]))
+    float(d.sum())
+    t_sweep = (time.perf_counter() - t0) * 1e3
+    launches13 = {"eigvalsh_small": eigh3.eigvalsh_small.launches, "lorentzian_sum": gs.lorentzian_sum.launches}
+    print(f"bench lane: flagship H(k) + K9 eigenvalues on the {NPT}^3 grid: one pass {t_one * 1e3:.3f} ms, "
+          f"{NPT**3 / t_amort:.4g} k-points/s over {reps} chained passes; 1000-omega sweep [10, 15] eV, eta "
+          f"0.01, by K8: {t_sweep:.3f} ms (max D {float(d.max()):.4e}, finite {bool(torch.isfinite(d).all())}); "
+          f"launches {launches13}", flush=True)
+    if min(launches13.values()) <= 0 or not bool(torch.isfinite(d).all()):
+        fail(f"the bench lane did not go through K8 and K9: {launches13}")
+
+    return [
+        {"name": "fullgrid_tail", "route": "cuda", "source": src + "fullgrid_tail.cu",
+         "replaces": "autobzcore_tpu/ops/grid_sweep.py:259", "launches": launches12, "max_abs_err": err7,
+         "ms": t7["ms"], "plain_ms": t7["plain_ms"], "bound_ms": b7[0], "bound_by": b7[1],
+         "library_ms": None},
+        {"name": "lorentzian_sum", "route": "cuda", "source": src + "lorentzian_sum.cu",
+         "replaces": "autobzcore_tpu/ops/grid_sweep.py:289", "launches": launches13["lorentzian_sum"],
+         "max_abs_err": err8, "ms": t8["ms"], "plain_ms": t8["plain_ms"], "bound_ms": b8[0],
+         "bound_by": b8[1], "library_ms": None},
+        {"name": "eigvalsh_small", "route": "cuda", "source": src + "eigh_small.cu",
+         "replaces": "autobzcore_tpu/ops/eigh3.py:161", "launches": launches13["eigvalsh_small"],
+         "max_abs_err": err9, "ms": t9["ms"], "plain_ms": t9["plain_ms"], "bound_ms": b9[0],
+         "bound_by": b9[1], "library_ms": t9["library_ms"]},
     ]
 
 

@@ -1,4 +1,4 @@
-"""Wannier DOS, PTR and IAI legs, on the PyTorch port (``autobzcore_torch``).
+"""Wannier DOS, PTR, IAI and full-grid legs, on the PyTorch port (``autobzcore_torch``).
 
 The legs of ``examples/aps_example.py``: the Lorentzian-broadened DOS
 ``-Im Tr (w + i eta - H(k))^-1 / pi`` interpolated over w by ``hchebinterp``
@@ -17,6 +17,11 @@ The legs of ``examples/aps_example.py``: the Lorentzian-broadened DOS
   runs kernels K3 (series contraction), K4 (fused leaf DOS rule), K5
   (interval pool, with the warm seed's chunk write) and K6 (coarsening of
   the carried pool).
+- Full-grid leg (``--with-fullgrid``): the converged broadened DOS at 1000
+  frequencies over the window by ``LorentzianFullGrid(eta, nmin=400,
+  nmax=2000)``, the ladder of full npt^3 grids certified to ``--abstol`` in
+  the sup norm of the curve, times |det B|. On a CUDA device every slab's
+  eigenvalues and Lorentzian sum run in kernel K7.
 
 Two models:
 - ``--hr svo_hr.dat --wout svo.wout``: a Wannier90 model on the CubicSymIBZ,
@@ -29,6 +34,7 @@ The computation runs on the CUDA card unless ``--device cpu`` is given.
 Usage:
     python examples/aps_example_torch.py --flagship --npt 100
     python examples/aps_example_torch.py --flagship --with-iai --eta 0.05
+    python examples/aps_example_torch.py --flagship --skip-ptr --with-fullgrid --eta 0.05
     python examples/aps_example_torch.py --hr svo_hr.dat --wout svo.wout
 """
 import argparse
@@ -73,6 +79,11 @@ def main(argv=None):
     p.add_argument("--iai-inner-nbisect", type=int, default=4, help="inner-level bisection width")
     p.add_argument("--iai-order", type=int, default=None,
                    help="Gauss-Kronrod order of every IAI level (default 7, 15 points)")
+    p.add_argument("--with-fullgrid", action="store_true",
+                   help="also run the full-grid Lorentzian ladder (LorentzianFullGrid)")
+    p.add_argument("--fullgrid-nmin", type=int, default=400, help="first rung of the full-grid ladder")
+    p.add_argument("--fullgrid-nmax", type=int, default=2000, help="last rung of the full-grid ladder")
+    p.add_argument("--fullgrid-omegas", type=int, default=1000, help="frequencies of the full-grid curve")
     p.add_argument("--out", default=None, help="write omega and the DOS to this .npz")
     args = p.parse_args(argv)
     if args.iai_block != 1:
@@ -145,12 +156,32 @@ def main(argv=None):
             print("IAI chunk seeds: " + " ".join(f"[{a:.4g},{b:.4g}]d={d:.2g}"
                                                  for a, b, d in isweep.chunk_meta), file=sys.stderr)
         out.update(dos_iai=dos_iai(ws), t_iai=t_iai)
+    if args.with_fullgrid:
+        from autobzcore_torch import DOSProblem
+        from autobzcore_torch.dos import LorentzianFullGrid
+        from autobzcore_torch.dos import init as dos_init
+
+        t0 = time.perf_counter()
+        wfg = np.linspace(*window, args.fullgrid_omegas)
+        fg = LorentzianFullGrid(args.eta, nmin=args.fullgrid_nmin, nmax=args.fullgrid_nmax, device=device)
+        cache = dos_init(DOSProblem(h, wfg, bz), fg, abstol=args.abstol)
+        det_b = abs(float(np.linalg.det(bz.B)))
+        dos_fg, ok = fg.dos_sweep(cache.cacheval, wfg, abstol=args.abstol, with_status=True)
+        dos_fg = dos_fg * det_b
+        t_fg = time.perf_counter() - t0
+        rungs = ", ".join(str(r["npt"]) for r in cache.cacheval["rung_log"])
+        print(f"fullgrid ladder ({wfg.size} omegas, abstol={args.abstol:g}): {t_fg:.2f} s, rungs "
+              f"[{rungs}], retcode {ok}", file=sys.stderr)
+        out.update(omega_fullgrid=wfg, dos_fullgrid=dos_fg, t_fullgrid=t_fg)
     if args.out:
         np.savez(args.out, **out)
     if dos is not None:
         print(f"PTR DOS({mid:g} eV) = {float(dos(mid)):.6f}")
     if args.with_iai:
         print(f"IAI DOS({mid:g} eV) = {float(dos_iai(mid)):.6f}")
+    if args.with_fullgrid:
+        i = int(np.argmin(np.abs(wfg - mid)))
+        print(f"fullgrid DOS({wfg[i]:.4f} eV) = {float(dos_fg[i]):.6f}")
     return dos
 
 if __name__ == "__main__":

@@ -510,3 +510,151 @@ def test_warm_iai_on_card_matches_cpu(cuda_device, kind):
         assert rel_err(g, w) <= 1e-10
     assert pg[3] == pc[3] and pg[4][3] == pc[4][3]
     assert np.max(np.abs(pg[0] - pc[0])) <= 1e-15 and np.max(np.abs(pg[4][0] - pc[4][0])) <= 1e-15
+
+
+# --- the full-grid ladder's kernels: K7 fullgrid_tail, K8 lorentzian_sum, K9 eigvalsh_small ---
+from autobzcore_torch import dos as tdos  # noqa: E402
+from autobzcore_torch.ops import eigh3 as teigh  # noqa: E402
+from autobzcore_torch.ops import grid_sweep as tgs  # noqa: E402
+from torch_parity import dense_dos, hermitian_series_arrays  # noqa: E402
+
+
+def _slab_planes(rng, m, S, inner, K2, device):
+    """Entry planes (ne, K2 * S * inner) of random Hermitian matrices, and
+    the matrices themselves on the host."""
+    N = K2 * S * inner
+    H = random_hermitian(rng, N, m)
+    planes = torch.as_tensor(np.stack([H[:, i, j] for i, j in tgs._entries(m)]), device=device)
+    return planes.contiguous(), H
+
+
+def test_fullgrid_wrappers_take_plain_versions_on_cpu_without_counting():
+    rng = np.random.default_rng(0)
+    planes, H = _slab_planes(rng, 3, 2, 5, 3, "cpu")
+    wrow = torch.tensor([1.0, 0.0], dtype=torch.float64)
+    om = torch.linspace(-2, 2, 7, dtype=torch.float64)
+    counts = (tgs.fullgrid_tail.launches, tgs.lorentzian_sum.launches, teigh.eigvalsh_small.launches)
+    acc = tgs.fullgrid_tail(planes, 3, wrow, 5, om, 0.1, torch.zeros(7, dtype=torch.float64))
+    assert torch.equal(acc, tgs.fullgrid_tail_plain(planes, 3, wrow, 5, om, 0.1,
+                                                    torch.zeros(7, dtype=torch.float64)))
+    e = teigh.eigvalsh_small(torch.as_tensor(H))
+    assert torch.equal(e, teigh.eigvalsh_small_plain(torch.as_tensor(H)))
+    assert torch.equal(tgs.lorentzian_sum(e, None, om, 0.1), tgs.lorentzian_sum_plain(e, None, om, 0.1))
+    assert counts == (tgs.fullgrid_tail.launches, tgs.lorentzian_sum.launches, teigh.eigvalsh_small.launches)
+    acc = torch.zeros(7, dtype=torch.float64)
+    with pytest.raises(ValueError):  # planes of another band count
+        tgs.fullgrid_tail(planes[:5].contiguous(), 3, wrow, 5, om, 0.1, acc)
+    with pytest.raises(ValueError):
+        tgs.fullgrid_tail(planes, 3, wrow, 5, om, 0.1, acc[:6])
+    with pytest.raises(ValueError):
+        tgs.fullgrid_tail(planes.to(torch.complex64), 3, wrow, 5, om, 0.1, acc)
+    with pytest.raises(ValueError):
+        tgs.lorentzian_sum(e, torch.ones(3, dtype=torch.float64), om, 0.1)
+    with pytest.raises(ValueError):
+        tgs.lorentzian_sum(e.to(torch.float32), None, om, 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_fullgrid_tail_kernel_matches_plain_on_card(cuda_device, m):
+    """K7 against its plain version with pad rows (weight 0), a ragged last
+    tile and a ragged lane group, then bit-identical on repeat."""
+    rng = np.random.default_rng(40 + m)
+    planes, H = _slab_planes(rng, m, 3, 97, 41, cuda_device)
+    wrow = torch.tensor([1.0, 0.5, 0.0], dtype=torch.float64, device=cuda_device)
+    om = torch.linspace(-4, 4, 1100, dtype=torch.float64, device=cuda_device)
+    before = tgs.fullgrid_tail.launches
+    acc = tgs.fullgrid_tail(planes, m, wrow, 97, om, 0.05, torch.ones(1100, dtype=torch.float64,
+                                                                        device=cuda_device), scale=0.5)
+    assert tgs.fullgrid_tail.launches == before + 1
+    want = tgs.fullgrid_tail_plain(planes, m, wrow, 97, om, 0.05,
+                                   torch.ones(1100, dtype=torch.float64, device=cuda_device), scale=0.5)
+    assert float((acc - want).abs().max() / want.abs().max()) <= 1e-12
+    again = tgs.fullgrid_tail(planes, m, wrow, 97, om, 0.05, torch.ones(1100, dtype=torch.float64,
+                                                                          device=cuda_device), scale=0.5)
+    assert torch.equal(acc, again)
+    with pytest.raises(ValueError):
+        tgs.fullgrid_tail(planes, m, wrow, 0, om, 0.05, acc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb, weighted", [(3, False), (5, True), (1, True)])
+def test_lorentzian_sum_kernel_matches_plain_on_card(cuda_device, nb, weighted):
+    rng = np.random.default_rng(nb)
+    K = 20_001
+    e = torch.as_tensor(rng.normal(size=(K, nb)) * 2, device=cuda_device)
+    w = torch.as_tensor(rng.random(K), device=cuda_device) if weighted else None
+    om = torch.linspace(-5, 5, 1000, dtype=torch.float64, device=cuda_device)
+    before = tgs.lorentzian_sum.launches
+    got = tgs.lorentzian_sum(e, w, om, 0.01, scale=1 / K)
+    assert tgs.lorentzian_sum.launches == before + 1
+    want = tgs.lorentzian_sum_plain(e, w, om, 0.01, scale=1 / K)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+    assert torch.equal(got, tgs.lorentzian_sum(e, w, om, 0.01, scale=1 / K))
+    empty = tgs.lorentzian_sum(e[:0], None if w is None else w[:0], om, 0.01)
+    assert torch.equal(empty, torch.zeros_like(om))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_eigvalsh_small_kernel_matches_plain_and_numpy_on_card(cuda_device, m):
+    rng = np.random.default_rng(50 + m)
+    H = random_hermitian(rng, 70_000, m)
+    H[:4] = np.eye(m) * np.array([0.0, 1.5, -2.0, 1e-3])[:, None, None]  # scalar matrices
+    Ht = torch.as_tensor(H, device=cuda_device)
+    before = teigh.eigvalsh_small.launches
+    got = teigh.eigvalsh_small(Ht)
+    assert teigh.eigvalsh_small.launches == before + 1
+    want = teigh.eigvalsh_small_plain(Ht)
+    assert float((got - want).abs().max()) <= 1e-12
+    assert np.max(np.abs(got.cpu().numpy() - np.linalg.eigvalsh(H))) <= 1e-12
+    assert teigh.eigvalsh_small(Ht[:0]).shape == (0, m)
+    assert teigh.eigvalsh_small(Ht[:6].reshape(2, 3, m, m)).shape == (2, 3, m)
+
+
+@pytest.mark.gpu
+def test_m5_tail_chunks_eigvalsh_on_card(cuda_device):
+    """m = 5: torch.linalg.eigvalsh in chunks the card's solver takes (the
+    slab has 36,864 points, several chunks), then K8; against the CPU engine
+    and the dense FP64 reference."""
+    from autobzcore_torch.interop import series_from_arrays
+
+    C, off = hermitian_series_arrays(seed=13, n=3, m=5)
+    omegas = np.linspace(-5, 5, 16)
+    assert 64 * 9 * 64 > teigh.eigvalsh_chunk(5)
+    before = tgs.lorentzian_sum.launches
+    out = {}
+    for dev in ("cpu", cuda_device):
+        s = series_from_arrays(C, off, 1.0, 3, device=dev)
+        out[str(dev)] = tgs.FullGridSpectralSweep(s, omegas, 0.15, slab=9, device=dev).rung(64)
+    assert tgs.lorentzian_sum.launches == before + 8  # one per slab on the card
+    assert rel_err(out[str(cuda_device)], out["cpu"]) <= 1e-12
+    assert rel_err(out[str(cuda_device)], dense_dos(C, off, 64, omegas, 0.15)) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_fullgrid_ladder_on_card_matches_cpu(cuda_device, m):
+    C, off = hermitian_series_arrays(seed=60 + m, n=5 if m == 3 else 3, m=m)
+    from autobzcore_torch.interop import series_from_arrays
+
+    Es = np.linspace(-4, 4, 45)
+    out = []
+    for dev in ("cpu", cuda_device):
+        alg = tdos.LorentzianFullGrid(0.5, nmin=8, nmax=64, slab=5, device=dev)
+        s = series_from_arrays(C, off, 1.0, 3, device=dev)
+        cache = tdos.init(T.DOSProblem(s, Es, T.load_bz(T.FBZ(), np.eye(3))), alg, abstol=1e-4)
+        D, ok = alg.dos_sweep(cache.cacheval, Es, abstol=1e-4, with_status=True)
+        out.append((D, ok, [r["npt"] for r in cache.cacheval["rung_log"]]))
+    (Dc, okc, rc), (Dg, okg, rg) = out
+    assert okc and okg and rc == rg
+    assert rel_err(Dg, Dc) <= 1e-12
+    assert rel_err(Dg, dense_dos(C, off, rg[-1], Es, 0.5) / rg[-1] ** 3) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_fullgrid_entry_points_default_to_the_card(cuda_device):
+    assert tdos.LorentzianFullGrid(0.1).device.type == "cuda"
+    s = ttb.flagship_series()
+    eng = tgs.FullGridSpectralSweep(s, np.linspace(0, 1, 4), 0.1)
+    assert eng.device.type == "cuda" and eng.c6.device.type == "cuda"

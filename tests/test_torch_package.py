@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
@@ -70,6 +71,18 @@ def test_example_runs_cold_iai_leg_on_cpu(tmp_path):
         assert ("IAI chunk seeds: " in out.stderr) == (tier == "warm")
     blocked = _run(args + ["--iai-block", "3"], cwd=tmp_path)
     assert blocked.returncode != 0 and "omega blocks" in blocked.stderr
+
+
+def test_example_runs_fullgrid_leg_on_cpu(tmp_path):
+    out = _run([str(REPO / "examples" / "aps_example_torch.py"), "--flagship", "--device", "cpu",
+                "--skip-ptr", "--with-fullgrid", "--eta", "0.5", "--abstol", "1e-3", "--fullgrid-nmin", "8",
+                "--fullgrid-nmax", "32", "--fullgrid-omegas", "40", "--out", str(tmp_path / "dos.npz")],
+               cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "fullgrid ladder (40 omegas, abstol=0.001)" in out.stderr and "retcode True" in out.stderr
+    assert out.stdout.startswith("fullgrid DOS(")
+    saved = np.load(tmp_path / "dos.npz")
+    assert saved["dos_fullgrid"].shape == (40,) and np.all(np.isfinite(saved["dos_fullgrid"]))
 
 
 def _assert_refused(out):

@@ -56,6 +56,36 @@ def dyadic_pools(rng, L, cap, segs, device):
     return a, b, e, torch.as_tensor([r[3] for r in rows], dtype=torch.int64, device=device)
 
 
+def hermitian_series_arrays(seed=0, n=5, m=3, n2=None):
+    """Coefficients (n, n2, n, m, m) and offsets of a random Hermitian 3-D
+    series with radially decaying hoppings (the construction of the
+    reference's ``tests/test_grid_sweep.py:11``), for both packages."""
+    rng = np.random.default_rng(seed)
+    n2 = n if n2 is None else n2
+    C = rng.normal(size=(n, n2, n, m, m)) + 1j * rng.normal(size=(n, n2, n, m, m))
+    r = np.linalg.norm(np.mgrid[: n, : n2, : n].astype(float)
+                       - np.array([n // 2, n2 // 2, n // 2])[:, None, None, None],
+                       axis=0)
+    C *= np.exp(-r)[..., None, None]
+    C = (C + np.flip(C, axis=(0, 1, 2)).conj().swapaxes(-1, -2)) / 2
+    return C, (-(n // 2), -(n2 // 2), -(n // 2))
+
+
+def dense_dos(C, offset, npt, omegas, eta):
+    """``sum_k sum_b eta / ((omega - e_b(k))^2 + eta^2) / pi`` over the full
+    npt^3 grid of nodes arange(npt)/npt, by dense numpy evaluation and
+    ``numpy.linalg.eigvalsh`` (the reference's ``tests/test_grid_sweep.py:24``
+    ``_dense_dos``)."""
+    freqs = [offset[j] + np.arange(C.shape[j]) for j in range(3)]
+    u = np.arange(npt) / npt
+    ph = [np.exp(2j * np.pi * np.outer(u, f)) for f in freqs]
+    hk = np.einsum("ka,lb,mc,abcij->klmij", ph[0], ph[1], ph[2], C, optimize=True)
+    m = C.shape[-1]
+    e = np.linalg.eigvalsh(hk.reshape(-1, m, m))
+    t = np.asarray(omegas)[:, None, None] - e[None]
+    return np.sum(eta / (t * t + eta * eta), axis=(1, 2)) / np.pi
+
+
 def rel_err(got, want):
     got, want = np.asarray(got), np.asarray(want)
     return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
