@@ -1,20 +1,24 @@
 """autobzcore_torch: the PyTorch/CUDA port of autobzcore_tpu.
 
 Same module layout and public names as the JAX package, for the parts ported
-so far: the PTR leg, the IAI leg (cold and warm) and the full-grid ladder
-of the flagship DOS workload (Fourier series on a symmetry-reduced PTR grid,
-under nested adaptive Gauss-Kronrod or on full npt^3 grids, the broadened
-DOS trace, ``SweepSolver`` under ``hchebinterp``, ``DOSProblem``). Everything computes in float64/complex128, on the card
-unless the caller names the CPU. Hand-written CUDA kernels carry the device
-work: Fourier evaluation at points (K1, ``ops.fourier_eval.fourier_points``),
-the fused DOS-trace k-sum (K2, ``models.observables.dos_trace_weighted_sum``),
-the lane-batched series contraction (K3, ``ops.fourier_eval.fourier_contract``),
-the fused leaf DOS rule (K4, ``models.observables.gk_leaf_dos``), the
-interval-pool step (K5, ``ops.adaptive``), pool coarsening (K6), and for the
+so far: the four legs of the flagship DOS workload, PTR, IAI (cold, warm and
+in omega blocks), the full-grid ladder and the linear tetrahedron method
+(Fourier series on a symmetry-reduced PTR grid, under nested adaptive
+Gauss-Kronrod or on full npt^3 grids, the broadened DOS trace,
+``SweepSolver`` under ``hchebinterp``, ``DOSProblem``). Everything computes
+in float64/complex128, on the card unless the caller names the CPU.
+Hand-written CUDA kernels carry the device work: Fourier evaluation at
+points (K1, ``ops.fourier_eval.fourier_points``), the fused DOS-trace k-sum
+(K2, ``models.observables.dos_trace_weighted_sum``), the lane-batched series
+contraction (K3, ``ops.fourier_eval.fourier_contract``), the fused leaf DOS
+rule (K4, ``models.observables.gk_leaf_dos``, also over omega blocks),
+the interval-pool step (K5, ``ops.adaptive``), pool coarsening (K6), for the
 full-grid DOS ladder (``dos.LorentzianFullGrid``) the fused eigenvalue and
 Lorentzian tail (K7, ``ops.grid_sweep.fullgrid_tail``), the Lorentzian sum
 (K8, ``ops.grid_sweep.lorentzian_sum``) and closed-form small eigenvalues
-(K9, ``ops.eigh3.eigvalsh_small``). This package never imports JAX.
+(K9, ``ops.eigh3.eigvalsh_small``), and the tetrahedron DOS and N(E) (K10,
+``dos.tetrahedron.tetra_dos``, under ``dos.LTM``). This package never
+imports JAX.
 """
 from .algorithms.gk import AuxQuadGKJL, QuadGKJL
 from .algorithms.nested import NestedQuad

@@ -12,7 +12,9 @@ their values and counts with the rule (K5). Inner solves of finished lanes
 are skipped (the reference computes and discards them). The innermost level
 of a ``dos_trace`` integrand runs the fused leaf kernel K4; any other
 integrand evaluates its 1-D series with K3, calls the user function and
-reduces with K5.
+reduces with K5. A lane may carry an omega block (``SweepSolver(block=W)``):
+its parameter is a (W,) vector, its values (W,) channels at every level and
+its error the 2-norm over them; the fused leaf then runs K4 over the block.
 
 Per-level tolerances follow the reference: an inner solve at node ``x`` gets
 ``atol / len(inner segments)``, per lane, so wedge limits give every lane its

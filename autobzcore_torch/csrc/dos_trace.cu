@@ -27,10 +27,16 @@
 //  * blocks of one k-chunk are adjacent in launch order (frequency tiles on
 //    blockIdx.x), so H is fetched from device memory about once and re-read
 //    from L2 by the other frequency tiles;
+//  * the grid's y extent is capped (at 65535, the hardware's limit, unless
+//    the caller lowers it), and a block row loops over k-chunks blockIdx.y,
+//    blockIdx.y + gridDim.y, ..., so any number of k-points takes one
+//    launch;
 //  * blocks run in no order, so the cross-block sum is a second pass: each
-//    block writes one partial per lane, and dos_reduce_kernel adds the
-//    partials of each lane in chunk order. No atomics, so repeated runs are
-//    bit-identical.
+//    k-chunk writes one partial per lane (one row per 4096 k-points, 0.4 %
+//    of H's bytes at 264 lanes), and dos_reduce_kernel adds the partials of
+//    each lane in chunk order. Each chunk's partial is computed the same way
+//    whatever the grid, so the result does not depend on the cap, and with
+//    no atomics repeated runs are bit-identical.
 
 #include <cuda_runtime.h>
 
@@ -64,34 +70,37 @@ dos_partials_kernel(const double2* __restrict__ H, const double* __restrict__ w,
   const bool live = wi < W;
   const double2 z = live ? make_double2(omega[wi], eta[wi]) : make_double2(0.0, 1.0);
 
-  const int64_t kbeg = static_cast<int64_t>(blockIdx.y) * kChunkK;
-  const int64_t kend = K < kbeg + kChunkK ? K : kbeg + kChunkK;
-  double acc = 0.0;
-  for (int64_t t0 = kbeg; t0 < kend; t0 += kTileK) {
-    const int nk = static_cast<int>(kend - t0 < kTileK ? kend - t0 : kTileK);
+  const int64_t nchunks = (K + kChunkK - 1) / kChunkK;
+  for (int64_t c = blockIdx.y; c < nchunks; c += gridDim.y) {
+    const int64_t kbeg = c * kChunkK;
+    const int64_t kend = K < kbeg + kChunkK ? K : kbeg + kChunkK;
+    double acc = 0.0;
+    for (int64_t t0 = kbeg; t0 < kend; t0 += kTileK) {
+      const int nk = static_cast<int>(kend - t0 < kTileK ? kend - t0 : kTileK);
+      __syncthreads();  // the previous tile (and chunk's reduction) is consumed
+      for (int i = threadIdx.x; i < nk * MM; i += kThreads) hs[i] = H[t0 * MM + i];
+      for (int i = threadIdx.x; i < nk; i += kThreads) ws[i] = w[t0 + i];
+      __syncthreads();
+      for (int j = kw; j < nk; j += kKWarps) acc += ws[j] * trace_inv_imag<M>(hs + j * MM, z);
+    }
+    red[kw][lane] = acc;
     __syncthreads();
-    for (int i = threadIdx.x; i < nk * MM; i += kThreads) hs[i] = H[t0 * MM + i];
-    for (int i = threadIdx.x; i < nk; i += kThreads) ws[i] = w[t0 + i];
-    __syncthreads();
-    for (int j = kw; j < nk; j += kKWarps) acc += ws[j] * trace_inv_imag<M>(hs + j * MM, z);
-  }
-  red[kw][lane] = acc;
-  __syncthreads();
-  if (kw == 0 && live) {
-    double s = red[0][lane];
+    if (kw == 0 && live) {
+      double s = red[0][lane];
 #pragma unroll
-    for (int q = 1; q < kKWarps; ++q) s += red[q][lane];
-    partials[static_cast<int64_t>(blockIdx.y) * W + wi] = s;
+      for (int q = 1; q < kKWarps; ++q) s += red[q][lane];
+      partials[c * W + wi] = s;
+    }
   }
 }
 
 // out[w] = factor * sum_c partials[c, w], summed in chunk order.
 __global__ void dos_reduce_kernel(const double* __restrict__ partials, double* __restrict__ out,
-                                  int nchunks, int W, double factor) {
+                                  int64_t nchunks, int W, double factor) {
   const int wi = blockIdx.x * blockDim.x + threadIdx.x;
   if (wi >= W) return;
   double s = 0.0;
-  for (int c = 0; c < nchunks; ++c) s += partials[static_cast<int64_t>(c) * W + wi];
+  for (int64_t c = 0; c < nchunks; ++c) s += partials[c * W + wi];
   out[wi] = factor * s;
 }
 
@@ -102,18 +111,22 @@ extern "C" long long dos_trace_num_chunks(long long K) { return (K + kChunkK - 1
 
 // H: (K, m, m) complex128 as double2; w: (K,); omega, eta: (W,); partials:
 // (num_chunks(K), W); out: (W,), all float64. out = -scale/pi * sum_k w_k Im Tr(...).
-// Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue for
-// m outside 1..3 or a chunk count beyond the grid limit.
+// max_grid_y caps the grid's y extent (<= 0 or above 65535: 65535); a lower
+// cap makes every block row loop over more k-chunks and gives the same bits.
+// Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
+// for m outside 1..3.
 extern "C" int dos_trace_weighted_sum_launch(const void* H, const void* w, const void* omega,
                                              const void* eta, void* partials, void* out,
                                              long long K, int W, int m, double factor,
-                                             void* stream) {
+                                             int max_grid_y, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long nchunks = dos_trace_num_chunks(K);
   if (W <= 0) return static_cast<int>(cudaGetLastError());
-  if (nchunks > 65535 || m < 1 || m > 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1 || m > 3) return static_cast<int>(cudaErrorInvalidValue);
+  const int cap = max_grid_y <= 0 || max_grid_y > 65535 ? 65535 : max_grid_y;
   if (nchunks > 0) {
-    const dim3 grid((W + kLanes - 1) / kLanes, static_cast<unsigned>(nchunks));
+    const dim3 grid((W + kLanes - 1) / kLanes,
+                    static_cast<unsigned>(nchunks < cap ? nchunks : cap));
     const auto* Hp = static_cast<const double2*>(H);
     const auto* wp = static_cast<const double*>(w);
     const auto* op = static_cast<const double*>(omega);
@@ -130,7 +143,6 @@ extern "C" int dos_trace_weighted_sum_launch(const void* H, const void* w, const
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   dos_reduce_kernel<<<(W + 127) / 128, 128, 0, st>>>(static_cast<const double*>(partials),
-                                                     static_cast<double*>(out),
-                                                     static_cast<int>(nchunks), W, factor);
+                                                     static_cast<double*>(out), nchunks, W, factor);
   return static_cast<int>(cudaGetLastError());
 }

@@ -50,11 +50,11 @@ def _bind(lib):
     lib.dos_trace_num_chunks.argtypes = [ll]
     lib.dos_trace_num_chunks.restype = ll
     lib.dos_trace_weighted_sum_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i,
-                                                  dbl, vp]
+                                                  dbl, i, vp]
     lib.dos_trace_weighted_sum_launch.restype = i
     lib.fourier_contract_launch.argtypes = [vp] * 4 + [ll, i, ll, i, i, ll, i, dbl, vp]
     lib.fourier_contract_launch.restype = i
-    lib.gk_leaf_dos_launch.argtypes = [vp] * 14 + [ll, ll, i, i, i, i, i, dbl, vp]
+    lib.gk_leaf_dos_launch.argtypes = [vp] * 14 + [ll, ll, i, i, i, i, i, i, dbl, vp]
     lib.gk_leaf_dos_launch.restype = i
     lib.gk_pool_select_launch.argtypes = [vp] * 11 + [ll, i, i, dbl, vp]
     lib.gk_pool_select_launch.restype = i
@@ -74,6 +74,10 @@ def _bind(lib):
     lib.lorentzian_sum_launch.restype = i
     lib.fullgrid_tail_launch.argtypes = [vp, vp, ll, ll, i, i, vp, i, dbl, dbl, vp, vp, vp]
     lib.fullgrid_tail_launch.restype = i
+    lib.tetra_num_blocks.argtypes = [ll, i]
+    lib.tetra_num_blocks.restype = ll
+    lib.tetra_dos_launch.argtypes = [vp, ll, i, i, vp, i, dbl, dbl, i, vp, vp, vp]
+    lib.tetra_dos_launch.restype = i
     return lib
 
 

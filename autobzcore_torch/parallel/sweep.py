@@ -25,12 +25,25 @@ Two forms, by algorithm:
   time (its inner levels still run as lanes), pads included, as the
   reference's scan solves them.
 
-Either way ``numevals`` sums the real lanes and ``retcode`` is their AND, so
-a sweep's totals equal the reference's exactly. ``group`` only shapes the
-reference's lockstep batches, so it is checked as there and changes nothing.
+- **Omega blocks (``block=W``, with ``scan=True``).** W adjacent parameters
+  solve as ONE adaptive nest: the lane's parameter is a (W,) vector, the
+  integrand broadcasts over it (``dos_trace`` does), the error is the
+  2-norm over the W channels and one refinement trajectory serves the
+  block. The last real block of a sweep is padded with the last real value,
+  as the reference pads; pure-pad blocks are not solved cold and are solved
+  (and not counted) in a warm chain, as the reference's scan does. A block's
+  certificate and count are indivisible: its lanes inherit the retcode,
+  ``lane_numevals`` holds the even split, and ``block_certificates`` the
+  exact per-block (converged, numevals) in solve order (sorted order when
+  warm).
 
-Not ported yet: ``block`` sweeps (ROADMAP A5, omega blocks), ``mesh``
-sharding (ROADMAP A10) and the AutoPTR ladder (ROADMAP A4).
+Either way ``numevals`` sums the real lanes (real blocks) and ``retcode`` is
+their AND, so a sweep's totals equal the reference's exactly. ``group`` only
+shapes the reference's lockstep batches, so it is checked as there and
+changes nothing.
+
+Not ported yet: ``mesh`` sharding (ROADMAP A10) and the AutoPTR ladder
+(ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -70,8 +83,6 @@ def _check_sweep_knobs(mesh=None, scan=False, chunk=1, warm=False, block=1, grou
             raise ValueError("block > 1 requires scan=True, group=1, and no mesh")
         if chunk % blk:
             raise ValueError(f"chunk {chunk} must divide into blocks of {blk}")
-        raise NotImplementedError("omega-block sweeps (block > 1) are not ported yet "
-                                  "(ROADMAP A5, omega blocks)")
     if warm and (not scan or g != 1):
         raise ValueError("warm=True requires scan=True and group=1 "
                          "(the pool carry is a sequential chain per device)")
@@ -90,18 +101,40 @@ def _find(cacheval, key):
 
 
 def _lane_values(ps):
-    """The (n,) float64 lane vector of sweep parameters ``ps``: an array or
-    tensor, or a MixedParameters holding one."""
+    """The lane values of sweep parameters ``ps`` (an array or tensor, or a
+    MixedParameters holding one) as float64: (n,) one number per lane, or
+    (n, W) an omega block of W per lane."""
     if isinstance(ps, MixedParameters):
         if len(ps.args) != 1 or ps.kwargs:
             raise NotImplementedError("independent-lane sweeps take one swept value per lane "
                                       "(ROADMAP A5)")
         ps = ps.args[0]
     x = ps if isinstance(ps, torch.Tensor) else torch.as_tensor(np.asarray(ps, dtype=np.float64))
-    if x.ndim != 1:
-        raise NotImplementedError("independent-lane sweeps take one swept number per lane "
-                                  "(ROADMAP A5)")
+    if x.ndim not in (1, 2):
+        raise NotImplementedError("independent-lane sweeps take one swept number, or one block "
+                                  "of them, per lane (ROADMAP A5)")
     return x.to(torch.float64)
+
+
+def _not_broadcasting(blk, shape):
+    """The reference's error for an integrand that does not broadcast over
+    an omega block (``parallel/sweep.py:593-602``)."""
+    return ValueError(
+        f"block={blk} requires the integrand to broadcast over the omega-block vector: each block "
+        f"solve must return one output channel per block member (shape ({blk}, ...)), but the solve "
+        f"output has per-solve shape {tuple(shape)}. Reducing integrands (e.g. "
+        "models.observables.dos_eig, which sums over all axes) cannot run blocked.")
+
+
+def _deblock(u, nblocks, blk):
+    """Block solves' outputs (nblocks, blk, ...) as per-lane rows (nblocks *
+    blk, ...)."""
+    def leaf(v):
+        if v.ndim < 2 or v.shape[1] != blk:
+            raise _not_broadcasting(blk, v.shape[1:])
+        return v.reshape((nblocks * blk,) + tuple(v.shape[2:]))
+
+    return tree_map(leaf, u)
 
 
 def sweep_solve(prob: IntegralProblem, alg, ps, abstol=None, reltol=None, mesh=None):
@@ -152,6 +185,11 @@ class SweepSolver:
     ``numevals``. Each chunk appends its real solves' evaluations to
     ``self.chunk_evals`` and ``(x_first, x_last, seed distance)`` to
     ``self.chunk_meta``.
+
+    ``block=W`` (with ``scan=True``, ``W`` dividing ``chunk``) solves W
+    adjacent parameters per nest (see the module docstring); after each call
+    ``self.block_certificates`` holds the real blocks' (converged (B,) bool,
+    numevals (B,) int64) in solve order.
     """
 
     def __init__(self, prob, alg, abstol=None, reltol=None, chunk=256, mesh=None,
@@ -164,6 +202,8 @@ class SweepSolver:
         self.chunk_meta = []
         self.retcode = None  # set by __call__
         self.lane_numevals = None
+        self.block_certificates = None
+        self.block = int(block)
         self.chunk = int(chunk)
         self.scan = bool(scan)
         self._atol, self._rtol = effective_tolerances(abstol, reltol)
@@ -207,28 +247,66 @@ class SweepSolver:
         # pad with the last real value, not 0.0, as the reference does
         xp = np.full(npad, xs[n - 1])
         xp[:n] = xs
-        outs, convs = [], []
+        blk = self.block
+        outs, convs, bconv, bne = [], [], [], []
         for i in range(0, npad, c):
             x = torch.as_tensor(xp[i:i + c], device=self.device)
             u, _, conv, ne = self._fn(self._consts, self._wrap(x), self._atol, self._rtol)
+            if blk > 1:
+                # one fixed-rule solve serves the chunk; each real block counts the rule once
+                for v in tree_leaves(u):
+                    if v.ndim < 1 or v.shape[0] != c:
+                        raise _not_broadcasting(blk, v.shape)
+                nreal = int(np.sum(i + np.arange(c // blk) * blk < n))
+                bconv += [bool(conv)] * nreal
+                bne += [int(ne)] * nreal
+                self.numevals += int(ne) * nreal
+            else:
+                self.numevals += int(ne) * min(c, n - i)
             outs.append(u)
             convs.append(bool(conv))
-            self.numevals += int(ne) * min(c, n - i)
         self.retcode = all(convs)
+        if blk > 1:
+            self.block_certificates = (np.array(bconv, dtype=bool), np.array(bne, dtype=np.int64))
         return tree_map(lambda *vs: torch.cat(vs)[:n].cpu().numpy(), *outs)
 
     def _solve_lanes(self, xs, n, c):
-        outs, convs, counts = [], [], []
+        blk = self.block
+        outs, bconv, bne = [], [], []
         for i in range(0, n, c):
-            x = torch.as_tensor(xs[i:i + c], device=self.device)
+            real = xs[i:i + c]
+            if blk == 1:
+                x = torch.as_tensor(real, device=self.device)
+            else:
+                # the chunk's blocks that hold a real parameter, the last one
+                # padded with the last real value (pure-pad blocks are not solved)
+                nb = -(-real.shape[0] // blk)
+                xb = np.full(nb * blk, xs[n - 1])
+                xb[:real.shape[0]] = real
+                x = torch.as_tensor(xb.reshape(nb, blk), device=self.device)
             u, _, conv, ne = self._fn(LaneParams(self._p, x, self._merge), self._atol, self._rtol)
+            if blk > 1:
+                u = tree_map(lambda v: v[:real.shape[0]], _deblock(u, x.shape[0], blk))
             outs.append(u)
-            convs.append(bool(torch.all(conv)))
-            counts.append(ne.cpu().numpy().astype(np.int64))
-        self.lane_numevals = np.concatenate(counts)
-        self.numevals += int(self.lane_numevals.sum())
-        self.retcode = all(convs)
+            bconv.append(conv.cpu().numpy().astype(bool))
+            bne.append(ne.cpu().numpy())
+        conv_b, ne_b = np.concatenate(bconv), np.concatenate(bne)
+        self._record(conv_b, ne_b, np.ones(conv_b.shape[0], dtype=bool), np.arange(n))
         return tree_map(lambda *vs: torch.cat(vs).cpu().numpy(), *outs)
+
+    def _record(self, conv_b, ne_b, real_b, real_lanes):
+        """Certificates of one call from the per-solve (per-block) arrays in
+        solve order, the mask of solves that hold a real parameter and the
+        solve-order lane positions of the caller's parameters: the retcode,
+        ``numevals``, the per-lane counts (a block's count split evenly over
+        its lanes) and, for blocks, ``block_certificates``."""
+        blk = self.block
+        self.retcode = bool(np.all(conv_b[real_b]))
+        self.numevals += int(np.sum(ne_b[real_b]))
+        lane_ne = np.repeat(ne_b / blk, blk) if blk > 1 else ne_b.astype(np.int64)
+        self.lane_numevals = lane_ne[real_lanes]
+        if blk > 1:
+            self.block_certificates = (conv_b[real_b], ne_b[real_b].astype(np.int64))
 
     # --- the warm chain ------------------------------------------------------------
     def _select_seed(self, x0):
@@ -259,6 +337,7 @@ class SweepSolver:
         self._pool_lib[j] = (x, pool)
 
     def _solve_warm(self, xs, n, c):
+        blk = self.block
         npad = -(-n // c) * c
         xp = np.full(npad, xs[n - 1])
         xp[:n] = xs
@@ -268,11 +347,14 @@ class SweepSolver:
         outs, convs, counts, hnes = [], [], [], []
         for i in range(0, npad, c):
             pool, seed_d = self._select_seed(float(xs_s[i]))
-            for j in range(i, i + c):
-                x = torch.tensor([xs_s[j]], dtype=torch.float64, device=self.device)
+            for j in range(i, i + c, blk):
+                # one parameter, or a block of blk adjacent sorted ones, per solve
+                xv = xs_s[j] if blk == 1 else xs_s[j:j + blk]
+                x = torch.tensor(np.reshape(xv, (1,) if blk == 1 else (1, blk)), dtype=torch.float64,
+                                 device=self.device)
                 u, _, conv, ne, pool = self._warm(LaneParams(self._p, x, self._merge), self._atol,
                                                   self._rtol, pool)
-                outs.append(u)
+                outs.append(u if blk == 1 else _deblock(u, 1, blk))
                 convs.append(conv)
                 counts.append(ne)
             if self._harvest is not None:
@@ -284,15 +366,16 @@ class SweepSolver:
             self._lib_insert(xl, pool)
             self._pool, self._pool_x = pool, xl
             self.chunk_meta.append((float(xs_s[i]), xl, seed_d))
-        ne_s = torch.cat(counts).cpu().numpy()
-        self.chunk_evals.extend(float(np.sum(ne_s[i:i + c][is_real_s[i:i + c]]))
-                                for i in range(0, npad, c))
+        ne_b = torch.cat(counts).cpu().numpy()
+        conv_b = torch.cat(convs).cpu().numpy().astype(bool)
+        # a solve is real when it holds a real parameter (pure-pad blocks are not)
+        real_b = is_real_s.reshape(-1, blk).any(axis=1)
+        nb = c // blk
+        self.chunk_evals.extend(float(np.sum(ne_b[k:k + nb][real_b[k:k + nb]]))
+                                for k in range(0, npad // blk, nb))
         self.numevals += int(float(np.sum([float(h.sum()) for h in hnes])) if hnes else 0)
         inv = np.empty_like(perm)
         inv[perm] = np.arange(npad)
         real = inv[:n]  # sorted positions of the caller's parameters
-        conv_s = torch.cat(convs).cpu().numpy()
-        self.lane_numevals = ne_s[real].astype(np.int64)
-        self.numevals += int(np.sum(ne_s[real]))
-        self.retcode = bool(np.all(conv_s[real]))
+        self._record(conv_b, ne_b, real_b, real)
         return tree_map(lambda *vs: torch.cat(vs).cpu().numpy()[real], *outs)

@@ -62,12 +62,39 @@ non-zero):
    rung through the plain tail against the kernel (1e-12);
 13. bench lane: H(k) of the flagship on the 100^3 grid (``evaluate_grid``)
    and its eigenvalues by K9, k-points/s over 20 chained repetitions, then
-   the 1000-omega Lorentzian sweep over [10, 15] eV at eta 0.01 by K8.
+   the 1000-omega Lorentzian sweep over [10, 15] eV at eta 0.01 by K8;
+14. kernel K10 (the tetrahedron DOS and N(E)) against its plain version: the
+   flagship's eigenvalue grid at npt=100, 1001 energies over [-6, 7] eV
+   (the plain N(E) on a 64-energy subset), and d = 1, 2 at small shapes;
+   max relative error <= 1e-12, bit-identical on repeat; kernel, plain and
+   bound times;
+15. LTM main path: the flagship LTM(npt=100) on the full zone through
+   DOSProblem/init/dos_sweep at 1001 energies, nos_sweep, fermi_level(1.5);
+   init and sweep walls, K10 launches, peak memory; checks: the band count
+   of the DOS's integral (2e-2), N(7 eV) = 3 (1e-12), N monotone, dN/dE
+   against D away from the band edges (5e-2), tb_integer(3) on CubicSymIBZ
+   against the full zone (npt 60, E 0.8, 1e-12), 5 energies against the
+   plain path (1e-12);
+16. K4 over an omega block (W = 2, 4) and K5 at V = W against their plain
+   versions at the IAI main path's lane shapes: 1e-12 of l1, identical
+   pools; kernel and plain times;
+17. omega-block IAI main path: phase 7's 33 frequencies, cold, under
+   SweepSolver(abstol=1e-3, chunk=36, scan=True, block=W) at W = 2 and 4,
+   three walls each beside phase 7's; evals per omega, trips, syncs, K4
+   block launches, peak memory; checks: retcodes, values within 2 abstol
+   of phase 7's, all 33 within 1e-2 max|D| of PTR(npt=400), and a
+   2-frequency warm block chain on the plain versions against the kernels
+   (identical counts and block certificates, values within abstol);
+18. the repairs: the PTR leg of synthetic_wannier(4) at npt=60 over 264
+   omegas through eigvalsh + K8 against the plain path (1e-10 relative),
+   the route timed by events (cuSOLVER's share, K8's, the plain trace
+   path's) beside its bound, and K2 with its grid capped at 7 block rows against the uncapped launch
+   at 1e6 k-points, bit for bit.
 
-With ``--profile``, the PTR, IAI, warm IAI and full-grid main paths each run
-once more under ``torch.profiler`` (after their checks), which prints their
-device busy time, its share of the wall and the device time of the leading
-kernels.
+With ``--profile``, the PTR, IAI, warm IAI, full-grid, LTM and block IAI
+main paths each run once more under ``torch.profiler`` (after their checks),
+which prints their device busy time, its share of the wall and the device
+time of the leading kernels.
 
 The second-to-last line is a JSON object with each kernel's numbers, the
 last line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -106,6 +133,15 @@ FULLGRID_OMEGAS = 1000
 FULLGRID_ABSTOL = 1e-3
 FULLGRID_NMIN, FULLGRID_NMAX = 400, 2000  # the ladder; phase 7's PTR runs at FULLGRID_NMIN
 FULLGRID_PLAIN_NPT = 64  # the rung held against the plain tail
+LTM_ENERGIES = 1001
+# FP64 operations of K10's work (csrc/tetra_dos.cu): the support test, two
+# compares once for each (simplex, band) term (outside its support a term
+# is a constant), and ~30 for each (energy, term) pair inside the support
+# (the piece's compares, a dozen multiply-adds and a division counted as 8)
+TETRA_TEST_FLOPS, TETRA_SUPPORT_FLOPS = 2, 30
+BLOCKS = (2, 4)  # omega-block widths of phases 16-17
+BLOCK_CHUNK = 36  # phase 17's SweepSolver chunk: 33 frequencies and their pads
+BLOCK_WALL_RUNS = 3
 
 
 def fail(msg):
@@ -391,6 +427,9 @@ def main():
     kernels += k_iai
     kernels += warm_phases(np, torch, dev, h, cold)
     kernels += fullgrid_phases(np, torch, dev, h, cold)
+    kernels += ltm_phases(np, torch, dev, h)
+    kernels += block_phases(np, torch, dev, h, cold)
+    kernels += repair_phases(np, torch, dev)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1128,6 +1167,419 @@ def fullgrid_phases(np, torch, dev, h, cold):
          "max_abs_err": err9, "ms": t9["ms"], "plain_ms": t9["plain_ms"], "bound_ms": b9[0],
          "bound_by": b9[1], "library_ms": t9["library_ms"]},
     ]
+
+
+def once_ms(fn):
+    """Milliseconds of one run of ``fn()`` by CUDA events, no warm-up (for
+    plain versions that take seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def band_grid(np, rng, m, npt, d):
+    """A band-major grid (m, npt^d) of smooth periodic bands: a cosine band
+    (with exact ties) and m - 1 random ones."""
+    x = np.meshgrid(*[np.arange(npt) / npt] * d, indexing="ij")
+    bands = [sum(np.cos(2 * np.pi * xi) for xi in x)]
+    for _ in range(m - 1):
+        ph = rng.random(d)
+        bands.append(sum(rng.normal() * np.cos(2 * np.pi * (xi + q)) for xi, q in zip(x, ph)) + rng.normal())
+    return np.stack([b.reshape(-1) for b in bands])
+
+
+def ltm_phases(np, torch, dev, h):
+    """Phases 14-15: K10 against its plain version, then the LTM main path.
+    Returns K10's JSON entry."""
+    from autobzcore_torch import FBZ, CubicSymIBZ, DOSProblem, load_bz
+    from autobzcore_torch.dos import LTM
+    from autobzcore_torch.dos import init as dos_init
+    from autobzcore_torch.dos import solve_ as dos_solve_
+    from autobzcore_torch.dos import tetrahedron as tet
+    from autobzcore_torch.models.tight_binding import tb_integer
+    from autobzcore_torch.ops import eigh3
+    from autobzcore_torch.ops.fourier_eval import evaluate_grid
+
+    src = "autobzcore_torch/csrc/"
+    bz = load_bz(FBZ(), np.eye(3))
+    ws = np.linspace(*WINDOW, LTM_ENERGIES)
+    E = torch.as_tensor(ws, device=dev)
+
+    # 14. K10 against its plain version ------------------------------------------
+    cv = LTM(npt=NPT).init_cacheval(h, 0.0, bz)
+    eg, tol, vol = cv["eg"], cv["tol"], cv["vol"]
+    got = {nos: [tet.tetra_dos(eg, 3, E, tol, vol, nos) for _ in range(2)] for nos in (False, True)}
+    sub = np.round(np.linspace(0, LTM_ENERGIES - 1, 64)).astype(np.int64)
+    p_dos = tet.tetra_dos_plain(eg, 3, E, tol, vol)
+    p_nos = tet.tetra_dos_plain(eg, 3, E[sub], tol, vol, nos=True)
+    torch.cuda.synchronize()
+    err10 = float((got[False][0] - p_dos).abs().max())
+    rel = {"dos": err10 / float(p_dos.abs().max()),
+           "nos": float((got[True][0][sub] - p_nos).abs().max() / p_nos.abs().max())}
+    same = all(torch.equal(a, b) for a, b in got.values())
+    if not (max(rel.values()) <= 1e-12 and same):
+        fail(f"K10 tetra_dos vs plain at the flagship: max rel {rel}, repeat identical {same}")
+    small = []
+    rng = np.random.default_rng(14)
+    for d, npt, m in ((1, 4096, 3), (2, 256, 2)):
+        g = torch.as_tensor(band_grid(np, rng, m, npt, d), device=dev).contiguous()
+        lo, hi = float(g.min()), float(g.max())
+        Es = torch.linspace(lo - 0.5, hi + 0.5, LTM_ENERGIES, dtype=torch.float64, device=dev)
+        t_, v_ = 1e-9 * (hi - lo), 1.0 / (len(tet._SIMPLICES[d]) * npt**d)
+        for nos in (False, True):
+            k = tet.tetra_dos(g, d, Es, t_, v_, nos)
+            pl = tet.tetra_dos_plain(g, d, Es, t_, v_, nos)
+            r = float((k - pl).abs().max() / pl.abs().max())
+            if not (r <= 1e-12 and torch.equal(k, tet.tetra_dos(g, d, Es, t_, v_, nos))):
+                fail(f"K10 at d={d}, npt={npt}, m={m}, nos={nos}: max rel {r:.3e} or repeat differs")
+            small.append(r)
+    t10 = {"ms": cuda_ms(lambda: tet.tetra_dos(eg, 3, E, tol, vol), 5),
+           "nos_ms": cuda_ms(lambda: tet.tetra_dos(eg, 3, E, tol, vol, True), 5),
+           "plain_ms": once_ms(lambda: tet.tetra_dos_plain(eg, 3, E, tol, vol))}
+    # the bound counts one support test per term and the closed form of the
+    # (energy, term) pairs this energy grid puts inside the support; the
+    # second reading repeats the test for every energy, as the kernel's
+    # per-thread range test does at worst
+    ec = tet.sorted_corners(eg, 3)
+    n_terms = ec[0].numel()
+    n_support = int((torch.searchsorted(E, ec[3].reshape(-1)) - torch.searchsorted(E, ec[0].reshape(-1))).sum())
+    del ec
+    b10 = bound(n_terms * TETRA_TEST_FLOPS + n_support * TETRA_SUPPORT_FLOPS, nbytes(eg, E) + 8 * LTM_ENERGIES)
+    b10_each = bound(LTM_ENERGIES * n_terms * TETRA_TEST_FLOPS + n_support * TETRA_SUPPORT_FLOPS,
+                     nbytes(eg, E) + 8 * LTM_ENERGIES)
+    print(f"K10 tetra_dos: flagship eigenvalue grid (3, {NPT}^3), {n_terms} (simplex, band) terms x "
+          f"{LTM_ENERGIES} energies ({n_support} inside their support): max rel vs plain DOS {rel['dos']:.3e}, "
+          f"N(E) on 64 energies {rel['nos']:.3e} (<= 1e-12), d=1,2 small grids {max(small):.3e}; repeat "
+          f"bit-identical; DOS {t10['ms']:.4f} ms, N(E) {t10['nos_ms']:.4f} ms (plain DOS {t10['plain_ms']:.1f} ms; "
+          f"bound {b10[0]:.4f} ms by {b10[1]}: {TETRA_TEST_FLOPS} operations per term and {TETRA_SUPPORT_FLOPS} per "
+          f"pair in the support; {b10_each[0]:.4f} ms with the test repeated for every energy)", flush=True)
+    del got, p_dos, p_nos, cv
+    torch.cuda.empty_cache()
+
+    # 15. the LTM main path ----------------------------------------------------------
+    def ltm_path():
+        ltm = LTM(npt=NPT)
+        cache = dos_init(DOSProblem(h, 0.5, bz), ltm)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        D = ltm.dos_sweep(cache.cacheval, ws)
+        t2 = time.perf_counter()
+        N = ltm.nos_sweep(cache.cacheval, ws)
+        t3 = time.perf_counter()
+        ef = ltm.fermi_level(cache.cacheval, 1.5)
+        return ltm, cache, D, N, ef, (t1, t2, t3, time.perf_counter())
+
+    tet.tetra_dos.launches = eigh3.eigvalsh_small.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ltm, cache, D, N, ef, (t1, t2, t3, t4) = ltm_path()
+    launches = {"tetra_dos": tet.tetra_dos.launches, "eigvalsh_small": eigh3.eigvalsh_small.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    u = [np.arange(NPT) / NPT] * 3
+    t_grid = cuda_ms(lambda: evaluate_grid(h.c, 3, u, h.offset, h.period), 3)
+    hk = evaluate_grid(h.c, 3, u, h.offset, h.period).reshape(-1, 3, 3)
+    t_eig = cuda_ms(lambda: eigh3.eigvalsh_small(hk), 5)
+    del hk
+    integral = float(np.trapezoid(D, ws))
+    eg = cache.cacheval["eg"]
+    edges = np.concatenate([eg.min(1).values.cpu().numpy(), eg.max(1).values.cpu().numpy()])
+    away = np.min(np.abs(ws[:, None] - edges[None]), axis=1) > 0.3
+    dnd = float(np.max(np.abs(np.gradient(N, ws) - D)[away]))
+    mono = float(np.min(np.diff(N)))
+    print(f"LTM main path: flagship LTM(npt={NPT}), FBZ, {LTM_ENERGIES} energies in {list(WINDOW)}: init "
+          f"{t1 - t0:.3f} s (grid products {t_grid:.3f} ms, K9 eigenvalues {t_eig:.3f} ms by event time; no "
+          f"scatter on the full zone), dos_sweep {t2 - t1:.4f} s, nos_sweep {t3 - t2:.4f} s, fermi_level(1.5) "
+          f"= {ef:.10f} in {t4 - t3:.4f} s; launches {launches}; peak device memory {peak:.1f} MiB; bands "
+          f"{np.round(edges, 4).tolist()}", flush=True)
+    if min(launches.values()) <= 0:
+        fail(f"the LTM main path did not go through every kernel: {launches}")
+    h1 = tb_integer(3, device=dev)
+    vals = []
+    for kind in (CubicSymIBZ(), FBZ()):
+        vals.append(float(dos_solve_(dos_init(DOSProblem(h1, 0.8, load_bz(kind, np.eye(3))), LTM(npt=60))).u))
+    rel_ibz = abs(vals[0] - vals[1]) / abs(vals[1])
+    ws5 = np.array([-4.0, -1.0, 0.5, 2.0, 5.5])
+    d5 = ltm.dos_sweep(cache.cacheval, ws5)
+    p5 = tet.tetra_dos_plain(eg, 3, torch.as_tensor(ws5, device=dev), cache.cacheval["tol"],
+                             cache.cacheval["vol"]).cpu().numpy()
+    rel5 = float(np.max(np.abs(d5 - p5) / np.abs(p5)))
+    print(f"LTM main path check: integral of D {integral:.10f} (3 within 2e-2); N(7 eV) {N[-1]:.15f} (3 within "
+          f"1e-12); min step of N {mono:.3e} (monotone); max|dN/dE - D| {dnd:.3e} at {int(away.sum())} energies "
+          f"0.3 eV from the band edges (<= 5e-2); tb_integer(3) npt=60 E=0.8: CubicSymIBZ {vals[0]:.15f} vs FBZ "
+          f"{vals[1]:.15f} (rel {rel_ibz:.3e} <= 1e-12); 5 energies vs plain path: max rel {rel5:.3e} (<= 1e-12)",
+          flush=True)
+    if not (abs(integral - 3) <= 2e-2 and abs(N[-1] - 3) <= 1e-12 and mono >= -1e-12 and dnd <= 5e-2):
+        fail(f"LTM checks: integral {integral}, N(7) {N[-1]}, monotone {mono}, dN/dE {dnd}")
+    if not (rel_ibz <= 1e-12 and rel5 <= 1e-12 and np.all(np.isfinite(D)) and D.shape == ws.shape):
+        fail(f"LTM checks: IBZ rel {rel_ibz:.3e}, 5 energies rel {rel5:.3e}")
+    if "--profile" in sys.argv[1:]:
+        profile("LTM main path", ltm_path)
+    del cache, eg
+    torch.cuda.empty_cache()
+    return [{"name": "tetra_dos", "route": "cuda", "source": src + "tetra_dos.cu",
+             "replaces": "autobzcore_tpu/dos/tetrahedron.py:68", "launches": launches["tetra_dos"],
+             "max_abs_err": err10, "ms": t10["ms"], "plain_ms": t10["plain_ms"], "bound_ms": b10[0],
+             "bound_by": b10[1], "library_ms": None}]
+
+
+def block_phases(np, torch, dev, h, cold):
+    """Phases 16-17: K4's block entry and K5 at V = W against their plain
+    versions, then the omega-block IAI main path. Returns the block entry's
+    JSON entry."""
+    import copy
+
+    from autobzcore_torch import IAI, IntegralProblem
+    from autobzcore_torch.models.observables import dos_integrand, gk_leaf_dos, gk_leaf_dos_plain
+    from autobzcore_torch.ops import adaptive as tad
+    from autobzcore_torch.ops.fourier_eval import fourier_contract, fourier_contract_plain
+    from autobzcore_torch.parallel.sweep import SweepSolver
+
+    src = "autobzcore_torch/csrc/"
+    rng = np.random.default_rng(16)
+    xk, wk, wg = tad.gk_rule(7, dev)
+    P = xk.shape[0]
+    c0 = h.c.reshape((1, 5, 5, 5, 9)).contiguous()
+    step = (WINDOW[1] - WINDOW[0]) / (IAI_OMEGAS - 1)
+
+    # 16. K4's block entry and K5 at V = W ---------------------------------------------
+    def leaf_inputs(L, W):
+        """Flagship 1-D coefficients at random (x3, x2), 2 intervals per lane,
+        W adjacent frequencies of phase 7's spacing per lane."""
+        x3 = torch.as_tensor(rng.random((1, L)), device=dev)
+        c2 = fourier_contract_plain(c0, torch.zeros(1, dtype=torch.int64, device=dev), x3,
+                                    h.offset[2], 1.0).reshape(L, 5, 5, 9)
+        x2 = torch.as_tensor(rng.random((L, 1)), device=dev)
+        c1 = fourier_contract_plain(c2, torch.arange(L, device=dev), x2, h.offset[1], 1.0)
+        a0 = torch.as_tensor(rng.random((L, 2)) * 0.5, device=dev)
+        b0 = (a0 + torch.as_tensor(rng.random((L, 2)) * 0.5, device=dev)).contiguous()
+        om = torch.as_tensor(rng.uniform(WINDOW[0], WINDOW[1] - W * step, (L, 1)) + step * np.arange(W),
+                             device=dev).contiguous()
+        return (c1.reshape(L, 5, 9).contiguous(), torch.arange(L, device=dev), h.offset[0], 1.0,
+                a0.contiguous(), b0, om, torch.full_like(om, ETA), torch.ones(L, dtype=torch.bool, device=dev),
+                xk, wk, wg)
+
+    t16, e16 = {}, 0.0
+    for W in BLOCKS:
+        L = -(-IAI_OMEGAS // W) * (2 * P) ** 2  # leaf lanes of a full trip of the blocked chunk
+        a = leaf_inputs(L, W)
+        got, want = gk_leaf_dos(*a), gk_leaf_dos_plain(*a)
+        l1 = want[2]
+        e = max(float(((got[0] - want[0]).abs() / l1[..., None]).max()),
+                float(((got[1] - want[1]).abs() / l1).max()))
+        if not (e <= 1e-12 and torch.equal(got[3], want[3])
+                and torch.allclose(got[2], l1, rtol=1e-12, atol=0)):
+            fail(f"K4 block entry vs plain at W={W}: max |d val|, |d err| / l1 = {e:.3e} > 1e-12")
+        e16 = max(e16, float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+        t16[W] = {"L": L, "rel": e, "ms": cuda_ms(lambda: gk_leaf_dos(*a), 50),
+                  "plain_ms": cuda_ms(lambda: gk_leaf_dos_plain(*a), 5),
+                  "bound": bound(L * 2 * P * (5 * (8 * 9 + 6) + W * (TRACE_FLOPS[3] + 9)),
+                                 nbytes(*a[:2], *a[4:9]) + L * 2 * (W + 2) * 8 + L * 8)}
+        del a, got, want
+
+    def pool_v(L, nb, W):
+        n = torch.as_tensor(rng.integers(1, 64 - nb + 3, L), device=dev)
+        live = torch.arange(64, device=dev)[None, :] < n[:, None]
+        zero = torch.zeros((), dtype=torch.float64, device=dev)
+        a0 = torch.where(live, torch.as_tensor(rng.random((L, 64)), device=dev), zero)
+        b0 = torch.where(live, a0 + torch.as_tensor(rng.random((L, 64)), device=dev), zero)
+        err = torch.where(live, torch.as_tensor(rng.integers(0, 6, (L, 64)) * 0.125, device=dev), zero)
+        val = torch.where(live[..., None], torch.as_tensor(rng.normal(size=(L, 64, W)), device=dev), zero)
+        pool = tad.GKPool(a=a0, b=b0, err=err, l1=2 * err, val=val.contiguous(), n=n,
+                          evals=torch.as_tensor(rng.integers(0, 2000, L).astype(np.float64), device=dev),
+                          atol=torch.as_tensor(rng.random(L) * 4, device=dev), rtol=1e-3, max_evals=1500.0,
+                          active=torch.as_tensor(rng.random(L) > 0.05, device=dev))
+        tad.gk_pool_totals_plain(pool)
+        return pool
+
+    def clone(pool):
+        return tad.GKPool(**{k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in pool.__dict__.items()})
+
+    t5 = {}
+    for W in BLOCKS:
+        L = t16[W]["L"]
+        pool = pool_v(L, 4, W)
+        ref = clone(pool)
+        idx, ca, cb = tad.gk_pool_select(pool, 4)
+        ridx, rca, rcb = tad.gk_pool_select_plain(ref, 4)
+        base = clone(pool)  # after the select, which narrows `active`
+        live = ref.active
+        cval = torch.as_tensor(rng.normal(size=(L, 8, W)), device=dev)
+        cerr = torch.as_tensor(rng.random((L, 8)), device=dev)
+        count = torch.full((L,), 120.0, dtype=torch.float64, device=dev)
+        tad.gk_pool_update(pool, 4, idx, ca, cb, cval, cerr, cerr, count)
+        tad.gk_pool_update_plain(ref, 4, ridx, rca, rcb, cval, cerr, cerr, count)
+        same = (torch.equal(idx[live], ridx[live]) and torch.equal(ca, rca)
+                and all(torch.equal(getattr(pool, k), getattr(ref, k)) for k in ("a", "b", "err", "l1", "val", "n", "evals")))
+        # the totals sum the pool in another order: hold them to the rounding
+        # of that sum, relative to the sum of the magnitudes
+        rel_t = float(((pool.tot_val - ref.tot_val).abs() / ref.val.abs().sum(1).clamp_min(1e-300)).max())
+        fx = torch.as_tensor(rng.normal(size=(-(-IAI_OMEGAS // W) * 2 * P, 2, P, W)), device=dev)
+        cnt = torch.as_tensor(rng.integers(100, 5000, fx.shape[:3]).astype(np.float64), device=dev)
+        half = torch.as_tensor(rng.random(fx.shape[:2]), device=dev)
+        gr, wr = tad.gk_rule_reduce(fx, cnt, half, wk, wg), tad.gk_rule_reduce_plain(fx, cnt, half, wk, wg)
+        er = max(float((g - w).abs().max()) for g, w in zip(gr[:3], wr[:3])) / float(wr[2].max())
+        if not (same and rel_t <= 1e-14 and er <= 1e-12 and torch.equal(gr[3], wr[3])):
+            fail(f"K5 at V={W}: pools identical {same}, totals rel {rel_t:.3e}, rule reduce rel {er:.3e}")
+        upd = (4, idx, ca, cb, cval, cerr, cerr, count)
+        clone_ms = cuda_ms(lambda: clone(base), 20)
+        t5[W] = {"update_ms": cuda_ms(lambda: tad.gk_pool_update(clone(base), *upd), 20) - clone_ms,
+                 "update_plain_ms": cuda_ms(lambda: tad.gk_pool_update_plain(clone(base), *upd), 5) - clone_ms,
+                 "rel": max(rel_t, er)}
+        del pool, ref, base, fx, cnt
+    print("K4 block entry vs plain: " + "; ".join(
+        f"W={W}: {t16[W]['L']} lanes x 2 intervals, max |d|/l1 {t16[W]['rel']:.3e} (<= 1e-12), "
+        f"{t16[W]['ms']:.4f} ms (plain {t16[W]['plain_ms']:.4f}; bound {t16[W]['bound'][0]:.4f} ms by "
+        f"{t16[W]['bound'][1]})" for W in BLOCKS) + ". K5 at V=W: identical pools; " + "; ".join(
+        f"V={W}: update {t5[W]['update_ms']:.4f} ms (plain {t5[W]['update_plain_ms']:.4f}), totals and rule "
+        f"reduce rel {t5[W]['rel']:.3e}" for W in BLOCKS), flush=True)
+    torch.cuda.empty_cache()
+
+    # 17. the omega-block IAI main path --------------------------------------------
+    bz, oms = cold["bz"], cold["oms"]
+    prob = IntegralProblem(dos_integrand(h, ETA), bz)
+    dmax = float(np.max(np.abs(cold["d_ptr"])))
+
+    def reset():
+        fourier_contract.launches = gk_leaf_dos.launches = 0
+        tad.gk_rule_reduce.launches = 0
+        for key in tad.gk_pool_launches:
+            tad.gk_pool_launches[key] = 0
+
+    def blocked(W, plain=False, warm=False, chunk=BLOCK_CHUNK):
+        return SweepSolver(prob, IAI(inner_cap=64, inner_nbisect=4, plain_kernels=plain,
+                                     warm_width=8 if warm else None, device=dev),
+                           abstol=IAI_ABSTOL, chunk=chunk, scan=True, block=W, warm=warm)
+
+    total_block_launches, res = 0, {}
+    for W in BLOCKS:
+        walls = []
+        for r in range(BLOCK_WALL_RUNS):
+            reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sw = blocked(W)
+            d = sw(oms)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if r == 0:
+                launches = {"fourier_contract": fourier_contract.launches,
+                            "gk_leaf_dos_block": gk_leaf_dos.launches,
+                            "gk_pool_select": tad.gk_pool_launches["select"],
+                            "gk_pool_update": tad.gk_pool_launches["update"] + tad.gk_pool_launches["totals"],
+                            "gk_rule_reduce": tad.gk_rule_reduce.launches}
+                peak = torch.cuda.max_memory_allocated() / 2**20
+                first = (d, sw.numevals, sw.retcode, copy.deepcopy(sw.stats), sw.block_certificates)
+        d, ne, ok, st, bc = first
+        total_block_launches += launches["gk_leaf_dos_block"]
+        dcold = float(np.max(np.abs(d - cold["d"])))
+        dptr = float(np.max(np.abs(d - cold["d_ptr"])))
+        res[W] = {"walls": walls, "numevals": ne}
+        print(f"block IAI main path, block={W}: {IAI_OMEGAS} omegas (chunk {BLOCK_CHUNK}, {len(bc[0])} real blocks), "
+              f"walls {', '.join(f'{w:.3f}' for w in walls)} s (phase 7, block 1: {cold['wall']:.3f} s); numevals "
+              f"{ne} ({ne / IAI_OMEGAS:.4g} per omega; phase 7 {cold['numevals'] / IAI_OMEGAS:.4g}); retcode {ok}; "
+              f"trips (level 3 outer, 2 mid, 1 leaf) {dict(sorted(st.trips.items(), reverse=True))}; host syncs "
+              f"{st.syncs}; launches {launches}; peak device memory {peak:.1f} MiB; vs phase 7 max|d| {dcold:.3e} "
+              f"(<= 2 abstol); vs PTR(npt=400) max|d| {dptr:.4e} (<= {1e-2 * dmax:.4e})", flush=True)
+        if min(launches.values()) <= 0:
+            fail(f"the block IAI main path did not go through every kernel: {launches}")
+        if not (ok and d.shape == (IAI_OMEGAS,) and dcold <= 2 * IAI_ABSTOL and dptr <= 1e-2 * dmax):
+            fail(f"block={W} IAI: retcode {ok}, vs phase 7 {dcold:.3e}, vs PTR {dptr:.3e}")
+    if "--profile" in sys.argv[1:]:
+        profile("block IAI main path (block=2)", lambda: blocked(2)(oms))
+
+    # the warm block chain on the plain versions, at the two cheapest neighbours
+    i = int(np.argmin(cold["ne"]))
+    j = i + 1 if i + 1 < len(oms) and (i == 0 or cold["ne"][i + 1] <= cold["ne"][i - 1]) else i - 1
+    pair = np.sort(oms[[i, j]])
+    out = []
+    for plain in (False, True):
+        t0 = time.perf_counter()
+        sw = blocked(2, plain=plain, warm=True, chunk=2)
+        out.append((sw(pair), sw.numevals, sw.block_certificates, sw.retcode, time.perf_counter() - t0))
+    (dk, nk, bk, rk, tk), (dp, npl, bp, rp, tp) = out
+    same_bc = all(np.array_equal(a, b) for a, b in zip(bk, bp))
+    dpair = float(np.max(np.abs(dk - dp)))
+    print(f"warm block chain (block 2) on the plain versions at omegas {pair.round(4).tolist()}: numevals {npl} vs "
+          f"{nk} (kernels), block certificates identical {same_bc} ({bk[1].tolist()}), max|d D| {dpair:.3e} (<= "
+          f"abstol); plain {tp:.3f} s, kernels {tk:.3f} s", flush=True)
+    if not (npl == nk and same_bc and dpair <= IAI_ABSTOL and rk and rp):
+        fail(f"warm block chain kernels vs plain: numevals {nk} vs {npl}, certificates {same_bc}, max|d| {dpair:.3e}")
+    W0 = BLOCKS[0]
+    return [{"name": "gk_leaf_dos_block", "route": "cuda", "source": src + "gk_leaf_dos.cu",
+             "replaces": "autobzcore_tpu/models/observables.py:138", "launches": total_block_launches,
+             "max_abs_err": e16, "ms": t16[W0]["ms"], "plain_ms": t16[W0]["plain_ms"],
+             "bound_ms": t16[W0]["bound"][0], "bound_by": t16[W0]["bound"][1], "library_ms": None}]
+
+
+def repair_phases(np, torch, dev):
+    """Phase 18: the PTR sum above three bands through eigvalsh + K8, and
+    K2's grid-stride loop against the uncapped launch. Returns the entry of
+    the m > 3 route (K8 after batched eigvalsh)."""
+    from autobzcore_torch import FBZ, PTR, IntegralProblem, init, load_bz, solve_
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.models.tight_binding import synthetic_wannier
+    from autobzcore_torch.ops import eigh3
+    from autobzcore_torch.ops import grid_sweep as gs
+
+    npt, m = 60, 4
+    om = torch.linspace(-4.0, 4.0, W_FLAGSHIP, dtype=torch.float64, device=dev)
+    prob = IntegralProblem(obs.dos_integrand(synthetic_wannier(m, device=dev), ETA), load_bz(FBZ(), np.eye(3)), om)
+    gs.lorentzian_sum.launches = obs.dos_trace_weighted_sum.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = init(prob, PTR(npt=npt, device=dev))
+    u = solve_(cache).u
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"lorentzian_sum": gs.lorentzian_sum.launches, "dos_trace_weighted_sum": obs.dos_trace_weighted_sum.launches}
+    w, H = cache.cacheval["inner"]["consts"]
+    eta = torch.full_like(om, ETA)
+    sc = (2 * math.pi) ** 3 / npt**3
+    plain = obs.dos_trace_weighted_sum_plain(H, w, om, eta, sc)
+    err18 = float((u - plain).abs().max())
+    rel = err18 / float(plain.abs().max())
+    # the route by event time, split into cuSOLVER's eigenvalues and K8
+    e = eigh3.eigvalsh_chunked(H)
+    t18 = {"ms": cuda_ms(lambda: obs.dos_eig_weighted_sum(H, w, om, eta, sc), 5),
+           "eig_ms": cuda_ms(lambda: eigh3.eigvalsh_chunked(H), 5),
+           "k8_ms": cuda_ms(lambda: gs.lorentzian_sum(e, w, om, ETA, sc / math.pi), 10),
+           "k8_plain_ms": cuda_ms(lambda: gs.lorentzian_sum_plain(e, w, om, ETA, sc / math.pi), 3),
+           "plain_ms": cuda_ms(lambda: obs.dos_trace_weighted_sum_plain(H, w, om, eta, sc), 2)}
+    # the eigenvalues counted as the (16/3) m^3 real operations of the
+    # Householder reduction of a Hermitian matrix (the QL iteration left out)
+    K = H.shape[0]
+    b18 = bound(K * 16 * m**3 / 3 + K * m * W_FLAGSHIP * LORENTZ_FLOPS, nbytes(H, w, om, eta) + 8 * W_FLAGSHIP)
+    del e
+    rng = np.random.default_rng(18)
+    K2 = 1_000_000
+    H3 = torch.as_tensor(random_hermitian(rng, K2, 3), device=dev)
+    w3 = torch.as_tensor(rng.random(K2), device=dev)
+    full = obs._dos_trace_launch(H3, w3, om, eta, 1.0, obs.DOS_GRID_CAP)
+    capped = obs._dos_trace_launch(H3, w3, om, eta, 1.0, 7)
+    torch.cuda.synchronize()
+    print(f"repairs: PTR(npt={npt}) of synthetic_wannier({m}) at {W_FLAGSHIP} omegas through eigvalsh + K8 in "
+          f"{wall:.3f} s, launches {launches}, max rel vs the plain trace path {rel:.3e} (<= 1e-10); the route "
+          f"on its {K} k-points by event time {t18['ms']:.4f} ms (cuSOLVER eigvalsh {t18['eig_ms']:.4f} ms, K8 "
+          f"{t18['k8_ms']:.4f} ms, K8's plain version {t18['k8_plain_ms']:.4f} ms), the plain trace path "
+          f"{t18['plain_ms']:.4f} ms, bound {b18[0]:.4f} ms by {b18[1]}; K2 at {K2} k-points with 7 block rows "
+          f"looping over {-(-K2 // 4096)} chunks vs the uncapped launch: bit-identical {torch.equal(full, capped)}",
+          flush=True)
+    if not (rel <= 1e-10 and launches["lorentzian_sum"] > 0 and launches["dos_trace_weighted_sum"] == 0):
+        fail(f"the m > 3 PTR sum: rel {rel:.3e}, launches {launches}")
+    if not torch.equal(full, capped):
+        fail("K2 with a capped grid differs from the uncapped launch")
+    return [{"name": "dos_eig_weighted_sum", "route": "cuda", "source": "autobzcore_torch/csrc/lorentzian_sum.cu",
+             "replaces": "autobzcore_tpu/models/observables.py:145", "launches": launches["lorentzian_sum"],
+             "max_abs_err": err18, "ms": t18["ms"], "plain_ms": t18["plain_ms"], "bound_ms": b18[0],
+             "bound_by": b18[1], "library_ms": None}]
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Wannier DOS, PTR, IAI and full-grid legs, on the PyTorch port (``autobzcore_torch``).
+"""Wannier DOS, PTR, IAI, full-grid and LTM legs, on the PyTorch port (``autobzcore_torch``).
 
 The legs of ``examples/aps_example.py``: the Lorentzian-broadened DOS
 ``-Im Tr (w + i eta - H(k))^-1 / pi`` interpolated over w by ``hchebinterp``
@@ -16,12 +16,18 @@ The legs of ``examples/aps_example.py``: the Lorentzian-broadened DOS
   cold instead, 33 at a time as lanes (the A/B switch). On a CUDA device it
   runs kernels K3 (series contraction), K4 (fused leaf DOS rule), K5
   (interval pool, with the warm seed's chunk write) and K6 (coarsening of
-  the carried pool).
+  the carried pool). ``--iai-block W`` solves W adjacent frequencies per
+  nest (one refinement trajectory, the error the 2-norm over the block;
+  W must divide ``--iai-chunk``), through K4 over the block.
 - Full-grid leg (``--with-fullgrid``): the converged broadened DOS at 1000
   frequencies over the window by ``LorentzianFullGrid(eta, nmin=400,
   nmax=2000)``, the ladder of full npt^3 grids certified to ``--abstol`` in
   the sup norm of the curve, times |det B|. On a CUDA device every slab's
   eigenvalues and Lorentzian sum run in kernel K7.
+- LTM leg (``--with-ltm``): the sharp (eta -> 0) DOS by the linear
+  tetrahedron method, ``LTM(npt=--npt)``, at the 1001 frequencies of the
+  window, times |det B|. On a CUDA device the eigenvalues of the grid run in
+  kernel K9 and the sweep in kernel K10.
 
 Two models:
 - ``--hr svo_hr.dat --wout svo.wout``: a Wannier90 model on the CubicSymIBZ,
@@ -35,6 +41,8 @@ Usage:
     python examples/aps_example_torch.py --flagship --npt 100
     python examples/aps_example_torch.py --flagship --with-iai --eta 0.05
     python examples/aps_example_torch.py --flagship --skip-ptr --with-fullgrid --eta 0.05
+    python examples/aps_example_torch.py --flagship --skip-ptr --with-ltm
+    python examples/aps_example_torch.py --flagship --skip-ptr --with-iai --cold-iai --iai-block 2 --iai-chunk 34
     python examples/aps_example_torch.py --hr svo_hr.dat --wout svo.wout
 """
 import argparse
@@ -66,7 +74,8 @@ def main(argv=None):
                    help="omega chunk size for the IAI scan (dispatch amortization vs mid-seed "
                         "harvest freshness)")
     p.add_argument("--iai-block", type=int, default=1,
-                   help="omegas solved per adaptive nest; only 1 is ported (ROADMAP A5, omega blocks)")
+                   help="omegas solved per adaptive nest (the integrand broadcasts over the block, "
+                        "one refinement trajectory serves it); must divide --iai-chunk")
     p.add_argument("--iai-warm-width", type=int, default=8,
                    help="outer warm-seed consumption width (intervals of the carried pool "
                         "re-evaluated per device iteration): seed evals have no sequential "
@@ -79,16 +88,24 @@ def main(argv=None):
     p.add_argument("--iai-inner-nbisect", type=int, default=4, help="inner-level bisection width")
     p.add_argument("--iai-order", type=int, default=None,
                    help="Gauss-Kronrod order of every IAI level (default 7, 15 points)")
+    p.add_argument("--iai-nbisect", type=int, default=None,
+                   help="outer-level refinement width (worst intervals bisected per trip; "
+                        "default 1, pure worst-first)")
+    p.add_argument("--iai-leaf-nbisect", type=int, default=None,
+                   help="innermost-level refinement width (intervals bisected per trip)")
+    p.add_argument("--iai-leaf-presplit", type=int, default=None,
+                   help="innermost-level uniform presplit (P pieces per leaf segment, one trip)")
+    p.add_argument("--iai-nest-presplit", type=int, default=None,
+                   help="every-level uniform presplit (odd P keeps off the node-aliasing symmetry)")
     p.add_argument("--with-fullgrid", action="store_true",
                    help="also run the full-grid Lorentzian ladder (LorentzianFullGrid)")
     p.add_argument("--fullgrid-nmin", type=int, default=400, help="first rung of the full-grid ladder")
     p.add_argument("--fullgrid-nmax", type=int, default=2000, help="last rung of the full-grid ladder")
     p.add_argument("--fullgrid-omegas", type=int, default=1000, help="frequencies of the full-grid curve")
+    p.add_argument("--with-ltm", action="store_true",
+                   help="also compute the sharp (eta -> 0) DOS by the linear tetrahedron method")
     p.add_argument("--out", default=None, help="write omega and the DOS to this .npz")
     args = p.parse_args(argv)
-    if args.iai_block != 1:
-        raise NotImplementedError("omega-block IAI sweeps (--iai-block > 1) are not ported yet "
-                                  "(ROADMAP A5, omega blocks)")
 
     import torch
 
@@ -133,19 +150,21 @@ def main(argv=None):
               f"{sweep.numevals} integrand evals, {t_ptr:.3f} s", file=sys.stderr)
         out.update(dos_ptr=dos(ws), t_ptr=t_ptr)
     if args.with_iai:
-        algs = AuxQuadGKJL(order=args.iai_order, nbisect=1, device=device) if args.iai_order else None
+        algs = (AuxQuadGKJL(order=args.iai_order or 7, nbisect=args.iai_nbisect or 1, device=device)
+                if (args.iai_order or args.iai_nbisect) else None)
         alg = IAI(algs=algs, inner_cap=args.iai_inner_cap, inner_nbisect=args.iai_inner_nbisect,
-                  warm_width=args.iai_warm_width, inner_seed_width=args.iai_inner_seed_width,
-                  device=device)
+                  warm_width=args.iai_warm_width, leaf_nbisect=args.iai_leaf_nbisect,
+                  leaf_presplit=args.iai_leaf_presplit, nest_presplit=args.iai_nest_presplit,
+                  inner_seed_width=args.iai_inner_seed_width, device=device)
         t0 = time.perf_counter()
         isweep = SweepSolver(prob, alg, abstol=args.abstol, chunk=args.iai_chunk, scan=True,
-                             warm=not args.cold_iai)
+                             warm=not args.cold_iai, block=args.iai_block)
         dos_iai = hchebinterp(isweep, *window, atol=args.atol_interp)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t_iai = time.perf_counter() - t0
         ne = isweep.numevals
-        tier = "cold" if args.cold_iai else "warm"
+        tier = ("cold" if args.cold_iai else "warm") + (f", block {args.iai_block}" if args.iai_block > 1 else "")
         print(f"IAI interpolant ({tier}, complex128): {t_iai:.2f} s, {ne:.3g} integrand evals over "
               f"{dos_iai.numevals} omegas ({ne / max(dos_iai.numevals, 1):.3g}/omega), "
               f"retcode {isweep.retcode}", file=sys.stderr)
@@ -173,6 +192,21 @@ def main(argv=None):
         print(f"fullgrid ladder ({wfg.size} omegas, abstol={args.abstol:g}): {t_fg:.2f} s, rungs "
               f"[{rungs}], retcode {ok}", file=sys.stderr)
         out.update(omega_fullgrid=wfg, dos_fullgrid=dos_fg, t_fullgrid=t_fg)
+    if args.with_ltm:
+        from autobzcore_torch import DOSProblem
+        from autobzcore_torch.dos import LTM
+        from autobzcore_torch.dos import init as dos_init
+
+        t0 = time.perf_counter()
+        ltm = LTM(npt=args.npt)
+        cache = dos_init(DOSProblem(h, mid, bz), ltm)
+        # the sharp DOS (no broadening) over the same frequencies; an integral
+        # over the zone, hence |det B|
+        det_b = abs(float(np.linalg.det(bz.B)))
+        dos_ltm = ltm.dos_sweep(cache.cacheval, ws) * det_b
+        t_ltm = time.perf_counter() - t0
+        print(f"LTM(npt={args.npt}) sharp DOS ({ws.size} omegas): {t_ltm:.2f} s", file=sys.stderr)
+        out.update(dos_ltm=dos_ltm, t_ltm=t_ltm)
     if args.out:
         np.savez(args.out, **out)
     if dos is not None:
@@ -182,6 +216,9 @@ def main(argv=None):
     if args.with_fullgrid:
         i = int(np.argmin(np.abs(wfg - mid)))
         print(f"fullgrid DOS({wfg[i]:.4f} eV) = {float(dos_fg[i]):.6f}")
+    if args.with_ltm:
+        i = int(np.argmin(np.abs(ws - mid)))
+        print(f"LTM DOS({ws[i]:g} eV) = {float(dos_ltm[i]):.6f}")
     return dos
 
 if __name__ == "__main__":

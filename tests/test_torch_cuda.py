@@ -94,11 +94,26 @@ def test_dos_kernel_matches_plain_on_card(cuda_device, m):
 
 @pytest.mark.gpu
 def test_dos_kernel_refuses_more_than_three_bands(cuda_device):
+    """K2 itself refuses m > 3; the wrapper sends such sums to the
+    eigenvalue form (eigvalsh in chunks, then K8, one launch per eta)."""
+    from autobzcore_torch.ops import grid_sweep as gsw
+    from autobzcore_torch.ops.cuda_lib import load_kernels
+
     H = torch.as_tensor(random_hermitian(np.random.default_rng(0), 8, 4), device=cuda_device)
     w = torch.ones(8, dtype=torch.float64, device=cuda_device)
     om = torch.zeros(3, dtype=torch.float64, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="B2"):
-        tobs.dos_trace_weighted_sum(H, w, om, om + 0.1, 1.0)
+    part = torch.empty((1, 3), dtype=torch.float64, device=cuda_device)
+    out = torch.empty(3, dtype=torch.float64, device=cuda_device)
+    rc = load_kernels().dos_trace_weighted_sum_launch(
+        H.data_ptr(), w.data_ptr(), om.data_ptr(), om.data_ptr(), part.data_ptr(), out.data_ptr(),
+        8, 3, 4, 1.0, 0, torch.cuda.current_stream(cuda_device).cuda_stream)
+    assert rc != 0
+    before = (tobs.dos_trace_weighted_sum.launches, gsw.lorentzian_sum.launches)
+    eta = torch.tensor([0.1, 0.2, 0.1], dtype=torch.float64, device=cuda_device)
+    got = tobs.dos_trace_weighted_sum(H, w, om, eta, 1.0)
+    assert (tobs.dos_trace_weighted_sum.launches, gsw.lorentzian_sum.launches) == (before[0], before[1] + 2)
+    want = tobs.dos_trace_weighted_sum_plain(H, w, om, eta, 1.0)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-10
 
 
 @pytest.mark.gpu
@@ -658,3 +673,176 @@ def test_fullgrid_entry_points_default_to_the_card(cuda_device):
     s = ttb.flagship_series()
     eng = tgs.FullGridSpectralSweep(s, np.linspace(0, 1, 4), 0.1)
     assert eng.device.type == "cuda" and eng.c6.device.type == "cuda"
+
+
+# --- the m > 3 PTR sum, K2's grid-stride loop, K10 and K4 over omega blocks ---
+from autobzcore_torch.dos import tetrahedron as ttet  # noqa: E402
+
+
+@pytest.mark.gpu
+def test_ptr_sum_takes_four_bands_on_card(cuda_device):
+    """C1: the PTR leg of synthetic_wannier(4) at 264 omegas through
+    eigvalsh + K8 against the plain path (1e-10 relative)."""
+    from autobzcore_torch.ops import grid_sweep as gsw
+
+    xs = np.linspace(-3, 3, 264)
+    out = []
+    for dev in (cuda_device, "cpu"):
+        prob = T.IntegralProblem(tobs.dos_integrand(ttb.synthetic_wannier(4, device=dev), 0.1),
+                                 T.load_bz(T.FBZ(), np.eye(3)))
+        before = gsw.lorentzian_sum.launches
+        out.append(SweepSolver(prob, T.PTR(npt=24, device=dev), chunk=264)(xs))
+        if dev == cuda_device:
+            assert gsw.lorentzian_sum.launches == before + 1
+    assert rel_err(out[0], out[1]) <= 1e-10
+
+
+@pytest.mark.gpu
+def test_dos_kernel_grid_cap_loop_is_bit_identical(cuda_device):
+    """C2: a launch with 7 block rows loops over the 245 k-chunks of 1e6
+    points and gives the uncapped launch's bits."""
+    rng = np.random.default_rng(7)
+    K = 1_000_000
+    H = torch.as_tensor(random_hermitian(rng, K, 3), device=cuda_device)
+    w = torch.as_tensor(rng.random(K), device=cuda_device)
+    om = torch.linspace(-3, 3, 40, dtype=torch.float64, device=cuda_device)
+    eta = torch.full_like(om, 0.05)
+    full = tobs._dos_trace_launch(H, w, om, eta, 0.5, tobs.DOS_GRID_CAP)
+    capped = tobs._dos_trace_launch(H, w, om, eta, 0.5, 7)
+    assert torch.equal(full, capped)
+    want = tobs.dos_trace_weighted_sum_plain(H, w, om, eta, 0.5)
+    assert float((full - want).abs().max() / want.abs().max()) <= 1e-10
+
+
+def _eig_grid(rng, m, npt, d, device):
+    """A band-major grid (m, npt^d) of smooth periodic bands with exact
+    ties (a cosine band) beside random ones."""
+    x = np.meshgrid(*[np.arange(npt) / npt] * d, indexing="ij")
+    bands = [sum(np.cos(2 * np.pi * xi) for xi in x)]
+    for _ in range(m - 1):
+        ph = rng.random(d)
+        bands.append(sum(rng.normal() * np.cos(2 * np.pi * (xi + p)) for xi, p in zip(x, ph)) + rng.normal())
+    return torch.as_tensor(np.stack([b.reshape(-1) for b in bands]), device=device).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,npt,m", [(1, 997, 2), (2, 61, 3), (3, 23, 2)])
+@pytest.mark.parametrize("nos", [False, True], ids=["dos", "nos"])
+def test_tetra_kernel_matches_plain_on_card(cuda_device, d, npt, m, nos):
+    """K10 against its plain version on a ragged tile and 1100 energies (a
+    ragged lane group, corner energies, energies outside the bands); zero
+    outside the bands and bit-identical on repeat."""
+    rng = np.random.default_rng(d * 10 + m)
+    eg = _eig_grid(rng, m, npt, d, cuda_device)
+    lo, hi = float(eg.min()), float(eg.max())
+    E = torch.linspace(lo - 1, hi + 1, 1100, dtype=torch.float64, device=cuda_device)
+    E[:5] = eg.reshape(-1)[:5]  # energies at grid values
+    tol, vol = 1e-9 * (hi - lo), 1.0 / (len(ttet._SIMPLICES[d]) * npt**d)
+    before = ttet.tetra_dos.launches
+    got = ttet.tetra_dos(eg, d, E, tol, vol, nos)
+    assert ttet.tetra_dos.launches == before + 1
+    want = ttet.tetra_dos_plain(eg, d, E, tol, vol, nos)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+    assert torch.equal(got, ttet.tetra_dos(eg, d, E, tol, vol, nos))
+    outside = (E < lo) if nos else ((E < lo) | (E > hi))
+    assert torch.all(got[outside] == 0.0)
+    if nos:
+        assert torch.all((got[E > hi] - m).abs() <= 1e-12 * m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["FBZ", "CubicSymIBZ"])
+def test_ltm_on_card_matches_cpu(cuda_device, kind):
+    """The init on the card (grid products, K9, the scatter) gives the CPU's
+    eigenvalue grid to rounding; on that same grid the card's sweeps and
+    Fermi level (K10) match the CPU's. (With each device's own grid, ulp
+    differences at exact band ties move N(E) through the reference's
+    ``_safe(e2 - e1)`` middle piece, ROADMAP C.)"""
+    Es = np.linspace(-3.5, 3.5, 57)
+    caches = []
+    for dev in ("cpu", cuda_device):
+        alg = tdos.LTM(npt=24)
+        caches.append(tdos.init(T.DOSProblem(ttb.tb_integer(3, device=dev), 0.0,
+                                             T.load_bz(getattr(T, kind)(), np.eye(3))), alg))
+    cpu, card = (c.cacheval for c in caches)
+    assert cpu["numevals"] == card["numevals"] and cpu["tol"] == pytest.approx(card["tol"], rel=1e-12)
+    assert float((card["eg"].cpu() - cpu["eg"]).abs().max()) <= 1e-14
+    card["eg"] = cpu["eg"].to(cuda_device)
+    out = [(alg.dos_sweep(cv, Es), alg.nos_sweep(cv, Es), alg.fermi_level(cv, 0.3)) for cv in (cpu, card)]
+    (dc, nc, fc), (dg, ng, fg) = out
+    assert rel_err(dg, dc) <= 1e-12 and rel_err(ng, nc) <= 1e-12
+    assert abs(fg - fc) <= 1e-10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("W", [1, 2, 4, 8, 11])
+def test_leaf_dos_block_entry_matches_plain_on_card(cuda_device, m, W):
+    """K4 over an omega block: one channel group up to 8, groups of 8 above
+    (W = 11 re-evaluates the series for its second group)."""
+    rng = np.random.default_rng(80 + m + W)
+    c, cmap, off, a, b, om, eta, active = _leaf_inputs(rng, cuda_device, m, L=700)
+    omb = (om[:, None] + torch.as_tensor(rng.uniform(-0.3, 0.3, (700, W)), device=cuda_device)).contiguous()
+    etab = torch.full_like(omb, 0.05)
+    xk, wk, wg = tad.gk_rule(7, cuda_device)
+    before = tobs.gk_leaf_dos.launches
+    got = tobs.gk_leaf_dos(c, cmap, off, 1.0, a, b, omb, etab, active, xk, wk, wg)
+    assert tobs.gk_leaf_dos.launches == before + 1
+    want = tobs.gk_leaf_dos_plain(c, cmap, off, 1.0, a, b, omb, etab, active, xk, wk, wg)
+    assert got[0].shape == (700, 2, W)
+    l1 = want[2]
+    assert torch.all((got[0] - want[0]).abs() <= 1e-12 * l1[..., None] + 1e-300)
+    assert torch.all((got[1] - want[1]).abs() <= 1e-12 * l1 + 1e-300)
+    assert torch.allclose(got[2], l1, rtol=1e-12, atol=0) and torch.equal(got[3], want[3])
+    if W == 1:  # one frequency per lane is the one-channel block, bit for bit
+        one = tobs.gk_leaf_dos(c, cmap, off, 1.0, a, b, omb[:, 0].contiguous(), etab[:, 0].contiguous(),
+                               active, xk, wk, wg)
+        assert torch.equal(got[0][..., 0], one[0]) and torch.equal(got[1], one[1]) and torch.equal(got[2], one[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [2, 4])
+def test_pool_kernels_at_block_width_on_card(cuda_device, W):
+    """K5's select, update and rule reduction with V = W channels."""
+    rng = np.random.default_rng(90 + W)
+    pool = _random_pool(rng, cuda_device, L=900, cap=64, nb=4, V=(W,))
+    ref = _clone_pool(pool)
+    idx, ca, cb = tad.gk_pool_select(pool, 4)
+    ridx, rca, rcb = tad.gk_pool_select_plain(ref, 4)
+    live = ref.active
+    assert torch.equal(pool.active, live) and torch.equal(idx[live], ridx[live])
+    cval = torch.as_tensor(rng.normal(size=(900, 8, W)), device=cuda_device)
+    cerr = torch.as_tensor(rng.random((900, 8)), device=cuda_device)
+    count = torch.full((900,), 120.0, dtype=torch.float64, device=cuda_device)
+    tad.gk_pool_update(pool, 4, idx, ca, cb, cval, cerr, cerr, count)
+    tad.gk_pool_update_plain(ref, 4, ridx, rca, rcb, cval, cerr, cerr, count)
+    for name in ("a", "b", "err", "l1", "val", "n", "evals"):
+        assert torch.equal(getattr(pool, name), getattr(ref, name)), name
+    fx = torch.as_tensor(rng.normal(size=(300, 2, 15, W)), device=cuda_device)
+    half = torch.as_tensor(rng.random((300, 2)), device=cuda_device)
+    _, wk, wg = tad.gk_rule(7, cuda_device)
+    got, want = tad.gk_rule_reduce(fx, None, half, wk, wg), tad.gk_rule_reduce_plain(fx, None, half, wk, wg)
+    for g, w in zip(got[:3], want[:3]):
+        assert float((g - w).abs().max()) <= 1e-12 * float(want[2].max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_block_iai_on_card_matches_cpu(cuda_device, warm):
+    """The omega-block nest through K3, K4 over the block and K5 against the
+    CPU's plain path: identical counts and block certificates."""
+    oms = np.array([-1.3, -1.1, 0.4, 0.55, 2.1])
+    out = []
+    for dev in ("cpu", cuda_device):
+        prob = T.IntegralProblem(tobs.dos_integrand(ttb.tb_integer(3, device=dev), 0.3),
+                                 T.load_bz(T.FBZ(), np.eye(3)))
+        sweep = SweepSolver(prob, T.IAI(inner_cap=32, inner_nbisect=2, device=dev), abstol=1e-3,
+                            chunk=4, scan=True, block=2, warm=warm)
+        before = tobs.gk_leaf_dos.launches
+        out.append((sweep(oms), sweep.numevals, sweep.retcode, sweep.block_certificates))
+        if dev == cuda_device:
+            assert tobs.gk_leaf_dos.launches > before
+    (vc, nc, rc, bcc), (vg, ng, rg, bcg) = out
+    assert ng == nc and rg is rc is True
+    assert np.array_equal(bcg[0], bcc[0]) and np.array_equal(bcg[1], bcc[1])
+    assert rel_err(vg, vc) <= 1e-10

@@ -83,9 +83,20 @@ def test_interpolated_cold_iai_curve_matches_reference():
 
 @pytest.mark.parametrize("knob,item", [(dict(block=3), "omega blocks"), (dict(mesh="m"), "A10")])
 def test_unported_iai_sweep_knobs_raise(knob, item):
+    """Mesh sharding raises, naming its ROADMAP item. Omega blocks are
+    ported: a block of 3 is one solve of the whole chunk, with one
+    certificate, and a block that does not divide the chunk is refused as
+    the reference refuses it."""
     _, tprob = _probs()
-    with pytest.raises(NotImplementedError, match=item):
-        SweepSolver(tprob, _iai_pair()[1], abstol=1e-3, chunk=3, scan=True, **knob)
+    if item == "A10":
+        with pytest.raises(NotImplementedError, match=item):
+            SweepSolver(tprob, _iai_pair()[1], abstol=1e-3, chunk=3, scan=True, **knob)
+        return
+    sw = SweepSolver(tprob, _iai_pair()[1], abstol=1e-3, chunk=3, scan=True, **knob)
+    assert sw(np.array([-0.6, 0.45, 2.2])).shape == (3,) and sw.retcode
+    assert sw.block_certificates[1].shape == (1,) and sw.numevals == int(sw.block_certificates[1][0])
+    with pytest.raises(ValueError, match="divide into blocks"):
+        SweepSolver(tprob, _iai_pair()[1], abstol=1e-3, chunk=4, scan=True, **knob)
 
 
 @pytest.mark.parametrize("knob", [dict(warm=True), dict(group=3)], ids=["warm", "group"])

@@ -58,8 +58,9 @@ def test_example_runs_flagship_on_cpu(tmp_path):
 
 
 def test_example_runs_cold_iai_leg_on_cpu(tmp_path):
-    """The IAI leg, warm by default and cold with --cold-iai; omega blocks
-    are refused, naming their ROADMAP item."""
+    """The IAI leg, warm by default and cold with --cold-iai; an omega block
+    that does not divide the chunk is refused as the reference refuses it
+    (the blocked leg runs in test_torch_iai_block.py)."""
     args = [str(REPO / "examples" / "aps_example_torch.py"), "--flagship", "--device", "cpu",
             "--skip-ptr", "--with-iai", "--eta", "0.5", "--abstol", "1.0", "--iai-inner-cap", "16",
             "--atol-interp", "5"]
@@ -69,8 +70,8 @@ def test_example_runs_cold_iai_leg_on_cpu(tmp_path):
         assert f"IAI interpolant ({tier}, complex128)" in out.stderr and "retcode True" in out.stderr
         assert out.stdout.startswith("IAI DOS(0.5 eV) = ")
         assert ("IAI chunk seeds: " in out.stderr) == (tier == "warm")
-    blocked = _run(args + ["--iai-block", "3"], cwd=tmp_path)
-    assert blocked.returncode != 0 and "omega blocks" in blocked.stderr
+    blocked = _run(args + ["--iai-block", "2"], cwd=tmp_path)
+    assert blocked.returncode != 0 and "must divide into blocks of 2" in blocked.stderr
 
 
 def test_example_runs_fullgrid_leg_on_cpu(tmp_path):
