@@ -17,8 +17,12 @@ full-grid DOS ladder (``dos.LorentzianFullGrid``) the fused eigenvalue and
 Lorentzian tail (K7, ``ops.grid_sweep.fullgrid_tail``), the Lorentzian sum
 (K8, ``ops.grid_sweep.lorentzian_sum``) and closed-form small eigenvalues
 (K9, ``ops.eigh3.eigvalsh_small``), and the tetrahedron DOS and N(E) (K10,
-``dos.tetrahedron.tetra_dos``, under ``dos.LTM``). This package never
-imports JAX.
+``dos.tetrahedron.tetra_dos``, under ``dos.LTM``), and for the spectral-grid
+DOS (``GGR``, ``dos.AdaptiveGaussianBroadening``) the series Jacobian at
+points (K11, ``ops.fourier_eval.fourier_points_derivs``, behind
+``JacobianSeries``), the band velocities (K12, ``dos.ggr.band_velocity``)
+and the box and Gaussian energy sums (K13, ``dos.ggr.ggr_box_sum`` and
+``dos.ggr.gaussian_sum``). This package never imports JAX.
 """
 from .algorithms.gk import AuxQuadGKJL, QuadGKJL
 from .algorithms.nested import NestedQuad
@@ -40,7 +44,7 @@ from .brillouin import (
     symmetrize,
 )
 from .domains import Basis, HyperCube
-from .fourier import FourierIntegrand, FourierSeries, FourierValue
+from .fourier import FourierIntegrand, FourierSeries, FourierValue, JacobianSeries
 from .interfaces import (
     IntegralCache,
     IntegralProblem,
@@ -55,15 +59,16 @@ from .algorithms.ptr import MonkhorstPack
 from .parameters import MixedParameters, NullParameters, ParameterIntegrand
 from .wrappers import BatchIntegrand, InplaceIntegrand
 from .dos.interfaces import DOSProblem, DOSSolution
+from .dos.ggr import GGR
 
 __version__ = "0.1.0"
 
 __all__ = [
     "AbstractSymRep", "AuxQuadGKJL", "Basis", "BatchIntegrand", "CubicLimits", "CubicSymIBZ",
-    "DOSProblem", "DOSSolution", "FBZ", "FourierIntegrand", "FourierSeries", "FourierValue",
+    "DOSProblem", "DOSSolution", "FBZ", "FourierIntegrand", "FourierSeries", "FourierValue", "GGR",
     "HyperCube", "IAI",
     "InplaceIntegrand", "IntegralCache", "IntegralProblem", "IntegralSolution", "IntegralSolver",
-    "InversionSymIBZ", "LatticeRep", "MixedParameters", "MonkhorstPack", "NestedQuad",
+    "InversionSymIBZ", "JacobianSeries", "LatticeRep", "MixedParameters", "MonkhorstPack", "NestedQuad",
     "NullParameters", "PTR", "ParameterIntegrand", "QuadGKJL", "SymmetricBZ",
     "TetrahedralLimits", "TrivialRep",
     "UnknownRep", "canonical_reciprocal_basis", "init", "load_bz", "nsyms", "solve",

@@ -33,6 +33,19 @@ def frac_nodes(npt, d, device):
     return torch.stack([g.reshape(-1) for g in grids], dim=-1)
 
 
+def rule_points(npt, d, syms, device):
+    """The PTR rule's points and weights: fractional coordinates (K, d) and
+    float64 weights (K,) on ``device``, the full ``npt^d`` grid with unit
+    weights when ``syms`` is None, else the orbit representatives and their
+    orbit sizes."""
+    if syms is None:
+        frac = frac_nodes(npt, d, device)
+        return frac, torch.ones(frac.shape[0], dtype=REAL, device=device)
+    reps, w = symptr_rule(npt, d, syms)
+    frac = torch.as_tensor(reps, device=device).to(REAL) / npt
+    return frac, torch.as_tensor(w, dtype=REAL, device=device)
+
+
 def _uses_dos_kernel(f):
     from ..fourier import FourierIntegrand
     from ..models.observables import dos_trace
@@ -70,15 +83,8 @@ def build_ptr_run(f, dom: Basis, npt: int, syms, device="cuda"):
     if isinstance(f, FourierIntegrand):
         device = f.s.device
     device = as_device(device)
-    if syms is None:
-        frac = frac_nodes(npt, d, device)
-        weights = torch.ones(frac.shape[0], dtype=REAL, device=device)
-        nsyms = 1
-    else:
-        reps, w = symptr_rule(npt, d, syms)
-        frac = torch.as_tensor(reps, device=device).to(REAL) / npt
-        weights = torch.as_tensor(w, dtype=REAL, device=device)
-        nsyms = len(syms)
+    frac, weights = rule_points(npt, d, syms, device)
+    nsyms = 1 if syms is None else len(syms)
     scale = dom.volume / (npt**d * nsyms)
     numevals = frac.shape[0]
     B = torch.as_tensor(dom.B, dtype=REAL, device=device)

@@ -29,36 +29,26 @@
 // thread's energy range, so it does 1.8e7 tests per thread row of 8 lanes;
 // walking each term's support over the sorted energies would do one.
 //
-// The design (the shape of lorentzian.cuh's tile loop):
-//  * a block of kThreads threads loads a tile of kThreads (cell, band) pairs,
-//    one per thread; the thread reads its 2^d corner values, sorts each of
-//    the d! simplices and puts them in shared memory;
-//  * each thread owns kLanes energy lanes, kThreads apart (blockIdx.y
-//    picks the block's kThreads * kLanes lanes), and walks the tile's
-//    simplices in a fixed order, every thread reading the same simplex (a
-//    shared-memory broadcast). A simplex whose corners lie outside the
-//    thread's energy range costs two compares for all its lanes: with one
-//    energy (a Fermi-level step) that settles ~99 % of the terms; over a
-//    sweep each thread's lanes span the window, and interleaving keeps a
-//    warp's threads on neighbouring energies, so they branch alike (on an
-//    H100, lanes of adjacent energies per thread ran 2x slower);
-//  * a block loops over tiles blockIdx.x, blockIdx.x + gridDim.x, ..., so
-//    the partials (one row of W per block) stay bounded;
-//  * blocks run in no order, so the cross-block sum is a second pass that
-//    adds each lane's partials in block order and scales by vol. No atomics:
-//    repeated runs are bit-identical.
+// The design is energy_tiles.cuh's tile loop: a thread stages one (cell,
+// band) pair of a tile, reading its 2^d corner values, sorting each of the
+// d! simplices and putting them in shared memory; every thread then walks
+// the tile's simplices for its kTileLanes energy lanes. A simplex whose
+// corners lie outside the thread's energy range costs two compares for all
+// its lanes: with one energy (a Fermi-level step) that settles ~99 % of the
+// terms; over a sweep each thread's lanes span the window (on an H100,
+// lanes of adjacent energies per thread ran 2x slower than interleaved).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "energy_tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;          // threads per block = pairs per tile
-constexpr int kLanes = 8;              // energy lanes per thread
-constexpr int kMaxBlocks = 8 * 132;    // tiles in flight: eight blocks per SM
-
-inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+using autobz::EnergyLanes;
+using autobz::kTileLanes;
+using autobz::kTileThreads;
 
 __host__ __device__ constexpr int num_simplices(int d) { return d == 1 ? 1 : (d == 2 ? 2 : 6); }
 
@@ -183,177 +173,129 @@ __device__ __forceinline__ double nos_term(double E, const double (&e)[4], doubl
   return 1.0 - (x * x * x) / (e41 * e42 * safe(e4 - e3));
 }
 
-// partials[blockIdx.x, j] = sum over the block's tiles of sum over their
-// (pair, simplex) of f(E_j, sorted corners).
+// The tile of K10: terms are (cell, band) pairs of the band-major grid eg
+// (m, ncell); each adds f(E, sorted corners) over the cell's simplices.
 template <int D, bool kNos>
-__global__ void __launch_bounds__(kThreads)
-tetra_partials_kernel(const double* __restrict__ eg, int64_t npairs, int npt,
-                      const double* __restrict__ E, int W, double tol,
-                      double* __restrict__ partials) {
-  constexpr int S = num_simplices(D);
-  constexpr int NV = D + 1;
-  __shared__ double sc[S][NV][kThreads];
-  int64_t ncell = npt;
+struct TetraTile {
+  static constexpr int S = num_simplices(D);
+  static constexpr int NV = D + 1;
+  struct Shared {
+    double sc[S][NV][kTileThreads];
+  };
+  const double* __restrict__ eg;
+  int64_t ncell;
+  int npt;
+  double tol;
+
+  __device__ __forceinline__ void stage(Shared& sh, int64_t p) const {
+    const int64_t band = p / ncell;
+    const int64_t cell = p - band * ncell;
+    const double* g = eg + band * ncell;
+    // grid coordinates of the cell, axis 0 slowest
+    int idx[D];
+    int64_t rem = cell;
 #pragma unroll
-  for (int j = 1; j < D; ++j) ncell *= npt;
-  // this thread's energies: lane l holds energy lane0 + l * kThreads (the
-  // block's lanes interleave, so a warp's threads see similar energies and
-  // branch alike); nlive of them are real, spanning [emin, emax]
-  const int lane0 = blockIdx.y * (kThreads * kLanes) + threadIdx.x;
-  const int nlive = lane0 < W ? (W - lane0 + kThreads - 1) / kThreads : 0;
-  double en[kLanes], acc[kLanes];
-  double emin = __longlong_as_double(0x7ff0000000000000LL), emax = -emin;
+    for (int j = D - 1; j >= 0; --j) {
+      idx[j] = static_cast<int>(rem % npt);
+      rem /= npt;
+    }
+    double corner[1 << D];
 #pragma unroll
-  for (int l = 0; l < kLanes; ++l) {
-    en[l] = l < nlive ? E[lane0 + l * kThreads] : 0.0;
-    acc[l] = 0.0;
-    if (l < nlive) {
-      emin = fmin(emin, en[l]);
-      emax = fmax(emax, en[l]);
+    for (int v = 0; v < (1 << D); ++v) {
+      int64_t lin = 0;
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        int c = idx[j] + ((v >> j) & 1);
+        if (c == npt) c = 0;
+        lin = lin * npt + c;
+      }
+      corner[v] = __ldg(&g[lin]);
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      double sv[NV];
+#pragma unroll
+      for (int k = 0; k < NV; ++k) sv[k] = corner[simplex_vertex<D>(s, k)];
+      sort_corners<D>(sv);
+#pragma unroll
+      for (int k = 0; k < NV; ++k) sh.sc[s][k][threadIdx.x] = sv[k];
     }
   }
-  const int64_t ntiles = (npairs + kThreads - 1) / kThreads;
-  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int64_t p = t * kThreads + threadIdx.x;
-    __syncthreads();  // the previous tile is consumed
-    if (p < npairs) {
-      const int64_t band = p / ncell;
-      const int64_t cell = p - band * ncell;
-      const double* g = eg + band * ncell;
-      // grid coordinates of the cell, axis 0 slowest
-      int idx[D];
-      int64_t rem = cell;
+
+  __device__ __forceinline__ void consume(const Shared& sh, int q, EnergyLanes& ln) const {
 #pragma unroll
-      for (int j = D - 1; j >= 0; --j) {
-        idx[j] = static_cast<int>(rem % npt);
-        rem /= npt;
-      }
-      double corner[1 << D];
+    for (int s = 0; s < S; ++s) {
+      double e[NV];
 #pragma unroll
-      for (int v = 0; v < (1 << D); ++v) {
-        int64_t lin = 0;
+      for (int k = 0; k < NV; ++k) e[k] = sh.sc[s][k][q];
+      // a simplex whose corners lie all below or all above the thread's
+      // energies gives every lane the closed form's constant there: 0, or
+      // N = 1 above (flat simplices included), so two compares settle
+      // the lanes; the per-lane sums are the same, term by term
+      if (e[0] > ln.emax) continue;
+      if (e[NV - 1] <= ln.emin) {
+        if constexpr (kNos) {
 #pragma unroll
-        for (int j = 0; j < D; ++j) {
-          int c = idx[j] + ((v >> j) & 1);
-          if (c == npt) c = 0;
-          lin = lin * npt + c;
-        }
-        corner[v] = __ldg(&g[lin]);
-      }
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        double sv[NV];
-#pragma unroll
-        for (int k = 0; k < NV; ++k) sv[k] = corner[simplex_vertex<D>(s, k)];
-        sort_corners<D>(sv);
-#pragma unroll
-        for (int k = 0; k < NV; ++k) sc[s][k][threadIdx.x] = sv[k];
-      }
-    }
-    __syncthreads();
-    const int64_t left = npairs - t * kThreads;
-    const int nt = static_cast<int>(left < kThreads ? left : kThreads);
-    for (int q = 0; nlive > 0 && q < nt; ++q) {
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        double e[NV];
-#pragma unroll
-        for (int k = 0; k < NV; ++k) e[k] = sc[s][k][q];
-        // a simplex whose corners lie all below or all above the thread's
-        // energies gives every lane the closed form's constant there: 0, or
-        // N = 1 above (flat simplices included), so two compares settle
-        // the lanes; the per-lane sums are the same, term by term
-        if (e[0] > emax) continue;
-        if (e[NV - 1] <= emin) {
-          if constexpr (kNos) {
-#pragma unroll
-            for (int l = 0; l < kLanes; ++l) {
-              if (l < nlive) acc[l] += 1.0;
-            }
-          }
-          continue;
-        }
-#pragma unroll
-        for (int l = 0; l < kLanes; ++l) {
-          if (l >= nlive) break;
-          if constexpr (kNos) {
-            acc[l] += nos_term(en[l], e, tol);
-          } else {
-            acc[l] += dos_term(en[l], e, tol);
+          for (int l = 0; l < kTileLanes; ++l) {
+            if (l < ln.nlive) ln.acc[l] += 1.0;
           }
         }
+        continue;
+      }
+#pragma unroll
+      for (int l = 0; l < kTileLanes; ++l) {
+        if (l >= ln.nlive) break;
+        if constexpr (kNos) {
+          ln.acc[l] += nos_term(ln.en[l], e, tol);
+        } else {
+          ln.acc[l] += dos_term(ln.en[l], e, tol);
+        }
       }
     }
   }
-#pragma unroll
-  for (int l = 0; l < kLanes; ++l) {
-    if (l < nlive) partials[static_cast<int64_t>(blockIdx.x) * W + lane0 + l * kThreads] = acc[l];
-  }
-}
-
-// out[j] = vol * sum_g partials[g, j], in block order.
-__global__ void tetra_reduce_kernel(const double* __restrict__ partials, double* __restrict__ out,
-                                    int nblocks, int W, double vol) {
-  const int wi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (wi >= W) return;
-  double s = 0.0;
-  for (int g = 0; g < nblocks; ++g) s += partials[static_cast<int64_t>(g) * W + wi];
-  out[wi] = vol * s;
-}
+};
 
 template <int D, bool kNos>
-void launch_partials(dim3 grid, cudaStream_t st, const double* eg, int64_t npairs, int npt,
-                     const double* E, int W, double tol, double* partials) {
-  tetra_partials_kernel<D, kNos><<<grid, kThreads, 0, st>>>(eg, npairs, npt, E, W, tol, partials);
+int launch(const double* eg, int64_t ncell, int64_t npairs, int npt, const double* E, int W,
+           double tol, double vol, double* partials, double* out, cudaStream_t st) {
+  const TetraTile<D, kNos> tile{eg, ncell, npt, tol};
+  return autobz::energy_tiles_launch(tile, npairs, E, W, vol, partials, out, st);
 }
 
 }  // namespace
 
-// Rows of the partials scratch for npairs (cell, band) pairs and W energies:
-// one per tile, at most kMaxBlocks over all the lane groups.
-extern "C" long long tetra_num_blocks(long long npairs, int W) {
-  const long long groups = ceil_div(W, kThreads * kLanes);
-  long long g = kMaxBlocks / (groups > 0 ? groups : 1);
-  const long long tiles = ceil_div(npairs, kThreads);
-  if (g > tiles) g = tiles;
-  return g > 0 ? g : 1;
+// Rows of the partials scratch of K10 and K13 for nterms terms and W
+// energies (energy_tiles.cuh): one per tile, at most kTileMaxBlocks over all
+// the lane groups.
+extern "C" long long energy_tiles_num_blocks(long long nterms, int W) {
+  return autobz::tile_num_blocks(nterms, W);
 }
 
 // eg: (m, npt^d) float64, band-major; E: (W,); partials:
-// (tetra_num_blocks(m npt^d, W), W) scratch; out: (W,), written. nos = 0
-// gives the DOS, 1 the integrated DOS. Returns cudaGetLastError() after the
-// launches, or cudaErrorInvalidValue for d outside 1..3 or npt < 1.
+// (energy_tiles_num_blocks(m npt^d, W), W) scratch; out: (W,), written.
+// nos = 0 gives the DOS, 1 the integrated DOS. Returns cudaGetLastError()
+// after the launches, or cudaErrorInvalidValue for d outside 1..3 or
+// npt < 1.
 extern "C" int tetra_dos_launch(const void* eg, long long m, int npt, int d, const void* E, int W,
                                 double tol, double vol, int nos, void* partials, void* out,
                                 void* stream) {
   if (d < 1 || d > 3 || npt < 1 || m < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (W <= 0) return static_cast<int>(cudaGetLastError());
   long long ncell = npt;
   for (int j = 1; j < d; ++j) ncell *= npt;
   const long long npairs = m * ncell;
-  const long long groups = ceil_div(W, kThreads * kLanes);
-  if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const long long g = tetra_num_blocks(npairs, W);
   const auto* egp = static_cast<const double*>(eg);
   const auto* Ep = static_cast<const double*>(E);
   auto* pp = static_cast<double*>(partials);
-  if (npairs > 0) {
-    const dim3 grid(static_cast<unsigned>(g), static_cast<unsigned>(groups));
-    if (d == 1) {
-      nos ? launch_partials<1, true>(grid, st, egp, npairs, npt, Ep, W, tol, pp)
-          : launch_partials<1, false>(grid, st, egp, npairs, npt, Ep, W, tol, pp);
-    } else if (d == 2) {
-      nos ? launch_partials<2, true>(grid, st, egp, npairs, npt, Ep, W, tol, pp)
-          : launch_partials<2, false>(grid, st, egp, npairs, npt, Ep, W, tol, pp);
-    } else {
-      nos ? launch_partials<3, true>(grid, st, egp, npairs, npt, Ep, W, tol, pp)
-          : launch_partials<3, false>(grid, st, egp, npairs, npt, Ep, W, tol, pp);
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  auto* op = static_cast<double*>(out);
+  if (d == 1) {
+    return nos ? launch<1, true>(egp, ncell, npairs, npt, Ep, W, tol, vol, pp, op, st)
+               : launch<1, false>(egp, ncell, npairs, npt, Ep, W, tol, vol, pp, op, st);
   }
-  tetra_reduce_kernel<<<static_cast<unsigned>(ceil_div(W, 128)), 128, 0, st>>>(
-      pp, static_cast<double*>(out), npairs > 0 ? static_cast<int>(g) : 0, W, vol);
-  return static_cast<int>(cudaGetLastError());
+  if (d == 2) {
+    return nos ? launch<2, true>(egp, ncell, npairs, npt, Ep, W, tol, vol, pp, op, st)
+               : launch<2, false>(egp, ncell, npairs, npt, Ep, W, tol, vol, pp, op, st);
+  }
+  return nos ? launch<3, true>(egp, ncell, npairs, npt, Ep, W, tol, vol, pp, op, st)
+             : launch<3, false>(egp, ncell, npairs, npt, Ep, W, tol, vol, pp, op, st);
 }

@@ -1,10 +1,11 @@
 """Density-of-states algorithms (reference ``autobzcore_tpu/dos``): the
-problem family, the full-grid Lorentzian ladder and the linear tetrahedron
-method. GGR and AdaptiveGaussianBroadening come with a later slice (ROADMAP
-A6, B8's GGR half)."""
+problem family, the generalized Gilat-Raubenheimer method and adaptive
+Gaussian broadening on GGR's spectral grid, the full-grid Lorentzian ladder
+and the linear tetrahedron method."""
 from .interfaces import DOSAlgorithm, DOSCache, DOSProblem, DOSSolution, init, solve, solve_
 from .fullgrid import LorentzianFullGrid
-from .tetrahedron import LTM
+from .ggr import GGR
+from .tetrahedron import LTM, AdaptiveGaussianBroadening
 
-__all__ = ["DOSProblem", "DOSSolution", "DOSCache", "DOSAlgorithm", "LorentzianFullGrid", "LTM",
-           "init", "solve", "solve_"]
+__all__ = ["DOSProblem", "DOSSolution", "DOSCache", "DOSAlgorithm", "GGR", "LorentzianFullGrid", "LTM",
+           "AdaptiveGaussianBroadening", "init", "solve", "solve_"]

@@ -21,7 +21,7 @@ import numpy as np
 
 from .._device import as_device
 from ..brillouin import SymmetricBZ
-from ..fourier import FourierSeries
+from ..fourier import FourierSeries, JacobianSeries
 from ..ops.grid_sweep import FullGridSpectralSweep
 from .interfaces import DOSAlgorithm, DOSSolution
 
@@ -158,6 +158,8 @@ class LorentzianFullGrid(DOSAlgorithm):
             npt = self._geometric_next(npt)
 
     def init_cacheval(self, h, domain, p):
+        if isinstance(h, JacobianSeries):
+            h = h.s
         if not isinstance(h, FourierSeries):
             raise TypeError("LorentzianFullGrid requires a FourierSeries Hamiltonian")
         if not isinstance(p, SymmetricBZ):

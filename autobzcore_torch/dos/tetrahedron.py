@@ -20,8 +20,11 @@ energy chunks.
 
 Normalization as the reference: the DOS is per unit fractional zone volume
 (each band integrates to 1 over energy). The reference's TPU split-complex
-branch (B9) is not ported; ``AdaptiveGaussianBroadening`` needs GGR and
-``JacobianSeries`` (ROADMAP A6).
+branch (B9) is not ported.
+
+:class:`AdaptiveGaussianBroadening` reuses GGR's spectral grid (kernels K11
+and K12, see :mod:`autobzcore_torch.dos.ggr`) and sums its Gaussians with
+kernel K13 in Gaussian mode (:func:`~autobzcore_torch.dos.ggr.gaussian_sum`).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 
 from .._device import COMPLEX, REAL, check_tensor
 from ..brillouin import SymmetricBZ
-from ..fourier import FourierSeries
+from ..fourier import FourierSeries, JacobianSeries
 from ..ops.cuda_lib import check_launch, load_kernels
 from ..ops.eigh3 import eigvalsh_small
 from ..ops.fourier_eval import evaluate_grid
@@ -198,7 +201,7 @@ def tetra_dos(eg, d, E, tol, vol, nos=False):
     W = E.shape[0]
     out = torch.empty(W, dtype=REAL, device=eg.device)
     lib = load_kernels()
-    partials = torch.empty((lib.tetra_num_blocks(m * N, max(W, 1)), max(W, 1)), dtype=REAL,
+    partials = torch.empty((lib.energy_tiles_num_blocks(m * N, max(W, 1)), max(W, 1)), dtype=REAL,
                            device=eg.device)
     stream = torch.cuda.current_stream(eg.device).cuda_stream
     rc = lib.tetra_dos_launch(eg.data_ptr(), m, npt, d, E.data_ptr(), W, tol, vol, int(bool(nos)),
@@ -225,9 +228,8 @@ class LTM(DOSAlgorithm):
         self.npt = npt
 
     def init_cacheval(self, h, domain, p):
-        if type(h).__name__ == "JacobianSeries":
-            raise TypeError("LTM takes a FourierSeries: JacobianSeries is not ported yet "
-                            "(ROADMAP A6)")
+        if isinstance(h, JacobianSeries):
+            h = h.s
         if not isinstance(h, FourierSeries):
             raise TypeError("LTM currently supports Fourier series Hamiltonians")
         if not isinstance(p, SymmetricBZ):
@@ -307,3 +309,56 @@ class LTM(DOSAlgorithm):
                 break
         return 0.5 * (lo + hi)
 
+
+class AdaptiveGaussianBroadening(DOSAlgorithm):
+    """``AdaptiveGaussianBroadening(npt=50, a=1.0, min_sigma=None,
+    precision="auto")``: Gaussian-smeared DOS with a per-(k, band) width set
+    by the local band velocity, ``sigma_kb = max(a |v_kb| / npt, floor)``
+    (Yates et al., PRB 75, 195121 (2007)). The floor is ``min_sigma``, by
+    default ``1e-3 (max e - min e) / npt``. Reuses GGR's spectral grid, so
+    it shares GGR's expensive-init, cheap-sweep cache shape; every
+    ``precision`` runs native complex128. Sweeps return numpy float64."""
+
+    def __init__(self, npt=50, a=1.0, min_sigma=None, precision="auto"):
+        self.npt = npt
+        self.a = a
+        self.min_sigma = min_sigma
+        self.precision = precision
+
+    def init_cacheval(self, h, domain, p):
+        from .ggr import GGR
+
+        cv = GGR(self.npt, self.precision).init_cacheval(h, domain, p)
+        e, v, w = cv["energies"], cv["velocities"], cv["weights"]  # (K, m), (K, d, m), (K,)
+        npt = self.npt
+        sigma = self.a * torch.sqrt(torch.sum(v * v, dim=1)) / npt
+        floor = self.min_sigma
+        if floor is None:
+            spread = float(e.max() - e.min()) or 1.0
+            floor = 1e-3 * spread / npt
+        sigma = torch.clamp_min(sigma, floor).contiguous()
+        return {
+            "energies": e,
+            "sigma": sigma,
+            "norm": (1.0 / (np.sqrt(2 * np.pi) * sigma)).contiguous(),
+            "weights": w,
+            "inv_total": 1.0 / float(torch.sum(w)),  # = npt^-d (fractional normalization)
+            "numevals": cv["numevals"],
+        }
+
+    def _sum(self, cacheval, Es):
+        from .ggr import gaussian_sum
+
+        e = cacheval["energies"]
+        E = torch.as_tensor(np.atleast_1d(np.asarray(Es, np.float64)), device=e.device)
+        return gaussian_sum(e, cacheval["sigma"], cacheval["norm"], cacheval["weights"],
+                            E.contiguous(), cacheval["inv_total"]).cpu().numpy()
+
+    def dos_solve(self, h, domain, p, cacheval, abstol=None, reltol=None, maxiters=None):
+        if np.ndim(domain) != 0:
+            raise TypeError("AdaptiveGaussianBroadening supports scalar energies")
+        return DOSSolution(float(self._sum(cacheval, domain)[0]), None, True, cacheval["numevals"])
+
+    def dos_sweep(self, cacheval, Es):
+        """DOS over an energy grid: one K13 launch (Gaussian mode) on the card."""
+        return self._sum(cacheval, Es)

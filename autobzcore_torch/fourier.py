@@ -4,13 +4,19 @@
 - :class:`FourierSeries`: dense coefficient tensor on a device, with periods
   and offsets; evaluation at points goes through kernel K1
   (:func:`autobzcore_torch.ops.fourier_eval.fourier_points`).
+- :class:`JacobianSeries`: evaluates to ``(H(x), dH/dz(x))`` with
+  z = x/period, from the closed-form derivative coefficients
+  ``(2 pi i f) c_f`` (not autodiff), through kernel K11
+  (:func:`autobzcore_torch.ops.fourier_eval.fourier_points_derivs`).
 - :class:`FourierValue`: the ``(x, s)`` pair handed to user kernels.
 - :class:`FourierIntegrand`: a user kernel bundled with a series, whose
   series values a PTR rule computes once at its points and reuses across
   solves, and which a nested solver contracts one variable at a time.
 - :class:`FourierCarrier`: the per-level series state of the nested solver,
   one coefficient tensor per lane, contracted by kernel K3
-  (:func:`autobzcore_torch.ops.fourier_eval.fourier_contract`).
+  (:func:`autobzcore_torch.ops.fourier_eval.fourier_contract`). A
+  JacobianSeries rides through it as one series whose value carries d + 1
+  channels (H and its d derivative series), unpacked for the user kernel.
 """
 from __future__ import annotations
 
@@ -19,7 +25,14 @@ import torch
 from torch.func import vmap
 
 from ._device import COMPLEX, REAL, as_device
-from .ops.fourier_eval import contract, evaluate_points, fourier_contract
+from .ops.fourier_eval import (
+    contract,
+    derivative_coefficients,
+    evaluate_points,
+    evaluate_points_jacobian,
+    fourier_contract,
+    jacobian_orders,
+)
 from .parameters import NullParameters, ParameterIntegrand, merge_parameters
 
 
@@ -87,6 +100,42 @@ class FourierSeries:
         return obj
 
 
+class JacobianSeries:
+    """Evaluates to the pair ``(H(x), V(x))`` with ``V[j] = dH/dz_j``
+    (z = x/period), via closed-form derivative coefficients."""
+
+    def __init__(self, s: FourierSeries):
+        self.s = s
+
+    @property
+    def ndim(self):
+        return self.s.sndim
+
+    @property
+    def sndim(self):
+        # the BZ layer's series/zone dimension guard reads sndim
+        return self.s.sndim
+
+    @property
+    def period(self):
+        return self.s.period
+
+    @property
+    def device(self):
+        return self.s.device
+
+    def eval_points(self, X):
+        """``(h (K, *valshape), v (K, d, *valshape))`` at the points X (K, d),
+        in one K11 launch."""
+        s = self.s
+        return evaluate_points_jacobian(s.c, s.sndim, X, s.offset, s.period, s.dtype)
+
+    def __call__(self, x):
+        x = torch.atleast_1d(torch.as_tensor(x, dtype=REAL, device=self.device))
+        h, v = self.eval_points(x[None, :])
+        return h[0], v[0]
+
+
 class FourierValue:
     """Point ``x`` and evaluated series ``s`` handed to user kernels."""
 
@@ -98,6 +147,23 @@ class FourierValue:
         return f"FourierValue(x={self.x!r}, s={self.s!r})"
 
 
+class StoredSeriesValues:
+    """Series values kept as (re, im) real pairs (the reference's jit-boundary
+    form, kept for API parity: the port stores complex tensors directly).
+    ``join()`` gives the complex tensors: the (H, V) pair when ``jacobian``."""
+
+    def __init__(self, parts, jacobian):
+        self.parts = parts
+        self.jacobian = jacobian
+
+    def join(self):
+        if self.jacobian:
+            (hr, hi), (vr, vi) = self.parts
+            return torch.complex(hr, hi), torch.complex(vr, vi)
+        re, im = self.parts
+        return torch.complex(re, im)
+
+
 class FourierIntegrand:
     """``FourierIntegrand(f, s, *args, **kwargs)``: integrand evaluating
     ``f(FourierValue(x, s(x)), *args, **kwargs)``; ``rep=`` declares the
@@ -106,8 +172,8 @@ class FourierIntegrand:
     def __init__(self, f, s, *args, **kwargs):
         self.rep = kwargs.pop("rep", None)
         self.pf = f if isinstance(f, ParameterIntegrand) else ParameterIntegrand(f, *args, **kwargs)
-        if not isinstance(s, FourierSeries):
-            raise TypeError("FourierIntegrand requires a FourierSeries")
+        if not isinstance(s, (FourierSeries, JacobianSeries)):
+            raise TypeError("FourierIntegrand requires a FourierSeries/JacobianSeries")
         self.s = s
 
     @property
@@ -129,11 +195,12 @@ class FourierIntegrand:
 
     # --- PTR rule support --------------------------------------------------
     def series_values_on_grid(self, npt, frac=None):
-        """Series values at the PTR rule's points, through kernel K1: the
-        whole ``npt^d`` fractional grid when ``frac`` is None (the full
-        zone), else the fractional points ``frac`` (K, d), e.g. the symmetry
-        representatives of an irreducible zone. Returns (K, *valshape) on
-        the series' device."""
+        """Series values at the PTR rule's points, through kernel K1 (K11 for
+        a JacobianSeries): the whole ``npt^d`` fractional grid when ``frac``
+        is None (the full zone), else the fractional points ``frac`` (K, d),
+        e.g. the symmetry representatives of an irreducible zone. Returns
+        (K, *valshape) on the series' device, for a JacobianSeries the pair
+        (H (K, *valshape), V (K, d, *valshape))."""
         d = self.s.sndim
         if frac is None:
             from .algorithms.ptr import frac_nodes
@@ -151,13 +218,27 @@ class FourierIntegrand:
             raise NotImplementedError(
                 "the guided tier's complex64 carrier is not ported: IAI(precision='guided') "
                 "runs the plain complex128 tier (ROADMAP A5)")
-        if type(self.s).__name__ == "JacobianSeries":
-            raise NotImplementedError("JacobianSeries carriers are not ported yet (ROADMAP A3)")
+        if isinstance(self.s, JacobianSeries):
+            # H and its d derivative series as d + 1 value channels: every
+            # contraction carries them alike, and the user kernel gets the
+            # (H, V) pair back from the channels
+            base = self.s.s
+            c_aug = derivative_coefficients(base.c, base.sndim, base.offset,
+                                            jacobian_orders(base.sndim))
+            aug = FourierSeries(c_aug, period=base.period, offset=base.offset, ndim=base.sndim,
+                                device=base.device)
+            pf = self.pf
+
+            def unpack(v, p):  # channel 0 of the value is H, channels 1..d dH/dz_j
+                return pf(FourierValue(v.x, (v.s[0], v.s[1:])), p)
+
+            return FourierCarrier.from_series(unpack, aug)
         return FourierCarrier.from_series(self.pf, self.s)
 
     def user_batch_fn(self):
         """``g(xs (K, d), svals (K, ...), p)``: the user kernel vmapped over
-        the points and their series values."""
+        the points and their series values (for a JacobianSeries the (H, V)
+        pair, both batched)."""
         pf = self.pf
 
         def one(x, s, q):

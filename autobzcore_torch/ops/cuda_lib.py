@@ -47,6 +47,13 @@ def _bind(lib):
     lib.fourier_points_launch.argtypes = [vp, vp, vp, ll, i, i, i, i, i, i, i,
                                           dbl, dbl, dbl, i, vp]
     lib.fourier_points_launch.restype = i
+    lib.fourier_points_derivs_launch.argtypes = [vp, vp, vp, ll, i, i, i, i, i, i, i,
+                                                 dbl, dbl, dbl, i, i, ctypes.POINTER(i), vp]
+    lib.fourier_points_derivs_launch.restype = i
+    lib.band_velocity_launch.argtypes = [vp, vp, vp, ll, i, i, ll, ll, vp]
+    lib.band_velocity_launch.restype = i
+    lib.ggr_dos_launch.argtypes = [i, vp, vp, vp, vp, ll, i, vp, i, dbl, dbl, dbl, vp, vp, vp]
+    lib.ggr_dos_launch.restype = i
     lib.dos_trace_num_chunks.argtypes = [ll]
     lib.dos_trace_num_chunks.restype = ll
     lib.dos_trace_weighted_sum_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i,
@@ -74,8 +81,8 @@ def _bind(lib):
     lib.lorentzian_sum_launch.restype = i
     lib.fullgrid_tail_launch.argtypes = [vp, vp, ll, ll, i, i, vp, i, dbl, dbl, vp, vp, vp]
     lib.fullgrid_tail_launch.restype = i
-    lib.tetra_num_blocks.argtypes = [ll, i]
-    lib.tetra_num_blocks.restype = ll
+    lib.energy_tiles_num_blocks.argtypes = [ll, i]
+    lib.energy_tiles_num_blocks.restype = ll
     lib.tetra_dos_launch.argtypes = [vp, ll, i, i, vp, i, dbl, dbl, i, vp, vp, vp]
     lib.tetra_dos_launch.restype = i
     return lib

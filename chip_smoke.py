@@ -89,10 +89,35 @@ non-zero):
    omegas through eigvalsh + K8 against the plain path (1e-10 relative),
    the route timed by events (cuSOLVER's share, K8's, the plain trace
    path's) beside its bound, and K2 with its grid capped at 7 block rows against the uncapped launch
-   at 1e6 k-points, bit for bit.
+   at 1e6 k-points, bit for bit;
+19. kernels K11 (the series Jacobian at points), K12 (band velocities) and
+   K13 (GGR's box sum and the Gaussian sum) against their plain versions at
+   the main path's shapes: K11 on the flagship's 1e6 points of the 100^3 grid
+   (at order zero bit-equal to K1; library time ``torch.matmul`` of the
+   precomputed derivative phases) and on one bands30 init chunk, K12 on
+   eigh's vectors of one init chunk at m = 3 and m = 30 (library time one
+   ``torch.einsum``), K13 in both modes on the flagship's spectral grid at
+   1001 energies over [-6, 7] eV and in box mode at the bands30 shape; max
+   relative error <= 1e-12, bit-identical on repeat; kernel, plain and bound
+   times;
+20. GGR main path: the flagship GGR(npt=100) on the full zone through
+   DOSProblem/init/dos_sweep at phase 15's 1001 energies, then
+   AdaptiveGaussianBroadening(npt=100); init and sweep walls, K11-K13
+   launches, the init by event time with cuSOLVER's eigh share, peak memory,
+   eigh's time and one call's memory in calls of GGR_CHUNK and of 16,384;
+   checks: both DOS integrate to 3 bands (2e-2), GGR against phase 15's LTM
+   DOS 0.3 eV from the band edges (3e-2 of max|D|), tb_integer(3) GGR(npt=60)
+   on CubicSymIBZ against the full zone (E 0.8, 1e-12), tb_graphene
+   GGR(npt=200) against the exact curve at the reference's energies (1e-2),
+   5 energies against the plain path (1e-12);
+21. BASELINE config 5: synthetic_wannier(30, nr=5), GGR(npt=60) on the
+   inversion wedge (29,791 points x 30 bands), 1000 energies over [-8, 8];
+   init and sweep walls, cuSOLVER's share, eigh's chunk trade-off as in 20;
+   checks: finite, non-negative,
+   integral 30 within 5 %, 5 energies against the plain path (1e-12).
 
-With ``--profile``, the PTR, IAI, warm IAI, full-grid, LTM and block IAI
-main paths each run once more under ``torch.profiler`` (after their checks),
+With ``--profile``, the PTR, IAI, warm IAI, full-grid, LTM, block IAI and
+GGR main paths each run once more under ``torch.profiler`` (after their checks),
 which prints their device busy time, its share of the wall and the device
 time of the leading kernels.
 
@@ -114,8 +139,12 @@ WINDOW = (-6.0, 7.0)
 IAI_OMEGAS = 33  # one SweepSolver chunk of the IAI leg
 IAI_ABSTOL = 1e-3
 # the least time the card could take: NVIDIA's data sheet for the H100 SXM
-# at 700 W, FP64 outside the tensor cores (none of the kernels uses them)
+# at 700 W, FP64 outside the tensor cores, and FP64 on the tensor cores
+# (DMMA) for the functions that are complex matrix products (K1, K11: the
+# phase matrix by the coefficients; K12: dH_j by the eigenvectors), which a
+# library product runs there; none of the port's kernels uses them
 PEAK_FP64 = 34e12
+PEAK_FP64_MMA = 67e12
 PEAK_BYTES = 3.35e12
 # FP64 operations (an FMA counts 2) of Im Tr (z - H)^-1 by the closed forms
 # of csrc/small_trace.cuh, per matrix: m = 1, 2, 3
@@ -139,6 +168,17 @@ LTM_ENERGIES = 1001
 # is a constant), and ~30 for each (energy, term) pair inside the support
 # (the piece's compares, a dozen multiply-adds and a division counted as 8)
 TETRA_TEST_FLOPS, TETRA_SUPPORT_FLOPS = 2, 30
+# FP64 operations of K13's work (csrc/ggr_dos.cu): in box mode two compares
+# per (k, band) term for its support and ~30 per (energy, term) pair inside
+# the support (the branch compares, a dozen multiplies and adds, a division
+# counted as 8); in Gaussian mode ~40 per pair whose exp does not underflow
+# (the division, 8; libdevice's exp, ~25; the scaling and the sum)
+GGR_TEST_FLOPS, GGR_SUPPORT_FLOPS, GAUSS_PAIR_FLOPS = 2, 30, 40
+GAUSS_UNDERFLOW = 1500.0  # t^2 above which K13 drops exp(-t^2 / 2) as 0.0
+# BASELINE config 5: synthetic_wannier(30, nr=5), GGR(npt=60) on the
+# inversion wedge, 1000 energies over [-8, 8]
+BANDS30, BANDS30_NPT, BANDS30_ENERGIES, BANDS30_WINDOW = 30, 60, 1000, (-8.0, 8.0)
+EIGH_CAP = 16384  # the most matrices cuSOLVER's batched eigh took a call on an H100
 BLOCKS = (2, 4)  # omega-block widths of phases 16-17
 BLOCK_CHUNK = 36  # phase 17's SweepSolver chunk: 33 frequencies and their pads
 BLOCK_WALL_RUNS = 3
@@ -193,10 +233,10 @@ def profile(label, fn):
               f"{k[:48]} x{n} {t / 1e3:.3f} ms" for k, n, t in top), flush=True)
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, peak=PEAK_FP64):
     """(bound_ms, bound_by): the larger of FP64 operations over the peak
-    rate and bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FP64 * 1e3, nbytes / PEAK_BYTES * 1e3
+    rate ``peak`` and bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -407,7 +447,7 @@ def main():
 
     src = "autobzcore_torch/csrc/"
     b1 = bound(Hg.shape[0] * (125 * (8 * 9 + 6)),
-               nbytes(h.c, Xg) + Hg.numel() * Hg.element_size())
+               nbytes(h.c, Xg) + Hg.numel() * Hg.element_size(), PEAK_FP64_MMA)
     b2 = bound(Hg.shape[0] * W_FLAGSHIP * (TRACE_FLOPS[3] + 2), nbytes(Hg, wg, omg, etag) + 8 * W_FLAGSHIP)
     kernels = [
         {"name": "fourier_points", "route": "cuda", "source": src + "fourier_points.cu",
@@ -427,9 +467,11 @@ def main():
     kernels += k_iai
     kernels += warm_phases(np, torch, dev, h, cold)
     kernels += fullgrid_phases(np, torch, dev, h, cold)
-    kernels += ltm_phases(np, torch, dev, h)
+    k_ltm, ltm_dos = ltm_phases(np, torch, dev, h)
+    kernels += k_ltm
     kernels += block_phases(np, torch, dev, h, cold)
     kernels += repair_phases(np, torch, dev)
+    kernels += ggr_phases(np, torch, dev, h, ltm_dos)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1196,7 +1238,7 @@ def band_grid(np, rng, m, npt, d):
 
 def ltm_phases(np, torch, dev, h):
     """Phases 14-15: K10 against its plain version, then the LTM main path.
-    Returns K10's JSON entry."""
+    Returns K10's JSON entry and the LTM DOS at the 1001 energies."""
     from autobzcore_torch import FBZ, CubicSymIBZ, DOSProblem, load_bz
     from autobzcore_torch.dos import LTM
     from autobzcore_torch.dos import init as dos_init
@@ -1326,7 +1368,7 @@ def ltm_phases(np, torch, dev, h):
     return [{"name": "tetra_dos", "route": "cuda", "source": src + "tetra_dos.cu",
              "replaces": "autobzcore_tpu/dos/tetrahedron.py:68", "launches": launches["tetra_dos"],
              "max_abs_err": err10, "ms": t10["ms"], "plain_ms": t10["plain_ms"], "bound_ms": b10[0],
-             "bound_by": b10[1], "library_ms": None}]
+             "bound_by": b10[1], "library_ms": None}], D
 
 
 def block_phases(np, torch, dev, h, cold):
@@ -1580,6 +1622,354 @@ def repair_phases(np, torch, dev):
              "replaces": "autobzcore_tpu/models/observables.py:145", "launches": launches["lorentzian_sum"],
              "max_abs_err": err18, "ms": t18["ms"], "plain_ms": t18["plain_ms"], "bound_ms": b18[0],
              "bound_by": b18[1], "library_ms": None}]
+
+
+def dos_graphene_exact(E, t=1.0):
+    """Graphene's exact DOS per unit cell and spin (the reference's anchor,
+    tests/test_dos.py), by scipy's complete elliptic integral."""
+    from scipy.special import ellipk
+
+    E = abs(E)
+    x = abs(E / t)
+    f = (1 + x) ** 2 - (x**2 - 1) ** 2 / 4
+    if x <= 1:
+        return 2 * E / ((math.pi * t) ** 2 * math.sqrt(f)) * ellipk(4 * x / f)
+    if x < 3:
+        return 2 * E / ((math.pi * t) ** 2 * math.sqrt(4 * x)) * ellipk(f / (4 * x))
+    return 0.0
+
+
+def eigh_chunk_cost(torch, H, sizes):
+    """For each chunk size n of ``sizes``: (milliseconds by CUDA events to
+    eigendecompose all of H with batched ``torch.linalg.eigh`` calls of n
+    matrices, device memory that one call of n matrices takes at its peak
+    above what was allocated before it, in MiB)."""
+    out = {}
+    for n in sizes:
+        parts = [H[s:s + n] for s in range(0, H.shape[0], n)]
+        ms = cuda_ms(lambda: [torch.linalg.eigh(x) for x in parts], 2)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        torch.linalg.eigh(parts[0])
+        torch.cuda.synchronize()
+        out[n] = (ms, (torch.cuda.max_memory_allocated() - base) / 2**20)
+    return out
+
+
+def eigh_cost_text(cost):
+    return "; ".join(f"in calls of {n}: {ms:.3f} ms, one call {mib:.1f} MiB" for n, (ms, mib) in cost.items())
+
+
+def ggr_support(torch, e, v, E, b, vtol):
+    """(terms, (energy, term) pairs inside the box support): a term of
+    energy e and velocities v (d,) reaches |E - e| <= b sum_j |v_j|, and
+    none where max |v_j| <= vtol."""
+    av = v.abs()
+    half = b * av.sum(1)
+    half = torch.where(av.max(1).values > vtol, half, torch.full_like(half, -1.0))
+    lo, hi = (e - half).reshape(-1), (e + half).reshape(-1)
+    live = half.reshape(-1) >= 0
+    n = torch.searchsorted(E, hi, right=True) - torch.searchsorted(E, lo)
+    return e.numel(), int(n[live].sum())
+
+
+def gauss_support(torch, e, sigma, E):
+    """(energy, term) pairs whose Gaussian does not underflow in K13."""
+    half = math.sqrt(GAUSS_UNDERFLOW) * sigma
+    n = torch.searchsorted(E, (e + half).reshape(-1), right=True) - torch.searchsorted(E, (e - half).reshape(-1))
+    return int(n.sum())
+
+
+def ggr_phases(np, torch, dev, h, ltm_dos):
+    """Phases 19-21: K11-K13 against their plain versions, the GGR and AGB
+    main path at the flagship, and BASELINE config 5. Returns the kernels'
+    JSON entries."""
+    from autobzcore_torch import FBZ, GGR, CubicSymIBZ, DOSProblem, InversionSymIBZ, load_bz
+    from autobzcore_torch.algorithms.ptr import frac_nodes
+    from autobzcore_torch.dos import AdaptiveGaussianBroadening
+    from autobzcore_torch.dos import ggr as G
+    from autobzcore_torch.dos import init as dos_init
+    from autobzcore_torch.dos import solve_ as dos_solve_
+    from autobzcore_torch.models.tight_binding import synthetic_wannier, tb_graphene, tb_integer
+    from autobzcore_torch.ops import fourier_eval as fe
+    from autobzcore_torch.ops.symptr import symptr_rule
+
+    src = "autobzcore_torch/csrc/"
+    bz = load_bz(FBZ(), np.eye(3))
+    bzi = load_bz(InversionSymIBZ(), np.eye(3))
+    ws = np.linspace(*WINDOW, LTM_ENERGIES)
+    E = torch.as_tensor(ws, device=dev)
+    orders = fe.jacobian_orders(3)
+    C = G.GGR_CHUNK
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    # 19. K11-K13 against their plain versions -----------------------------------------
+    # K11: the flagship's Jacobian at the 1e6 points of the 100^3 grid
+    Xg = (frac_nodes(NPT, 3, dev) * torch.as_tensor(h.period, device=dev)).contiguous()
+    J = fe.fourier_points_derivs(h.c, Xg, h.offset, h.period, orders)
+    Jp = fe.fourier_points_derivs_plain(h.c, Xg, h.offset, h.period, orders)
+    zero = fe.fourier_points_derivs(h.c, Xg, h.offset, h.period, ((0, 0, 0),))[:, 0]
+    k1_same = torch.equal(zero, fe.fourier_points(h.c, Xg, h.offset, h.period))
+    del zero
+    err11 = float((J - Jp).abs().max())
+    rel11 = err11 / float(Jp.abs().max())
+    if not (rel11 <= 1e-12 and k1_same):
+        fail(f"K11 fourier_points_derivs at the flagship: max rel {rel11:.3e}, zero order equals K1 {k1_same}")
+    t11 = {"ms": cuda_ms(lambda: fe.fourier_points_derivs(h.c, Xg, h.offset, h.period, orders), 5),
+           "plain_ms": cuda_ms(lambda: fe.fourier_points_derivs_plain(h.c, Xg, h.offset, h.period, orders), 2),
+           "k1_ms": cuda_ms(lambda: fe.fourier_points(h.c, Xg, h.offset, h.period), 5)}
+    # the library call: one complex matmul of the precomputed (K, 125) phases by
+    # the (125, 4 x 9) derivative coefficients
+    ph = [fe.phase_matrix(Xg[:, j].contiguous(), h.c.shape[j], h.offset[j], h.period[j]) for j in range(3)]
+    Pm = (ph[0][:, :, None, None] * ph[1][:, None, :, None] * ph[2][:, None, None, :]).reshape(Xg.shape[0], -1)
+    del ph
+    ca = fe.derivative_coefficients(h.c, 3, h.offset, orders).reshape(Pm.shape[1], -1)
+    lib11 = rel(torch.matmul(Pm, ca).reshape(J.shape), Jp)
+    t11["library_ms"] = cuda_ms(lambda: torch.matmul(Pm, ca), 5)
+    del Pm, Jp
+    b11 = bound(Xg.shape[0] * 125 * 4 * 9 * 8, nbytes(h.c, Xg) + J.numel() * J.element_size(), PEAK_FP64_MMA)
+    # and at the bands30 shape: one init chunk of the inversion wedge's points
+    s30 = synthetic_wannier(BANDS30, nr=5, device=dev)
+    reps30, _ = symptr_rule(BANDS30_NPT, 3, bzi.syms)
+    X30 = (torch.as_tensor(reps30[:C], device=dev).to(torch.float64) / BANDS30_NPT).contiguous()
+    J30 = fe.fourier_points_derivs(s30.c, X30, s30.offset, s30.period, orders)
+    rel11_30 = rel(J30, fe.fourier_points_derivs_plain(s30.c, X30, s30.offset, s30.period, orders))
+    t11_30 = {"ms": cuda_ms(lambda: fe.fourier_points_derivs(s30.c, X30, s30.offset, s30.period, orders), 3),
+              "plain_ms": cuda_ms(lambda: fe.fourier_points_derivs_plain(s30.c, X30, s30.offset, s30.period,
+                                                                           orders), 1)}
+    b11_30 = bound(X30.shape[0] * 125 * 4 * 900 * 8, nbytes(s30.c, X30) + J30.numel() * J30.element_size(),
+                   PEAK_FP64_MMA)
+    print(f"K11 fourier_points_derivs: the flagship's Jacobian (R = 4) at {Xg.shape[0]} points: max rel vs plain "
+          f"{rel11:.3e} (<= 1e-12), zero order bit-equal to K1 {k1_same}; {t11['ms']:.3f} ms (K1 {t11['k1_ms']:.3f} ms; "
+          f"plain {t11['plain_ms']:.3f} ms; torch.matmul of the phases {t11['library_ms']:.3f} ms, rel {lib11:.3e}; "
+          f"bound {b11[0]:.4f} ms by {b11[1]}); bands30 chunk ({X30.shape[0]} points, V = 900): rel {rel11_30:.3e}, "
+          f"{t11_30['ms']:.3f} ms (plain {t11_30['plain_ms']:.3f} ms, bound {b11_30[0]:.4f} ms by {b11_30[1]})",
+          flush=True)
+    if not rel11_30 <= 1e-12:
+        fail(f"K11 at the bands30 shape: max rel {rel11_30:.3e}")
+
+    # K12 on the eigenvectors of one init chunk: the flagship's and bands30's
+    t12 = {}
+    for tag, Jc, m in (("flagship", J[:C], 3), ("bands30", J30, BANDS30)):
+        Jc = Jc.reshape(-1, 4, m, m)
+        U = torch.linalg.eigh(Jc[:, 0])[1].contiguous()
+        dH = Jc[:, 1:]
+        v = G.band_velocity(U, dH)
+        vp = G.band_velocity_plain(U, dH)
+        same = torch.equal(v, G.band_velocity(U, dH))
+        r = rel(v, vp)
+        if not (r <= 1e-12 and same):
+            fail(f"K12 band_velocity at the {tag} shape (m = {m}): max rel {r:.3e}, repeat identical {same}")
+        K = U.shape[0]
+        t12[tag] = {"err": float((v - vp).abs().max()), "rel": r,
+                    "ms": cuda_ms(lambda: G.band_velocity(U, dH), 10),
+                    "plain_ms": cuda_ms(lambda: G.band_velocity_plain(U, dH), 5),
+                    "library_ms": cuda_ms(lambda: torch.einsum("kim,kdij,kjm->kdm", U.conj(), dH, U), 5),
+                    "bound": bound(K * 3 * m * (8 * m * m + 4 * m), nbytes(U) + 16 * dH.numel() + nbytes(v),
+                                   PEAK_FP64_MMA),
+                    "K": K}
+    del J30
+    print("K12 band_velocity on eigh's vectors of one init chunk: " + "; ".join(
+        f"{tag} ({t['K']} points, m = {m}): max rel vs plain {t['rel']:.3e} (<= 1e-12), repeat bit-identical, "
+        f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, torch.einsum {t['library_ms']:.4f} ms, bound "
+        f"{t['bound'][0]:.4f} ms by {t['bound'][1]})" for (tag, t), m in zip(t12.items(), (3, BANDS30))), flush=True)
+
+    # K13 on the flagship's spectral grid at 1001 energies, box and Gaussian
+    cv = GGR(npt=NPT).init_cacheval(h, 0.0, bz)
+    ca_ = AdaptiveGaussianBroadening(npt=NPT).init_cacheval(h, 0.0, bz)
+    cv30 = GGR(npt=BANDS30_NPT).init_cacheval(s30, 0.0, bzi)
+    E30 = torch.as_tensor(np.linspace(*BANDS30_WINDOW, BANDS30_ENERGIES), device=dev)
+
+    def box(c, En):
+        return lambda: G.ggr_box_sum(c["energies"], c["velocities"], c["weights"], En, c["b"], c["vtol"])
+
+    def box_plain(c, En):
+        return lambda: G.ggr_box_sum_plain(c["energies"], c["velocities"], c["weights"], En, c["b"], c["vtol"])
+
+    def gauss(c, En):
+        return lambda: G.gaussian_sum(c["energies"], c["sigma"], c["norm"], c["weights"], En, c["inv_total"])
+
+    def gauss_plain(c, En):
+        return lambda: G.gaussian_sum_plain(c["energies"], c["sigma"], c["norm"], c["weights"], En, c["inv_total"])
+
+    t13 = {}
+    for tag, fn, plain, c, En in (("box", box, box_plain, cv, E), ("gauss", gauss, gauss_plain, ca_, E),
+                                  ("box30", box, box_plain, cv30, E30)):
+        k, k2, p_ = fn(c, En)(), fn(c, En)(), plain(c, En)()
+        torch.cuda.synchronize()
+        r, same = rel(k, p_), torch.equal(k, k2)
+        if not (r <= 1e-12 and same):
+            fail(f"K13 {tag} at {En.shape[0]} energies: max rel vs plain {r:.3e}, repeat identical {same}")
+        if tag == "gauss":
+            pairs = gauss_support(torch, c["energies"], c["sigma"], En)
+            b13 = bound(pairs * GAUSS_PAIR_FLOPS, nbytes(c["energies"], c["sigma"], c["norm"], c["weights"], En)
+                        + 8 * En.shape[0])
+            terms = c["energies"].numel()
+        else:
+            terms, pairs = ggr_support(torch, c["energies"], c["velocities"], En, c["b"], c["vtol"])
+            b13 = bound(terms * GGR_TEST_FLOPS + pairs * GGR_SUPPORT_FLOPS,
+                        nbytes(c["energies"], c["velocities"], c["weights"], En) + 8 * En.shape[0])
+        t13[tag] = {"err": float((k - p_).abs().max()), "rel": r, "ms": cuda_ms(fn(c, En), 5),
+                    "plain_ms": once_ms(plain(c, En)), "bound": b13, "terms": terms, "pairs": pairs}
+    print("K13 ggr_box_sum / gaussian_sum: " + "; ".join(
+        f"{tag} ({t['terms']} terms x {E30.shape[0] if tag == 'box30' else LTM_ENERGIES} energies, {t['pairs']} "
+        f"pairs in the support): max rel vs plain {t['rel']:.3e} (<= 1e-12), repeat bit-identical, {t['ms']:.4f} ms "
+        f"(plain {t['plain_ms']:.1f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]})"
+        for tag, t in t13.items()), flush=True)
+    del J, cv, ca_, cv30
+    torch.cuda.empty_cache()
+
+    # 20. the GGR and AGB main path at the flagship ------------------------------------
+    def ggr_path():
+        ggr = GGR(npt=NPT)
+        t0 = time.perf_counter()
+        cache = dos_init(DOSProblem(h, 0.5, bz), ggr)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        D = ggr.dos_sweep(cache.cacheval, ws)
+        t2 = time.perf_counter()
+        agb = AdaptiveGaussianBroadening(npt=NPT)
+        cache_a = dos_init(DOSProblem(h, 0.5, bz), agb)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        Da = agb.dos_sweep(cache_a.cacheval, ws)
+        return ggr, cache, D, agb, cache_a, Da, (t0, t1, t2, t3, time.perf_counter())
+
+    def counts():
+        return {"fourier_points_derivs": fe.fourier_points_derivs.launches,
+                "band_velocity": G.band_velocity.launches, "ggr_box_sum": G.ggr_box_sum.launches,
+                "gaussian_sum": G.gaussian_sum.launches}
+
+    def zero_counts():
+        fe.fourier_points_derivs.launches = G.band_velocity.launches = 0
+        G.ggr_box_sum.launches = G.gaussian_sum.launches = 0
+
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ggr, cache, D, agb, cache_a, Da, (t0, t1, t2, t3, t4) = ggr_path()
+    launches = counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    if min(launches.values()) <= 0:
+        fail(f"the GGR main path did not go through every kernel: {launches}")
+    # the init by event time, and cuSOLVER's eigh in it over the same chunks
+    t_init = cuda_ms(lambda: G.spectral_grid(h, bz, NPT), 2)
+    Hs = [fe.fourier_points_derivs(h.c, Xg[s:s + C], h.offset, h.period, orders)[:, 0].reshape(-1, 3, 3)
+          for s in range(0, Xg.shape[0], C)]
+    t_eigh = cuda_ms(lambda: [torch.linalg.eigh(x) for x in Hs], 2)
+    # the chunk's trade-off: eigh time and one call's memory at the chunk and at the cap
+    eigh_cost = eigh_chunk_cost(torch, torch.cat(Hs)[:EIGH_CAP], (C, EIGH_CAP))
+    del Hs
+    e = cache.cacheval["energies"]
+    edges = np.concatenate([e.min(0).values.cpu().numpy(), e.max(0).values.cpu().numpy()])
+    print(f"GGR main path: flagship GGR(npt={NPT}) then AdaptiveGaussianBroadening(npt={NPT}), FBZ, "
+          f"{LTM_ENERGIES} energies in {list(WINDOW)}: GGR init {t1 - t0:.4f} s, dos_sweep {t2 - t1:.4f} s; AGB init "
+          f"{t3 - t2:.4f} s, dos_sweep {t4 - t3:.4f} s; GGR init by event time {t_init:.3f} ms, cuSOLVER eigh "
+          f"{t_eigh:.3f} ms of it ({100 * t_eigh / t_init:.1f} %); launches {launches}; peak device memory "
+          f"{peak:.1f} MiB above what earlier phases hold; eigh of {EIGH_CAP} of its matrices {eigh_cost_text(eigh_cost)}; "
+          f"bands {np.round(edges, 4).tolist()}", flush=True)
+    integral, integral_a = float(np.trapezoid(D, ws)), float(np.trapezoid(Da, ws))
+    away = np.min(np.abs(ws[:, None] - edges[None]), axis=1) > 0.3
+    d_ltm = float(np.max(np.abs(D - ltm_dos)[away]))
+    scale_ltm = float(np.max(np.abs(ltm_dos)))
+    h1 = tb_integer(3, device=dev)
+    vals = [float(dos_solve_(dos_init(DOSProblem(h1, 0.8, load_bz(k, np.eye(3))), GGR(npt=60))).u)
+            for k in (CubicSymIBZ(), FBZ())]
+    rel_ibz = abs(vals[0] - vals[1]) / abs(vals[1])
+    gcache = dos_init(DOSProblem(tb_graphene(device=dev), 0.0, load_bz(FBZ(), np.eye(2))), GGR(npt=200))
+    ge = np.array([-5.0, -3.2, -2.4, -0.8, 0.4, 1.2, 2.0, 2.8, 3.6, 6.0])  # the reference's energies
+    g_err = float(np.max(np.abs(GGR(npt=200).dos_sweep(gcache.cacheval, ge)
+                                - np.array([dos_graphene_exact(x) for x in ge]))))
+    ws5 = np.array([-4.0, -1.0, 0.5, 2.0, 5.5])
+    d5 = ggr.dos_sweep(cache.cacheval, ws5)
+    pe, pv, pw = G.spectral_grid(h, bz, NPT, points=fe.fourier_points_derivs_plain, velocities=G.band_velocity_plain)
+    p5 = G.ggr_box_sum_plain(pe, pv, pw, torch.as_tensor(ws5, device=dev), cache.cacheval["b"],
+                             cache.cacheval["vtol"]).cpu().numpy()
+    del pe, pv, pw
+    rel5 = float(np.max(np.abs(d5 - p5)) / np.max(np.abs(p5)))
+    print(f"GGR main path check: integral of D {integral:.10f}, of AGB's {integral_a:.10f} (3 within 2e-2); "
+          f"max|D_GGR - D_LTM| {d_ltm:.4e} at {int(away.sum())} energies 0.3 eV from the band edges (<= 3e-2 "
+          f"max|D_LTM| = {3e-2 * scale_ltm:.4e}); tb_integer(3) npt=60 E=0.8: CubicSymIBZ {vals[0]:.15f} vs FBZ "
+          f"{vals[1]:.15f} (rel {rel_ibz:.3e} <= 1e-12); tb_graphene GGR(npt=200) vs the exact curve at 10 "
+          f"energies: max|d| {g_err:.3e} (<= 1e-2); 5 energies vs the plain path: max|d| / max|D| {rel5:.3e} (<= 1e-12)",
+          flush=True)
+    if not (abs(integral - 3) <= 2e-2 and abs(integral_a - 3) <= 2e-2 and d_ltm <= 3e-2 * scale_ltm):
+        fail(f"GGR checks: integrals {integral}, {integral_a}; vs LTM {d_ltm}")
+    if not (rel_ibz <= 1e-12 and g_err <= 1e-2 and rel5 <= 1e-12 and np.all(np.isfinite(D))
+            and np.all(np.isfinite(Da)) and D.shape == Da.shape == ws.shape):
+        fail(f"GGR checks: IBZ rel {rel_ibz:.3e}, graphene {g_err:.3e}, 5 energies rel {rel5:.3e}")
+    if "--profile" in sys.argv[1:]:
+        profile("GGR main path", ggr_path)
+    del cache, cache_a
+    torch.cuda.empty_cache()
+
+    # 21. BASELINE config 5 --------------------------------------------------------------
+    w30 = np.linspace(*BANDS30_WINDOW, BANDS30_ENERGIES)
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    g30 = GGR(npt=BANDS30_NPT)
+    c30 = dos_init(DOSProblem(s30, 0.0, bzi), g30)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    D30 = g30.dos_sweep(c30.cacheval, w30)
+    t2 = time.perf_counter()
+    launches30 = counts()
+    peak30 = (torch.cuda.max_memory_allocated() - base) / 2**20
+    if min(launches30["fourier_points_derivs"], launches30["band_velocity"], launches30["ggr_box_sum"]) <= 0:
+        fail(f"config 5 did not go through K11-K13: {launches30}")
+    t_init30 = cuda_ms(lambda: G.spectral_grid(s30, bzi, BANDS30_NPT), 2)
+    X30 = (torch.as_tensor(reps30, device=dev).to(torch.float64) / BANDS30_NPT).contiguous()
+    Hs = [fe.fourier_points_derivs(s30.c, X30[s:s + C], s30.offset, s30.period, orders)[:, 0]
+          .reshape(-1, BANDS30, BANDS30) for s in range(0, X30.shape[0], C)]
+    t_eigh30 = cuda_ms(lambda: [torch.linalg.eigh(x) for x in Hs], 2)
+    eigh_cost30 = eigh_chunk_cost(torch, torch.cat(Hs)[:EIGH_CAP], (C, EIGH_CAP))
+    del Hs
+    integral30 = float(np.trapezoid(D30, w30))
+    e30 = c30.cacheval["energies"]
+    lo30, hi30 = float(e30.min()), float(e30.max())
+    ws5 = lo30 + (hi30 - lo30) * np.array([0.1, 0.3, 0.5, 0.7, 0.9])
+    d5 = g30.dos_sweep(c30.cacheval, ws5)
+    pe, pv, pw = G.spectral_grid(s30, bzi, BANDS30_NPT, points=fe.fourier_points_derivs_plain,
+                                 velocities=G.band_velocity_plain)
+    p5 = G.ggr_box_sum_plain(pe, pv, pw, torch.as_tensor(ws5, device=dev), c30.cacheval["b"],
+                             c30.cacheval["vtol"]).cpu().numpy()
+    del pe, pv, pw
+    rel30 = float(np.max(np.abs(d5 - p5)) / np.max(np.abs(p5)))
+    print(f"config 5: synthetic_wannier({BANDS30}, nr=5), GGR(npt={BANDS30_NPT}), InversionSymIBZ "
+          f"({c30.cacheval['numevals']} points x {BANDS30} bands), {BANDS30_ENERGIES} energies in "
+          f"{list(BANDS30_WINDOW)}: init {t1 - t0:.4f} s (by event time {t_init30:.3f} ms, cuSOLVER eigh "
+          f"{t_eigh30:.3f} ms, {100 * t_eigh30 / t_init30:.1f} %), dos_sweep {t2 - t1:.4f} s; launches {launches30}; "
+          f"peak device memory {peak30:.1f} MiB above the earlier phases'; eigh of {EIGH_CAP} of its matrices "
+          f"{eigh_cost_text(eigh_cost30)}; spectrum [{lo30:.4f}, {hi30:.4f}]; integral "
+          f"{integral30:.6f} (30 within 5 %); min D {float(D30.min()):.3e}; 5 energies in the spectrum vs the plain "
+          f"path: max|d| / max|D| "
+          f"{rel30:.3e} (<= 1e-12)", flush=True)
+    if not (np.all(np.isfinite(D30)) and np.all(D30 >= 0) and abs(integral30 - 30) <= 0.05 * 30
+            and rel30 <= 1e-12 and D30.shape == w30.shape):
+        fail(f"config 5 checks: integral {integral30}, min {D30.min()}, 5 energies rel {rel30:.3e}")
+    del c30
+    torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, t, b, library_ms):
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
+
+    return [entry("fourier_points_derivs", "fourier_points.cu", "autobzcore_tpu/ops/fourier_eval.py:115",
+                  dict(t11, err=err11), b11, t11["library_ms"]),
+            entry("band_velocity", "band_velocity.cu", "autobzcore_tpu/dos/ggr.py:278", t12["flagship"],
+                  t12["flagship"]["bound"], t12["flagship"]["library_ms"]),
+            entry("ggr_box_sum", "ggr_dos.cu", "autobzcore_tpu/dos/ggr.py:30", t13["box"], t13["box"]["bound"], None),
+            entry("gaussian_sum", "ggr_dos.cu", "autobzcore_tpu/dos/tetrahedron.py:325", t13["gauss"],
+                  t13["gauss"]["bound"], None)]
 
 
 if __name__ == "__main__":

@@ -110,8 +110,12 @@ def test_carrier_fix_and_eval_batch_match_reference(name):
 
 
 def test_contract_refuses_unported_forms():
+    """Derivative contraction is ported (it scales the contracted axis, as
+    the reference); K3's wrapper still refuses a malformed call."""
     s = ttb.tb_integer(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        tfe.contract(s.c, 2, 0.3, s.offset, s.period, derivs=(0, 1))
+    got = tfe.contract(s.c, 2, 0.3, s.offset, s.period, derivs=(0, 1)).numpy()
+    want = np.asarray(jfe.contract(jnp.asarray(s.c.numpy()), 2, jnp.asarray(0.3), s.offset, s.period,
+                                   derivs=(0, 1)))
+    assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
     with pytest.raises(ValueError):
         tfe.fourier_contract(s.c, torch.zeros(1, dtype=torch.int64), torch.zeros(1, 2), -1, 1.0)

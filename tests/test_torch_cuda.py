@@ -846,3 +846,135 @@ def test_block_iai_on_card_matches_cpu(cuda_device, warm):
     assert ng == nc and rg is rc is True
     assert np.array_equal(bcg[0], bcc[0]) and np.array_equal(bcg[1], bcc[1])
     assert rel_err(vg, vc) <= 1e-10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,vshape", [(1, ()), (2, (2, 2)), (3, (3, 3)), (3, (5, 5))])
+def test_jacobian_kernel_matches_plain_on_card(cuda_device, d, vshape):
+    """K11 against its plain version for R = 1..d + 1 outputs (one-hot,
+    second and mixed orders), offsets and periods other than 0 and 1, V
+    beyond the value chunk (25 values); at R = 1 and order zero K1's bits."""
+    from autobzcore_torch.ops import fourier_eval as tfe
+
+    rng = np.random.default_rng(110 + d)
+    shape = tuple(rng.integers(3, 7, size=d)) + vshape
+    c = torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape), device=cuda_device)
+    off, per = tuple(int(o) for o in rng.integers(-3, 1, size=d)), tuple(rng.uniform(0.5, 2.0, size=d))
+    X = torch.as_tensor(rng.random((5000, d)) * 2.0, device=cuda_device)
+    jac = tfe.jacobian_orders(d)
+    for orders in (jac, jac[:2], ((2,) + (0,) * (d - 1),), ((1,) * d,)):
+        before = tfe.fourier_points_derivs.launches
+        got = tfe.fourier_points_derivs(c, X, off, per, orders)
+        assert tfe.fourier_points_derivs.launches == before + 1
+        want = tfe.fourier_points_derivs_plain(c, X, off, per, orders)
+        assert got.shape == (5000, len(orders)) + vshape
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+    zero = tfe.fourier_points_derivs(c, X, off, per, ((0,) * d,))[:, 0]
+    assert torch.equal(zero, fourier_points(c, X, off, per))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3, 30, 60])
+def test_band_velocity_kernel_matches_plain_on_card(cuda_device, m):
+    """K12 on eigenvectors of random Hermitian matrices and a strided dH
+    view (as K11's output gives it): m = 1, 3 (several points per block),
+    30 (the bands30 shape) and 60 (eigenvectors read through L1)."""
+    from autobzcore_torch.dos import ggr as tggr
+
+    rng = np.random.default_rng(120 + m)
+    K = 700 if m < 60 else 90
+    H = torch.as_tensor(random_hermitian(rng, K, m), device=cuda_device)
+    U = torch.linalg.eigh(H)[1].contiguous()
+    J = torch.as_tensor(np.stack([random_hermitian(rng, K, m) for _ in range(4)], axis=1), device=cuda_device)
+    dH = J[:, 1:]
+    before = tggr.band_velocity.launches
+    got = tggr.band_velocity(U, dH)
+    assert tggr.band_velocity.launches == before + 1
+    want = tggr.band_velocity_plain(U, dH)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+    assert torch.equal(got, tggr.band_velocity(U, dH))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [1, 2, 3, 0], ids=["box1d", "box2d", "box3d", "gauss"])
+def test_ggr_sum_kernel_matches_plain_on_card(cuda_device, mode):
+    """K13 in box mode (d = 1, 2, 3, with gated terms, ties between |v|
+    components and a velocity component at rounding level) and in Gaussian
+    mode, against its plain version at 1100 energies (a ragged lane group),
+    bit-identical on repeat."""
+    from autobzcore_torch.dos import ggr as tggr
+
+    rng = np.random.default_rng(130 + mode)
+    K, m = 3001, 3
+    e = torch.as_tensor(rng.normal(size=(K, m)), device=cuda_device)
+    w = torch.as_tensor(rng.integers(1, 5, size=K).astype(float), device=cuda_device)
+    E = torch.linspace(-4, 4, 1100, dtype=torch.float64, device=cuda_device)
+    if mode:
+        v = rng.normal(size=(K, mode, m)) * 3
+        v[:50] = 0.0  # gated off
+        if mode > 1:
+            v[50:100, 1] = v[50:100, 0]  # ties
+            v[100:150, -1] = 1e-15  # rounding level
+        v = torch.as_tensor(v, device=cuda_device)
+        args = (e, v, w, E, 0.02, 1e-10)
+        fn, plain, count = tggr.ggr_box_sum, tggr.ggr_box_sum_plain, lambda: tggr.ggr_box_sum.launches
+    else:
+        sigma = torch.as_tensor(rng.uniform(0.001, 0.3, size=(K, m)), device=cuda_device)
+        args = (e, sigma, 1.0 / (np.sqrt(2 * np.pi) * sigma), w, E, 1.0 / float(w.sum()))
+        fn, plain, count = tggr.gaussian_sum, tggr.gaussian_sum_plain, lambda: tggr.gaussian_sum.launches
+    before = count()
+    got = fn(*args)
+    assert count() == before + 1
+    want = plain(*args)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+    assert torch.equal(got, fn(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alg", ["GGR", "AGB"])
+def test_spectral_dos_on_card_matches_cpu(cuda_device, alg):
+    """GGR and AGB with the init (K11, eigh, K12) and the sweep (K13) on the
+    card against the CPU's: graphene on the full zone, the 2-D integer
+    lattice on its inversion wedge, and a random 3-band 3-D series (no
+    symmetric k-point where the 3-D closed form cancels, ROADMAP C8)."""
+    from torch_parity import hermitian_series_arrays
+
+    from autobzcore_torch.interop import series_from_arrays
+
+    C, off = hermitian_series_arrays(seed=11)
+    models = {"graphene": (lambda dev: ttb.tb_graphene(device=dev), "FBZ", 2, 60),
+              "int2d": (lambda dev: ttb.tb_integer(2, device=dev), "InversionSymIBZ", 2, 60),
+              "random3d": (lambda dev: series_from_arrays(C, off, 1.0, 3, device=dev), "FBZ", 3, 16)}
+    for make, kind, d, npt in models.values():
+        Es = np.linspace(-5.0, 5.0, 211)
+        out = []
+        for dev in ("cpu", cuda_device):
+            a = T.GGR(npt=npt) if alg == "GGR" else tdos.AdaptiveGaussianBroadening(npt=npt)
+            out.append(a.dos_sweep(a.init_cacheval(make(dev), 0.0, T.load_bz(getattr(T, kind)(), np.eye(d))), Es))
+        assert rel_err(out[1], out[0]) <= 1e-10
+
+
+@pytest.mark.gpu
+def test_jacobian_integrands_on_card_match_cpu(cuda_device):
+    """PTR (the (H, V) pair at the rule points by K11) and IAI (d + 1
+    stacked channels contracted by K3) over a JacobianSeries integrand, on
+    the card against the CPU: values within 1e-10, the same counts."""
+    from autobzcore_torch.ops import fourier_eval as tfe
+
+    def vdos(hv, om=None, eta=None):
+        h, v = hv.s
+        g = 1.0 / ((om + 1j * eta) - h[..., 0, 0])
+        return -(g.imag * (v[0][..., 0, 0].real ** 2 + 1.0)) / np.pi
+
+    sols = []
+    before = tfe.fourier_points_derivs.launches
+    for dev in ("cpu", cuda_device):
+        s = T.JacobianSeries(ttb.tb_integer(2, device=dev))
+        prob = T.IntegralProblem(T.FourierIntegrand(vdos, s, eta=0.3), T.load_bz(T.FBZ(), np.eye(2)),
+                                 T.MixedParameters(om=0.4))
+        sols.append((T.solve(prob, T.PTR(npt=64, device=dev)),
+                     T.solve(prob, T.IAI(inner_cap=64, device=dev), abstol=1e-4)))
+    assert tfe.fourier_points_derivs.launches == before + 1
+    for cpu, card in zip(*sols):
+        assert abs(float(card.u) - float(cpu.u)) <= 1e-10 * abs(float(cpu.u))
+        assert card.numevals == cpu.numevals and card.retcode == cpu.retcode

@@ -59,8 +59,10 @@ def test_evaluate_grid_matches_reference():
     want2 = np.asarray(jfe.evaluate_grid(jnp.asarray(c2), 2, nodes2, (-1, -2), (2.0, 0.5)))
     assert got2.shape == (4, 3, 2)
     assert np.max(np.abs(got2 - want2)) <= 1e-12 * np.max(np.abs(want2))
-    with pytest.raises(NotImplementedError, match="A3"):
-        tfe.evaluate_grid(h.c, 3, nodes, h.offset, h.period, derivs=(1, 0, 0))
+    got3 = tfe.evaluate_grid(h.c, 3, nodes, h.offset, h.period, derivs=(1, 0, 0)).numpy()
+    want3 = np.asarray(jfe.evaluate_grid(jnp.asarray(jc), 3, [jnp.asarray(x) for x in nodes],
+                                         h.offset, h.period, derivs=(1, 0, 0)))
+    assert np.max(np.abs(got3 - want3)) <= 1e-12 * np.max(np.abs(want3))
 
 
 # (m, n, seed, npt, slab, eta, W): m = 3 at npt 8 (whole slabs) and 12
