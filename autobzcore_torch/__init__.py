@@ -2,7 +2,9 @@
 
 Same module layout and public names as the JAX package, for the parts ported
 so far: the four legs of the flagship DOS workload, PTR, IAI (cold, warm and
-in omega blocks), the full-grid ladder and the linear tetrahedron method
+in omega blocks, with fixed levels), TAI and ``HCubatureJL``,
+``QuadratureFunction``, ``EvalCounter``, ``AbsoluteEstimate`` and
+``PTR_IAI``, the full-grid ladder and the linear tetrahedron method
 (Fourier series on a symmetry-reduced PTR grid, under nested adaptive
 Gauss-Kronrod or on full npt^3 grids, the broadened DOS trace,
 ``SweepSolver`` under ``hchebinterp``, ``DOSProblem``). Everything computes
@@ -22,18 +24,29 @@ DOS (``GGR``, ``dos.AdaptiveGaussianBroadening``) the series Jacobian at
 points (K11, ``ops.fourier_eval.fourier_points_derivs``, behind
 ``JacobianSeries``), the band velocities (K12, ``dos.ggr.band_velocity``)
 and the box and Gaussian energy sums (K13, ``dos.ggr.ggr_box_sum`` and
-``dos.ggr.gaussian_sum``). This package never imports JAX.
+``dos.ggr.gaussian_sum``), and for Genz-Malik cubature (``HCubatureJL``,
+``TAI``) the box rule (K14, ``ops.genz_malik.gm_rule_reduce``), the box rule
+fused with the DOS trace (K15, ``models.observables.gm_leaf_dos``) and the
+box-pool step (K16, ``ops.genz_malik.gm_pool_select`` and
+``gm_pool_update``), and for fixed rules (``QuadratureFunction``, fixed nest
+levels) the rule's reduction (K17, ``ops.adaptive.fixed_rule_reduce``). This
+package never imports JAX.
 """
 from .algorithms.gk import AuxQuadGKJL, QuadGKJL
+from .algorithms.hcubature import HCubatureJL
+from .algorithms.meta import AbsoluteEstimate, EvalCounter
 from .algorithms.nested import NestedQuad
+from .algorithms.quadrature import QuadratureFunction
 from .brillouin import (
     FBZ,
     IAI,
+    TAI,
     AbstractSymRep,
     CubicSymIBZ,
     InversionSymIBZ,
     LatticeRep,
     PTR,
+    PTR_IAI,
     SymmetricBZ,
     TrivialRep,
     UnknownRep,
@@ -60,17 +73,18 @@ from .parameters import MixedParameters, NullParameters, ParameterIntegrand
 from .wrappers import BatchIntegrand, InplaceIntegrand
 from .dos.interfaces import DOSProblem, DOSSolution
 from .dos.ggr import GGR
+from .ops.quad_rules import gausslegendre, trapz
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "AbstractSymRep", "AuxQuadGKJL", "Basis", "BatchIntegrand", "CubicLimits", "CubicSymIBZ",
-    "DOSProblem", "DOSSolution", "FBZ", "FourierIntegrand", "FourierSeries", "FourierValue", "GGR",
-    "HyperCube", "IAI",
+    "AbsoluteEstimate", "AbstractSymRep", "AuxQuadGKJL", "Basis", "BatchIntegrand", "CubicLimits",
+    "CubicSymIBZ", "DOSProblem", "DOSSolution", "EvalCounter", "FBZ", "FourierIntegrand",
+    "FourierSeries", "FourierValue", "GGR", "HCubatureJL", "HyperCube", "IAI",
     "InplaceIntegrand", "IntegralCache", "IntegralProblem", "IntegralSolution", "IntegralSolver",
     "InversionSymIBZ", "JacobianSeries", "LatticeRep", "MixedParameters", "MonkhorstPack", "NestedQuad",
-    "NullParameters", "PTR", "ParameterIntegrand", "QuadGKJL", "SymmetricBZ",
-    "TetrahedralLimits", "TrivialRep",
-    "UnknownRep", "canonical_reciprocal_basis", "init", "load_bz", "nsyms", "solve",
-    "solve_", "sym_rep", "symmetrize",
+    "NullParameters", "PTR", "PTR_IAI", "ParameterIntegrand", "QuadGKJL", "QuadratureFunction",
+    "SymmetricBZ", "TAI", "TetrahedralLimits", "TrivialRep",
+    "UnknownRep", "canonical_reciprocal_basis", "gausslegendre", "init", "load_bz", "nsyms",
+    "solve", "solve_", "sym_rep", "symmetrize", "trapz",
 ]

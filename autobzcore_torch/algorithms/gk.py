@@ -97,7 +97,8 @@ class QuadGKJL(IntegralAlgorithm):
 
     def solve_lanes(self, cacheval, params, atol, rtol, maxiters=None):
         """Solve every lane of ``params`` (a :class:`LaneParams`)
-        independently: (val (L, *V), err (L,), numevals (L,), converged (L,))."""
+        independently: (val (L, *V), err (L,), numevals (L,), converged (L,)).
+        ``atol`` is a number or one per lane (L,)."""
         dev = cacheval["device"]
         L = 1 if params.x is None else params.x.shape[0]
         if params.x is not None:
@@ -132,7 +133,7 @@ class QuadGKJL(IntegralAlgorithm):
             return scatter_lanes(L, live, *out)
 
         segs = torch.as_tensor(cacheval["segs"], dtype=REAL, device=dev).expand(L, -1).contiguous()
-        atol_t = torch.full((L,), float(atol), dtype=REAL, device=dev)
+        atol_t = torch.as_tensor(atol, dtype=REAL, device=dev).expand(L).contiguous()
         return gk_adaptive_lanes(rule, segs, atol_t, cap=self.cap, nbisect=self.nbisect, rtol=rtol,
                                  maxiters=maxiters, kernels=kernels)
 

@@ -30,10 +30,19 @@ remapped per lane, not coarsened); deeper levels start cold.
 :meth:`NestedQuad.harvest_fn` refreshes that partition with one seeded
 solve at the worst outer interval's midpoint.
 
+A fixed level (:class:`~autobzcore_torch.algorithms.quadrature.QuadratureFunction`,
+reference ``solve_level`` at ``algorithms/nested.py:481-490``) evaluates its
+rule's S * npt nodes per lane in one go: below the leaf, as the lanes of one
+batched solve of the level below; at the leaf, by the carrier. Kernel K17
+reduces them, and the counts sum. A fixed level certifies nothing: its error
+is 0 and its retcode True. It carries no warm pool: the warm form needs an
+adaptive outermost level, and the mid seed an adaptive level below it, as in
+the reference.
+
 Not ported here: the guided and split tiers (``precision`` runs this
 complex128 tier), the host-side outer heap (``host_outer=True`` runs on the
-device; ``warm_start=True`` seeded that heap and raises), fixed-rule and pole
-levels (ROADMAP A7).
+device; ``warm_start=True`` seeded that heap and raises), pole levels
+(ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -48,13 +57,15 @@ from .._device import REAL, as_device
 from ..fourier import lanes_per_point
 from ..interfaces import IntegralSolution
 from ..limits import IteratedLimits
-from ..ops.adaptive import (LoopStats, gk_adaptive_lanes, gk_nodes, gk_rule, pool_kernels,
-                            scatter_lanes)
+from ..ops.adaptive import (LoopStats, fixed_rule_nodes, fixed_rule_reduce,
+                            fixed_rule_reduce_plain, gk_adaptive_lanes, gk_nodes, gk_rule,
+                            pool_kernels, scatter_lanes)
 from ..parameters import LaneParams
 from ..utils.tree import tree_norm
 from ..wrappers import BatchIntegrand, InplaceIntegrand
 from .base import IntegralAlgorithm, effective_tolerances
 from .gk import QuadGKJL, _budget
+from .quadrature import QuadratureFunction
 
 _TINY = torch.finfo(REAL).tiny
 # leaf trips between host tests of "any lane live" on the card (the fused
@@ -64,15 +75,16 @@ LEAF_SYNC_EVERY = 4
 
 def nest_kernels(plain=False):
     """The nest's kernel functions: the wrappers of K3 (``contract``), K4
-    (``leaf_dos``) and K5 (the pool step), or with ``plain`` their plain
-    PyTorch versions, which run on any device (to hold a whole solve on the
-    card against the kernels)."""
+    (``leaf_dos``), K5 (the pool step) and K17 (``fixed_reduce``), or with
+    ``plain`` their plain PyTorch versions, which run on any device (to hold
+    a whole solve on the card against the kernels)."""
     from ..models.observables import gk_leaf_dos, gk_leaf_dos_plain
     from ..ops.fourier_eval import fourier_contract, fourier_contract_plain
 
     k = pool_kernels(plain)
     k.contract = fourier_contract_plain if plain else fourier_contract
     k.leaf_dos = gk_leaf_dos_plain if plain else gk_leaf_dos
+    k.fixed_reduce = fixed_rule_reduce_plain if plain else fixed_rule_reduce
     return k
 
 
@@ -213,10 +225,10 @@ class _Level:
 class NestedQuad(IntegralAlgorithm):
     """``NestedQuad(alg)`` or ``NestedQuad(algs_tuple)`` with one algorithm per
     dimension (index 0 = innermost), as in the reference. Every level must be
-    a :class:`QuadGKJL`. ``device`` holds the pools of integrands that carry
-    no series (a FourierIntegrand's pools live on its series' device);
-    ``plain_kernels`` runs the nest on the kernels' plain versions
-    (:func:`nest_kernels`)."""
+    a :class:`QuadGKJL` or a :class:`QuadratureFunction`. ``device`` holds
+    the pools of integrands that carry no series (a FourierIntegrand's pools
+    live on its series' device); ``plain_kernels`` runs the nest on the
+    kernels' plain versions (:func:`nest_kernels`)."""
 
     solves_lanes = True
 
@@ -290,10 +302,10 @@ class NestedQuad(IntegralAlgorithm):
             raise TypeError("NestedQuad requires an IteratedLimits domain")
         algs = self._algs_for(dom.ndim)
         for a in algs:
-            if not isinstance(a, QuadGKJL):
+            if not isinstance(a, (QuadGKJL, QuadratureFunction)):
                 raise NotImplementedError(
-                    f"{type(a).__name__} levels are not ported yet: NestedQuad takes QuadGKJL "
-                    "levels (fixed-rule and pole levels, ROADMAP A7)")
+                    f"{type(a).__name__} levels are not ported yet: NestedQuad takes QuadGKJL and "
+                    "QuadratureFunction levels (pole levels, ROADMAP A7)")
         from ..fourier import FourierIntegrand
         from .ptr import _uses_dos_kernel
 
@@ -310,13 +322,15 @@ class NestedQuad(IntegralAlgorithm):
             fused = False
         cacheval = {"dom": dom, "algs": algs, "carrier": carrier, "device": device,
                     "fused_dos": fused, "kernels": kernels, "stats": LoopStats()}
-        if self.split != "guided":
-            # the warm form: the guided tier has none in the reference
-            cacheval["carry_mid"] = dom.ndim > 1
-            cacheval["warm_pool0"] = self._warm_pool0(dom, algs, device)
+        if self.split != "guided" and isinstance(algs[-1], QuadGKJL):
+            # the warm form needs an adaptive outermost level (and the mid
+            # seed an adaptive level below it); the guided tier has none, as
+            # in the reference
+            cacheval["carry_mid"] = dom.ndim > 1 and isinstance(algs[-2], QuadGKJL)
+            cacheval["warm_pool0"] = self._warm_pool0(dom, algs, device, cacheval["carry_mid"])
         return cacheval
 
-    def _warm_pool0(self, dom, algs, device):
+    def _warm_pool0(self, dom, algs, device, carry_mid):
         """The cold seed (reference ``warm_pool0``): the outermost
         breakpoints in pool form with errors +inf, so the first solve's
         coarsening keeps them, and for nests the cold mid sentinel tn = 0."""
@@ -328,7 +342,7 @@ class NestedQuad(IntegralAlgorithm):
         a0[:nseg0], b0[:nseg0] = segs0[:-1], segs0[1:]
         put = lambda x: torch.as_tensor(x, dtype=REAL, device=device)  # noqa: E731
         mid = None
-        if ndim > 1:
+        if carry_mid:
             capm, _ = self._level_knobs(algs[ndim - 2], ndim - 1, ndim)
             mid = MidSeed(put(np.zeros(capm)), put(np.zeros(capm)), put(np.zeros(capm)), 0)
         return WarmPool(put(a0), put(b0), put(np.full(cap0, np.inf)),
@@ -338,7 +352,7 @@ class NestedQuad(IntegralAlgorithm):
     def solve_lanes(self, cacheval, params, atol, rtol, maxiters=None):
         """Solve every lane of ``params`` (a :class:`LaneParams`)
         independently: returns (val (L, *V), err (L,), numevals (L,) float64,
-        converged (L,) bool)."""
+        converged (L,) bool). ``atol`` is a number or one per lane (L,)."""
         dom, device = cacheval["dom"], cacheval["device"]
         L = 1 if params.x is None else params.x.shape[0]
         if params.x is not None:
@@ -346,7 +360,7 @@ class NestedQuad(IntegralAlgorithm):
         carrier = cacheval["carrier"]
         if hasattr(carrier, "lanes"):
             carrier = carrier.lanes(L)
-        atol_t = torch.full((L,), float(atol), dtype=REAL, device=device)
+        atol_t = torch.as_tensor(atol, dtype=REAL, device=device).expand(L).contiguous()
         level = _Level(dom, carrier, (), params, atol_t)
         segs = dom.outer_segments(device).expand(L, -1).contiguous()
         return self._solve_level(cacheval, level, segs, dom.ndim, float(rtol), maxiters)
@@ -360,6 +374,10 @@ class NestedQuad(IntegralAlgorithm):
         level's seed is coarsened unless ``coarsen_seed`` says otherwise."""
         algs, ndim = cacheval["algs"], cacheval["dom"].ndim
         alg = algs[d_rem - 1]
+        if isinstance(alg, QuadratureFunction):
+            if init_pool is not None or return_state:
+                raise TypeError("warm-start pools need an adaptive (QuadGKJL) outermost level")
+            return self._fixed_level(cacheval, level, segs, alg, d_rem, rtol, maxiters)
         cap, nbisect = self._level_knobs(alg, d_rem, ndim)
         if alg.norm is not tree_norm:
             raise NotImplementedError("custom norms are not ported yet: the pools use the 2-norm "
@@ -389,6 +407,29 @@ class NestedQuad(IntegralAlgorithm):
                                  seed_width=self.warm_width if d_rem == ndim else self.inner_seed_width,
                                  seed_coarsen=d_rem == ndim if coarsen_seed is None else coarsen_seed,
                                  seed_n=seed_n, return_state=return_state)
+
+    def _fixed_level(self, cacheval, level, segs, alg, d_rem, rtol, maxiters):
+        """A fixed level (reference ``solve_level`` with a
+        ``QuadratureFunction``): every lane's S * npt nodes, solved as the
+        lanes of the level below (or, at the leaf, evaluated by the carrier),
+        then K17's reduction; the counts are the inner solves' sums (S * npt
+        at the leaf), the error 0 and the retcode True."""
+        x, w = alg.rule(segs.device)
+        nodes, half = fixed_rule_nodes(segs, x)
+        L, S, P = nodes.shape
+        if d_rem > 1:
+            inner, segs2 = level.spawn(nodes.reshape(L, S * P))
+            val, _, ne, _ = self._solve_level(cacheval, inner, segs2, d_rem - 1, rtol, maxiters)
+            count = torch.sum(ne.reshape(L, S * P), dim=1)
+        else:
+            val = level.carrier.eval_batch(nodes.reshape(L, S * P), level.coords, level.params)
+            if not val.is_complex():
+                val = val.to(REAL)
+            count = torch.full((L,), float(S * P), dtype=REAL, device=segs.device)
+        fx = val.reshape((L, S, P) + tuple(val.shape[2 if d_rem == 1 else 1:])).contiguous()
+        out = cacheval["kernels"].fixed_reduce(fx, w, half.contiguous())
+        return (out, torch.zeros(L, dtype=REAL, device=segs.device), count,
+                torch.ones(L, dtype=torch.bool, device=segs.device))
 
     def _nonleaf_rule(self, cacheval, level, xk, wk, wg, d_rem, rtol, maxiters, kernels,
                       mid_seed=None):

@@ -9,10 +9,10 @@ The BZ algorithms
 4. re-solve on the full zone, with a warning, when the integrand's symmetry
    representation is unknown and its result is not a scalar.
 
-The PTR rule and the IAI (cold solves and warm sweeps) are ported;
-``AutoPTR``, ``TAI``, ``PTR_IAI`` and ``AutoPTR_IAI`` come with later
-slices (ROADMAP A4, A5, A7), and ``IBZ`` with the geometry slice (ROADMAP
-A8).
+The PTR rule, the IAI (cold solves and warm sweeps), TAI (Genz-Malik
+cubature over the zone's cubic hull) and ``PTR_IAI`` are ported;
+``AutoPTR`` and ``AutoPTR_IAI`` come with the AutoPTR slice (ROADMAP A4),
+and ``IBZ`` with the geometry slice (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -23,14 +23,16 @@ import torch
 
 from .algorithms.base import IntegralAlgorithm
 from .algorithms.gk import AuxQuadGKJL
+from .algorithms.hcubature import HCubatureJL
+from .algorithms.meta import AbsoluteEstimate
 from .algorithms.nested import NestedQuad
 from .algorithms.ptr import MonkhorstPack
-from .domains import Basis
+from .domains import Basis, HyperCube
 from .interfaces import IntegralSolution
 from ._device import as_device
 from .limits import CubicLimits, TetrahedralLimits
 from .ops.symptr import cube_automorphism_syms, inversion_syms
-from .utils.tree import tree_leaves, tree_map
+from .utils.tree import tree_leaves, tree_map, tree_norm
 
 
 def canonical_reciprocal_basis(A):
@@ -416,3 +418,33 @@ class IAI(AutoBZAlgorithm):
     def bz_to_standard(self, bz):
         lims = None if bz is None else bz.lims
         return bz, lims, NestedQuad(self.algs, device=self.device, **self.knobs)
+
+
+class TAI(AutoBZAlgorithm):
+    """Tree-adaptive (Genz-Malik) cubature over the zone's cubic hull; limits
+    that are not cubic fall back to the full zone (reference ``TAI``).
+    ``device`` (the card by default) places the pools of integrands without
+    a series; ``plain_kernels`` runs the solve on the kernels' plain
+    versions."""
+
+    solves_lanes = True
+
+    def __init__(self, norm=tree_norm, initdiv=1, device="cuda", plain_kernels=False):
+        self.norm = norm
+        self.initdiv = initdiv
+        self.device = as_device(device)
+        self.plain_kernels = plain_kernels
+
+    def bz_to_standard(self, bz):
+        if not isinstance(bz.lims, CubicLimits):
+            bz = bz.full()
+        lims = bz.lims
+        return bz, HyperCube(lims.a, lims.b), HCubatureJL(
+            norm=self.norm, initdiv=self.initdiv, device=self.device,
+            plain_kernels=self.plain_kernels)
+
+
+def PTR_IAI(ptr=None, iai=None, **kwargs):
+    """IAI with abstol from a PTR estimate (reference ``PTR_IAI``); the
+    default PTR and IAI run on the card."""
+    return AbsoluteEstimate(ptr or PTR(), iai or IAI(), **kwargs)

@@ -53,15 +53,14 @@
 
 #include <cstdint>
 
+#include "pool_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBisect = 64;
-
-// the better of two (error, slot) candidates: larger error, then lower slot
-__device__ __forceinline__ bool better(double v, int s, double bv, int bs) {
-  return v > bv || (v == bv && s < bs);
-}
+using autobz::kMaxBisect;
+using autobz::pool_lane_totals;
+using autobz::pool_select_worst;
+constexpr int kThreads = autobz::kPoolThreads;
 
 __global__ void __launch_bounds__(kThreads)
 gk_pool_select_kernel(const double* __restrict__ a, const double* __restrict__ b,
@@ -86,32 +85,7 @@ gk_pool_select_kernel(const double* __restrict__ a, const double* __restrict__ b
     if (threadIdx.x == 0) active[l] = false;
     return;
   }
-  const double* el = err + l * cap;
-  for (int k = 0; k < nb; ++k) {
-    double bv = -1.0 / 0.0;
-    int bs = 0x7fffffff;
-    for (int s = threadIdx.x; s < cap; s += blockDim.x) {
-      bool taken = false;
-      for (int q = 0; q < k; ++q) taken |= chosen[q] == s;
-      if (!taken && better(el[s], s, bv, bs)) {
-        bv = el[s];
-        bs = s;
-      }
-    }
-    rv[threadIdx.x] = bv;
-    rs[threadIdx.x] = bs;
-    __syncthreads();
-    for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-      if (threadIdx.x < w && better(rv[threadIdx.x + w], rs[threadIdx.x + w], rv[threadIdx.x],
-                                    rs[threadIdx.x])) {
-        rv[threadIdx.x] = rv[threadIdx.x + w];
-        rs[threadIdx.x] = rs[threadIdx.x + w];
-      }
-      __syncthreads();
-    }
-    if (threadIdx.x == 0) chosen[k] = rs[0];
-    __syncthreads();
-  }
+  pool_select_worst(err + l * cap, cap, nb, chosen, rv, rs);
   for (int j = threadIdx.x; j < nb; j += blockDim.x) {
     const int s = chosen[j];
     const double aa = a[l * cap + s], bb = b[l * cap + s];
@@ -122,35 +96,6 @@ gk_pool_select_kernel(const double* __restrict__ a, const double* __restrict__ b
     cbl[j] = mm;
     cbl[nb + j] = bb;
   }
-}
-
-// tot_val, tot_err over lane l's whole pool and tol = max(atol, rtol |tot|),
-// reduced in a fixed tree order; every thread of the block calls it
-__device__ void lane_totals(const double* __restrict__ err, const double* __restrict__ val,
-                            double* __restrict__ tot_val, double* __restrict__ tot_err,
-                            double* __restrict__ tol, const double* __restrict__ atol,
-                            double* red, int64_t l, int cap, int V, double rtol) {
-  double norm2 = 0.0;
-  for (int f = -1; f < V; ++f) {
-    double s = 0.0;
-    for (int q = threadIdx.x; q < cap; q += blockDim.x)
-      s += f < 0 ? err[l * cap + q] : val[(l * cap + q) * V + f];
-    red[threadIdx.x] = s;
-    __syncthreads();
-    for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-      if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-      __syncthreads();
-    }
-    const double tot = red[0];
-    __syncthreads();
-    if (f < 0) {
-      if (threadIdx.x == 0) tot_err[l] = tot;
-    } else {
-      if (threadIdx.x == 0) tot_val[l * V + f] = tot;
-      norm2 += tot * tot;
-    }
-  }
-  if (threadIdx.x == 0) tol[l] = fmax(atol[l], rtol * sqrt(norm2));
 }
 
 // One block per lane. With `update`, only live lanes act: the two scatters,
@@ -207,7 +152,7 @@ gk_pool_update_kernel(double* __restrict__ a, double* __restrict__ b, double* __
       evals[l] += count[l];
     }
   }
-  lane_totals(err, val, tot_val, tot_err, tol, atol, red, l, cap, V, rtol);
+  pool_lane_totals(err, val, tot_val, tot_err, tol, atol, red, l, cap, V, rtol);
 }
 
 // One block per lane: a seeding lane writes its chunk (ca, cb, cval, cerr,
@@ -246,7 +191,7 @@ gk_pool_seed_kernel(double* __restrict__ a, double* __restrict__ b, double* __re
     }
     __syncthreads();
   }
-  lane_totals(err, val, tot_val, tot_err, tol, atol, red, l, cap, V, rtol);
+  pool_lane_totals(err, val, tot_val, tot_err, tol, atol, red, l, cap, V, rtol);
 }
 
 // One thread per (lane, interval). fx: (L, I, P, V) doubles, or V complex

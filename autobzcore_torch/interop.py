@@ -50,6 +50,39 @@ def pool_to_arrays(pool):
     return out
 
 
+def box_pool_from_arrays(state, npts, atol, rtol=0.0, maxiters=None, device="cuda"):
+    """A one-lane :class:`~autobzcore_torch.ops.genz_malik.GMPool` from the
+    JAX package's box-pool state ``(pool_c, pool_h, pool_val, pool_err, n,
+    pool_sd, evals)`` of one ``gm_adaptive`` solve (numpy arrays and
+    numbers), with the rule's ``npts`` nodes per box and the solve's
+    tolerances. Its totals and loop test are left to
+    :func:`~autobzcore_torch.ops.genz_malik.gm_pool_totals`."""
+    import torch
+
+    from .ops.adaptive import _as_eval_budget
+    from .ops.genz_malik import GMPool
+
+    c, h, val, err, n, sd, evals = state
+
+    def put(x, dt=torch.float64):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=device)[None]
+
+    val = np.asarray(val)
+    return GMPool(c=put(c), h=put(h), err=put(err), sd=put(sd, torch.int32),
+                  val=put(val, torch.complex128 if np.iscomplexobj(val) else torch.float64),
+                  n=put(int(n), torch.int64), evals=put(float(evals)), atol=put(float(atol)),
+                  rtol=float(rtol), max_evals=_as_eval_budget(maxiters), npts=int(npts),
+                  active=put(True, torch.bool))
+
+
+def box_pool_to_arrays(pool, lane=0):
+    """The inverse of :func:`box_pool_from_arrays` for one lane: the JAX
+    package's state layout as numpy arrays and numbers."""
+    get = lambda t: t[lane].detach().cpu().numpy()  # noqa: E731
+    return (get(pool.c), get(pool.h), get(pool.val), get(pool.err), int(pool.n[lane]),
+            get(pool.sd), float(pool.evals[lane]))
+
+
 def bz_from_arrays(A, B, syms=None):
     """A :class:`SymmetricBZ` from lattice ``A``, reciprocal lattice ``B``
     and symmetry matrices ``syms`` (None for the full zone). The limits

@@ -17,6 +17,12 @@ the 1-D series values at the Kronrod nodes, the trace and the rule's
 reduction, so that node values never reach device memory. It also takes an
 omega block of W frequencies per lane (``SweepSolver(block=W)``).
 
+``gm_leaf_dos`` is the wrapper of kernel K15 (``csrc/gm_rule.cu``): the
+Genz-Malik box rule of a cubature solve of ``dos_trace`` (``HCubatureJL``,
+``TAI``), fused from the series values at the rule's nodes (K1) through the
+trace to ``val7``, ``err`` and ``splitdim``, so that the trace values never
+reach device memory; one frequency or an omega block per box.
+
 ``dos_eig`` sums over every axis, the omega block's too, so it cannot run
 blocked (the reference's example of a reducing integrand).
 """
@@ -254,6 +260,120 @@ def gk_leaf_dos(c, cmap, offset, period, ca, cb, om, eta, active, xk, wk, wg):
 
 
 gk_leaf_dos.launches = 0
+
+
+NEG_INV_PI = -1.0 / math.pi
+
+
+def _cmul(a, b):
+    return a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0]
+
+
+def _cadd(a, b):
+    return a[0] + b[0], a[1] + b[1]
+
+
+def _csub(a, b):
+    return a[0] - b[0], a[1] - b[1]
+
+
+def _cdiv_imag(a, b):
+    return (a[1] * b[0] - a[0] * b[1]) / (b[0] * b[0] + b[1] * b[1])
+
+
+def gm_dos_values_plain(H, om, eta):
+    """``dos_trace`` at the rule's nodes: D (B, P) for H (B, P, m, m)
+    complex128, m <= 3, and om, eta (B,), or D (B, P, W) for om, eta (B, W).
+    The reference's closed forms (``_trace_inv_small``) in the order of the
+    kernels' ``csrc/small_trace.cuh``, one rounded real operation at a time
+    on (re, im) pairs, so that K15 gives these bits."""
+    m = H.shape[-1]
+    if om.ndim == 2:
+        H = H[:, :, None]
+        z = (om[:, None, :], eta[:, None, :])
+    else:
+        z = (om[:, None], eta[:, None])
+    h = [(H[..., i // m, i % m].real, H[..., i // m, i % m].imag) for i in range(m * m)]
+    if m == 1:
+        tr = _cdiv_imag((1.0, 0.0), _csub(z, h[0]))
+    elif m == 2:
+        m00, m11 = _csub(z, h[0]), _csub(z, h[3])
+        tr = _cdiv_imag(_cadd(m00, m11), _csub(_cmul(m00, m11), _cmul(h[1], h[2])))
+    elif m == 3:
+        M = [(-a, -b) for a, b in h]
+        M[0], M[4], M[8] = _csub(z, h[0]), _csub(z, h[4]), _csub(z, h[8])
+        t = _cadd(_cadd(M[0], M[4]), M[8])
+        t2 = _cadd(_cadd(_cmul(M[0], M[0]), _cmul(M[4], M[4])), _cmul(M[8], M[8]))
+        off = _cadd(_cadd(_cmul(M[1], M[3]), _cmul(M[2], M[6])), _cmul(M[5], M[7]))
+        t2 = _cadd(t2, _cadd(off, off))
+        c0 = _csub(_cmul(M[4], M[8]), _cmul(M[5], M[7]))
+        c1 = _csub(_cmul(M[3], M[8]), _cmul(M[5], M[6]))
+        c2 = _csub(_cmul(M[3], M[7]), _cmul(M[4], M[6]))
+        det = _cadd(_csub(_cmul(M[0], c0), _cmul(M[1], c1)), _cmul(M[2], c2))
+        tr = 0.5 * _cdiv_imag(_csub(_cmul(t, t), t2), det)
+    else:
+        raise ValueError(f"the closed-form trace takes m <= 3 bands, got m = {m}")
+    return NEG_INV_PI * tr
+
+
+def gm_leaf_dos_plain(H, om, eta, vol, wk, we, diff_idx):
+    """Plain PyTorch version of K15: ``dos_trace`` of the series values H (B,
+    P, m, m), m <= 3, at the rule's P nodes of each of B boxes, at the box's
+    frequency and broadening om, eta (B,), or (B, W) an omega block
+    (:func:`gm_dos_values_plain`), then the Genz-Malik rule
+    (:func:`~autobzcore_torch.ops.genz_malik.gm_rule_reduce_plain`). Returns
+    val7 (B,) or (B, W), err (B,), splitdim (B,) int32."""
+    from ..ops.genz_malik import gm_rule_reduce_plain
+
+    return gm_rule_reduce_plain(gm_dos_values_plain(H, om, eta), vol, wk, we, diff_idx)
+
+
+def gm_leaf_dos(H, om, eta, vol, wk, we, diff_idx):
+    """The Genz-Malik rule of ``dos_trace`` on B boxes (see
+    :func:`gm_leaf_dos_plain`): H (B, P, m, m) complex128 with m <= 3, om and
+    eta (B,) or (B, W) float64, vol (B,), the rule's wk, we (P,) float64 and
+    diff_idx (d, 5) int32.
+
+    CPU tensors take the plain version; CUDA tensors launch K15, which takes
+    m <= 3 and raises on anything else it does not take."""
+    from ..ops.genz_malik import RATIO, _check_rule
+
+    check_tensor(H, "H", dtype=COMPLEX, ndim=4)
+    B, P, m = H.shape[0], H.shape[1], H.shape[-1]
+    dev = H.device
+    check_tensor(H, "H", shape=(B, P, m, m))
+    block = om.ndim == 2
+    W = om.shape[1] if block else 1
+    for name, t in (("om", om), ("eta", eta)):
+        check_tensor(t, name, device=dev, dtype=REAL, shape=(B, W) if block else (B,),
+                     ndim=2 if block else 1)
+    _check_rule(B, P, vol, wk, we, diff_idx, dev)
+    if m > 3:
+        raise NotImplementedError(f"the box DOS rule takes m <= 3 bands, got m = {m}: larger m "
+                                  "goes through K1, dos_trace and K14")
+    if dev.type == "cpu":
+        return gm_leaf_dos_plain(H, om, eta, vol, wk, we, diff_idx)
+    if dev.type != "cuda":
+        raise ValueError(f"gm_leaf_dos runs on cpu or cuda tensors, got {dev}")
+    if P > 128 or W < 1 or P * W * 8 > 48 * 1024:
+        raise ValueError(f"gm_leaf_dos takes at most 128 nodes and P W <= 6144, got P {P}, W {W}")
+    val = torch.empty((B, W) if block else (B,), dtype=REAL, device=dev)
+    err = torch.empty((B,), dtype=REAL, device=dev)
+    sd = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return val, err, sd
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.gm_leaf_dos_launch(
+        H.data_ptr(), om.data_ptr(), eta.data_ptr(), vol.data_ptr(), wk.data_ptr(), we.data_ptr(),
+        diff_idx.data_ptr(), val.data_ptr(), err.data_ptr(), sd.data_ptr(), B, P, m, W,
+        diff_idx.shape[0], RATIO, NEG_INV_PI, stream)
+    check_launch(rc, "gm_leaf_dos")
+    gm_leaf_dos.launches += 1
+    return val, err, sd
+
+
+gm_leaf_dos.launches = 0
 
 
 def dos_lanes(params, L, device):

@@ -35,10 +35,16 @@ domain's breakpoints (reference ``gk_adaptive(init_pool=...)``):
   seed intervals to contiguous slots, ``n = n0``, ``evals += count``, and the
   totals and tolerance.
 
+Fixed rules (kernel family B5 fixed): :func:`fixed_rule_reduce` (kernel
+K17, ``csrc/fixed_rule.cu``) reduces node values (L, S, npt, *V) over the
+nodes, times each segment's half width, then over the segments, and
+:func:`fixed_rule_eval` keeps the reference's single-rule signature over it
+(``QuadratureFunction`` and fixed nest levels).
+
 Counters are float64 (``_count_dtype``), as in the reference.
 :func:`gk_adaptive` keeps the reference's single-pool signature over one
-lane. The guided tier's noise floor and stall detector and
-``fixed_rule_eval`` come with later slices.
+lane. The guided tier's noise floor and stall detector come with a later
+slice.
 """
 from __future__ import annotations
 
@@ -177,6 +183,85 @@ def gk_rule_eval(batch_f, p, aa, bb, xk, wk, wg, node_builder=lambda x: x, stats
     counts = None if per_node is None else per_node.to(REAL).reshape(1, K, P)
     val, err, l1, count = gk_rule_reduce(fx.contiguous(), counts, half.contiguous(), wk, wg)
     return val[0], err[0], l1[0], count[0]
+
+
+# --- K17: fixed rules --------------------------------------------------------------
+def fixed_rule_reduce_plain(fx, w, half):
+    """Plain PyTorch version of K17: ``sum_s (sum_j w_j fx[:, s, j]) half[:,
+    s]`` for node values fx (L, S, npt, *V), weights w (npt,) and half widths
+    half (L, S), the reference's two-level order; returns (L, *V)."""
+    vdims = fx.ndim - 3
+    wshape = (1, 1, -1) + (1,) * vdims
+    hshape = tuple(half.shape) + (1,) * vdims
+    return torch.sum(torch.sum(w.reshape(wshape) * fx, dim=2) * half.reshape(hshape), dim=1)
+
+
+def fixed_rule_reduce(fx, w, half):
+    """The fixed rule's reduction (see :func:`fixed_rule_reduce_plain`) of
+    float64 or complex128 node values; the weights and half widths are
+    float64 (the reference casts them to the values' real dtype).
+
+    CPU tensors take the plain version; CUDA tensors launch K17, and anything
+    the kernel does not take raises."""
+    if fx.ndim < 3:
+        raise ValueError(f"fx must be (L, S, npt, *V), got {tuple(fx.shape)}")
+    if fx.dtype not in (REAL, COMPLEX):
+        raise ValueError(f"fx has dtype {fx.dtype}, expected float64 or complex128")
+    L, S, P = fx.shape[:3]
+    check_tensor(fx, "fx")
+    check_tensor(w, "w", device=fx.device, dtype=REAL, ndim=1, shape=(P,))
+    check_tensor(half, "half", device=fx.device, dtype=REAL, ndim=2, shape=(L, S))
+    if fx.device.type == "cpu":
+        return fixed_rule_reduce_plain(fx, w, half)
+    if fx.device.type != "cuda":
+        raise ValueError(f"fixed_rule_reduce runs on cpu or cuda tensors, got {fx.device}")
+    vshape = tuple(fx.shape[3:])
+    out = torch.empty((L,) + vshape, dtype=fx.dtype, device=fx.device)
+    if L == 0 or S == 0 or P == 0 or out.numel() == 0:
+        return out.zero_()
+    fr = torch.view_as_real(fx) if fx.is_complex() else fx
+    C = math.prod(fr.shape[3:])
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(fx.device).cuda_stream
+    rc = lib.fixed_rule_reduce_launch(fr.data_ptr(), w.data_ptr(), half.data_ptr(), out.data_ptr(),
+                                      L, S, P, C, stream)
+    check_launch(rc, "fixed_rule_reduce")
+    fixed_rule_reduce.launches += 1
+    return out
+
+
+fixed_rule_reduce.launches = 0
+
+
+def fixed_rule_nodes(segs, x):
+    """The nodes (L, S, npt) of the rule ``x`` (npt,) on [-1, 1] over the
+    segments of each lane's breakpoints ``segs`` (L, S+1), and the half
+    widths (L, S)."""
+    aa, bb = segs[:, :-1], segs[:, 1:]
+    mid = (aa + bb) / 2
+    half = (bb - aa) / 2
+    return mid[..., None] + half[..., None] * x, half
+
+
+def fixed_rule_eval(batch_f, p, segs, x, w, node_builder=lambda x: x, stats=False):
+    """Apply a fixed rule (nodes ``x``, weights ``w`` on [-1, 1]) to each
+    segment of ``segs`` (S+1,) and sum, with one batched integrand call
+    ``batch_f(nodes, p)`` (the reference's ``fixed_rule_eval``). With
+    ``stats``, ``batch_f`` returns (values, per-node counts) and the count
+    is their sum, else S * npt. Returns (value, count)."""
+    segs = torch.as_tensor(segs, dtype=REAL)
+    x = torch.as_tensor(np.asarray(x), dtype=REAL, device=segs.device)
+    w = torch.as_tensor(np.asarray(w), dtype=REAL, device=segs.device)
+    nodes, half = fixed_rule_nodes(segs[None], x)
+    S, P = half.shape[1], x.shape[0]
+    out = batch_f(node_builder(nodes.reshape(-1)), p)
+    fx, per_node = out if stats else (out, None)
+    count = (torch.sum(per_node.to(_count_dtype())) if stats
+             else torch.tensor(float(S * P), dtype=_count_dtype(), device=segs.device))
+    if not fx.is_complex():
+        fx = fx.to(REAL)
+    fx = fx.reshape((1, S, P) + tuple(fx.shape[1:])).contiguous()
+    return fixed_rule_reduce(fx, w, half.contiguous())[0], count
 
 
 # --- the pool -------------------------------------------------------------------

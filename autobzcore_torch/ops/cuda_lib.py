@@ -85,6 +85,16 @@ def _bind(lib):
     lib.energy_tiles_num_blocks.restype = ll
     lib.tetra_dos_launch.argtypes = [vp, ll, i, i, vp, i, dbl, dbl, i, vp, vp, vp]
     lib.tetra_dos_launch.restype = i
+    lib.gm_rule_reduce_launch.argtypes = [vp] * 8 + [ll, i, i, i, i, dbl, vp]
+    lib.gm_rule_reduce_launch.restype = i
+    lib.gm_leaf_dos_launch.argtypes = [vp] * 10 + [ll, i, i, i, i, dbl, dbl, vp]
+    lib.gm_leaf_dos_launch.restype = i
+    lib.gm_pool_select_launch.argtypes = [vp] * 8 + [ll, i, i, i, vp]
+    lib.gm_pool_select_launch.restype = i
+    lib.gm_pool_update_launch.argtypes = [vp] * 18 + [ll, i, i, i, i, dbl, dbl, dbl, i, vp]
+    lib.gm_pool_update_launch.restype = i
+    lib.fixed_rule_reduce_launch.argtypes = [vp] * 4 + [ll, i, i, i, vp]
+    lib.fixed_rule_reduce_launch.restype = i
     return lib
 
 

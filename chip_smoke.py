@@ -114,10 +114,39 @@ non-zero):
    inversion wedge (29,791 points x 30 bands), 1000 energies over [-8, 8];
    init and sweep walls, cuSOLVER's share, eigh's chunk trade-off as in 20;
    checks: finite, non-negative,
-   integral 30 within 5 %, 5 energies against the plain path (1e-12).
+   integral 30 within 5 %, 5 energies against the plain path (1e-12);
+22. kernels K14 (the Genz-Malik box rule), K15 (the box rule fused with the
+   DOS trace), K16 (the box-pool select and update) and K17 (the fixed
+   rule's reduction) against their plain versions at the main path's
+   shapes: K14/K15 on one TAI trip (33 lanes x 8 boxes x 33 nodes of the
+   flagship, dead boxes with a NaN integrand at their nodes), K16 on 33
+   lanes x cap 4096 x d = 3 with planted ties, K17 at phase 24's fixed
+   level (33 x 201 nodes); 1e-12 of the value scale, identical splitdim and
+   pools, bit-identical repeats; kernel, plain, bound and library times
+   (``torch.matmul`` by [wk, we] for K14, ``torch.einsum`` for K17);
+23. TAI main path: the flagship's DOS by TAI() (HCubatureJL, cap 4096,
+   nbisect 4) under SweepSolver(abstol=1e-3, chunk=33, scan=True) at phase
+   7's 33 frequencies, three walls; trips, host syncs, launches of K1, K15
+   and K16, per-lane numevals and retcodes, peak memory; checks: kernels
+   against plain_kernels=True on every lane (identical numevals, retcodes
+   and pools, values within 1e-12), unconverged lanes count 33 + 1023 x 8 x
+   33 = 270,105 evals, two frequencies alone equal their lanes, the
+   reference's 2-D case (synthetic_wannier(2, nr=3, ndim=2, seed=3), eta
+   0.8, omega 0.3, abstol 1e-5) certifies within 5e-5 of PTR, TAI's unit
+   measure on the full zone and the inversion wedge (1e-6; K14's path);
+   the converged lanes against PTR(npt=400) as a reading;
+24. fixed rules: the flagship's DOS by IAI with trapz(npt=201) on the
+   outermost coordinate and AuxQuadGKJL on the other two (inner_cap 64,
+   inner_nbisect 4) under SweepSolver(abstol=1e-3, chunk=33, scan=True),
+   cold, at the 33 frequencies: wall, evals, trips, syncs, K17 launches,
+   peak memory, D against PTR(npt=400) as a reading (the fixed rule
+   certifies nothing); one frequency against the plain versions (identical
+   counts, 1e-12); QuadratureFunction alone on the reference's interface
+   cases, EvalCounter's counts, AbsoluteEstimate's 25 evals and a fixed
+   leaf under an adaptive level.
 
-With ``--profile``, the PTR, IAI, warm IAI, full-grid, LTM, block IAI and
-GGR main paths each run once more under ``torch.profiler`` (after their checks),
+With ``--profile``, the PTR, IAI, warm IAI, full-grid, LTM, block IAI,
+GGR and TAI main paths each run once more under ``torch.profiler`` (after their checks),
 which prints their device busy time, its share of the wall and the device
 time of the leading kernels.
 
@@ -182,6 +211,10 @@ EIGH_CAP = 16384  # the most matrices cuSOLVER's batched eigh took a call on an 
 BLOCKS = (2, 4)  # omega-block widths of phases 16-17
 BLOCK_CHUNK = 36  # phase 17's SweepSolver chunk: 33 frequencies and their pads
 BLOCK_WALL_RUNS = 3
+TAI_RUNS = 3  # phase 23's walls
+UNCONVERGED_EVALS = 33 + 1023 * 8 * 33  # a TAI lane that fills its cap-4096 pool
+FIXED_NPT = 201  # phase 24's trapezoid rule on the outermost coordinate
+FIXED_OMEGAS = IAI_OMEGAS
 
 
 def fail(msg):
@@ -472,6 +505,7 @@ def main():
     kernels += block_phases(np, torch, dev, h, cold)
     kernels += repair_phases(np, torch, dev)
     kernels += ggr_phases(np, torch, dev, h, ltm_dos)
+    kernels += cubature_phases(np, torch, dev, h, cold)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1970,6 +2004,344 @@ def ggr_phases(np, torch, dev, h, ltm_dos):
             entry("ggr_box_sum", "ggr_dos.cu", "autobzcore_tpu/dos/ggr.py:30", t13["box"], t13["box"]["bound"], None),
             entry("gaussian_sum", "ggr_dos.cu", "autobzcore_tpu/dos/tetrahedron.py:325", t13["gauss"],
                   t13["gauss"]["bound"], None)]
+
+
+def cubature_phases(np, torch, dev, h, cold):
+    """Phases 22-24: K14-K17 against their plain versions, the TAI leg and
+    the fixed-rule nest. Returns the kernels' JSON entries."""
+    from autobzcore_torch import (FBZ, IAI, PTR, TAI, AbsoluteEstimate, AuxQuadGKJL, CubicLimits,
+                                  EvalCounter, FourierValue, InversionSymIBZ, IntegralProblem, NestedQuad,
+                                  QuadGKJL, QuadratureFunction, init, load_bz, solve, trapz)
+    from autobzcore_torch.models.observables import (dos_integrand, dos_trace, gm_leaf_dos,
+                                                     gm_leaf_dos_plain)
+    from autobzcore_torch.models.tight_binding import synthetic_wannier
+    from autobzcore_torch.ops import adaptive as tad
+    from autobzcore_torch.ops import genz_malik as tgm
+    from autobzcore_torch.ops.fourier_eval import fourier_points
+    from autobzcore_torch.parallel.sweep import SweepSolver
+    from autobzcore_torch.parameters import LaneParams
+
+    src = "autobzcore_torch/csrc/"
+    rng = np.random.default_rng(22)
+    pts, wk, we, di = tgm.gm_rule_tensors(3, dev)
+    P, nb = pts.shape[0], 4
+    L, K = IAI_OMEGAS, 2 * nb
+    B = L * K
+    oms = cold["oms"]
+
+    # 22. K14-K17 against their plain versions ------------------------------------------
+    # one trip of the TAI leg: 33 lanes x 8 boxes x 33 nodes of the flagship, a
+    # tenth of the boxes dead (centre 0, half 0)
+    dead = torch.as_tensor(rng.random(B) < 0.1, device=dev)
+    cen = torch.where(dead[:, None], 0.0, torch.as_tensor(rng.random((B, 3)), device=dev))
+    half = torch.where(dead[:, None], 0.0, torch.as_tensor(rng.random((B, 3)) * 0.05, device=dev))
+    nodes, vol = tgm.gm_box_nodes(cen, half, pts)
+    vol = vol.contiguous()
+    H = fourier_points(h.c, nodes.reshape(-1, 3).contiguous(), h.offset, h.period).reshape(B, P, 3, 3)
+    om_b = torch.as_tensor(np.repeat(oms, K), device=dev)
+    eta_b = torch.full_like(om_b, ETA)
+    a15 = (H, om_b, eta_b, vol, wk, we, di)
+    k15, k15r, p15 = gm_leaf_dos(*a15), gm_leaf_dos(*a15), gm_leaf_dos_plain(*a15)
+    D = dos_trace(FourierValue(None, H), om_b[:, None], eta=eta_b[:, None])
+    # the integrand NaN at the dead boxes' nodes (at the origin) checks the masking
+    fx = torch.where(dead[:, None], float("nan"), D).contiguous()
+    a14 = (fx, vol, wk, we, di)
+    k14, k14r, p14 = tgm.gm_rule_reduce(*a14), tgm.gm_rule_reduce(*a14), tgm.gm_rule_reduce_plain(*a14)
+    via14 = tgm.gm_rule_reduce(D.contiguous(), vol, wk, we, di)
+    torch.cuda.synchronize()
+
+    def rule_err(got, want):
+        scale = float(want[0].abs().max())
+        return max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max())) / scale
+
+    e14, e15 = rule_err(k14, p14), max(rule_err(k15, p15), rule_err(k15, via14))
+    bits14, bits15 = all(map(torch.equal, k14, p14)), all(map(torch.equal, k15, p15))
+    ok14 = (e14 <= 1e-12 and torch.equal(k14[2], p14[2]) and all(map(torch.equal, k14, k14r))
+            and bool((k14[0][dead] == 0).all() and (k14[1][dead] == 0).all())
+            and bool(torch.isfinite(k14[0]).all()))
+    ok15 = (e15 <= 1e-12 and torch.equal(k15[2], p15[2]) and torch.equal(k15[2], via14[2])
+            and all(map(torch.equal, k15, k15r)))
+    if not ok14:
+        fail(f"K14 gm_rule_reduce vs plain: rel {e14:.3e}, splitdim equal {torch.equal(k14[2], p14[2])}")
+    if not ok15:
+        fail(f"K15 gm_leaf_dos vs plain and K1 + trace + K14: rel {e15:.3e}")
+    W2 = torch.stack([wk, we], dim=1)
+    t14 = {"ms": cuda_ms(lambda: tgm.gm_rule_reduce(*a14), 200),
+           "plain_ms": cuda_ms(lambda: tgm.gm_rule_reduce_plain(*a14), 50),
+           "library_ms": cuda_ms(lambda: torch.matmul(D, W2), 200),
+           "err": max(float((k14[0] - p14[0]).abs().max()), float((k14[1] - p14[1]).abs().max()))}
+    t15 = {"ms": cuda_ms(lambda: gm_leaf_dos(*a15), 200),
+           "plain_ms": cuda_ms(lambda: gm_leaf_dos_plain(*a15), 20),
+           "err": max(float((k15[0] - p15[0]).abs().max()), float((k15[1] - p15[1]).abs().max()))}
+    # operations: per box 4 P (the two weighted sums) and 10 d (fourth
+    # differences); K15 adds the trace and the division at every node
+    b14 = bound(B * (4 * P + 30), nbytes(fx, vol, wk, we, di) + B * (8 + 8 + 4))
+    b15 = bound(B * P * (TRACE_FLOPS[3] + 8) + B * (4 * P + 30),
+                nbytes(H, om_b, eta_b, vol, wk, we, di) + B * (8 + 8 + 4))
+    print(f"K14 gm_rule_reduce: {B} boxes x {P} nodes ({int(dead.sum())} dead, NaN at their nodes): "
+          f"max |d val|, |d err| / max|val| {e14:.3e} (<= 1e-12; bit-equal {bits14}), splitdim identical, "
+          f"dead boxes 0, repeat bit-identical; {t14['ms']:.4f} ms (plain {t14['plain_ms']:.4f}, torch.matmul by [wk, we] "
+          f"{t14['library_ms']:.4f}; bound {b14[0]:.5f} ms by {b14[1]}); K15 gm_leaf_dos: vs plain and K1 + "
+          f"trace + K14 {e15:.3e} (<= 1e-12; bit-equal to plain {bits15}), splitdim identical, repeat bit-identical; {t15['ms']:.4f} ms "
+          f"(plain {t15['plain_ms']:.4f}; bound {b15[0]:.5f} ms by {b15[1]})", flush=True)
+
+    # K16 at 33 lanes x cap 4096 x d = 3: random live slots (dead ones among
+    # them, a tenth of the lanes below nbisect), errors from four values, so
+    # that ties are everywhere
+    cap = 4096
+
+    def random_pool():
+        n = rng.integers(1, cap - nb + 1, L)
+        n[: L // 10] = rng.integers(1, nb, L // 10)
+        live = (np.arange(cap)[None, :] < n[:, None]) & (rng.random((L, cap)) > 0.05)
+        put = lambda a, dt=torch.float64: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+        pool = tgm.GMPool(
+            c=put(np.where(live[..., None], rng.random((L, cap, 3)), 0.0)),
+            h=put(np.where(live[..., None], rng.random((L, cap, 3)) * 0.1, 0.0)),
+            err=put(np.where(live, rng.integers(0, 4, (L, cap)) * 0.25, 0.0)),
+            sd=put(np.where(live, rng.integers(0, 3, (L, cap)), 0), torch.int32),
+            val=put(np.where(live, rng.normal(size=(L, cap)), 0.0)), n=put(n, torch.int64),
+            evals=put(rng.integers(0, 300000, L).astype(float)), atol=put(rng.random(L) * 4),
+            rtol=1e-3, max_evals=250000.0, npts=P, active=put(rng.random(L) > 0.05, torch.bool))
+        tgm.gm_pool_totals_plain(pool, nb)
+        return pool
+
+    pool = random_pool()
+    ref = pool.clone()
+    idx, cc, hh = tgm.gm_pool_select(pool, nb)
+    ridx, rcc, rhh = tgm.gm_pool_select_plain(ref, nb)
+    if not (torch.equal(idx, ridx) and torch.equal(cc, rcc) and torch.equal(hh, rhh)):
+        fail("K16 select: picks or children differ from the plain version")
+    cval = torch.as_tensor(rng.normal(size=(L, K)), device=dev)
+    cerr = torch.as_tensor(rng.random((L, K)), device=dev)
+    csd = torch.as_tensor(rng.integers(0, 3, (L, K)).astype(np.int32), device=dev)
+    sel_in = pool.clone()
+    upd = (nb, idx, cc, hh, cval, cerr, csd)
+    tgm.gm_pool_update(pool, *upd)
+    tgm.gm_pool_update_plain(ref, nb, ridx, rcc, rhh, cval, cerr, csd)
+    same16 = all(torch.equal(getattr(pool, k), getattr(ref, k))
+                 for k in ("c", "h", "err", "sd", "val", "n", "evals", "active"))
+    rel16 = max(float(((getattr(pool, k) - getattr(ref, k)).abs()
+                       / getattr(ref, k).abs().clamp_min(1e-300)).max()) for k in ("tot_val", "tot_err", "tol"))
+    e16 = max(float((getattr(pool, k) - getattr(ref, k)).abs().max()) for k in ("tot_val", "tot_err"))
+    if not (same16 and rel16 <= 1e-14):
+        fail(f"K16 update: pools identical {same16}, totals rel {rel16:.3e}")
+    pool_k, pool_p = sel_in.clone(), sel_in.clone()
+    clone_ms = cuda_ms(lambda: sel_in.clone(), 50)
+    t16s = {"ms": cuda_ms(lambda: tgm.gm_pool_select(pool_k, nb), 100),
+            "plain_ms": cuda_ms(lambda: tgm.gm_pool_select_plain(pool_p, nb), 20), "err": 0.0}
+    t16u = {"ms": cuda_ms(lambda: tgm.gm_pool_update(sel_in.clone(), *upd), 100) - clone_ms,
+            "plain_ms": cuda_ms(lambda: tgm.gm_pool_update_plain(sel_in.clone(), *upd), 20) - clone_ms,
+            "err": e16}
+    b16s = bound(0, nbytes(sel_in.err, sel_in.active) + L * nb * (6 * 8 + 4) + nbytes(idx, cc, hh))
+    b16u = bound(L * cap * 2, nbytes(idx, cc, hh, cval, cerr, csd) + L * K * (8 * 8 + 4)
+                 + nbytes(sel_in.err, sel_in.val, sel_in.n, sel_in.evals, sel_in.atol, sel_in.active)
+                 + L * (5 * 8 + 1))
+    print(f"K16 gm_pool: {L} lanes x cap {cap} x d 3, ties planted: select picks and children identical, "
+          f"update pools identical, totals rel {rel16:.3e} (<= 1e-14); select {t16s['ms']:.4f} ms (plain "
+          f"{t16s['plain_ms']:.4f}; bound {b16s[0]:.5f} by {b16s[1]}), update {t16u['ms']:.4f} ms (plain "
+          f"{t16u['plain_ms']:.4f}; bound {b16u[0]:.5f} by {b16u[1]})", flush=True)
+
+    # K17 at phase 24's fixed level: 33 lanes x 1 segment x 201 trapezoid nodes
+    x201, w201 = QuadratureFunction(trapz, npt=FIXED_NPT).rule(dev)
+    fx17 = torch.as_tensor(rng.normal(size=(FIXED_OMEGAS, 1, FIXED_NPT, 1)), device=dev)
+    half17 = torch.full((FIXED_OMEGAS, 1), 0.5, dtype=torch.float64, device=dev)
+    k17, k17r = tad.fixed_rule_reduce(fx17, w201, half17), tad.fixed_rule_reduce(fx17, w201, half17)
+    p17 = tad.fixed_rule_reduce_plain(fx17, w201, half17)
+    e17 = float((k17 - p17).abs().max())
+    if not (e17 <= 1e-12 * float(p17.abs().max()) and torch.equal(k17, k17r)):
+        fail(f"K17 fixed_rule_reduce vs plain: max|d| {e17:.3e}")
+    t17 = {"ms": cuda_ms(lambda: tad.fixed_rule_reduce(fx17, w201, half17), 200),
+           "plain_ms": cuda_ms(lambda: tad.fixed_rule_reduce_plain(fx17, w201, half17), 100),
+           "library_ms": cuda_ms(lambda: torch.einsum("lspc,p,ls->lc", fx17, w201, half17), 200),
+           "err": e17}
+    b17 = bound(fx17.numel() * 2 + FIXED_OMEGAS * 2, nbytes(fx17, w201, half17) + FIXED_OMEGAS * 8)
+    print(f"K17 fixed_rule_reduce {tuple(fx17.shape)}: max|d| {e17:.3e} (<= 1e-12 max|v|), repeat "
+          f"bit-identical; {t17['ms']:.4f} ms (plain {t17['plain_ms']:.4f}, torch.einsum "
+          f"{t17['library_ms']:.4f}; bound {b17[0]:.6f} by {b17[1]})", flush=True)
+    del H, D, fx, a14, a15, sel_in, pool, ref, pool_k, pool_p
+    torch.cuda.empty_cache()
+
+    # 23. the TAI leg at full width ---------------------------------------------------------
+    bz = cold["bz"]
+    prob = IntegralProblem(dos_integrand(h, ETA), bz)
+    fourier_points.launches = 0
+    gm_leaf_dos.launches = 0
+    for key in tgm.gm_pool_launches:
+        tgm.gm_pool_launches[key] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, d_tai = [], None
+    for run in range(TAI_RUNS):
+        t0 = time.perf_counter()
+        sweep = SweepSolver(prob, TAI(), abstol=IAI_ABSTOL, chunk=IAI_OMEGAS, scan=True)
+        d_run = sweep(oms)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if run == 0:
+            launches = {"fourier_points": fourier_points.launches, "gm_leaf_dos": gm_leaf_dos.launches,
+                        "gm_pool_select": tgm.gm_pool_launches["select"],
+                        "gm_pool_update": tgm.gm_pool_launches["update"] + tgm.gm_pool_launches["totals"]}
+            d_tai, ne, st, rc = d_run, sweep.lane_numevals, sweep.stats, sweep.retcode
+            peak = torch.cuda.max_memory_allocated() / 2**20
+        elif not np.array_equal(d_run, d_tai):
+            fail("TAI: a rerun of the chunk gave other values")
+    if min(launches.values()) <= 0:
+        fail(f"the TAI main path did not go through every kernel: {launches}")
+    trips = st.trips.get(1, 0)
+    print(f"TAI main path: flagship FBZ, eta {ETA}, {IAI_OMEGAS} omegas, abstol {IAI_ABSTOL}, cap 4096, "
+          f"nbisect 4: walls {', '.join(f'{w:.3f}' for w in walls)} s; numevals {int(np.sum(ne))} (per omega "
+          f"min {ne.min()} max {ne.max()}); retcode {rc}; trips {trips}; host syncs {st.syncs}; launches "
+          f"{launches}; peak device memory {peak:.1f} MiB", flush=True)
+    if not (d_tai.shape == (IAI_OMEGAS,) and np.all(np.isfinite(d_tai))):
+        fail(f"TAI sweep: shape {d_tai.shape}, finite {np.all(np.isfinite(d_tai))}")
+    if "--profile" in sys.argv[1:]:
+        profile("TAI main path", lambda: SweepSolver(prob, TAI(), abstol=IAI_ABSTOL, chunk=IAI_OMEGAS,
+                                                     scan=True)(oms))
+
+    # the kernels against the plain versions: the same lanes with their final pools
+    jac = abs(np.linalg.det(bz.B))  # the BZ layer's scale, (2 pi)^3
+
+    def lanes(plain):
+        cache = init(prob, TAI(plain_kernels=plain))
+        cv = cache.cacheval
+        atol = IAI_ABSTOL / jac
+        params = LaneParams(cache.p, torch.as_tensor(oms, device=dev), True)
+        return cv["alg"].solve_lanes(cv["inner"], params, atol, 0.0, return_state=True)
+
+    t0 = time.perf_counter()
+    kv, ke, kn, kc, kpool = lanes(False)
+    pv, pe, pn, pc, ppool = lanes(True)
+    torch.cuda.synchronize()
+    t_pair = time.perf_counter() - t0
+    scale = (2 * math.pi) ** 3
+    rel_v = float((kv - pv).abs().max() / pv.abs().max())
+    same_counts = torch.equal(kn, pn) and torch.equal(kc, pc)
+    lane_same = [all(torch.equal(getattr(kpool, k)[j], getattr(ppool, k)[j]) for k in ("c", "h", "sd", "n"))
+                 for j in range(IAI_OMEGAS)]
+    same_pools = same_counts and all(lane_same)
+    pool_rel = max(float((kpool.val - ppool.val).abs().max()), float((kpool.err - ppool.err).abs().max())) \
+        / float(ppool.val.abs().max())
+    conv = kc.cpu().numpy()
+    ne_k = kn.cpu().numpy()
+    unconv = ne_k[~conv]
+    d_lanes = kv.cpu().numpy() * jac
+    print(f"TAI kernels vs plain_kernels=True on the {IAI_OMEGAS} lanes ({t_pair:.2f} s for both): numevals, "
+          f"retcodes identical {same_counts}, centres, halves, splitdim and n identical in "
+          f"{sum(lane_same)} of {IAI_OMEGAS} lanes; values rel {rel_v:.3e}, pool "
+          f"values and errors rel {pool_rel:.3e} (<= 1e-12); per-lane numevals {ne_k.astype(int).tolist()}; "
+          f"retcodes {conv.astype(int).tolist()}; the sweep's values equal the lanes' "
+          f"{bool(np.array_equal(d_lanes, d_tai))}", flush=True)
+    if not (same_pools and rel_v <= 1e-12 and pool_rel <= 1e-12):
+        fail("TAI kernels and plain versions disagree")
+    if not (np.all(unconv == UNCONVERGED_EVALS) and np.array_equal(ne_k.astype(np.int64), ne)):
+        fail(f"TAI: unconverged lanes must count {UNCONVERGED_EVALS} evals, got {unconv.tolist()}")
+    if not np.array_equal(d_lanes, d_tai):
+        fail("TAI: the sweep's values differ from the lanes'")
+    d_ptr = cold["d_ptr"]
+    dconv = float(np.max(np.abs(d_tai[conv] - d_ptr[conv]))) if conv.any() else float("nan")
+    pick = [int(np.argmax(~conv)), int(np.argmax(conv))] if conv.any() and (~conv).any() else [0, IAI_OMEGAS // 2]
+    alone = [solve(IntegralProblem(dos_integrand(h, ETA), bz, float(oms[j])), TAI(), abstol=IAI_ABSTOL)
+             for j in pick]
+    same_alone = all(float(s.u) == d_tai[j] and s.numevals == ne[j] for s, j in zip(alone, pick))
+    print(f"TAI: {int(conv.sum())} of {IAI_OMEGAS} lanes converge; unconverged lanes count "
+          f"{sorted(set(unconv.astype(int).tolist()))} evals (= 33 + 1023 x 8 x 33 = {UNCONVERGED_EVALS}); "
+          f"max|D - D_PTR(400)| over the converged lanes {dconv:.4e} (a reading: a lane may certify on "
+          f"its first box, as the reference's does); omegas {[round(float(oms[j]), 4) for j in pick]} "
+          f"alone equal their lanes {same_alone}", flush=True)
+    if not same_alone:
+        fail("TAI: a frequency solved alone differs from its lane in the chunk")
+
+    # the reference's 2-D case, and TAI's unit measure (a plain integrand: K14)
+    h2 = synthetic_wannier(2, nr=3, ndim=2, seed=3, device=dev)
+    bz2 = load_bz(FBZ(), np.eye(2))
+    s2 = solve(IntegralProblem(dos_integrand(h2, 0.8), bz2, 0.3), TAI(), abstol=1e-5)
+    p2 = float(solve(IntegralProblem(dos_integrand(h2, 0.8), bz2, 0.3), PTR()).u)
+    tgm.gm_rule_reduce.launches = 0
+    units = [float(solve(IntegralProblem(lambda x, p: torch.ones((), dtype=torch.float64, device=x.device),
+                                         load_bz(kind, np.eye(3))), TAI()).u)
+             for kind in (FBZ(), InversionSymIBZ())]
+    launches["gm_rule_reduce"] = tgm.gm_rule_reduce.launches
+    print(f"TAI 2-D case (synthetic_wannier(2, nr=3, ndim=2, seed=3), eta 0.8, omega 0.3, abstol 1e-5): "
+          f"{float(s2.u):.10f}, retcode {s2.retcode}, numevals {s2.numevals}; PTR {p2:.10f}, |d| "
+          f"{abs(float(s2.u) - p2):.3e} (<= 5e-5); unit measure FBZ {units[0]:.10f}, InversionSymIBZ "
+          f"{units[1]:.10f} ((2 pi)^3 = {scale:.10f}, 1e-6); K14 launches {launches['gm_rule_reduce']}",
+          flush=True)
+    if not (s2.retcode and abs(float(s2.u) - p2) <= 5e-5):
+        fail("TAI's 2-D case does not certify within 5e-5 of PTR")
+    if not all(abs(u - scale) <= 1e-6 * scale for u in units) or launches["gm_rule_reduce"] <= 0:
+        fail(f"TAI unit measure {units}, K14 launches {launches['gm_rule_reduce']}")
+    torch.cuda.empty_cache()
+
+    # 24. fixed rules at full width -------------------------------------------------------------
+    algs = (AuxQuadGKJL(), AuxQuadGKJL(), QuadratureFunction(trapz, npt=FIXED_NPT))
+    oms24 = oms[:FIXED_OMEGAS]
+    tad.fixed_rule_reduce.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sweep = SweepSolver(prob, IAI(algs, inner_cap=64, inner_nbisect=4), abstol=IAI_ABSTOL,
+                        chunk=IAI_OMEGAS, scan=True)
+    d_fix = sweep(oms24)
+    torch.cuda.synchronize()
+    wall24 = time.perf_counter() - t0
+    launches["fixed_rule_reduce"] = tad.fixed_rule_reduce.launches
+    peak24 = torch.cuda.max_memory_allocated() / 2**20
+    st = sweep.stats
+    ne24 = sweep.lane_numevals
+    rel_ptr = float(np.max(np.abs(d_fix - d_ptr[:FIXED_OMEGAS])) / np.max(np.abs(d_ptr[:FIXED_OMEGAS])))
+    print(f"fixed-outer IAI: flagship FBZ, trapz(npt={FIXED_NPT}) outermost, AuxQuadGKJL below "
+          f"(inner_cap 64, inner_nbisect 4), {FIXED_OMEGAS} omegas, abstol {IAI_ABSTOL}: wall {wall24:.3f} s; "
+          f"numevals {sweep.numevals} (per omega min {ne24.min()} max {ne24.max()}); retcode {sweep.retcode}; "
+          f"trips (2 mid, 1 leaf) {dict(sorted(st.trips.items(), reverse=True))}; host syncs {st.syncs}; K17 "
+          f"launches {launches['fixed_rule_reduce']}; peak device memory {peak24:.1f} MiB; D vs PTR(npt=400): "
+          f"max|dD| / max|D| {rel_ptr:.4e} (a reading: the fixed rule certifies nothing)", flush=True)
+    if launches["fixed_rule_reduce"] <= 0 or not (np.all(np.isfinite(d_fix)) and sweep.retcode):
+        fail(f"fixed-outer IAI: K17 launches {launches['fixed_rule_reduce']}, retcode {sweep.retcode}")
+    pick = [FIXED_OMEGAS // 3]
+    psweep = SweepSolver(prob, IAI(algs, inner_cap=64, inner_nbisect=4, plain_kernels=True),
+                         abstol=IAI_ABSTOL, chunk=IAI_OMEGAS, scan=True)
+    d_pf = psweep(oms24[pick])
+    relp = float(np.max(np.abs(d_pf - d_fix[pick]) / np.abs(d_fix[pick])))
+    print(f"fixed-outer IAI vs plain path at omega {oms24[pick].round(4).tolist()}: rel {relp:.3e} "
+          f"(<= 1e-12); numevals {ne24[pick].tolist()} vs {psweep.lane_numevals.tolist()}", flush=True)
+    if not (relp <= 1e-12 and np.array_equal(psweep.lane_numevals, ne24[pick])):
+        fail("fixed-outer IAI: kernels and plain versions disagree")
+    # QuadratureFunction alone and the reference's interface cases, on the card
+    A, Bq, Pq = 0.0, 2 * math.pi, 3.0
+    cases = [(lambda x, p: p * torch.sin(x), 0.0), (lambda x, p: p * torch.ones_like(x), Pq * (Bq - A)),
+             (lambda x, p: 1.0 / (p - torch.cos(x)), (Bq - A) / math.sqrt(Pq**2 - 1))]
+    errs = [abs(float(solve(IntegralProblem(f, A, Bq, Pq), QuadratureFunction(npt=200)).u) - ref)
+            for f, ref in cases]
+    ones = IntegralProblem(lambda x, p: torch.ones_like(x), 0.0, 1.0)
+    counts = [solve(ones, EvalCounter(alg)).numevals
+              for alg in (QuadratureFunction(npt=10), QuadGKJL(order=7), QuadGKJL(order=9))]
+    ae = solve(IntegralProblem(lambda x, p: torch.sin(p * x), 0.0, 1.0, 0.7),
+               AbsoluteEstimate(QuadratureFunction(npt=10), QuadGKJL(), abstol=1e-3), abstol=1e-9)
+    nq = solve(IntegralProblem(lambda x, p: 1.0 + torch.sum(torch.cos(x)),
+                               CubicLimits(np.zeros(2), 2 * math.pi * np.ones(2))),
+               NestedQuad((QuadratureFunction(npt=64), AuxQuadGKJL())), abstol=1e-6)
+    print(f"QuadratureFunction(npt=200) on the reference's three 1-D cases: |error| {max(errs):.3e} (<= 1e-4); "
+          f"EvalCounter counts {counts} ([10, 15, 19]); AbsoluteEstimate {ae.numevals} evals (25); "
+          f"NestedQuad((QuadratureFunction(64), AuxQuadGKJL())) |d| {abs(float(nq.u) - (2 * math.pi) ** 2):.3e} "
+          f"(<= 1e-4)", flush=True)
+    if not (max(errs) <= 1e-4 and counts == [10, 15, 19] and ae.numevals == 25
+            and abs(float(nq.u) - (2 * math.pi) ** 2) <= 1e-4):
+        fail("QuadratureFunction's interface cases on the card")
+    torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, t, b, library_ms):
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
+
+    gm = "autobzcore_tpu/ops/genz_malik.py:"
+    return [entry("gm_rule_reduce", "gm_rule.cu", gm + "93", t14, b14, t14["library_ms"]),
+            entry("gm_leaf_dos", "gm_rule.cu", "autobzcore_tpu/models/observables.py:149", t15, b15, None),
+            entry("gm_pool_select", "gm_pool.cu", gm + "204", t16s, b16s, None),
+            entry("gm_pool_update", "gm_pool.cu", gm + "216", t16u, b16u, None),
+            entry("fixed_rule_reduce", "fixed_rule.cu", "autobzcore_tpu/ops/adaptive.py:644", t17, b17,
+                  t17["library_ms"])]
 
 
 if __name__ == "__main__":

@@ -978,3 +978,220 @@ def test_jacobian_integrands_on_card_match_cpu(cuda_device):
     for cpu, card in zip(*sols):
         assert abs(float(card.u) - float(cpu.u)) <= 1e-10 * abs(float(cpu.u))
         assert card.numevals == cpu.numevals and card.retcode == cpu.retcode
+
+
+# --- K14-K17: the Genz-Malik box rule and pool, fixed rules ------------------------------
+def _gm_boxes(rng, dev, K, d, dead):
+    """K boxes in [0, 1]^d (centres, halves) with the slots ``dead`` dead
+    (centre 0, half 0), and the rule's nodes and volumes."""
+    from autobzcore_torch.ops import genz_malik as tgm
+
+    c = rng.uniform(0.3, 0.7, (K, d))
+    h = rng.uniform(0.01, 0.25, (K, d))
+    c[dead], h[dead] = 0.0, 0.0
+    rule = tgm.gm_rule_tensors(d, dev)
+    nodes, vol = tgm.gm_box_nodes(torch.as_tensor(c, device=dev), torch.as_tensor(h, device=dev),
+                                  rule[0])
+    return nodes, vol.contiguous(), rule
+
+
+def test_box_wrappers_take_plain_versions_on_cpu_without_counting():
+    from autobzcore_torch.ops import adaptive as tad
+    from autobzcore_torch.ops import genz_malik as tgm
+
+    rng = np.random.default_rng(0)
+    nodes, vol, (pts, wk, we, di) = _gm_boxes(rng, "cpu", 6, 3, [2])
+    fx = torch.cos(nodes.sum(-1))
+    before = (tgm.gm_rule_reduce.launches, tobs.gm_leaf_dos.launches,
+              tad.fixed_rule_reduce.launches, dict(tgm.gm_pool_launches))
+    got = tgm.gm_rule_reduce(fx, vol, wk, we, di)
+    assert all(torch.equal(g, w) for g, w in zip(got, tgm.gm_rule_reduce_plain(fx, vol, wk, we, di)))
+    fx2 = torch.as_tensor(rng.normal(size=(2, 3, 5)))
+    w5, half = torch.ones(5, dtype=torch.float64), torch.full((2, 3), 0.5, dtype=torch.float64)
+    assert torch.equal(tad.fixed_rule_reduce(fx2, w5, half), tad.fixed_rule_reduce_plain(fx2, w5, half))
+    assert before == (tgm.gm_rule_reduce.launches, tobs.gm_leaf_dos.launches,
+                      tad.fixed_rule_reduce.launches, dict(tgm.gm_pool_launches))
+    with pytest.raises(ValueError):
+        tgm.gm_rule_reduce(fx.to(torch.float32), vol, wk, we, di)
+    with pytest.raises(ValueError):
+        tgm.gm_rule_reduce(fx, vol[:5], wk, we, di)
+    with pytest.raises(ValueError):
+        tgm.gm_rule_reduce(fx, vol, wk, we, di.long())
+    with pytest.raises(ValueError):
+        tad.fixed_rule_reduce(fx2, w5[:4], half)
+    with pytest.raises(ValueError):
+        tobs.gm_leaf_dos(torch.zeros(6, 33, 3, 3, dtype=torch.complex64), vol[:6], vol[:6], vol,
+                         wk, we, di)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["real", "complex", "nan_at_origin"])
+def test_box_rule_kernel_matches_plain_on_card(cuda_device, kind):
+    """K14 against its plain version on 264 boxes with dead slots: values
+    and errors within 1e-12 of the value scale, dead boxes exactly 0 (also
+    where the integrand is NaN at the origin), splitdim identical (the first
+    NaN where the dead boxes' differences are NaN), repeats bit-identical."""
+    from autobzcore_torch.ops import genz_malik as tgm
+
+    rng = np.random.default_rng(140)
+    dead = rng.choice(264, 40, replace=False)
+    nodes, vol, (pts, wk, we, di) = _gm_boxes(rng, cuda_device, 264, 3, dead)
+    x = nodes
+    fx = {"real": torch.exp(torch.sin(3 * x[..., 0]) * torch.cos(2 * x[..., 2])),
+          "complex": torch.stack([torch.exp(1j * x.sum(-1)), (x * x).sum(-1) + 0j], -1),
+          "nan_at_origin": torch.sqrt(x[..., 0] - 0.01) * torch.log(x[..., 1])}[kind].contiguous()
+    before = tgm.gm_rule_reduce.launches
+    got = tgm.gm_rule_reduce(fx, vol, wk, we, di)
+    again = tgm.gm_rule_reduce(fx, vol, wk, we, di)
+    want = tgm.gm_rule_reduce_plain(fx, vol, wk, we, di)
+    torch.cuda.synchronize()
+    assert tgm.gm_rule_reduce.launches == before + 2
+    scale = float(want[0].abs().max())
+    assert float((got[0] - want[0]).abs().max()) <= 1e-12 * scale
+    assert float((got[1] - want[1]).abs().max()) <= 1e-12 * scale
+    assert torch.equal(got[2], want[2])
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert bool((got[0][torch.as_tensor(dead, device=cuda_device)] == 0).all())
+    assert bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,W", [(1, 1), (2, 1), (3, 1), (3, 4)])
+def test_box_dos_kernel_matches_k1_trace_and_k14_on_card(cuda_device, m, W):
+    """K15 against K1 + the plain trace + K14 (and against its own plain
+    version) on 33 lanes x 8 boxes with dead boxes: 1e-12 of the value
+    scale, splitdim identical, repeats bit-identical."""
+    from autobzcore_torch.ops import genz_malik as tgm
+
+    rng = np.random.default_rng(150 + m)
+    s = ttb.flagship_series(device=cuda_device) if m == 3 else ttb.synthetic_wannier(
+        m, nr=3, seed=m, device=cuda_device)
+    B = 33 * 8
+    nodes, vol, (pts, wk, we, di) = _gm_boxes(rng, cuda_device, B, 3, rng.choice(B, 30, replace=False))
+    H = s.eval_points(nodes.reshape(-1, 3).contiguous()).reshape(B, pts.shape[0], m, m)
+    shape = (B, W) if W > 1 else (B,)
+    om = torch.as_tensor(rng.uniform(-3, 3, shape), device=cuda_device)
+    eta = torch.full(shape, 0.05, dtype=torch.float64, device=cuda_device)
+    before = tobs.gm_leaf_dos.launches
+    got = tobs.gm_leaf_dos(H, om, eta, vol, wk, we, di)
+    again = tobs.gm_leaf_dos(H, om, eta, vol, wk, we, di)
+    assert tobs.gm_leaf_dos.launches == before + 2
+    D = tobs.dos_trace(T.FourierValue(None, H[:, :, None] if W > 1 else H),
+                       om[:, None] if W == 1 else om[:, None, :],
+                       eta=eta[:, None] if W == 1 else eta[:, None, :])
+    via14 = tgm.gm_rule_reduce(D.contiguous(), vol, wk, we, di)
+    plain = tobs.gm_leaf_dos_plain(H, om, eta, vol, wk, we, di)
+    torch.cuda.synchronize()
+    scale = float(plain[0].abs().max())
+    for want in (via14, plain):
+        assert float((got[0] - want[0]).abs().max()) <= 1e-12 * scale
+        assert float((got[1] - want[1]).abs().max()) <= 1e-12 * scale
+        assert torch.equal(got[2], want[2])
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def _random_box_pool(rng, dev, L, cap, d, nb, V=()):
+    """Box pools with n live slots of random boxes (some lanes below nbisect,
+    dead slots among the live ones), errors from a few values so that ties
+    are common, and a few inactive lanes."""
+    from autobzcore_torch.ops import genz_malik as tgm
+
+    n = rng.integers(1, cap - nb + 1, L)
+    n[: L // 10] = rng.integers(1, nb, L // 10)
+    live = np.arange(cap)[None, :] < n[:, None]
+    live &= rng.random((L, cap)) > 0.05
+    c = np.where(live[..., None], rng.random((L, cap, d)), 0.0)
+    h = np.where(live[..., None], rng.random((L, cap, d)) * 0.1, 0.0)
+    err = np.where(live, rng.integers(0, 4, (L, cap)) * 0.25, 0.0)
+    val = np.where(live.reshape(live.shape + (1,) * len(V)), rng.normal(size=(L, cap) + V), 0.0)
+    sd = np.where(live, rng.integers(0, d, (L, cap)), 0).astype(np.int32)
+    put = lambda a, dt=torch.float64: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    pool = tgm.GMPool(c=put(c), h=put(h), err=put(err), sd=put(sd, torch.int32), val=put(val),
+                      n=put(n, torch.int64), evals=put(rng.integers(0, 50000, L).astype(float)),
+                      atol=put(rng.random(L) * 4), rtol=1e-3, max_evals=40000.0, npts=33,
+                      active=put(rng.random(L) > 0.05, torch.bool))
+    tgm.gm_pool_totals_plain(pool, nb)
+    return pool
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [(), (2,)])
+def test_box_pool_kernels_match_plain_on_card(cuda_device, V):
+    """K16's select and update against their plain versions on 33 lanes x
+    cap 4096 x d = 3 with planted equal errors: lax.top_k's tie order (the
+    lower slot), identical children and pools, totals within 1e-14, the same
+    loop test; then the totals entry."""
+    from autobzcore_torch.ops import genz_malik as tgm
+
+    rng = np.random.default_rng(160 + len(V))
+    L, cap, d, nb = 33, 4096, 3, 4
+    pool = _random_box_pool(rng, cuda_device, L, cap, d, nb, V)
+    ref = pool.clone()
+    idx, cc, hh = tgm.gm_pool_select(pool, nb)
+    ridx, rcc, rhh = tgm.gm_pool_select_plain(ref, nb)
+    assert torch.equal(idx, ridx) and torch.equal(cc, rcc) and torch.equal(hh, rhh)
+    cval = torch.as_tensor(rng.normal(size=(L, 2 * nb) + V), device=cuda_device)
+    cerr = torch.as_tensor(rng.random((L, 2 * nb)), device=cuda_device)
+    csd = torch.as_tensor(rng.integers(0, d, (L, 2 * nb)).astype(np.int32), device=cuda_device)
+    tgm.gm_pool_update(pool, nb, idx, cc, hh, cval, cerr, csd)
+    tgm.gm_pool_update_plain(ref, nb, ridx, rcc, rhh, cval, cerr, csd)
+    for name in ("c", "h", "err", "sd", "val", "n", "evals", "active"):
+        assert torch.equal(getattr(pool, name), getattr(ref, name)), name
+    for name in ("tot_val", "tot_err", "tol"):
+        g, w = getattr(pool, name), getattr(ref, name)
+        assert float(((g - w).abs() / w.abs().clamp_min(1e-300)).max()) <= 1e-14, name
+    fresh = _random_box_pool(rng, cuda_device, L, cap, d, nb, V)
+    plain = fresh.clone()
+    tgm.gm_pool_totals(fresh, nb)
+    tgm.gm_pool_totals_plain(plain, nb)
+    assert torch.equal(fresh.active, plain.active)
+
+
+@pytest.mark.gpu
+def test_box_pool_tie_order_on_card(cuda_device):
+    """Every live error equal: K16 picks the lowest slots, in slot order."""
+    from autobzcore_torch.ops import genz_malik as tgm
+
+    pool = _random_box_pool(np.random.default_rng(170), cuda_device, 4, 256, 2, 4)
+    pool.err.fill_(0.5)
+    pool.active.fill_(True)
+    idx, _, _ = tgm.gm_pool_select(pool, 4)
+    assert torch.equal(idx.cpu(), torch.arange(4).expand(4, 4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(33, 1, 201, 1), (40, 3, 7, 2)])
+def test_fixed_rule_kernel_matches_plain_on_card(cuda_device, shape):
+    """K17 against its plain version (and complex values as pairs): 1e-12
+    relative, repeats bit-identical."""
+    from autobzcore_torch.ops import adaptive as tad
+
+    rng = np.random.default_rng(180)
+    L, S, P, C = shape
+    fx = torch.as_tensor(rng.normal(size=shape), device=cuda_device)
+    w = torch.as_tensor(rng.random(P), device=cuda_device)
+    half = torch.as_tensor(rng.random((L, S)), device=cuda_device)
+    for v in (fx, torch.complex(fx, -fx).contiguous()):
+        got, again = tad.fixed_rule_reduce(v, w, half), tad.fixed_rule_reduce(v, w, half)
+        want = tad.fixed_rule_reduce_plain(v, w, half)
+        assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+        assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_tai_and_fixed_rules_on_card_match_cpu(cuda_device):
+    """TAI (K1, K15, K16) at two frequencies and a fixed-outer IAI (K17) on
+    the card against the CPU's plain path: identical counts and retcodes,
+    values within 1e-12."""
+    oms = np.array([-0.7, 1.9])
+    out = []
+    for dev in ("cpu", cuda_device):
+        th = ttb.synthetic_wannier(2, nr=3, ndim=2, seed=3, device=dev)
+        prob = T.IntegralProblem(tobs.dos_integrand(th, 0.8), T.load_bz(T.FBZ(), np.eye(2)))
+        sw = SweepSolver(prob, T.TAI(device=dev), abstol=1e-5, chunk=2, scan=True)
+        algs = (T.AuxQuadGKJL(), T.QuadratureFunction(T.trapz, npt=21))
+        sw2 = SweepSolver(prob, T.IAI(algs, inner_cap=32, device=dev), abstol=1e-5, chunk=2, scan=True)
+        out.append((sw(oms), sw.lane_numevals, sw.retcode, sw2(oms), sw2.lane_numevals))
+    (a, b, c, d, e), (a2, b2, c2, d2, e2) = out
+    assert np.array_equal(b, b2) and c is c2 is True and np.array_equal(e, e2)
+    assert rel_err(a2, a) <= 1e-12 and rel_err(d2, d) <= 1e-12
