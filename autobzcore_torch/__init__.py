@@ -29,8 +29,12 @@ and the box and Gaussian energy sums (K13, ``dos.ggr.ggr_box_sum`` and
 fused with the DOS trace (K15, ``models.observables.gm_leaf_dos``) and the
 box-pool step (K16, ``ops.genz_malik.gm_pool_select`` and
 ``gm_pool_update``), and for fixed rules (``QuadratureFunction``, fixed nest
-levels) the rule's reduction (K17, ``ops.adaptive.fixed_rule_reduce``). This
-package never imports JAX.
+levels) the rule's reduction (K17, ``ops.adaptive.fixed_rule_reduce``), and
+for the transport family (``TransportSolver``, ``KineticCoefficientSolver``,
+``ElectronCountSolver``) the band-pair velocity pack (K18,
+``models.observables.velocity_pairs``), the Lorentzian-pair transport
+contraction (K19, ``models.observables.transport_gamma``) and the Fermi count
+(K20, ``models.transport.fermi_count``). This package never imports JAX.
 """
 from .algorithms.gk import AuxQuadGKJL, QuadGKJL
 from .algorithms.hcubature import HCubatureJL
@@ -73,18 +77,21 @@ from .parameters import MixedParameters, NullParameters, ParameterIntegrand
 from .wrappers import BatchIntegrand, InplaceIntegrand
 from .dos.interfaces import DOSProblem, DOSSolution
 from .dos.ggr import GGR
+from .models.observables import SpectralPack, TransportSolver, spectral_velocity_pack
+from .models.transport import ElectronCountSolver, KineticCoefficientSolver, optical_conductivity
 from .ops.quad_rules import gausslegendre, trapz
 
 __version__ = "0.1.0"
 
 __all__ = [
     "AbsoluteEstimate", "AbstractSymRep", "AuxQuadGKJL", "Basis", "BatchIntegrand", "CubicLimits",
-    "CubicSymIBZ", "DOSProblem", "DOSSolution", "EvalCounter", "FBZ", "FourierIntegrand",
-    "FourierSeries", "FourierValue", "GGR", "HCubatureJL", "HyperCube", "IAI",
+    "CubicSymIBZ", "DOSProblem", "DOSSolution", "ElectronCountSolver", "EvalCounter", "FBZ",
+    "FourierIntegrand", "FourierSeries", "FourierValue", "GGR", "HCubatureJL", "HyperCube", "IAI",
     "InplaceIntegrand", "IntegralCache", "IntegralProblem", "IntegralSolution", "IntegralSolver",
-    "InversionSymIBZ", "JacobianSeries", "LatticeRep", "MixedParameters", "MonkhorstPack", "NestedQuad",
-    "NullParameters", "PTR", "PTR_IAI", "ParameterIntegrand", "QuadGKJL", "QuadratureFunction",
-    "SymmetricBZ", "TAI", "TetrahedralLimits", "TrivialRep",
-    "UnknownRep", "canonical_reciprocal_basis", "gausslegendre", "init", "load_bz", "nsyms",
-    "solve", "solve_", "sym_rep", "symmetrize", "trapz",
+    "InversionSymIBZ", "JacobianSeries", "KineticCoefficientSolver", "LatticeRep", "MixedParameters",
+    "MonkhorstPack", "NestedQuad", "NullParameters", "PTR", "PTR_IAI", "ParameterIntegrand", "QuadGKJL",
+    "QuadratureFunction", "SpectralPack", "SymmetricBZ", "TAI", "TetrahedralLimits", "TransportSolver",
+    "TrivialRep", "UnknownRep", "canonical_reciprocal_basis", "gausslegendre", "init", "load_bz",
+    "nsyms", "optical_conductivity", "solve", "solve_", "spectral_velocity_pack", "sym_rep",
+    "symmetrize", "trapz",
 ]

@@ -6,6 +6,14 @@
 reference's infinite-limit variable transformations. Inside a
 :class:`~autobzcore_torch.algorithms.nested.NestedQuad` they only name each
 level's rule order, cap and bisection width.
+
+A :class:`~autobzcore_torch.wrappers.BatchIntegrand` ``f(xs, q)`` is called
+once per GK trip with every live node ``xs`` (N,) of every live lane. Where
+lanes are swept, ``q`` holds each node's lane parameter: the (N,) tensor of
+the lane values gathered per node (merged into the shared parameters where
+the problem merges them), which is what a pointwise integrand gets node by
+node. The reference's lanes each call ``f`` on their own nodes; the values
+are the same.
 """
 from __future__ import annotations
 
@@ -14,8 +22,8 @@ import torch
 
 from .._device import REAL, as_device
 from ..interfaces import IntegralSolution
-from ..ops.adaptive import (_as_eval_budget, gk_adaptive_lanes, gk_nodes, gk_rule, pool_kernels,
-                            scatter_lanes)
+from ..ops.adaptive import (LoopStats, _as_eval_budget, gk_adaptive_lanes, gk_nodes, gk_rule,
+                            pool_kernels, scatter_lanes)
 from ..parameters import LaneParams
 from ..utils.tree import tree_norm
 from ..wrappers import BatchIntegrand, InplaceIntegrand
@@ -93,7 +101,7 @@ class QuadGKJL(IntegralAlgorithm):
         else:
             point_f, batch = (f.to_pure() if isinstance(f, InplaceIntegrand) else f), None
         return {"segs": segs, "map": map_fn, "jac": jac_fn, "f": point_f, "batch": batch,
-                "device": as_device(self.device), "kernels": pool_kernels()}
+                "device": as_device(self.device), "kernels": pool_kernels(), "stats": LoopStats()}
 
     def solve_lanes(self, cacheval, params, atol, rtol, maxiters=None):
         """Solve every lane of ``params`` (a :class:`LaneParams`)
@@ -114,14 +122,12 @@ class QuadGKJL(IntegralAlgorithm):
             nodes, half = gk_nodes(ca[live], cb[live], xk)
             ts = nodes.reshape(-1)
             xs = ts if map_fn is None else map_fn(ts)
+            lanes = None if params.x is None else live.repeat_interleave(I * P)
             if cacheval["batch"] is not None:
-                if params.x is not None:
-                    raise NotImplementedError(
-                        "a BatchIntegrand takes one parameter per call: sweep it one solve at a "
-                        "time (ROADMAP A5)")
-                fx = cacheval["batch"](xs, params.p)
+                # one call per trip: every live node, each with its lane's
+                # parameter (a (N,) tensor where the lanes are swept)
+                fx = cacheval["batch"](xs, params.batch_params(lanes))
             else:
-                lanes = live.repeat_interleave(I * P)
                 fx = params.map_points(cacheval["f"], (xs,), lanes)
             if jac_fn is not None:
                 jac = jac_fn(ts)
@@ -135,7 +141,7 @@ class QuadGKJL(IntegralAlgorithm):
         segs = torch.as_tensor(cacheval["segs"], dtype=REAL, device=dev).expand(L, -1).contiguous()
         atol_t = torch.as_tensor(atol, dtype=REAL, device=dev).expand(L).contiguous()
         return gk_adaptive_lanes(rule, segs, atol_t, cap=self.cap, nbisect=self.nbisect, rtol=rtol,
-                                 maxiters=maxiters, kernels=kernels)
+                                 maxiters=maxiters, kernels=kernels, stats=cacheval.get("stats"), level=1)
 
     def do_solve(self, f, dom, p, cacheval, abstol=None, reltol=None, maxiters=None):
         atol, rtol = effective_tolerances(abstol, reltol)

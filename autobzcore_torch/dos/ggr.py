@@ -237,6 +237,21 @@ def gaussian_sum(e, sigma, norm, w, E, scale):
 gaussian_sum.launches = 0
 
 
+def eigen_chunks(h, X, points=fourier_points_derivs):
+    """For each chunk of at most :data:`GGR_CHUNK` of the points X (K, d):
+    ``(start, e, U, dH)``, the eigenpairs of H and the gradient dH/dz (n, d,
+    m, m) (a view of K11's output) at the chunk's points, by K11
+    (``points``, or its plain version) and ``torch.linalg.eigh``. A scalar
+    series is a 1 x 1 Hamiltonian."""
+    m = h.valshape[0] if h.valshape else 1
+    orders = jacobian_orders(X.shape[1])
+    for s in range(0, X.shape[0], GGR_CHUNK):
+        J = points(h.c, X[s:s + GGR_CHUNK], h.offset, h.period, orders)
+        J = J.reshape(J.shape[:2] + (m, m))
+        e, U = torch.linalg.eigh(J[:, 0])
+        yield s, e, U.contiguous(), J[:, 1:]
+
+
 def spectral_grid(h, bz, npt, points=fourier_points_derivs, velocities=band_velocity):
     """Energies e (K, m), velocities v (K, d, m) with respect to z = x/t and
     weights w (K,), float64 on the series' device, at the symmetry
@@ -248,14 +263,10 @@ def spectral_grid(h, bz, npt, points=fourier_points_derivs, velocities=band_velo
     frac, w = rule_points(npt, d, bz.syms, dev)
     X = (frac * torch.as_tensor(h.period, dtype=REAL, device=dev)).contiguous()
     m = h.valshape[0] if h.valshape else 1
-    orders = jacobian_orders(d)
     es, vs = [], []
-    for s in range(0, X.shape[0], GGR_CHUNK):
-        J = points(h.c, X[s:s + GGR_CHUNK], h.offset, h.period, orders)
-        J = J.reshape(J.shape[:2] + (m, m))  # a scalar series is a 1 x 1 Hamiltonian
-        e, U = torch.linalg.eigh(J[:, 0])
+    for _, e, U, dH in eigen_chunks(h, X, points):
         es.append(e)
-        vs.append(velocities(U.contiguous(), J[:, 1:]))
+        vs.append(velocities(U, dH))
     if not es:
         return (torch.empty((0, m), dtype=REAL, device=dev), torch.empty((0, d, m), dtype=REAL, device=dev), w)
     return torch.cat(es), torch.cat(vs), w

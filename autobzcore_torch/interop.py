@@ -100,3 +100,30 @@ def bz_from_arrays(A, B, syms=None):
     else:
         raise ValueError("bz_from_arrays knows the limits of the inversion and cube groups only")
     return SymmetricBZ(A, B, lims, syms)
+
+
+def pack_from_arrays(e, Wmat, scale, Savg, weights, ndim, npt, device="cuda"):
+    """A :class:`~autobzcore_torch.models.observables.SpectralPack` from the
+    JAX package's pack fields as numpy arrays and numbers (``Savg`` None or
+    ``(S^-T stack, S^-1 stack, |G|)``), with ``e`` and ``Wmat`` as float64
+    tensors on ``device``."""
+    import torch
+
+    from .models.observables import SpectralPack
+
+    put = lambda x: torch.as_tensor(np.array(x, dtype=np.float64), device=device)  # noqa: E731
+    if Savg is not None:
+        Savg = (np.asarray(Savg[0], dtype=np.float64), np.asarray(Savg[1], dtype=np.float64), int(Savg[2]))
+    return SpectralPack(put(e), put(Wmat), float(scale), Savg, np.asarray(weights, dtype=np.float64),
+                        int(ndim), int(npt))
+
+
+def pack_to_arrays(pack):
+    """The inverse of :func:`pack_from_arrays`: ``(e, Wmat, scale, Savg,
+    weights, ndim, npt)`` as numpy arrays and numbers, the JAX package's
+    ``SpectralPack`` field order."""
+    Savg = pack.Savg
+    if Savg is not None:
+        Savg = (np.asarray(Savg[0]), np.asarray(Savg[1]), int(Savg[2]))
+    return (pack.e.detach().cpu().numpy(), pack.Wmat.detach().cpu().numpy(), float(pack.scale), Savg,
+            np.asarray(pack.weights), int(pack.ndim), int(pack.npt))

@@ -25,11 +25,23 @@ reach device memory; one frequency or an omega block per box.
 
 ``dos_eig`` sums over every axis, the omega block's too, so it cannot run
 blocked (the reference's example of a reducing integrand).
+
+The transport family (reference ``observables.py:23-66, 175-393``): the
+spectral velocity pack (``spectral_velocity_pack``: K11 at the grid's
+representatives through ``gathered_grid``'s point form, ``eigh``, then
+kernel K18, ``velocity_pairs``, ``csrc/velocity_pairs.cu``, in chunks of
+``dos.ggr.GGR_CHUNK`` points), ``TransportSolver`` and ``transport_sweep``
+(one launch of kernel K19, ``transport_gamma``,
+``csrc/transport_gamma.cu``, at equal frequencies over all omegas), the
+certified ladder (host code) and the per-point PTR integrand
+``transport_distribution`` (plain torch operations).
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .._device import COMPLEX, REAL, check_tensor
@@ -37,7 +49,8 @@ from ..brillouin import TrivialRep
 from ..fourier import FourierIntegrand, FourierSeries, FourierValue
 from ..ops.adaptive import gk_nodes, gk_rule_reduce_plain
 from ..ops.cuda_lib import check_launch, load_kernels
-from ..ops.fourier_eval import fourier_contract_plain
+from ..ops.fourier_eval import (fourier_contract_plain, fourier_points, fourier_points_derivs,
+                                jacobian_orders)
 
 
 def _trace_inv_small(M):
@@ -405,3 +418,374 @@ def dos_lanes(params, L, device):
         return om.expand(L).contiguous(), eta.expand(L).contiguous()
     W = om.shape[-1]
     return om.expand(L, W).contiguous(), eta.expand(L, W).contiguous()
+
+
+# --- the transport family (reference observables.py:23-66, 175-393) -------------------------
+
+
+def reduced_grid(bz, npt, period):
+    """Shared symmetry-reduced PTR-grid data of the cached-pack engines
+    (reference ``observables.py:23``): ``(lin, weights, u, scale, Savg)``,
+    the C-order indices of the representatives in the full grid (None on
+    the full zone), their orbit multiplicities (sum npt^d, numpy), the
+    per-dimension nodes ``arange(npt) / npt * period`` (numpy), the
+    ``|det B| / npt^d`` normalization and the rank-2 group average
+    ``(S^-T stack, S^-1 stack, |G|)`` (None on the full zone)."""
+    from ..ops.symptr import symptr_rule
+
+    d = bz.ndim
+    if bz.syms is None:
+        lin = None
+        weights = np.ones(npt**d)
+        Savg = None
+    else:
+        reps, weights = symptr_rule(npt, d, bz.syms)
+        lin = np.ravel_multi_index(tuple(reps.T.astype(np.int64)), (npt,) * d)
+        Sinv = np.linalg.inv(np.asarray(bz.syms, dtype=np.float64))
+        Savg = (Sinv.swapaxes(1, 2), Sinv, len(Sinv))
+    u = [np.arange(npt) / npt * period[j] for j in range(d)]
+    scale = abs(np.linalg.det(bz.B)) / (npt**d)
+    return lin, weights, u, scale, Savg
+
+
+def grid_points(d, u, lin, device):
+    """The points (K, d) float64 of the grid ``u[0] x ... x u[d-1]`` in C
+    order, or its points at the C-order indices ``lin`` (the representatives):
+    the nodes the reference's grid evaluation gathers, taken directly."""
+    npts = tuple(len(uj) for uj in u)
+    idx = np.unravel_index(np.arange(int(np.prod(npts))) if lin is None else np.asarray(lin), npts)
+    X = np.stack([np.asarray(u[j], dtype=np.float64)[idx[j]] for j in range(d)], axis=-1)
+    return torch.as_tensor(X.reshape(-1, d), device=device).contiguous()
+
+
+def gathered_grid(h, d, u, lin, jacobian=False):
+    """H (and with ``jacobian`` dH/dz_j) at the grid's points, or at its
+    representatives ``lin`` (reference ``observables.py:49``): K1
+    (``fourier_points``) or K11 (``fourier_points_derivs``) at the points
+    themselves, not a whole-grid evaluation and a gather. Returns ``hk (K,
+    *valshape)`` or ``(hk, vk (K, d, *valshape))`` on the series' device."""
+    X = grid_points(d, u, lin, h.device)
+    if not jacobian:
+        return fourier_points(h.c, X, h.offset, h.period)
+    J = fourier_points_derivs(h.c, X, h.offset, h.period, jacobian_orders(d))
+    return J[:, 0], J[:, 1:]
+
+
+def transport_distribution(hv, om, eta=None):
+    """Kubo-Greenwood transport distribution ``Gamma_ab(om) = Re sum_nm
+    (v_a)_nm conj((v_b)_nm) A_n A_m`` at one k-point of a JacobianSeries
+    value ``(H, dH)``, in the band basis of ``eigh(H)``; returns (d, d)
+    (reference ``observables.py:175``, the per-point PTR integrand)."""
+    h, v = hv.s
+    e, U = torch.linalg.eigh(h)
+    vband = torch.einsum("im,dij,jn->dmn", U.conj(), v, U)
+    a = eta / ((om - e) ** 2 + eta**2) / math.pi
+    return torch.einsum("anm,bnm,n,m->ab", vband, vband.conj(), a.to(vband.dtype),
+                        a.to(vband.dtype)).real
+
+
+def transport_integrand(h: FourierSeries, eta):
+    """FourierIntegrand of :func:`transport_distribution` over
+    ``JacobianSeries(h)``, declaring :class:`LatticeRep` so that IBZ solves
+    symmetrize the rank-2 tensor (reference ``observables.py:191``)."""
+    from ..brillouin import LatticeRep
+    from ..fourier import JacobianSeries
+
+    fi = FourierIntegrand(transport_distribution, JacobianSeries(h), eta=eta)
+    fi.rep = LatticeRep()
+    return fi
+
+
+def transport_sweep(h: FourierSeries, bz, npt, omegas, eta):
+    """``Gamma_ab(omega)`` over a frequency grid: one-shot
+    :class:`TransportSolver`; returns (W, d, d) numpy."""
+    return TransportSolver(h, bz, npt, eta)(omegas)
+
+
+class CertifiedSweep(NamedTuple):
+    """A Richardson-certified grid sweep: values, the final sup-norm rung
+    delta, the convergence flag and the npt ladder that ran."""
+
+    u: object
+    resid: float
+    retcode: bool
+    npts: tuple
+
+
+def certified_ladder(eval_at_npt, abstol=1e-3, reltol=0.0, nmin=20, nmax=400, factor=2**0.5,
+                     npt_multiple=1):
+    """Call ``eval_at_npt(npt)`` on the rate-fitted npt ladder of
+    ``dos.fullgrid.next_rung_npt`` until the sup-norm change of the whole
+    result between consecutive rungs meets the weaker of ``abstol`` and
+    ``reltol`` (reference ``observables.py:233``, host code). Every rung is
+    rounded up to a multiple of ``npt_multiple``."""
+    from ..dos.fullgrid import next_rung_npt
+
+    mult = max(1, int(npt_multiple))
+
+    def up(x):
+        return -(-int(x) // mult) * mult
+
+    npts = [up(nmin)]
+    deltas = []
+    G_prev = None
+    while True:
+        G = np.asarray(eval_at_npt(npts[-1]))
+        if G_prev is not None:
+            delta = float(np.max(np.abs(G - G_prev)))
+            tol = max(float(abstol), float(reltol) * float(np.max(np.abs(G))))
+            deltas.append(delta)
+            if delta <= tol:
+                return CertifiedSweep(G, delta, True, tuple(npts))
+            if npts[-1] >= nmax:
+                return CertifiedSweep(G, delta, False, tuple(npts))
+        G_prev = G
+        nxt = up(next_rung_npt(npts, deltas, max(float(abstol), 1e-300), float(factor), int(nmax)))
+        if nxt <= npts[-1]:
+            # the smallest legal step; may pass nmax by less than mult, and
+            # the next delta check then reports the retcode honestly
+            nxt = npts[-1] + mult if mult > 1 else min(int(nmax), npts[-1] + 1)
+        npts.append(int(nxt))
+
+
+def certified_transport_sweep(h: FourierSeries, bz, omegas, eta, abstol=1e-3, reltol=0.0, nmin=20,
+                              nmax=400, factor=2**0.5):
+    """Kubo-Greenwood sweep certified over the whole ``Gamma_ab(omega)``
+    curve by :func:`certified_ladder`, a fresh :class:`TransportSolver` per
+    rung (reference ``observables.py:272``)."""
+    return certified_ladder(lambda npt: TransportSolver(h, bz, npt, eta)(omegas), abstol, reltol,
+                            nmin, nmax, factor)
+
+
+class SpectralPack(NamedTuple):
+    """The weight-packed (H, dH) spectral grid shared by
+    :class:`TransportSolver` and the kinetic-coefficient solvers
+    (``models/transport.py``), built once per (h, bz, npt):
+
+    ``Gamma_ab(w1, w2) = scale * sum_knm A1[k, n] A2[k, m] Wmat[(k, n, m),
+    (a, b)]`` with the band-basis spectral functions A; ``Savg`` averages an
+    IBZ rank-2 tensor over the group; ``weights`` are the orbit
+    multiplicities (numpy, sum npt^ndim). ``e`` and ``Wmat`` are float64 on
+    the series' device."""
+
+    e: object        # (K, m) band energies on the reduced grid
+    Wmat: object     # (K m^2, d^2) weight-absorbed velocity pairs
+    scale: object    # |det B| / npt^ndim
+    Savg: object     # (S^-T stack, S^-1 stack, |G|) or None (full zone)
+    weights: object  # (K,) orbit multiplicities
+    ndim: int
+    npt: int
+
+
+def velocity_pairs_plain(U, dH, w, out=None):
+    """Plain PyTorch version of K18, the reference's operations
+    (``observables.py:326-339``): the band-basis velocities ``U^H dH_a U``,
+    the real pair products ``P[k, a, b, n, m] = Re[(v_a)_nm (v_b)_mn]``
+    and ``Wmat = (w P)`` transposed to ((k, n, m), (a, b)); written into
+    ``out`` where given."""
+    K, d, m = dH.shape[0], dH.shape[1], U.shape[-1]
+    vband = torch.einsum("kmi,kdij,kjn->kdmn", U.conj().transpose(1, 2), dH, U)
+    P = torch.einsum("kanm,kbmn->kabnm", vband, vband).real
+    res = (w[:, None, None, None, None] * P).permute(0, 3, 4, 1, 2).reshape(K * m * m, d * d)
+    if out is None:
+        return res
+    return out.copy_(res)
+
+
+def velocity_pairs(U, dH, w, out=None):
+    """The transport GEMM operand ``Wmat[(k, n, q), (a, b)] = w_k Re[(U^H
+    dH_a U)_nq (U^H dH_b U)_qn]`` for eigenvectors U (K, m, m) complex128
+    (columns), gradients dH (K, d, m, m) complex128 whose (m, m) blocks are
+    contiguous and weights w (K,) float64. Returns (K m^2, d^2) float64,
+    written into ``out`` (contiguous) where given.
+
+    CPU tensors take the plain version; CUDA tensors launch K18
+    (``csrc/velocity_pairs.cu``), and anything the kernel does not take
+    raises."""
+    check_tensor(U, "U", dtype=COMPLEX, ndim=3)
+    K, m, m2 = U.shape
+    if m2 != m or not isinstance(dH, torch.Tensor) or dH.ndim != 4 or dH.shape[0] != K \
+            or tuple(dH.shape[2:]) != (m, m):
+        raise ValueError(f"velocity_pairs takes U (K, m, m) and dH (K, d, m, m), got {tuple(U.shape)} and "
+                         f"{tuple(getattr(dH, 'shape', ()))}")
+    if dH.dtype != COMPLEX or dH.device != U.device:
+        raise ValueError("dH must be a complex128 tensor on U's device")
+    check_tensor(w, "w", device=U.device, dtype=REAL, ndim=1, shape=(K,))
+    d = dH.shape[1]
+    if out is not None:
+        check_tensor(out, "out", device=U.device, dtype=REAL, ndim=2, shape=(K * m * m, d * d))
+    if U.device.type == "cpu":
+        return velocity_pairs_plain(U, dH, w, out=out)
+    if U.device.type != "cuda":
+        raise ValueError(f"velocity_pairs runs on cpu or cuda tensors, got {U.device}")
+    if dH.stride(3) != 1 or dH.stride(2) != m:
+        raise ValueError("velocity_pairs needs dH's (m, m) blocks contiguous")
+    lib = load_kernels()
+    if m > lib.velocity_pairs_max_bands(d):
+        raise ValueError(f"K18 takes at most {lib.velocity_pairs_max_bands(d)} bands at d = {d}, got {m}")
+    if out is None:
+        out = torch.empty((K * m * m, d * d), dtype=REAL, device=U.device)
+    if K == 0:
+        return out
+    stream = torch.cuda.current_stream(U.device).cuda_stream
+    err = lib.velocity_pairs_launch(U.data_ptr(), dH.data_ptr(), w.data_ptr(), out.data_ptr(), K, d, m,
+                                    dH.stride(0), dH.stride(1), stream)
+    check_launch(err, "velocity_pairs")
+    velocity_pairs.launches += 1
+    return out
+
+
+velocity_pairs.launches = 0
+
+
+def series_bands(h):
+    """The band count m of a series of (m, m) values (1 for a scalar one)."""
+    vs = h.valshape
+    if len(vs) == 0:
+        return 1
+    if len(vs) != 2 or vs[0] != vs[1]:
+        raise ValueError(f"the transport family takes scalar or square-matrix series, got {vs}")
+    return vs[0]
+
+
+def spectral_velocity_pack(h: FourierSeries, bz, npt, points=fourier_points_derivs,
+                           pairs=velocity_pairs) -> SpectralPack:
+    """Evaluate (H, dH) on the (symmetry-reduced) npt^d grid, eigendecompose
+    and pack the weighted band-pair velocity products (reference
+    ``observables.py:309``). In chunks of ``dos.ggr.GGR_CHUNK`` points: K11
+    (``points``) at the points ``reps/npt * period``, ``torch.linalg.eigh``,
+    then K18 (``pairs``) into the chunk's rows of Wmat. The plain versions
+    of K11 and K18 may be passed in their place."""
+    from ..dos.ggr import eigen_chunks
+
+    d, dev = bz.ndim, h.device
+    lin, weights, u, scale, Savg = reduced_grid(bz, npt, h.period)
+    X = grid_points(d, u, lin, dev)
+    m = series_bands(h)
+    K = X.shape[0]
+    w = torch.as_tensor(np.asarray(weights), dtype=REAL, device=dev)
+    e = torch.empty((K, m), dtype=REAL, device=dev)
+    Wmat = torch.empty((K * m * m, d * d), dtype=REAL, device=dev)
+    for s, es, U, dH in eigen_chunks(h, X, points):
+        n = es.shape[0]
+        e[s:s + n] = es
+        pairs(U, dH, w[s:s + n], out=Wmat[s * m * m:(s + n) * m * m])
+    return SpectralPack(e, Wmat, scale, Savg, weights, d, npt)
+
+
+def spectral_weights(y, g, e):
+    """The band spectral functions ``A[b, k, n] = g_b / ((y_b - e[k, n])^2 +
+    g_b^2) / pi`` (B, K, m) of nodes with shifted frequency y and width g
+    (B,): the reference's ``eta / ((w - e)^2 + eta^2) / pi`` (y = w, g =
+    eta) and its self-energy form (y = w - Re Sigma, g = -Im Sigma)."""
+    yb, gb = y[:, None, None], g[:, None, None]
+    return gb / ((yb - e) ** 2 + gb**2) / math.pi
+
+
+def transport_gamma_plain(e, Wmat, y1, g1, y2, g2, scale, chunk=64):
+    """Plain PyTorch version of K19, the reference's operations in chunks of
+    ``chunk`` node pairs (its TransportSolver chunks frequencies by 64):
+    ``scale * (Pairs @ Wmat)`` with ``Pairs = (A1[..., :, None] A2[...,
+    None, :])`` flattened to (C, K m^2); A2 is A1 when ``y2 is y1`` and
+    ``g2 is g1``. Returns (B, d^2)."""
+    K, m = e.shape
+    same = y2 is y1 and g2 is g1
+    out = []
+    for s in range(0, y1.shape[0], chunk):
+        A1 = spectral_weights(y1[s:s + chunk], g1[s:s + chunk], e)
+        A2 = A1 if same else spectral_weights(y2[s:s + chunk], g2[s:s + chunk], e)
+        pairs = (A1[..., :, None] * A2[..., None, :]).reshape(A1.shape[0], K * m * m)
+        out.append(scale * (pairs @ Wmat))
+    if not out:
+        return torch.empty((0, Wmat.shape[1]), dtype=REAL, device=e.device)
+    return torch.cat(out)
+
+
+def transport_gamma(e, Wmat, y1, g1, y2, g2, scale):
+    """``G[b] = scale * sum_k sum_nq A(y1_b - e[k, n]; g1_b) A(y2_b - e[k,
+    q]; g2_b) Wmat[(k, n, q)]`` for B node pairs, A(x; g) = g / (x^2 + g^2)
+    / pi: the transport distribution Gamma(w1, w2) of a pack (e (K, m),
+    Wmat (K m^2, d^2)), with y = w - Re Sigma(w) and g = -Im Sigma(w) (0 and
+    eta without a self-energy), all float64. Returns (B, d^2) float64.
+
+    Equal frequencies are asked for by identity: when ``y2 is y1`` and ``g2
+    is g1`` (the same tensor objects, as TransportSolver passes them) each
+    Lorentzian is computed once, not twice. Equal values in other tensors
+    give the same result, bit for bit, at twice the Lorentzians' cost.
+
+    CPU tensors take the plain version; CUDA tensors launch K19
+    (``csrc/transport_gamma.cu``), and anything the kernel does not take
+    raises."""
+    check_tensor(e, "e", dtype=REAL, ndim=2)
+    K, m = e.shape
+    check_tensor(Wmat, "Wmat", device=e.device, dtype=REAL, ndim=2)
+    if Wmat.shape[0] != K * m * m or Wmat.shape[1] not in (1, 4, 9):
+        raise ValueError(f"Wmat must be (K m^2, d^2) = ({K * m * m}, d^2) for d <= 3, got {tuple(Wmat.shape)}")
+    check_tensor(y1, "y1", device=e.device, dtype=REAL, ndim=1)
+    B = y1.shape[0]
+    for name, t in (("g1", g1), ("y2", y2), ("g2", g2)):
+        check_tensor(t, name, device=e.device, dtype=REAL, ndim=1, shape=(B,))
+    if e.device.type == "cpu":
+        return transport_gamma_plain(e, Wmat, y1, g1, y2, g2, float(scale))
+    if e.device.type != "cuda":
+        raise ValueError(f"transport_gamma runs on cpu or cuda tensors, got {e.device}")
+    lib = load_kernels()
+    if m > lib.transport_gamma_max_bands():
+        raise ValueError(f"K19 takes at most {lib.transport_gamma_max_bands()} bands, got {m}")
+    dd = Wmat.shape[1]
+    out = torch.empty((B, dd), dtype=REAL, device=e.device)
+    if B == 0:
+        return out
+    partials = torch.empty((max(lib.transport_gamma_num_chunks(K), 1), B, dd), dtype=REAL, device=e.device)
+    stream = torch.cuda.current_stream(e.device).cuda_stream
+    same = y2 is y1 and g2 is g1
+    err = lib.transport_gamma_launch(e.data_ptr(), Wmat.data_ptr(), K, m, {1: 1, 4: 2, 9: 3}[dd],
+                                     y1.data_ptr(), g1.data_ptr(), y2.data_ptr(), g2.data_ptr(), B,
+                                     int(same), float(scale), partials.data_ptr(), out.data_ptr(), stream)
+    check_launch(err, "transport_gamma")
+    transport_gamma.launches += 1
+    return out
+
+
+transport_gamma.launches = 0
+
+
+def group_average(G, Savg):
+    """``sum_S S^-T G S^-1 / |G|`` of (..., d, d) tensors (the identity on
+    the full zone, ``Savg`` None)."""
+    if Savg is None:
+        return G
+    SinvT, Sinv, n = Savg
+    return torch.einsum("sab,...bc,scd->...ad", torch.as_tensor(SinvT, dtype=G.dtype, device=G.device), G,
+                        torch.as_tensor(Sinv, dtype=G.dtype, device=G.device)) / n
+
+
+class TransportSolver:
+    """Reusable Kubo-Greenwood transport sweep (reference
+    ``observables.py:345``): the pack builds once at construction (or is
+    shared through ``pack=``), and each call is one K19 launch at equal
+    frequencies over all omegas. Returns (W, d, d) float64 numpy.
+
+    ``Gamma_ab(w) = sum_k w_k sum_nm Re[(v_a)_nm (v_b)_mn] A_n(w) A_m(w)``,
+    A_n = eta / ((w - e_n)^2 + eta^2) / pi, v the band-basis velocities."""
+
+    def __init__(self, h: FourierSeries, bz, npt, eta, pack=None):
+        if pack is None:
+            pack = spectral_velocity_pack(h, bz, npt)
+        self.pack = pack
+        self._data = _transport_build(pack, eta)
+
+    def __call__(self, omegas):
+        return self._data(omegas)
+
+
+def _transport_build(pack: SpectralPack, eta):
+    e, Wmat, scale, Savg, d = pack.e, pack.Wmat, pack.scale, pack.Savg, pack.ndim
+
+    def sweep(omegas):
+        om = torch.as_tensor(np.atleast_1d(np.asarray(omegas, dtype=np.float64)), device=e.device)
+        g = torch.full_like(om, float(eta))
+        G = transport_gamma(e, Wmat, om, g, om, g, scale).reshape(-1, d, d)
+        return group_average(G, Savg).cpu().numpy()
+
+    return sweep

@@ -72,3 +72,31 @@ def flagship_series(device="cuda"):
     )[..., None, None]
     C = (C + np.flip(C, axis=(0, 1, 2)).conj().swapaxes(-1, -2)) / 2
     return FourierSeries(C, period=1.0, offset=(-2, -2, -2), ndim=3, device=device)
+
+
+def tb_haldane(t1=1.0, t2=0.2, phi=np.pi / 2, M=0.0, period=1.0, device="cuda"):
+    """Haldane model on the honeycomb lattice in fractional coordinates, the
+    canonical Chern insulator (Haldane, PRL 61, 2015 (1988)); topological for
+    ``|M| < 3 sqrt(3) |t2 sin phi|``. Blocks: ``H_AB(u) = t1 (1 + e^{-2 pi i
+    u1} + e^{-2 pi i u2})``; ``H_AA = M + 2 t2 sum_i cos(2 pi b_i . u +
+    phi)`` and ``H_BB = -M + 2 t2 sum_i cos(2 pi b_i . u - phi)`` over
+    ``b = (1, 0), (-1, 1), (0, -1)``."""
+    C = np.zeros((3, 3, 2, 2), dtype=np.complex128)  # offsets -1..1
+    o = 1
+
+    def add(i, j, a, b, val):
+        C[i + o, j + o, a, b] += val
+
+    # nearest-neighbor A->B (and the hermitian transpose entries)
+    for (i, j) in ((0, 0), (-1, 0), (0, -1)):
+        add(i, j, 0, 1, t1)
+        add(-i, -j, 1, 0, t1)
+    add(0, 0, 0, 0, M)
+    add(0, 0, 1, 1, -M)
+    # NNN with the Haldane phase: +phi on A, -phi on B
+    for (i, j) in ((1, 0), (-1, 1), (0, -1)):
+        add(i, j, 0, 0, t2 * np.exp(1j * phi))
+        add(-i, -j, 0, 0, t2 * np.exp(-1j * phi))
+        add(i, j, 1, 1, t2 * np.exp(-1j * phi))
+        add(-i, -j, 1, 1, t2 * np.exp(1j * phi))
+    return FourierSeries(C, period=period, offset=(-1, -1), ndim=2, device=device)

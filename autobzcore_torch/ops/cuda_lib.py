@@ -95,6 +95,20 @@ def _bind(lib):
     lib.gm_pool_update_launch.restype = i
     lib.fixed_rule_reduce_launch.argtypes = [vp] * 4 + [ll, i, i, i, vp]
     lib.fixed_rule_reduce_launch.restype = i
+    lib.velocity_pairs_max_bands.argtypes = [i]
+    lib.velocity_pairs_max_bands.restype = i
+    lib.velocity_pairs_launch.argtypes = [vp, vp, vp, vp, ll, i, i, ll, ll, vp]
+    lib.velocity_pairs_launch.restype = i
+    lib.transport_gamma_num_chunks.argtypes = [ll]
+    lib.transport_gamma_num_chunks.restype = ll
+    lib.transport_gamma_max_bands.argtypes = []
+    lib.transport_gamma_max_bands.restype = i
+    lib.transport_gamma_launch.argtypes = [vp, vp, ll, i, i, vp, vp, vp, vp, ll, i, dbl, vp, vp, vp]
+    lib.transport_gamma_launch.restype = i
+    lib.fermi_count_num_chunks.argtypes = [ll, i]
+    lib.fermi_count_num_chunks.restype = ll
+    lib.fermi_count_launch.argtypes = [vp, vp, ll, i, dbl, dbl, vp, vp, vp]
+    lib.fermi_count_launch.restype = i
     return lib
 
 

@@ -121,6 +121,13 @@ class LaneParams:
         """The shared parameters with the whole lane vector merged in."""
         return self.p if self.x is None else self.at(MixedParameters(self.x) if self.merge else self.x)
 
+    def batch_params(self, lanes):
+        """The parameter a batched integrand gets for points of the lanes
+        ``lanes`` (N,): the shared ``p`` when no lane is swept, else the (N,)
+        tensor of the points' lane values (merged into ``p`` where the lanes
+        merge), which is what ``map_points`` hands ``g`` point by point."""
+        return self.p if self.x is None else self.at(self.x[lanes])
+
     def map_points(self, g, args, lanes):
         """``g(*point_args, q)`` over points, vectorized: ``args`` are tensors
         with a leading point axis and ``lanes`` (N,) names each point's lane,

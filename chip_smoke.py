@@ -143,10 +143,31 @@ non-zero):
    certifies nothing); one frequency against the plain versions (identical
    counts, 1e-12); QuadratureFunction alone on the reference's interface
    cases, EvalCounter's counts, AbsoluteEstimate's 25 evals and a fixed
-   leaf under an adaptive level.
+   leaf under an adaptive level;
+25. kernels K18 (the band-pair velocity pack), K19 (the Lorentzian-pair
+   transport contraction) and K20 (the Fermi count) against their plain
+   versions at the transport main path's shapes: K18 on the flagship's
+   npt=60 grid (216,000 points), K19 on its pack at 64 equal frequencies, at
+   a 960-node trip with Omega != 0 and at a scalar self-energy, K20 at five
+   (mu, beta), beta = inf twice; 1e-12 relative, bit-identical repeats;
+   kernel, plain, bound and library times (the reference's two
+   ``torch.einsum`` for K18, ``torch.matmul`` of the materialized pair rows
+   by Wmat for K19, at 64 and at 960 rows);
+26. transport main path: ``examples/transport_example.py``'s flow at full
+   width: the flagship on the full zone, spectral_velocity_pack(npt=60),
+   ElectronCountSolver.find_mu at filling 1 and beta 40,
+   KineticCoefficientSolver(eta=5e-3, alpha=0).sweep over 32 Omegas in
+   [0, 2] eV (abstol 1e-5, chunk 8), then alpha=1 at Omega=0; walls, peak
+   memory, find_mu's steps, numevals, retcodes, GK trips, host syncs and the
+   launches of K11, K18, K19 and K20; checks: the pack (1e-12) and mu (1e-9,
+   also from the cheap K1 + K9 build) against the plain routes, one Omega by
+   the kernel and the plain route (identical numevals and retcode, 1e-10),
+   K19 at (w, w) over the window against TransportSolver (1e-10),
+   tb_integer(3) on the CubicSymIBZ against the full zone (1e-10), n(7 eV,
+   beta = inf) = 3 exactly, and both phases within 60 s.
 
 With ``--profile``, the PTR, IAI, warm IAI, full-grid, LTM, block IAI,
-GGR and TAI main paths each run once more under ``torch.profiler`` (after their checks),
+GGR, TAI and transport main paths each run once more under ``torch.profiler`` (after their checks),
 which prints their device busy time, its share of the wall and the device
 time of the leading kernels.
 
@@ -215,6 +236,20 @@ TAI_RUNS = 3  # phase 23's walls
 UNCONVERGED_EVALS = 33 + 1023 * 8 * 33  # a TAI lane that fills its cap-4096 pool
 FIXED_NPT = 201  # phase 24's trapezoid rule on the outermost coordinate
 FIXED_OMEGAS = IAI_OMEGAS
+# phases 25-26, examples/transport_example.py's defaults: the flagship on the
+# full zone, npt 60, eta 5e-3, beta 40, filling 1, 32 Omegas in [0, 2] eV,
+# abstol 1e-5
+TR_NPT, TR_ETA, TR_BETA, TR_OMEGAS, TR_OMEGA_MAX, TR_ABSTOL = 60, 5e-3, 40.0, 32, 2.0, 1e-5
+# FP64 operations of one Lorentzian g / ((y - e)^2 + g^2) / pi as K19's
+# function needs it (csrc/transport_gamma.cu): a subtraction, an FMA (2),
+# one reciprocal counted as the four DFMAs of its Newton sequence (8) and a
+# multiply by the width, 1/pi folded into scale (K19 itself makes two IEEE
+# divisions, so that its bits match the plain version's)
+LORENTZ_RECIP_FLOPS = 12
+# FP64 operations of one K20 term at finite beta: the subtraction and the
+# multiply, exp (~25), the add and the division (8), the weight's multiply
+# and the sum
+FERMI_TERM_FLOPS = 38
 
 
 def fail(msg):
@@ -266,10 +301,11 @@ def profile(label, fn):
               f"{k[:48]} x{n} {t / 1e3:.3f} ms" for k, n, t in top), flush=True)
 
 
-def bound(flops, nbytes, peak=PEAK_FP64):
+def bound(flops, nbytes, peak=PEAK_FP64, mma_flops=0):
     """(bound_ms, bound_by): the larger of FP64 operations over the peak
-    rate ``peak`` and bytes over the memory rate."""
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    rate ``peak`` (plus ``mma_flops`` over the tensor cores' FP64 rate) and
+    bytes over the memory rate."""
+    t_ops, t_bytes = (flops / peak + mma_flops / PEAK_FP64_MMA) * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -506,6 +542,7 @@ def main():
     kernels += repair_phases(np, torch, dev)
     kernels += ggr_phases(np, torch, dev, h, ltm_dos)
     kernels += cubature_phases(np, torch, dev, h, cold)
+    kernels += transport_phases(np, torch, dev, h)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -2342,6 +2379,254 @@ def cubature_phases(np, torch, dev, h, cold):
             entry("gm_pool_update", "gm_pool.cu", gm + "216", t16u, b16u, None),
             entry("fixed_rule_reduce", "fixed_rule.cu", "autobzcore_tpu/ops/adaptive.py:644", t17, b17,
                   t17["library_ms"])]
+
+
+def transport_phases(np, torch, dev, h):
+    """Phases 25-26: K18-K20 against their plain versions at the main path's
+    shapes, then the transport main path (``examples/transport_example.py``'s
+    flow) at full width. Returns the kernels' JSON entries."""
+    from autobzcore_torch import FBZ, CubicSymIBZ, load_bz
+    from autobzcore_torch.dos.ggr import GGR_CHUNK
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.models import transport as tr
+    from autobzcore_torch.models.tight_binding import tb_integer
+    from autobzcore_torch.ops import fourier_eval as fe
+
+    src = "autobzcore_torch/csrc/"
+    t_phases = time.perf_counter()
+    bz = load_bz(FBZ(), np.eye(3))
+    m, d = 3, 3
+    rng = np.random.default_rng(25)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    # 25. K18-K20 against their plain versions -------------------------------------------
+    # K18 on the flagship's npt=60 grid: K11 and eigh in the pack's chunks, then all points at once
+    X = obs.grid_points(3, [np.arange(TR_NPT) / TR_NPT * t for t in h.period], None, dev)
+    orders = fe.jacobian_orders(3)
+    Js, Us = [], []
+    for s in range(0, X.shape[0], GGR_CHUNK):
+        J = fe.fourier_points_derivs(h.c, X[s:s + GGR_CHUNK], h.offset, h.period, orders).reshape(-1, 4, m, m)
+        Js.append(J)
+        Us.append(torch.linalg.eigh(J[:, 0])[1])
+    J, U = torch.cat(Js), torch.cat(Us).contiguous()
+    del Js, Us
+    dH = J[:, 1:]
+    K = U.shape[0]
+    w1 = torch.ones(K, dtype=torch.float64, device=dev)
+    k18, p18 = obs.velocity_pairs(U, dH, w1), obs.velocity_pairs_plain(U, dH, w1)
+    same18 = torch.equal(k18, obs.velocity_pairs(U, dH, w1))
+    rel18 = rel(k18, p18)
+    if not (rel18 <= 1e-12 and same18):
+        fail(f"K18 velocity_pairs at {K} points: max rel vs plain {rel18:.3e}, repeat identical {same18}")
+    Uh = U.conj().transpose(1, 2)
+
+    def library18():
+        v = torch.einsum("kmi,kdij,kjn->kdmn", Uh, dH, U)
+        return torch.einsum("kanm,kbmn->kabnm", v, v)
+
+    t18 = {"err": float((k18 - p18).abs().max()), "ms": cuda_ms(lambda: obs.velocity_pairs(U, dH, w1), 10),
+           "plain_ms": cuda_ms(lambda: obs.velocity_pairs_plain(U, dH, w1), 3), "library_ms": cuda_ms(library18, 3)}
+    b18 = bound(K * (d * m * m * (8 * m * m + 8 * m) + m * m * d * d * 4),
+                nbytes(U, w1, k18) + 16 * dH.numel())
+    print(f"K18 velocity_pairs on the flagship's npt={TR_NPT} grid ({K} points, m = {m}, d = {d}): max rel vs plain "
+          f"{rel18:.3e} (<= 1e-12), repeat bit-identical; {t18['ms']:.4f} ms (plain {t18['plain_ms']:.4f} ms, the "
+          f"reference's two torch.einsum {t18['library_ms']:.4f} ms, bound {b18[0]:.4f} ms by {b18[1]})", flush=True)
+    del J, U, Uh, dH, k18, p18
+    pack = obs.spectral_velocity_pack(h, bz, TR_NPT)
+    e, Wm, sc = pack.e, pack.Wmat, pack.scale
+    lo, hi = -2.0 - 0.6, 0.6  # a window like the main path's: [mu - max Omega - t, mu + t]
+
+    def k19_bound(B, same):
+        # per (pair, point): m Lorentzians at equal frequencies, else 2m, and
+        # the m^2 pair products at the FP64 rate; the 2 m^2 d^2 operations of
+        # the contraction by Wmat, a real FP64 matrix product, on the tensor cores
+        lorentz = (1 if same else 2) * m * LORENTZ_RECIP_FLOPS + m * m
+        return bound(B * K * lorentz, nbytes(e, Wm) + 8 * B * ((2 if same else 4) + d * d),
+                     mma_flops=B * K * 2 * m * m * d * d)
+
+    # the three cases: 64 equal frequencies; a 960-node trip (8 lanes x 8 intervals x 15
+    # nodes) at Omega != 0; the same nodes under a scalar self-energy
+    om64 = torch.linspace(lo, hi, 64, dtype=torch.float64, device=dev)
+    eta64 = torch.full_like(om64, TR_ETA)
+    w960 = torch.as_tensor(rng.uniform(lo, hi, 960), device=dev)
+    Om960 = torch.as_tensor(np.repeat(np.linspace(0.25, 2.0, 8), 120), device=dev)
+    x2 = (w960 + Om960).contiguous()
+    eta960 = torch.full_like(w960, TR_ETA)
+
+    def sigma(x):
+        return 0.05 * x - 1j * (TR_ETA + 0.2 * x * x)
+
+    s1, s2 = sigma(w960), sigma(x2)
+    cases = {"equal64": (om64, eta64, om64, eta64), "trip960": (w960, eta960, x2, eta960),
+             "selfenergy960": ((w960 - s1.real).contiguous(), (-s1.imag).contiguous(), (x2 - s2.real).contiguous(),
+                               (-s2.imag).contiguous())}
+    t19 = {}
+    for tag, (y1, g1, y2, g2) in cases.items():
+        k, k2 = obs.transport_gamma(e, Wm, y1, g1, y2, g2, sc), obs.transport_gamma(e, Wm, y1, g1, y2, g2, sc)
+        p_ = obs.transport_gamma_plain(e, Wm, y1, g1, y2, g2, sc)
+        r, same = rel(k, p_), torch.equal(k, k2)
+        if not (r <= 1e-12 and same):
+            fail(f"K19 transport_gamma {tag}: max rel vs plain {r:.3e}, repeat identical {same}")
+        B = y1.shape[0]
+        t19[tag] = {"err": float((k - p_).abs().max()), "rel": r, "B": B, "plain": p_,
+                    "ms": cuda_ms(lambda: obs.transport_gamma(e, Wm, y1, g1, y2, g2, sc), 5),
+                    "plain_ms": cuda_ms(lambda: obs.transport_gamma_plain(e, Wm, y1, g1, y2, g2, sc), 2),
+                    "bound": k19_bound(B, y2 is y1 and g2 is g1)}
+    # the library call: torch.matmul of the materialized pair rows by Wmat, at
+    # 64 equal frequencies and at the trip (960 rows, 14.9 GB, built 64 rows at a time)
+    for tag in ("equal64", "trip960"):
+        y1, g1, y2, g2 = cases[tag]
+        pairs = torch.empty((y1.shape[0], Wm.shape[0]), dtype=torch.float64, device=dev)
+        for s0 in range(0, y1.shape[0], 64):
+            A1 = obs.spectral_weights(y1[s0:s0 + 64], g1[s0:s0 + 64], e)
+            A2 = obs.spectral_weights(y2[s0:s0 + 64], g2[s0:s0 + 64], e)
+            pairs[s0:s0 + 64] = (A1[..., :, None] * A2[..., None, :]).reshape(A1.shape[0], -1)
+        del A1, A2
+        t19[tag]["library_rel"] = rel(sc * torch.matmul(pairs, Wm), t19[tag].pop("plain"))
+        t19[tag]["library_ms"] = cuda_ms(lambda: torch.matmul(pairs, Wm), 3)
+        del pairs
+    t19["selfenergy960"].pop("plain")
+    torch.cuda.empty_cache()
+    print(f"K19 transport_gamma on the flagship's npt={TR_NPT} pack: " + "; ".join(
+        f"{tag} (B = {t['B']}): max rel vs plain {t['rel']:.3e} (<= 1e-12), repeat bit-identical, {t['ms']:.4f} ms "
+        f"(plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]})"
+        for tag, t in t19.items()) + "; torch.matmul of the materialized pair rows by Wmat: " + ", ".join(
+        f"{tag} {t19[tag]['library_ms']:.4f} ms (rel {t19[tag]['library_rel']:.3e})" for tag in ("equal64", "trip960")),
+        flush=True)
+    # K20 at several (mu, beta), beta = inf among them
+    wk = torch.as_tensor(np.asarray(pack.weights), dtype=torch.float64, device=dev)
+    errs20 = []
+    for mu_, beta_ in ((0.0086, TR_BETA), (0.5, 4.0), (-1.0, 1e3), (7.0, math.inf), (0.0, math.inf)):
+        k, k2, p_ = tr.fermi_count(e, wk, mu_, beta_), tr.fermi_count(e, wk, mu_, beta_), \
+            tr.fermi_count_plain(e, wk, mu_, beta_)
+        r = abs(float(k) - float(p_)) / max(abs(float(p_)), 1.0)
+        if not (r <= 1e-12 and torch.equal(k, k2)):
+            fail(f"K20 fermi_count at mu {mu_}, beta {beta_}: rel {r:.3e}, repeat identical {torch.equal(k, k2)}")
+        errs20.append(abs(float(k) - float(p_)))
+    t20 = {"err": max(errs20), "ms": cuda_ms(lambda: tr.fermi_count(e, wk, 0.0086, TR_BETA), 20),
+           "plain_ms": cuda_ms(lambda: tr.fermi_count_plain(e, wk, 0.0086, TR_BETA), 5)}
+    b20 = bound(e.numel() * FERMI_TERM_FLOPS, nbytes(e, wk) + 8)
+    print(f"K20 fermi_count on the pack's {e.numel()} energies at 5 (mu, beta), beta = inf twice: max |d| vs plain "
+          f"{max(errs20):.3e} (<= 1e-12 relative), repeats bit-identical; {t20['ms']:.4f} ms (plain "
+          f"{t20['plain_ms']:.4f} ms, bound {b20[0]:.5f} ms by {b20[1]})", flush=True)
+    del pack, e, Wm
+    torch.cuda.empty_cache()
+
+    # 26. the transport main path at full width ----------------------------------------
+    def counts():
+        return {"fourier_points_derivs": fe.fourier_points_derivs.launches,
+                "velocity_pairs": obs.velocity_pairs.launches,
+                "transport_gamma": obs.transport_gamma.launches, "fermi_count": tr.fermi_count.launches}
+
+    fe.fourier_points_derivs.launches = obs.velocity_pairs.launches = 0
+    obs.transport_gamma.launches = tr.fermi_count.launches = 0
+    omegas = np.linspace(0.0, TR_OMEGA_MAX, TR_OMEGAS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pack = obs.spectral_velocity_pack(h, bz, TR_NPT)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peak_pack = (torch.cuda.max_memory_allocated() - base) / 2**20
+    ec = tr.ElectronCountSolver(h, bz, TR_NPT, pack=pack)
+    mu = ec.find_mu(1.0, TR_BETA)
+    t2 = time.perf_counter()
+    steps = tr.fermi_count.launches
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kc = tr.KineticCoefficientSolver(h, bz, TR_NPT, eta=TR_ETA, beta=TR_BETA, alpha=0, mu=mu, pack=pack)
+    sig = kc.sweep(omegas, abstol=TR_ABSTOL)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    kc1 = tr.KineticCoefficientSolver(h, bz, TR_NPT, eta=TR_ETA, beta=TR_BETA, alpha=1, mu=mu, pack=pack)
+    a1 = kc1(np.array([0.0]), abstol=TR_ABSTOL)[0]
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    peak_sweep = (torch.cuda.max_memory_allocated() - base) / 2**20
+    launches = counts()
+    print(f"transport main path: flagship, FBZ, npt={TR_NPT} ({pack.e.shape[0]} points), eta {TR_ETA}, beta "
+          f"{TR_BETA}, filling 1, {TR_OMEGAS} Omegas in [0, {TR_OMEGA_MAX}] eV, abstol {TR_ABSTOL}, chunk 8: pack "
+          f"{t1 - t0:.4f} s (peak {peak_pack:.1f} MiB); find_mu {t2 - t1:.4f} s, {steps} steps (K20 launches "
+          f"{launches['fermi_count']}), mu = {mu!r} eV; sweep {t3 - t2:.4f} s, numevals {kc.numevals}, retcode "
+          f"{kc.retcode}, GK trips {kc.stats.trips.get(1, 0)}, host syncs {kc.stats.syncs}, peak {peak_sweep:.1f} MiB "
+          f"(with alpha=1); alpha=1 at Omega=0 {t4 - t3:.4f} s, numevals {kc1.numevals}, retcode {kc1.retcode}, "
+          f"A1_xx(0) = {float(a1[0, 0])!r}; sigma_xx(0) = {float(sig[0, 0, 0])!r}, sigma_xx({TR_OMEGA_MAX} eV) = "
+          f"{float(sig[-1, 0, 0])!r}; "
+          f"launches {launches}", flush=True)
+    if min(launches.values()) <= 0:
+        fail(f"the transport main path did not go through every kernel: {launches}")
+    if not (sig.shape == (TR_OMEGAS, 3, 3) and np.all(np.isfinite(sig)) and np.all(np.isfinite(a1))
+            and kc.numevals > 0 and kc1.numevals > 0 and kc.retcode is not None):
+        fail(f"transport main path output: shape {sig.shape}, finite {np.all(np.isfinite(sig))}")
+    # checks: the pack and mu against the plain routes
+    pp = obs.spectral_velocity_pack(h, bz, TR_NPT, points=fe.fourier_points_derivs_plain,
+                                    pairs=obs.velocity_pairs_plain)
+    rel_e, rel_w = rel(pack.e, pp.e), rel(pack.Wmat, pp.Wmat)
+    del pp
+    mu_plain = tr.ElectronCountSolver(h, bz, TR_NPT, pack=pack, count=tr.fermi_count_plain).find_mu(1.0, TR_BETA)
+    mu_cheap = tr.ElectronCountSolver(h, bz, TR_NPT).find_mu(1.0, TR_BETA)  # K1 + K9, no pack
+    n_full = ec(7.0, math.inf)
+    # one full-width Omega by the kernel route and by the plain route
+    i = TR_OMEGAS // 3
+    solos = {}
+    for plain in (False, True):
+        k = tr.KineticCoefficientSolver(h, bz, TR_NPT, eta=TR_ETA, beta=TR_BETA, mu=mu, pack=pack,
+                                        gamma=obs.transport_gamma_plain if plain else obs.transport_gamma)
+        ts = time.perf_counter()
+        v = k(omegas[i:i + 1], abstol=TR_ABSTOL)[0]
+        torch.cuda.synchronize()
+        solos[plain] = (v, k.numevals, k.retcode, time.perf_counter() - ts)
+    (vk, nk, rk, tk), (vp, npl, rp, tp) = solos[False], solos[True]
+    rel_route = float(np.max(np.abs(vk - vp)) / np.max(np.abs(vp)))
+    # the reference's identity: K19 at (w, w) over the window is TransportSolver's Gamma(w)
+    ws = torch.linspace(mu - 0.3, mu + 0.3, 16, dtype=torch.float64, device=dev)
+    G_kc = kc._integrand(ws, 0.0) / tr.fermi_window(ws, 0.0, TR_BETA, mu)[:, None, None]
+    G_ts = obs.TransportSolver(None, None, None, TR_ETA, pack=pack)(ws.cpu().numpy())
+    rel_id = float(np.max(np.abs(G_kc.cpu().numpy() - G_ts)) / np.max(np.abs(G_ts)))
+    # tb_integer(3): the cubic wedge against the full zone
+    h3 = tb_integer(3, device=dev)
+    ibz = []
+    for kind in (CubicSymIBZ(), FBZ()):
+        k = tr.KineticCoefficientSolver(h3, load_bz(kind, np.eye(3)), 20, eta=0.1, beta=10.0, mu=0.3)
+        ibz.append((k(np.array([0.7]), abstol=1e-6)[0], k.numevals,
+                    obs.TransportSolver(None, None, None, 0.1, pack=k.pack)(np.array([0.2, 1.1]))))
+    rel_ibz = max(float(np.max(np.abs(ibz[0][0] - ibz[1][0])) / np.max(np.abs(ibz[1][0]))),
+                  float(np.max(np.abs(ibz[0][2] - ibz[1][2])) / np.max(np.abs(ibz[1][2]))))
+    wall = time.perf_counter() - t_phases
+    print(f"transport main path checks: pack vs plain route e {rel_e:.3e}, Wmat {rel_w:.3e} (<= 1e-12); mu vs plain "
+          f"K20 {abs(mu - mu_plain):.3e}, vs the cheap build (K1 + K9) {abs(mu - mu_cheap):.3e} (<= 1e-9); n(7 eV, "
+          f"beta = inf) = {n_full!r} (3 exactly); Omega = {omegas[i]:.6f} alone: kernel route {tk:.3f} s, plain "
+          f"{tp:.3f} s, numevals {nk} vs {npl}, retcode {rk} vs {rp}, rel {rel_route:.3e} (<= 1e-10); K19(w, w) / window vs TransportSolver at 16 w: rel {rel_id:.3e} (<= 1e-10); "
+          f"tb_integer(3) npt 20 CubicSymIBZ vs FBZ: rel {rel_ibz:.3e} (<= 1e-10), numevals {ibz[0][1]} vs "
+          f"{ibz[1][1]}; phases 25-26 {wall:.3f} s (<= 60)", flush=True)
+    if not (rel_e <= 1e-12 and rel_w <= 1e-12 and abs(mu - mu_plain) <= 1e-9 and abs(mu - mu_cheap) <= 1e-9
+            and n_full == 3.0):
+        fail("transport checks: the pack, mu or the band count")
+    if not (nk == npl and rk == rp and rel_route <= 1e-10):
+        fail("transport checks: the kernel and plain routes disagree on one Omega")
+    if not (rel_id <= 1e-10 and rel_ibz <= 1e-10 and ibz[0][1] == ibz[1][1]):
+        fail("transport checks: the TransportSolver identity or the cubic wedge")
+    if wall > 60.0:
+        fail(f"phases 25-26 took {wall:.1f} s (> 60)")
+    if "--profile" in sys.argv[1:]:
+        profile("transport main path (the 32-Omega sweep)", lambda: tr.KineticCoefficientSolver(
+            h, bz, TR_NPT, eta=TR_ETA, beta=TR_BETA, alpha=0, mu=mu, pack=pack).sweep(omegas, abstol=TR_ABSTOL))
+    del pack, kc, kc1, ec
+    torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, t, b, library_ms):
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
+
+    return [entry("velocity_pairs", "velocity_pairs.cu", "autobzcore_tpu/models/observables.py:326", t18, b18,
+                  t18["library_ms"]),
+            entry("transport_gamma", "transport_gamma.cu", "autobzcore_tpu/models/observables.py:379",
+                  t19["trip960"], t19["trip960"]["bound"], t19["trip960"]["library_ms"]),
+            entry("fermi_count", "fermi_count.cu", "autobzcore_tpu/models/transport.py:302", t20, b20, None)]
 
 
 if __name__ == "__main__":

@@ -1195,3 +1195,164 @@ def test_tai_and_fixed_rules_on_card_match_cpu(cuda_device):
     (a, b, c, d, e), (a2, b2, c2, d2, e2) = out
     assert np.array_equal(b, b2) and c is c2 is True and np.array_equal(e, e2)
     assert rel_err(a2, a) <= 1e-12 and rel_err(d2, d) <= 1e-12
+
+
+# --- the transport family: K18 (velocity pairs), K19 (transport contraction), K20 (Fermi count)
+
+
+def _transport_pack(rng, K, m, d, device):
+    """Energies, Wmat and weights of a random pack: eigenpairs of random
+    Hermitian H, random Hermitian dH, K18's plain version."""
+    from autobzcore_torch.models import observables as obs
+
+    H = torch.as_tensor(random_hermitian(rng, K, m), device=device)
+    e, U = torch.linalg.eigh(H)
+    dH = torch.as_tensor(np.stack([random_hermitian(rng, K, m) for _ in range(d)], axis=1), device=device)
+    w = torch.as_tensor(rng.integers(1, 9, size=K).astype(np.float64), device=device)
+    return e.contiguous(), U.contiguous(), dH, w, obs.velocity_pairs_plain(U.contiguous(), dH, w).contiguous()
+
+
+def test_transport_wrappers_take_plain_versions_on_cpu_without_counting():
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.models import transport as tr
+
+    rng = np.random.default_rng(150)
+    e, U, dH, w, Wm = _transport_pack(rng, 40, 3, 3, "cpu")
+    counts = (obs.velocity_pairs.launches, obs.transport_gamma.launches, tr.fermi_count.launches)
+    assert torch.equal(obs.velocity_pairs(U, dH, w), Wm)
+    out = torch.empty_like(Wm)
+    assert obs.velocity_pairs(U, dH, w, out=out) is out and torch.equal(out, Wm)
+    y = torch.linspace(-2, 2, 5, dtype=torch.float64)
+    g = torch.full_like(y, 0.1)
+    assert torch.equal(obs.transport_gamma(e, Wm, y, g, y + 0.3, g, 0.5),
+                       obs.transport_gamma_plain(e, Wm, y, g, y + 0.3, g, 0.5))
+    assert float(tr.fermi_count(e, w, 0.1, 7.0)) == float(tr.fermi_count_plain(e, w, 0.1, 7.0))
+    assert (obs.velocity_pairs.launches, obs.transport_gamma.launches, tr.fermi_count.launches) == counts
+
+
+def test_transport_wrappers_reject_what_the_kernels_do_not_take():
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.models import transport as tr
+
+    rng = np.random.default_rng(151)
+    e, U, dH, w, Wm = _transport_pack(rng, 12, 2, 2, "cpu")
+    y = torch.zeros(3, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        obs.velocity_pairs(U.to(torch.complex64), dH, w)
+    with pytest.raises(ValueError):
+        obs.velocity_pairs(U, dH[:, :, :1], w)
+    with pytest.raises(ValueError):
+        obs.velocity_pairs(U, dH, w[:5])
+    with pytest.raises(ValueError):
+        obs.velocity_pairs(U, dH, w, out=torch.empty(3, 3, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        obs.transport_gamma(e, Wm[:-1], y, y + 1, y, y + 1, 1.0)
+    with pytest.raises(ValueError):
+        obs.transport_gamma(e, Wm, y, y[:2] + 1, y, y + 1, 1.0)
+    with pytest.raises(ValueError):
+        obs.transport_gamma(e.to(torch.float32), Wm, y, y + 1, y, y + 1, 1.0)
+    with pytest.raises(ValueError):
+        tr.fermi_count(e, w[:3], 0.0, 1.0)
+    with pytest.raises(ValueError):
+        tr.fermi_count(e.T, w, 0.0, 1.0)
+
+
+def test_transport_plain_versions_agree_with_each_other_on_cpu():
+    """K19's plain version at equal frequencies against the reference's
+    per-point form Gamma_ab = sum_k w_k sum_nm Re[(v_a)_nm (v_b)_mn] A_n A_m
+    written out, and K20's plain count against a direct sum."""
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.models import transport as tr
+
+    rng = np.random.default_rng(152)
+    e, U, dH, w, Wm = _transport_pack(rng, 30, 3, 2, "cpu")
+    om = torch.tensor([-0.4, 0.25], dtype=torch.float64)
+    g = torch.full_like(om, 0.2)
+    got = obs.transport_gamma(e, Wm, om, g, om, g, 0.7).reshape(2, 2, 2)
+    v = torch.einsum("kim,kdij,kjn->kdmn", U.conj(), dH, U)
+    A = 0.2 / ((om[:, None, None] - e) ** 2 + 0.04) / np.pi
+    want = 0.7 * torch.einsum("k,kanm,kbmn,wkn,wkm->wab", w.to(v.dtype), v, v, A.to(v.dtype), A.to(v.dtype)).real
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+    x = (e - 0.3).numpy()
+    direct = float(np.sum(w.numpy()[:, None] / (1 + np.exp(5.0 * x))))
+    assert float(tr.fermi_count(e, w, 0.3, 5.0)) == pytest.approx(direct, rel=1e-13)
+    assert float(tr.fermi_count(e, w, 0.3, np.inf)) == float(np.sum(w.numpy()[:, None] * (x < 0)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(1, 2), (3, 3), (4, 1), (30, 3)])
+def test_velocity_pairs_kernel_matches_plain_on_card(cuda_device, m, d):
+    """K18 on eigenvectors of random Hermitian matrices and a strided dH view
+    (as K11's output gives it): one band, the flagship's 3 x 3, a runtime m,
+    and 30 bands (the staging above 48 KB)."""
+    from autobzcore_torch.models import observables as obs
+
+    rng = np.random.default_rng(160 + m)
+    K = 701 if m < 30 else 45
+    H = torch.as_tensor(random_hermitian(rng, K, m), device=cuda_device)
+    U = torch.linalg.eigh(H)[1].contiguous()
+    J = torch.as_tensor(np.stack([random_hermitian(rng, K, m) for _ in range(d + 1)], axis=1), device=cuda_device)
+    dH = J[:, 1:]
+    w = torch.as_tensor(rng.random(K) + 0.5, device=cuda_device)
+    before = obs.velocity_pairs.launches
+    got = obs.velocity_pairs(U, dH, w)
+    assert obs.velocity_pairs.launches == before + 1
+    want = obs.velocity_pairs_plain(U, dH, w)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+    assert torch.equal(got, obs.velocity_pairs(U, dH, w))
+    out = torch.empty_like(got)
+    obs.velocity_pairs(U[3:], dH[3:], w[3:], out=out[3 * m * m:])
+    assert torch.equal(out[3 * m * m:], got[3 * m * m:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(1, 2), (2, 2), (3, 3), (5, 3)])
+def test_transport_gamma_kernel_matches_plain_on_card(cuda_device, m, d):
+    """K19 against its plain version at a ragged node count (a partial block
+    of pairs and a partial chunk of points), unequal frequencies and per-node
+    widths; a node's value does not depend on the other nodes of its launch;
+    bit-identical repeats; equal frequencies passed as the same tensors."""
+    from autobzcore_torch.models import observables as obs
+
+    rng = np.random.default_rng(170 + m)
+    e, U, dH, w, Wm = _transport_pack(rng, 1300, m, d, cuda_device)
+    B = 777
+    y1 = torch.as_tensor(rng.uniform(-3, 3, B), device=cuda_device)
+    y2 = y1 + torch.as_tensor(rng.uniform(0, 1, B), device=cuda_device)
+    g1 = torch.as_tensor(rng.uniform(0.01, 0.3, B), device=cuda_device)
+    g2 = torch.as_tensor(rng.uniform(0.01, 0.3, B), device=cuda_device)
+    before = obs.transport_gamma.launches
+    got = obs.transport_gamma(e, Wm, y1, g1, y2, g2, 0.37)
+    assert obs.transport_gamma.launches == before + 1
+    want = obs.transport_gamma_plain(e, Wm, y1, g1, y2, g2, 0.37)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+    assert torch.equal(got, obs.transport_gamma(e, Wm, y1, g1, y2, g2, 0.37))
+    sub = obs.transport_gamma(e, Wm, y1[5:9].contiguous(), g1[5:9].contiguous(), y2[5:9].contiguous(),
+                              g2[5:9].contiguous(), 0.37)
+    assert torch.equal(sub, got[5:9])
+    # equal frequencies: the same tensors take one Lorentzian per band, bit for
+    # bit the value of equal copies (two Lorentzians per band)
+    eq = obs.transport_gamma(e, Wm, y1, g1, y1, g1, 0.37)
+    assert torch.equal(eq, obs.transport_gamma(e, Wm, y1, g1, y1.clone(), g1.clone(), 0.37))
+    want_eq = obs.transport_gamma_plain(e, Wm, y1, g1, y1, g1, 0.37)
+    assert float((eq - want_eq).abs().max() / want_eq.abs().max()) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_fermi_count_kernel_matches_plain_on_card(cuda_device):
+    """K20 at several (mu, beta), beta = inf among them, a ragged term count,
+    bit-identical repeats, and an exact count of whole bands."""
+    from autobzcore_torch.models import transport as tr
+
+    rng = np.random.default_rng(180)
+    K, m = 70001, 3
+    e = torch.as_tensor(np.sort(rng.normal(size=(K, m)), axis=1), device=cuda_device)
+    w = torch.as_tensor(rng.integers(1, 49, size=K).astype(np.float64), device=cuda_device)
+    for mu, beta in ((0.0, 40.0), (-0.7, 3.0), (1.2, np.inf), (0.3, 1e4), (-9.0, np.inf)):
+        before = tr.fermi_count.launches
+        got = tr.fermi_count(e, w, mu, beta)
+        assert tr.fermi_count.launches == before + 1
+        want = tr.fermi_count_plain(e, w, mu, beta)
+        assert abs(float(got) - float(want)) <= 1e-12 * float(w.sum()) * m
+        assert torch.equal(got, tr.fermi_count(e, w, mu, beta))
+    assert float(tr.fermi_count(e, w, 50.0, np.inf)) == m * float(w.sum())
