@@ -34,7 +34,12 @@ for the transport family (``TransportSolver``, ``KineticCoefficientSolver``,
 ``ElectronCountSolver``) the band-pair velocity pack (K18,
 ``models.observables.velocity_pairs``), the Lorentzian-pair transport
 contraction (K19, ``models.observables.transport_gamma``) and the Fermi count
-(K20, ``models.transport.fermi_count``). This package never imports JAX.
+(K20, ``models.transport.fermi_count``), and for the Berry family
+(``models.berry``: ``BerryCurvatureSolver``, ``lattice_chern``, Wilson loops)
+the band-pair terms (K21, ``band_pair_terms``), the plaquette flux (K22,
+``plaquette_flux``), the Wilson loops (K23, ``wilson_loops``) and the
+weighted zone average (K24, ``zone_average``). This package never imports
+JAX.
 """
 from .algorithms.gk import AuxQuadGKJL, QuadGKJL
 from .algorithms.hcubature import HCubatureJL

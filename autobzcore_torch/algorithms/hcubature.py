@@ -215,6 +215,8 @@ def _evaluator(f, params):
         def evaluate(X, lanes):
             X = X if X.ndim == 2 else X[:, None]
             sv = f.s.eval_points(X)
+            if f.batched:  # the user function takes the whole batch
+                return pf(FourierValue(X, sv), params.batch_params(lanes))
             if isinstance(sv, tuple):  # a JacobianSeries' (H, dH)
                 return params.map_points(lambda x, h, v, q: pf(FourierValue(x, (h, v)), q),
                                          (X,) + sv, lanes)

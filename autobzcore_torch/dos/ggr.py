@@ -7,7 +7,7 @@ respect to z = x/t at the points, eigendecompose H, take the band velocities
 every (k, band) at each energy. Second-order convergent and robust at band
 crossings (the reference's ``src/dos_ggr.jl``).
 
-The init runs in chunks of at most :data:`GGR_CHUNK` points: kernel K11
+The init runs in chunks of at most ``ops.eigh3.EIGH_CHUNK`` points: kernel K11
 (:func:`~autobzcore_torch.ops.fourier_eval.fourier_points_derivs`) gives
 (H, dH) at the representatives ``reps/npt * period`` (points, as the port's
 PTR rule, not a gather from a grid evaluation), ``torch.linalg.eigh`` the
@@ -33,16 +33,11 @@ from ..algorithms.ptr import rule_points
 from ..brillouin import SymmetricBZ
 from ..fourier import FourierSeries, JacobianSeries
 from ..ops.cuda_lib import check_launch, load_kernels
+from ..ops.eigh3 import EIGH_CHUNK, eigh_chunked
 from ..ops.fourier_eval import fourier_points_derivs, jacobian_orders
 from .interfaces import DOSAlgorithm, DOSSolution
 
 _EPS = 1e-300
-# points per init chunk. On an H100, cuSOLVER's batched eigh (torch.linalg.eigh)
-# takes up to 16,384 matrices a call at m = 3 and m = 30 (the cap of
-# ops.eigh3.EIGVALSH_CHUNK), but its workspace grows with the batch, near
-# 1 MiB a matrix at either m; a quarter of the cap holds one call to a few GB
-# at a small cost in eigh time (chip_smoke.py phases 20-21 read both sizes)
-GGR_CHUNK = 4096
 _PLAIN_TERMS = 1 << 22  # (energy, k, band) terms per pass of K13's plain version
 
 
@@ -238,17 +233,18 @@ gaussian_sum.launches = 0
 
 
 def eigen_chunks(h, X, points=fourier_points_derivs):
-    """For each chunk of at most :data:`GGR_CHUNK` of the points X (K, d):
+    """For each chunk of at most ``EIGH_CHUNK`` of the points X (K, d):
     ``(start, e, U, dH)``, the eigenpairs of H and the gradient dH/dz (n, d,
     m, m) (a view of K11's output) at the chunk's points, by K11
-    (``points``, or its plain version) and ``torch.linalg.eigh``. A scalar
+    (``points``, or its plain version) and ``torch.linalg.eigh``
+    (:func:`~autobzcore_torch.ops.eigh3.eigh_chunked`). A scalar
     series is a 1 x 1 Hamiltonian."""
     m = h.valshape[0] if h.valshape else 1
     orders = jacobian_orders(X.shape[1])
-    for s in range(0, X.shape[0], GGR_CHUNK):
-        J = points(h.c, X[s:s + GGR_CHUNK], h.offset, h.period, orders)
+    for s in range(0, X.shape[0], EIGH_CHUNK):
+        J = points(h.c, X[s:s + EIGH_CHUNK], h.offset, h.period, orders)
         J = J.reshape(J.shape[:2] + (m, m))
-        e, U = torch.linalg.eigh(J[:, 0])
+        e, U = eigh_chunked(J[:, 0])
         yield s, e, U.contiguous(), J[:, 1:]
 
 
@@ -257,7 +253,7 @@ def spectral_grid(h, bz, npt, points=fourier_points_derivs, velocities=band_velo
     weights w (K,), float64 on the series' device, at the symmetry
     representatives of the ``npt^d`` grid (the full grid in C order on a
     zone without symmetries). K11 (``points``), eigh and K12
-    (``velocities``) run in chunks of :data:`GGR_CHUNK` points; the plain
+    (``velocities``) run in chunks of ``EIGH_CHUNK`` points; the plain
     versions of K11 and K12 may be passed in their place."""
     d, dev = bz.ndim, h.device
     frac, w = rule_points(npt, d, bz.syms, dev)

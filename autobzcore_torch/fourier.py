@@ -167,10 +167,16 @@ class StoredSeriesValues:
 class FourierIntegrand:
     """``FourierIntegrand(f, s, *args, **kwargs)``: integrand evaluating
     ``f(FourierValue(x, s(x)), *args, **kwargs)``; ``rep=`` declares the
-    symmetry representation of its value."""
+    symmetry representation of its value. ``batched=True`` declares that
+    ``f`` takes a whole batch of points at once (x (N, d), series values
+    with a leading point axis, a parameter that is one value or one per
+    point), so that the PTR rule, the nested solver's leaf and the box
+    pool call it once per batch instead of mapping it over the points (a
+    kernel launch cannot run under ``vmap``)."""
 
     def __init__(self, f, s, *args, **kwargs):
         self.rep = kwargs.pop("rep", None)
+        self.batched = bool(kwargs.pop("batched", False))
         self.pf = f if isinstance(f, ParameterIntegrand) else ParameterIntegrand(f, *args, **kwargs)
         if not isinstance(s, (FourierSeries, JacobianSeries)):
             raise TypeError("FourierIntegrand requires a FourierSeries/JacobianSeries")
@@ -185,7 +191,7 @@ class FourierIntegrand:
         return self.pf
 
     def with_parameters(self, p):
-        bare = FourierIntegrand(ParameterIntegrand(self.pf.f), self.s)
+        bare = FourierIntegrand(ParameterIntegrand(self.pf.f), self.s, batched=self.batched)
         bare.rep = self.rep
         return bare, merge_parameters(self.p, p)
 
@@ -228,18 +234,22 @@ class FourierIntegrand:
             aug = FourierSeries(c_aug, period=base.period, offset=base.offset, ndim=base.sndim,
                                 device=base.device)
             pf = self.pf
+            nval = len(base.valshape)
 
             def unpack(v, p):  # channel 0 of the value is H, channels 1..d dH/dz_j
-                return pf(FourierValue(v.x, (v.s[0], v.s[1:])), p)
+                ax = v.s.ndim - nval - 1  # 0, or 1 under a batch of points
+                return pf(FourierValue(v.x, (v.s.select(ax, 0), v.s.narrow(ax, 1, v.s.shape[ax] - 1))), p)
 
-            return FourierCarrier.from_series(unpack, aug)
-        return FourierCarrier.from_series(self.pf, self.s)
+            return FourierCarrier.from_series(unpack, aug, batched=self.batched)
+        return FourierCarrier.from_series(self.pf, self.s, batched=self.batched)
 
     def user_batch_fn(self):
         """``g(xs (K, d), svals (K, ...), p)``: the user kernel vmapped over
         the points and their series values (for a JacobianSeries the (H, V)
-        pair, both batched)."""
+        pair, both batched); a ``batched`` kernel takes them as they are."""
         pf = self.pf
+        if self.batched:
+            return lambda xs, s, q: pf(FourierValue(xs, s), q)
 
         def one(x, s, q):
             return pf(FourierValue(x, s), q)
@@ -259,8 +269,9 @@ class FourierCarrier:
     kernel on them. Reference: ``FourierCarrier`` of
     ``autobzcore_tpu/fourier.py``, there one lane per vmapped solve."""
 
-    def __init__(self, pf, c, cmap, offset, period, valshape, contract=fourier_contract):
+    def __init__(self, pf, c, cmap, offset, period, valshape, contract=fourier_contract, batched=False):
         self.pf = pf
+        self.batched = batched  # pf takes the leaf's points as one batch
         self.c = c
         self.cmap = cmap
         self.offset = tuple(offset)
@@ -269,10 +280,10 @@ class FourierCarrier:
         self.contract = contract  # K3's wrapper, or its plain version
 
     @classmethod
-    def from_series(cls, pf, s, nlanes=1):
+    def from_series(cls, pf, s, nlanes=1, batched=False):
         c = s.c.reshape((1,) + tuple(s.c.shape[:s.sndim]) + (-1,)).contiguous()
         cmap = torch.zeros(nlanes, dtype=torch.int64, device=s.device)
-        return cls(pf, c, cmap, s.offset, s.period, s.valshape)
+        return cls(pf, c, cmap, s.offset, s.period, s.valshape, batched=batched)
 
     @property
     def sndim(self):
@@ -287,12 +298,12 @@ class FourierCarrier:
         if self.c.shape[0] != 1:
             raise ValueError("only a carrier of one coefficient tensor spreads over lanes")
         return FourierCarrier(self.pf, self.c, self.cmap.new_zeros(nlanes), self.offset,
-                              self.period, self.valshape, self.contract)
+                              self.period, self.valshape, self.contract, self.batched)
 
     def take(self, idx):
         """The carrier of the lanes ``idx``."""
         return FourierCarrier(self.pf, self.c, self.cmap[idx], self.offset, self.period,
-                              self.valshape, self.contract)
+                              self.valshape, self.contract, self.batched)
 
     def fix(self, x):
         """Contract the last variable at the nodes ``x`` (L, J): the carrier
@@ -301,7 +312,7 @@ class FourierCarrier:
         c2 = c2.reshape((-1,) + tuple(c2.shape[2:]))
         cmap = torch.arange(c2.shape[0], dtype=torch.int64, device=c2.device)
         return FourierCarrier(self.pf, c2, cmap, self.offset[:-1], self.period[:-1], self.valshape,
-                              self.contract)
+                              self.contract, self.batched)
 
     def series_values(self, x):
         """Values of the 1-D series at the points ``x`` (L, J): (L, J, *valshape)."""
@@ -324,7 +335,11 @@ class FourierCarrier:
         def one(pt, s, q):
             return pf(FourierValue(pt, s), q)
 
-        out = params.map_points(one, (pts, sv), lanes_per_point(L, J, x.device))
+        lanes = lanes_per_point(L, J, x.device)
+        if self.batched:
+            out = one(pts, sv, params.batch_params(lanes))
+        else:
+            out = params.map_points(one, (pts, sv), lanes)
         return out.reshape((L, J) + tuple(out.shape[1:]))
 
 

@@ -127,3 +127,22 @@ def pack_to_arrays(pack):
         Savg = (np.asarray(Savg[0]), np.asarray(Savg[1]), int(Savg[2]))
     return (pack.e.detach().cpu().numpy(), pack.Wmat.detach().cpu().numpy(), float(pack.scale), Savg,
             np.asarray(pack.weights), int(pack.ndim), int(pack.npt))
+
+
+def berry_pack_from_arrays(e, Om, Mm, vd, ndim, npt, device="cuda"):
+    """A :class:`~autobzcore_torch.models.berry.BerryPack` from the JAX
+    package's ``BerryPack`` fields as numpy arrays and numbers, with the
+    fields as float64 tensors on ``device``."""
+    import torch
+
+    from .models.berry import BerryPack
+
+    put = lambda x: torch.as_tensor(np.array(x, dtype=np.float64), device=device)  # noqa: E731
+    return BerryPack(put(e), put(Om), put(Mm), put(vd), int(ndim), int(npt))
+
+
+def berry_pack_to_arrays(pack):
+    """The inverse of :func:`berry_pack_from_arrays`: ``(e, Om, Mm, vd, ndim,
+    npt)`` as numpy arrays and numbers, the JAX package's field order."""
+    fields = tuple(t.detach().cpu().numpy() for t in (pack.e, pack.Om, pack.Mm, pack.vd))
+    return fields + (int(pack.ndim), int(pack.npt))

@@ -1,4 +1,6 @@
-"""Model builders, observables and the transport family."""
+"""Model builders, observables, the transport family and the Berry family."""
+from .berry import (BerryCurvatureSolver, BerryPack, berry_flux_integrand, berry_pack, certified_berry,
+                    lattice_chern, wilson_loop_spectrum, z2_invariant)
 from .observables import (
     CertifiedSweep,
     SpectralPack,
@@ -17,7 +19,7 @@ from .observables import (
     transport_sweep,
 )
 from .tight_binding import (flagship_series, integer_lattice, synthetic_wannier, tb_graphene, tb_haldane,
-                            tb_integer)
+                            tb_integer, tb_kane_mele, tb_kane_mele_sz, tb_weyl)
 from .transport import (
     ElectronCountSolver,
     KineticCoefficientSolver,
@@ -28,6 +30,8 @@ from .transport import (
 )
 
 __all__ = [
+    "BerryCurvatureSolver", "BerryPack", "berry_flux_integrand", "berry_pack", "certified_berry", "lattice_chern",
+    "tb_kane_mele", "tb_kane_mele_sz", "tb_weyl", "wilson_loop_spectrum", "z2_invariant",
     "CertifiedSweep", "ElectronCountSolver", "KineticCoefficientSolver", "SpectralPack", "TransportSolver",
     "certified_ladder", "certified_transport_sweep", "dos_integrand", "dos_trace", "dos_trace_weighted_sum",
     "fermi", "fermi_window", "fermi_window_limits", "flagship_series", "gathered_grid",

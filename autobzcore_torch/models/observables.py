@@ -30,7 +30,7 @@ The transport family (reference ``observables.py:23-66, 175-393``): the
 spectral velocity pack (``spectral_velocity_pack``: K11 at the grid's
 representatives through ``gathered_grid``'s point form, ``eigh``, then
 kernel K18, ``velocity_pairs``, ``csrc/velocity_pairs.cu``, in chunks of
-``dos.ggr.GGR_CHUNK`` points), ``TransportSolver`` and ``transport_sweep``
+``ops.eigh3.EIGH_CHUNK`` points), ``TransportSolver`` and ``transport_sweep``
 (one launch of kernel K19, ``transport_gamma``,
 ``csrc/transport_gamma.cu``, at equal frequencies over all omegas), the
 certified ladder (host code) and the per-point PTR integrand
@@ -652,7 +652,7 @@ def spectral_velocity_pack(h: FourierSeries, bz, npt, points=fourier_points_deri
                            pairs=velocity_pairs) -> SpectralPack:
     """Evaluate (H, dH) on the (symmetry-reduced) npt^d grid, eigendecompose
     and pack the weighted band-pair velocity products (reference
-    ``observables.py:309``). In chunks of ``dos.ggr.GGR_CHUNK`` points: K11
+    ``observables.py:309``). In chunks of ``ops.eigh3.EIGH_CHUNK`` points: K11
     (``points``) at the points ``reps/npt * period``, ``torch.linalg.eigh``,
     then K18 (``pairs``) into the chunk's rows of Wmat. The plain versions
     of K11 and K18 may be passed in their place."""

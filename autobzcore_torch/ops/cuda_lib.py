@@ -109,6 +109,20 @@ def _bind(lib):
     lib.fermi_count_num_chunks.restype = ll
     lib.fermi_count_launch.argtypes = [vp, vp, ll, i, dbl, dbl, vp, vp, vp]
     lib.fermi_count_launch.restype = i
+    lib.berry_pairs_max_bands.argtypes = [i, i]
+    lib.berry_pairs_max_bands.restype = i
+    lib.berry_pairs_launch.argtypes = [vp] * 9 + [ll, i, i, ll, ll, dbl, i, vp]
+    lib.berry_pairs_launch.restype = i
+    lib.plaquette_flux_num_chunks.argtypes = [ll, ll]
+    lib.plaquette_flux_num_chunks.restype = ll
+    lib.plaquette_flux_launch.argtypes = [vp, i, i, i, i, vp, vp, vp]
+    lib.plaquette_flux_launch.restype = i
+    lib.wilson_loops_launch.argtypes = [vp, i, i, i, i, vp, vp]
+    lib.wilson_loops_launch.restype = i
+    lib.zone_average_num_chunks.argtypes = [ll]
+    lib.zone_average_num_chunks.restype = ll
+    lib.zone_average_launch.argtypes = [vp, vp, vp, ll, i, i, i, i, dbl, dbl, vp, vp, vp]
+    lib.zone_average_launch.restype = i
     return lib
 
 

@@ -26,6 +26,12 @@ from .cuda_lib import check_launch, load_kernels
 # refused 32,768 and more with CUSOLVER_STATUS_INVALID_VALUE on an H100;
 # larger matrices take proportionally fewer, in case the limit is on entries
 EIGVALSH_CHUNK = 16384
+# matrices per torch.linalg.eigh call on the card: cuSOLVER's batched eigh
+# takes up to EIGVALSH_CHUNK matrices at m = 3 and m = 30, but its workspace
+# grows with the batch, near 1 MiB a matrix at either m; a quarter of the cap
+# holds one call to a few GB at a small cost in eigh time (chip_smoke.py
+# phases 20-21 read both sizes)
+EIGH_CHUNK = 4096
 
 
 def eigvalsh_chunk(m):
@@ -178,9 +184,27 @@ def eigvalsh_small(h):
 eigvalsh_small.launches = 0
 
 
+def eigh_chunked(h):
+    """``torch.linalg.eigh`` of Hermitian ``h`` (..., m, m), at most
+    :data:`EIGH_CHUNK` matrices a call. Returns ``(e (..., m), U (..., m,
+    m))``."""
+    m = h.shape[-1]
+    batch = tuple(h.shape[:-2])
+    flat = h.reshape(-1, m, m)
+    if flat.shape[0] <= EIGH_CHUNK:
+        e, U = torch.linalg.eigh(flat)
+    else:
+        parts = [torch.linalg.eigh(flat[s:s + EIGH_CHUNK]) for s in range(0, flat.shape[0], EIGH_CHUNK)]
+        e, U = torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    return e.reshape(batch + (m,)), U.reshape(batch + (m, m))
+
+
 def eigh_small(h):
-    """Eigendecomposition dispatch: closed form for m = 2 (``eigh2``),
-    ``torch.linalg.eigh`` otherwise."""
+    """Eigendecomposition dispatch ``(e, U)``, ascending, eigenvectors in
+    columns: the closed form ``eigh2`` for m = 2; otherwise
+    ``torch.linalg.eigh``, in chunks of :func:`eigh_chunked` on the card."""
     if h.shape[-1] == 2:
         return eigh2(h)
+    if h.device.type == "cuda":
+        return eigh_chunked(h)
     return torch.linalg.eigh(h)

@@ -7,9 +7,10 @@ Two forms, by algorithm:
   a ``(W,)`` frequency tensor reaches the PTR rule, which broadcasts over it
   the way the reference's frequency-block solves do (``dos_trace`` returns
   one value per lane, and kernel K2 sums all lanes in one launch).
-  Integrands swept this way must broadcast over a leading parameter axis. A
-  fixed rule converges every lane, and ``numevals`` counts the rule's points
-  once per real (non-pad) lane.
+  Integrands swept this way must broadcast over a leading parameter axis;
+  a ``batched`` FourierIntegrand, which takes one parameter for all its
+  points, gets one solve a lane instead. A fixed rule converges every lane,
+  and ``numevals`` counts the rule's points once per real (non-pad) lane.
 - **Adaptive solvers (IAI, NestedQuad, QuadGKJL; ``solves_lanes``).** Each
   parameter is one independent solve. A chunk's solves run as lanes of one
   batched pool, each lane with its own pools, convergence and count, so each
@@ -68,6 +69,24 @@ def _solve_fn_with_consts(prob, alg, cache):
 
         return fn2, consts
     return fnc, consts
+
+
+def _lane_at(ps, j):
+    """Lane j of sweep parameters ``ps`` (the sweep axis leading)."""
+    if isinstance(ps, MixedParameters):
+        return MixedParameters(*(a[j] for a in ps.args), **{k: v[j] for k, v in ps.kwargs.items()})
+    return ps[j]
+
+
+def _fixed_solve(fn, consts, ps, n, atol, rtol, batched):
+    """A fixed rule's solve over the lane vector ``ps`` (n lanes): one solve,
+    or for a ``batched`` integrand (one parameter for all its points) one
+    solve a lane, stacked."""
+    if not batched:
+        return fn(consts, ps, atol, rtol)
+    sols = [fn(consts, _lane_at(ps, j), atol, rtol) for j in range(n)]
+    u = tree_map(lambda *vs: torch.stack(vs), *(sol[0] for sol in sols))
+    return u, max(float(sol[1]) for sol in sols), all(bool(sol[2]) for sol in sols), sols[0][3]
 
 
 def _check_sweep_knobs(mesh=None, scan=False, chunk=1, warm=False, block=1, group=1):
@@ -154,7 +173,7 @@ def sweep_solve(prob: IntegralProblem, alg, ps, abstol=None, reltol=None, mesh=N
     fn2, consts = _solve_fn_with_consts(prob, alg, cache)
     n = int(np.shape(tree_leaves(ps.args + tuple(ps.kwargs.values()))[0]
                      if isinstance(ps, MixedParameters) else ps)[0])
-    u, resid, conv, ne = fn2(consts, ps, atol, rtol)
+    u, resid, conv, ne = _fixed_solve(fn2, consts, ps, n, atol, rtol, getattr(prob.f, "batched", False))
     return (u, np.full(n, float(resid)), np.full(n, bool(conv)), np.full(n, int(ne)))
 
 
@@ -209,6 +228,7 @@ class SweepSolver:
         self._atol, self._rtol = effective_tolerances(abstol, reltol)
         self._lanes = getattr(alg, "solves_lanes", False)
         self._p, self._merge = cache.p, _takes_mixed_parameters(prob.f)
+        self._batched = getattr(prob.f, "batched", False)
         if self._lanes:
             self._fn = alg.solve_fn(cache.cacheval, lanes=True)
         else:
@@ -251,7 +271,8 @@ class SweepSolver:
         outs, convs, bconv, bne = [], [], [], []
         for i in range(0, npad, c):
             x = torch.as_tensor(xp[i:i + c], device=self.device)
-            u, _, conv, ne = self._fn(self._consts, self._wrap(x), self._atol, self._rtol)
+            u, _, conv, ne = _fixed_solve(self._fn, self._consts, self._wrap(x), c, self._atol, self._rtol,
+                                          self._batched)
             if blk > 1:
                 # one fixed-rule solve serves the chunk; each real block counts the rule once
                 for v in tree_leaves(u):

@@ -104,7 +104,7 @@ non-zero):
    DOSProblem/init/dos_sweep at phase 15's 1001 energies, then
    AdaptiveGaussianBroadening(npt=100); init and sweep walls, K11-K13
    launches, the init by event time with cuSOLVER's eigh share, peak memory,
-   eigh's time and one call's memory in calls of GGR_CHUNK and of 16,384;
+   eigh's time and one call's memory in calls of EIGH_CHUNK and of 16,384;
    checks: both DOS integrate to 3 bands (2e-2), GGR against phase 15's LTM
    DOS 0.3 eV from the band edges (3e-2 of max|D|), tb_integer(3) GGR(npt=60)
    on CubicSymIBZ against the full zone (E 0.8, 1e-12), tb_graphene
@@ -164,10 +164,36 @@ non-zero):
    the kernel and the plain route (identical numevals and retcode, 1e-10),
    K19 at (w, w) over the window against TransportSolver (1e-10),
    tb_integer(3) on the CubicSymIBZ against the full zone (1e-10), n(7 eV,
-   beta = inf) = 3 exactly, and both phases within 60 s.
+   beta = inf) = 3 exactly, and both phases within 60 s;
+27. kernels K21 (the band-pair terms), K22 (the FHS plaquette flux), K23
+   (the Wilson loops) and K24 (the weighted zone average) against their
+   plain versions at the topology main path's shapes: K21 on the Haldane
+   grid at npt 1024 (1,048,576 points, m = 2, d = 2, in one launch and in
+   the build's first 2^18-point row slab, whose times the entry reports),
+   one slab of the Weyl build (d = 3) and one of the Kane-Mele build (m =
+   4) in all three modes (1e-12 of each field's scale); K22 and K23 on the Haldane
+   frames at npt 24 and 1024 (1e-12); K24 on the Weyl pack at npt 192 in
+   every weight mode (1e-13 of the terms' scale); bit-identical repeats;
+   kernel, plain, bound and library times (the reference's two
+   ``torch.einsum`` for K21, ``torch.einsum`` of precomputed weights for
+   K24);
+28. topology main path: ``examples/topology_example.py``'s modes at full
+   width: point (Haldane at npt 1024: build wall, peak memory, K21
+   launches; Chern = -+1 to 1e-8, AHC = C/2pi to 1e-8, Streda slope to
+   1e-9, the BCD, the metric bound at -1e-12, lattice Chern at npt 12 and 1024 integer
+   to 1e-12), weyl (tb_weyl(2) at npt 192, 7,077,888 points: build and
+   query walls, peak memory; I_xy = -1/4pi within 1e-4, I_xz, I_yz below
+   1e-12, the 21-slice Chern scan at npt 24), spin-hall (Kane-Mele at npt
+   1024, m = 4: |I_c| < 1e-12, I^sz_xy = -1/2pi to 1e-8, a repeat
+   bit-equal), phase (the 13 x 13 diagram at npt 24 against the exact
+   boundary), flux (``berry_flux_integrand`` under PTR(48), IAI, TAI and an
+   IAI sweep over mu against the same solves on the CPU: 1e-10, equal
+   counts), z2 (1, 1, 0), and the plain route (the Haldane pack at npt
+   128 and a certified Chern ladder on both routes: 1e-12, the same
+   rungs); launches of K21-K24, and both phases within 60 s.
 
 With ``--profile``, the PTR, IAI, warm IAI, full-grid, LTM, block IAI,
-GGR, TAI and transport main paths each run once more under ``torch.profiler`` (after their checks),
+GGR, TAI, transport and topology main paths each run once more under ``torch.profiler`` (after their checks),
 which prints their device busy time, its share of the wall and the device
 time of the leading kernels.
 
@@ -250,6 +276,12 @@ LORENTZ_RECIP_FLOPS = 12
 # multiply, exp (~25), the add and the division (8), the weight's multiply
 # and the sum
 FERMI_TERM_FLOPS = 38
+# phases 27-28, examples/topology_example.py's workloads at the sizes the
+# reference's record ran them (BASELINE.md:352-366): the Haldane build and
+# Chern number at npt 1024 (1,048,576 points) and the Weyl 3-D AHC at npt
+# 192 (7,077,888 points, slab-streamed)
+BERRY_NPT = 1024
+WEYL_NPT = 192
 
 
 def fail(msg):
@@ -543,6 +575,7 @@ def main():
     kernels += ggr_phases(np, torch, dev, h, ltm_dos)
     kernels += cubature_phases(np, torch, dev, h, cold)
     kernels += transport_phases(np, torch, dev, h)
+    kernels += berry_phases(np, torch, dev)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1765,6 +1798,7 @@ def ggr_phases(np, torch, dev, h, ltm_dos):
     from autobzcore_torch.dos import solve_ as dos_solve_
     from autobzcore_torch.models.tight_binding import synthetic_wannier, tb_graphene, tb_integer
     from autobzcore_torch.ops import fourier_eval as fe
+    from autobzcore_torch.ops.eigh3 import EIGH_CHUNK
     from autobzcore_torch.ops.symptr import symptr_rule
 
     src = "autobzcore_torch/csrc/"
@@ -1773,7 +1807,7 @@ def ggr_phases(np, torch, dev, h, ltm_dos):
     ws = np.linspace(*WINDOW, LTM_ENERGIES)
     E = torch.as_tensor(ws, device=dev)
     orders = fe.jacobian_orders(3)
-    C = G.GGR_CHUNK
+    C = EIGH_CHUNK
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max())
@@ -2386,7 +2420,7 @@ def transport_phases(np, torch, dev, h):
     shapes, then the transport main path (``examples/transport_example.py``'s
     flow) at full width. Returns the kernels' JSON entries."""
     from autobzcore_torch import FBZ, CubicSymIBZ, load_bz
-    from autobzcore_torch.dos.ggr import GGR_CHUNK
+    from autobzcore_torch.ops.eigh3 import EIGH_CHUNK
     from autobzcore_torch.models import observables as obs
     from autobzcore_torch.models import transport as tr
     from autobzcore_torch.models.tight_binding import tb_integer
@@ -2406,8 +2440,8 @@ def transport_phases(np, torch, dev, h):
     X = obs.grid_points(3, [np.arange(TR_NPT) / TR_NPT * t for t in h.period], None, dev)
     orders = fe.jacobian_orders(3)
     Js, Us = [], []
-    for s in range(0, X.shape[0], GGR_CHUNK):
-        J = fe.fourier_points_derivs(h.c, X[s:s + GGR_CHUNK], h.offset, h.period, orders).reshape(-1, 4, m, m)
+    for s in range(0, X.shape[0], EIGH_CHUNK):
+        J = fe.fourier_points_derivs(h.c, X[s:s + EIGH_CHUNK], h.offset, h.period, orders).reshape(-1, 4, m, m)
         Js.append(J)
         Us.append(torch.linalg.eigh(J[:, 0])[1])
     J, U = torch.cat(Js), torch.cat(Us).contiguous()
@@ -2627,6 +2661,332 @@ def transport_phases(np, torch, dev, h):
             entry("transport_gamma", "transport_gamma.cu", "autobzcore_tpu/models/observables.py:379",
                   t19["trip960"], t19["trip960"]["bound"], t19["trip960"]["library_ms"]),
             entry("fermi_count", "fermi_count.cu", "autobzcore_tpu/models/transport.py:302", t20, b20, None)]
+
+
+def berry_phases(np, torch, dev):
+    """Phases 27-28: K21-K24 against their plain versions at the main path's
+    shapes, then the topology main path (``examples/topology_example.py``'s
+    modes) at full width. Returns the kernels' JSON entries."""
+    from autobzcore_torch import FBZ, IAI, PTR, TAI, EvalCounter, IntegralProblem, load_bz, solve
+    from autobzcore_torch.models import berry as br
+    from autobzcore_torch.models.tight_binding import tb_haldane, tb_kane_mele, tb_kane_mele_sz, tb_weyl
+    from autobzcore_torch.ops.cuda_lib import load_kernels
+    from autobzcore_torch.ops.eigh3 import eigh2, eigh_small
+    from autobzcore_torch.parallel.sweep import SweepSolver
+    from autobzcore_torch.parameters import MixedParameters
+
+    src = "autobzcore_torch/csrc/"
+    t_phases = time.perf_counter()
+    bz2, bz3 = load_bz(FBZ(), np.eye(2)), load_bz(FBZ(), np.eye(3))
+    lib = load_kernels()
+    sz = np.diag([0.5, 0.5, -0.5, -0.5])
+
+    def field_err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def pair_check(tag, got, want):
+        got, want = (got,) if torch.is_tensor(got) else got, (want,) if torch.is_tensor(want) else want
+        errs = [field_err(a, b) for a, b in zip(got, want)]
+        if not max(errs) <= 1e-12:
+            fail(f"K21 band_pair_terms {tag}: field errors vs plain {errs} (> 1e-12 of the field's scale)")
+        return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+    # 27. K21-K24 against their plain versions --------------------------------------------
+    # K21 at the point mode's shape: Haldane, all 1,048,576 points of npt = 1024, m = 2, d = 2
+    hh = tb_haldane(t2=0.1, phi=math.pi / 2, M=0.0, device=dev)
+    u_all = np.arange(BERRY_NPT) / BERRY_NPT
+    H, dH = br._eval_slab(hh, 2, u_all, [u_all])
+    K = H.shape[0]
+    k21 = br.band_pair_terms(H, dH, 1e-8)
+    err21 = pair_check("Haldane npt 1024", k21, br.band_pair_terms_plain(H, dH, 1e-8))
+    if not all(torch.equal(a, b) for a, b in zip(k21, br.band_pair_terms(H, dH, 1e-8))):
+        fail("K21 band_pair_terms: two runs on the same inputs differ")
+    ms21_all = cuda_ms(lambda: br.band_pair_terms(H, dH, 1e-8), 20)
+    del k21, H, dH
+    # the entry's numbers at the shape the build launches: one row slab of 2^18 points
+    u1h, innerh = br._slab_rows(hh, BERRY_NPT, 2)
+    Hs, dHs = br._eval_slab(hh, 2, u1h[0], innerh)
+    Ks = Hs.shape[0]
+    k21 = br.band_pair_terms(Hs, dHs, 1e-8)
+    err21 = max(err21, pair_check(f"Haldane slab ({Ks} points)", k21, br.band_pair_terms_plain(Hs, dHs, 1e-8)))
+    e2, U2 = eigh2(Hs)
+    Ud2 = U2.conj().transpose(1, 2)
+
+    def library21():
+        v = torch.einsum("kmi,kdij,kjn->kdmn", Ud2, dHs, U2)
+        return torch.einsum("kanm,kbmn->kabnm", v, v)
+
+    t21 = {"err": err21, "ms": cuda_ms(lambda: br.band_pair_terms(Hs, dHs, 1e-8), 20),
+           "plain_ms": cuda_ms(lambda: br.band_pair_terms_plain(Hs, dHs, 1e-8), 3), "library_ms": cuda_ms(library21, 3)}
+    m, d = 2, 2
+    # bytes: H and dH read, e, Om, Mm and vd written; operations: the closed
+    # form (~40), U^H dH U (d m^2 (8 m^2 + 8 m)) and the pair sums (2 m d^2 terms
+    # of m pairs, ~24 each with the two reciprocals counted as 8)
+    b21 = bound(Ks * (40 + d * m * m * (8 * m * m + 8 * m) + 2 * m * d * d * m * 24),
+                nbytes(Hs, dHs) + sum(nbytes(t) for t in k21))
+    del k21, e2, U2, Ud2, Hs, dHs
+    # one slab of the Weyl build (d = 3) and one of the spin-Hall build (m = 4) in all three modes
+    hw = tb_weyl(2.0, device=dev)
+    u1w, innerw = br._slab_rows(hw, WEYL_NPT, 3)
+    Hw, dHw = br._eval_slab(hw, 3, u1w[0], innerw)
+    errw = pair_check(f"Weyl slab ({Hw.shape[0]} points, d = 3)", br.band_pair_terms(Hw, dHw, 1e-8),
+                      br.band_pair_terms_plain(Hw, dHw, 1e-8))
+    msw = cuda_ms(lambda: br.band_pair_terms(Hw, dHw, 1e-8), 10)
+    del Hw, dHw
+    hk = tb_kane_mele_sz(lam_so=0.1, M=0.0, device=dev)
+    u1k, innerk = br._slab_rows(hk, BERRY_NPT, 2)
+    Hk, dHk = br._eval_slab(hk, 2, u1k[0], innerk)
+    Ok = torch.as_tensor(sz.astype(np.complex128), device=dev)
+    eig = tuple(t.contiguous() for t in eigh_small(Hk))
+    km = {}
+    for mode in ("curvature", "metric", "operator"):
+        O = Ok if mode == "operator" else None
+        got = br.band_pair_terms(Hk, dHk, 1e-8, mode, O)
+        km[mode] = {"err": pair_check(f"Kane-Mele slab, {mode}", got, br.band_pair_terms_plain(Hk, dHk, 1e-8, mode, O)),
+                    "ms": cuda_ms(lambda: br.launch_pairs(lib, Hk, dHk, eig, O, 1e-8, mode), 10)}
+    ms_eigh = cuda_ms(lambda: eigh_small(Hk), 3)
+    nk = Hk.shape[0]
+    del Hk, dHk, eig
+    print(f"K21 band_pair_terms: Haldane npt {BERRY_NPT} ({K} points, m = 2, d = 2, one launch {ms21_all:.4f} ms) and "
+          f"its first row slab max|d| vs plain {err21:.3e} (<= 1e-12 of each field's scale), repeat bit-identical; the "
+          f"slab of {Ks} points, as the build launches it, {t21['ms']:.4f} ms (plain {t21['plain_ms']:.4f} ms, the "
+          f"reference's two torch.einsum {t21['library_ms']:.4f} ms, bound {b21[0]:.4f} ms by {b21[1]}); Weyl "
+          f"slab of {u1w.shape[1] * WEYL_NPT ** 2} points (d = 3) {errw:.3e}, {msw:.4f} ms; Kane-Mele slab of {nk} "
+          f"points (m = 4) after eigh_small ({ms_eigh:.4f} ms, {-(-nk // 4096)} chunks): " + ", ".join(
+              f"{mode} {v['err']:.3e}, {v['ms']:.4f} ms" for mode, v in km.items()), flush=True)
+
+    # K22 and K23 on the Haldane frames at npt 24 and 1024
+    t22, t23 = {}, {}
+    for npt in (24, BERRY_NPT):
+        V = br._frames(hh, [np.arange(npt) / npt] * 2, None)
+        F, F2, Fp = br.plaquette_flux(V), br.plaquette_flux(V), br.plaquette_flux_plain(V)
+        W, W2, Wp = br.wilson_loops(V), br.wilson_loops(V), br.wilson_loops_plain(V)
+        e22, e23 = abs(float(F) - float(Fp)), float((W - Wp).abs().max())
+        if not (e22 <= 1e-12 and torch.equal(F, F2) and e23 <= 1e-12 and torch.equal(W, W2)):
+            fail(f"K22/K23 at npt {npt}: |F - plain| {e22:.3e}, max|W - plain| {e23:.3e} (<= 1e-12), repeats "
+                 f"identical {torch.equal(F, F2)}, {torch.equal(W, W2)}")
+        t22[npt] = {"err": e22, "ms": cuda_ms(lambda: br.plaquette_flux(V), 20),
+                    "plain_ms": cuda_ms(lambda: br.plaquette_flux_plain(V), 3),
+                    "bound": bound(npt * npt * 230, nbytes(V) + 8), "C": float(F) / (2 * math.pi)}
+        t23[npt] = {"err": e23, "ms": cuda_ms(lambda: br.wilson_loops(V), 5),
+                    "plain_ms": cuda_ms(lambda: br.wilson_loops_plain(V), 1), "bound": bound(npt * npt * 24, nbytes(V, W))}
+    del V
+    print("K22 plaquette_flux / K23 wilson_loops on the Haldane frames (m = 2, nb = 1): " + "; ".join(
+        f"npt {n}: C = {t22[n]['C']!r}, |d| vs plain {t22[n]['err']:.3e} and {t23[n]['err']:.3e} (<= 1e-12), repeats "
+        f"bit-identical, K22 {t22[n]['ms']:.4f} ms (plain {t22[n]['plain_ms']:.4f}, bound {t22[n]['bound'][0]:.5f} ms by "
+        f"{t22[n]['bound'][1]}), K23 {t23[n]['ms']:.4f} ms (plain {t23[n]['plain_ms']:.4f}, bound "
+        f"{t23[n]['bound'][0]:.5f} ms by {t23[n]['bound'][1]})" for n in t22), flush=True)
+
+    # K24 on the Weyl pack at npt 192 in every weight mode
+    pw = br.berry_pack(hw, bz3, WEYL_NPT)
+    e, Om, vd = pw.e, pw.Om, pw.vd
+    t24 = {}
+    for tag, mode, beta in (("step", "step", None), ("fermi", "fermi", 40.0), ("entropy", "entropy", 40.0),
+                            ("dipole", "dipole", 40.0), ("grand", "grand", 40.0), ("grand T=0", "grand", None),
+                            ("band", "band", None)):
+        got, again = br.zone_average(e, Om, mode, 0.1, beta, vd=vd), br.zone_average(e, Om, mode, 0.1, beta, vd=vd)
+        want = br.zone_average_plain(e, Om, mode, 0.1, beta, vd=vd)
+        scale = float(br.zone_average_plain(e, Om.abs(), mode, 0.1, beta, vd=vd.abs()).abs().max())
+        r = float((got - want).abs().max()) / scale
+        if not (r <= 1e-13 and torch.equal(got, again)):
+            fail(f"K24 zone_average {tag}: |d| vs plain {r:.3e} of the terms' scale (> 1e-13), repeat identical "
+                 f"{torch.equal(got, again)}")
+        t24[tag] = r
+    w_step = br.zone_weights(e, "step", 0.0)
+    t24k = {"err": max(t24.values()), "ms": cuda_ms(lambda: br.zone_average(e, Om, "step", 0.0), 20),
+            "plain_ms": cuda_ms(lambda: br.zone_average_plain(e, Om, "step", 0.0), 3),
+            "library_ms": cuda_ms(lambda: torch.einsum("km,kmab->ab", w_step, Om), 3)}
+    b24 = bound(Om.numel() * 2 + e.numel() * 2, nbytes(e, Om) + 8 * 9)
+    print(f"K24 zone_average on the Weyl pack (npt {WEYL_NPT}, {e.shape[0]} points, m = 2, d = 3), |d| vs plain of the "
+          "terms' scale: " + ", ".join(f"{k} {v:.3e}" for k, v in t24.items()) + " (<= 1e-13), repeats bit-identical; "
+          f"the AHC (step) {t24k['ms']:.4f} ms (plain {t24k['plain_ms']:.4f} ms, torch.einsum of precomputed weights "
+          f"{t24k['library_ms']:.4f} ms, bound {b24[0]:.4f} ms by {b24[1]})", flush=True)
+    del pw, e, Om, vd, w_step
+    torch.cuda.empty_cache()
+    t27 = time.perf_counter() - t_phases
+
+    # 28. the topology main path at full width ----------------------------------------------
+    kernels = (br.band_pair_terms, br.plaquette_flux, br.wilson_loops, br.zone_average)
+    for k in kernels:
+        k.launches = 0
+
+    def sync_wall(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def build(h, bz, npt):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        slv = br.BerryCurvatureSolver(h, bz, npt)
+        return slv, sync_wall(t0), (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    # point: the Haldane model at npt 1024
+    launches0 = br.band_pair_terms.launches
+    slv, w_point, peak_point = build(hh, bz2, BERRY_NPT)
+    builds_point = br.band_pair_terms.launches - launches0
+    t0 = time.perf_counter()
+    C = slv.chern()
+    I = slv.ahc(mu=0.0)
+    w_q = time.perf_counter() - t0
+    eg = slv.pack.e.cpu().numpy()
+    lo, hi = float(eg[:, 0].max()), float(eg[:, 1].min())
+    mus = lo + np.array([0.2, 0.8]) * (hi - lo)
+    Ms = [float(slv.orbital_magnetization(mu=float(x))[0, 1]) for x in mus]
+    slope = float((Ms[1] - Ms[0]) / (mus[1] - mus[0]))
+    D = slv.berry_curvature_dipole(mu=hi + 0.3, beta=40.0)
+    t0 = time.perf_counter()
+    g = slv.quantum_metric()
+    w_metric = sync_wall(t0)
+    Omxy = slv.pack.Om[:, :, 0, 1]
+    detg = g[..., 0, 0] * g[..., 1, 1] - g[..., 0, 1] * g[..., 1, 0]
+    gap_bound = float((detg - (Omxy / 2) ** 2).min())
+    lc = [br.lattice_chern(hh, bz2, n) for n in (12, BERRY_NPT)]
+    cw = float(C[0]) / (2 * math.pi)
+    print(f"topology main path, point: Haldane (t2 0.1, phi pi/2, M 0) at npt {BERRY_NPT} ({K} points): build "
+          f"{w_point:.4f} s ({builds_point} K21 launches, peak {peak_point:.1f} MiB); chern + ahc {w_q:.4f} s; C = "
+          f"{C.tolist()!r}; I_xy = {float(I[0, 1])!r} (C/2pi {cw!r}); Streda slope {slope!r}; BCD max|D| at mu = gap top "
+          f"+ 0.3, beta 40: {float(np.abs(D).max()):.3e}; metric {w_metric:.4f} s, min(det g - (Om/2)^2) = {gap_bound:.3e} "
+          f"(>= -1e-12); "
+          f"lattice_chern npt 12, {BERRY_NPT}: {lc[0]!r}, {lc[1]!r}", flush=True)
+    if not (abs(abs(C[0]) - 1) <= 1e-8 and abs(C[0] + C[1]) <= 1e-8 and abs(float(I[0, 1]) - cw) <= 1e-8
+            and abs(slope - cw) <= 1e-9 and gap_bound >= -1e-12
+            and all(abs(c - round(c)) <= 1e-12 and round(c) == round(C[0]) for c in lc)):
+        fail("topology point checks: Chern, AHC, Streda slope, metric bound or lattice Chern")
+    del slv, g, detg, Omxy
+    torch.cuda.empty_cache()
+
+    # weyl: the 3-D AHC at npt 192 (7,077,888 points), then the 21-slice Chern scan
+    slw, w_weyl, peak_weyl = build(hw, bz3, WEYL_NPT)
+    t0 = time.perf_counter()
+    Iw = slw.ahc(mu=0.0)
+    w_wq = sync_wall(t0)
+    kzs = np.linspace(0.0, 0.5, 21)
+    t0 = time.perf_counter()
+    Cs = [br.lattice_chern(hw.contract(float(kz)), bz2, 24, bands=[0]) for kz in kzs]
+    w_scan = time.perf_counter() - t0
+    off = [abs(kz - 0.25) > 1e-9 for kz in kzs]  # kz = 1/4 is the nodes' slice: gapless, no Chern number
+    want = [-1.0 if kz < 0.25 else 0.0 for kz in kzs]
+    print(f"topology main path, weyl: tb_weyl(2) at npt {WEYL_NPT} ({slw.pack.e.shape[0]} points): build {w_weyl:.4f} s "
+          f"(peak {peak_weyl:.1f} MiB), ahc {w_wq:.4f} s: I_xy = {float(Iw[0, 1])!r} (-1/4pi = {-1 / (4 * math.pi)!r}), "
+          f"I_xz = {float(Iw[0, 2]):.3e}, I_yz = {float(Iw[1, 2]):.3e}; 21-slice scan at npt 24 {w_scan:.4f} s: "
+          + " ".join(f"{c:+.0f}" if o else f"[node {c:+.3f}]" for c, o in zip(Cs, off)), flush=True)
+    if not (abs(float(Iw[0, 1]) + 1 / (4 * math.pi)) <= 1e-4 and abs(float(Iw[0, 2])) < 1e-12
+            and abs(float(Iw[1, 2])) < 1e-12
+            and all(abs(c - w) < 1e-12 for c, w, o in zip(Cs, want, off) if o)):
+        fail("topology weyl checks: the node-separation AHC or the slice Chern scan")
+    del slw
+    torch.cuda.empty_cache()
+
+    # spin-hall: Kane-Mele (S_z conserved) at npt 1024, m = 4: eigh in chunks of 4,096
+    slk, w_km, peak_km = build(hk, bz2, BERRY_NPT)
+    I_c = float(slk.ahc(mu=0.0)[0, 1])
+    t0 = time.perf_counter()
+    I_s = float(slk.operator_hall(sz, mu=0.0)[0, 1])
+    w_op = sync_wall(t0)
+    I_s2 = float(slk.operator_hall(sz, mu=0.0)[0, 1])
+    print(f"topology main path, spin-hall: Kane-Mele lam_so 0.1 at npt {BERRY_NPT}: build {w_km:.4f} s (peak "
+          f"{peak_km:.1f} MiB), operator grid + query {w_op:.4f} s; I_c = {I_c:.3e} (< 1e-12), I^sz_xy = {I_s!r} "
+          f"(-1/2pi = {-1 / (2 * math.pi)!r}), repeat bit-equal {I_s2 == I_s}", flush=True)
+    if not (abs(I_c) < 1e-12 and abs(I_s + 1 / (2 * math.pi)) <= 1e-8 and I_s2 == I_s):
+        fail("topology spin-hall checks")
+    del slk
+    torch.cuda.empty_cache()
+
+    # phase: the example's 13 x 13 Haldane diagram at npt 24
+    t2 = 0.1
+    phis, Ms_ = np.linspace(-math.pi, math.pi, 13), np.linspace(-6 * t2, 6 * t2, 13)
+    t0 = time.perf_counter()
+    Cd = np.array([[round(br.lattice_chern(tb_haldane(t2=t2, phi=float(p), M=float(M_), device=dev), bz2, 24,
+                                           bands=[0])) for M_ in Ms_] for p in phis])
+    w_phase = time.perf_counter() - t0
+    crit = 3 * math.sqrt(3) * t2 * np.abs(np.sin(phis))[:, None]
+    far = np.abs(np.abs(Ms_)[None, :] - crit) >= 0.05 * t2
+    exact = np.where(np.abs(Ms_)[None, :] < crit, -np.sign(np.sin(phis))[:, None], 0.0)
+    print(f"topology main path, phase: 13 x 13 Haldane diagram at npt 24 in {w_phase:.4f} s "
+          f"({1e3 * w_phase / 169:.3f} ms a model); {int(far.sum())} points at least 0.05 t2 from |M| = 3 sqrt(3) t2 "
+          f"|sin phi|, {int((Cd[far] == exact[far]).sum())} of them exact", flush=True)
+    if not np.all(Cd[far] == exact[far]):
+        fail("topology phase diagram disagrees with the exact boundary")
+
+    # flux: the occupied-band flux integrand (K21 on every batch) under PTR, IAI and TAI, and an IAI sweep
+    # over mu (one mu per point at the leaf), held against the same solves on the CPU
+    def flux_solves(dev_):
+        fi = br.berry_flux_integrand(tb_haldane(t2=0.1, phi=math.pi / 2, M=0.0, device=dev_))
+        sols = [solve(IntegralProblem(fi, bz2, MixedParameters(mu=0.0)), EvalCounter(alg), **kw)
+                for alg, kw in ((PTR(npt=48, device=dev_), {}), (IAI(inner_cap=128, device=dev_), {"abstol": 1e-5}),
+                                (TAI(device=dev_), {"abstol": 1e-4}))]
+        sw = SweepSolver(IntegralProblem(fi, bz2), IAI(inner_cap=64, device=dev_), abstol=1e-3, chunk=2, scan=True)
+        u = np.array([float(x.u) for x in sols] + [float(x) for x in sw(np.array([0.0, 0.3]))])
+        return u, [int(x.numevals) for x in sols] + [int(x) for x in sw.lane_numevals]
+
+    t0 = time.perf_counter()
+    u_f, n_f = flux_solves(dev)
+    w_flux = sync_wall(t0)
+    u_fc, n_fc = flux_solves("cpu")
+    rel_f = float(np.max(np.abs(u_f - u_fc) / np.abs(u_fc)))
+    C_f = u_f / ((2 * math.pi) ** 2 * 2 * math.pi)  # u = |det B| 2 pi C_occ
+    print(f"topology main path, flux: berry_flux_integrand(Haldane) under PTR(48), IAI (abstol 1e-5), TAI (abstol "
+          f"1e-4) and an IAI sweep over mu = 0, 0.3 in {w_flux:.4f} s: C_occ {C_f.tolist()!r}, evaluations {n_f}, "
+          f"card vs CPU {rel_f:.3e} (<= 1e-10), counts equal {n_f == n_fc}", flush=True)
+    if not (rel_f <= 1e-10 and n_f == n_fc and np.all(np.abs(C_f + 1) < 1e-3)):
+        fail("topology flux checks: the flux integrand on the card against the CPU")
+
+    # z2: the example's three Kane-Mele cases
+    t0 = time.perf_counter()
+    z2 = [br.z2_invariant(tb_kane_mele(lam_so=0.06, lam_r=lr, M=M_, device=dev), 48)
+          for lr, M_ in ((0.0, 0.0), (0.05, 0.0), (0.05, 0.8))]
+    w_z2 = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"topology main path, z2: Kane-Mele (lam_r, M) = (0, 0), (0.05, 0), (0.05, 0.8): Z2 = {z2} (1, 1, 0) in "
+          f"{w_z2:.4f} s; launches {launches}", flush=True)
+    if z2 != [1, 1, 0]:
+        fail(f"topology z2 checks: {z2}")
+    if min(launches.values()) <= 0:
+        fail(f"the topology main path did not go through every kernel: {launches}")
+
+    # the plain route: the Haldane pack at npt 128 and one certified Chern ladder on both routes
+    h128 = tb_haldane(t2=0.1, phi=math.pi / 2, M=0.2, device=dev)
+    sk_ = br.BerryCurvatureSolver(h128, bz2, 128)
+    sp_ = br.BerryCurvatureSolver(h128, bz2, 128, pairs=br.band_pair_terms_plain, average=br.zone_average_plain)
+    rel_pack = max(field_err(getattr(sk_.pack, f), getattr(sp_.pack, f)) for f in ("e", "Om", "Mm", "vd"))
+    q = [(s.chern(), s.ahc(0.3, 20.0), s.orbital_magnetization(0.0), s.berry_curvature_dipole(0.8, 40.0))
+         for s in (sk_, sp_)]
+    rel_q = max(float(np.max(np.abs(a - b)) / np.max(np.abs(b))) for a, b in zip(*q))
+    t0 = time.perf_counter()
+    ck = br.certified_berry(hh, bz2, what="chern", abstol=1e-4, nmin=18, nmax=240)
+    w_ck = time.perf_counter() - t0
+    cp = br.certified_berry(hh, bz2, what="chern", abstol=1e-4, nmin=18, nmax=240, pairs=br.band_pair_terms_plain,
+                            average=br.zone_average_plain)
+    rel_c = float(np.max(np.abs(np.asarray(ck.u) - np.asarray(cp.u))))
+    wall = time.perf_counter() - t_phases
+    print(f"topology plain route: Haldane (M 0.2) pack at npt 128 kernels vs plain {rel_pack:.3e} (<= 1e-12 of each "
+          f"field's scale), queries {rel_q:.3e} (<= 1e-12); certified_berry(chern, abstol 1e-4) rungs {ck.npts} vs "
+          f"{cp.npts}, retcodes {ck.retcode} vs {cp.retcode}, |dC| {rel_c:.3e} (<= 1e-12), kernel ladder {w_ck:.4f} s; "
+          f"phase 27 {t27:.3f} s, phases 27-28 {wall:.3f} s (<= 60)", flush=True)
+    if not (rel_pack <= 1e-12 and rel_q <= 1e-12 and ck.npts == cp.npts and ck.retcode == cp.retcode
+            and ck.retcode and rel_c <= 1e-12):
+        fail("topology plain route: kernels and plain versions disagree")
+    if wall > 60.0:
+        fail(f"phases 27-28 took {wall:.1f} s (> 60)")
+    if "--profile" in sys.argv[1:]:
+        profile("topology main path (the Weyl build and its AHC)",
+                lambda: br.BerryCurvatureSolver(hw, bz3, WEYL_NPT).ahc(mu=0.0))
+    torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, t, b, library_ms):
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
+
+    n = BERRY_NPT
+    return [entry("band_pair_terms", "berry_pairs.cu", "autobzcore_tpu/models/berry.py:101", t21, b21,
+                  t21["library_ms"]),
+            entry("plaquette_flux", "berry_links.cu", "autobzcore_tpu/models/berry.py:298", t22[n], t22[n]["bound"], None),
+            entry("wilson_loops", "berry_links.cu", "autobzcore_tpu/models/berry.py:368", t23[n], t23[n]["bound"], None),
+            entry("zone_average", "zone_average.cu", "autobzcore_tpu/models/berry.py:462", t24k, b24,
+                  t24k["library_ms"])]
 
 
 if __name__ == "__main__":

@@ -1356,3 +1356,230 @@ def test_fermi_count_kernel_matches_plain_on_card(cuda_device):
         assert abs(float(got) - float(want)) <= 1e-12 * float(w.sum()) * m
         assert torch.equal(got, tr.fermi_count(e, w, mu, beta))
     assert float(tr.fermi_count(e, w, 50.0, np.inf)) == m * float(w.sum())
+
+
+# --- the Berry family: K21 (band-pair terms), K22 (plaquette flux), K23 (Wilson loops), K24 (zone average)
+
+
+def _pair_inputs(rng, K, m, d, device):
+    """Random Hermitian H (K, m, m), a strided dH view (K, d, m, m) (as the
+    Jacobian's output gives it) and a Hermitian operator O (m, m)."""
+    H = torch.as_tensor(random_hermitian(rng, K, m), device=device)
+    J = torch.as_tensor(np.stack([random_hermitian(rng, K, m) for _ in range(d + 1)], axis=1), device=device)
+    O = torch.as_tensor(random_hermitian(rng, 1, m)[0], device=device)
+    return H, J[:, 1:], O
+
+
+def _frames(model, npt, n2=None):
+    from autobzcore_torch.models import berry as br
+
+    u = [np.arange(npt) / npt * model.period[0], np.arange(n2 or npt) / (n2 or npt) * model.period[1]]
+    return br._frames(model, u, None)
+
+
+def test_berry_wrappers_take_plain_versions_on_cpu_without_counting():
+    from autobzcore_torch.models import berry as br
+
+    rng = np.random.default_rng(190)
+    H, dH, O = _pair_inputs(rng, 30, 3, 2, "cpu")
+    counts = (br.band_pair_terms.launches, br.zone_average.launches, br.plaquette_flux.launches,
+              br.wilson_loops.launches)
+    for mode in ("curvature", "metric", "operator"):
+        got = br.band_pair_terms(H, dH, 1e-8, mode, O if mode == "operator" else None)
+        want = br.band_pair_terms_plain(H, dH, 1e-8, mode, O if mode == "operator" else None)
+        got, want = (got,) if mode == "metric" else got, (want,) if mode == "metric" else want
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    e, Om, _, vd = br.band_pair_terms(H, dH, 1e-8)
+    for mode in ("step", "fermi", "entropy", "dipole", "grand", "band"):
+        beta = None if mode in ("step", "band") else 3.0
+        assert torch.equal(br.zone_average(e, Om, mode, 0.1, beta, vd=vd),
+                           br.zone_average_plain(e, Om, mode, 0.1, beta, vd=vd))
+    V = _frames(ttb.tb_haldane(t2=0.1, device="cpu"), 8)
+    assert torch.equal(br.plaquette_flux(V), br.plaquette_flux_plain(V))
+    assert torch.equal(br.wilson_loops(V), br.wilson_loops_plain(V))
+    assert (br.band_pair_terms.launches, br.zone_average.launches, br.plaquette_flux.launches,
+            br.wilson_loops.launches) == counts
+
+
+def test_berry_wrappers_reject_what_the_kernels_do_not_take():
+    from autobzcore_torch.models import berry as br
+
+    rng = np.random.default_rng(191)
+    H, dH, O = _pair_inputs(rng, 12, 2, 2, "cpu")
+    with pytest.raises(ValueError):
+        br.band_pair_terms(H.to(torch.complex64), dH, 1e-8)
+    with pytest.raises(ValueError):
+        br.band_pair_terms(H, dH[:5], 1e-8)
+    with pytest.raises(ValueError):
+        br.band_pair_terms(H, dH, 1e-8, mode="spin")
+    with pytest.raises(ValueError):
+        br.band_pair_terms(H, dH, 1e-8, mode="operator")  # no operator
+    with pytest.raises(ValueError):
+        br.band_pair_terms(H, dH, 1e-8, mode="operator", O=O[:1])
+    e, Om, _, vd = br.band_pair_terms(H, dH, 1e-8)
+    with pytest.raises(ValueError):
+        br.zone_average(e, Om, "fermi", 0.0, None)  # needs a finite beta
+    with pytest.raises(ValueError):
+        br.zone_average(e, Om, "dipole", 0.0, 5.0)  # needs vd
+    with pytest.raises(ValueError):
+        br.zone_average(e, Om[:, :, 0], "step")
+    with pytest.raises(ValueError):
+        br.zone_average(e.T, Om, "step")
+    with pytest.raises(ValueError):
+        br.zone_average(e, Om, "median")
+    V = torch.zeros((4, 4, 10, 9), dtype=torch.complex128)
+    with pytest.raises(ValueError):
+        br.plaquette_flux(V)  # nb = 9 > 8
+    with pytest.raises(ValueError):
+        br.wilson_loops(V[..., :3].transpose(0, 1))  # not contiguous
+    with pytest.raises(ValueError):
+        br.wilson_loops(torch.zeros((4, 4, 2, 3), dtype=torch.complex128))  # nb > m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,mode", [(2, 2, "curvature"), (2, 3, "curvature"), (2, 2, "metric"),
+                                      (2, 3, "operator"), (3, 3, "curvature"), (4, 2, "curvature"),
+                                      (4, 2, "metric"), (4, 2, "operator"), (9, 3, "operator")])
+def test_band_pair_terms_kernel_matches_plain_on_card(cuda_device, m, d, mode):
+    """K21 in each mode, at m = 2 (the closed form in registers) and m > 2
+    (eigh_small's chunked eigh, the same eigenvectors for the plain version),
+    a ragged point count and a strided dH view: 1e-12 of each field's scale,
+    bit-identical repeats."""
+    from autobzcore_torch.models import berry as br
+
+    rng = np.random.default_rng(200 + 10 * m + d)
+    H, dH, O = _pair_inputs(rng, 5003 if m < 9 else 301, m, d, cuda_device)
+    Oa = O if mode == "operator" else None
+    before = br.band_pair_terms.launches
+    got = br.band_pair_terms(H, dH, 1e-8, mode, Oa)
+    assert br.band_pair_terms.launches == before + 1
+    want = br.band_pair_terms_plain(H, dH, 1e-8, mode, Oa)
+    again = br.band_pair_terms(H, dH, 1e-8, mode, Oa)
+    got, want, again = ((x,) if mode == "metric" else x for x in (got, want, again))
+    for a, b, c in zip(got, want, again):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["step", "fermi", "entropy", "dipole", "grand", "grand_zero_t", "band"])
+def test_zone_average_kernel_matches_plain_on_card(cuda_device, mode):
+    """K24 in each weight mode on a ragged point count (a partial chunk):
+    1e-13 of the sum of the terms' magnitudes, bit-identical repeats."""
+    from autobzcore_torch.models import berry as br
+
+    rng = np.random.default_rng(210)
+    K, m, d = 70001, 3, 3
+    e = torch.as_tensor(np.sort(rng.normal(size=(K, m)), axis=1), device=cuda_device)
+    F = torch.as_tensor(rng.normal(size=(K, m, d, d)), device=cuda_device)
+    vd = torch.as_tensor(rng.normal(size=(K, m, d)), device=cuda_device)
+    name, beta = ("grand", None) if mode == "grand_zero_t" else (mode, None if mode in ("step", "band") else 7.0)
+    before = br.zone_average.launches
+    got = br.zone_average(e, F, name, 0.2, beta, vd=vd)
+    assert br.zone_average.launches == before + 1
+    want = br.zone_average_plain(e, F, name, 0.2, beta, vd=vd)
+    absF = br.zone_average_plain(e, F.abs(), name, 0.2, beta, vd=vd.abs())
+    scale = float(absF.abs().max())
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-13 * scale
+    assert torch.equal(got, br.zone_average(e, F, name, 0.2, beta, vd=vd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["haldane", "kane_mele", "wannier8"])
+def test_link_kernels_match_plain_on_card(cuda_device, case):
+    """K22 and K23 on occupied frames of a Chern band (nb = 1), a Kramers
+    pair (nb = 2) and four bands of a random 8-band model (nb = 4, the
+    pivoted determinant), against their plain versions (1e-12; the loop
+    matrices elementwise), bit-identical on repeat."""
+    from autobzcore_torch.models import berry as br
+
+    h = {"haldane": lambda: ttb.tb_haldane(t2=0.1, device=cuda_device),
+         "kane_mele": lambda: ttb.tb_kane_mele(lam_so=0.06, lam_r=0.05, device=cuda_device),
+         "wannier8": lambda: ttb.synthetic_wannier(8, nr=3, ndim=2, seed=4, device=cuda_device)}[case]()
+    V = _frames(h, 24, 20)
+    before = (br.plaquette_flux.launches, br.wilson_loops.launches)
+    F, W = br.plaquette_flux(V), br.wilson_loops(V)
+    assert (br.plaquette_flux.launches, br.wilson_loops.launches) == (before[0] + 1, before[1] + 1)
+    assert abs(float(F) - float(br.plaquette_flux_plain(V))) <= 1e-12 * max(1.0, abs(float(F)))
+    Wp = br.wilson_loops_plain(V)
+    assert W.shape == Wp.shape and float((W - Wp).abs().max()) <= 1e-12 * float(Wp.abs().max())
+    assert torch.equal(F, br.plaquette_flux(V)) and torch.equal(W, br.wilson_loops(V))
+
+
+@pytest.mark.gpu
+def test_berry_solver_on_card_matches_cpu(cuda_device):
+    """The whole Berry family on the card (K21-K24) against the CPU's plain
+    versions: the Haldane pack and queries, the lattice Chern number and
+    the Wilson centres, Kane-Mele's spin Hall (1e-10 of each scale)."""
+    from autobzcore_torch import FBZ, load_bz
+    from autobzcore_torch.models import berry as br
+
+    bz = load_bz(FBZ(), np.eye(2))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        h = ttb.tb_haldane(t2=0.1, M=0.2, device=dev)
+        s = br.BerryCurvatureSolver(h, bz, 48)
+        km = br.BerryCurvatureSolver(ttb.tb_kane_mele_sz(lam_so=0.1, device=dev), bz, 24)
+        out[str(dev)] = (s.pack.Om.cpu().numpy(), s.chern(), s.ahc(0.3, 20.0), s.orbital_magnetization(0.1),
+                         s.berry_curvature_dipole(0.8, 40.0), s.quantum_metric().cpu().numpy(),
+                         np.array([br.lattice_chern(h, bz, 16)]), br.wilson_loop_spectrum(h, 16),
+                         km.operator_hall(np.diag([0.5, 0.5, -0.5, -0.5]), mu=0.0))
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        assert np.max(np.abs(a - b)) <= 1e-10 * max(1.0, np.max(np.abs(a)))
+
+
+def _flux_solves(dev):
+    """The Haldane flux integrand under PTR, IAI and TAI at mu = 0, an IAI
+    sweep (one mu per point at the leaf) and a PTR sweep on ``dev``: the
+    values, the evaluation counts and K21's launches."""
+    from autobzcore_torch.models import berry as br
+    from autobzcore_torch.parameters import MixedParameters
+
+    bz = T.load_bz(T.FBZ(), np.eye(2))
+    fi = br.berry_flux_integrand(ttb.tb_haldane(t2=0.1, phi=np.pi / 2, device=dev))
+    before = br.band_pair_terms.launches
+    sols = [T.solve(T.IntegralProblem(fi, bz, MixedParameters(mu=0.0)), T.EvalCounter(alg), **kw)
+            for alg, kw in ((T.PTR(npt=48, device=dev), {}), (T.IAI(inner_cap=128, device=dev), {"abstol": 1e-5}),
+                            (T.TAI(device=dev), {"abstol": 1e-4}))]
+    sw = SweepSolver(T.IntegralProblem(fi, bz), T.IAI(inner_cap=64, device=dev), abstol=1e-3, chunk=2, scan=True)
+    swept = sw(np.array([0.0, 0.3]))
+    ptr = SweepSolver(T.IntegralProblem(fi, bz), T.PTR(npt=24, device=dev), chunk=2)(np.array([-1.5, 0.0, 1.5]))
+    u = np.array([float(s.u) for s in sols] + list(swept) + list(ptr))
+    return u, [s.numevals for s in sols] + list(sw.lane_numevals), br.band_pair_terms.launches - before
+
+
+def test_berry_flux_takes_plain_version_on_cpu_without_counting():
+    u, _, launched = _flux_solves("cpu")
+    assert launched == 0
+    detB = (2 * np.pi) ** 2  # the reciprocal cell of the unit square lattice
+    assert np.all(np.abs(u[:5] / (detB * 2 * np.pi) + 1) < 1e-3)  # C = -1 in the gap
+
+
+@pytest.mark.gpu
+def test_berry_flux_integrand_on_card_matches_cpu(cuda_device):
+    """The flux integrand's card route (K21 on each batch: the PTR rule, the
+    IAI leaf's strided views of the Jacobian channels, TAI's trips, one mu
+    per point under an IAI sweep, a PTR sweep lane by lane) against the same
+    solves on the CPU: 1e-10 of each value, equal counts, K21 launched."""
+    u_c, n_c, _ = _flux_solves("cpu")
+    u_g, n_g, launched = _flux_solves(cuda_device)
+    assert launched > 0
+    assert n_g == n_c
+    assert np.all(np.abs(u_g - u_c) <= 1e-10 * np.maximum(1.0, np.abs(u_c)))
+
+
+@pytest.mark.gpu
+def test_eigh_small_chunks_on_card(cuda_device):
+    """eigh_small at m > 2 on the card feeds torch.linalg.eigh at most
+    EIGH_CHUNK matrices a call: the same pairs as one call on the CPU."""
+    from autobzcore_torch.ops.eigh3 import EIGH_CHUNK, eigh_small
+
+    rng = np.random.default_rng(220)
+    H = torch.as_tensor(random_hermitian(rng, 2 * EIGH_CHUNK + 7, 4), device=cuda_device)
+    e, U = eigh_small(H)
+    ec = torch.linalg.eigvalsh(H.cpu())
+    assert float((e.cpu() - ec).abs().max()) <= 1e-12 * float(ec.abs().max())
+    resid = H @ U - U * e[:, None, :]
+    assert float(resid.abs().max()) <= 1e-12 * float(ec.abs().max())
