@@ -33,8 +33,8 @@
 //    launch;
 //  * blocks run in no order, so the cross-block sum is a second pass: each
 //    k-chunk writes one partial per lane (one row per 4096 k-points, 0.4 %
-//    of H's bytes at 264 lanes), and dos_reduce_kernel adds the partials of
-//    each lane in chunk order. Each chunk's partial is computed the same way
+//    of H's bytes at 264 lanes), and column_sum.cuh's pass adds the
+//    partials of each lane in chunk order. Each chunk's partial is computed the same way
 //    whatever the grid, so the result does not depend on the cap, and with
 //    no atomics repeated runs are bit-identical.
 
@@ -42,6 +42,7 @@
 
 #include <cstdint>
 
+#include "column_sum.cuh"
 #include "small_trace.cuh"
 
 namespace {
@@ -94,16 +95,6 @@ dos_partials_kernel(const double2* __restrict__ H, const double* __restrict__ w,
   }
 }
 
-// out[w] = factor * sum_c partials[c, w], summed in chunk order.
-__global__ void dos_reduce_kernel(const double* __restrict__ partials, double* __restrict__ out,
-                                  int64_t nchunks, int W, double factor) {
-  const int wi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (wi >= W) return;
-  double s = 0.0;
-  for (int64_t c = 0; c < nchunks; ++c) s += partials[c * W + wi];
-  out[wi] = factor * s;
-}
-
 }  // namespace
 
 // Number of k-chunks, i.e. rows of the partials scratch the caller allocates.
@@ -142,7 +133,6 @@ extern "C" int dos_trace_weighted_sum_launch(const void* H, const void* w, const
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dos_reduce_kernel<<<(W + 127) / 128, 128, 0, st>>>(static_cast<const double*>(partials),
-                                                     static_cast<double*>(out), nchunks, W, factor);
-  return static_cast<int>(cudaGetLastError());
+  return autobz::column_sum_launch(static_cast<const double*>(partials), static_cast<double*>(out), nchunks, W,
+                                   factor, st);
 }

@@ -27,6 +27,8 @@
 
 #include <cstdint>
 
+#include "column_sum.cuh"
+
 namespace autobz {
 
 constexpr int kTileThreads = 128;        // threads per block = terms per tile
@@ -94,16 +96,6 @@ energy_partials_kernel(Tile tile, int64_t nterms, const double* __restrict__ E, 
   }
 }
 
-// out[j] = scale * sum_g partials[g, j], in block order.
-__global__ void energy_reduce_kernel(const double* __restrict__ partials, double* __restrict__ out,
-                                     int nblocks, int W, double scale) {
-  const int wi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (wi >= W) return;
-  double s = 0.0;
-  for (int g = 0; g < nblocks; ++g) s += partials[static_cast<int64_t>(g) * W + wi];
-  out[wi] = scale * s;
-}
-
 // Both passes on one stream; partials: (tile_num_blocks(nterms, W), W)
 // scratch. Returns cudaGetLastError() after each.
 template <class Tile>
@@ -119,9 +111,7 @@ int energy_tiles_launch(const Tile& tile, int64_t nterms, const double* E, int W
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  energy_reduce_kernel<<<static_cast<unsigned>(tile_ceil_div(W, 128)), 128, 0, st>>>(
-      partials, out, nterms > 0 ? static_cast<int>(g) : 0, W, scale);
-  return static_cast<int>(cudaGetLastError());
+  return column_sum_launch(partials, out, nterms > 0 ? g : 0, W, scale, st);
 }
 
 }  // namespace

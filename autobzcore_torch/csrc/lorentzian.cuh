@@ -34,6 +34,8 @@
 
 #include <cstdint>
 
+#include "column_sum.cuh"
+
 namespace autobz {
 
 constexpr int kLorThreads = 256;       // threads per block = points per tile
@@ -107,17 +109,6 @@ lorentz_partials_kernel(Loader ld, int64_t npoints, const double* __restrict__ o
   }
 }
 
-// out[w] = (accumulate ? out[w] : 0) + factor * sum_g partials[g, w], in
-// block order.
-__global__ void lorentz_reduce_kernel(const double* __restrict__ partials, double* __restrict__ out,
-                                      int nblocks, int W, double factor, int accumulate) {
-  const int wi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (wi >= W) return;
-  double s = 0.0;
-  for (int g = 0; g < nblocks; ++g) s += partials[static_cast<int64_t>(g) * W + wi];
-  out[wi] = accumulate ? out[wi] + factor * s : factor * s;
-}
-
 // Both passes on one stream; returns cudaGetLastError() after each.
 template <int NB, class Loader>
 int lorentz_launch(const Loader& ld, int64_t npoints, const double* omega, int W, double eta,
@@ -134,9 +125,7 @@ int lorentz_launch(const Loader& ld, int64_t npoints, const double* omega, int W
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  lorentz_reduce_kernel<<<static_cast<unsigned>(lor_ceil_div(W, 128)), 128, 0, st>>>(
-      partials, out, npoints > 0 ? static_cast<int>(g) : 0, W, scale * eta, accumulate);
-  return static_cast<int>(cudaGetLastError());
+  return column_sum_launch(partials, out, npoints > 0 ? g : 0, W, scale * eta, st, accumulate);
 }
 
 }  // namespace

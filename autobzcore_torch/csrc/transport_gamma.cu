@@ -51,6 +51,8 @@
 
 #include <cstdint>
 
+#include "column_sum.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -203,17 +205,6 @@ transport_gamma_partial(const double* __restrict__ e, const double* __restrict__
   }
 }
 
-// out[b, c] = scale * sum over chunks of partials[(chunk, b, c)], in chunk
-// order.
-__global__ void transport_gamma_reduce(const double* __restrict__ partials, double* __restrict__ out,
-                                       int64_t nchunks, int64_t n, double scale) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  double s = 0.0;
-  for (int64_t ch = 0; ch < nchunks; ++ch) s += partials[ch * n + i];
-  out[i] = scale * s;
-}
-
 template <int M, int DD>
 void launch_partial(dim3 grid, cudaStream_t st, const double* e, const double* W, int64_t K, int m,
                     const double* y1, const double* g1, const double* y2, const double* g2, int B,
@@ -277,7 +268,6 @@ extern "C" int transport_gamma_launch(const void* e, const void* W, long long K,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  transport_gamma_reduce<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const double*>(partials), static_cast<double*>(out), nchunks, n, scale);
-  return static_cast<int>(cudaGetLastError());
+  return autobz::column_sum_launch(static_cast<const double*>(partials), static_cast<double*>(out), nchunks, n,
+                                   scale, st);
 }

@@ -146,3 +146,14 @@ def berry_pack_to_arrays(pack):
     npt)`` as numpy arrays and numbers, the JAX package's field order."""
     fields = tuple(t.detach().cpu().numpy() for t in (pack.e, pack.Om, pack.Mm, pack.vd))
     return fields + (int(pack.ndim), int(pack.npt))
+
+
+def sigma_from_arrays(omegas, values_re, values_im, device="cuda"):
+    """A :class:`~autobzcore_torch.models.selfenergy.SigmaInterpolant` from
+    the JAX package's ``SigmaInterpolant`` fields ``omegas``, ``values_re``
+    and ``values_im`` (numpy), with its values as float64 tensors on
+    ``device``."""
+    from .models.selfenergy import SigmaInterpolant
+
+    values = np.asarray(values_re, dtype=np.float64) + 1j * np.asarray(values_im, dtype=np.float64)
+    return SigmaInterpolant(np.asarray(omegas, dtype=np.float64), values, device=device)

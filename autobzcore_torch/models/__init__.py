@@ -1,6 +1,8 @@
-"""Model builders, observables, the transport family and the Berry family."""
+"""Model builders, observables, the transport family, the Berry family, the
+Lindhard family and the matrix self-energy family."""
 from .berry import (BerryCurvatureSolver, BerryPack, berry_flux_integrand, berry_pack, certified_berry,
                     lattice_chern, wilson_loop_spectrum, z2_invariant)
+from .lindhard import LindhardSolver, certified_chi0, cooper_bubble
 from .observables import (
     CertifiedSweep,
     SpectralPack,
@@ -18,6 +20,9 @@ from .observables import (
     transport_integrand,
     transport_sweep,
 )
+from .selfenergy import (SigmaCallable, SigmaDOSSolver, SigmaInterpolant, SigmaKineticCoefficientSolver,
+                         SigmaTransportSolver, certified_sigma_dos, dos_integrand_sigma, dos_trace_sigma,
+                         greens_trace_sigma, transport_distribution_sigma)
 from .tight_binding import (flagship_series, integer_lattice, synthetic_wannier, tb_graphene, tb_haldane,
                             tb_integer, tb_kane_mele, tb_kane_mele_sz, tb_weyl)
 from .transport import (
@@ -38,4 +43,8 @@ __all__ = [
     "greens_function_trace", "integer_lattice", "optical_conductivity", "reduced_grid",
     "spectral_velocity_pack", "synthetic_wannier", "tb_graphene", "tb_haldane", "tb_integer",
     "transport_distribution", "transport_integrand", "transport_sweep",
+    "LindhardSolver", "certified_chi0", "cooper_bubble",
+    "SigmaCallable", "SigmaDOSSolver", "SigmaInterpolant", "SigmaKineticCoefficientSolver", "SigmaTransportSolver",
+    "certified_sigma_dos", "dos_integrand_sigma", "dos_trace_sigma", "greens_trace_sigma",
+    "transport_distribution_sigma",
 ]

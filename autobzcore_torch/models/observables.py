@@ -66,6 +66,26 @@ def _trace_inv_small(M):
     return (tr * tr - tr2) / (2.0 * det)
 
 
+def _inv_small(M):
+    """M^{-1} of a general (..., m, m) complex matrix: 1/M for m = 1, the
+    adjugate over det for m = 2 and 3 (for m = 3 its rows are the cross
+    products of column pairs), ``torch.linalg.solve`` against the identity
+    above (reference ``observables.py:89``)."""
+    m = M.shape[-1]
+    if m == 1:
+        return 1.0 / M
+    if m > 3:
+        return torch.linalg.solve(M, torch.eye(m, dtype=M.dtype, device=M.device).expand(M.shape))
+    det = torch.linalg.det(M)[..., None, None]
+    if m == 2:
+        a, b, c, d = M[..., 0, 0], M[..., 0, 1], M[..., 1, 0], M[..., 1, 1]
+        adj = torch.stack([torch.stack([d, -b], -1), torch.stack([-c, a], -1)], -2)
+        return adj / det
+    c0, c1, c2 = M[..., :, 0], M[..., :, 1], M[..., :, 2]
+    adj = torch.stack([torch.linalg.cross(c1, c2), torch.linalg.cross(c2, c0), torch.linalg.cross(c0, c1)], -2)
+    return adj / det
+
+
 def greens_function_trace(hv, om, eta=None):
     """Tr (om + i eta - H(k))^{-1}: the adjugate trace for m <= 3, the
     eigenvalue sum ``sum_i 1/(z - e_i)`` for larger Hermitian H."""

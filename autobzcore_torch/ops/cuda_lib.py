@@ -123,6 +123,30 @@ def _bind(lib):
     lib.zone_average_num_chunks.restype = ll
     lib.zone_average_launch.argtypes = [vp, vp, vp, ll, i, i, i, i, dbl, dbl, vp, vp, vp]
     lib.zone_average_launch.restype = i
+    lib.chi0_num_blocks.argtypes = [ll, i]
+    lib.chi0_num_blocks.restype = ll
+    lib.chi0_max_bands.argtypes = []
+    lib.chi0_max_bands.restype = i
+    lib.chi0_launch.argtypes = [vp, vp, vp, i, i, ctypes.POINTER(i), i, vp, i, dbl, dbl, vp, vp, vp]
+    lib.chi0_launch.restype = i
+    lib.cooper_num_chunks.argtypes = [ll, i]
+    lib.cooper_num_chunks.restype = ll
+    lib.cooper_launch.argtypes = [vp, vp, i, i, ctypes.POINTER(i), i, dbl, dbl, vp, vp, vp]
+    lib.cooper_launch.restype = i
+    lib.sigma_max_bands.argtypes = []
+    lib.sigma_max_bands.restype = i
+    lib.sigma_trace_num_chunks.argtypes = [ll]
+    lib.sigma_trace_num_chunks.restype = ll
+    lib.sigma_trace_sum_launch.argtypes = [vp] * 5 + [ll, i, i, i, dbl, vp]
+    lib.sigma_trace_sum_launch.restype = i
+    lib.sigma_trace_points_launch.argtypes = [vp, vp, ll, vp, ll, i, vp]
+    lib.sigma_trace_points_launch.restype = i
+    lib.sigma_pairs_num_chunks.argtypes = [ll]
+    lib.sigma_pairs_num_chunks.restype = ll
+    lib.sigma_pairs_sum_launch.argtypes = [vp] * 5 + [i, vp, vp, ll, i, i, i, dbl, vp]
+    lib.sigma_pairs_sum_launch.restype = i
+    lib.sigma_pairs_points_launch.argtypes = [vp, vp, vp, ll, vp, ll, i, i, vp]
+    lib.sigma_pairs_points_launch.restype = i
     return lib
 
 

@@ -190,12 +190,47 @@ non-zero):
    IAI sweep over mu against the same solves on the CPU: 1e-10, equal
    counts), z2 (1, 1, 0), and the plain route (the Haldane pack at npt
    128 and a certified Chern ladder on both routes: 1e-12, the same
-   rungs); launches of K21-K24, and both phases within 60 s.
+   rungs); launches of K21-K24, and both phases within 60 s;
+29. kernels K25 (the Lindhard bubble), K26 (the Cooper bubble), K27 (the
+   self-energy DOS trace: trace and diagonal sums, pointwise) and K28 (the
+   self-energy transport distribution: sums at equal and unequal
+   frequencies, pointwise) against their plain versions at the main path's
+   shapes: K25 and K26 on the flagship's 64^3 grid (100 omegas; q = 0 and
+   (1/4, 0, 0) for K26), K27 on the 100^3 grid at 1000 omegas with the
+   tabulated Fermi-liquid Sigma and at the PTR(48) points, K28 on the 100^3
+   grid at 256 equal frequencies and 32 unequal pairs and at the PTR(24)
+   points; then both above three bands (Gauss-Jordan in place of the
+   closed forms) on a 4-band synthetic_wannier model on the 64^3 grid, K27
+   at 64 frequencies in both modes and K28 at 32 equal and 32 unequal
+   pairs; 1e-12 of the value scale, bit-identical repeats; kernel, plain
+   and bound times;
+30. the Lindhard and matrix self-energy main paths at the reference
+   record's sizes (BASELINE.md:369-392), the flagship on the full zone:
+   LindhardSolver(npt=64, beta 40, phase 26's mu, eta 0.01) and its map of
+   33 q = (j/64, 0, 0) by 100 omegas in [0, 4] eV (build wall and peak
+   memory, map wall, max Im chi0 over omega > 0 at 1e-12), cooper_bubble at
+   beta 40 and 80, certified_chi0 at q = (1/4, 0, 0) (rungs multiples of
+   4); SigmaDOSSolver(npt=100) at 1000 omegas in [-6, 7] eV with a
+   tabulated causal Fermi-liquid Sigma on 2001 frequencies, then
+   project=True (rows sum to the total, 1e-12), Sigma = -0.05i against the
+   PTR DOS (K2, 1e-10), the DOS integrand under PTR(48) and under IAI on
+   tb_integer(3) on the cubic wedge against the CPU (1e-10, equal counts);
+   SigmaTransportSolver(npt=100) at 256 omegas (wall, peak memory,
+   symmetry, positive diagonal), Sigma = -0.005i at npt 60 against
+   TransportSolver (1e-9), the transport integrand under PTR(24) against
+   the CPU (1e-10); SigmaKineticCoefficientSolver at npt 100, beta 40, 8 Omegas in [0, 2] eV, alpha 0 then 1 (GK trips, K28
+   launches), Sigma = -0.05i against KineticCoefficientSolver (1e-9, equal
+   numevals and retcodes); launches of K25-K28, and both phases within 60 s.
 
 With ``--profile``, the PTR, IAI, warm IAI, full-grid, LTM, block IAI,
-GGR, TAI, transport and topology main paths each run once more under ``torch.profiler`` (after their checks),
+GGR, TAI, transport and topology main paths, the Lindhard map and the
+self-energy DOS sweep each run once more under ``torch.profiler`` (after their checks),
 which prints their device busy time, its share of the wall and the device
-time of the leading kernels.
+time of the leading kernels, or "not captured" where the profiler recorded
+no device time (late in a long ``--profile`` run it has recorded none).
+``--phases-29-30`` runs phases 1-2 and 29-30 alone (phase 26's chemical
+potential is found again first), so that with ``--profile`` the last two
+profiles are the process's first.
 
 The second-to-last line is a JSON object with each kernel's numbers, the
 last line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -282,6 +317,76 @@ FERMI_TERM_FLOPS = 38
 # 192 (7,077,888 points, slab-streamed)
 BERRY_NPT = 1024
 WEYL_NPT = 192
+# phases 29-30, the sizes of the reference record's Lindhard and matrix
+# self-energy runs (BASELINE.md:369-392) on the flagship over the full zone:
+# a 33-q x 100-omega chi0 map on the 64^3 grid, 1000-omega SigmaDOSSolver
+# and 256-omega SigmaTransportSolver sweeps on the 100^3 grid, with a
+# tabulated Fermi-liquid Sigma on 2001 frequencies in [-8, 8] eV
+LH_NPT, LH_BETA, LH_ETA, LH_NQ, LH_OMEGAS, LH_OMEGA_MAX = 64, 40.0, 0.01, 33, 100, 4.0
+SE_NPT, SE_OMEGAS, SE_TR_OMEGAS, SE_SIGMA_POINTS = 100, 1000, 256, 2001
+# the kinetic step on the other legs' npt-100 grid, 8 Omegas
+SE_KIN_NPT, SE_KIN_OMEGAS = 100, 8
+# phase 29's step above three bands: a 4-band synthetic_wannier model on
+# the 64^3 grid, 64 frequencies for K27 and 32 pairs for K28
+M4_BANDS, M4_NPT, M4_OMEGAS, M4_PAIRS = 4, 64, 64, 32
+# FP64 operations (an FMA counts 2, a complex product 6, a complex sum 2, a
+# real division or reciprocal 8) of K25's term (csrc/lindhard_chi0.cu: x =
+# w + de, x^2 + eta^2, a / den, two sums) and of a point's overlaps (8 m^3)
+# with |O|^2, df and de (6 m^2)
+CHI0_TERM_FLOPS = 14
+# K26 per (k, n): two subtractions, the sum, the test, 1 - f1 - f2, the division, the sum
+COOPER_FLOPS = 16
+# What the self-energy functions need for a general 3x3 M = Z - H, counted
+# from their cheapest forms (the kernels do more):
+# - Im Tr M^-1 = Im(S / det), S the sum of the principal 2x2 minors: M 18,
+#   det by cofactors 64 (its first cofactor is one of the minors), the two
+#   other minors 28, S 4, the imaginary part of the quotient 15 (|det|^2 3,
+#   reciprocal 8, Im(S conj(det)) 3, product 1), the weighted sum 2: 131;
+# - Im [M^-1]_ii, i < 3: M 18, det 64, the two other minors 28, |det|^2 and
+#   its reciprocal 11, Im(C_ii conj(det)) / |det|^2 three times 12, the
+#   weighted sums 6: 139;
+# - the complex Tr M^-1 of the pointwise entry: M 18, det 64, minors 28, S
+#   4, the complex quotient 19 (reciprocal 13, product 6): 133;
+# - the Hermitian A' = i (G - G^H): M 18, det 64, the six adjugate entries
+#   det does not hold 84, the reciprocal of det 13, the six off-diagonal G
+#   entries 36 and the three Im G_jj 9, the three independent off-diagonal
+#   entries of A' 6: 230.
+GEN_TRACE_FLOPS, GEN_DIAG_FLOPS, GEN_POINT_FLOPS, SPECTRAL3_FLOPS = 131, 139, 133, 230
+
+
+def general_flops(m, what):
+    """FP64 operations per (frequency, point) above three bands, from an LU
+    factorization (m^3 / 3 complex multiply-adds, 8 operations each) of M =
+    Z - H (2 m^2): for "trace" and "diag" the inverse's diagonal (another
+    m^3 / 3 multiply-adds) and the weighted sums; for "spectral" the whole
+    inverse (2 m^3 / 3 more) and the m (m - 1) / 2 independent off-diagonal
+    entries of A'."""
+    lu = 2 * m * m + 8 * m**3 / 3
+    if what == "trace":
+        return lu + 8 * m**3 / 3 + m + 2
+    if what == "diag":
+        return lu + 8 * m**3 / 3 + 2 * m
+    return lu + 16 * m**3 / 3 + m * (m - 1)
+
+
+def product_flops(m):
+    """FP64 operations of v_c A for Hermitian v_c and A, whose diagonals are
+    real: m^2 entries of m products (m^3 - 2 m^2 + m complex by complex, 6
+    each; 2 (m^2 - m) complex by real, 2 each; m real by real, 1 each) and
+    m - 1 complex sums (2 each)."""
+    return 6 * (m**3 - 2 * m * m + m) + 4 * (m * m - m) + m + 2 * m * m * (m - 1)
+
+
+def pair_flops(m, d, same, spectral=SPECTRAL3_FLOPS):
+    """FP64 operations of K28's function per (pair, point): the spectral
+    functions and the products v_c A (one of each at equal frequencies, v_a
+    A1 and v_c A2 at unequal ones), then the traces Re Tr[(v_a A1)(v_c
+    A2)], m^2 real parts of products with their sums (4 each) and the
+    weighted sum (2) each: for the d (d + 1) / 2 pairs a <= c at equal
+    frequencies, where the trace is symmetric in (a, c), and for all d^2 at
+    unequal ones."""
+    n, pairs = (1, d * (d + 1) // 2) if same else (2, d * d)
+    return n * (spectral + d * product_flops(m)) + pairs * (4 * m * m + 2)
 
 
 def fail(msg):
@@ -308,7 +413,8 @@ def cuda_ms(fn, reps):
 def profile(label, fn):
     """Run ``fn()`` under torch.profiler and print the device busy time (the
     sum of kernel and copy times on the one stream), its share of the wall
-    and the leading kernels by device time."""
+    and the leading kernels by device time; "not captured" where the
+    profiler recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -327,10 +433,48 @@ def profile(label, fn):
             for e in (dev_rows or [e for e in avgs if not e.key.startswith("aten::")])
             if e.self_device_time_total > 0]
     busy = sum(r[2] for r in rows) / 1e6
+    if not dev_rows or busy <= 0.0:
+        print(f"profile {label}: wall {wall:.3f} s (profiled), device busy not captured (the profiler recorded "
+              f"{len(dev_rows)} device-side rows and no device time)", flush=True)
+        return
     top = sorted(rows, key=lambda r: -r[2])[:8]
     print(f"profile {label}: wall {wall:.3f} s (profiled), device busy {busy:.4f} s "
           f"({100 * busy / wall:.2f} %); top: " + "; ".join(
               f"{k[:48]} x{n} {t / 1e3:.3f} ms" for k, n, t in top), flush=True)
+
+
+def ptxas_report(log):
+    """From nvcc's ``-Xptxas -v`` report (one ``<source>:`` block per
+    source): per source its entry functions, their most registers and
+    their spill stores in bytes; and for K27 and K28 (sigma_*.cu) each entry
+    function's registers, stack frame and spill stores, named with its
+    template arguments."""
+    import re
+
+    per_source, sigma = [], []
+    for block in re.split(r"\n(?=\S+\.cu:\n)", log):
+        head, _, body = block.partition(":\n")
+        if not head.endswith(".cu"):
+            continue
+        entries = re.findall(r"Compiling entry function '(\S+)'.*?\n.*?\n\s*(\d+) bytes stack frame, (\d+) bytes "
+                             r"spill stores.*?\n.*?Used (\d+) registers", body)
+        if not entries:
+            continue
+        per_source.append(f"{head} {len(entries)}, {max(int(e[3]) for e in entries)}, "
+                          f"{sum(int(e[2]) for e in entries)} B")
+        if head.startswith("sigma_"):
+            for name, stack, spill, used in entries:
+                m = re.search(r"_cu_[0-9a-f]{8}(\d+)", name)
+                short = name
+                if m:
+                    n0 = m.end()
+                    short = name[n0:n0 + int(m.group(1))]
+                    rest = name[n0 + int(m.group(1)):]
+                    if rest.startswith("I"):
+                        args = re.findall(r"L[ib](\d+)E", rest[:rest.find("EE") + 2] if "EE" in rest else rest)
+                        short += "<" + ",".join(args) + ">"
+                sigma.append(f"{short} {used}, {stack} B, {spill} B")
+    return per_source, sigma
 
 
 def bound(flops, nbytes, peak=PEAK_FP64, mma_flops=0):
@@ -410,9 +554,24 @@ def main():
         cuda_lib.load_kernels()
     except (RuntimeError, OSError, subprocess.TimeoutExpired) as e:
         fail(f"kernel build: {e}")
-    regs = [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
+    (cuda_lib.LIBRARY.parent / "ptxas.log").write_text(log)
+    per_source, sigma = ptxas_report(log)
     print(f"build: {len(cuda_lib.SOURCES)} sources -> {cuda_lib.LIBRARY.name} in "
-          f"{seconds:.1f} s (sm_90a); ptxas: {' | '.join(regs)}", flush=True)
+          f"{seconds:.1f} s (sm_90a); ptxas per source (entries, most registers, spill stores; the whole report in "
+          f"build/autobzcore_torch/ptxas.log): {'; '.join(per_source)}", flush=True)
+    print(f"ptxas K27/K28 (registers, stack frame, spill stores): {'; '.join(sigma)}", flush=True)
+    if "--phases-29-30" in sys.argv[1:]:
+        # phases 29-30 alone, at phase 26's chemical potential, in a process of their own
+        from autobzcore_torch.models import observables as obs
+        from autobzcore_torch.models import transport as tr
+
+        h = flagship_series(device=dev)
+        bz = load_bz(FBZ(), np.eye(3))
+        mu = tr.ElectronCountSolver(h, bz, TR_NPT, pack=obs.spectral_velocity_pack(h, bz, TR_NPT)).find_mu(1.0, TR_BETA)
+        print(json.dumps({"kernels": lindhard_sigma_phases(np, torch, dev, h, mu)}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     # 3. kernels against their plain versions -------------------------------
     rng = np.random.default_rng(0)
@@ -574,8 +733,10 @@ def main():
     kernels += repair_phases(np, torch, dev)
     kernels += ggr_phases(np, torch, dev, h, ltm_dos)
     kernels += cubature_phases(np, torch, dev, h, cold)
-    kernels += transport_phases(np, torch, dev, h)
+    k_tr, mu_filling = transport_phases(np, torch, dev, h)
+    kernels += k_tr
     kernels += berry_phases(np, torch, dev)
+    kernels += lindhard_sigma_phases(np, torch, dev, h, mu_filling)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1327,6 +1488,20 @@ def once_ms(fn):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop)
+
+
+def timed_once(fn):
+    """(value, milliseconds) of one run of ``fn()`` by CUDA events, no
+    warm-up (for plain versions that take seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    value = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return value, start.elapsed_time(stop)
 
 
 def band_grid(np, rng, m, npt, d):
@@ -2418,7 +2593,8 @@ def cubature_phases(np, torch, dev, h, cold):
 def transport_phases(np, torch, dev, h):
     """Phases 25-26: K18-K20 against their plain versions at the main path's
     shapes, then the transport main path (``examples/transport_example.py``'s
-    flow) at full width. Returns the kernels' JSON entries."""
+    flow) at full width. Returns the kernels' JSON entries and the chemical
+    potential at filling 1."""
     from autobzcore_torch import FBZ, CubicSymIBZ, load_bz
     from autobzcore_torch.ops.eigh3 import EIGH_CHUNK
     from autobzcore_torch.models import observables as obs
@@ -2660,7 +2836,7 @@ def transport_phases(np, torch, dev, h):
                   t18["library_ms"]),
             entry("transport_gamma", "transport_gamma.cu", "autobzcore_tpu/models/observables.py:379",
                   t19["trip960"], t19["trip960"]["bound"], t19["trip960"]["library_ms"]),
-            entry("fermi_count", "fermi_count.cu", "autobzcore_tpu/models/transport.py:302", t20, b20, None)]
+            entry("fermi_count", "fermi_count.cu", "autobzcore_tpu/models/transport.py:302", t20, b20, None)], mu
 
 
 def berry_phases(np, torch, dev):
@@ -2988,6 +3164,383 @@ def berry_phases(np, torch, dev):
             entry("zone_average", "zone_average.cu", "autobzcore_tpu/models/berry.py:462", t24k, b24,
                   t24k["library_ms"])]
 
+
+def fermi_liquid_sigma(np, ws, m=3):
+    """The tabulated causal, orbital-resolved Fermi-liquid self-energy of
+    phase 30 at frequencies ws: Sigma(w) = R - i Gamma(w), R real symmetric
+    (diagonal 0.10, -0.05, 0 eV, off-diagonal 0.05 eV), Gamma real symmetric
+    positive definite (diagonal eta_i + a_i w^2 with eta = 0.05, 0.08, 0.11
+    eV and a = 0.02, 0.03, 0.04 / eV, off-diagonal 0.02 eV). (W, 3, 3); for
+    m = 4 (phase 29's step above three bands) a fourth orbital with R 0.05
+    eV, eta 0.14 eV and a 0.05 / eV."""
+    R = np.full((m, m), 0.05)
+    np.fill_diagonal(R, [0.10, -0.05, 0.0, 0.05][:m])
+    Gam = np.full((len(ws), m, m), 0.02)
+    idx = np.arange(m)
+    Gam[:, idx, idx] = np.array([0.05, 0.08, 0.11, 0.14][:m]) + np.array([0.02, 0.03, 0.04, 0.05][:m]) * ws[:, None] ** 2
+    return R - 1j * Gam
+
+
+def lindhard_sigma_phases(np, torch, dev, h, mu):
+    """Phases 29-30: K25-K28 against their plain versions at the main path's
+    shapes, then the Lindhard map and the matrix self-energy legs at the
+    reference record's sizes, with phase 26's chemical potential ``mu``.
+    Returns the kernels' JSON entries."""
+    from autobzcore_torch import (FBZ, IAI, PTR, CubicSymIBZ, FourierIntegrand, IntegralProblem, JacobianSeries,
+                                  load_bz, solve)
+    from autobzcore_torch.models import lindhard as li
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.models import selfenergy as se
+    from autobzcore_torch.models import transport as tr
+    from autobzcore_torch.models.tight_binding import flagship_series, synthetic_wannier, tb_integer
+
+    src = "autobzcore_torch/csrc/"
+    t_phases = time.perf_counter()
+    bz = load_bz(FBZ(), np.eye(3))
+    m, d = 3, 3
+    rng = np.random.default_rng(29)
+    ws = np.linspace(-8.0, 8.0, SE_SIGMA_POINTS)
+    vals = fermi_liquid_sigma(np, ws)
+    sigma = se.SigmaInterpolant(ws, vals, device=dev)
+
+    def check(tag, got, want, tol, scale=None):
+        """max|got - want| (fails above tol times the scale, max|want| by
+        default) and a repeat bit-identical to got."""
+        err = float((got - want).abs().max())
+        sc = float(want.abs().max()) if scale is None else scale
+        if not err <= tol * sc:
+            fail(f"{tag}: max|d| vs plain {err:.3e} > {tol:g} x {sc:.3e}")
+        return err, err / sc
+
+    # 29. K25-K28 against their plain versions -------------------------------------------
+    # K25 and K26 on the map's grid: the flagship at npt 64, beta 40, phase 26's mu
+    slv = li.LindhardSolver(h, bz, LH_NPT, LH_BETA, mu=mu, eta=LH_ETA)
+    e, f, U = slv._e, slv._f, slv._U
+    K = e.numel() // m
+    om_map = torch.linspace(0.0, LH_OMEGA_MAX, LH_OMEGAS, dtype=torch.float64, device=dev)
+    sc = slv._vol / LH_NPT**3
+    shift = (8, 0, 0)  # q = (1/8, 0, 0), one q of the map
+    k25 = li.chi0(e, f, U, shift, om_map, LH_ETA, sc)
+    p25 = li.chi0_plain(e, f, U, shift, om_map, LH_ETA, sc)
+    err25, rel25 = check("K25 chi0", k25, p25, 1e-12)
+    if not torch.equal(k25, li.chi0(e, f, U, shift, om_map, LH_ETA, sc)):
+        fail("K25 chi0: two runs on the same inputs differ")
+    t25 = {"err": err25, "ms": cuda_ms(lambda: li.chi0(e, f, U, shift, om_map, LH_ETA, sc), 20),
+           "plain_ms": cuda_ms(lambda: li.chi0_plain(e, f, U, shift, om_map, LH_ETA, sc), 2)}
+    b25 = bound(K * m * m * LH_OMEGAS * CHI0_TERM_FLOPS + K * (8 * m**3 + 6 * m * m),
+                nbytes(e, f, U, om_map) + 16 * LH_OMEGAS)
+    errs26 = []
+    for sh in ((0, 0, 0), (LH_NPT // 4, 0, 0)):
+        k26 = li.cooper_mean(e, f, sh, mu, LH_BETA)
+        errs26.append(check(f"K26 cooper_mean at shift {sh}", k26, li.cooper_mean_plain(e, f, sh, mu, LH_BETA), 1e-12)[0])
+        if not torch.equal(k26, li.cooper_mean(e, f, sh, mu, LH_BETA)):
+            fail("K26 cooper_mean: two runs on the same inputs differ")
+    t26 = {"err": max(errs26), "ms": cuda_ms(lambda: li.cooper_mean(e, f, (0, 0, 0), mu, LH_BETA), 20),
+           "plain_ms": cuda_ms(lambda: li.cooper_mean_plain(e, f, (0, 0, 0), mu, LH_BETA), 5)}
+    b26 = bound(K * m * COOPER_FLOPS, nbytes(e, f) + 8)
+    print(f"K25 chi0 on the flagship's npt={LH_NPT} grid ({K} points, m = {m}, {LH_OMEGAS} omegas, q = (1/8, 0, 0)): "
+          f"max|d| vs plain {err25:.3e} ({rel25:.3e} of max|chi0|, <= 1e-12), repeat bit-identical; {t25['ms']:.4f} ms "
+          f"(plain {t25['plain_ms']:.4f} ms, bound {b25[0]:.4f} ms by {b25[1]}); K26 cooper_mean at q = 0 and (1/4, 0, 0): "
+          f"max|d| {t26['err']:.3e} (<= 1e-12 relative), repeats bit-identical; {t26['ms']:.4f} ms (plain "
+          f"{t26['plain_ms']:.4f} ms, bound {b26[0]:.5f} ms by {b26[1]})", flush=True)
+    del slv, e, f, U, k25, p25
+
+    # K27 on the DOS leg's grid (npt 100, 1e6 points) at its 1000 frequencies, both modes
+    dslv = se.SigmaDOSSolver(h, bz, SE_NPT, sigma)
+    H, w, scd = dslv._H, dslv._w, dslv._scale
+    K = H.shape[0]
+    om_dos = torch.linspace(*WINDOW, SE_OMEGAS, dtype=torch.float64, device=dev)
+    Z = se._zmat(om_dos, sigma, m).contiguous()
+    t27 = {}
+    for diag in (False, True):
+        k27 = se.sigma_trace_sum(H, w, Z, scd, diag)
+        p27, pms = timed_once(lambda: se.sigma_trace_sum_plain(H, w, Z, scd, diag))
+        err, r = check(f"K27 sigma_trace_sum (diagonal {diag})", k27, p27, 1e-12)
+        if not torch.equal(k27, se.sigma_trace_sum(H, w, Z, scd, diag)):
+            fail(f"K27 sigma_trace_sum (diagonal {diag}): two runs on the same inputs differ")
+        t27[diag] = {"err": err, "rel": r, "ms": cuda_ms(lambda: se.sigma_trace_sum(H, w, Z, scd, diag), 5),
+                     "plain_ms": pms, "bound": bound(K * SE_OMEGAS * (GEN_DIAG_FLOPS if diag else GEN_TRACE_FLOPS),
+                                                     nbytes(H, w, Z, k27))}
+    del k27, p27
+    # the pointwise entry at the PTR(48) rule's points, one Z (the rule's) and one per point
+    Hp = obs.gathered_grid(h, 3, [np.arange(48) / 48] * 3, None).reshape(-1, m, m).contiguous()
+    Z1 = se._zmat(0.7, sigma, m, device=dev).contiguous()
+    Zn = se._zmat(torch.as_tensor(rng.uniform(*WINDOW, Hp.shape[0]), device=dev), sigma, m).contiguous()
+    errs = [check(f"K27 sigma_trace_points ({tag})", se.sigma_trace_points(Hp, Zs),
+                  se.sigma_trace_points_plain(Hp, Zs), 1e-12)[0] for tag, Zs in (("one Z", Z1), ("Z per point", Zn))]
+    if not torch.equal(se.sigma_trace_points(Hp, Zn), se.sigma_trace_points(Hp, Zn)):
+        fail("K27 sigma_trace_points: two runs on the same inputs differ")
+    t27p = {"err": max(errs), "ms": cuda_ms(lambda: se.sigma_trace_points(Hp, Z1), 20),
+            "plain_ms": cuda_ms(lambda: se.sigma_trace_points_plain(Hp, Z1), 5)}
+    b27p = bound(Hp.shape[0] * GEN_POINT_FLOPS, nbytes(Hp, Z1) + 16 * Hp.shape[0])
+    print(f"K27 sigma_trace_sum on the flagship's npt={SE_NPT} grid ({K} points, {SE_OMEGAS} omegas, the tabulated "
+          f"Fermi-liquid Sigma): " + "; ".join(
+              f"{'diagonal' if dg else 'trace'} mode max|d| vs plain {t['err']:.3e} ({t['rel']:.3e} of the value scale, "
+              f"<= 1e-12), repeat bit-identical, {t['ms']:.4f} ms (plain {t['plain_ms']:.1f} ms, bound "
+              f"{t['bound'][0]:.4f} ms by {t['bound'][1]})" for dg, t in t27.items())
+          + f"; pointwise at the PTR(48) points ({Hp.shape[0]}), one Z and one per point: max|d| {t27p['err']:.3e} "
+          f"(<= 1e-12 of the scale), {t27p['ms']:.4f} ms (plain {t27p['plain_ms']:.4f} ms, bound {b27p[0]:.5f} ms by "
+          f"{b27p[1]})", flush=True)
+    del dslv, H, w, Z, Zn
+    torch.cuda.empty_cache()
+
+    # K28 on the transport leg's grid (npt 100: H and V, 576 MB) at its 256 frequencies
+    tslv = se.SigmaTransportSolver(h, bz, SE_NPT, sigma)
+    H, V, w, sct = tslv._H, tslv._V, tslv._w, tslv._scale
+    om_tr = torch.linspace(*WINDOW, SE_TR_OMEGAS, dtype=torch.float64, device=dev)
+    Zt = se._zmat(om_tr, sigma, m).contiguous()
+    k28 = se.sigma_pairs_sum(H, V, w, Zt, Zt, sct)
+    p28, pms28 = timed_once(lambda: se.sigma_pairs_sum_plain(H, V, w, Zt, Zt, sct))
+    err28, rel28 = check("K28 sigma_pairs_sum (equal frequencies)", k28, p28, 1e-12)
+    if not torch.equal(k28, se.sigma_pairs_sum(H, V, w, Zt, Zt, sct)):
+        fail("K28 sigma_pairs_sum: two runs on the same inputs differ")
+    t28 = {"err": err28, "ms": cuda_ms(lambda: se.sigma_pairs_sum(H, V, w, Zt, Zt, sct), 3), "plain_ms": pms28}
+    b28 = bound(SE_TR_OMEGAS * K * pair_flops(m, d, True), nbytes(H, V, w, Zt, k28))
+    # unequal frequencies: 32 pairs (w, w + 0.5 eV), as a kinetic trip hands them over
+    Za, Zb = Zt[:32].contiguous(), se._zmat(om_tr[:32] + 0.5, sigma, m).contiguous()
+    ku = se.sigma_pairs_sum(H, V, w, Za, Zb, sct)
+    pu, pmsu = timed_once(lambda: se.sigma_pairs_sum_plain(H, V, w, Za, Zb, sct))
+    erru, relu = check("K28 sigma_pairs_sum (unequal frequencies)", ku, pu, 1e-12)
+    if not torch.equal(ku, se.sigma_pairs_sum(H, V, w, Za, Zb, sct)):
+        fail("K28 sigma_pairs_sum (unequal): two runs on the same inputs differ")
+    msu = cuda_ms(lambda: se.sigma_pairs_sum(H, V, w, Za, Zb, sct), 3)
+    bu = bound(32 * K * pair_flops(m, d, False), nbytes(H, V, w, Za, Zb, ku))
+    del tslv, H, V, w, Zt, k28, p28, ku, pu
+    torch.cuda.empty_cache()
+    # the pointwise entry at the PTR(24) rule's points of the Jacobian series
+    Hj, Vj = obs.gathered_grid(h, 3, [np.arange(24) / 24] * 3, None, jacobian=True)
+    Hj, Vj = Hj.contiguous(), Vj.contiguous()
+    k28p = se.sigma_pairs_points(Hj, Vj, Z1)
+    err28p = check("K28 sigma_pairs_points", k28p, se.sigma_pairs_points_plain(Hj, Vj, Z1), 1e-12)[0]
+    if not torch.equal(k28p, se.sigma_pairs_points(Hj, Vj, Z1)):
+        fail("K28 sigma_pairs_points: two runs on the same inputs differ")
+    t28p = {"err": err28p, "ms": cuda_ms(lambda: se.sigma_pairs_points(Hj, Vj, Z1), 20),
+            "plain_ms": cuda_ms(lambda: se.sigma_pairs_points_plain(Hj, Vj, Z1), 5)}
+    b28p = bound(Hj.shape[0] * pair_flops(m, d, True), nbytes(Hj, Vj, Z1, k28p))
+    print(f"K28 sigma_pairs_sum on the flagship's npt={SE_NPT} grid ({K} points, d = m = 3): {SE_TR_OMEGAS} equal "
+          f"frequencies max|d| vs plain {err28:.3e} ({rel28:.3e} relative, <= 1e-12), repeat bit-identical, "
+          f"{t28['ms']:.4f} ms (plain {t28['plain_ms']:.1f} ms, bound {b28[0]:.4f} ms by {b28[1]}); 32 unequal pairs "
+          f"{relu:.3e}, {msu:.4f} ms (plain {pmsu:.1f} ms, bound {bu[0]:.4f} ms by {bu[1]}); pointwise at the PTR(24) "
+          f"points ({Hj.shape[0]}) {err28p:.3e}, {t28p['ms']:.4f} ms (plain {t28p['plain_ms']:.4f} ms, bound "
+          f"{b28p[0]:.5f} ms by {b28p[1]})", flush=True)
+    del Hj, Vj, k28p, Hp
+    torch.cuda.empty_cache()
+
+    # K27 and K28 above three bands (the Gauss-Jordan inverse): a 4-band model on the 64^3 grid
+    m4 = M4_BANDS
+    h4 = synthetic_wannier(m4, nr=3, ndim=3, seed=1, device=dev)
+    s4 = se.SigmaInterpolant(ws, fermi_liquid_sigma(np, ws, m4), device=dev)
+    (H4, V4), w4, sc4, _ = se._grid(h4, bz, M4_NPT, jacobian=True)
+    K4 = H4.shape[0]
+    Z4 = se._zmat(torch.linspace(*WINDOW, M4_OMEGAS, dtype=torch.float64, device=dev), s4, m4).contiguous()
+    t4 = {}
+    for diag in (False, True):
+        k4 = se.sigma_trace_sum(H4, w4, Z4, sc4, diag)
+        p4, pms = timed_once(lambda: se.sigma_trace_sum_plain(H4, w4, Z4, sc4, diag))
+        err, r = check(f"K27 sigma_trace_sum at m = {m4} (diagonal {diag})", k4, p4, 1e-12)
+        if not torch.equal(k4, se.sigma_trace_sum(H4, w4, Z4, sc4, diag)):
+            fail(f"K27 at m = {m4} (diagonal {diag}): two runs on the same inputs differ")
+        t4[diag] = (r, cuda_ms(lambda: se.sigma_trace_sum(H4, w4, Z4, sc4, diag), 3), pms,
+                    bound(K4 * M4_OMEGAS * general_flops(m4, "diag" if diag else "trace"), nbytes(H4, w4, Z4, k4)))
+    Za4 = Z4[:M4_PAIRS].contiguous()
+    Zb4 = se._zmat(torch.linspace(*WINDOW, M4_PAIRS, dtype=torch.float64, device=dev) + 0.5, s4, m4).contiguous()
+    t4p = {}
+    for same, Zb in ((True, Za4), (False, Zb4)):
+        k4 = se.sigma_pairs_sum(H4, V4, w4, Za4, Zb, sc4)
+        p4, pms = timed_once(lambda: se.sigma_pairs_sum_plain(H4, V4, w4, Za4, Zb, sc4))
+        err, r = check(f"K28 sigma_pairs_sum at m = {m4} ({'equal' if same else 'unequal'} frequencies)", k4, p4,
+                       1e-12)
+        if not torch.equal(k4, se.sigma_pairs_sum(H4, V4, w4, Za4, Zb, sc4)):
+            fail(f"K28 at m = {m4}: two runs on the same inputs differ")
+        t4p[same] = (r, cuda_ms(lambda: se.sigma_pairs_sum(H4, V4, w4, Za4, Zb, sc4), 3), pms,
+                     bound(M4_PAIRS * K4 * pair_flops(m4, d, same, general_flops(m4, "spectral")),
+                           nbytes(H4, V4, w4, Za4, Zb, k4)))
+    print(f"K27 and K28 above three bands: synthetic_wannier({m4}), FBZ, npt={M4_NPT} ({K4} points), the Fermi-liquid "
+          f"Sigma on {m4} orbitals: " + "; ".join(
+              f"K27 {'diagonal' if dg else 'trace'} mode at {M4_OMEGAS} omegas {r:.3e} of the value scale (<= 1e-12), "
+              f"{ms:.4f} ms (plain {pms:.1f} ms, bound {b[0]:.4f} ms by {b[1]})" for dg, (r, ms, pms, b) in t4.items())
+          + "; " + "; ".join(
+              f"K28 {M4_PAIRS} {'equal' if sm else 'unequal'} pairs {r:.3e} relative (<= 1e-12), {ms:.4f} ms (plain "
+              f"{pms:.1f} ms, bound {b[0]:.4f} ms by {b[1]})" for sm, (r, ms, pms, b) in t4p.items())
+          + f"; repeats bit-identical; phase 29 {time.perf_counter() - t_phases:.3f} s", flush=True)
+    del h4, s4, H4, V4, w4, Z4, Za4, Zb4, k4, p4
+    torch.cuda.empty_cache()
+
+    # 30. the Lindhard map and the self-energy legs at full width -------------------------------
+    kernels = (li.chi0, li.cooper_mean, se.sigma_trace_sum, se.sigma_trace_points, se.sigma_pairs_sum,
+               se.sigma_pairs_points)
+    for k in kernels:
+        k.launches = 0
+    # the Lindhard map: 33 q = (j/64, 0, 0) by 100 omegas in [0, 4] eV
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    slv = li.LindhardSolver(h, bz, LH_NPT, LH_BETA, mu=mu, eta=LH_ETA)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peak_build = (torch.cuda.max_memory_allocated() - base) / 2**20
+    qs = [(j / LH_NPT, 0.0, 0.0) for j in range(LH_NQ)]
+    oms = np.linspace(0.0, LH_OMEGA_MAX, LH_OMEGAS)
+    chi_map = np.stack([slv(q, oms) for q in qs])  # each query ends in a host read
+    t2 = time.perf_counter()
+    cb40 = li.cooper_bubble(slv)
+    cb80 = li.cooper_bubble(li.LindhardSolver(h, bz, LH_NPT, 2 * LH_BETA, mu=mu, eta=LH_ETA))
+    t3 = time.perf_counter()
+    cert = li.certified_chi0(h, bz, [0.25, 0.0, 0.0], np.linspace(0.0, LH_OMEGA_MAX, 9), LH_BETA, mu=mu, eta=LH_ETA,
+                             abstol=1e-2, nmin=16, nmax=64)
+    t4 = time.perf_counter()
+    im_max = float(chi_map[:, oms > 0].imag.max())
+    print(f"Lindhard main path: flagship, FBZ, npt={LH_NPT} ({LH_NPT**3} points), beta {LH_BETA}, mu = {mu!r} eV, eta "
+          f"{LH_ETA}: build {t1 - t0:.4f} s (peak {peak_build:.1f} MiB); the {LH_NQ}-q x {LH_OMEGAS}-omega map "
+          f"{t2 - t1:.4f} s ({1e3 * (t2 - t1) / LH_NQ:.3f} ms per q); chi0(0.5 q_max, 1 eV) = "
+          f"{complex(chi_map[LH_NQ // 2, 25])!r}; max Im chi0 over omega > 0 {im_max:.3e} (<= 1e-12); cooper_bubble(q = "
+          f"0) beta 40 {cb40!r}, beta 80 {cb80!r} (both with the beta-80 build {t3 - t2:.4f} s); certified_chi0(q = "
+          f"(1/4, 0, 0), 9 omegas, abstol 1e-2, nmin 16, nmax 64): rungs {cert.npts}, resid {cert.resid:.3e}, retcode "
+          f"{cert.retcode}, {t4 - t3:.4f} s", flush=True)
+    if not (chi_map.shape == (LH_NQ, LH_OMEGAS) and np.all(np.isfinite(chi_map)) and im_max <= 1e-12):
+        fail(f"Lindhard map: shape {chi_map.shape}, finite {np.all(np.isfinite(chi_map))}, max Im {im_max:.3e}")
+    if not (math.isfinite(cb40) and math.isfinite(cb80) and all(n % 4 == 0 for n in cert.npts)
+            and np.all(np.isfinite(cert.u)) and cert.npts[-1] <= 64 + 4):
+        fail(f"Lindhard checks: cooper {cb40}, {cb80}, rungs {cert.npts}")
+
+    # the self-energy DOS: 1000 omegas in [-6, 7] eV, then the orbital projection
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    dos = se.SigmaDOSSolver(h, bz, SE_NPT, sigma)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    om_d = np.linspace(*WINDOW, SE_OMEGAS)
+    D = dos(om_d)
+    t2 = time.perf_counter()
+    P = se.SigmaDOSSolver(h, bz, SE_NPT, sigma, project=True)(om_d)
+    t3 = time.perf_counter()
+    peak_dos = (torch.cuda.max_memory_allocated() - base) / 2**20
+    row_err = float(np.max(np.abs(P.sum(axis=1) - D)) / np.max(np.abs(D)))
+    # Sigma = -0.05i I against the PTR DOS (K2) at the same grid and frequencies
+    Dc = se.SigmaDOSSolver(h, bz, SE_NPT, lambda om: -1j * ETA)(om_d)
+    Dk2 = solve(IntegralProblem(obs.dos_integrand(h, ETA), bz, torch.as_tensor(om_d, device=dev)),
+                PTR(npt=SE_NPT)).u.cpu().numpy()
+    const_err = float(np.max(np.abs(Dc - Dk2)) / np.max(np.abs(Dk2)))
+    # the pointwise entry under PTR(48) (the flagship) and IAI (tb_integer(3), cubic wedge) against the CPU
+    h_cpu = flagship_series(device="cpu")
+    sigma_cpu = se.SigmaInterpolant(ws, vals, device="cpu")
+    sp = [solve(IntegralProblem(se.dos_integrand_sigma(hh, s), bz, 0.7), PTR(npt=48, device=dv))
+          for hh, s, dv in ((h, sigma, dev), (h_cpu, sigma_cpu, "cpu"))]
+    vals1 = 0.1 - 1j * (0.1 + 0.02 * ws**2)  # a scalar Fermi-liquid Sigma for the one-band model
+    bzc = load_bz(CubicSymIBZ(), np.eye(3))
+    si = [solve(IntegralProblem(se.dos_integrand_sigma(tb_integer(3, device=dv), se.SigmaInterpolant(ws, vals1,
+                                                                                                       device=dv)),
+                                bzc, 0.7), IAI(inner_cap=64, device=dv), abstol=1e-3) for dv in (dev, "cpu")]
+    rel_pw = [abs(float(a.u) - float(b.u)) / abs(float(b.u)) for a, b in (sp, si)]
+    t4 = time.perf_counter()
+    print(f"self-energy DOS main path: flagship, FBZ, npt={SE_NPT} ({SE_NPT**3} points), the tabulated Fermi-liquid "
+          f"Sigma on {SE_SIGMA_POINTS} frequencies, {SE_OMEGAS} omegas in {list(WINDOW)} eV: build {t1 - t0:.4f} s, "
+          f"sweep {t2 - t1:.4f} s, projected (build and sweep) {t3 - t2:.4f} s, peak {peak_dos:.1f} MiB; D(0) = "
+          f"{float(np.interp(0.0, om_d, D))!r}; projected rows vs the total {row_err:.3e} (<= 1e-12); Sigma = -{ETA}i "
+          f"vs the PTR DOS (K2) {const_err:.3e} (<= 1e-10 of max|D|); the integrand under PTR(48) card vs CPU "
+          f"{rel_pw[0]:.3e}, numevals {sp[0].numevals} vs {sp[1].numevals}; IAI on tb_integer(3), CubicSymIBZ, abstol "
+          f"1e-3: {rel_pw[1]:.3e} (<= 1e-10), numevals {si[0].numevals} vs {si[1].numevals}, retcodes "
+          f"{si[0].retcode}, {si[1].retcode}; checks {t4 - t3:.4f} s", flush=True)
+    if not (D.shape == (SE_OMEGAS,) and P.shape == (SE_OMEGAS, 3) and np.all(np.isfinite(D)) and D.min() > 0
+            and row_err <= 1e-12 and const_err <= 1e-10):
+        fail("self-energy DOS checks: shape, finiteness, positivity, the projection or the constant Sigma")
+    if not (max(rel_pw) <= 1e-10 and sp[0].numevals == sp[1].numevals and si[0].numevals == si[1].numevals
+            and si[0].retcode and si[1].retcode):
+        fail("self-energy DOS checks: the pointwise integrand on the card disagrees with the CPU")
+
+    # the self-energy transport: 256 omegas in [-6, 7] eV
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tslv = se.SigmaTransportSolver(h, bz, SE_NPT, sigma)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    G = tslv(np.linspace(*WINDOW, SE_TR_OMEGAS))
+    t2 = time.perf_counter()
+    peak_tr = (torch.cuda.max_memory_allocated() - base) / 2**20
+    del tslv
+    torch.cuda.empty_cache()
+    gmax = float(np.max(np.abs(G)))
+    asym = float(np.max(np.abs(G - G.transpose(0, 2, 1)))) / gmax
+    dmin = float(np.min(G[:, range(3), range(3)])) / gmax
+    # constant Sigma = -i 5e-3 on phase 26's npt-60 grid against its TransportSolver (K19)
+    om_c = np.linspace(mu - 0.5, mu + 0.5, 64)
+    Gs = se.SigmaTransportSolver(h, bz, TR_NPT, lambda om: -1j * TR_ETA)(om_c)
+    Gt = obs.TransportSolver(h, bz, TR_NPT, TR_ETA)(om_c)
+    tr_err = float(np.max(np.abs(Gs - Gt)) / np.max(np.abs(Gt)))
+    # the pointwise entry under PTR(24) against the CPU
+    up = [solve(IntegralProblem(FourierIntegrand(se.transport_distribution_sigma, JacobianSeries(hh), Sigma=s,
+                                                 batched=True), bz, 0.7), PTR(npt=24, device=dv)).u.cpu().numpy()
+          for hh, s, dv in ((h, sigma, dev), (h_cpu, sigma_cpu, "cpu"))]
+    pw_err = float(np.max(np.abs(up[0] - up[1])) / np.max(np.abs(up[1])))
+    t3 = time.perf_counter()
+    print(f"self-energy transport main path: flagship, FBZ, npt={SE_NPT}, {SE_TR_OMEGAS} omegas in {list(WINDOW)} eV: "
+          f"build {t1 - t0:.4f} s, sweep {t2 - t1:.4f} s, peak {peak_tr:.1f} MiB; Gamma_xx(0) = "
+          f"{float(G[SE_TR_OMEGAS * 6 // 13, 0, 0])!r}; asymmetry {asym:.3e} (<= 1e-10), min diagonal {dmin:.3e} of max "
+          f"(>= -1e-12); Sigma = -{TR_ETA}i at npt {TR_NPT} vs TransportSolver at 64 omegas {tr_err:.3e} (<= 1e-9); "
+          f"transport_distribution_sigma under PTR(24) card vs CPU {pw_err:.3e} (<= 1e-10); checks {t3 - t2:.4f} s",
+          flush=True)
+    if not (G.shape == (SE_TR_OMEGAS, 3, 3) and np.all(np.isfinite(G)) and asym <= 1e-10 and dmin >= -1e-12
+            and tr_err <= 1e-9 and pw_err <= 1e-10):
+        fail("self-energy transport checks")
+
+    # the self-energy kinetic coefficients: beta 40, phase 26's mu, 8 Omegas in [0, 2] eV, alpha 0 then 1
+    Om_k = np.linspace(0.0, 2.0, SE_KIN_OMEGAS)
+    before_kin = se.sigma_pairs_sum.launches
+    t0 = time.perf_counter()
+    kin = [se.SigmaKineticCoefficientSolver(h, bz, SE_KIN_NPT, sigma, LH_BETA, alpha=a, mu=mu) for a in (0, 1)]
+    A = [k(Om_k, abstol=TR_ABSTOL) for k in kin]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trips = [k.stats.trips.get(1, 0) for k in kin]
+    kin_launches = se.sigma_pairs_sum.launches - before_kin
+    # constant Sigma = -0.05i against the KineticCoefficientSolver (K19) at the same settings
+    Om_c = Om_k[:4]
+    ks = se.SigmaKineticCoefficientSolver(h, bz, SE_KIN_NPT, lambda om: -1j * ETA, LH_BETA, mu=mu)
+    kr = tr.KineticCoefficientSolver(h, bz, SE_KIN_NPT, eta=ETA, beta=LH_BETA, mu=mu)
+    a_s, a_r = ks(Om_c, abstol=TR_ABSTOL), kr(Om_c, abstol=TR_ABSTOL)
+    kin_err = float(np.max(np.abs(a_s - a_r)) / np.max(np.abs(a_r)))
+    t2 = time.perf_counter()
+    launches = {k.__name__: k.launches for k in kernels}
+    wall = time.perf_counter() - t_phases
+    print(f"self-energy kinetic main path: flagship, FBZ, npt={SE_KIN_NPT} ({SE_KIN_NPT**3} points), beta {LH_BETA}, "
+          f"{SE_KIN_OMEGAS} Omegas in [0, 2] eV, abstol {TR_ABSTOL}: alpha 0 and 1 "
+          f"{t1 - t0:.4f} s, numevals {[k.numevals for k in kin]}, retcodes {[k.retcode for k in kin]}, GK trips {trips}, "
+          f"K28 launches {kin_launches}; sigma_xx(0) = {float(A[0][0, 0, 0])!r}, A1_xx(0) = {float(A[1][0, 0, 0])!r}; "
+          f"Sigma = -{ETA}i vs KineticCoefficientSolver at 4 Omegas {kin_err:.3e} (<= 1e-9), numevals {ks.numevals} vs "
+          f"{kr.numevals}, retcodes {ks.retcode} vs {kr.retcode}, {t2 - t1:.4f} s; launches {launches}; phases 29-30 "
+          f"{wall:.3f} s (<= 60)", flush=True)
+    if not (all(a.shape == (SE_KIN_OMEGAS, 3, 3) and np.all(np.isfinite(a)) for a in A)
+            and all(k.retcode is not None and k.numevals > 0 for k in kin)):
+        fail("self-energy kinetic output")
+    if not (kin_err <= 1e-9 and ks.numevals == kr.numevals and ks.retcode == kr.retcode):
+        fail("self-energy kinetic checks: the constant Sigma disagrees with KineticCoefficientSolver")
+    if min(launches.values()) <= 0:
+        fail(f"the Lindhard and self-energy main paths did not go through every kernel: {launches}")
+    if wall > 60.0:
+        fail(f"phases 29-30 took {wall:.1f} s (> 60)")
+    if "--profile" in sys.argv[1:]:
+        profile(f"Lindhard map ({LH_NQ} q x {LH_OMEGAS} omegas)", lambda: [slv(q, oms) for q in qs])
+        profile(f"self-energy DOS sweep ({SE_OMEGAS} omegas)", lambda: dos(om_d))
+    del slv, dos
+    torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, t, b):
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
+    return [entry("chi0", "lindhard_chi0.cu", "autobzcore_tpu/models/lindhard.py:78", t25, b25),
+            entry("cooper_mean", "lindhard_chi0.cu", "autobzcore_tpu/models/lindhard.py:134", t26, b26),
+            entry("sigma_trace_sum", "sigma_trace.cu", "autobzcore_tpu/models/selfenergy.py:214", t27[False],
+                  t27[False]["bound"]),
+            entry("sigma_trace_points", "sigma_trace.cu", "autobzcore_tpu/models/selfenergy.py:122", t27p, b27p),
+            entry("sigma_pairs_sum", "sigma_pairs.cu", "autobzcore_tpu/models/selfenergy.py:279", t28, b28),
+            entry("sigma_pairs_points", "sigma_pairs.cu", "autobzcore_tpu/models/selfenergy.py:138", t28p, b28p)]
 
 if __name__ == "__main__":
     main()

@@ -1583,3 +1583,287 @@ def test_eigh_small_chunks_on_card(cuda_device):
     assert float((e.cpu() - ec).abs().max()) <= 1e-12 * float(ec.abs().max())
     resid = H @ U - U * e[:, None, :]
     assert float(resid.abs().max()) <= 1e-12 * float(ec.abs().max())
+
+
+# --- the Lindhard and self-energy families (K25-K28) ----------------------------------------
+
+
+def _lindhard_inputs(rng, d, npt, m, device):
+    """A grid of sorted random energies e (npt,)*d + (m,), their occupations
+    at beta 4, mu 0.1, and eigenvectors U of random Hermitian matrices."""
+    K = npt**d
+    e = np.sort(rng.normal(size=(K, m)), axis=-1)
+    U = np.linalg.eigh(random_hermitian(rng, K, m))[1]
+    shape = (npt,) * d
+    e = torch.as_tensor(e.reshape(shape + (m,)), device=device)
+    f = torch.sigmoid(-4.0 * (e - 0.1)).contiguous()
+    return e, f, torch.as_tensor(U.reshape(shape + (m, m)), device=device).contiguous()
+
+
+def _sigma_z(rng, W, m, device):
+    """W matrices Z = w I - Sigma with a general (non-Hermitian) Sigma = R -
+    i Gamma, R Hermitian and Gamma Hermitian positive definite, so that Z -
+    H is invertible for every Hermitian H."""
+    R = random_hermitian(rng, W, m) * 0.3
+    g = rng.normal(size=(W, m, m)) + 1j * rng.normal(size=(W, m, m))
+    Gam = 0.05 * np.einsum("wij,wkj->wik", g, g.conj()) + 0.05 * np.eye(m)
+    w = rng.uniform(-3, 3, W)
+    return torch.as_tensor(w[:, None, None] * np.eye(m) - (R - 1j * Gam), device=device).contiguous()
+
+
+def _sigma_inputs(rng, K, m, d, W, device):
+    H = torch.as_tensor(random_hermitian(rng, K, m), device=device)
+    V = torch.as_tensor(np.stack([random_hermitian(rng, K, m) for _ in range(d)], axis=1), device=device)
+    w = torch.as_tensor(rng.random(K) + 0.5, device=device)
+    return H, V.contiguous(), w, _sigma_z(rng, W, m, device), _sigma_z(rng, W, m, device)
+
+
+def test_lindhard_wrappers_take_plain_versions_on_cpu_without_counting():
+    from autobzcore_torch.models import lindhard as li
+
+    e, f, U = _lindhard_inputs(np.random.default_rng(300), 2, 6, 2, "cpu")
+    om = torch.linspace(0.0, 2.0, 5, dtype=torch.float64)
+    counts = (li.chi0.launches, li.cooper_mean.launches)
+    assert torch.equal(li.chi0(e, f, U, (1, 4), om, 0.05, 0.1), li.chi0_plain(e, f, U, (1, 4), om, 0.05, 0.1))
+    assert torch.equal(li.cooper_mean(e, f, (2, 0), 0.1, 4.0), li.cooper_mean_plain(e, f, (2, 0), 0.1, 4.0))
+    assert (li.chi0.launches, li.cooper_mean.launches) == counts
+
+
+def test_lindhard_wrappers_reject_what_the_kernels_do_not_take():
+    from autobzcore_torch.models import lindhard as li
+
+    e, f, U = _lindhard_inputs(np.random.default_rng(301), 2, 4, 2, "cpu")
+    om = torch.zeros(3, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        li.chi0(e.float(), f, U, (0, 0), om, 0.1, 1.0)
+    with pytest.raises(ValueError):
+        li.chi0(e, f[:3], U, (0, 0), om, 0.1, 1.0)
+    with pytest.raises(ValueError):
+        li.chi0(e, f, U[..., :1], (0, 0), om, 0.1, 1.0)
+    with pytest.raises(ValueError):
+        li.chi0(e, f, U, (0, 0, 1), om, 0.1, 1.0)  # the shift's length
+    with pytest.raises(ValueError):
+        li.chi0(e, f, U, (0, 0), om.float(), 0.1, 1.0)
+    with pytest.raises(ValueError):
+        li.cooper_mean(e[:3], f[:3], (0, 0), 0.0, 1.0)  # not a square grid
+    with pytest.raises(ValueError):
+        li.cooper_mean(e, f.transpose(0, 1), (0, 0), 0.0, 1.0)  # not contiguous
+
+
+def test_sigma_wrappers_take_plain_versions_on_cpu_without_counting():
+    from autobzcore_torch.models import selfenergy as se
+
+    rng = np.random.default_rng(302)
+    H, V, w, Z1, Z2 = _sigma_inputs(rng, 40, 3, 2, 6, "cpu")
+    counts = (se.sigma_trace_sum.launches, se.sigma_trace_points.launches, se.sigma_pairs_sum.launches,
+              se.sigma_pairs_points.launches)
+    for diagonal in (False, True):
+        assert torch.equal(se.sigma_trace_sum(H, w, Z1, 0.5, diagonal), se.sigma_trace_sum_plain(H, w, Z1, 0.5, diagonal))
+    Zp = _sigma_z(rng, 40, 3, "cpu")
+    for Z in (Zp, Z1[0].contiguous()):
+        assert torch.equal(se.sigma_trace_points(H, Z), se.sigma_trace_points_plain(H, Z))
+        assert torch.equal(se.sigma_pairs_points(H, V, Z), se.sigma_pairs_points_plain(H, V, Z))
+    assert torch.equal(se.sigma_pairs_sum(H, V, w, Z1, Z1, 0.5), se.sigma_pairs_sum_plain(H, V, w, Z1, Z1, 0.5))
+    assert torch.equal(se.sigma_pairs_sum(H, V, w, Z1, Z2, 0.5), se.sigma_pairs_sum_plain(H, V, w, Z1, Z2, 0.5))
+    assert (se.sigma_trace_sum.launches, se.sigma_trace_points.launches, se.sigma_pairs_sum.launches,
+            se.sigma_pairs_points.launches) == counts
+
+
+def test_sigma_wrappers_reject_what_the_kernels_do_not_take():
+    from autobzcore_torch.models import selfenergy as se
+
+    H, V, w, Z1, Z2 = _sigma_inputs(np.random.default_rng(303), 12, 2, 2, 4, "cpu")
+    with pytest.raises(ValueError):
+        se.sigma_trace_sum(H.to(torch.complex64), w, Z1, 1.0)
+    with pytest.raises(ValueError):
+        se.sigma_trace_sum(H, w[:5], Z1, 1.0)
+    with pytest.raises(ValueError):
+        se.sigma_trace_sum(H, w, Z1[:, :1], 1.0)
+    with pytest.raises(ValueError):
+        se.sigma_trace_points(H, Z1)  # 4 matrices for 12 points
+    with pytest.raises(ValueError):
+        se.sigma_trace_points(H, Z1[0].T)  # not contiguous
+    with pytest.raises(ValueError):
+        se.sigma_pairs_sum(H, V[:, :, :1], w, Z1, Z2, 1.0)
+    with pytest.raises(ValueError):
+        se.sigma_pairs_sum(H, V, w, Z1, Z2[:3], 1.0)
+    with pytest.raises(ValueError):
+        se.sigma_pairs_points(H, V[:5], Z1[0].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,npt,m", [(1, 37, 1), (2, 12, 2), (3, 8, 3), (2, 9, 5)])
+def test_chi0_kernel_matches_plain_on_card(cuda_device, d, npt, m):
+    """K25 at a random grid shift, 130 frequencies (two lane blocks):
+    1e-12 of max|chi|, bit-identical repeats, and a frequency's value the
+    same bits whatever other frequencies are asked for."""
+    from autobzcore_torch.models import lindhard as li
+
+    rng = np.random.default_rng(310 + d + m)
+    e, f, U = _lindhard_inputs(rng, d, npt, m, cuda_device)
+    om = torch.linspace(-1.0, 3.0, 130, dtype=torch.float64, device=cuda_device)
+    shift = tuple(int(s) for s in rng.integers(0, npt, d))
+    before = li.chi0.launches
+    got = li.chi0(e, f, U, shift, om, 0.05, 0.01)
+    assert li.chi0.launches == before + 1
+    want = li.chi0_plain(e, f, U, shift, om, 0.05, 0.01)
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    assert torch.equal(got, li.chi0(e, f, U, shift, om, 0.05, 0.01))
+    assert torch.equal(got[:7], li.chi0(e, f, U, shift, om[:7].contiguous(), 0.05, 0.01))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,npt,m", [(1, 40, 2), (2, 16, 1), (3, 8, 3)])
+def test_cooper_kernel_matches_plain_on_card(cuda_device, d, npt, m):
+    """K26 at q = 0 and a random shift, and on tb_integer at mu = 0 where
+    the |den| < 1e-10 branch is taken: 1e-12 relative, bit-identical
+    repeats."""
+    from autobzcore_torch.models import lindhard as li
+
+    rng = np.random.default_rng(320 + d)
+    e, f, _ = _lindhard_inputs(rng, d, npt, m, cuda_device)
+    for shift in ((0,) * d, tuple(int(s) for s in rng.integers(0, npt, d))):
+        got = li.cooper_mean(e, f, shift, 0.1, 4.0)
+        want = li.cooper_mean_plain(e, f, shift, 0.1, 4.0)
+        assert abs(float(got) - float(want)) <= 1e-12 * abs(float(want))
+        assert torch.equal(got, li.cooper_mean(e, f, shift, 0.1, 4.0))
+    slv = li.LindhardSolver(ttb.tb_integer(d, device=cuda_device), T.load_bz(T.FBZ(), np.eye(d)), 8, 10.0)
+    before = li.cooper_mean.launches
+    got = li.cooper_bubble(slv)
+    assert li.cooper_mean.launches == before + 1
+    want = float(li.cooper_mean_plain(slv._e, slv._f, (0,) * d, 0.0, 10.0)) * slv._vol
+    assert abs(got - want) <= 1e-12 * abs(want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("diagonal", [False, True])
+def test_sigma_trace_kernel_matches_plain_on_card(cuda_device, m, diagonal):
+    """K27's sum in trace and diagonal mode over a ragged point count (a
+    partial chunk and tile) and 37 lanes, and its pointwise entry with one
+    Z per point and one for all: 1e-12 of the value scale, bit-identical
+    repeats. Above three bands the kernel's Gauss-Jordan inverse meets the
+    plain version's ``solve``."""
+    from autobzcore_torch.models import selfenergy as se
+
+    rng = np.random.default_rng(330 + m)
+    H, _, w, Z, _ = _sigma_inputs(rng, 10_007, m, 1, 37, cuda_device)
+    before = se.sigma_trace_sum.launches
+    got = se.sigma_trace_sum(H, w, Z, 0.3, diagonal)
+    assert se.sigma_trace_sum.launches == before + 1
+    want = se.sigma_trace_sum_plain(H, w, Z, 0.3, diagonal)
+    assert got.shape == want.shape == ((37, m) if diagonal else (37,))
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    assert torch.equal(got, se.sigma_trace_sum(H, w, Z, 0.3, diagonal))
+    for Zp in (_sigma_z(rng, 10_007, m, cuda_device), Z[3].contiguous()):
+        got = se.sigma_trace_points(H, Zp)
+        want = se.sigma_trace_points_plain(H, Zp)
+        assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+        assert torch.equal(got, se.sigma_trace_points(H, Zp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(1, 1), (2, 2), (3, 3), (3, 2), (2, 3), (4, 3), (5, 2), (8, 3)])
+def test_sigma_pairs_kernel_matches_plain_on_card(cuda_device, m, d):
+    """K28's sum at equal (Z2 is Z1) and unequal frequencies over a ragged
+    point count and 37 pairs, and its pointwise entry: 1e-12 relative,
+    bit-identical repeats."""
+    from autobzcore_torch.models import selfenergy as se
+
+    rng = np.random.default_rng(340 + 10 * m + d)
+    H, V, w, Z1, Z2 = _sigma_inputs(rng, 5_003, m, d, 37, cuda_device)
+    for Zb in (Z1, Z2):
+        before = se.sigma_pairs_sum.launches
+        got = se.sigma_pairs_sum(H, V, w, Z1, Zb, 0.3)
+        assert se.sigma_pairs_sum.launches == before + 1
+        want = se.sigma_pairs_sum_plain(H, V, w, Z1, Zb, 0.3)
+        assert got.shape == want.shape == (37, d, d)
+        assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+        assert torch.equal(got, se.sigma_pairs_sum(H, V, w, Z1, Zb, 0.3))
+    for Zp in (_sigma_z(rng, 5_003, m, cuda_device), Z1[0].contiguous()):
+        got = se.sigma_pairs_points(H, V, Zp)
+        want = se.sigma_pairs_points_plain(H, V, Zp)
+        assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+        assert torch.equal(got, se.sigma_pairs_points(H, V, Zp))
+
+
+@pytest.mark.gpu
+def test_sigma_engines_above_three_bands_on_card(cuda_device):
+    """A 4-band model through SigmaDOSSolver (trace and projected) and
+    SigmaTransportSolver on the card: every call launches K27 or K28 (no
+    plain route on the card) and matches the CPU's solve route within 1e-10
+    of the value scale; a 9-band input raises."""
+    from autobzcore_torch.models import selfenergy as se
+
+    w = np.linspace(-5, 5, 41)
+    vals = (0.1 * w[:, None, None] - 0.06j - 0.02j * w[:, None, None] ** 2) * np.eye(4) + 0.02 - 0.01j
+    bz = T.load_bz(T.FBZ(), np.eye(2))
+    om = np.linspace(-2.0, 2.0, 9)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        h = ttb.synthetic_wannier(4, nr=3, ndim=2, seed=1, device=dev)
+        S = se.SigmaInterpolant(w, vals, device=dev)
+        before = (se.sigma_trace_sum.launches, se.sigma_pairs_sum.launches)
+        out[str(dev)] = (se.SigmaDOSSolver(h, bz, 24, S)(om), se.SigmaDOSSolver(h, bz, 24, S, project=True)(om),
+                         se.SigmaTransportSolver(h, bz, 24, S)(om))
+        launched = (se.sigma_trace_sum.launches - before[0], se.sigma_pairs_sum.launches - before[1])
+        assert launched == ((0, 0) if str(dev) == "cpu" else (2, 1))
+    for got, want in zip(out[str(cuda_device)], out["cpu"]):
+        assert np.max(np.abs(got - want)) <= 1e-10 * np.max(np.abs(want))
+    H, V, wk, Z1, _ = _sigma_inputs(np.random.default_rng(350), 16, 9, 2, 3, cuda_device)
+    with pytest.raises(ValueError, match="m <= 8"):
+        se.sigma_trace_sum(H, wk, Z1, 1.0)
+    with pytest.raises(ValueError, match="m <= 8"):
+        se.sigma_pairs_sum(H, V, wk, Z1, Z1, 1.0)
+
+
+def _lindhard_sigma_runs(device):
+    """The families' entry points at small sizes on one device: Lindhard
+    and Cooper on the flagship (npt 8), the self-energy DOS (trace and
+    projected), transport and kinetic coefficients on graphene over its
+    inversion wedge, and the DOS integrand under PTR and IAI. Returns the
+    values, the evaluation counts and the kernels' launches."""
+    from autobzcore_torch.models import lindhard as li
+    from autobzcore_torch.models import selfenergy as se
+
+    kernels = (li.chi0, li.cooper_mean, se.sigma_trace_sum, se.sigma_trace_points, se.sigma_pairs_sum)
+    before = [k.launches for k in kernels]
+    slv = li.LindhardSolver(ttb.flagship_series(device=device), T.load_bz(T.FBZ(), np.eye(3)), 8, 40.0, mu=0.1)
+    vals = [slv([0.25, 0.125, -0.375], np.linspace(0.0, 3.0, 9)), [li.cooper_bubble(slv, [0.125, 0, 0])]]
+    w = np.linspace(-4, 4, 33)
+    S = se.SigmaInterpolant(w, (0.1 * w[:, None, None] - 0.08j - 0.02j * w[:, None, None] ** 2) * np.eye(2)
+                            + np.array([[0.0, 0.03 - 0.01j], [0.03 - 0.01j, 0.0]]), device=device)
+    h = ttb.tb_graphene(device=device)
+    bzi = T.load_bz(T.InversionSymIBZ(), np.eye(2))
+    om = np.linspace(-2.0, 2.0, 7)
+    vals += [se.SigmaDOSSolver(h, bzi, 16, S)(om), se.SigmaDOSSolver(h, bzi, 16, S, project=True)(om).ravel(),
+             se.SigmaTransportSolver(h, bzi, 16, S)(om).ravel()]
+    kc = se.SigmaKineticCoefficientSolver(h, bzi, 12, S, 20.0, mu=0.3)
+    vals.append(kc([0.0, 0.5], abstol=1e-6).ravel())
+    fi = se.dos_integrand_sigma(h, S)
+    bzf = T.load_bz(T.FBZ(), np.eye(2))
+    sp = T.solve(T.IntegralProblem(fi, bzf, 0.7), T.PTR(npt=24, device=device))
+    si = T.solve(T.IntegralProblem(fi, bzf, 0.7), T.IAI(inner_cap=64, device=device), abstol=1e-4)
+    vals += [[float(sp.u)], [float(si.u)]]
+    counts = (kc.numevals, kc.retcode, sp.numevals, si.numevals, si.retcode)
+    return vals, counts, [k.launches - b for k, b in zip(kernels, before)]
+
+
+def test_lindhard_and_sigma_entry_points_take_plain_versions_on_cpu():
+    _, counts, launched = _lindhard_sigma_runs("cpu")
+    assert launched == [0] * 5
+    assert counts[1] and counts[4]
+
+
+@pytest.mark.gpu
+def test_lindhard_and_sigma_entry_points_on_card_match_cpu(cuda_device):
+    """The families' entry points on the card (K25-K27 and K28's sum on
+    their main paths) against the same calls on the CPU: 1e-10 of each
+    result's scale, equal counts and retcodes, every kernel launched."""
+    v_c, n_c, _ = _lindhard_sigma_runs("cpu")
+    v_g, n_g, launched = _lindhard_sigma_runs(cuda_device)
+    assert min(launched) > 0
+    assert n_g == n_c
+    for a, b in zip(v_g, v_c):
+        a, b = np.asarray(a), np.asarray(b)
+        assert np.max(np.abs(a - b)) <= 1e-10 * max(1.0, float(np.max(np.abs(b))))
