@@ -3,8 +3,8 @@
 Same module layout and public names as the JAX package, for the parts ported
 so far: the four legs of the flagship DOS workload, PTR, IAI (cold, warm and
 in omega blocks, with fixed levels), TAI and ``HCubatureJL``,
-``QuadratureFunction``, ``EvalCounter``, ``AbsoluteEstimate`` and
-``PTR_IAI``, the full-grid ladder and the linear tetrahedron method
+``QuadratureFunction``, ``EvalCounter``, ``AbsoluteEstimate``,
+``PTR_IAI``, ``AutoPTR`` and ``AutoPTR_IAI``, the full-grid ladder and the linear tetrahedron method
 (Fourier series on a symmetry-reduced PTR grid, under nested adaptive
 Gauss-Kronrod or on full npt^3 grids, the broadened DOS trace,
 ``SweepSolver`` under ``hchebinterp``, ``DOSProblem``). Everything computes
@@ -38,8 +38,14 @@ contraction (K19, ``models.observables.transport_gamma``) and the Fermi count
 (``models.berry``: ``BerryCurvatureSolver``, ``lattice_chern``, Wilson loops)
 the band-pair terms (K21, ``band_pair_terms``), the plaquette flux (K22,
 ``plaquette_flux``), the Wilson loops (K23, ``wilson_loops``) and the
-weighted zone average (K24, ``zone_average``). This package never imports
-JAX.
+weighted zone average (K24, ``zone_average``), for the Lindhard and matrix
+self-energy families the bubbles (K25, K26) and the inverse sums (K27,
+K28, ``models.selfenergy``), whose K27 also sums the matrix spectral
+function under the PTR rule (``models.observables.spectral_weighted_sum``),
+and for the k-path (``models.kpath``) the spectral map (K29,
+``spectral_map``) and band expectations (K30, ``band_expect``), and the
+transport distribution at points (K31,
+``models.observables.transport_points``). This package never imports JAX.
 """
 from .algorithms.gk import AuxQuadGKJL, QuadGKJL
 from .algorithms.hcubature import HCubatureJL
@@ -49,6 +55,8 @@ from .algorithms.quadrature import QuadratureFunction
 from .brillouin import (
     FBZ,
     IAI,
+    AutoPTR,
+    AutoPTR_IAI,
     TAI,
     AbstractSymRep,
     CubicSymIBZ,
@@ -77,7 +85,7 @@ from .interfaces import (
     solve_,
 )
 from .limits import CubicLimits, TetrahedralLimits
-from .algorithms.ptr import MonkhorstPack
+from .algorithms.ptr import AutoSymPTRJL, MonkhorstPack
 from .parameters import MixedParameters, NullParameters, ParameterIntegrand
 from .wrappers import BatchIntegrand, InplaceIntegrand
 from .dos.interfaces import DOSProblem, DOSSolution
@@ -89,7 +97,7 @@ from .ops.quad_rules import gausslegendre, trapz
 __version__ = "0.1.0"
 
 __all__ = [
-    "AbsoluteEstimate", "AbstractSymRep", "AuxQuadGKJL", "Basis", "BatchIntegrand", "CubicLimits",
+    "AbsoluteEstimate", "AbstractSymRep", "AutoPTR", "AutoPTR_IAI", "AutoSymPTRJL", "AuxQuadGKJL", "Basis", "BatchIntegrand", "CubicLimits",
     "CubicSymIBZ", "DOSProblem", "DOSSolution", "ElectronCountSolver", "EvalCounter", "FBZ",
     "FourierIntegrand", "FourierSeries", "FourierValue", "GGR", "HCubatureJL", "HyperCube", "IAI",
     "InplaceIntegrand", "IntegralCache", "IntegralProblem", "IntegralSolution", "IntegralSolver",

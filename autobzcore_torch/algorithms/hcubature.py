@@ -77,7 +77,7 @@ class HCubatureJL(IntegralAlgorithm):
         a, b, lift = self._endpoints(dom)
         d = a.shape[0]
         from ..fourier import FourierIntegrand, FourierSeries
-        from .ptr import _uses_dos_kernel
+        from ..models.observables import dos_trace
 
         if d == 1:
             device = f.s.device if isinstance(f, FourierIntegrand) else as_device(self.device)
@@ -87,7 +87,7 @@ class HCubatureJL(IntegralAlgorithm):
         if isinstance(f, FourierIntegrand):
             device = f.s.device
             vs = f.s.valshape if isinstance(f.s, FourierSeries) else ()
-            fused = (_uses_dos_kernel(f) and isinstance(f.s, FourierSeries) and len(vs) == 2
+            fused = (f.pf.f is dos_trace and isinstance(f.s, FourierSeries) and len(vs) == 2
                      and vs[0] == vs[1] and vs[0] <= 3)
         else:
             device = as_device(self.device)

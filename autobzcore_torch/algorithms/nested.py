@@ -307,7 +307,7 @@ class NestedQuad(IntegralAlgorithm):
                     f"{type(a).__name__} levels are not ported yet: NestedQuad takes QuadGKJL and "
                     "QuadratureFunction levels (pole levels, ROADMAP A7)")
         from ..fourier import FourierIntegrand
-        from .ptr import _uses_dos_kernel
+        from ..models.observables import dos_trace
 
         kernels = nest_kernels(self.plain_kernels)
         if isinstance(f, FourierIntegrand):
@@ -315,7 +315,7 @@ class NestedQuad(IntegralAlgorithm):
             carrier.contract = kernels.contract
             device = f.s.device
             vs = carrier.valshape
-            fused = (_uses_dos_kernel(f) and len(vs) == 2 and vs[0] == vs[1] and vs[0] <= 3)
+            fused = (f.pf.f is dos_trace and len(vs) == 2 and vs[0] == vs[1] and vs[0] <= 3)
         else:
             carrier = PlainCarrier(f)
             device = self.device

@@ -10,9 +10,10 @@ The BZ algorithms
    representation is unknown and its result is not a scalar.
 
 The PTR rule, the IAI (cold solves and warm sweeps), TAI (Genz-Malik
-cubature over the zone's cubic hull) and ``PTR_IAI`` are ported;
-``AutoPTR`` and ``AutoPTR_IAI`` come with the AutoPTR slice (ROADMAP A4),
-and ``IBZ`` with the geometry slice (ROADMAP A8).
+cubature over the zone's cubic hull), ``PTR_IAI``, and ``AutoPTR`` and
+``AutoPTR_IAI`` (the p-adaptive rule, each rung symmetrized to the full
+zone before its convergence test) are ported; ``IBZ`` comes with the
+geometry slice (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from .algorithms.gk import AuxQuadGKJL
 from .algorithms.hcubature import HCubatureJL
 from .algorithms.meta import AbsoluteEstimate
 from .algorithms.nested import NestedQuad
-from .algorithms.ptr import MonkhorstPack
+from .algorithms.ptr import AutoSymPTRJL, MonkhorstPack
 from .domains import Basis, HyperCube
 from .interfaces import IntegralSolution
 from ._device import as_device
@@ -335,7 +336,11 @@ class AutoBZAlgorithm(IntegralAlgorithm):
         dom = cacheval["dom"]
         alg = cacheval["alg"]
         j = abs(np.linalg.det(bz_.B))
-        atol = None if abstol is None else abstol / (j * bz_.nsyms)
+        # with in-loop symmetrization the convergence test sees full-zone
+        # values, so only the jacobian rescales the tolerance
+        symmetrized = getattr(alg, "symmetrized_output", False)
+        ns = 1 if symmetrized else bz_.nsyms
+        atol = None if abstol is None else abstol / (j * ns)
         sol = alg.do_solve(f, dom, p, cacheval["inner"], abstol=atol, reltol=reltol, maxiters=maxiters)
 
         if not bz_.is_full and isinstance(sym_rep(f), UnknownRep) and not _is_trivial_result(sol.u):
@@ -351,10 +356,13 @@ class AutoBZAlgorithm(IntegralAlgorithm):
             fbz, fcache = cacheval["full"]
             return self.do_solve(f, fbz, p, fcache, abstol=abstol, reltol=reltol, maxiters=maxiters)
 
-        val = tree_map(lambda v: j * v, symmetrize(f, bz_, sol.u))
+        # the in-loop symmetrization already mapped value and residual to the
+        # full zone: only the jacobian remains
+        sym = (lambda x: x) if symmetrized else (lambda x: symmetrize(f, bz_, x))
+        val = tree_map(lambda v: j * v, sym(sol.u))
         resid = sol.resid
         if resid is not None:
-            resid = tree_map(lambda v: j * v, symmetrize(f, bz_, resid))
+            resid = tree_map(lambda v: j * v, sym(resid))
         return IntegralSolution(val, resid, sol.retcode, sol.numevals)
 
 
@@ -369,6 +377,33 @@ class PTR(AutoBZAlgorithm):
 
     def bz_to_standard(self, bz):
         return bz, Basis(np.eye(bz.ndim)), MonkhorstPack(npt=self.npt, syms=bz.syms, device=self.device)
+
+
+class AutoPTR(AutoBZAlgorithm):
+    """p-adaptive PTR, most efficient for smooth integrands (reference
+    ``AutoPTR``): :class:`~autobzcore_torch.algorithms.ptr.AutoSymPTRJL` on
+    the zone's symmetry representatives, each rung's value symmetrized to
+    the full zone before the convergence test. The rule lives on the
+    series' device for a FourierIntegrand, on ``device`` (the card by
+    default) otherwise. It has no sweep form of its own: sweep it with
+    ``parallel.sweep.sweep_solve``, whose batched ladder drops converged
+    lanes from later rungs."""
+
+    def __init__(self, norm=tree_norm, a=1.0, nmin=50, nmax=1000, n0=6.0, dn=np.log(10.0), keepmost=2,
+                 device="cuda"):
+        self.norm = norm
+        self.a = a
+        self.nmin = nmin
+        self.nmax = nmax
+        self.n0 = n0
+        self.dn = dn
+        self.keepmost = keepmost
+        self.device = as_device(device)
+
+    def bz_to_standard(self, bz):
+        alg = AutoSymPTRJL(norm=self.norm, a=self.a, nmin=self.nmin, nmax=self.nmax, n0=self.n0, dn=self.dn,
+                           keepmost=self.keepmost, syms=bz.syms, bz=bz, device=self.device)
+        return bz, Basis(np.eye(bz.ndim)), alg
 
 
 class IAI(AutoBZAlgorithm):
@@ -448,3 +483,9 @@ def PTR_IAI(ptr=None, iai=None, **kwargs):
     """IAI with abstol from a PTR estimate (reference ``PTR_IAI``); the
     default PTR and IAI run on the card."""
     return AbsoluteEstimate(ptr or PTR(), iai or IAI(), **kwargs)
+
+
+def AutoPTR_IAI(reltol=1.0, ptr=None, iai=None, **kwargs):
+    """IAI with abstol from an AutoPTR estimate (reference ``AutoPTR_IAI``);
+    the default AutoPTR and IAI run on the card."""
+    return AbsoluteEstimate(ptr or AutoPTR(), iai or IAI(), reltol=reltol, **kwargs)

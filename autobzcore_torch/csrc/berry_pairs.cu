@@ -44,6 +44,8 @@
 
 #include <cstdint>
 
+#include "small_eigen.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -55,36 +57,6 @@ enum Mode { kCurvature = 0, kMetric = 1, kOperator = 2 };
 
 __device__ __forceinline__ double2 cmul(double2 a, double2 b) {
   return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// The reference's eigh2 (ops/eigh3.py:27-58) of one Hermitian 2x2 h (row
-// major): ascending e, U[i * 2 + n] with column n the eigenvector of band n.
-__device__ void eigh2(const double2* __restrict__ h, double* e, double2* U) {
-  const double a = h[0].x, c = h[3].x;
-  const double2 b = h[1];
-  const double dd = (a - c) / 2;
-  const double r = sqrt(dd * dd + (b.x * b.x + b.y * b.y));
-  const double mean = (a + c) / 2;
-  e[0] = mean - r;
-  e[1] = mean + r;
-  double2 v0, v1;
-  if (dd >= 0) {
-    v0 = make_double2(dd + r, 0.0);
-    v1 = make_double2(b.x, -b.y);
-  } else {
-    v0 = b;
-    v1 = make_double2(r - dd, 0.0);
-  }
-  const double nrm = sqrt((v0.x * v0.x + v0.y * v0.y) + (v1.x * v1.x + v1.y * v1.y));
-  double2 up0 = make_double2(0.0, 0.0), up1 = make_double2(1.0, 0.0);  // r = 0: the identity
-  if (nrm > 0) {
-    up0 = make_double2(v0.x / nrm, v0.y / nrm);
-    up1 = make_double2(v1.x / nrm, v1.y / nrm);
-  }
-  U[0] = make_double2(-up1.x, up1.y);  // lower band: (-conj(up1), conj(up0))
-  U[1] = up0;
-  U[2] = make_double2(up0.x, -up0.y);
-  U[3] = up1;
 }
 
 // (U^H A U)[n, q] for an m x m matrix A (row stride m) and U in shared memory.
@@ -148,7 +120,7 @@ berry_pairs_kernel(const double2* __restrict__ H, const double2* __restrict__ dH
   double* se = reinterpret_cast<double*>(sO + (op ? mm : 0));  // (kpb, m)
 
   if (U_in == nullptr) {
-    for (int kk = threadIdx.x; kk < nk; kk += blockDim.x) eigh2(H + (k0 + kk) * 4, se + kk * 2, su + kk * 4);
+    for (int kk = threadIdx.x; kk < nk; kk += blockDim.x) autobz::eigh2(H + (k0 + kk) * 4, se + kk * 2, su + kk * 4);
   } else {
     for (int i = threadIdx.x; i < nk * mm; i += blockDim.x) su[i] = U_in[k0 * mm + i];
     for (int i = threadIdx.x; i < nk * m; i += blockDim.x) se[i] = e_in[k0 * m + i];

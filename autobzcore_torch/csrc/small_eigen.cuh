@@ -1,5 +1,6 @@
 // Closed-form eigenvalues of Hermitian 1x1, 2x2 and 3x3 matrices in FP64,
-// shared by K7 (fullgrid_tail.cu) and K9 (eigh_small.cu).
+// shared by K7 (fullgrid_tail.cu) and K9 (eigh_small.cu), and the 2x2
+// eigendecomposition shared by K21 (berry_pairs.cu) and K30 (band_expect.cu).
 //
 // The forms are the reference's (autobzcore_tpu/ops/eigh3.py): mean +- the
 // half-gap radius for m = 2 (:17 eigvalsh2), and for m = 3 the
@@ -62,6 +63,38 @@ __device__ __forceinline__ void swap_if_greater(double& x, double& y) {
     x = y;
     y = t;
   }
+}
+
+// The reference's eigh2 (ops/eigh3.py:27-58) of one Hermitian 2x2 h (row
+// major): ascending e, U[i * 2 + n] with column n the eigenvector of band n.
+// Branch-stable: the upper band's vector is [d + r, conj(b)] for d >= 0 and
+// [b, r - d] otherwise, the identity at exact degeneracy.
+__device__ inline void eigh2(const double2* __restrict__ h, double* e, double2* U) {
+  const double a = h[0].x, c = h[3].x;
+  const double2 b = h[1];
+  const double dd = (a - c) / 2;
+  const double r = sqrt(dd * dd + (b.x * b.x + b.y * b.y));
+  const double mean = (a + c) / 2;
+  e[0] = mean - r;
+  e[1] = mean + r;
+  double2 v0, v1;
+  if (dd >= 0) {
+    v0 = make_double2(dd + r, 0.0);
+    v1 = make_double2(b.x, -b.y);
+  } else {
+    v0 = b;
+    v1 = make_double2(r - dd, 0.0);
+  }
+  const double nrm = sqrt((v0.x * v0.x + v0.y * v0.y) + (v1.x * v1.x + v1.y * v1.y));
+  double2 up0 = make_double2(0.0, 0.0), up1 = make_double2(1.0, 0.0);  // r = 0: the identity
+  if (nrm > 0) {
+    up0 = make_double2(v0.x / nrm, v0.y / nrm);
+    up1 = make_double2(v1.x / nrm, v1.y / nrm);
+  }
+  U[0] = make_double2(-up1.x, up1.y);  // lower band: (-conj(up1), conj(up0))
+  U[1] = up0;
+  U[2] = make_double2(up0.x, -up0.y);
+  U[3] = up1;
 }
 
 }  // namespace autobz

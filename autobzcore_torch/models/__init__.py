@@ -1,7 +1,8 @@
 """Model builders, observables, the transport family, the Berry family, the
-Lindhard family and the matrix self-energy family."""
+Lindhard family, the matrix self-energy family and the k-path."""
 from .berry import (BerryCurvatureSolver, BerryPack, berry_flux_integrand, berry_pack, certified_berry,
                     lattice_chern, wilson_loop_spectrum, z2_invariant)
+from .kpath import KPath, band_structure, expectation_path, kpath, spectral_path
 from .lindhard import LindhardSolver, certified_chi0, cooper_bubble
 from .observables import (
     CertifiedSweep,
@@ -15,6 +16,7 @@ from .observables import (
     gathered_grid,
     greens_function_trace,
     reduced_grid,
+    spectral_function,
     spectral_velocity_pack,
     transport_distribution,
     transport_integrand,
@@ -47,4 +49,5 @@ __all__ = [
     "SigmaCallable", "SigmaDOSSolver", "SigmaInterpolant", "SigmaKineticCoefficientSolver", "SigmaTransportSolver",
     "certified_sigma_dos", "dos_integrand_sigma", "dos_trace_sigma", "greens_trace_sigma",
     "transport_distribution_sigma",
+    "KPath", "band_structure", "expectation_path", "kpath", "spectral_path", "spectral_function",
 ]

@@ -38,6 +38,7 @@ certified ladder (host code) and the per-point PTR integrand
 """
 from __future__ import annotations
 
+import inspect
 import math
 from typing import NamedTuple
 
@@ -45,8 +46,9 @@ import numpy as np
 import torch
 
 from .._device import COMPLEX, REAL, check_tensor
-from ..brillouin import TrivialRep
-from ..fourier import FourierIntegrand, FourierSeries, FourierValue
+from ..algorithms.ptr import register_kernel_sum
+from ..brillouin import LatticeRep, TrivialRep
+from ..fourier import FourierIntegrand, FourierSeries, FourierValue, JacobianSeries
 from ..ops.adaptive import gk_nodes, gk_rule_reduce_plain
 from ..ops.cuda_lib import check_launch, load_kernels
 from ..ops.fourier_eval import (fourier_contract_plain, fourier_points, fourier_points_derivs,
@@ -112,6 +114,162 @@ def dos_eig(hv, om, eta=None):
     ``sum eta / ((om - e)^2 + eta^2) / pi``."""
     e = torch.linalg.eigvalsh(hv.s)
     return torch.sum(eta / ((om - e) ** 2 + eta**2)) / math.pi
+
+
+def _under_vmap(*ts):
+    """True when a tensor is a functorch-batched view (inside ``vmap``),
+    which no kernel can read."""
+    return any(torch._C._functorch.is_batchedtensor(t) for t in ts)
+
+
+def flat_pairs(H, Z):
+    """H and Z broadcast over their batch axes: (H (N, m, m), Z (N, m, m) or
+    one (m, m) for all, batch shape)."""
+    m = H.shape[-1]
+    batch = torch.broadcast_shapes(tuple(H.shape[:-2]), tuple(Z.shape[:-2]))
+    Hf = H.expand(batch + (m, m)).reshape(-1, m, m).contiguous()
+    Zf = Z.contiguous() if Z.ndim == 2 else Z.expand(batch + (m, m)).reshape(-1, m, m).contiguous()
+    return Hf, Zf, batch
+
+
+def spectral_of(G):
+    """The matrix spectral function ``-(G - G^H) / (2 pi i)`` of Green's
+    functions G (..., m, m)."""
+    return (G - G.conj().transpose(-1, -2)) / (-2j * math.pi)
+
+
+def spectral_function(hv, om, eta=None):
+    """Full matrix spectral function ``A(k, om) = -(G - G^H) / (2 pi i)``,
+    ``G = ((om + i eta) I - H)^{-1}`` by :func:`_inv_small` (reference
+    ``observables.py:160``). ``om`` and ``eta`` may carry leading axes
+    (lanes, or one per point of a batch), which broadcast against H's. On a
+    batch of points it runs :func:`spectral_points` (K27's matrix mode on
+    the card). Inside ``vmap`` no kernel can launch: CPU tensors take the
+    plain arithmetic there, and card tensors raise, so that an adaptive
+    solve on the card builds ``FourierIntegrand(spectral_function, h,
+    eta=..., batched=True)``. A PTR rule sums it through K27's matrix mode
+    without calling it."""
+    h = hv.s
+    m = h.shape[-1]
+    z = torch.as_tensor(om, dtype=REAL, device=h.device) + 1j * torch.as_tensor(eta, dtype=REAL, device=h.device)
+    Z = z[..., None, None] * torch.eye(m, dtype=COMPLEX, device=h.device)
+    if _under_vmap(h, Z):
+        if h.device.type != "cpu":
+            raise ValueError("spectral_function cannot launch K27 under vmap: on the card, solve "
+                             "FourierIntegrand(spectral_function, h, eta=..., batched=True)")
+        return spectral_points_plain(h, Z)
+    Hf, Zf, batch = flat_pairs(h, Z)
+    return spectral_points(Hf, Zf).reshape(tuple(batch) + (m, m))
+
+
+def _check_pairs(H, Z):
+    check_tensor(H, "H", dtype=COMPLEX, ndim=3)
+    N, m = H.shape[0], H.shape[-1]
+    check_tensor(H, "H", shape=(N, m, m))
+    if not isinstance(Z, torch.Tensor) or Z.dtype != COMPLEX or Z.device != H.device or not Z.is_contiguous() \
+            or tuple(Z.shape) not in ((m, m), (N, m, m)):
+        raise ValueError(f"Z must be a contiguous complex128 (m, m) or (N, m, m) tensor on H's device, m = {m}, "
+                         f"N = {N}")
+    return N, m
+
+
+def spectral_points_plain(H, Z):
+    """Plain PyTorch version of K27's matrix pointwise entry: ``A(Z_n -
+    H_n)`` (N, m, m), the reference's operations (``_inv_small``, then
+    ``-(G - G^H) / (2 pi i)``)."""
+    return spectral_of(_inv_small(Z - H))
+
+
+def spectral_points(H, Z):
+    """``A[n] = -(G - G^H) / (2 pi i)``, ``G = (Z_n - H_n)^{-1}``, for H (N,
+    m, m) and Z (N, m, m), or one (m, m) for all, complex128. Returns (N, m,
+    m) complex128.
+
+    CPU tensors take the plain version; CUDA tensors launch K27's matrix
+    pointwise entry (``csrc/sigma_trace.cu``), which takes m <= 8, and
+    anything the kernel does not take raises."""
+    N, m = _check_pairs(H, Z)
+    if H.device.type == "cpu":
+        return spectral_points_plain(H, Z)
+    if H.device.type != "cuda":
+        raise ValueError(f"spectral_points runs on cpu or cuda tensors, got {H.device}")
+    lib = load_kernels()
+    if m > lib.sigma_max_bands():
+        raise ValueError(f"K27 takes m <= {lib.sigma_max_bands()}, got {m}")
+    out = torch.empty((N, m, m), dtype=COMPLEX, device=H.device)
+    if N == 0:
+        return out
+    stream = torch.cuda.current_stream(H.device).cuda_stream
+    check_launch(lib.sigma_spectral_points_launch(H.data_ptr(), Z.data_ptr(), 0 if Z.ndim == 2 else m * m,
+                                                  out.data_ptr(), N, m, 1.0 / (2 * math.pi), stream),
+                 "spectral_points")
+    spectral_points.launches += 1
+    return out
+
+
+spectral_points.launches = 0
+
+
+def spectral_weighted_sum_plain(H, w, Z, scale, chunk=8):
+    """Plain PyTorch version of K27's matrix mode, the reference's
+    operations: per frequency ``A(Z_w - H_k)`` by :func:`_inv_small` and the
+    weighted k-sum, ``chunk`` frequencies at a time and k in chunks (at most
+    EIGH_CHUNK matrices a ``solve`` above three bands). Returns (W, m, m)
+    complex128."""
+    from ..ops.eigh3 import EIGH_CHUNK
+
+    K, m = H.shape[0], H.shape[-1]
+    C = max(1, int(chunk))
+    kc = max(1, (1 << 22) // max(1, C * m * m))
+    if m > 3:
+        kc = min(kc, max(1, EIGH_CHUNK // C))
+    rows = []
+    for s in range(0, Z.shape[0], C):
+        acc = 0.0
+        for k0 in range(0, K, kc):
+            A = spectral_of(_inv_small(Z[s:s + C, None] - H[None, k0:k0 + kc]))
+            acc = acc + torch.einsum("k,ckab->cab", w[k0:k0 + kc].to(COMPLEX), A)
+        rows.append(scale * acc)
+    if not rows:
+        return torch.empty((0, m, m), dtype=COMPLEX, device=H.device)
+    return torch.cat(rows)
+
+
+def spectral_weighted_sum(H, w, Z, scale):
+    """``S[j] = scale * sum_k w_k A(Z_j - H_k)``, the weighted k-sum of the
+    matrix spectral function (``spectral_function`` under the PTR rule, Z_j
+    = (om_j + i eta_j) I), for H (K, m, m) and Z (W, m, m) complex128 and
+    weights w (K,) float64. Returns (W, m, m) complex128, Hermitian.
+
+    CPU tensors take the plain version; CUDA tensors launch K27's matrix
+    mode (``csrc/sigma_trace.cu``), which takes m <= 8, and anything the
+    kernel does not take raises."""
+    check_tensor(H, "H", dtype=COMPLEX, ndim=3)
+    K, m = H.shape[0], H.shape[-1]
+    check_tensor(H, "H", shape=(K, m, m))
+    check_tensor(w, "w", device=H.device, dtype=REAL, ndim=1, shape=(K,))
+    check_tensor(Z, "Z", device=H.device, dtype=COMPLEX, ndim=3)
+    W = Z.shape[0]
+    check_tensor(Z, "Z", shape=(W, m, m))
+    if H.device.type == "cpu":
+        return spectral_weighted_sum_plain(H, w, Z, float(scale))
+    if H.device.type != "cuda":
+        raise ValueError(f"spectral_weighted_sum runs on cpu or cuda tensors, got {H.device}")
+    lib = load_kernels()
+    if m > lib.sigma_max_bands():
+        raise ValueError(f"K27 takes m <= {lib.sigma_max_bands()}, got {m}")
+    out = torch.empty((W, m, m), dtype=COMPLEX, device=H.device)
+    if W:
+        partials = torch.empty((max(lib.sigma_spectral_num_rows(K), 1), W, m, m), dtype=COMPLEX, device=H.device)
+        stream = torch.cuda.current_stream(H.device).cuda_stream
+        check_launch(lib.sigma_spectral_sum_launch(H.data_ptr(), w.data_ptr(), Z.data_ptr(), partials.data_ptr(),
+                                                   out.data_ptr(), K, W, m, float(scale) / (2 * math.pi), stream),
+                     "spectral_weighted_sum")
+        spectral_weighted_sum.launches += 1
+    return out
+
+
+spectral_weighted_sum.launches = 0
 
 
 def dos_integrand(h: FourierSeries, eta, rep=True):
@@ -504,14 +662,99 @@ def transport_distribution(hv, om, eta=None):
                         a.to(vband.dtype)).real
 
 
-def transport_integrand(h: FourierSeries, eta):
-    """FourierIntegrand of :func:`transport_distribution` over
-    ``JacobianSeries(h)``, declaring :class:`LatticeRep` so that IBZ solves
-    symmetrize the rank-2 tensor (reference ``observables.py:191``)."""
-    from ..brillouin import LatticeRep
-    from ..fourier import JacobianSeries
+def transport_points_plain(e, U, dH, om, eta, chunk=4096):
+    """Plain PyTorch version of K31, the reference's operations after
+    ``eigh`` (``observables.py:184-188``) over a batch of points, ``chunk``
+    at a time: ``vband = U^H dH_a U`` by one einsum, the spectral weights
+    ``A = eta / ((om - e)^2 + eta^2) / pi`` and ``Re sum_nm (v_a)_nm
+    conj((v_b)_nm) A_n A_m`` by another. Returns (N, d, d) float64."""
+    out = []
+    for s in range(0, e.shape[0], chunk):
+        sl = slice(s, s + chunk)
+        vband = torch.einsum("kim,kdij,kjn->kdmn", U[sl].conj(), dH[sl], U[sl])
+        g = eta[sl, None]
+        a = (g / ((om[sl, None] - e[sl]) ** 2 + g**2) / math.pi).to(vband.dtype)
+        out.append(torch.einsum("kanm,kbnm,kn,km->kab", vband, vband.conj(), a, a).real)
+    if not out:
+        return torch.empty((0, dH.shape[1], dH.shape[1]), dtype=REAL, device=e.device)
+    return torch.cat(out)
 
-    fi = FourierIntegrand(transport_distribution, JacobianSeries(h), eta=eta)
+
+def transport_points(e, U, dH, om, eta):
+    """``G[p, a, b] = Re sum_nm (v_a)_nm conj((v_b)_nm) A_n A_m`` at N points
+    (the reference's ``transport_distribution`` at each), with ``v_a = U^H
+    dH_a U`` and ``A_n = eta / ((om - e_n)^2 + eta^2) / pi``, for eigenpairs
+    e (N, m) float64 and U (N, m, m) complex128 (columns) of H, gradients dH
+    (N, d, m, m) complex128 whose (m, m) blocks are contiguous, and om, eta
+    (N,) float64. Returns (N, d, d) float64.
+
+    CPU tensors take the plain version; CUDA tensors launch K31
+    (``csrc/transport_points.cu``), which takes m <= 8 and d <= 3, and
+    anything the kernel does not take raises."""
+    check_tensor(e, "e", dtype=REAL, ndim=2)
+    N, m = e.shape
+    dev = e.device
+    check_tensor(U, "U", device=dev, dtype=COMPLEX, ndim=3, shape=(N, m, m))
+    if not isinstance(dH, torch.Tensor) or dH.ndim != 4 or dH.shape[0] != N or tuple(dH.shape[2:]) != (m, m) \
+            or dH.dtype != COMPLEX or dH.device != dev:
+        raise ValueError(f"dH must be a complex128 (N, d, m, m) = ({N}, d, {m}, {m}) tensor on e's device, got "
+                         f"{tuple(getattr(dH, 'shape', ()))}")
+    d = dH.shape[1]
+    for name, t in (("om", om), ("eta", eta)):
+        check_tensor(t, name, device=dev, dtype=REAL, ndim=1, shape=(N,))
+    if dev.type == "cpu":
+        return transport_points_plain(e, U, dH, om, eta)
+    if dev.type != "cuda":
+        raise ValueError(f"transport_points runs on cpu or cuda tensors, got {dev}")
+    if dH.stride(3) != 1 or dH.stride(2) != m:
+        raise ValueError("transport_points needs dH's (m, m) blocks contiguous")
+    lib = load_kernels()
+    if m > lib.transport_points_max_bands() or d > 3:
+        raise ValueError(f"K31 takes m <= {lib.transport_points_max_bands()} and d <= 3, got m = {m}, d = {d}")
+    out = torch.empty((N, d, d), dtype=REAL, device=dev)
+    if N == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check_launch(lib.transport_points_launch(e.data_ptr(), U.data_ptr(), dH.data_ptr(), om.data_ptr(),
+                                             eta.data_ptr(), out.data_ptr(), N, m, d, dH.stride(0), dH.stride(1),
+                                             1.0 / math.pi, stream), "transport_points")
+    transport_points.launches += 1
+    return out
+
+
+transport_points.launches = 0
+
+
+def transport_distribution_points(hv, om, eta=None):
+    """:func:`transport_distribution` over a batch of points: ``hv.s`` is
+    the pair (H (..., m, m), dH (..., d, m, m)) and ``om``, ``eta`` are one
+    value or one per point. ``eigh`` (in the chunks the card's solver takes,
+    the reference's own ``jnp.linalg.eigh``), then :func:`transport_points`
+    (K31 on the card). Returns (..., d, d) float64."""
+    from ..ops.eigh3 import eigh_chunked
+
+    H, V = hv.s
+    m, d = H.shape[-1], V.shape[-3]
+    batch = tuple(H.shape[:-2])
+    e, U = eigh_chunked(H.reshape(-1, m, m))
+    n = e.shape[0]
+
+    def lane(x):
+        return torch.broadcast_to(torch.as_tensor(x, dtype=REAL, device=H.device), batch).reshape(n).contiguous()
+
+    G = transport_points(e, U.contiguous(), V.reshape(n, d, m, m), lane(om), lane(eta))
+    return G.reshape(batch + (d, d))
+
+
+def transport_integrand(h: FourierSeries, eta):
+    """FourierIntegrand of the Kubo-Greenwood transport distribution over
+    ``JacobianSeries(h)``, declaring :class:`LatticeRep` so that IBZ solves
+    symmetrize the rank-2 tensor (reference ``observables.py:199``). It
+    takes whole batches of points (``batched=True``): a PTR rule sums it by
+    its velocity pack and one K19 launch a solve (its lanes' frequencies at
+    once); an IAI leaf trip or a TAI trip is one :func:`transport_points`
+    call (K31), with one frequency or one per point."""
+    fi = FourierIntegrand(transport_distribution_points, JacobianSeries(h), eta=eta, batched=True)
     fi.rep = LatticeRep()
     return fi
 
@@ -668,28 +911,37 @@ def series_bands(h):
     return vs[0]
 
 
-def spectral_velocity_pack(h: FourierSeries, bz, npt, points=fourier_points_derivs,
-                           pairs=velocity_pairs) -> SpectralPack:
-    """Evaluate (H, dH) on the (symmetry-reduced) npt^d grid, eigendecompose
-    and pack the weighted band-pair velocity products (reference
-    ``observables.py:309``). In chunks of ``ops.eigh3.EIGH_CHUNK`` points: K11
-    (``points``) at the points ``reps/npt * period``, ``torch.linalg.eigh``,
-    then K18 (``pairs``) into the chunk's rows of Wmat. The plain versions
-    of K11 and K18 may be passed in their place."""
+def velocity_pack(h: FourierSeries, X, w, points=fourier_points_derivs, pairs=velocity_pairs):
+    """``(e (K, m), Wmat (K m^2, d^2))`` float64 of the series at the points
+    X (K, d) with weights w (K,): in chunks of ``ops.eigh3.EIGH_CHUNK``
+    points, K11 (``points``), ``torch.linalg.eigh``, then K18 (``pairs``)
+    into the chunk's rows of Wmat. The plain versions of K11 and K18 may be
+    passed in their place."""
     from ..dos.ggr import eigen_chunks
 
-    d, dev = bz.ndim, h.device
-    lin, weights, u, scale, Savg = reduced_grid(bz, npt, h.period)
-    X = grid_points(d, u, lin, dev)
+    d, dev = X.shape[1], h.device
     m = series_bands(h)
     K = X.shape[0]
-    w = torch.as_tensor(np.asarray(weights), dtype=REAL, device=dev)
     e = torch.empty((K, m), dtype=REAL, device=dev)
     Wmat = torch.empty((K * m * m, d * d), dtype=REAL, device=dev)
     for s, es, U, dH in eigen_chunks(h, X, points):
         n = es.shape[0]
         e[s:s + n] = es
         pairs(U, dH, w[s:s + n], out=Wmat[s * m * m:(s + n) * m * m])
+    return e, Wmat
+
+
+def spectral_velocity_pack(h: FourierSeries, bz, npt, points=fourier_points_derivs,
+                           pairs=velocity_pairs) -> SpectralPack:
+    """Evaluate (H, dH) on the (symmetry-reduced) npt^d grid, eigendecompose
+    and pack the weighted band-pair velocity products (reference
+    ``observables.py:309``): :func:`velocity_pack` at the points ``reps/npt
+    * period`` with the orbit weights."""
+    d, dev = bz.ndim, h.device
+    lin, weights, u, scale, Savg = reduced_grid(bz, npt, h.period)
+    X = grid_points(d, u, lin, dev)
+    w = torch.as_tensor(np.asarray(weights), dtype=REAL, device=dev)
+    e, Wmat = velocity_pack(h, X, w, points, pairs)
     return SpectralPack(e, Wmat, scale, Savg, weights, d, npt)
 
 
@@ -809,3 +1061,72 @@ def _transport_build(pack: SpectralPack, eta):
         return group_average(G, Savg).cpu().numpy()
 
     return sweep
+
+
+# --- the PTR rule's kernel sums (algorithms.ptr.register_kernel_sum) -------------------------
+
+
+def _lanes(fn, p, device):
+    """(omega, eta, shape): the frequencies and broadenings of a call of
+    ``fn(hv, om, eta)`` with parameters ``p``, broadcast together and
+    flattened into lanes, with the broadcast shape to restore."""
+    bound = inspect.signature(fn).bind(None, *p.args, **p.kwargs)
+    om, eta = bound.arguments["om"], bound.arguments.get("eta")
+    if eta is None:
+        raise TypeError(f"{fn.__name__} needs eta")
+    om = torch.as_tensor(om, dtype=REAL, device=device)
+    eta = torch.as_tensor(eta, dtype=REAL, device=device)
+    om, eta = torch.broadcast_tensors(om, eta)
+    return om.reshape(-1).contiguous(), eta.reshape(-1).contiguous(), om.shape
+
+
+def _grid_values(f, frac, weights, npt):
+    H = f.series_values_on_grid(npt, frac)
+    m = H.shape[-1]
+    return (weights, H.reshape(-1, m, m))
+
+
+def _dos_sum(f, frac, weights, npt, scale):
+    """``dos_trace`` under a PTR rule: the series at the rule points (K1),
+    then K2 over the lanes' frequencies a solve."""
+    def run_c(consts, p):
+        w, H = consts
+        om, eta, shape = _lanes(dos_trace, p, H.device)
+        return dos_trace_weighted_sum(H, w, om, eta, scale).reshape(shape)
+
+    return _grid_values(f, frac, weights, npt), run_c
+
+
+def _spectral_sum(f, frac, weights, npt, scale):
+    """``spectral_function`` under a PTR rule: the series at the rule points
+    (K1), then K27's matrix mode at ``Z = (om + i eta) I`` per lane a
+    solve."""
+    def run_c(consts, p):
+        w, H = consts
+        m = H.shape[-1]
+        om, eta, shape = _lanes(spectral_function, p, H.device)
+        Z = (om + 1j * eta).to(COMPLEX)[:, None, None] * torch.eye(m, dtype=COMPLEX, device=H.device)
+        return spectral_weighted_sum(H, w, Z.contiguous(), scale).reshape(tuple(shape) + (m, m))
+
+    return _grid_values(f, frac, weights, npt), run_c
+
+
+def _transport_sum(f, frac, weights, npt, scale):
+    """The batched transport integrand under a PTR rule: the rule's velocity
+    pack once (K11, ``eigh``, K18 with the rule's weights), then one K19
+    launch at equal frequencies over the lanes a solve."""
+    base = f.s.s
+    d = frac.shape[1]
+    period = torch.as_tensor(base.period, dtype=REAL, device=frac.device)
+
+    def run_c(consts, p):
+        e, Wmat = consts
+        om, eta, shape = _lanes(transport_distribution_points, p, e.device)
+        return transport_gamma(e, Wmat, om, eta, om, eta, scale).reshape(tuple(shape) + (d, d))
+
+    return velocity_pack(base, (frac * period).contiguous(), weights), run_c
+
+
+register_kernel_sum(dos_trace, FourierSeries, _dos_sum)
+register_kernel_sum(spectral_function, FourierSeries, _spectral_sum)
+register_kernel_sum(transport_distribution_points, JacobianSeries, _transport_sum)

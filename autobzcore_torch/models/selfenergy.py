@@ -42,8 +42,8 @@ from ..brillouin import TrivialRep
 from ..fourier import FourierIntegrand
 from ..ops.cuda_lib import check_launch, load_kernels
 from .lindhard import _omega_tensor
-from .observables import (_inv_small, _trace_inv_small, certified_ladder, gathered_grid, group_average,
-                          reduced_grid, series_bands)
+from .observables import (_check_pairs, _inv_small, _trace_inv_small, certified_ladder, flat_pairs, gathered_grid,
+                          group_average, reduced_grid, series_bands, spectral_of)
 from .transport import KineticCoefficientSolver, _real, fermi_window
 
 
@@ -122,27 +122,6 @@ def _zmat(om, Sigma, m, mu=0.0, device=None):
     return z[..., None, None] * eye - S
 
 
-def _flat_pairs(H, Z):
-    """H and Z broadcast over their batch axes: (H (N, m, m), Z (N, m, m) or
-    one (m, m) for all, batch shape)."""
-    m = H.shape[-1]
-    batch = torch.broadcast_shapes(tuple(H.shape[:-2]), tuple(Z.shape[:-2]))
-    Hf = H.expand(batch + (m, m)).reshape(-1, m, m).contiguous()
-    Zf = Z.contiguous() if Z.ndim == 2 else Z.expand(batch + (m, m)).reshape(-1, m, m).contiguous()
-    return Hf, Zf, batch
-
-
-def _check_points(H, Z):
-    check_tensor(H, "H", dtype=COMPLEX, ndim=3)
-    N, m = H.shape[0], H.shape[-1]
-    check_tensor(H, "H", shape=(N, m, m))
-    if not isinstance(Z, torch.Tensor) or Z.dtype != COMPLEX or Z.device != H.device or not Z.is_contiguous() \
-            or tuple(Z.shape) not in ((m, m), (N, m, m)):
-        raise ValueError(f"Z must be a contiguous complex128 (m, m) or (N, m, m) tensor on H's device, m = {m}, "
-                         f"N = {N}")
-    return N, m
-
-
 def _trace_inv(M):
     """Tr M^{-1}: the reference's closed forms for m <= 3
     (``observables.py:73``), ``solve`` against the identity above."""
@@ -164,7 +143,7 @@ def sigma_trace_points(H, Z):
     CPU tensors take the plain version; CUDA tensors launch K27's pointwise
     entry (``csrc/sigma_trace.cu``), and anything the kernel does not take
     raises."""
-    N, m = _check_points(H, Z)
+    N, m = _check_pairs(H, Z)
     if H.device.type == "cpu":
         return sigma_trace_points_plain(H, Z)
     if H.device.type != "cuda":
@@ -191,7 +170,7 @@ def greens_trace_sigma(hv, om, Sigma=None, mu=0.0):
     K27's pointwise entry."""
     H = hv.s
     m = H.shape[-1]
-    Hf, Zf, batch = _flat_pairs(H, _zmat(om, Sigma, m, mu, H.device))
+    Hf, Zf, batch = flat_pairs(H, _zmat(om, Sigma, m, mu, H.device))
     return sigma_trace_points(Hf, Zf).reshape(batch)
 
 
@@ -200,16 +179,11 @@ def dos_trace_sigma(hv, om, Sigma=None, mu=0.0):
     return -torch.imag(greens_trace_sigma(hv, om, Sigma=Sigma, mu=mu)) / math.pi
 
 
-def _spectral_plain(G):
-    """The matrix spectral function ``(G - G^H) / (-2 pi i)``."""
-    return (G - G.conj().transpose(-1, -2)) / (-2j * math.pi)
-
-
 def sigma_pairs_points_plain(H, V, Z):
     """Plain PyTorch version of K28's pointwise entry, the reference's
     operations (``selfenergy.py:138-153``): ``Re Tr[v_a A v_b A]``, A from
     ``_inv_small(Z - H)``. Returns (N, d, d) float64."""
-    A = _spectral_plain(_inv_small(Z - H))
+    A = spectral_of(_inv_small(Z - H))
     vA = torch.einsum("...aij,...jk->...aik", V, A)
     return torch.einsum("...aij,...bji->...ab", vA, vA).real
 
@@ -223,7 +197,7 @@ def sigma_pairs_points(H, V, Z):
     CPU tensors take the plain version; CUDA tensors launch K28's pointwise
     entry (``csrc/sigma_pairs.cu``), and anything the kernel does not take
     raises."""
-    N, m = _check_points(H, Z)
+    N, m = _check_pairs(H, Z)
     check_tensor(V, "V", device=H.device, dtype=COMPLEX, ndim=4)
     d = V.shape[1]
     check_tensor(V, "V", shape=(N, d, m, m))
@@ -255,7 +229,7 @@ def transport_distribution_sigma(hv, om, Sigma=None, mu=0.0):
     point or a batch, by K28's pointwise entry."""
     H, V = hv.s
     m, d = H.shape[-1], V.shape[-3]
-    Hf, Zf, batch = _flat_pairs(H, _zmat(om, Sigma, m, mu, H.device))
+    Hf, Zf, batch = flat_pairs(H, _zmat(om, Sigma, m, mu, H.device))
     Vf = V.expand(batch + (d, m, m)).reshape(-1, d, m, m).contiguous()
     return sigma_pairs_points(Hf, Vf, Zf).reshape(batch + (d, d))
 
@@ -365,8 +339,8 @@ def sigma_pairs_sum_plain(H, V, w, Z1, Z2, scale, chunk=4):
         acc = 0.0
         for k0 in range(0, K, kc):
             Hk, Vk = H[None, k0:k0 + kc], V[k0:k0 + kc]
-            A1 = _spectral_plain(_inv_small(Z1[s:s + C, None] - Hk))
-            A2 = A1 if same else _spectral_plain(_inv_small(Z2[s:s + C, None] - Hk))
+            A1 = spectral_of(_inv_small(Z1[s:s + C, None] - Hk))
+            A2 = A1 if same else spectral_of(_inv_small(Z2[s:s + C, None] - Hk))
             vA1 = torch.einsum("kaij,ckjn->ckain", Vk, A1)
             vA2 = vA1 if same else torch.einsum("kbij,ckjn->ckbin", Vk, A2)
             Gam = torch.einsum("ckaij,ckbji->ckab", vA1, vA2).real

@@ -147,6 +147,24 @@ def _bind(lib):
     lib.sigma_pairs_sum_launch.restype = i
     lib.sigma_pairs_points_launch.argtypes = [vp, vp, vp, ll, vp, ll, i, i, vp]
     lib.sigma_pairs_points_launch.restype = i
+    lib.sigma_spectral_num_rows.argtypes = [ll]
+    lib.sigma_spectral_num_rows.restype = ll
+    lib.sigma_spectral_sum_launch.argtypes = [vp] * 5 + [ll, i, i, dbl, vp]
+    lib.sigma_spectral_sum_launch.restype = i
+    lib.sigma_spectral_points_launch.argtypes = [vp, vp, ll, vp, ll, i, dbl, vp]
+    lib.sigma_spectral_points_launch.restype = i
+    lib.spectral_path_max_bands.argtypes = []
+    lib.spectral_path_max_bands.restype = i
+    lib.spectral_path_launch.argtypes = [vp, vp, vp, ll, i, i, dbl, dbl, vp]
+    lib.spectral_path_launch.restype = i
+    lib.band_expect_max_bands.argtypes = []
+    lib.band_expect_max_bands.restype = i
+    lib.band_expect_launch.argtypes = [vp, vp, vp, ll, i, i, vp]
+    lib.band_expect_launch.restype = i
+    lib.transport_points_max_bands.argtypes = []
+    lib.transport_points_max_bands.restype = i
+    lib.transport_points_launch.argtypes = [vp] * 6 + [ll, i, i, ll, ll, dbl, vp]
+    lib.transport_points_launch.restype = i
     return lib
 
 

@@ -9,8 +9,14 @@ Two forms, by algorithm:
   one value per lane, and kernel K2 sums all lanes in one launch).
   Integrands swept this way must broadcast over a leading parameter axis;
   a ``batched`` FourierIntegrand, which takes one parameter for all its
-  points, gets one solve a lane instead. A fixed rule converges every lane,
-  and ``numevals`` counts the rule's points once per real (non-pad) lane.
+  points, gets one solve a lane instead, unless the rule sums it through a
+  kernel that takes the lane vector (``algorithms.ptr.kernel_sum``). A
+  fixed rule converges every lane, and ``numevals`` counts the rule's
+  points once per real (non-pad) lane.
+- **AutoPTR (``sweep_solve`` only).** The reference's batched ladder: every
+  rung is one fixed rule over the active lanes as a lane vector, each lane
+  keeps its own residual, flag and count, and converged lanes leave the
+  later rungs. ``SweepSolver`` refuses AutoPTR, as the reference's does.
 - **Adaptive solvers (IAI, NestedQuad, QuadGKJL; ``solves_lanes``).** Each
   parameter is one independent solve. A chunk's solves run as lanes of one
   batched pool, each lane with its own pools, convergence and count, so each
@@ -43,8 +49,7 @@ their AND, so a sweep's totals equal the reference's exactly. ``group`` only
 shapes the reference's lockstep batches, so it is checked as there and
 changes nothing.
 
-Not ported yet: ``mesh`` sharding (ROADMAP A10) and the AutoPTR ladder
-(ROADMAP A4).
+Not ported yet: ``mesh`` sharding (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -52,9 +57,10 @@ import numpy as np
 import torch
 
 from ..algorithms.base import effective_tolerances
-from ..interfaces import IntegralProblem, _takes_mixed_parameters, init
+from ..algorithms.ptr import AutoSymPTRJL, build_ptr_run, takes_lane_vector
+from ..interfaces import IntegralProblem, _resolve_parameters, _takes_mixed_parameters, init
 from ..parameters import LaneParams, MixedParameters, merge_parameters
-from ..utils.tree import tree_leaves, tree_map
+from ..utils.tree import tree_batched_norm, tree_leaves, tree_map, tree_sub
 
 
 def _solve_fn_with_consts(prob, alg, cache):
@@ -72,17 +78,28 @@ def _solve_fn_with_consts(prob, alg, cache):
 
 
 def _lane_at(ps, j):
-    """Lane j of sweep parameters ``ps`` (the sweep axis leading)."""
+    """Lane j of sweep parameters ``ps`` (the sweep axis leading); ``j`` may
+    also be an index array, giving those lanes."""
+    def take(x):
+        if isinstance(x, torch.Tensor) and not isinstance(j, int):
+            return x[torch.as_tensor(j, device=x.device)]
+        return x[j] if isinstance(x, torch.Tensor) else np.asarray(x)[j]
+
     if isinstance(ps, MixedParameters):
-        return MixedParameters(*(a[j] for a in ps.args), **{k: v[j] for k, v in ps.kwargs.items()})
-    return ps[j]
+        return MixedParameters(*(take(a) for a in ps.args), **{k: take(v) for k, v in ps.kwargs.items()})
+    return take(ps)
 
 
-def _fixed_solve(fn, consts, ps, n, atol, rtol, batched):
+def _num_lanes(ps):
+    return int(np.shape(tree_leaves(ps.args + tuple(ps.kwargs.values()))[0]
+                        if isinstance(ps, MixedParameters) else ps)[0])
+
+
+def _fixed_solve(fn, consts, ps, n, atol, rtol, lane_vector):
     """A fixed rule's solve over the lane vector ``ps`` (n lanes): one solve,
-    or for a ``batched`` integrand (one parameter for all its points) one
-    solve a lane, stacked."""
-    if not batched:
+    or where the rule does not take a lane vector (a ``batched`` integrand,
+    one parameter for all its points) one solve a lane, stacked."""
+    if lane_vector:
         return fn(consts, ps, atol, rtol)
     sols = [fn(consts, _lane_at(ps, j), atol, rtol) for j in range(n)]
     u = tree_map(lambda *vs: torch.stack(vs), *(sol[0] for sol in sols))
@@ -163,6 +180,10 @@ def sweep_solve(prob: IntegralProblem, alg, ps, abstol=None, reltol=None, mesh=N
     Returns ``(us, resids, converged, numevals)`` with the sweep axis
     leading."""
     _check_sweep_knobs(mesh=mesh)
+    from ..brillouin import AutoPTR
+
+    if isinstance(alg, (AutoPTR, AutoSymPTRJL)):
+        return _sweep_autoptr(prob, alg, ps, abstol, reltol)
     cache = init(prob, alg)
     atol, rtol = effective_tolerances(abstol, reltol)
     if getattr(alg, "solves_lanes", False):
@@ -171,10 +192,90 @@ def sweep_solve(prob: IntegralProblem, alg, ps, abstol=None, reltol=None, mesh=N
         u, resid, conv, ne = fn(params, atol, rtol)
         return u, resid.cpu().numpy(), conv.cpu().numpy(), ne.cpu().numpy().astype(np.int64)
     fn2, consts = _solve_fn_with_consts(prob, alg, cache)
-    n = int(np.shape(tree_leaves(ps.args + tuple(ps.kwargs.values()))[0]
-                     if isinstance(ps, MixedParameters) else ps)[0])
-    u, resid, conv, ne = _fixed_solve(fn2, consts, ps, n, atol, rtol, getattr(prob.f, "batched", False))
+    n = _num_lanes(ps)
+    u, resid, conv, ne = _fixed_solve(fn2, consts, ps, n, atol, rtol, takes_lane_vector(prob.f))
     return (u, np.full(n, float(resid)), np.full(n, bool(conv)), np.full(n, int(ne)))
+
+
+def _sweep_autoptr(prob, alg, ps, abstol, reltol):
+    """The batched AutoPTR ladder (reference ``_sweep_autoptr``): each
+    parameter gets its own residual, convergence flag and honest count;
+    lanes that converge at a rung leave the later rungs, whose rules run
+    over the remaining lanes alone, gathered into a smaller lane vector (one
+    solve a lane for a ``batched`` integrand without a kernel route). Every
+    rung's value maps to the full zone before the test: TrivialRep and
+    scalar results scale by nsyms, declared reps symmetrize. One host read a
+    rung. Returns ``(us, resids, converged, numevals)``, the sweep axis
+    leading."""
+    from ..brillouin import AutoPTR, TrivialRep, UnknownRep, sym_rep
+
+    f, p0 = _resolve_parameters(prob.f, prob.p)
+    if isinstance(alg, AutoPTR):
+        bz_, dom, inner = alg.bz_to_standard(prob.dom)
+        j = abs(float(np.linalg.det(bz_.B)))
+        rep = sym_rep(f)
+
+        def sym(tree):
+            if bz_.is_full:
+                return tree
+            nonscalar = any(leaf.ndim > 1 for leaf in tree_leaves(tree))  # axis 0: the lanes
+            if isinstance(rep, UnknownRep) and nonscalar:
+                raise ValueError(
+                    "batched AutoPTR sweep over a symmetric BZ with an array-valued integrand whose symmetry "
+                    "representation is unknown: declare the integrand's `rep` or use the full BZ.")
+            if isinstance(rep, (TrivialRep, UnknownRep)) or not nonscalar:
+                return tree_map(lambda v: bz_.nsyms * v, tree)
+            return rep.symmetrize(bz_, tree)
+    else:
+        dom, inner = prob.dom, alg
+        j = 1.0
+
+        def sym(tree):
+            return tree
+    atol, rtol = effective_tolerances(abstol, reltol)
+    merge = _takes_mixed_parameters(prob.f)
+    lane_vector = takes_lane_vector(f)
+    n = _num_lanes(ps)
+
+    def run_lanes(run, q, na):
+        q = merge_parameters(p0, q) if merge else q
+        if lane_vector:
+            return run(q)
+        return tree_map(lambda *vs: torch.stack(vs), *(run(_lane_at(q, i)) for i in range(na)))
+
+    lane_conv = np.zeros(n, bool)
+    nev = np.zeros(n, np.int64)
+    err = np.full(n, np.inf)
+    val = None  # every lane's latest iterate
+    window = []  # the last `keepmost` snapshots of val
+    keepmost = max(2, int(getattr(inner, "keepmost", 2)))
+    for npt in inner.npt_ladder():
+        active = np.nonzero(~lane_conv)[0]
+        if active.size == 0:
+            break
+        run, ne_rung, _, _ = build_ptr_run(f, dom, npt, inner.syms, inner.device)
+        nev[active] += int(ne_rung)
+        ps_a = ps if active.size == n else _lane_at(ps, active)
+        val_a = sym(run_lanes(run, ps_a, active.size))
+        del run  # the rung's rule is not kept
+        idx = torch.as_tensor(active, device=tree_leaves(val_a)[0].device)
+        if val is None:
+            val = val_a if active.size == n else tree_map(
+                lambda v: torch.zeros((n,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device).index_copy(
+                    0, idx, v), val_a)
+        else:
+            val = tree_map(lambda full, v: full.index_copy(0, idx, v), val, val_a)
+        if window:
+            prev_a = tree_map(lambda w: w[idx], window[0])
+            err_a = tree_batched_norm(tree_sub(val_a, prev_a)).cpu().numpy() * j
+            tol_a = np.maximum(atol, rtol * tree_batched_norm(val_a).cpu().numpy() * j)
+            err[active] = err_a
+            lane_conv[active] = err_a <= tol_a
+        window.append(val)
+        if len(window) >= keepmost:
+            window.pop(0)
+    us = tree_map(lambda v: j * v, val)
+    return us, err, lane_conv, nev
 
 
 class SweepSolver:
@@ -215,6 +316,13 @@ class SweepSolver:
                  scan=False, group=1, warm=False, warm_lib=12, block=1):
         _check_sweep_knobs(mesh=mesh, scan=scan, chunk=int(chunk), warm=warm, block=block,
                            group=group)
+        from ..brillouin import AutoPTR
+
+        if isinstance(getattr(alg, "alg", alg), (AutoPTR, AutoSymPTRJL)):
+            raise TypeError(
+                f"SweepSolver takes no {type(alg).__name__}: the p-adaptive rule has no fixed-chunk solve form "
+                "(the reference's SweepSolver raises here too); sweep it with parallel.sweep.sweep_solve, "
+                "whose batched ladder gives each parameter its own certificate")
         cache = init(prob, alg)
         self.numevals = 0
         self.chunk_evals = []
@@ -228,7 +336,7 @@ class SweepSolver:
         self._atol, self._rtol = effective_tolerances(abstol, reltol)
         self._lanes = getattr(alg, "solves_lanes", False)
         self._p, self._merge = cache.p, _takes_mixed_parameters(prob.f)
-        self._batched = getattr(prob.f, "batched", False)
+        self._lane_vector = takes_lane_vector(prob.f)
         if self._lanes:
             self._fn = alg.solve_fn(cache.cacheval, lanes=True)
         else:
@@ -272,7 +380,7 @@ class SweepSolver:
         for i in range(0, npad, c):
             x = torch.as_tensor(xp[i:i + c], device=self.device)
             u, _, conv, ne = _fixed_solve(self._fn, self._consts, self._wrap(x), c, self._atol, self._rtol,
-                                          self._batched)
+                                          self._lane_vector)
             if blk > 1:
                 # one fixed-rule solve serves the chunk; each real block counts the rule once
                 for v in tree_leaves(u):

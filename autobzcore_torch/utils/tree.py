@@ -58,3 +58,14 @@ def tree_norm(a):
         return torch.zeros((), dtype=torch.float64)
     sq = sum(torch.sum(torch.abs(torch.as_tensor(x)) ** 2) for x in leaves)
     return torch.sqrt(sq)
+
+
+def tree_batched_norm(a, batch_ndim=1):
+    """Per-batch-element 2-norm: leaves have shape (B, ...); returns (B,)."""
+    sq = None
+    for x in tree_leaves(a):
+        term = torch.abs(x) ** 2
+        if x.ndim > batch_ndim:
+            term = torch.sum(term, dim=tuple(range(batch_ndim, x.ndim)))
+        sq = term if sq is None else sq + term
+    return torch.sqrt(sq)

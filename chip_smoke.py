@@ -220,17 +220,47 @@ non-zero):
    TransportSolver (1e-9), the transport integrand under PTR(24) against
    the CPU (1e-10); SigmaKineticCoefficientSolver at npt 100, beta 40, 8 Omegas in [0, 2] eV, alpha 0 then 1 (GK trips, K28
    launches), Sigma = -0.05i against KineticCoefficientSolver (1e-9, equal
-   numevals and retcodes); launches of K25-K28, and both phases within 60 s.
+   numevals and retcodes); launches of K25-K28, and both phases within 60 s;
+31. K29 (the k-path spectral map) on the flagship path Gamma-X-M-Gamma-R-X
+   at npts 1000 (3,787 points) x 4,001 omegas and on config 5's 30 bands,
+   K30 (band expectations) fused with eigh2 on Haldane, with the three
+   orbital projectors on the flagship and on Kane-Mele with Rashba coupling,
+   K31 (the transport distribution at points) at the largest leaf trip of
+   phase 32's graphene IAI solve, K27's matrix mode on the flagship's 1e6
+   points x 264 lanes (its trace against K2) and its pointwise entry at the
+   PTR(48) points, each against its plain version (1e-12, bit-identical
+   repeats) with kernel, plain, library and bound times;
+32. the slice's paths at full width on the flagship over the full zone: the
+   1000-omega DOS by sweep_solve's batched AutoPTR ladder (a=0.1, nmin 100,
+   nmax 500, abstol 1e-3; wall, rungs with their active lanes, retcodes,
+   peak memory; every lane against PTR at its last rung at 1e-12, five
+   lanes through one scalar IntegralSolver with identical counts and flags,
+   certified lanes against phase 12's certified ladder: within 2e-3 where
+   they stopped at npt 400 or later; earlier lanes beyond 2e-3 at most 1 %
+   of them, each with its rung table and PTR at npt 500 within 2e-3) and
+   AutoPTR_IAI at one omega with both counts; the transport integrand under
+   PTR(100) at 256 omegas against TransportSolver (1e-12) and under AutoPTR
+   up to npt 300 at 32 omegas, tb_integer(3) on the cubic wedge against the
+   full zone (1e-8) and graphene under IAI card against CPU (1e-10, equal
+   counts); spectral_function under PTR(100) at 264 omegas (its trace
+   against the PTR DOS, 1e-12; Hermitian, 1e-14) and batched under IAI on
+   graphene card against CPU; the k-path's band structure, spectral map
+   (its sum rule on a wide grid) and projector expectations (summing to
+   1, 1e-12) on the flagship and config 5 (against numpy's eigvalsh); the
+   launches of K27's matrix mode and K29-K31, and both phases within 60 s.
 
 With ``--profile``, the PTR, IAI, warm IAI, full-grid, LTM, block IAI,
-GGR, TAI, transport and topology main paths, the Lindhard map and the
-self-energy DOS sweep each run once more under ``torch.profiler`` (after their checks),
+GGR, TAI, transport and topology main paths, the Lindhard map, the
+self-energy DOS sweep, the AutoPTR ladder and the k-path spectral map each
+run once more under ``torch.profiler`` (after their checks),
 which prints their device busy time, its share of the wall and the device
 time of the leading kernels, or "not captured" where the profiler recorded
 no device time (late in a long ``--profile`` run it has recorded none).
 ``--phases-29-30`` runs phases 1-2 and 29-30 alone (phase 26's chemical
 potential is found again first), so that with ``--profile`` the last two
-profiles are the process's first.
+profiles are the process's first; ``--phases-31-32`` runs phases 1-2 and
+31-32 alone (without phase 12, so the AutoPTR lanes are not held against
+its ladder), profiling the AutoPTR ladder and the k-path spectral map.
 
 The second-to-last line is a JSON object with each kernel's numbers, the
 last line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -352,6 +382,34 @@ COOPER_FLOPS = 16
 #   entries 36 and the three Im G_jj 9, the three independent off-diagonal
 #   entries of A' 6: 230.
 GEN_TRACE_FLOPS, GEN_DIAG_FLOPS, GEN_POINT_FLOPS, SPECTRAL3_FLOPS = 131, 139, 133, 230
+# phases 31-32: the k-path Gamma-X-M-Gamma-R-X at npts 1000 (3,787 points)
+# with 4,001 omegas in [-6, 7] eV; the reference's north-star workload, the
+# 1000-omega DOS by a batched AutoPTR ladder (BASELINE.md:35,104-116), on
+# the flagship at eta 0.05 and abstol 1e-3, rungs 100-500; the transport
+# integrand under PTR(100) at 256 omegas and under AutoPTR up to npt 300 at
+# 32; the matrix spectral function under PTR(100) at 264 omegas
+KPATH_VERTICES = ((0, 0, 0), (0.5, 0, 0), (0.5, 0.5, 0), (0, 0, 0), (0.5, 0.5, 0.5), (0.5, 0, 0))
+KPATH_NPTS, KPATH_OMEGAS, KPATH_POINTS = 1000, 4001, 3787
+AUTOPTR_KW, AUTOPTR_OMEGAS, AUTOPTR_ABSTOL, AUTOPTR_SCALAR_LANES = dict(a=0.1, nmin=100, nmax=500), 1000, 1e-3, 5
+TR_AUTOPTR_KW, TR_AUTOPTR_OMEGAS, TR_PTR_OMEGAS = dict(a=0.1, nmin=100, nmax=300), 32, 256
+# the certified AutoPTR lanes against phase 12's ladder: within twice the
+# abstol where a lane stopped at npt AUTOPTR_HELD_NPT or later; lanes that
+# stopped earlier may lie beyond it (the certificate is the change between
+# two rungs), at most AUTOPTR_EARLY_SHARE of the certified lanes
+AUTOPTR_HELD_NPT, AUTOPTR_EARLY_SHARE = 400, 0.01
+# FP64 operations of K30 per (point, band): O u (m^2 complex multiply-adds,
+# 8 each) and the real part of u^H (O u) (2 m); of K27's matrix mode per
+# (frequency, point) at m = 3: the Hermitian A' (SPECTRAL3_FLOPS) and the
+# weighted sums of its m^2 real parameters (2 each); of K31 per point: the
+# band basis U^H dH_a U (d m^2 sums of 2 m complex multiply-adds), m
+# Lorentzians and the d (d + 1) / 2 weighted sums of m^2 real products (4
+# each, with the two weights)
+def expect_flops(m):
+    return 8 * m * m + 2 * m
+
+
+def transport_point_flops(m, d):
+    return d * m * m * 16 * m + m * LORENTZ_RECIP_FLOPS + d * (d + 1) // 2 * 6 * m * m
 
 
 def general_flops(m, what):
@@ -446,7 +504,8 @@ def profile(label, fn):
 def ptxas_report(log):
     """From nvcc's ``-Xptxas -v`` report (one ``<source>:`` block per
     source): per source its entry functions, their most registers and
-    their spill stores in bytes; and for K27 and K28 (sigma_*.cu) each entry
+    their spill stores in bytes; and for K27-K31 (sigma_*.cu,
+    spectral_path.cu, band_expect.cu, transport_points.cu) each entry
     function's registers, stack frame and spill stores, named with its
     template arguments."""
     import re
@@ -462,7 +521,7 @@ def ptxas_report(log):
             continue
         per_source.append(f"{head} {len(entries)}, {max(int(e[3]) for e in entries)}, "
                           f"{sum(int(e[2]) for e in entries)} B")
-        if head.startswith("sigma_"):
+        if head.startswith(("sigma_", "spectral_path", "band_expect", "transport_points")):
             for name, stack, spill, used in entries:
                 m = re.search(r"_cu_[0-9a-f]{8}(\d+)", name)
                 short = name
@@ -559,7 +618,14 @@ def main():
     print(f"build: {len(cuda_lib.SOURCES)} sources -> {cuda_lib.LIBRARY.name} in "
           f"{seconds:.1f} s (sm_90a); ptxas per source (entries, most registers, spill stores; the whole report in "
           f"build/autobzcore_torch/ptxas.log): {'; '.join(per_source)}", flush=True)
-    print(f"ptxas K27/K28 (registers, stack frame, spill stores): {'; '.join(sigma)}", flush=True)
+    print(f"ptxas K27-K31 (registers, stack frame, spill stores): {'; '.join(sigma)}", flush=True)
+    if "--phases-31-32" in sys.argv[1:]:
+        # phases 31-32 alone, in a process of their own (phase 12's ladder does not run)
+        h = flagship_series(device=dev)
+        print(json.dumps({"kernels": slice12_phases(np, torch, dev, h, None)}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
     if "--phases-29-30" in sys.argv[1:]:
         # phases 29-30 alone, at phase 26's chemical potential, in a process of their own
         from autobzcore_torch.models import observables as obs
@@ -726,7 +792,8 @@ def main():
     cold, k_iai = iai_phases(np, torch, dev, h)
     kernels += k_iai
     kernels += warm_phases(np, torch, dev, h, cold)
-    kernels += fullgrid_phases(np, torch, dev, h, cold)
+    k_fg, ladder = fullgrid_phases(np, torch, dev, h, cold)
+    kernels += k_fg
     k_ltm, ltm_dos = ltm_phases(np, torch, dev, h)
     kernels += k_ltm
     kernels += block_phases(np, torch, dev, h, cold)
@@ -737,6 +804,7 @@ def main():
     kernels += k_tr
     kernels += berry_phases(np, torch, dev)
     kernels += lindhard_sigma_phases(np, torch, dev, h, mu_filling)
+    kernels += slice12_phases(np, torch, dev, h, ladder)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1248,7 +1316,8 @@ def warm_phases(np, torch, dev, h, cold):
 def fullgrid_phases(np, torch, dev, h, cold):
     """Phases 11-13: K7, K8 and K9 against their plain versions, the
     full-grid ladder main path and the bench lane. Returns the three
-    kernels' JSON entries."""
+    kernels' JSON entries and the ladder's certified DOS at its 1000
+    omegas."""
     from autobzcore_torch import FBZ, DOSProblem, load_bz
     from autobzcore_torch.dos import LorentzianFullGrid
     from autobzcore_torch.dos import init as dos_init
@@ -1473,7 +1542,7 @@ def fullgrid_phases(np, torch, dev, h, cold):
          "replaces": "autobzcore_tpu/ops/eigh3.py:161", "launches": launches13["eigvalsh_small"],
          "max_abs_err": err9, "ms": t9["ms"], "plain_ms": t9["plain_ms"], "bound_ms": b9[0],
          "bound_by": b9[1], "library_ms": t9["library_ms"]},
-    ]
+    ], D
 
 
 def once_ms(fn):
@@ -3541,6 +3610,432 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
             entry("sigma_trace_points", "sigma_trace.cu", "autobzcore_tpu/models/selfenergy.py:122", t27p, b27p),
             entry("sigma_pairs_sum", "sigma_pairs.cu", "autobzcore_tpu/models/selfenergy.py:279", t28, b28),
             entry("sigma_pairs_points", "sigma_pairs.cu", "autobzcore_tpu/models/selfenergy.py:138", t28p, b28p)]
+
+
+def slice12_phases(np, torch, dev, h, ladder):
+    """Phases 31-32: K29-K31 and K27's matrix mode against their plain
+    versions at the main path's shapes, then the AutoPTR family, the PTR
+    transport integrand, the matrix spectral function and the k-path at full
+    width. ``ladder`` is phase 12's certified full-grid DOS at its 1000
+    omegas (None where phase 12 did not run). Returns the kernels' JSON
+    entries."""
+    import sys as _sys
+
+    import autobzcore_torch.models.kpath  # noqa: F401  (models.kpath is the function of that name)
+    from autobzcore_torch import (FBZ, IAI, PTR, AutoPTR, AutoPTR_IAI, CubicSymIBZ, FourierIntegrand,
+                                  IntegralProblem, IntegralSolver, JacobianSeries, MixedParameters, load_bz, solve)
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.models.tight_binding import (flagship_series, synthetic_wannier, tb_graphene,
+                                                        tb_haldane, tb_integer, tb_kane_mele)
+    from autobzcore_torch.ops.eigh3 import eigh_chunked
+    from autobzcore_torch.ops.fourier_eval import evaluate_grid
+    from autobzcore_torch.parallel.sweep import sweep_solve
+
+    kp = _sys.modules["autobzcore_torch.models.kpath"]
+    src = "autobzcore_torch/csrc/"
+    t_phases = time.perf_counter()
+    bz = load_bz(FBZ(), np.eye(3))
+    bz2 = load_bz(FBZ(), np.eye(2))
+    det_b = abs(float(np.linalg.det(bz.B)))
+    path = kp.kpath(KPATH_VERTICES, npts=KPATH_NPTS)
+    if len(path.X) != KPATH_POINTS:
+        fail(f"the flagship path has {len(path.X)} points, expected {KPATH_POINTS}")
+    om_path = torch.linspace(*WINDOW, KPATH_OMEGAS, dtype=torch.float64, device=dev)
+
+    def check(tag, got, want, tol, scale=None):
+        """max|got - want| (fails above tol times the scale, max|want| by
+        default) and a repeat that must be bit-identical (``again``)."""
+        err = float((got - want).abs().max())
+        sc = float(want.abs().max()) if scale is None else scale
+        if not err <= tol * sc:
+            fail(f"{tag}: max|d| vs plain {err:.3e} > {tol:g} x {sc:.3e}")
+        return err
+
+    def same(tag, a, b):
+        if not torch.equal(a, b):
+            fail(f"{tag}: two runs on the same inputs differ")
+
+    # 31. K29-K31 and K27's matrix mode against their plain versions ---------------------------
+    # K29 on the flagship path (m = 3) and on config 5's 30-band model
+    h30 = synthetic_wannier(BANDS30, nr=5, device=dev)
+    e3 = kp.band_structure(h, path)
+    e30 = kp.band_structure(h30, path)
+    t29 = {}
+    for tag, e in (("flagship", e3), ("bands30", e30)):
+        k29 = kp.spectral_map(e, om_path, ETA)
+        err = check(f"K29 spectral_map ({tag})", k29, kp.spectral_map_plain(e, om_path, ETA), 1e-12)
+        same(f"K29 spectral_map ({tag})", k29, kp.spectral_map(e, om_path, ETA))
+        K, m = e.shape
+        t29[tag] = {"err": err, "ms": cuda_ms(lambda: kp.spectral_map(e, om_path, ETA), 20),
+                    "plain_ms": cuda_ms(lambda: kp.spectral_map_plain(e, om_path, ETA), 3),
+                    "bound": bound(K * KPATH_OMEGAS * (m * LORENTZ_FLOPS + 1), nbytes(e, om_path, k29))}
+    del k29
+    print(f"K29 spectral_map on the flagship path ({KPATH_POINTS} points x {KPATH_OMEGAS} omegas): " + "; ".join(
+        f"{tag} (m = {e.shape[1]}) max|d| vs plain {t['err']:.3e} (<= 1e-12 relative), repeat bit-identical, "
+        f"{t['ms']:.4f} ms (plain {t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]}, "
+        f"{100 * t['bound'][0] / t['ms']:.1f} % of it)" for (tag, t), e in zip(t29.items(), (e3, e30))), flush=True)
+
+    # K30: fused with eigh2 on Haldane (m = 2), on the flagship with the three
+    # orbital projectors (m = 3), on Kane-Mele with Rashba coupling (m = 4),
+    # kernel and plain version on the same eigh output
+    path2 = kp.kpath(((0, 0), (0.5, 0), (1 / 3, 1 / 3), (0, 0)), npts=KPATH_NPTS)
+    cases30 = []
+    H2 = kp.path_hamiltonians(tb_haldane(t2=0.1, M=0.3, device=dev), path2).contiguous()
+    cases30.append(("Haldane m = 2, fused eigh2", H2, torch.diag(torch.tensor([1.0, -1.0], dtype=torch.complex128,
+                                                                              device=dev)), True))
+    U3 = eigh_chunked(kp.path_hamiltonians(h, path))[1].contiguous()
+    for i in range(3):
+        P = torch.zeros((3, 3), dtype=torch.complex128, device=dev)
+        P[i, i] = 1.0
+        cases30.append((f"flagship m = 3, projector {i}", U3, P, False))
+    U4 = eigh_chunked(kp.path_hamiltonians(tb_kane_mele(lam_so=0.08, lam_r=0.08, device=dev), path2))[1].contiguous()
+    sz = torch.diag(torch.tensor([0.5, 0.5, -0.5, -0.5], dtype=torch.complex128, device=dev))
+    cases30.append(("Kane-Mele m = 4, Sz", U4, sz, False))
+    errs30 = []
+    for tag, V, O, fused in cases30:
+        k30 = kp.band_expect(V, O, fused)
+        errs30.append(check(f"K30 band_expect ({tag})", k30, kp.band_expect_plain(V, O, fused), 1e-12,
+                            float(O.abs().max())))
+        same(f"K30 band_expect ({tag})", k30, kp.band_expect(V, O, fused))
+    O3 = cases30[1][2]
+    t30 = {"err": max(errs30), "ms": cuda_ms(lambda: kp.band_expect(U3, O3), 50),
+           "plain_ms": cuda_ms(lambda: kp.band_expect_plain(U3, O3), 10),
+           "library_ms": cuda_ms(lambda: torch.einsum("kin,ij,kjn->kn", U3.conj(), O3, U3).real, 10)}
+    b30 = bound(U3.shape[0] * 3 * expect_flops(3), nbytes(U3, O3) + 8 * U3.shape[0] * 3)
+    print(f"K30 band_expect on the paths ({', '.join(c[0] for c in cases30)}): max|d| vs plain {t30['err']:.3e} (<= "
+          f"1e-12 of the operator's scale), repeats bit-identical; flagship m = 3 at {U3.shape[0]} points "
+          f"{t30['ms']:.4f} ms (plain {t30['plain_ms']:.4f} ms, one einsum {t30['library_ms']:.4f} ms, bound "
+          f"{b30[0]:.5f} ms by {b30[1]}, {100 * b30[0] / t30['ms']:.2f} % of it)", flush=True)
+    del H2, U4
+
+    # K31 at the largest leaf trip of phase 32's graphene IAI transport solve:
+    # the solve's integrand, recording the points it is handed
+    hg = tb_graphene(device=dev)
+    trip = {}
+
+    def recording(hv, om, eta=None):
+        H, V = hv.s
+        if H.shape[0] > trip.get("n", 0):
+            trip.update(n=H.shape[0], H=H.clone(), V=V.clone(), om=om)
+        return obs.transport_distribution_points(hv, om, eta=eta)
+
+    solve(IntegralProblem(FourierIntegrand(recording, JacobianSeries(hg), eta=0.3, batched=True), bz2,
+                          MixedParameters(0.5)), IAI(device=dev), abstol=1e-2)
+    e31, U31 = eigh_chunked(trip["H"])
+    om31 = torch.broadcast_to(torch.as_tensor(trip["om"], dtype=torch.float64, device=dev),
+                              (e31.shape[0],)).contiguous()
+    a31 = (e31, U31.contiguous(), trip["V"], om31, torch.full_like(om31, 0.3))
+    k31 = obs.transport_points(*a31)
+    err31 = check("K31 transport_points (graphene IAI leaf trip)", k31, obs.transport_points_plain(*a31), 1e-12)
+    same("K31 transport_points", k31, obs.transport_points(*a31))
+    e31, U31, dH31, om31, eta31 = a31
+
+    def library31():
+        v = torch.einsum("kim,kdij,kjn->kdmn", U31.conj(), dH31, U31)
+        a = (eta31[:, None] / ((om31[:, None] - e31) ** 2 + eta31[:, None] ** 2) / math.pi).to(v.dtype)
+        return torch.einsum("kanm,kbnm,kn,km->kab", v, v.conj(), a, a).real
+
+    N31, m31, d31 = e31.shape[0], e31.shape[1], dH31.shape[1]
+    t31 = {"err": err31, "ms": cuda_ms(lambda: obs.transport_points(*a31), 50),
+           "plain_ms": cuda_ms(lambda: obs.transport_points_plain(*a31), 10), "library_ms": cuda_ms(library31, 10)}
+    b31 = bound(N31 * transport_point_flops(m31, d31), nbytes(*a31) + 8 * N31 * d31 * d31)
+    print(f"K31 transport_points at the largest leaf trip of graphene's IAI transport solve ({N31} points, m = {m31}, "
+          f"d = {d31}): max|d| vs plain {err31:.3e} (<= 1e-12 relative), repeat bit-identical, {t31['ms']:.4f} ms "
+          f"(plain {t31['plain_ms']:.4f} ms, the reference's two einsums {t31['library_ms']:.4f} ms, bound "
+          f"{b31[0]:.6f} ms by {b31[1]}, {100 * b31[0] / t31['ms']:.2f} % of it)", flush=True)
+
+    # K27's matrix mode on the flagship's npt=100 grid at 264 lanes Z = (w + i eta) I
+    H = evaluate_grid(h.c, 3, [np.arange(NPT) / NPT] * 3, h.offset, h.period).reshape(-1, 3, 3).contiguous()
+    K = H.shape[0]
+    w = torch.ones(K, dtype=torch.float64, device=dev)
+    om_s = torch.linspace(*WINDOW, W_FLAGSHIP, dtype=torch.float64, device=dev)
+    eta_s = torch.full_like(om_s, ETA)
+    Z = ((om_s + 1j * ETA).to(torch.complex128)[:, None, None] * torch.eye(3, dtype=torch.complex128,
+                                                                         device=dev)).contiguous()
+    sc = 1.0 / K
+    k27 = obs.spectral_weighted_sum(H, w, Z, sc)
+    p27, pms27 = timed_once(lambda: obs.spectral_weighted_sum_plain(H, w, Z, sc))
+    err27 = check("K27 spectral_weighted_sum", k27, p27, 1e-12)
+    same("K27 spectral_weighted_sum", k27, obs.spectral_weighted_sum(H, w, Z, sc))
+    herm27 = torch.equal(k27, k27.conj().transpose(1, 2))
+    k2 = obs.dos_trace_weighted_sum(H, w, om_s, eta_s, sc)
+    tr_err = float((torch.diagonal(k27, dim1=1, dim2=2).sum(-1).real - k2).abs().max()) / float(k2.abs().max())
+    if not (herm27 and tr_err <= 1e-12):
+        fail(f"K27 spectral_weighted_sum: Hermitian {herm27}, trace vs K2 {tr_err:.3e} (<= 1e-12)")
+    t27 = {"err": err27, "ms": cuda_ms(lambda: obs.spectral_weighted_sum(H, w, Z, sc), 5), "plain_ms": pms27}
+    b27 = bound(K * W_FLAGSHIP * (SPECTRAL3_FLOPS + 2 * 9), nbytes(H, w, Z, k27))
+    del p27
+    # the pointwise entry at the PTR(48) points, one Z and one per point
+    Hp = obs.gathered_grid(h, 3, [np.arange(48) / 48] * 3, None).reshape(-1, 3, 3).contiguous()
+    rng = np.random.default_rng(31)
+    zn = (torch.as_tensor(rng.uniform(*WINDOW, Hp.shape[0]), device=dev) + 1j * ETA).to(torch.complex128)
+    Zn = (zn[:, None, None] * torch.eye(3, dtype=torch.complex128, device=dev)).contiguous()
+    Z1 = Z[W_FLAGSHIP // 2].contiguous()
+    errs = [check(f"K27 spectral_points ({tag})", obs.spectral_points(Hp, Zs), obs.spectral_points_plain(Hp, Zs),
+                  1e-12) for tag, Zs in (("one Z", Z1), ("Z per point", Zn))]
+    same("K27 spectral_points", obs.spectral_points(Hp, Zn), obs.spectral_points(Hp, Zn))
+    t27p = {"err": max(errs), "ms": cuda_ms(lambda: obs.spectral_points(Hp, Z1), 20),
+            "plain_ms": cuda_ms(lambda: obs.spectral_points_plain(Hp, Z1), 5)}
+    b27p = bound(Hp.shape[0] * (SPECTRAL3_FLOPS + 9), nbytes(Hp, Z1) + 16 * 9 * Hp.shape[0])
+    print(f"K27 matrix mode on the flagship's npt={NPT} grid ({K} points, {W_FLAGSHIP} lanes Z = (w + {ETA}i) I): "
+          f"max|d| vs plain {err27:.3e} ({err27 / float(k27.abs().max()):.3e} of the value scale, <= 1e-12), repeat "
+          f"bit-identical, exactly Hermitian, trace vs K2 {tr_err:.3e} (<= 1e-12); {t27['ms']:.4f} ms (plain "
+          f"{pms27:.1f} ms, bound {b27[0]:.4f} ms by {b27[1]}, {100 * b27[0] / t27['ms']:.1f} % of it); pointwise at "
+          f"the PTR(48) points ({Hp.shape[0]}), one Z and one per point: max|d| {t27p['err']:.3e} (<= 1e-12 of the "
+          f"scale), {t27p['ms']:.4f} ms (plain {t27p['plain_ms']:.4f} ms, bound {b27p[0]:.5f} ms by {b27p[1]}, "
+          f"{100 * b27p[0] / t27p['ms']:.1f} % of it); phase 31 "
+          f"{time.perf_counter() - t_phases:.3f} s", flush=True)
+    del H, w, Z, k27, k2, Hp, Zn, U3, a31, e31, U31, dH31
+    torch.cuda.empty_cache()
+
+    # 32. the slice's paths at full width ------------------------------------------------------
+    kernels = (kp.spectral_map, kp.band_expect, obs.transport_points, obs.spectral_weighted_sum, obs.spectral_points)
+    for k in kernels + (obs.dos_trace_weighted_sum, obs.velocity_pairs, obs.transport_gamma):
+        k.launches = 0
+    t_main = time.perf_counter()
+
+    # AutoPTR, the north-star algorithm: the 1000-omega DOS by the batched ladder
+    ws = np.linspace(*WINDOW, AUTOPTR_OMEGAS)
+    prob = IntegralProblem(obs.dos_integrand(h, ETA), bz)
+    alg = AutoPTR(device=dev, **AUTOPTR_KW)
+    rungs = alg.bz_to_standard(bz)[2].npt_ladder()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    us, res, conv, nev = sweep_solve(prob, alg, MixedParameters(torch.as_tensor(ws, device=dev)),
+                                     abstol=AUTOPTR_ABSTOL)
+    D = us.cpu().numpy()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    cum = np.cumsum([n**3 for n in rungs])
+    last = np.array([rungs[int(np.searchsorted(cum, c))] for c in nev])  # each lane's last rung
+    active = [int(np.sum(nev >= c)) for c in cum]
+    launches_dos = obs.dos_trace_weighted_sum.launches
+    print(f"AutoPTR main path: flagship, FBZ, dos_integrand(eta {ETA}), {AUTOPTR_OMEGAS} omegas in {list(WINDOW)} eV, "
+          f"AutoPTR({', '.join(f'{k}={v}' for k, v in AUTOPTR_KW.items())}), abstol {AUTOPTR_ABSTOL}: "
+          f"wall {wall:.4f} s; "
+          f"rungs {rungs} with active lanes {active}; certified {int(conv.sum())} of {AUTOPTR_OMEGAS} (uncertified "
+          f"at npt {rungs[-1]}: {int((~conv).sum())}); lanes by last rung "
+          f"{ {int(n): int(np.sum(last == n)) for n in rungs} }; numevals {int(nev.sum())}; K2 launches "
+          f"{launches_dos}; peak device memory {peak:.1f} MiB; D(0) = {float(np.interp(0.0, ws, D))!r}", flush=True)
+    if not (D.shape == (AUTOPTR_OMEGAS,) and np.all(np.isfinite(D)) and D.min() > 0 and nev.min() > 0):
+        fail("the AutoPTR sweep: shape, finiteness, positivity or counts")
+    # each lane against PTR at its last rung
+    worst = 0.0
+    for n in sorted(set(last.tolist())):
+        sel = np.nonzero(last == n)[0]
+        ref, *_ = sweep_solve(prob, PTR(npt=int(n), device=dev), MixedParameters(torch.as_tensor(ws[sel],
+                                                                                                   device=dev)))
+        worst = max(worst, float(np.max(np.abs(D[sel] - ref.cpu().numpy()) / np.abs(ref.cpu().numpy()))))
+        del ref
+        torch.cuda.empty_cache()
+    # five lanes through one scalar solver, sharing its rule cache
+    # spread over the window, and the lane that needed the most rungs
+    spread = np.linspace(0, AUTOPTR_OMEGAS - 1, AUTOPTR_SCALAR_LANES - 1).astype(int)
+    deepest = [i for i in np.argsort(-nev, kind="stable") if i not in spread][0]
+    pick = np.sort(np.append(spread, deepest))
+    solver = IntegralSolver(prob, AutoPTR(device=dev, **AUTOPTR_KW), abstol=AUTOPTR_ABSTOL)
+    t0 = time.perf_counter()
+    scal = [solver.solve_p(MixedParameters(float(ws[i]))) for i in pick]
+    t_scal = time.perf_counter() - t0
+    cached = sorted(solver.cache.cacheval["inner"]["rules"])
+    held = sum(n**3 * (16 * 9 + 8) for n in cached) / 2**30  # each rung's H and weights
+    peak_s = torch.cuda.max_memory_allocated() / 2**30
+    del solver
+    torch.cuda.empty_cache()
+    same_counts = all(s.numevals == int(nev[i]) and bool(s.retcode) == bool(conv[i]) for s, i in zip(scal, pick))
+    rel_scal = max(abs(float(s.u) - D[i]) / abs(D[i]) for s, i in zip(scal, pick))
+    # the certified lanes against phase 12's ladder (certified at npt 566 by a
+    # sup-norm change of 1.2e-6). An early lane beyond twice the abstol is
+    # certified by a small change between two rungs whose errors are alike:
+    # its rung table (PTR at every rung at its omega, against the ladder)
+    # shows the gap closing, and PTR at nmax must come within the limit
+    lim = 2 * AUTOPTR_ABSTOL
+    if ladder is None:
+        lad_txt = "not checked (phase 12 did not run in this process)"
+        lad_ok = True
+    else:
+        dev_l = np.abs(D - ladder)
+        late = conv & (last >= AUTOPTR_HELD_NPT)
+        lad_err = float(np.max(dev_l[late], initial=0.0))
+        beyond = np.nonzero(conv & (last < AUTOPTR_HELD_NPT) & (dev_l > lim))[0]
+        by_rung = {int(n): float(f"{dev_l[conv & (last == n)].max():.3e}") for n in rungs
+                   if np.any(conv & (last == n))}
+        table = np.zeros((len(rungs), beyond.size))
+        for r, n in enumerate(rungs if beyond.size else ()):
+            ref, *_ = sweep_solve(prob, PTR(npt=int(n), device=dev),
+                                  MixedParameters(torch.as_tensor(ws[beyond], device=dev)))
+            table[r] = np.abs(ref.cpu().numpy() - ladder[beyond])
+            del ref
+            torch.cuda.empty_cache()
+        top_err = float(np.max(table[-1], initial=0.0))
+        lad_ok = (lad_err <= lim and beyond.size <= AUTOPTR_EARLY_SHARE * int(conv.sum()) and top_err <= lim)
+        rows = "; ".join(f"omega {ws[i]:.4f} (last rung {int(last[i])}, resid {res[i]:.3e} of tol "
+                         f"{AUTOPTR_ABSTOL:g}): " + ", ".join(f"{int(n)}: {table[r, j]:.3e}" for r, n in enumerate(rungs))
+                         for j, i in enumerate(beyond))
+        lad_txt = (f"max {lad_err:.3e} over the {int(late.sum())} lanes certified at npt >= {AUTOPTR_HELD_NPT} "
+                   f"(<= {lim:g}); max by last rung {by_rung}; {beyond.size} earlier lanes beyond {lim:g} (<= "
+                   f"{AUTOPTR_EARLY_SHARE:.0%} of {int(conv.sum())}), |PTR(npt) - ladder| by rung: [{rows}]; PTR at "
+                   f"npt {rungs[-1]} there max {top_err:.3e} (<= {lim:g})")
+    print(f"AutoPTR checks: every lane vs PTR at its last rung max rel {worst:.3e} (<= 1e-12); lanes {pick.tolist()} "
+          f"through one scalar IntegralSolver (one rule cache: rungs {cached}, their H and weights {held:.2f} GiB, "
+          f"peak {peak_s:.2f} GiB): counts and flags {'identical' if same_counts else 'DIFFER'} "
+          f"({[s.numevals for s in scal]}, {[bool(s.retcode) for s in scal]}), values max rel {rel_scal:.3e}, "
+          f"{t_scal:.3f} s; certified lanes vs phase 12's certified ladder {lad_txt}", flush=True)
+    if not (worst <= 1e-12 and same_counts and rel_scal <= 1e-12 and lad_ok):
+        fail("AutoPTR checks")
+    # AutoPTR_IAI at one omega: the estimate (AutoPTR at reltol 1) sets the
+    # IAI's abstol to reltol |estimate|; the estimate's count, then the IAI's
+    w1, rt1 = 0.5, 1e-2
+    t0 = time.perf_counter()
+    est = solve(IntegralProblem(obs.dos_integrand(h, ETA), bz, w1), AutoPTR(device=dev, **AUTOPTR_KW), reltol=1.0)
+    both = solve(IntegralProblem(obs.dos_integrand(h, ETA), bz, w1),
+                 AutoPTR_IAI(ptr=AutoPTR(device=dev, **AUTOPTR_KW), iai=IAI(inner_cap=64, inner_nbisect=4,
+                                                                                device=dev)), reltol=rt1)
+    t_ai = time.perf_counter() - t0
+    print(f"AutoPTR_IAI at omega {w1} (the estimate at reltol 1, the IAI at reltol {rt1}): D = {float(both.u)!r} "
+          f"(the estimate {float(est.u)!r}), numevals {both.numevals} = AutoPTR {est.numevals} + IAI "
+          f"{both.numevals - est.numevals}, retcode {both.retcode}, {t_ai:.3f} s", flush=True)
+    if not (math.isfinite(float(both.u)) and both.numevals > est.numevals > 0
+            and abs(float(both.u) - float(est.u)) <= abs(float(est.u))):
+        fail("AutoPTR_IAI")
+    del us, est, both
+    torch.cuda.empty_cache()
+
+    # the transport integrand (B11d) under PTR(100): one pack, one K19 launch, against TransportSolver
+    om_t = np.linspace(*WINDOW, TR_PTR_OMEGAS)
+    ti = obs.transport_integrand(h, eta=ETA)
+    t0 = time.perf_counter()
+    G, _, convt, net = sweep_solve(IntegralProblem(ti, bz), PTR(npt=NPT, device=dev),
+                                   MixedParameters(torch.as_tensor(om_t, device=dev)))
+    G = G.cpu().numpy()
+    t_ptr = time.perf_counter() - t0
+    Gt = obs.TransportSolver(h, bz, NPT, ETA)(om_t)
+    tr_rel = float(np.max(np.abs(G - Gt)) / np.max(np.abs(Gt)))
+    # under AutoPTR up to npt 300 at 32 omegas, reltol 1e-3
+    om32 = np.linspace(*WINDOW, TR_AUTOPTR_OMEGAS)
+    tr_rungs = AutoPTR(device=dev, **TR_AUTOPTR_KW).bz_to_standard(bz)[2].npt_ladder()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    Ga, _, conva, neva = sweep_solve(IntegralProblem(ti, bz), AutoPTR(device=dev, **TR_AUTOPTR_KW),
+                                     MixedParameters(torch.as_tensor(om32, device=dev)), reltol=1e-3)
+    t_auto = time.perf_counter() - t0
+    peak_t = torch.cuda.max_memory_allocated() / 2**30
+    cum_t = np.cumsum([n**3 for n in tr_rungs])
+    active_t = [int(np.sum(neva >= c)) for c in cum_t]
+    del Ga
+    torch.cuda.empty_cache()
+    # tb_integer(3) at eta 0.5 on the cubic wedge against the full zone (the in-loop symmetrization)
+    h1 = tb_integer(3, device=dev)
+    wedge = [solve(IntegralProblem(obs.transport_integrand(h1, eta=0.5), load_bz(kind, np.eye(3)),
+                                   MixedParameters(0.4)), AutoPTR(nmin=20, nmax=200, device=dev), abstol=1e-8)
+             for kind in (CubicSymIBZ(), FBZ())]
+    wedge_err = float((wedge[0].u - wedge[1].u).abs().max())
+    # graphene under IAI at one omega: K31 at every leaf trip, the card against the CPU
+    n31 = obs.transport_points.launches
+    gi = [solve(IntegralProblem(obs.transport_integrand(tb_graphene(device=dv), eta=0.3), bz2, MixedParameters(0.5)),
+                IAI(device=dv), abstol=1e-2) for dv in (dev, "cpu")]
+    n31 = obs.transport_points.launches - n31
+    gi_rel = float((gi[0].u.cpu() - gi[1].u).abs().max() / gi[1].u.abs().max())
+    print(f"transport integrand (B11d): PTR(npt={NPT}) at {TR_PTR_OMEGAS} omegas {t_ptr:.4f} s vs TransportSolver "
+          f"max rel {tr_rel:.3e} (<= 1e-12), numevals {int(net[0])} a lane; AutoPTR({TR_AUTOPTR_KW}) at "
+          f"{TR_AUTOPTR_OMEGAS} omegas, reltol 1e-3: {t_auto:.3f} s, rungs {tr_rungs} with active lanes {active_t}, "
+          f"flags {conva.astype(int).tolist()}, peak {peak_t:.2f} GiB; tb_integer(3), eta 0.5, AutoPTR(nmin=20, "
+          f"nmax=200), abstol 1e-8: CubicSymIBZ vs FBZ {wedge_err:.3e} (<= 1e-8), numevals {wedge[0].numevals} vs "
+          f"{wedge[1].numevals}, retcodes {wedge[0].retcode}, {wedge[1].retcode}; graphene IAI (eta 0.3, abstol "
+          f"1e-2) card vs CPU {gi_rel:.3e} (<= 1e-10), numevals {gi[0].numevals} vs {gi[1].numevals}, K31 launches "
+          f"{n31}; K18 launches {obs.velocity_pairs.launches}, K19 {obs.transport_gamma.launches}", flush=True)
+    if not (tr_rel <= 1e-12 and convt.all() and conva.any() and np.all(neva > 0) and wedge_err <= 1e-8
+            and wedge[0].retcode and wedge[1].retcode and gi_rel <= 1e-10 and gi[0].numevals == gi[1].numevals
+            and n31 > 0):
+        fail("transport integrand checks")
+
+    # the matrix spectral function under PTR(100) at 264 omegas, against the PTR DOS (K2)
+    t0 = time.perf_counter()
+    A, *_ = sweep_solve(IntegralProblem(FourierIntegrand(obs.spectral_function, h, eta=ETA), bz),
+                        PTR(npt=NPT, device=dev), MixedParameters(om_s))
+    torch.cuda.synchronize()
+    t_spec = time.perf_counter() - t0
+    Dd, *_ = sweep_solve(IntegralProblem(obs.dos_integrand(h, ETA), bz), PTR(npt=NPT, device=dev),
+                         MixedParameters(om_s))
+    sp_err = float((torch.diagonal(A, dim1=1, dim2=2).sum(-1).real - Dd).abs().max() / Dd.abs().max())
+    sp_herm = float((A - A.conj().transpose(1, 2)).abs().max() / A.abs().max())
+    # and at points: the batched form under IAI on graphene, card against CPU
+    si = [solve(IntegralProblem(FourierIntegrand(obs.spectral_function, tb_graphene(device=dv), eta=0.2, batched=True),
+                                bz2, 0.5), IAI(device=dv), abstol=1e-4) for dv in (dev, "cpu")]
+    si_rel = float((si[0].u.cpu() - si[1].u).abs().max() / si[1].u.abs().max())
+    print(f"spectral_function: PTR(npt={NPT}) at {W_FLAGSHIP} omegas {t_spec:.4f} s; trace vs the PTR DOS (K2) "
+          f"{sp_err:.3e} of max|D| (<= 1e-12), Hermitian to {sp_herm:.3e} (<= 1e-14); batched under IAI on graphene "
+          f"(eta 0.2, abstol 1e-4) card vs CPU {si_rel:.3e} (<= 1e-10), numevals {si[0].numevals} vs "
+          f"{si[1].numevals}", flush=True)
+    if not (sp_err <= 1e-12 and sp_herm <= 1e-14 and si_rel <= 1e-10 and si[0].numevals == si[1].numevals):
+        fail("spectral_function checks")
+    del A, Dd
+
+    # the k-path: the flagship and config 5
+    walls = {}
+    for tag, hh in (("flagship", h), ("bands30", h30)):
+        m = hh.valshape[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = kp.band_structure(hh, path)
+        Amap = kp.spectral_path(hh, path, om_path, ETA)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        projs = [np.diag(np.eye(m)[i]) for i in range(m)]
+        ex = sum(kp.expectation_path(hh, path, P) for P in projs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        wide = np.linspace(-60.0, 60.0, 8001)
+        rule = np.trapezoid(kp.spectral_path(hh, path, wide, ETA).cpu().numpy(), wide, axis=1)
+        walls[tag] = (t1 - t0, t2 - t1, float(np.max(np.abs(rule - m))), float((ex - 1).abs().max()))
+        if tag == "bands30":
+            sub = np.arange(0, KPATH_POINTS, 97)
+            ref = np.stack([np.linalg.eigvalsh(hh(np.asarray(path.X[i])).cpu().numpy()) for i in sub])
+            walls[tag] += (float(np.max(np.abs(e.cpu().numpy()[sub] - ref))),)
+        if not (Amap.shape == (KPATH_POINTS, KPATH_OMEGAS) and bool(torch.isfinite(Amap).all())
+                and walls[tag][2] <= 1e-2 * max(1.0, m / 3) and walls[tag][3] <= 1e-12):
+            fail(f"k-path checks ({tag}): shape {tuple(Amap.shape)}, sum rule {walls[tag][2]:.3e}, projectors "
+                 f"{walls[tag][3]:.3e}")
+    if not walls["bands30"][4] <= 1e-10:
+        fail(f"config 5's band structure vs numpy: {walls['bands30'][4]:.3e}")
+    launches = {k.__name__: k.launches for k in kernels}
+    wall32 = time.perf_counter() - t_main
+    wall = time.perf_counter() - t_phases
+    print(f"k-path main path (Gamma-X-M-Gamma-R-X, npts {KPATH_NPTS}, {KPATH_POINTS} points, {KPATH_OMEGAS} omegas): "
+          + "; ".join(
+        f"{tag} band_structure + spectral_path {v[0]:.4f} s, expectation_path x {3 if tag == 'flagship' else BANDS30} "
+        f"projectors {v[1]:.4f} s, sum rule on [-60, 60] eV max|int A - m| {v[2]:.3e} (<= 1e-2 per 3 bands), "
+        f"projectors sum to "
+        f"1 within {v[3]:.3e}" + (f", vs numpy eigvalsh at 40 points {v[4]:.3e}" if len(v) > 4 else "")
+        for tag, v in walls.items()) + f"; launches {launches}; phase 32 {wall32:.3f} s; phases 31-32 {wall:.3f} s "
+        f"(<= 60)", flush=True)
+    if min(launches.values()) <= 0:
+        fail(f"the slice's main paths did not go through every kernel: {launches}")
+    if wall > 60.0:
+        fail(f"phases 31-32 took {wall:.1f} s (> 60)")
+    if "--profile" in sys.argv[1:]:
+        profile(f"AutoPTR ladder ({AUTOPTR_OMEGAS} omegas)", lambda: sweep_solve(
+            prob, AutoPTR(device=dev, **AUTOPTR_KW), MixedParameters(torch.as_tensor(ws, device=dev)),
+            abstol=AUTOPTR_ABSTOL))
+        profile(f"k-path spectral map ({KPATH_POINTS} x {KPATH_OMEGAS})",
+                lambda: kp.spectral_path(h, path, om_path, ETA))
+    torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, t, b, library_ms=None):
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
+
+    return [entry("spectral_map", "spectral_path.cu", "autobzcore_tpu/models/kpath.py:123", t29["flagship"],
+                  t29["flagship"]["bound"]),
+            entry("band_expect", "band_expect.cu", "autobzcore_tpu/models/kpath.py:86", t30, b30, t30["library_ms"]),
+            entry("transport_points", "transport_points.cu", "autobzcore_tpu/models/observables.py:175", t31, b31,
+                  t31["library_ms"]),
+            entry("spectral_weighted_sum", "sigma_trace.cu", "autobzcore_tpu/models/observables.py:160", t27, b27),
+            entry("spectral_points", "sigma_trace.cu", "autobzcore_tpu/models/observables.py:160", t27p, b27p)]
+
 
 if __name__ == "__main__":
     main()

@@ -6,8 +6,6 @@ through both packages on the same numpy-built models, then pointwise pack
 parity on Haldane, graphene and the 3-D Weyl model, Kane-Mele by its
 queries, K24's plain version on identical packs carried across by
 ``interop.berry_pack_from_arrays``, and ``topology_example_torch.py point``.
-The AutoPTR half of ``test_berry_flux_through_solve_pipeline`` waits for
-the port's AutoPTR (ROADMAP A item 3); its PTR and EvalCounter halves run.
 
 Tolerances: pointwise fields (e, Om, Mm, vd, the metric) 1e-10 of max|F|,
 compared only where they are gauge-invariant (the eigenvectors' phases
@@ -233,8 +231,8 @@ def test_weyl_slice_chern_scan():
 
 
 def test_berry_flux_through_solve_pipeline():
-    """PTR and EvalCounter halves of the reference's case; its AutoPTR half
-    waits for the port's AutoPTR (ROADMAP A item 3)."""
+    """The reference's case: the Chern number through PTR, AutoPTR (at the
+    reference's rungs and count) and EvalCounter."""
     (hj, ht), (bzj, bzt) = model("tb_haldane", **HALDANE), fbz()
     fi = tb.berry_flux_integrand(ht)
     detB = np.linalg.det(np.asarray(bzt.B))
@@ -242,6 +240,11 @@ def test_berry_flux_through_solve_pipeline():
     assert abs(u / (detB * 2 * np.pi) + 1) < 1e-10
     uj = float(J.IntegralSolver(J.IntegralProblem(jb.berry_flux_integrand(hj), bzj), J.PTR(npt=48))(mu=0.0))
     assert abs(u - uj) <= 1e-12 * abs(uj)
+    auto = T.solve(T.IntegralProblem(fi, bzt, TMixed(mu=0.0)), T.AutoPTR(device="cpu"), abstol=1e-6)
+    autoj = J.solve(J.IntegralProblem(jb.berry_flux_integrand(hj), bzj, JMixed(mu=0.0)), J.AutoPTR(), abstol=1e-6)
+    assert abs(float(auto.u) / (detB * 2 * np.pi) + 1) < 1e-10
+    assert abs(float(auto.u) - float(autoj.u)) <= 1e-12 * abs(float(autoj.u))
+    assert auto.numevals == autoj.numevals and bool(auto.retcode) == bool(autoj.retcode)
     sol = T.solve(T.IntegralProblem(fi, bzt, TMixed(mu=0.0)), T.EvalCounter(T.PTR(npt=10, device="cpu")))
     solj = J.solve(J.IntegralProblem(jb.berry_flux_integrand(hj), bzj, JMixed(mu=0.0)), J.EvalCounter(J.PTR(npt=10)))
     assert sol.numevals == 100 == solj.numevals

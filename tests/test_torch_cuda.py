@@ -1867,3 +1867,211 @@ def test_lindhard_and_sigma_entry_points_on_card_match_cpu(cuda_device):
     for a, b in zip(v_g, v_c):
         a, b = np.asarray(a), np.asarray(b)
         assert np.max(np.abs(a - b)) <= 1e-10 * max(1.0, float(np.max(np.abs(b))))
+
+
+# --- K29-K31 and K27's matrix mode ----------------------------------------------------------------------
+
+from autobzcore_torch.models.kpath import band_expect, band_expect_plain, spectral_map, spectral_map_plain  # noqa: E402
+
+
+def _kpath_inputs(rng, K, m, W, device):
+    e = torch.as_tensor(np.sort(rng.uniform(-3, 3, (K, m)), axis=1), device=device)
+    om = torch.linspace(-4.0, 4.0, W, dtype=torch.float64, device=device)
+    return e, om
+
+
+def _eigen_inputs(rng, N, m, d, device):
+    """Eigenpairs of random Hermitian H and random Hermitian gradients, as
+    ``eigh_chunked`` and K11 hand them over (dH a view with contiguous
+    blocks)."""
+    from autobzcore_torch.ops.eigh3 import eigh_chunked
+
+    H = torch.as_tensor(random_hermitian(rng, N, m), device=device)
+    J = torch.as_tensor(np.stack([random_hermitian(rng, N, m) for _ in range(d + 1)], axis=1), device=device)
+    e, U = eigh_chunked(H)
+    om = torch.as_tensor(rng.uniform(-2, 2, N), device=device)
+    eta = torch.as_tensor(rng.uniform(0.05, 0.5, N), device=device)
+    return e, U.contiguous(), J[:, 1:], om, eta
+
+
+def test_slice_wrappers_take_plain_versions_on_cpu_without_counting():
+    rng = np.random.default_rng(400)
+    e, om = _kpath_inputs(rng, 30, 3, 17, "cpu")
+    H = torch.as_tensor(random_hermitian(rng, 30, 3))
+    O = torch.as_tensor(random_hermitian(rng, 1, 3)[0])
+    H2 = torch.as_tensor(random_hermitian(rng, 30, 2))
+    Z = torch.as_tensor(random_hermitian(rng, 5, 3)) + 0.3j * torch.eye(3, dtype=torch.complex128)
+    w = torch.ones(30, dtype=torch.float64)
+    eig = _eigen_inputs(rng, 30, 3, 2, "cpu")
+    kernels = (spectral_map, band_expect, tobs.transport_points, tobs.spectral_weighted_sum,
+               tobs.spectral_points)
+    counts = [k.launches for k in kernels]
+    assert torch.equal(spectral_map(e, om, 0.1), spectral_map_plain(e, om, 0.1))
+    assert torch.equal(band_expect(H, O), band_expect_plain(H, O))
+    assert torch.equal(band_expect(H2, O[:2, :2].contiguous(), fused=True),
+                       band_expect_plain(H2, O[:2, :2].contiguous(), fused=True))
+    assert torch.equal(tobs.transport_points(*eig), tobs.transport_points_plain(*eig))
+    assert torch.equal(tobs.spectral_weighted_sum(H, w, Z, 0.5), tobs.spectral_weighted_sum_plain(H, w, Z, 0.5))
+    assert torch.equal(tobs.spectral_points(H, Z[0].contiguous()), tobs.spectral_points_plain(H, Z[0]))
+    assert [k.launches for k in kernels] == counts
+
+
+def test_slice_wrappers_reject_what_the_kernels_do_not_take():
+    rng = np.random.default_rng(401)
+    e, om = _kpath_inputs(rng, 8, 3, 5, "cpu")
+    H = torch.as_tensor(random_hermitian(rng, 8, 3))
+    O = torch.as_tensor(random_hermitian(rng, 1, 3)[0])
+    w = torch.ones(8, dtype=torch.float64)
+    eig = _eigen_inputs(rng, 8, 3, 2, "cpu")
+    with pytest.raises(ValueError):
+        spectral_map(e.to(torch.float32), om, 0.1)
+    with pytest.raises(ValueError):
+        spectral_map(e, om[None], 0.1)
+    with pytest.raises(ValueError):
+        band_expect(H, O[:2, :2].contiguous())
+    with pytest.raises(ValueError):
+        band_expect(H, O.to(torch.complex64))
+    with pytest.raises(ValueError):
+        band_expect(H, O, fused=True)  # the fused eigh2 form is 2x2 only
+    with pytest.raises(ValueError):
+        tobs.transport_points(eig[0], eig[1], eig[2][:5], eig[3], eig[4])
+    with pytest.raises(ValueError):
+        tobs.transport_points(eig[0], eig[1], eig[2], eig[3][:7], eig[4])
+    with pytest.raises(ValueError):
+        tobs.transport_points(eig[0].to(torch.float32), *eig[1:])
+    with pytest.raises(ValueError):
+        tobs.spectral_weighted_sum(H, w[:7], H[:2].contiguous(), 1.0)
+    with pytest.raises(ValueError):
+        tobs.spectral_points(H, H[:3].contiguous())  # 3 matrices for 8 points
+    meta = torch.device("meta")  # neither the CPU nor a card
+    with pytest.raises(ValueError):
+        spectral_map(e.to(meta), om.to(meta), 0.1)
+    with pytest.raises(ValueError):
+        spectral_map(e, om.to(meta), 0.1)
+    with pytest.raises(ValueError):
+        band_expect(H.to(meta), O.to(meta))
+    with pytest.raises(ValueError):
+        tobs.transport_points(*(t.to(meta) for t in eig))
+    with pytest.raises(ValueError):
+        tobs.spectral_weighted_sum(H.to(meta), w.to(meta), H[:2].to(meta), 1.0)
+    with pytest.raises(ValueError):
+        tobs.spectral_points(H.to(meta), H[0].to(meta))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3, 30])
+def test_spectral_map_kernel_matches_plain_on_card(cuda_device, m):
+    """K29 over a ragged row and point count: 1e-12 relative, bit-identical
+    repeats, one launch."""
+    e, om = _kpath_inputs(np.random.default_rng(410 + m), 1_037, m, 301, cuda_device)
+    before = spectral_map.launches
+    got = spectral_map(e, om, 0.05)
+    assert spectral_map.launches == before + 1
+    want = spectral_map_plain(e, om, 0.05)
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    assert torch.equal(got, spectral_map(e, om, 0.05))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 30])
+def test_band_expect_kernel_matches_plain_on_card(cuda_device, m):
+    """K30 on shared eigenvectors (and at m = 2 fused with eigh2 from H):
+    1e-12 of the operator's scale, bit-identical repeats."""
+    from autobzcore_torch.ops.eigh3 import eigh_chunked
+
+    rng = np.random.default_rng(420 + m)
+    H = torch.as_tensor(random_hermitian(rng, 2_049, m), device=cuda_device)
+    O = torch.as_tensor(random_hermitian(rng, 1, m)[0], device=cuda_device)
+    _, U = eigh_chunked(H)
+    U = U.contiguous()
+    scale = float(O.abs().max())
+    for V, fused in ((U, False),) + (((H, True),) if m == 2 else ()):
+        got = band_expect(V, O, fused)
+        want = band_expect_plain(V, O, fused)
+        assert float((got - want).abs().max()) <= 1e-12 * scale
+        assert torch.equal(got, band_expect(V, O, fused))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(1, 1), (2, 2), (3, 3), (4, 2), (8, 3)])
+def test_transport_points_kernel_matches_plain_on_card(cuda_device, m, d):
+    """K31 on one eigh output: 1e-12 relative, a symmetric result,
+    bit-identical repeats."""
+    args = _eigen_inputs(np.random.default_rng(430 + m), 3_001, m, d, cuda_device)
+    before = tobs.transport_points.launches
+    got = tobs.transport_points(*args)
+    assert tobs.transport_points.launches == before + 1
+    want = tobs.transport_points_plain(*args)
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    assert torch.equal(got, got.transpose(1, 2))
+    assert torch.equal(got, tobs.transport_points(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8])
+def test_spectral_sum_kernel_matches_plain_on_card(cuda_device, m):
+    """K27's matrix mode over a ragged point count and 37 lanes, and its
+    pointwise entry with one Z per point and one for all: 1e-12 of the value
+    scale, exactly Hermitian, bit-identical repeats; its trace against K27's
+    trace mode on the same inputs."""
+    from autobzcore_torch.models import selfenergy as se
+
+    rng = np.random.default_rng(440 + m)
+    H, _, w, Z, _ = _sigma_inputs(rng, 10_007, m, 1, 37, cuda_device)
+    before = tobs.spectral_weighted_sum.launches
+    got = tobs.spectral_weighted_sum(H, w, Z, 0.3)
+    assert tobs.spectral_weighted_sum.launches == before + 1
+    want = tobs.spectral_weighted_sum_plain(H, w, Z, 0.3)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-12 * scale
+    assert torch.equal(got, got.conj().transpose(1, 2))
+    assert torch.equal(got, tobs.spectral_weighted_sum(H, w, Z, 0.3))
+    trace = torch.diagonal(got, dim1=1, dim2=2).sum(-1)
+    assert float((trace.real - se.sigma_trace_sum(H, w, Z, 0.3)).abs().max()) <= 1e-12 * scale
+    for Zp in (_sigma_z(rng, 10_007, m, cuda_device), Z[3].contiguous()):
+        got = tobs.spectral_points(H, Zp)
+        want = tobs.spectral_points_plain(H, Zp)
+        assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+        assert torch.equal(got, tobs.spectral_points(H, Zp))
+
+
+@pytest.mark.gpu
+def test_spectral_function_on_card_runs_k27_or_raises(cuda_device):
+    """spectral_function on the card runs K27 and nothing else: under PTR its
+    matrix mode, under IAI in the batched form its pointwise entry, each
+    against the same solve on the CPU (1e-10, equal counts); the unbatched
+    form under IAI, which would call it under vmap, raises."""
+    from autobzcore_torch.models.tight_binding import tb_graphene
+
+    bz = T.load_bz(T.FBZ(), np.eye(2))
+
+    def solves(dev):
+        h = tb_graphene(device=dev)
+        ptr = T.solve(T.IntegralProblem(T.FourierIntegrand(tobs.spectral_function, h, eta=0.2), bz, 0.5),
+                      T.PTR(npt=40, device=dev))
+        iai = T.solve(T.IntegralProblem(T.FourierIntegrand(tobs.spectral_function, h, eta=0.2, batched=True),
+                                        bz, 0.5), T.IAI(device=dev), abstol=1e-4)
+        return ptr, iai
+
+    n_sum, n_pts = tobs.spectral_weighted_sum.launches, tobs.spectral_points.launches
+    card = solves(cuda_device)
+    assert tobs.spectral_weighted_sum.launches > n_sum and tobs.spectral_points.launches > n_pts
+    for g, c in zip(card, solves("cpu")):
+        assert float((g.u.cpu() - c.u).abs().max()) <= 1e-10 * float(c.u.abs().max())
+        assert g.numevals == c.numevals
+    with pytest.raises(ValueError, match="batched=True"):
+        T.solve(T.IntegralProblem(T.FourierIntegrand(tobs.spectral_function, tb_graphene(device=cuda_device),
+                                                     eta=0.2), bz, 0.5), T.IAI(device=cuda_device), abstol=1e-4)
+
+
+@pytest.mark.gpu
+def test_slice_wrappers_refuse_more_bands_on_card(cuda_device):
+    rng = np.random.default_rng(450)
+    H, _, w, Z, _ = _sigma_inputs(rng, 16, 9, 1, 3, cuda_device)
+    with pytest.raises(ValueError):
+        tobs.spectral_weighted_sum(H, w, Z, 1.0)
+    with pytest.raises(ValueError):
+        tobs.transport_points(*_eigen_inputs(rng, 16, 9, 2, cuda_device))
+    U = torch.as_tensor(random_hermitian(rng, 4, 33), device=cuda_device)
+    with pytest.raises(ValueError):
+        band_expect(U, U[0].contiguous())
