@@ -198,6 +198,26 @@ def build_kernels(timeout=600):
     return time.perf_counter() - t0, "\n".join(logs)
 
 
+def sass_counts(library, opcode, name_part):
+    """For each entry function of ``library`` whose name holds ``name_part``:
+    how many SASS instructions start with ``opcode`` (e.g. ``"DMMA"``), read
+    from ``cuobjdump --dump-sass``, the toolkit's disassembler beside nvcc."""
+    tool = shutil.which("cuobjdump") or str(Path(nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(library)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if name_part in name:
+                counts[name] = 0
+        elif name in counts:
+            op = line.split("*/", 1)[1].strip() if "*/" in line else ""
+            if op.lstrip("@!P0123456789T ").startswith(opcode):
+                counts[name] += 1
+    return counts
+
+
 def load_kernels():
     """ctypes handle of the kernel library, building it first if needed."""
     global _LIB

@@ -10,11 +10,15 @@ non-zero):
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
 2. build: every CUDA kernel from ``autobzcore_torch/csrc`` with nvcc (one
-   compiler per source, in parallel), timed;
-3. kernels K1, K2: each against its plain PyTorch version on the card, in
-   FP64, at stated tolerances; K2 run twice must be bit-identical; kernel
-   and plain times at the flagship shapes (K = 1e6 points, W = 264), and
-   K1's library time (``torch.matmul`` of the precomputed phases);
+   compiler per source, in parallel), timed, with the DMMA (FP64
+   tensor-core) instructions that ``cuobjdump --dump-sass`` finds in K1's
+   and K11's entries;
+3. kernels K1, K2: first, every entry of K1 and K11 must hold DMMA
+   instructions; then each against its plain PyTorch version on the card,
+   in FP64, at stated tolerances; K1 and K2 run twice must be
+   bit-identical; kernel and plain times at the flagship shapes (K = 1e6
+   points, W = 264), K1's share of its bound and its library time
+   (``torch.matmul`` of the precomputed phases);
 4. PTR main path: the flagship PTR leg at full width through the public
    entry points (synthetic 3-band series on the full zone, PTR(npt=100),
    eta = 0.05, SweepSolver(chunk=264) under hchebinterp over [-6, 7] eV,
@@ -23,7 +27,11 @@ non-zero):
 5. cubic IBZ: tb_integer(3) on CubicSymIBZ against the full zone (PTR);
 6. kernels K3, K4, K5: each against its plain version at the shapes of the
    IAI main path (33 frequencies: 990 mid and 29,700 leaf lanes), with
-   kernel, plain and (K3) ``torch.matmul`` times;
+   kernel, plain and (K3) ``torch.matmul`` times; K3 also at the outer
+   level's shape (33 lanes on one coefficient set), both shapes
+   bit-identical on repeat, with the device time of K3 and of
+   ``torch.matmul`` from torch.profiler beside the time of a call (which
+   the host's enqueue sets at these sizes) and K3's share of its bound;
 7. IAI main path: the flagship cold IAI leg at full width,
    IAI(inner_cap=64, inner_nbisect=4) under SweepSolver(abstol=1e-3,
    chunk=33, scan=True) at 33 frequencies in [-6, 7] eV, eta = 0.05, with
@@ -93,8 +101,9 @@ non-zero):
 19. kernels K11 (the series Jacobian at points), K12 (band velocities) and
    K13 (GGR's box sum and the Gaussian sum) against their plain versions at
    the main path's shapes: K11 on the flagship's 1e6 points of the 100^3 grid
-   (at order zero bit-equal to K1; library time ``torch.matmul`` of the
-   precomputed derivative phases) and on one bands30 init chunk, K12 on
+   (at order zero bit-equal to K1, bit-identical on repeat, its share of
+   its bound; library time ``torch.matmul`` of the precomputed derivative
+   phases) and on one bands30 init chunk, K12 on
    eigh's vectors of one init chunk at m = 3 and m = 30 (library time one
    ``torch.einsum``), K13 in both modes on the flagship's spectral grid at
    1001 energies over [-6, 7] eV and in box mode at the bands30 shape; max
@@ -256,7 +265,13 @@ run once more under ``torch.profiler`` (after their checks),
 which prints their device busy time, its share of the wall and the device
 time of the leading kernels, or "not captured" where the profiler recorded
 no device time (late in a long ``--profile`` run it has recorded none).
-``--phases-29-30`` runs phases 1-2 and 29-30 alone (phase 26's chemical
+``--phases-fourier`` runs phases 1-4, 6a (K3), phase 19's K11 and phase
+32's AutoPTR DOS ladder alone, the ladder once more under torch.profiler
+for K1's share of its device time, and prints a JSON object of their
+numbers (``"fourier"``) before the last line: about 3 minutes with the
+build, the quick before/after run for the Fourier-evaluation kernels
+(``tools/fourier_ab.py`` runs the same phases on another checkout's
+package). ``--phases-29-30`` runs phases 1-2 and 29-30 alone (phase 26's chemical
 potential is found again first), so that with ``--profile`` the last two
 profiles are the process's first; ``--phases-31-32`` runs phases 1-2 and
 31-32 alone (without phase 12, so the AutoPTR lanes are not held against
@@ -468,11 +483,49 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def host_us(fn, reps):
+    """Mean host microseconds that one ``fn()`` takes to return (its enqueue,
+    with no synchronization in the timed loop), over ``reps`` runs after one
+    warm-up run: the time a call costs where the device is the faster."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / reps
+
+
+def device_ms(fn, reps):
+    """Mean device milliseconds of the kernels ``fn()`` launches, over
+    ``reps`` runs under torch.profiler (the sum of their kernel times,
+    without the gaps between launches that the host's enqueue leaves), after
+    one warm-up run; None where the profiler recorded no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return total / reps / 1e3 if total > 0 else None
+
+
 def profile(label, fn):
     """Run ``fn()`` under torch.profiler and print the device busy time (the
     sum of kernel and copy times on the one stream), its share of the wall
     and the leading kernels by device time; "not captured" where the
-    profiler recorded no device time."""
+    profiler recorded no device time. Returns the wall, the busy time and
+    the kernels' (name, count, device microseconds), or None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -494,11 +547,12 @@ def profile(label, fn):
     if not dev_rows or busy <= 0.0:
         print(f"profile {label}: wall {wall:.3f} s (profiled), device busy not captured (the profiler recorded "
               f"{len(dev_rows)} device-side rows and no device time)", flush=True)
-        return
+        return None
     top = sorted(rows, key=lambda r: -r[2])[:8]
     print(f"profile {label}: wall {wall:.3f} s (profiled), device busy {busy:.4f} s "
           f"({100 * busy / wall:.2f} %); top: " + "; ".join(
               f"{k[:48]} x{n} {t / 1e3:.3f} ms" for k, n, t in top), flush=True)
+    return {"wall": wall, "busy": busy, "rows": rows}
 
 
 def ptxas_report(log):
@@ -534,6 +588,28 @@ def ptxas_report(log):
                         short += "<" + ",".join(args) + ">"
                 sigma.append(f"{short} {used}, {stack} B, {spill} B")
     return per_source, sigma
+
+
+def dmma_split(counts):
+    """DMMA instructions of K1's entries (``fourier_points_kernel<TN, false>``)
+    and of K11's (``<TN, true>``): (entries, instructions) each."""
+    k1 = [n for name, n in counts.items() if "Lb0E" in name]
+    k11 = [n for name, n in counts.items() if "Lb1E" in name]
+    return (len(k1), sum(k1)), (len(k11), sum(k11))
+
+
+def dmma_text(counts):
+    (e1, n1), (e11, n11) = dmma_split(counts)
+    return (f"K1 {e1} entries, {n1} DMMA instructions; K11 {e11} entries, {n11}; the fewest in an entry "
+            f"{min(counts.values(), default=0)}")
+
+
+def check_dmma(counts):
+    """Phase 3's first check: K1 and K11 run their products on the FP64
+    tensor cores, so every one of their entries holds DMMA instructions."""
+    (e1, _), (e11, _) = dmma_split(counts)
+    if not (e1 and e11 and all(counts.values())):
+        fail(f"fourier_points.cu: an entry without DMMA instructions ({dmma_text(counts)})")
 
 
 def bound(flops, nbytes, peak=PEAK_FP64, mma_flops=0):
@@ -577,14 +653,9 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from autobzcore_torch import FBZ, PTR, CubicSymIBZ, IntegralProblem, load_bz, solve
-        from autobzcore_torch.algorithms.ptr import frac_nodes
-        from autobzcore_torch.models.observables import (
-            dos_integrand, dos_trace_weighted_sum, dos_trace_weighted_sum_plain)
+        from autobzcore_torch.models.observables import dos_integrand
         from autobzcore_torch.models.tight_binding import flagship_series, tb_integer
         from autobzcore_torch.ops import cuda_lib
-        from autobzcore_torch.ops.fourier_eval import fourier_points, fourier_points_plain, phase_matrix
-        from autobzcore_torch.parallel.sweep import SweepSolver
-        from autobzcore_torch.utils.chebinterp import hchebinterp
     except ImportError as e:
         fail(f"the autobzcore_torch package must sit beside this script: {e}")
     if "jax" in sys.modules:
@@ -619,6 +690,19 @@ def main():
           f"{seconds:.1f} s (sm_90a); ptxas per source (entries, most registers, spill stores; the whole report in "
           f"build/autobzcore_torch/ptxas.log): {'; '.join(per_source)}", flush=True)
     print(f"ptxas K27-K31 (registers, stack frame, spill stores): {'; '.join(sigma)}", flush=True)
+    try:
+        dmma = cuda_lib.sass_counts(cuda_lib.LIBRARY, "DMMA", "fourier_points_kernel")
+    except (OSError, subprocess.SubprocessError) as e:
+        fail(f"cuobjdump --dump-sass of {cuda_lib.LIBRARY.name}: {e}")
+    print(f"SASS of fourier_points.cu's entries (cuobjdump): {dmma_text(dmma)}", flush=True)
+    if "--phases-fourier" in sys.argv[1:]:
+        # phases 3-4, 6a, 19 and phase 32's AutoPTR DOS ladder alone, in a process of their own
+        h = flagship_series(device=dev)
+        check_dmma(dmma)
+        print(json.dumps({"fourier": fourier_phases(np, torch, dev, h)}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
     if "--phases-31-32" in sys.argv[1:]:
         # phases 31-32 alone, in a process of their own (phase 12's ladder does not run)
         h = flagship_series(device=dev)
@@ -640,8 +724,61 @@ def main():
         return
 
     # 3. kernels against their plain versions -------------------------------
-    rng = np.random.default_rng(0)
     h = flagship_series(device=dev)
+    check_dmma(dmma)
+    kernels, _ = ptr_phases(np, torch, dev, h)
+
+    # 5. cubic IBZ against the full zone -------------------------------------
+    h1 = tb_integer(3, device=dev)
+    om8 = torch.linspace(-5.0, 5.0, 8, dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    sol_ibz = solve(IntegralProblem(dos_integrand(h1, ETA), load_bz(CubicSymIBZ(), np.eye(3)), om8),
+                    PTR(npt=NPT))
+    sol_fbz = solve(IntegralProblem(dos_integrand(h1, ETA), load_bz(FBZ(), np.eye(3)), om8),
+                    PTR(npt=NPT))
+    u_ibz, u_fbz = sol_ibz.u.cpu().numpy(), sol_fbz.u.cpu().numpy()
+    rel8 = float(np.max(np.abs(u_ibz - u_fbz) / np.abs(u_fbz)))
+    print(f"cubic IBZ: tb_integer(3), npt={NPT}, 8 omegas: {sol_ibz.numevals} representatives "
+          f"vs {sol_fbz.numevals} points, max rel diff {rel8:.3e} (<= 1e-10), "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if not rel8 <= 1e-10:
+        fail(f"CubicSymIBZ and FBZ differ by {rel8:.3e}")
+
+    cold, k_iai = iai_phases(np, torch, dev, h)
+    kernels += k_iai
+    kernels += warm_phases(np, torch, dev, h, cold)
+    k_fg, ladder = fullgrid_phases(np, torch, dev, h, cold)
+    kernels += k_fg
+    k_ltm, ltm_dos = ltm_phases(np, torch, dev, h)
+    kernels += k_ltm
+    kernels += block_phases(np, torch, dev, h, cold)
+    kernels += repair_phases(np, torch, dev)
+    kernels += ggr_phases(np, torch, dev, h, ltm_dos)
+    kernels += cubature_phases(np, torch, dev, h, cold)
+    k_tr, mu_filling = transport_phases(np, torch, dev, h)
+    kernels += k_tr
+    kernels += berry_phases(np, torch, dev)
+    kernels += lindhard_sigma_phases(np, torch, dev, h, mu_filling)
+    kernels += slice12_phases(np, torch, dev, h, ladder)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+def ptr_phases(np, torch, dev, h):
+    """Phases 3-4: K1 and K2 against their plain versions (K1 bit-identical on
+    repeat, its share of its bound and the library call's time), then the
+    flagship PTR leg. Returns the kernels' JSON entries and the leg's numbers."""
+    from autobzcore_torch import FBZ, PTR, IntegralProblem, load_bz
+    from autobzcore_torch.algorithms.ptr import frac_nodes
+    from autobzcore_torch.models.observables import (
+        dos_integrand, dos_trace_weighted_sum, dos_trace_weighted_sum_plain)
+    from autobzcore_torch.ops.fourier_eval import fourier_points, fourier_points_plain, phase_matrix
+    from autobzcore_torch.parallel.sweep import SweepSolver
+    from autobzcore_torch.utils.chebinterp import hchebinterp
+
+    # 3. kernels against their plain versions -------------------------------
+    rng = np.random.default_rng(0)
     args = (h.offset, h.period)
     X = torch.as_tensor(rng.random((100_000, 3)), device=dev)
     k1 = fourier_points(h.c, X, *args)
@@ -650,6 +787,8 @@ def main():
     err1 = float((k1 - p1).abs().max() / p1.abs().max())
     if not err1 <= 1e-12:
         fail(f"K1 fourier_points vs plain: max|dH|/max|H| = {err1:.3e} > 1e-12")
+    if not torch.equal(k1, fourier_points(h.c, X, *args)):
+        fail("K1 fourier_points: two runs on the same inputs differ")
     errs2 = []
     for m in (1, 2, 3):
         H = torch.as_tensor(random_hermitian(rng, 100_000, m), device=dev)
@@ -669,13 +808,15 @@ def main():
         errs2.append(e)
     print(f"kernels: K1 max|dH|/max|H| = {err1:.3e} (<= 1e-12); K2 max rel err "
           f"m=1,2,3: {errs2[0]:.3e}, {errs2[1]:.3e}, {errs2[2]:.3e} (<= 1e-10); "
-          "K2 repeat bit-identical", flush=True)
+          "K1 and K2 repeats bit-identical", flush=True)
 
     # flagship shapes: the full npt=100 grid, W = 264
     Xg = (frac_nodes(NPT, 3, dev) * torch.as_tensor(h.period, device=dev)).contiguous()
     Hg = fourier_points(h.c, Xg, *args)
     Hp = fourier_points_plain(h.c, Xg, *args)
     k1_abs = float((Hg - Hp).abs().max())
+    if not torch.equal(Hg, fourier_points(h.c, Xg, *args)):
+        fail("K1 fourier_points at the flagship grid: two runs on the same inputs differ")
     Hg = Hg.reshape(-1, 3, 3)
     wg = torch.ones(Hg.shape[0], dtype=torch.float64, device=dev)
     omg = torch.linspace(*WINDOW, W_FLAGSHIP, dtype=torch.float64, device=dev)
@@ -698,10 +839,13 @@ def main():
     k1_lib_abs = float((torch.matmul(Pm, cm).reshape(Hg.shape) - Hp).abs().max())
     t["k1_library"] = cuda_ms(lambda: torch.matmul(Pm, cm), 10)
     del Pm
-    print(f"kernels at K={Hg.shape[0]}, W={W_FLAGSHIP}: K1 {t['k1']:.3f} ms (plain "
-          f"{t['k1_plain']:.3f} ms, max|dH| {k1_abs:.3e}; torch.matmul of the phases {t['k1_library']:.3f} "
-          f"ms, max|dH| {k1_lib_abs:.3e}); K2 {t['k2']:.3f} ms (plain "
-          f"{t['k2_plain']:.3f} ms, max|dD| {k2_abs:.3e})", flush=True)
+    b1 = bound(Hg.shape[0] * (125 * (8 * 9 + 6)),
+               nbytes(h.c, Xg) + Hg.numel() * Hg.element_size(), PEAK_FP64_MMA)
+    b2 = bound(Hg.shape[0] * W_FLAGSHIP * (TRACE_FLOPS[3] + 2), nbytes(Hg, wg, omg, etag) + 8 * W_FLAGSHIP)
+    print(f"kernels at K={Hg.shape[0]}, W={W_FLAGSHIP}: K1 {t['k1']:.4f} ms, {100 * b1[0] / t['k1']:.1f} % of its "
+          f"bound {b1[0]:.4f} ms by {b1[1]} (plain {t['k1_plain']:.3f} ms, max|dH| {k1_abs:.3e}, repeat "
+          f"bit-identical; torch.matmul of the phases {t['k1_library']:.4f} ms, max|dH| {k1_lib_abs:.3e}); K2 "
+          f"{t['k2']:.3f} ms (plain {t['k2_plain']:.3f} ms, max|dD| {k2_abs:.3e})", flush=True)
     del Hp
 
     # 4. PTR main path at full width ----------------------------------------
@@ -755,26 +899,7 @@ def main():
         profile("PTR main path", lambda: hchebinterp(SweepSolver(prob, PTR(npt=NPT), chunk=W_FLAGSHIP),
                                                       *WINDOW, atol=1e-2))
 
-    # 5. cubic IBZ against the full zone -------------------------------------
-    h1 = tb_integer(3, device=dev)
-    om8 = torch.linspace(-5.0, 5.0, 8, dtype=torch.float64, device=dev)
-    t0 = time.perf_counter()
-    sol_ibz = solve(IntegralProblem(dos_integrand(h1, ETA), load_bz(CubicSymIBZ(), np.eye(3)), om8),
-                    PTR(npt=NPT))
-    sol_fbz = solve(IntegralProblem(dos_integrand(h1, ETA), load_bz(FBZ(), np.eye(3)), om8),
-                    PTR(npt=NPT))
-    u_ibz, u_fbz = sol_ibz.u.cpu().numpy(), sol_fbz.u.cpu().numpy()
-    rel8 = float(np.max(np.abs(u_ibz - u_fbz) / np.abs(u_fbz)))
-    print(f"cubic IBZ: tb_integer(3), npt={NPT}, 8 omegas: {sol_ibz.numevals} representatives "
-          f"vs {sol_fbz.numevals} points, max rel diff {rel8:.3e} (<= 1e-10), "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
-    if not rel8 <= 1e-10:
-        fail(f"CubicSymIBZ and FBZ differ by {rel8:.3e}")
-
     src = "autobzcore_torch/csrc/"
-    b1 = bound(Hg.shape[0] * (125 * (8 * 9 + 6)),
-               nbytes(h.c, Xg) + Hg.numel() * Hg.element_size(), PEAK_FP64_MMA)
-    b2 = bound(Hg.shape[0] * W_FLAGSHIP * (TRACE_FLOPS[3] + 2), nbytes(Hg, wg, omg, etag) + 8 * W_FLAGSHIP)
     kernels = [
         {"name": "fourier_points", "route": "cuda", "source": src + "fourier_points.cu",
          "replaces": "autobzcore_tpu/ops/fourier_eval.py:78",
@@ -789,51 +914,29 @@ def main():
     ]
     del Hg, Xg, wg
     torch.cuda.empty_cache()
-    cold, k_iai = iai_phases(np, torch, dev, h)
-    kernels += k_iai
-    kernels += warm_phases(np, torch, dev, h, cold)
-    k_fg, ladder = fullgrid_phases(np, torch, dev, h, cold)
-    kernels += k_fg
-    k_ltm, ltm_dos = ltm_phases(np, torch, dev, h)
-    kernels += k_ltm
-    kernels += block_phases(np, torch, dev, h, cold)
-    kernels += repair_phases(np, torch, dev)
-    kernels += ggr_phases(np, torch, dev, h, ltm_dos)
-    kernels += cubature_phases(np, torch, dev, h, cold)
-    k_tr, mu_filling = transport_phases(np, torch, dev, h)
-    kernels += k_tr
-    kernels += berry_phases(np, torch, dev)
-    kernels += lindhard_sigma_phases(np, torch, dev, h, mu_filling)
-    kernels += slice12_phases(np, torch, dev, h, ladder)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}), flush=True)
+    info = {"k1_ms": t["k1"], "k1_library_ms": t["k1_library"], "k1_bound_ms": b1[0], "ptr_wall": wall,
+            "omegas": interp.numevals, "panels": len(interp.panels), "numevals": sweep.numevals}
+    return kernels, info
 
 
-def iai_phases(np, torch, dev, h):
-    """Phases 6-8: K3-K5 against their plain versions, the IAI main path and
-    the cubic-IBZ check through IAI. Returns the kernels' JSON entries."""
-    from autobzcore_torch import FBZ, IAI, PTR, CubicSymIBZ, IntegralProblem, load_bz, solve
-    from autobzcore_torch.models.observables import dos_integrand, gk_leaf_dos, gk_leaf_dos_plain
-    from autobzcore_torch.models.tight_binding import tb_integer
+def k3_phase(np, torch, dev, h, rng):
+    """Phase 6a: K3 against its plain version at the outer level's shape (33
+    solves x 2 x 15 nodes on one coefficient set) and the mid level's (990
+    lanes of the results x 2 x 15 nodes), each bit-identical on repeat, with
+    kernel, plain, ``torch.matmul`` and bound times at both. Returns them."""
     from autobzcore_torch.ops import adaptive as tad
-    from autobzcore_torch.ops.fourier_eval import (fourier_contract, fourier_contract_plain,
-                                                   phase_matrix)
-    from autobzcore_torch.parallel.sweep import SweepSolver
+    from autobzcore_torch.ops.fourier_eval import fourier_contract, fourier_contract_plain, phase_matrix
 
-    src = "autobzcore_torch/csrc/"
-    rng = np.random.default_rng(1)
-    xk, wk, wg = tad.gk_rule(7, dev)
-    P = xk.shape[0]
-    L_mid, L_leaf = IAI_OMEGAS * 2 * P, IAI_OMEGAS * (2 * P) ** 2
-
-    # 6a. K3: the outer level's contraction at 2 x 15 nodes of each of the 33
+    P = tad.gk_rule(7, dev)[0].shape[0]
+    L_mid = IAI_OMEGAS * 2 * P
+    # the outer level's contraction at 2 x 15 nodes of each of the 33
     # solves, then the mid level's at 2 x 15 nodes of each of the 990 results
     c0 = h.c.reshape((1, 5, 5, 5, 9)).contiguous()
     x_out = torch.as_tensor(rng.random((IAI_OMEGAS, 2 * P)), device=dev)
     cm_out = torch.zeros(IAI_OMEGAS, dtype=torch.int64, device=dev)
-    k3a = fourier_contract(c0, cm_out, x_out, h.offset[2], h.period[2])
-    e3a = float((k3a - fourier_contract_plain(c0, cm_out, x_out, h.offset[2], h.period[2])).abs().max())
+    args_out = (c0, cm_out, x_out, h.offset[2], h.period[2])
+    k3a = fourier_contract(*args_out)
+    e3a = float((k3a - fourier_contract_plain(*args_out)).abs().max())
     c_mid = k3a.reshape(L_mid, 5, 5, 9)
     cm_mid = torch.arange(L_mid, device=dev)
     x_mid = torch.as_tensor(rng.random((L_mid, 2 * P)), device=dev)
@@ -844,20 +947,120 @@ def iai_phases(np, torch, dev, h):
     cmax = max(float(c0.abs().max()), float(c_mid.abs().max()))
     if not max(e3a, e3) <= 1e-12 * cmax:
         fail(f"K3 fourier_contract vs plain: max|d| {max(e3a, e3):.3e} > 1e-12 max|c| ({cmax:.3e})")
+    if not (torch.equal(k3a, fourier_contract(*args_out)) and torch.equal(k3, fourier_contract(*args3))):
+        fail("K3 fourier_contract: two runs on the same inputs differ")
     # the library call: one batched matmul of the (L, J, n) phases against (L, n, rest)
     ph = phase_matrix(x_mid, 5, h.offset[1], h.period[1])
     cl = c_mid.permute(0, 2, 1, 3).reshape(L_mid, 5, 45).contiguous()
     e3m = float((torch.matmul(ph, cl).reshape(p3.shape) - p3).abs().max())
+    # and at the outer level: the (33, 30, 5) phases against the one (5, 225) slab
+    ph_out = phase_matrix(x_out, 5, h.offset[2], h.period[2])
+    cl_out = c0.reshape(25, 5, 9).permute(1, 0, 2).reshape(5, 225).contiguous()
     t3 = {"ms": cuda_ms(lambda: fourier_contract(*args3), 50),
           "plain_ms": cuda_ms(lambda: fourier_contract_plain(*args3), 10),
           "library_ms": cuda_ms(lambda: torch.matmul(ph, cl), 50),
-          "outer_ms": cuda_ms(lambda: fourier_contract(c0, cm_out, x_out, h.offset[2], h.period[2]), 50)}
-    b3 = bound(k3.numel() * 8 * 5, nbytes(c_mid, cm_mid, x_mid, k3))
+          "outer_ms": cuda_ms(lambda: fourier_contract(*args_out), 50),
+          "outer_library_ms": cuda_ms(lambda: torch.matmul(ph_out, cl_out), 50),
+          "err": max(e3a, e3),
+          "bound": bound(k3.numel() * 8 * 5, nbytes(c_mid, cm_mid, x_mid, k3)),
+          "outer_bound": bound(k3a.numel() * 8 * 5, nbytes(c0, cm_out, x_out, k3a))}
+    # the device's own time: a call of this size takes less on the card than
+    # the host takes to enqueue it
+    for key, fn in (("mid", lambda: fourier_contract(*args3)), ("mid_library", lambda: torch.matmul(ph, cl)),
+                    ("outer", lambda: fourier_contract(*args_out)),
+                    ("outer_library", lambda: torch.matmul(ph_out, cl_out))):
+        t3[key + "_device_ms"] = device_ms(fn, 50)
+    # what a call costs the host at the mid shape: the wrapper, the bare
+    # ctypes launch it ends in (the same arguments, no checks, no allocation)
+    # and torch.matmul
+    from autobzcore_torch.ops import cuda_lib
+
+    lib = cuda_lib.load_kernels()
+    o3 = torch.empty_like(k3)
+    bare = (c_mid.data_ptr(), cm_mid.data_ptr(), x_mid.data_ptr(), o3.data_ptr(), L_mid, x_mid.shape[1], 5, 5, 9,
+            L_mid, int(h.offset[1]), float(h.period[1]), torch.cuda.current_stream(dev).cuda_stream)
+    t3["host_us"] = host_us(lambda: fourier_contract(*args3), 500)
+    t3["bare_host_us"] = host_us(lambda: lib.fourier_contract_launch(*bare), 500)
+    t3["library_host_us"] = host_us(lambda: torch.matmul(ph, cl), 500)
+    if not torch.equal(o3, k3):
+        fail("K3 fourier_contract: the bare launch differs from the wrapper's")
+    b3, b3o = t3["bound"], t3["outer_bound"]
+
+    def dev_text(key):
+        v = t3[key + "_device_ms"]
+        return "not captured" if v is None else f"{v:.4f} ms"
+
+    def share(b, key):
+        v = t3[key + "_device_ms"]
+        return "" if v is None else f", {100 * b[0] / v:.1f} % of it on the device"
+
     print(f"K3 fourier_contract: outer {tuple(x_out.shape)} max|d| {e3a:.3e}, mid "
-          f"{tuple(x_mid.shape)} max|d| {e3:.3e} (<= 1e-12 max|c| = {1e-12 * cmax:.3e}); mid "
-          f"{t3['ms']:.4f} ms (plain {t3['plain_ms']:.4f}, torch.matmul {t3['library_ms']:.4f} "
-          f"max|d| {e3m:.3e}; bound {b3[0]:.4f} ms by {b3[1]}), outer {t3['outer_ms']:.4f} ms",
+          f"{tuple(x_mid.shape)} max|d| {e3:.3e} (<= 1e-12 max|c| = {1e-12 * cmax:.3e}), repeats bit-identical; "
+          f"a call (host clock of 50 calls by events) mid {t3['ms']:.4f} ms (plain {t3['plain_ms']:.4f}, "
+          f"torch.matmul {t3['library_ms']:.4f} max|d| {e3m:.3e}), outer {t3['outer_ms']:.4f} ms (torch.matmul "
+          f"{t3['outer_library_ms']:.4f}); device time (profiler) mid {dev_text('mid')} (torch.matmul "
+          f"{dev_text('mid_library')}), outer {dev_text('outer')} (torch.matmul {dev_text('outer_library')}); "
+          f"bounds mid {b3[0]:.4f} ms by {b3[1]}{share(b3, 'mid')}, outer {b3o[0]:.4f} ms by {b3o[1]}"
+          f"{share(b3o, 'outer')}; host time a call at the mid shape (500 calls, no sync) {t3['host_us']:.1f} us "
+          f"(its bare ctypes launch {t3['bare_host_us']:.1f} us; torch.matmul {t3['library_host_us']:.1f} us)",
           flush=True)
+    return t3
+
+
+def fourier_phases(np, torch, dev, h):
+    """``--phases-fourier``: phases 3-4, 6a, phase 19's K11 and phase 32's
+    AutoPTR DOS ladder, the ladder once more under torch.profiler for K1's
+    share of its device time. Returns their numbers."""
+    from autobzcore_torch import FBZ, AutoPTR, MixedParameters, load_bz
+    from autobzcore_torch.parallel.sweep import sweep_solve
+
+    _, ptr = ptr_phases(np, torch, dev, h)
+    t3 = k3_phase(np, torch, dev, h, np.random.default_rng(1))
+    k11 = k11_phase(np, torch, dev, h)
+    t11 = k11["t"]
+    del k11
+    torch.cuda.empty_cache()
+    lad = autoptr_dos_ladder(np, torch, dev, h, load_bz(FBZ(), np.eye(3)))
+    prof = profile(f"AutoPTR ladder ({AUTOPTR_OMEGAS} omegas)", lambda: sweep_solve(
+        lad["prob"], AutoPTR(device=dev, **AUTOPTR_KW), MixedParameters(torch.as_tensor(lad["ws"], device=dev)),
+        abstol=AUTOPTR_ABSTOL))
+    k1_dev = None if prof is None else sum(t for k, _, t in prof["rows"] if "fourier_points" in k) / 1e6
+    if prof is not None:
+        print(f"AutoPTR ladder: K1 {1e3 * k1_dev:.3f} ms of {1e3 * prof['busy']:.3f} ms device time "
+              f"({100 * k1_dev / prof['busy']:.2f} %)", flush=True)
+    return dict(ptr, k3_ms=t3["ms"], k3_library_ms=t3["library_ms"], k3_bound_ms=t3["bound"][0],
+                k3_outer_ms=t3["outer_ms"], k3_outer_library_ms=t3["outer_library_ms"],
+                k3_outer_bound_ms=t3["outer_bound"][0],
+                **{f"k3_{k}_device_ms": t3[f"{k}_device_ms"] for k in ("mid", "mid_library", "outer", "outer_library")},
+                **{f"k3_{k}": t3[k] for k in ("host_us", "bare_host_us", "library_host_us")},
+                k11_ms=t11["ms"], k11_library_ms=t11["library_ms"],
+                k11_bands30_ms=t11["bands30_ms"],
+                **{f"k11_chunk_{k}": t11[f"chunk_{k}"] for k in ("ms", "device_ms", "host_us", "library_ms",
+                                                                  "library_device_ms", "bound_ms")},
+                ladder_wall=lad["wall"], ladder_active=lad["active"],
+                ladder_numevals=int(lad["nev"].sum()), ladder_k1_device_s=k1_dev,
+                ladder_busy_s=None if prof is None else prof["busy"])
+
+
+def iai_phases(np, torch, dev, h):
+    """Phases 6-8: K3-K5 against their plain versions, the IAI main path and
+    the cubic-IBZ check through IAI. Returns the kernels' JSON entries."""
+    from autobzcore_torch import FBZ, IAI, PTR, CubicSymIBZ, IntegralProblem, load_bz, solve
+    from autobzcore_torch.models.observables import dos_integrand, gk_leaf_dos, gk_leaf_dos_plain
+    from autobzcore_torch.models.tight_binding import tb_integer
+    from autobzcore_torch.ops import adaptive as tad
+    from autobzcore_torch.ops.fourier_eval import fourier_contract, fourier_contract_plain
+    from autobzcore_torch.parallel.sweep import SweepSolver
+
+    src = "autobzcore_torch/csrc/"
+    rng = np.random.default_rng(1)
+    xk, wk, wg = tad.gk_rule(7, dev)
+    P = xk.shape[0]
+    L_mid, L_leaf = IAI_OMEGAS * 2 * P, IAI_OMEGAS * (2 * P) ** 2
+
+    # 6a. K3 at the outer and mid levels' shapes
+    c0 = h.c.reshape((1, 5, 5, 5, 9)).contiguous()
+    t3 = k3_phase(np, torch, dev, h, rng)
 
     # 6b. K4: leaf lanes with 1-D coefficients of the flagship contracted at
     # random (x3, x2), 2 intervals per lane; m = 1, 2 from random 1-D series
@@ -983,7 +1186,7 @@ def iai_phases(np, torch, dev, h):
           f"(plain {t5u['plain_ms']:.4f}; bound {b5u[0]:.4f} by {b5u[1]}); rule reduce "
           f"{tuple(fx.shape)}: max|d| {e5r:.3e}, {t5r['ms']:.4f} ms (plain {t5r['plain_ms']:.4f}; "
           f"bound {b5r[0]:.5f} by {b5r[1]})", flush=True)
-    del a4, got, want, k3, p3, cl, ph
+    del a4, got, want
 
     # 7. IAI main path at full width ------------------------------------------
     bz = load_bz(FBZ(), np.eye(3))
@@ -1070,12 +1273,12 @@ def iai_phases(np, torch, dev, h):
 
     rep = "autobzcore_tpu/ops/adaptive.py:"
     cold = {"oms": oms, "d": d_iai, "ne": ne, "numevals": sweep.numevals, "wall": wall,
-            "d_ptr": d_ptr, "bz": bz}
+            "d_ptr": d_ptr, "bz": bz, "trips": dict(st.trips), "syncs": st.syncs}
     return cold, [
         {"name": "fourier_contract", "route": "cuda", "source": src + "fourier_contract.cu",
          "replaces": "autobzcore_tpu/ops/fourier_eval.py:104", "launches": launches["fourier_contract"],
-         "max_abs_err": max(e3a, e3), "ms": t3["ms"], "plain_ms": t3["plain_ms"],
-         "bound_ms": b3[0], "bound_by": b3[1], "library_ms": t3["library_ms"]},
+         "max_abs_err": t3["err"], "ms": t3["ms"], "plain_ms": t3["plain_ms"],
+         "bound_ms": t3["bound"][0], "bound_by": t3["bound"][1], "library_ms": t3["library_ms"]},
         {"name": "gk_leaf_dos", "route": "cuda", "source": src + "gk_leaf_dos.cu",
          "replaces": "autobzcore_tpu/fourier.py:394", "launches": launches["gk_leaf_dos"],
          "max_abs_err": e4, "ms": t4["ms"], "plain_ms": t4["plain_ms"],
@@ -2030,20 +2233,118 @@ def gauss_support(torch, e, sigma, E):
     return int(n.sum())
 
 
+def k11_phase(np, torch, dev, h):
+    """Phase 19's K11: the flagship's Jacobian (R = 4, V = 9) at the 1e6
+    points of the 100^3 grid and one bands30 init chunk (V = 900) against
+    their plain versions, bit-identical on repeat, the zero order against
+    K1's bits, with kernel, plain, ``torch.matmul`` and bound times. Returns
+    them with the outputs, which K12's checks take up."""
+    from autobzcore_torch import InversionSymIBZ, load_bz
+    from autobzcore_torch.algorithms.ptr import frac_nodes
+    from autobzcore_torch.models.tight_binding import synthetic_wannier
+    from autobzcore_torch.ops import fourier_eval as fe
+    from autobzcore_torch.ops.eigh3 import EIGH_CHUNK as C
+    from autobzcore_torch.ops.symptr import symptr_rule
+
+    bzi = load_bz(InversionSymIBZ(), np.eye(3))
+    orders = fe.jacobian_orders(3)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    # K11: the flagship's Jacobian at the 1e6 points of the 100^3 grid
+    Xg = (frac_nodes(NPT, 3, dev) * torch.as_tensor(h.period, device=dev)).contiguous()
+    J = fe.fourier_points_derivs(h.c, Xg, h.offset, h.period, orders)
+    Jp = fe.fourier_points_derivs_plain(h.c, Xg, h.offset, h.period, orders)
+    zero = fe.fourier_points_derivs(h.c, Xg, h.offset, h.period, ((0, 0, 0),))[:, 0]
+    k1_same = torch.equal(zero, fe.fourier_points(h.c, Xg, h.offset, h.period))
+    del zero
+    err11 = float((J - Jp).abs().max())
+    rel11 = err11 / float(Jp.abs().max())
+    if not (rel11 <= 1e-12 and k1_same):
+        fail(f"K11 fourier_points_derivs at the flagship: max rel {rel11:.3e}, zero order equals K1 {k1_same}")
+    if not torch.equal(J, fe.fourier_points_derivs(h.c, Xg, h.offset, h.period, orders)):
+        fail("K11 fourier_points_derivs at the flagship: two runs on the same inputs differ")
+    t11 = {"ms": cuda_ms(lambda: fe.fourier_points_derivs(h.c, Xg, h.offset, h.period, orders), 5),
+           "plain_ms": cuda_ms(lambda: fe.fourier_points_derivs_plain(h.c, Xg, h.offset, h.period, orders), 2),
+           "k1_ms": cuda_ms(lambda: fe.fourier_points(h.c, Xg, h.offset, h.period), 5)}
+    # the library call: one complex matmul of the precomputed (K, 125) phases by
+    # the (125, 4 x 9) derivative coefficients
+    ph = [fe.phase_matrix(Xg[:, j].contiguous(), h.c.shape[j], h.offset[j], h.period[j]) for j in range(3)]
+    Pm = (ph[0][:, :, None, None] * ph[1][:, None, :, None] * ph[2][:, None, None, :]).reshape(Xg.shape[0], -1)
+    del ph
+    ca = fe.derivative_coefficients(h.c, 3, h.offset, orders).reshape(Pm.shape[1], -1)
+    lib11 = rel(torch.matmul(Pm, ca).reshape(J.shape), Jp)
+    t11["library_ms"] = cuda_ms(lambda: torch.matmul(Pm, ca), 5)
+    # the shape of every GGR init and transport pack chunk: the first
+    # EIGH_CHUNK points of the grid, R = 4, V = 9
+    Xc = Xg[:C].contiguous()
+    Pc, Jpc = Pm[:C].contiguous(), Jp[:C]
+    del Pm, Jp
+    Jc = fe.fourier_points_derivs(h.c, Xc, h.offset, h.period, orders)
+    rel11_c = rel(Jc, Jpc)
+    same_c = torch.equal(Jc, fe.fourier_points_derivs(h.c, Xc, h.offset, h.period, orders))
+    if not (rel11_c <= 1e-12 and same_c and torch.equal(Jc, J[:C])):
+        fail(f"K11 at a chunk of {C} points: max rel {rel11_c:.3e}, repeat bit-identical {same_c}, equal to the "
+             f"same points of the whole grid's launch {torch.equal(Jc, J[:C])}")
+
+    def chunk():
+        return fe.fourier_points_derivs(h.c, Xc, h.offset, h.period, orders)
+
+    t11_c = {"ms": cuda_ms(chunk, 200), "device_ms": device_ms(chunk, 200), "host_us": host_us(chunk, 200),
+             "plain_ms": cuda_ms(lambda: fe.fourier_points_derivs_plain(h.c, Xc, h.offset, h.period, orders), 20),
+             "library_ms": cuda_ms(lambda: torch.matmul(Pc, ca), 200),
+             "library_device_ms": device_ms(lambda: torch.matmul(Pc, ca), 200),
+             "bound": bound(C * 125 * 4 * 9 * 8, nbytes(h.c, Xc) + Jc.numel() * Jc.element_size(), PEAK_FP64_MMA)}
+    del Pc, Jpc, Jc
+    b11 = bound(Xg.shape[0] * 125 * 4 * 9 * 8, nbytes(h.c, Xg) + J.numel() * J.element_size(), PEAK_FP64_MMA)
+    # and at the bands30 shape: one init chunk of the inversion wedge's points
+    s30 = synthetic_wannier(BANDS30, nr=5, device=dev)
+    reps30, _ = symptr_rule(BANDS30_NPT, 3, bzi.syms)
+    X30 = (torch.as_tensor(reps30[:C], device=dev).to(torch.float64) / BANDS30_NPT).contiguous()
+    J30 = fe.fourier_points_derivs(s30.c, X30, s30.offset, s30.period, orders)
+    rel11_30 = rel(J30, fe.fourier_points_derivs_plain(s30.c, X30, s30.offset, s30.period, orders))
+    t11_30 = {"ms": cuda_ms(lambda: fe.fourier_points_derivs(s30.c, X30, s30.offset, s30.period, orders), 3),
+              "plain_ms": cuda_ms(lambda: fe.fourier_points_derivs_plain(s30.c, X30, s30.offset, s30.period,
+                                                                           orders), 1)}
+    b11_30 = bound(X30.shape[0] * 125 * 4 * 900 * 8, nbytes(s30.c, X30) + J30.numel() * J30.element_size(),
+                   PEAK_FP64_MMA)
+    same30 = torch.equal(J30, fe.fourier_points_derivs(s30.c, X30, s30.offset, s30.period, orders))
+    print(f"K11 fourier_points_derivs: the flagship's Jacobian (R = 4) at {Xg.shape[0]} points: max rel vs plain "
+          f"{rel11:.3e} (<= 1e-12), zero order bit-equal to K1 {k1_same}, repeat bit-identical; {t11['ms']:.4f} ms, "
+          f"{100 * b11[0] / t11['ms']:.1f} % of its bound {b11[0]:.4f} ms by {b11[1]} (K1 {t11['k1_ms']:.4f} ms; plain "
+          f"{t11['plain_ms']:.3f} ms; torch.matmul of the phases {t11['library_ms']:.4f} ms, rel {lib11:.3e}); "
+          f"bands30 chunk ({X30.shape[0]} points, V = 900): rel {rel11_30:.3e}, repeat bit-identical {same30}, "
+          f"{t11_30['ms']:.4f} ms, {100 * b11_30[0] / t11_30['ms']:.1f} % of its bound {b11_30[0]:.4f} ms by "
+          f"{b11_30[1]} (plain {t11_30['plain_ms']:.3f} ms)", flush=True)
+    bc, dc, dlc = t11_c["bound"], t11_c["device_ms"], t11_c["library_device_ms"]
+    print(f"K11 at a GGR init / transport pack chunk ({C} points, R = 4, V = 9): rel {rel11_c:.3e}, repeat "
+          f"bit-identical, equal to the whole grid's launch; a call (events, 200 calls) {t11_c['ms']:.4f} ms, host "
+          f"enqueue {t11_c['host_us']:.1f} us; device time (profiler) "
+          f"{'not captured' if dc is None else f'{dc:.4f} ms, {100 * bc[0] / dc:.1f} % of'} its bound "
+          f"{bc[0]:.5f} ms by {bc[1]} (plain {t11_c['plain_ms']:.4f} ms; torch.matmul of the phases "
+          f"{t11_c['library_ms']:.4f} ms, device {'not captured' if dlc is None else f'{dlc:.4f} ms'})", flush=True)
+    if not (rel11_30 <= 1e-12 and same30):
+        fail(f"K11 at the bands30 shape: max rel {rel11_30:.3e}, repeat bit-identical {same30}")
+
+    return {"t": dict(t11, bands30_ms=t11_30["ms"], bands30_bound_ms=b11_30[0],
+                      **{"chunk_" + k: v for k, v in t11_c.items() if k != "bound"}, chunk_bound_ms=t11_c["bound"][0]),
+            "err": err11, "bound": b11,
+            "Xg": Xg, "J": J, "J30": J30, "s30": s30, "X30": X30, "reps30": reps30}
+
+
 def ggr_phases(np, torch, dev, h, ltm_dos):
     """Phases 19-21: K11-K13 against their plain versions, the GGR and AGB
     main path at the flagship, and BASELINE config 5. Returns the kernels'
     JSON entries."""
     from autobzcore_torch import FBZ, GGR, CubicSymIBZ, DOSProblem, InversionSymIBZ, load_bz
-    from autobzcore_torch.algorithms.ptr import frac_nodes
     from autobzcore_torch.dos import AdaptiveGaussianBroadening
     from autobzcore_torch.dos import ggr as G
     from autobzcore_torch.dos import init as dos_init
     from autobzcore_torch.dos import solve_ as dos_solve_
-    from autobzcore_torch.models.tight_binding import synthetic_wannier, tb_graphene, tb_integer
+    from autobzcore_torch.models.tight_binding import tb_graphene, tb_integer
     from autobzcore_torch.ops import fourier_eval as fe
     from autobzcore_torch.ops.eigh3 import EIGH_CHUNK
-    from autobzcore_torch.ops.symptr import symptr_rule
 
     src = "autobzcore_torch/csrc/"
     bz = load_bz(FBZ(), np.eye(3))
@@ -2057,49 +2358,10 @@ def ggr_phases(np, torch, dev, h, ltm_dos):
         return float((a - b).abs().max() / b.abs().max())
 
     # 19. K11-K13 against their plain versions -----------------------------------------
-    # K11: the flagship's Jacobian at the 1e6 points of the 100^3 grid
-    Xg = (frac_nodes(NPT, 3, dev) * torch.as_tensor(h.period, device=dev)).contiguous()
-    J = fe.fourier_points_derivs(h.c, Xg, h.offset, h.period, orders)
-    Jp = fe.fourier_points_derivs_plain(h.c, Xg, h.offset, h.period, orders)
-    zero = fe.fourier_points_derivs(h.c, Xg, h.offset, h.period, ((0, 0, 0),))[:, 0]
-    k1_same = torch.equal(zero, fe.fourier_points(h.c, Xg, h.offset, h.period))
-    del zero
-    err11 = float((J - Jp).abs().max())
-    rel11 = err11 / float(Jp.abs().max())
-    if not (rel11 <= 1e-12 and k1_same):
-        fail(f"K11 fourier_points_derivs at the flagship: max rel {rel11:.3e}, zero order equals K1 {k1_same}")
-    t11 = {"ms": cuda_ms(lambda: fe.fourier_points_derivs(h.c, Xg, h.offset, h.period, orders), 5),
-           "plain_ms": cuda_ms(lambda: fe.fourier_points_derivs_plain(h.c, Xg, h.offset, h.period, orders), 2),
-           "k1_ms": cuda_ms(lambda: fe.fourier_points(h.c, Xg, h.offset, h.period), 5)}
-    # the library call: one complex matmul of the precomputed (K, 125) phases by
-    # the (125, 4 x 9) derivative coefficients
-    ph = [fe.phase_matrix(Xg[:, j].contiguous(), h.c.shape[j], h.offset[j], h.period[j]) for j in range(3)]
-    Pm = (ph[0][:, :, None, None] * ph[1][:, None, :, None] * ph[2][:, None, None, :]).reshape(Xg.shape[0], -1)
-    del ph
-    ca = fe.derivative_coefficients(h.c, 3, h.offset, orders).reshape(Pm.shape[1], -1)
-    lib11 = rel(torch.matmul(Pm, ca).reshape(J.shape), Jp)
-    t11["library_ms"] = cuda_ms(lambda: torch.matmul(Pm, ca), 5)
-    del Pm, Jp
-    b11 = bound(Xg.shape[0] * 125 * 4 * 9 * 8, nbytes(h.c, Xg) + J.numel() * J.element_size(), PEAK_FP64_MMA)
-    # and at the bands30 shape: one init chunk of the inversion wedge's points
-    s30 = synthetic_wannier(BANDS30, nr=5, device=dev)
-    reps30, _ = symptr_rule(BANDS30_NPT, 3, bzi.syms)
-    X30 = (torch.as_tensor(reps30[:C], device=dev).to(torch.float64) / BANDS30_NPT).contiguous()
-    J30 = fe.fourier_points_derivs(s30.c, X30, s30.offset, s30.period, orders)
-    rel11_30 = rel(J30, fe.fourier_points_derivs_plain(s30.c, X30, s30.offset, s30.period, orders))
-    t11_30 = {"ms": cuda_ms(lambda: fe.fourier_points_derivs(s30.c, X30, s30.offset, s30.period, orders), 3),
-              "plain_ms": cuda_ms(lambda: fe.fourier_points_derivs_plain(s30.c, X30, s30.offset, s30.period,
-                                                                           orders), 1)}
-    b11_30 = bound(X30.shape[0] * 125 * 4 * 900 * 8, nbytes(s30.c, X30) + J30.numel() * J30.element_size(),
-                   PEAK_FP64_MMA)
-    print(f"K11 fourier_points_derivs: the flagship's Jacobian (R = 4) at {Xg.shape[0]} points: max rel vs plain "
-          f"{rel11:.3e} (<= 1e-12), zero order bit-equal to K1 {k1_same}; {t11['ms']:.3f} ms (K1 {t11['k1_ms']:.3f} ms; "
-          f"plain {t11['plain_ms']:.3f} ms; torch.matmul of the phases {t11['library_ms']:.3f} ms, rel {lib11:.3e}; "
-          f"bound {b11[0]:.4f} ms by {b11[1]}); bands30 chunk ({X30.shape[0]} points, V = 900): rel {rel11_30:.3e}, "
-          f"{t11_30['ms']:.3f} ms (plain {t11_30['plain_ms']:.3f} ms, bound {b11_30[0]:.4f} ms by {b11_30[1]})",
-          flush=True)
-    if not rel11_30 <= 1e-12:
-        fail(f"K11 at the bands30 shape: max rel {rel11_30:.3e}")
+    # K11 at the flagship's 1e6 points and at one bands30 init chunk
+    k11 = k11_phase(np, torch, dev, h)
+    t11, err11, b11 = k11["t"], k11["err"], k11["bound"]
+    Xg, J, J30, s30, X30, reps30 = (k11[k] for k in ("Xg", "J", "J30", "s30", "X30", "reps30"))
 
     # K12 on the eigenvectors of one init chunk: the flagship's and bands30's
     t12 = {}
@@ -3612,6 +3874,45 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
             entry("sigma_pairs_points", "sigma_pairs.cu", "autobzcore_tpu/models/selfenergy.py:138", t28p, b28p)]
 
 
+def autoptr_dos_ladder(np, torch, dev, h, bz):
+    """Phase 32's AutoPTR DOS ladder: the 1000-omega DOS of the flagship by
+    sweep_solve's batched AutoPTR ladder, with its wall, rungs, active lanes,
+    K1 and K2 launches and peak memory. Returns them with the inputs."""
+    from autobzcore_torch import AutoPTR, IntegralProblem, MixedParameters
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.ops.fourier_eval import fourier_points
+    from autobzcore_torch.parallel.sweep import sweep_solve
+
+    fourier_points.launches = obs.dos_trace_weighted_sum.launches = 0
+    ws = np.linspace(*WINDOW, AUTOPTR_OMEGAS)
+    prob = IntegralProblem(obs.dos_integrand(h, ETA), bz)
+    alg = AutoPTR(device=dev, **AUTOPTR_KW)
+    rungs = alg.bz_to_standard(bz)[2].npt_ladder()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    us, res, conv, nev = sweep_solve(prob, alg, MixedParameters(torch.as_tensor(ws, device=dev)),
+                                     abstol=AUTOPTR_ABSTOL)
+    D = us.cpu().numpy()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    cum = np.cumsum([n**3 for n in rungs])
+    last = np.array([rungs[int(np.searchsorted(cum, c))] for c in nev])  # each lane's last rung
+    active = [int(np.sum(nev >= c)) for c in cum]
+    launches = (fourier_points.launches, obs.dos_trace_weighted_sum.launches)
+    print(f"AutoPTR main path: flagship, FBZ, dos_integrand(eta {ETA}), {AUTOPTR_OMEGAS} omegas in {list(WINDOW)} eV, "
+          f"AutoPTR({', '.join(f'{k}={v}' for k, v in AUTOPTR_KW.items())}), abstol {AUTOPTR_ABSTOL}: "
+          f"wall {wall:.4f} s; "
+          f"rungs {rungs} with active lanes {active}; certified {int(conv.sum())} of {AUTOPTR_OMEGAS} (uncertified "
+          f"at npt {rungs[-1]}: {int((~conv).sum())}); lanes by last rung "
+          f"{ {int(n): int(np.sum(last == n)) for n in rungs} }; numevals {int(nev.sum())}; K1 launches "
+          f"{launches[0]}, K2 {launches[1]}; peak device memory {peak:.1f} MiB; D(0) = {float(np.interp(0.0, ws, D))!r}", flush=True)
+    if not (D.shape == (AUTOPTR_OMEGAS,) and np.all(np.isfinite(D)) and D.min() > 0 and nev.min() > 0):
+        fail("the AutoPTR sweep: shape, finiteness, positivity or counts")
+    return {"ws": ws, "prob": prob, "rungs": rungs, "res": res, "conv": conv, "nev": nev, "D": D, "wall": wall,
+            "peak": peak, "last": last, "active": active, "launches": launches}
+
+
 def slice12_phases(np, torch, dev, h, ladder):
     """Phases 31-32: K29-K31 and K27's matrix mode against their plain
     versions at the main path's shapes, then the AutoPTR family, the PTR
@@ -3795,31 +4096,9 @@ def slice12_phases(np, torch, dev, h, ladder):
     t_main = time.perf_counter()
 
     # AutoPTR, the north-star algorithm: the 1000-omega DOS by the batched ladder
-    ws = np.linspace(*WINDOW, AUTOPTR_OMEGAS)
-    prob = IntegralProblem(obs.dos_integrand(h, ETA), bz)
-    alg = AutoPTR(device=dev, **AUTOPTR_KW)
-    rungs = alg.bz_to_standard(bz)[2].npt_ladder()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    us, res, conv, nev = sweep_solve(prob, alg, MixedParameters(torch.as_tensor(ws, device=dev)),
-                                     abstol=AUTOPTR_ABSTOL)
-    D = us.cpu().numpy()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    cum = np.cumsum([n**3 for n in rungs])
-    last = np.array([rungs[int(np.searchsorted(cum, c))] for c in nev])  # each lane's last rung
-    active = [int(np.sum(nev >= c)) for c in cum]
-    launches_dos = obs.dos_trace_weighted_sum.launches
-    print(f"AutoPTR main path: flagship, FBZ, dos_integrand(eta {ETA}), {AUTOPTR_OMEGAS} omegas in {list(WINDOW)} eV, "
-          f"AutoPTR({', '.join(f'{k}={v}' for k, v in AUTOPTR_KW.items())}), abstol {AUTOPTR_ABSTOL}: "
-          f"wall {wall:.4f} s; "
-          f"rungs {rungs} with active lanes {active}; certified {int(conv.sum())} of {AUTOPTR_OMEGAS} (uncertified "
-          f"at npt {rungs[-1]}: {int((~conv).sum())}); lanes by last rung "
-          f"{ {int(n): int(np.sum(last == n)) for n in rungs} }; numevals {int(nev.sum())}; K2 launches "
-          f"{launches_dos}; peak device memory {peak:.1f} MiB; D(0) = {float(np.interp(0.0, ws, D))!r}", flush=True)
-    if not (D.shape == (AUTOPTR_OMEGAS,) and np.all(np.isfinite(D)) and D.min() > 0 and nev.min() > 0):
-        fail("the AutoPTR sweep: shape, finiteness, positivity or counts")
+    lad = autoptr_dos_ladder(np, torch, dev, h, bz)
+    ws, prob, rungs, res, conv, nev, D, last = (lad[k] for k in ("ws", "prob", "rungs", "res", "conv", "nev", "D",
+                                                                 "last"))
     # each lane against PTR at its last rung
     worst = 0.0
     for n in sorted(set(last.tolist())):
@@ -3899,7 +4178,7 @@ def slice12_phases(np, torch, dev, h, ladder):
     if not (math.isfinite(float(both.u)) and both.numevals > est.numevals > 0
             and abs(float(both.u) - float(est.u)) <= abs(float(est.u))):
         fail("AutoPTR_IAI")
-    del us, est, both
+    del est, both
     torch.cuda.empty_cache()
 
     # the transport integrand (B11d) under PTR(100): one pack, one K19 launch, against TransportSolver

@@ -58,13 +58,33 @@ def test_dos_wrapper_checks_its_inputs():
         tobs.dos_trace_weighted_sum(H, w, om, om[:4] + 0.1, 1.0)
 
 
+def _random_series(dev, box, vshape, offset, period, seed):
+    """A series-like record of random coefficients (box + vshape) with the
+    given offsets and periods."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+    shape = tuple(box) + tuple(vshape)
+    c = torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape), device=dev)
+    return SimpleNamespace(c=c, sndim=len(box), offset=tuple(offset), period=tuple(period))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("build", [
     lambda dev: ttb.tb_integer(1, device=dev),
     lambda dev: ttb.tb_graphene(device=dev),
     # an 11^3 box of 4x4 values: several coefficient tiles and value passes
     lambda dev: ttb.synthetic_wannier(4, nr=11, seed=3, device=dev),
-], ids=["1d", "2d", "3d_m4_nr11"])
+    # the tensor-core tiles' edges: 105 rows (no whole k-slab), V = 1,
+    # negative offsets
+    lambda dev: _random_series(dev, (3, 5, 7), (), (-1, -2, -3), (1.0, 0.7, 1.3), 1),
+    # V = 4 (one n8 tile of four outputs)
+    lambda dev: _random_series(dev, (5, 5, 5), (2, 2), (-2, -2, -2), (1.0, 1.0, 1.0), 2),
+    # V = 900 (25 column tiles of 36 outputs) in 2-D
+    lambda dev: _random_series(dev, (3, 3), (30, 30), (-1, -1), (1.0, 1.0), 3),
+    # a 1-D series of 9 frequencies, negative offset, V = 3 (a ragged n8 tile)
+    lambda dev: _random_series(dev, (9,), (3,), (-4,), (2.5,), 4),
+], ids=["1d", "2d", "3d_m4_nr11", "3d_n357_v1", "3d_v4", "2d_v900", "1d_n9_v3"])
 def test_fourier_kernel_matches_plain_on_card(cuda_device, build):
     s = build(cuda_device)
     X = torch.rand(5001, s.sndim, dtype=torch.float64, device=cuda_device)  # a ragged last block
@@ -73,6 +93,10 @@ def test_fourier_kernel_matches_plain_on_card(cuda_device, build):
     assert fourier_points.launches == before + 1
     want = fourier_points_plain(s.c, X, s.offset, s.period)
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+    assert torch.equal(got, fourier_points(s.c, X, s.offset, s.period))
+    # a point's value does not depend on its place in the launch (the
+    # nest's lanes, solved alone or in a chunk, count on it)
+    assert torch.equal(got[37:], fourier_points(s.c, X[37:].contiguous(), s.offset, s.period))
 
 
 @pytest.mark.gpu
@@ -214,6 +238,45 @@ def test_contract_kernel_matches_plain_on_card(cuda_device):
     got = fourier_contract(cw, cmw, xw, w.offset[-1], w.period[-1])
     want = fourier_contract_plain(cw, cmw, xw, w.offset[-1], w.period[-1])
     assert float((got - want).abs().max()) <= 1e-12 * float(cw.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lc,L,J,rows,n,V,bad", [
+    (1, 1, 30, (5, 5), 5, 9, False),  # one lane: the nodes spread over blocks
+    (1, 33, 30, (5, 5), 5, 9, False),  # the outer level: 33 lanes on one cmap entry
+    (4, 990, 1, (5,), 5, 9, False),  # J = 1
+    (4, 50, 7, (3,), 5, 4, False),  # J = 7
+    (3, 20, 6, (4,), 1, 9, False),  # n = 1
+    (2, 5, 3, (), 1024, 2, False),  # n = 1024: the phase table at its cap, outputs in chunks
+    (2, 40, 4, (11, 11), 11, 16, False),  # a slab beyond shared memory: chunks of outputs
+    (3, 12, 5, (5,), 5, 9, True),  # lane map entries outside 0..Lc-1 give NaN
+])
+def test_contract_kernel_edges_match_plain_on_card(cuda_device, Lc, L, J, rows, n, V, bad):
+    """K3's block and chunk edges against its plain version (1e-12 of
+    max|c|), bit-identical on repeat; bad lane-map entries give NaN rows."""
+    rng = np.random.default_rng(13 + L + n)
+    shape = (Lc,) + rows + (n, V)
+    c = torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape), device=cuda_device)
+    cmap = torch.as_tensor(rng.integers(0, Lc, L), device=cuda_device)
+    if bad:
+        cmap[::4] = Lc
+        cmap[1] = -1
+    # at n = 1024 the points stay near 0, so that the phase angles (up to
+    # 2 pi 512 x / 1.3) are small enough for both versions' rounding of
+    # them to stay below the tolerance
+    x = torch.as_tensor(rng.uniform(-1, 2, (L, J)) * (0.01 if n > 100 else 1.0), device=cuda_device)
+    before = fourier_contract.launches
+    got = fourier_contract(c, cmap, x, -(n // 2), 1.3)
+    assert fourier_contract.launches == before + 1
+    assert got.shape == (L, J) + rows + (V,)
+    again = fourier_contract(c, cmap, x, -(n // 2), 1.3)
+    assert torch.equal(got.isnan(), again.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(again))
+    good = (cmap >= 0) & (cmap < Lc)
+    if bad:
+        assert bool(got[~good].isnan().all()) and int((~good).sum()) > 0
+    want = fourier_contract_plain(c, torch.where(good, cmap, 0), x, -(n // 2), 1.3)
+    assert float((got[good] - want[good]).abs().max()) <= 1e-12 * float(c.abs().max())
 
 
 def _leaf_inputs(rng, dev, m, L=900, I=2):
@@ -849,26 +912,36 @@ def test_block_iai_on_card_matches_cpu(cuda_device, warm):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,vshape", [(1, ()), (2, (2, 2)), (3, (3, 3)), (3, (5, 5))])
-def test_jacobian_kernel_matches_plain_on_card(cuda_device, d, vshape):
+@pytest.mark.parametrize("d,vshape,box", [
+    (1, (), None), (2, (2, 2), None), (3, (3, 3), None), (3, (5, 5), None),
+    # the tensor-core tiles' edges: V = 1, V = 4, V = 900 (R = 4: 100
+    # column tiles), 105 rows in a (3, 5, 7) box (no whole k-slab)
+    (3, (), None), (3, (2, 2), None), (2, (30, 30), (3, 4)), (3, (3, 3), (3, 5, 7)),
+])
+def test_jacobian_kernel_matches_plain_on_card(cuda_device, d, vshape, box):
     """K11 against its plain version for R = 1..d + 1 outputs (one-hot,
-    second and mixed orders), offsets and periods other than 0 and 1, V
-    beyond the value chunk (25 values); at R = 1 and order zero K1's bits."""
+    second and mixed orders, an order 2 among four outputs), negative
+    offsets and periods other than 1, V beyond the value chunk (25 values)
+    and up to 900, a point count off the 64-point tile; bit-identical on
+    repeat; at R = 1 and order zero K1's bits."""
     from autobzcore_torch.ops import fourier_eval as tfe
 
     rng = np.random.default_rng(110 + d)
-    shape = tuple(rng.integers(3, 7, size=d)) + vshape
+    shape = (tuple(rng.integers(3, 7, size=d)) if box is None else tuple(box)) + vshape
     c = torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape), device=cuda_device)
     off, per = tuple(int(o) for o in rng.integers(-3, 1, size=d)), tuple(rng.uniform(0.5, 2.0, size=d))
     X = torch.as_tensor(rng.random((5000, d)) * 2.0, device=cuda_device)
     jac = tfe.jacobian_orders(d)
-    for orders in (jac, jac[:2], ((2,) + (0,) * (d - 1),), ((1,) * d,)):
+    four = ((0,) * d, (2,) + (0,) * (d - 1), (1,) * d, (0,) * (d - 1) + (3,))  # an order 2 among R = 4
+    for orders in (jac, jac[:2], ((2,) + (0,) * (d - 1),), ((1,) * d,), four):
         before = tfe.fourier_points_derivs.launches
         got = tfe.fourier_points_derivs(c, X, off, per, orders)
         assert tfe.fourier_points_derivs.launches == before + 1
         want = tfe.fourier_points_derivs_plain(c, X, off, per, orders)
         assert got.shape == (5000, len(orders)) + vshape
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+        assert torch.equal(got, tfe.fourier_points_derivs(c, X, off, per, orders))
+        assert torch.equal(got[37:], tfe.fourier_points_derivs(c, X[37:].contiguous(), off, per, orders))
     zero = tfe.fourier_points_derivs(c, X, off, per, ((0,) * d,))[:, 0]
     assert torch.equal(zero, fourier_points(c, X, off, per))
 

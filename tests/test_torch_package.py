@@ -36,7 +36,8 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PACKAGE.rglob("*.py"))
-                         + ["chip_smoke.py", "examples/aps_example_torch.py"])
+                         + ["chip_smoke.py", "examples/aps_example_torch.py", "tools/fourier_ab.py",
+                            "tools/fourier_variants.py"])
 def test_no_source_imports_jax(path):
     """Also the imports inside functions, which an import test cannot see."""
     tree = ast.parse((REPO / path).read_text())

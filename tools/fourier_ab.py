@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Time the Fourier-evaluation kernels (K1, K11, K3) and the paths that run
+them, for the ``autobzcore_torch`` package of any checkout, on one NVIDIA GPU.
+
+    python3 tools/fourier_ab.py TREE LABEL [--iai] [--out DIR]
+
+It imports ``autobzcore_torch`` from the checkout at TREE (its kernels
+build there at first use) and runs this repository's ``chip_smoke.py``
+phase functions on it: phases 3-4 (K1 and the flagship PTR leg), 6a (K3 at
+the outer and mid shapes, with its host cost a call), phase 19's K11 (at
+the flagship's 1e6 points, a GGR init chunk of 4,096 points and the bands30
+chunk) and phase 32's AutoPTR DOS ladder (with K1's share of its device time
+from torch.profiler), then the GGR init of phase 20 and phase 32's AutoPTR
+transport ladder, and with ``--iai`` phases 6-8 (the cold IAI chunk's evals,
+trips and syncs). So two checkouts, for example a commit and its parent
+unpacked with ``git archive``, compare on one card in one call: run each in
+a process of its own, in turns (parent, change, change, parent). The last
+line is a JSON object of the numbers; with ``--out DIR`` a copy goes to
+``DIR/fourier_ab_LABEL.json`` (a later run of the same label replaces it).
+"""
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def load_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def device_line(torch):
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    return smi, torch.cuda.get_device_name(0)
+
+
+def compare(tree, label, iai):
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import numpy as np
+    import torch
+
+    from autobzcore_torch import FBZ, GGR, AutoPTR, DOSProblem, IntegralProblem, MixedParameters, load_bz
+    from autobzcore_torch.dos import init as dos_init
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.models.tight_binding import flagship_series
+    from autobzcore_torch.ops import cuda_lib
+    from autobzcore_torch.parallel.sweep import sweep_solve
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    if not str(Path(cuda_lib.__file__).resolve()).startswith(str(Path(tree).resolve())):
+        sys.exit(f"imported {cuda_lib.__file__}, not the package of {tree}")
+    cs = load_smoke()
+    smi, kind = device_line(torch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cuda_lib.load_kernels()
+    print(f"{label}: kernels ready in {time.perf_counter() - t0:.1f} s ({cuda_lib.LIBRARY})", flush=True)
+    dev = torch.device("cuda", 0)
+    h = flagship_series(device=dev)
+    out = {"label": label, "tree": str(tree), "card": smi}
+    out.update(cs.fourier_phases(np, torch, dev, h))
+    bz = load_bz(FBZ(), np.eye(3))
+    # phase 20's GGR init at the flagship, npt 100
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dos_init(DOSProblem(h, 0.5, bz), GGR(npt=cs.NPT))
+    torch.cuda.synchronize()
+    out["ggr_init_s"] = time.perf_counter() - t0
+    # phase 32's transport ladder: AutoPTR up to npt 300 at 32 omegas, reltol 1e-3
+    om32 = torch.as_tensor(np.linspace(*cs.WINDOW, cs.TR_AUTOPTR_OMEGAS), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, conv, nev = sweep_solve(IntegralProblem(obs.transport_integrand(h, eta=cs.ETA), bz),
+                                  AutoPTR(device=dev, **cs.TR_AUTOPTR_KW), MixedParameters(om32), reltol=1e-3)
+    torch.cuda.synchronize()
+    out["transport_ladder_s"] = time.perf_counter() - t0
+    out["transport_ladder_numevals"] = int(nev.sum())
+    torch.cuda.empty_cache()
+    print(f"{label}: GGR init {out['ggr_init_s']:.4f} s; transport ladder {out['transport_ladder_s']:.3f} s, "
+          f"numevals {out['transport_ladder_numevals']}, certified {int(conv.sum())}", flush=True)
+    if iai:
+        cold, _ = cs.iai_phases(np, torch, dev, h)
+        out.update(iai_wall=cold["wall"], iai_numevals=int(cold["numevals"]),
+                   iai_lane_numevals=[int(n) for n in cold["ne"]], iai_trips=cold["trips"],
+                   iai_syncs=cold["syncs"])
+    return out
+
+
+def main():
+    argv = sys.argv[1:]
+    out_dir = None
+    if "--out" in argv:
+        i = argv.index("--out")
+        if i + 1 >= len(argv):
+            sys.exit(__doc__)
+        out_dir = Path(argv[i + 1])
+        del argv[i:i + 2]
+    args = [a for a in argv if not a.startswith("--")]
+    if len(args) != 2:
+        sys.exit(__doc__)
+    out = compare(args[0], args[1], "--iai" in argv)
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        (out_dir / f"fourier_ab_{args[1]}.json").write_text(json.dumps(out, indent=1, default=str))
+    print(json.dumps(out, default=str), flush=True)
+
+
+if __name__ == "__main__":
+    main()
