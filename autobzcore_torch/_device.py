@@ -29,8 +29,11 @@ def check_tensor(t, name, *, device=None, dtype=None, ndim=None, shape=None):
     device type, dtype, rank and (where not None) dimension sizes."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if device is not None and t.device != torch.device(device):
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if device is not None:
+        # a torch.device is compared as it is (building one costs a call)
+        on = t.device
+        if on != (device if isinstance(device, torch.device) else torch.device(device)):
+            raise ValueError(f"{name} is on {on}, expected {device}")
     if dtype is not None and t.dtype != dtype:
         raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if ndim is not None and t.ndim != ndim:

@@ -70,6 +70,8 @@
 
 #include <cstdint>
 
+#include "dmma.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -116,16 +118,7 @@ __device__ __forceinline__ double2 scale_rotate(double2 z, double S, int p) {
   }
 }
 
-// d += A B on the FP64 tensor cores, m16n8k8. Fragments (groupID g = lane
-// / 4, threadID_in_group t = lane % 4): a_i at row g + 8 (i % 2), column t +
-// 4 (i / 2); b_i at row t + 4 i, column g; d_i at row g + 8 (i / 2), column
-// 2 t + i % 2.
-__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[4], double b0, double b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
-}
+using autobz::dmma;
 
 __device__ __forceinline__ void load_u(const double* __restrict__ X, int64_t k, int64_t K, int d,
                                        const Geometry& G, double (&u)[3]) {

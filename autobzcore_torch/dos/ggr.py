@@ -32,7 +32,7 @@ from .._device import COMPLEX, REAL, check_tensor
 from ..algorithms.ptr import rule_points
 from ..brillouin import SymmetricBZ
 from ..fourier import FourierSeries, JacobianSeries
-from ..ops.cuda_lib import check_launch, load_kernels
+from ..ops.cuda_lib import check_launch, load_kernels, stream_handle
 from ..ops.eigh3 import EIGH_CHUNK, eigh_chunked
 from ..ops.fourier_eval import fourier_points_derivs, jacobian_orders
 from .interfaces import DOSAlgorithm, DOSSolution
@@ -74,7 +74,7 @@ def band_velocity(U, dH):
     if K == 0:
         return v
     lib = load_kernels()
-    stream = torch.cuda.current_stream(U.device).cuda_stream
+    stream = stream_handle(U.device)
     err = lib.band_velocity_launch(U.data_ptr(), dH.data_ptr(), v.data_ptr(), K, d, m,
                                    dH.stride(0), dH.stride(1), stream)
     check_launch(err, "band_velocity")
@@ -168,7 +168,7 @@ def _k13(mode, e, a, nrm, w, E, b, vtol, scale):
     lib = load_kernels()
     partials = torch.empty((lib.energy_tiles_num_blocks(K * m, max(W, 1)), max(W, 1)), dtype=REAL,
                            device=e.device)
-    stream = torch.cuda.current_stream(e.device).cuda_stream
+    stream = stream_handle(e.device)
     rc = lib.ggr_dos_launch(mode, e.data_ptr(), a.data_ptr(), None if nrm is None else nrm.data_ptr(),
                             w.data_ptr(), K, m, E.data_ptr(), W, float(b), float(vtol), float(scale),
                             partials.data_ptr(), out.data_ptr(), stream)

@@ -34,7 +34,7 @@ import torch
 from .._device import COMPLEX, REAL, check_tensor
 from ..brillouin import SymmetricBZ
 from ..fourier import FourierSeries, JacobianSeries
-from ..ops.cuda_lib import check_launch, load_kernels
+from ..ops.cuda_lib import check_launch, load_kernels, stream_handle
 from ..ops.eigh3 import eigvalsh_small
 from ..ops.fourier_eval import evaluate_grid
 from ..ops.symptr import symptr_orbit_map
@@ -203,7 +203,7 @@ def tetra_dos(eg, d, E, tol, vol, nos=False):
     lib = load_kernels()
     partials = torch.empty((lib.energy_tiles_num_blocks(m * N, max(W, 1)), max(W, 1)), dtype=REAL,
                            device=eg.device)
-    stream = torch.cuda.current_stream(eg.device).cuda_stream
+    stream = stream_handle(eg.device)
     rc = lib.tetra_dos_launch(eg.data_ptr(), m, npt, d, E.data_ptr(), W, tol, vol, int(bool(nos)),
                               partials.data_ptr(), out.data_ptr(), stream)
     check_launch(rc, "tetra_dos")

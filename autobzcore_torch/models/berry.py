@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .._device import COMPLEX, REAL, check_tensor
-from ..ops.cuda_lib import check_launch, load_kernels
+from ..ops.cuda_lib import check_launch, load_kernels, stream_handle
 from ..ops.eigh3 import eigh_small
 from ..ops.fourier_eval import evaluate_grid
 from .transport import fermi
@@ -211,7 +211,7 @@ def launch_pairs(lib, H, dH, eig, O, degtol, mode):
     if K:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         e_in, U_in = (None, None) if eig is None else eig
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = stream_handle(dev)
         check_launch(lib.berry_pairs_launch(H.data_ptr(), dH.data_ptr(), ptr(e_in), ptr(U_in), ptr(O), e.data_ptr(),
                                             F1.data_ptr(), ptr(F2), ptr(vd), K, d, m, dH.stride(0), dH.stride(1),
                                             float(degtol), _PAIR_MODES[mode], stream), "band_pair_terms")
@@ -311,7 +311,7 @@ def zone_average(e, F, mode, mu=0.0, beta=None, vd=None):
     C = d * d
     out = torch.empty(lead + (d, d), dtype=REAL, device=e.device)
     partials = torch.empty((lib.zone_average_num_chunks(K), out.numel()), dtype=REAL, device=e.device)
-    stream = torch.cuda.current_stream(e.device).cuda_stream
+    stream = stream_handle(e.device)
     check_launch(lib.zone_average_launch(e.data_ptr(), F.data_ptr(), None if vd is None else vd.data_ptr(), K, m, C,
                                          d, _AVERAGE_MODES[mode], mu, np.inf if beta is None else beta,
                                          partials.data_ptr(), out.data_ptr(), stream), "zone_average")
@@ -367,7 +367,7 @@ def plaquette_flux(V):
     lib = load_kernels()
     partials = torch.empty(lib.plaquette_flux_num_chunks(n1, n2), dtype=REAL, device=V.device)
     out = torch.empty((), dtype=REAL, device=V.device)
-    stream = torch.cuda.current_stream(V.device).cuda_stream
+    stream = stream_handle(V.device)
     check_launch(lib.plaquette_flux_launch(V.data_ptr(), n1, n2, m, nb, partials.data_ptr(), out.data_ptr(), stream),
                  "plaquette_flux")
     plaquette_flux.launches += 1
@@ -404,7 +404,7 @@ def wilson_loops(V):
         raise ValueError(f"wilson_loops runs on cpu or cuda tensors, got {V.device}")
     lib = load_kernels()
     out = torch.empty((n2, nb, nb), dtype=COMPLEX, device=V.device)
-    stream = torch.cuda.current_stream(V.device).cuda_stream
+    stream = stream_handle(V.device)
     check_launch(lib.wilson_loops_launch(V.data_ptr(), n1, n2, m, nb, out.data_ptr(), stream), "wilson_loops")
     wilson_loops.launches += 1
     return out

@@ -26,7 +26,7 @@ import torch
 
 from .._device import COMPLEX, REAL, check_tensor
 from ..fourier import FourierSeries
-from ..ops.cuda_lib import check_launch, load_kernels
+from ..ops.cuda_lib import check_launch, load_kernels, stream_handle
 from ..ops.eigh3 import eigh2, eigh_small, eigvalsh_small
 from ..ops.fourier_eval import fourier_points
 
@@ -121,7 +121,7 @@ def band_expect(V, O, fused=False):
     out = torch.empty((K, m), dtype=REAL, device=V.device)
     if K == 0:
         return out
-    stream = torch.cuda.current_stream(V.device).cuda_stream
+    stream = stream_handle(V.device)
     check_launch(lib.band_expect_launch(V.data_ptr(), O.data_ptr(), out.data_ptr(), K, m, int(bool(fused)), stream),
                  "band_expect")
     band_expect.launches += 1
@@ -182,7 +182,7 @@ def spectral_map(e, omegas, eta):
     out = torch.empty((K, W), dtype=REAL, device=e.device)
     if K == 0 or W == 0:
         return out
-    stream = torch.cuda.current_stream(e.device).cuda_stream
+    stream = stream_handle(e.device)
     check_launch(lib.spectral_path_launch(e.data_ptr(), omegas.data_ptr(), out.data_ptr(), K, m, W, eta,
                                           1.0 / math.pi, stream), "spectral_map")
     spectral_map.launches += 1

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .._device import COMPLEX, REAL, check_tensor
-from ..ops.cuda_lib import check_launch, load_kernels
+from ..ops.cuda_lib import check_launch, load_kernels, stream_handle
 from ..ops.eigh3 import eigh_chunked
 from ..ops.fourier_eval import evaluate_grid
 from .transport import _real, fermi
@@ -101,7 +101,7 @@ def chi0(e, f, U, shift, omega, eta, scale):
         return out
     partials = torch.empty((lib.chi0_num_blocks(npt**d, m), W), dtype=COMPLEX, device=e.device)
     sh = (ctypes.c_int * 3)(*(shift + (0,) * (3 - d)))
-    stream = torch.cuda.current_stream(e.device).cuda_stream
+    stream = stream_handle(e.device)
     check_launch(lib.chi0_launch(e.data_ptr(), f.data_ptr(), U.data_ptr(), d, npt, sh, m, omega.data_ptr(), W,
                                  float(eta), float(scale), partials.data_ptr(), out.data_ptr(), stream), "chi0")
     chi0.launches += 1
@@ -155,7 +155,7 @@ def cooper_mean(e, f, shift, mu, beta):
     partials = torch.empty(max(lib.cooper_num_chunks(npt**d, m), 1), dtype=REAL, device=e.device)
     out = torch.empty((), dtype=REAL, device=e.device)
     sh = (ctypes.c_int * 3)(*(shift + (0,) * (3 - d)))
-    stream = torch.cuda.current_stream(e.device).cuda_stream
+    stream = stream_handle(e.device)
     check_launch(lib.cooper_launch(e.data_ptr(), f.data_ptr(), d, npt, sh, m, float(mu), float(beta),
                                    partials.data_ptr(), out.data_ptr(), stream), "cooper_mean")
     cooper_mean.launches += 1

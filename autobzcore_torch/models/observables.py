@@ -50,7 +50,7 @@ from ..algorithms.ptr import register_kernel_sum
 from ..brillouin import LatticeRep, TrivialRep
 from ..fourier import FourierIntegrand, FourierSeries, FourierValue, JacobianSeries
 from ..ops.adaptive import gk_nodes, gk_rule_reduce_plain
-from ..ops.cuda_lib import check_launch, load_kernels
+from ..ops.cuda_lib import check_launch, load_kernels, stream_handle
 from ..ops.fourier_eval import (fourier_contract_plain, fourier_points, fourier_points_derivs,
                                 jacobian_orders)
 
@@ -199,7 +199,7 @@ def spectral_points(H, Z):
     out = torch.empty((N, m, m), dtype=COMPLEX, device=H.device)
     if N == 0:
         return out
-    stream = torch.cuda.current_stream(H.device).cuda_stream
+    stream = stream_handle(H.device)
     check_launch(lib.sigma_spectral_points_launch(H.data_ptr(), Z.data_ptr(), 0 if Z.ndim == 2 else m * m,
                                                   out.data_ptr(), N, m, 1.0 / (2 * math.pi), stream),
                  "spectral_points")
@@ -261,7 +261,7 @@ def spectral_weighted_sum(H, w, Z, scale):
     out = torch.empty((W, m, m), dtype=COMPLEX, device=H.device)
     if W:
         partials = torch.empty((max(lib.sigma_spectral_num_rows(K), 1), W, m, m), dtype=COMPLEX, device=H.device)
-        stream = torch.cuda.current_stream(H.device).cuda_stream
+        stream = stream_handle(H.device)
         check_launch(lib.sigma_spectral_sum_launch(H.data_ptr(), w.data_ptr(), Z.data_ptr(), partials.data_ptr(),
                                                    out.data_ptr(), K, W, m, float(scale) / (2 * math.pi), stream),
                      "spectral_weighted_sum")
@@ -332,7 +332,7 @@ def _dos_trace_launch(H, w, omega, eta, scale, grid_cap):
     lib = load_kernels()
     partials = torch.empty((max(lib.dos_trace_num_chunks(K), 1), W), dtype=REAL, device=H.device)
     out = torch.empty(W, dtype=REAL, device=H.device)
-    stream = torch.cuda.current_stream(H.device).cuda_stream
+    stream = stream_handle(H.device)
     err = lib.dos_trace_weighted_sum_launch(
         H.data_ptr(), w.data_ptr(), omega.data_ptr(), eta.data_ptr(), partials.data_ptr(),
         out.data_ptr(), K, W, m, -float(scale) / math.pi, int(grid_cap), stream)
@@ -439,7 +439,7 @@ def gk_leaf_dos(c, cmap, offset, period, ca, cb, om, eta, active, xk, wk, wg):
     if L == 0 or I == 0:
         return val.zero_(), err.zero_(), l1.zero_(), count.zero_()
     lib = load_kernels()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = stream_handle(dev)
     rc = lib.gk_leaf_dos_launch(
         c.data_ptr(), cmap.data_ptr(), ca.data_ptr(), cb.data_ptr(), om.data_ptr(), eta.data_ptr(),
         active.data_ptr(), xk.data_ptr(), wk.data_ptr(), wg.data_ptr(), val.data_ptr(),
@@ -554,7 +554,7 @@ def gm_leaf_dos(H, om, eta, vol, wk, we, diff_idx):
     if B == 0:
         return val, err, sd
     lib = load_kernels()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = stream_handle(dev)
     rc = lib.gm_leaf_dos_launch(
         H.data_ptr(), om.data_ptr(), eta.data_ptr(), vol.data_ptr(), wk.data_ptr(), we.data_ptr(),
         diff_idx.data_ptr(), val.data_ptr(), err.data_ptr(), sd.data_ptr(), B, P, m, W,
@@ -714,7 +714,7 @@ def transport_points(e, U, dH, om, eta):
     out = torch.empty((N, d, d), dtype=REAL, device=dev)
     if N == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = stream_handle(dev)
     check_launch(lib.transport_points_launch(e.data_ptr(), U.data_ptr(), dH.data_ptr(), om.data_ptr(),
                                              eta.data_ptr(), out.data_ptr(), N, m, d, dH.stride(0), dH.stride(1),
                                              1.0 / math.pi, stream), "transport_points")
@@ -890,7 +890,7 @@ def velocity_pairs(U, dH, w, out=None):
         out = torch.empty((K * m * m, d * d), dtype=REAL, device=U.device)
     if K == 0:
         return out
-    stream = torch.cuda.current_stream(U.device).cuda_stream
+    stream = stream_handle(U.device)
     err = lib.velocity_pairs_launch(U.data_ptr(), dH.data_ptr(), w.data_ptr(), out.data_ptr(), K, d, m,
                                     dH.stride(0), dH.stride(1), stream)
     check_launch(err, "velocity_pairs")
@@ -1009,7 +1009,7 @@ def transport_gamma(e, Wmat, y1, g1, y2, g2, scale):
     if B == 0:
         return out
     partials = torch.empty((max(lib.transport_gamma_num_chunks(K), 1), B, dd), dtype=REAL, device=e.device)
-    stream = torch.cuda.current_stream(e.device).cuda_stream
+    stream = stream_handle(e.device)
     same = y2 is y1 and g2 is g1
     err = lib.transport_gamma_launch(e.data_ptr(), Wmat.data_ptr(), K, m, {1: 1, 4: 2, 9: 3}[dd],
                                      y1.data_ptr(), g1.data_ptr(), y2.data_ptr(), g2.data_ptr(), B,

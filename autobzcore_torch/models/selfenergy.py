@@ -40,7 +40,7 @@ import torch
 from .._device import COMPLEX, REAL, as_device, check_tensor
 from ..brillouin import TrivialRep
 from ..fourier import FourierIntegrand
-from ..ops.cuda_lib import check_launch, load_kernels
+from ..ops.cuda_lib import check_launch, load_kernels, stream_handle
 from .lindhard import _omega_tensor
 from .observables import (_check_pairs, _inv_small, _trace_inv_small, certified_ladder, flat_pairs, gathered_grid,
                           group_average, reduced_grid, series_bands, spectral_of)
@@ -154,7 +154,7 @@ def sigma_trace_points(H, Z):
     out = torch.empty(N, dtype=COMPLEX, device=H.device)
     if N == 0:
         return out
-    stream = torch.cuda.current_stream(H.device).cuda_stream
+    stream = stream_handle(H.device)
     check_launch(lib.sigma_trace_points_launch(H.data_ptr(), Z.data_ptr(), 0 if Z.ndim == 2 else m * m,
                                                out.data_ptr(), N, m, stream), "sigma_trace_points")
     sigma_trace_points.launches += 1
@@ -211,7 +211,7 @@ def sigma_pairs_points(H, V, Z):
     out = torch.empty((N, d, d), dtype=REAL, device=H.device)
     if N == 0:
         return out
-    stream = torch.cuda.current_stream(H.device).cuda_stream
+    stream = stream_handle(H.device)
     check_launch(lib.sigma_pairs_points_launch(H.data_ptr(), V.data_ptr(), Z.data_ptr(), 0 if Z.ndim == 2 else m * m,
                                                out.data_ptr(), N, m, d, stream), "sigma_pairs_points")
     sigma_pairs_points.launches += 1
@@ -309,7 +309,7 @@ def sigma_trace_sum(H, w, Z, scale, diagonal=False, chunk=8):
     out = torch.empty((W, J), dtype=REAL, device=H.device)
     if W:
         partials = torch.empty((max(lib.sigma_trace_num_chunks(K), 1), W, J), dtype=REAL, device=H.device)
-        stream = torch.cuda.current_stream(H.device).cuda_stream
+        stream = stream_handle(H.device)
         check_launch(lib.sigma_trace_sum_launch(H.data_ptr(), w.data_ptr(), Z.data_ptr(), partials.data_ptr(),
                                                 out.data_ptr(), K, W, m, int(bool(diagonal)),
                                                 -float(scale) / math.pi, stream), "sigma_trace_sum")
@@ -382,7 +382,7 @@ def sigma_pairs_sum(H, V, w, Z1, Z2, scale, chunk=4):
     out = torch.empty((B, d, d), dtype=REAL, device=H.device)
     if B:
         partials = torch.empty((max(lib.sigma_pairs_num_chunks(K), 1), B, d, d), dtype=REAL, device=H.device)
-        stream = torch.cuda.current_stream(H.device).cuda_stream
+        stream = stream_handle(H.device)
         check_launch(lib.sigma_pairs_sum_launch(H.data_ptr(), V.data_ptr(), w.data_ptr(), Z1.data_ptr(),
                                                 Z2.data_ptr(), int(Z2 is Z1), partials.data_ptr(), out.data_ptr(),
                                                 K, B, m, d, float(scale), stream), "sigma_pairs_sum")

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .._device import REAL, check_tensor
-from ..ops.cuda_lib import check_launch, load_kernels
+from ..ops.cuda_lib import check_launch, load_kernels, stream_handle
 from ..wrappers import BatchIntegrand
 from .observables import group_average, transport_gamma
 
@@ -279,7 +279,7 @@ def fermi_count(e, w, mu, beta):
     lib = load_kernels()
     partials = torch.empty(max(lib.fermi_count_num_chunks(K, m), 1), dtype=REAL, device=e.device)
     out = torch.empty((), dtype=REAL, device=e.device)
-    stream = torch.cuda.current_stream(e.device).cuda_stream
+    stream = stream_handle(e.device)
     check_launch(lib.fermi_count_launch(e.data_ptr(), w.data_ptr(), K, m, mu, beta, partials.data_ptr(),
                                         out.data_ptr(), stream), "fermi_count")
     fermi_count.launches += 1

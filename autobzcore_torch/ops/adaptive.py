@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from .._device import COMPLEX, REAL, check_tensor
-from .cuda_lib import check_launch, load_kernels
+from .cuda_lib import check_launch, load_kernels, stream_handle
 from .quad_rules import kronrod
 
 def _count_dtype():
@@ -157,7 +157,7 @@ def gk_rule_reduce(fx, counts, half, wk, wg):
     if L == 0:
         return val, err, l1, count
     lib = load_kernels()
-    stream = torch.cuda.current_stream(fx.device).cuda_stream
+    stream = stream_handle(fx.device)
     rc = lib.gk_rule_reduce_launch(
         fx.data_ptr(), 0 if counts is None else counts.data_ptr(), half.data_ptr(),
         wk.data_ptr(), wg.data_ptr(), val.data_ptr(), err.data_ptr(), l1.data_ptr(),
@@ -222,7 +222,7 @@ def fixed_rule_reduce(fx, w, half):
     fr = torch.view_as_real(fx) if fx.is_complex() else fx
     C = math.prod(fr.shape[3:])
     lib = load_kernels()
-    stream = torch.cuda.current_stream(fx.device).cuda_stream
+    stream = stream_handle(fx.device)
     rc = lib.fixed_rule_reduce_launch(fr.data_ptr(), w.data_ptr(), half.data_ptr(), out.data_ptr(),
                                       L, S, P, C, stream)
     check_launch(rc, "fixed_rule_reduce")
@@ -410,7 +410,7 @@ def _pool_call(pool, entry, idx, ca, cb, cval, cerr, cl1, count, nbisect, update
     tot_val = torch.view_as_real(pool.tot_val) if pool.tot_val.is_complex() else pool.tot_val
     cval_r = None if cval is None else (torch.view_as_real(cval) if cval.is_complex() else cval)
     lib = load_kernels()
-    stream = torch.cuda.current_stream(pool.a.device).cuda_stream
+    stream = stream_handle(pool.a.device)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     if entry == "select":
         rc = lib.gk_pool_select_launch(
@@ -558,7 +558,7 @@ def coarsen_pool(a, b, e, n, segs, tol, merge_factor=1e-3, target_mult=2.0):
     if L == 0:
         return a2, b2, n2
     lib = load_kernels()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = stream_handle(dev)
     rc = lib.gk_coarsen_launch(
         a.contiguous().data_ptr(), b.contiguous().data_ptr(), e.contiguous().data_ptr(),
         n.contiguous().data_ptr(), segs.data_ptr(), tol.contiguous().data_ptr(), a2.data_ptr(),

@@ -18,6 +18,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 from .._build import BUILD_DIR, PACKAGE_DIR, build_shared, is_stale
 
 SOURCES = tuple(sorted((PACKAGE_DIR / "csrc").glob("*.cu")))
@@ -219,14 +221,27 @@ def sass_counts(library, opcode, name_part):
 
 
 def load_kernels():
-    """ctypes handle of the kernel library, building it first if needed."""
+    """ctypes handle of the kernel library, building it first if needed.
+    Once loaded, the handle is returned without taking the lock."""
     global _LIB
+    lib = _LIB
+    if lib is not None:
+        return lib
     with _LOCK:
         if _LIB is None:
             if is_stale(LIBRARY, SOURCES + HEADERS):
                 build_kernels()
             _LIB = _bind(ctypes.CDLL(str(LIBRARY)))
         return _LIB
+
+
+def stream_handle(device):
+    """The raw handle (an int) of PyTorch's current stream on the CUDA
+    ``device``, for a kernel launch: the value of
+    ``torch.cuda.current_stream(device).cuda_stream`` without building a
+    stream object."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device() if index is None else index)
 
 
 def check_launch(err, name):

@@ -19,7 +19,7 @@ import math
 import torch
 
 from .._device import COMPLEX, REAL, check_tensor
-from .cuda_lib import check_launch, load_kernels
+from .cuda_lib import check_launch, load_kernels, stream_handle
 
 # matrices per torch.linalg.eigvalsh call on the card: cuSOLVER's batched
 # solver (cusolverDnXsyevBatched) took 16,384 complex 3x3 matrices and
@@ -174,7 +174,7 @@ def eigvalsh_small(h):
     out = torch.empty((K, m), dtype=REAL, device=h.device)
     if K:
         lib = load_kernels()
-        stream = torch.cuda.current_stream(h.device).cuda_stream
+        stream = stream_handle(h.device)
         check_launch(lib.eigvalsh_small_launch(flat.data_ptr(), out.data_ptr(), K, m, stream),
                      "eigvalsh_small")
         eigvalsh_small.launches += 1

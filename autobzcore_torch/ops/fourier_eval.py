@@ -34,7 +34,7 @@ import math
 import torch
 
 from .._device import COMPLEX, REAL, check_tensor
-from .cuda_lib import check_launch, load_kernels
+from .cuda_lib import check_launch, load_kernels, stream_handle
 
 _PLAIN_CHUNK = 1 << 15  # points per contraction in the plain version, at most
 _PLAIN_ENTRIES = 1 << 27  # entries of its largest intermediate (2 GiB of complex128)
@@ -134,7 +134,7 @@ def fourier_points(c, X, offsets, periods):
     n = (1,) * pad + spatial
     o = (0,) * pad + offsets
     t = (1.0,) * pad + periods
-    stream = torch.cuda.current_stream(X.device).cuda_stream
+    stream = stream_handle(X.device)
     err = lib.fourier_points_launch(c.data_ptr(), X.data_ptr(), out.data_ptr(), K, d,
                                     *n, *o, *t, V, stream)
     check_launch(err, "fourier_points")
@@ -198,7 +198,7 @@ def fourier_points_derivs(c, X, offsets, periods, orders):
     o = (0,) * pad + offsets
     t = (1.0,) * pad + periods
     flat = (ctypes.c_int * (R * d))(*[k for order in orders for k in order])
-    stream = torch.cuda.current_stream(X.device).cuda_stream
+    stream = stream_handle(X.device)
     err = lib.fourier_points_derivs_launch(c.data_ptr(), X.data_ptr(), out.data_ptr(), K, d,
                                            *n, *o, *t, V, R, flat, stream)
     check_launch(err, "fourier_points_derivs")
@@ -249,7 +249,7 @@ def fourier_contract(c, cmap, x, offset, period):
     if out.numel() == 0:
         return out
     lib = load_kernels()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = stream_handle(x.device)
     err = lib.fourier_contract_launch(c.data_ptr(), cmap.data_ptr(), x.data_ptr(), out.data_ptr(),
                                       L, J, R, n, V, c.shape[0], offset, period, stream)
     check_launch(err, "fourier_contract")

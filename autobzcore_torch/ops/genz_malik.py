@@ -45,7 +45,7 @@ import torch
 
 from .._device import COMPLEX, REAL, check_tensor
 from .adaptive import _as_eval_budget, _count_dtype, _err_norm
-from .cuda_lib import check_launch, load_kernels
+from .cuda_lib import check_launch, load_kernels, stream_handle
 
 # the fourth difference's weight (l2 / l3)^2, as the reference forms it
 RATIO = float((np.sqrt(9.0 / 70.0) / np.sqrt(9.0 / 10.0)) ** 2)
@@ -191,15 +191,16 @@ def gm_rule_reduce(fx, vol, wk, we, diff_idx):
         raise ValueError(f"gm_rule_reduce runs on cpu or cuda tensors, got {dev}")
     vshape = tuple(fx.shape[2:])
     V = math.prod(vshape)
-    val = torch.empty((B,) + vshape, dtype=fx.dtype, device=dev)
-    err = torch.empty((B,), dtype=REAL, device=dev)
-    sd = torch.empty((B,), dtype=torch.int32, device=dev)
+    # sizes as ints, not tuples: torch.empty parses them faster
+    val = torch.empty(B, *vshape, dtype=fx.dtype, device=dev)
+    err = torch.empty(B, dtype=REAL, device=dev)
+    sd = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return val, err, sd
     if V == 0:
         raise ValueError("gm_rule_reduce needs at least one value per node")
     lib = load_kernels()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = stream_handle(dev)
     rc = lib.gm_rule_reduce_launch(
         fx.data_ptr(), vol.data_ptr(), wk.data_ptr(), we.data_ptr(), diff_idx.data_ptr(),
         val.data_ptr(), err.data_ptr(), sd.data_ptr(), B, P, V, int(fx.is_complex()),
@@ -418,7 +419,7 @@ def _pool_call(pool, entry, nbisect, idx=None, cc=None, hh=None, cval=None, cerr
     val = _real(pool.val)
     V = math.prod(val.shape[2:])
     lib = load_kernels()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = stream_handle(dev)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     if entry == "select":
         rc = lib.gm_pool_select_launch(pool.c.data_ptr(), pool.h.data_ptr(), pool.err.data_ptr(),

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .._device import COMPLEX, REAL, as_device, check_tensor
-from .cuda_lib import check_launch, load_kernels
+from .cuda_lib import check_launch, load_kernels, stream_handle
 from .eigh3 import eigvalsh3_rows, eigvalsh_chunked
 
 _PLAIN_TERMS = 1 << 22  # (omega, point) terms per pass of the plain Lorentzian sum
@@ -106,7 +106,7 @@ def lorentzian_sum(e, w, omegas, eta, scale=1.0):
     out = torch.empty(W, dtype=REAL, device=dev)
     lib = load_kernels()
     partials = torch.empty((lib.lorentz_num_blocks(K * nb, W), W), dtype=REAL, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = stream_handle(dev)
     rc = lib.lorentzian_sum_launch(e.data_ptr(), None if w is None else w.data_ptr(), K, nb,
                                    omegas.data_ptr(), W, eta, scale, partials.data_ptr(),
                                    out.data_ptr(), stream)
@@ -186,7 +186,7 @@ def fullgrid_tail(planes, m, wrow, inner, omegas, eta, acc, scale=1.0):
         raise ValueError(f"the CUDA tail kernel takes m <= 3 bands, got m = {m}")
     lib = load_kernels()
     partials = torch.empty((lib.lorentz_num_blocks(N, W), W), dtype=REAL, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = stream_handle(dev)
     rc = lib.fullgrid_tail_launch(planes.data_ptr(), wrow.data_ptr(), N, inner, wrow.shape[0], m,
                                   omegas.data_ptr(), W, eta, scale, partials.data_ptr(),
                                   acc.data_ptr(), stream)

@@ -12,7 +12,7 @@ non-zero):
 2. build: every CUDA kernel from ``autobzcore_torch/csrc`` with nvcc (one
    compiler per source, in parallel), timed, with the DMMA (FP64
    tensor-core) instructions that ``cuobjdump --dump-sass`` finds in K1's
-   and K11's entries;
+   and K11's entries and in K19's (every K19 entry must hold some);
 3. kernels K1, K2: first, every entry of K1 and K11 must hold DMMA
    instructions; then each against its plain PyTorch version on the card,
    in FP64, at stated tolerances; K1 and K2 run twice must be
@@ -130,9 +130,12 @@ non-zero):
    shapes: K14/K15 on one TAI trip (33 lanes x 8 boxes x 33 nodes of the
    flagship, dead boxes with a NaN integrand at their nodes), K16 on 33
    lanes x cap 4096 x d = 3 with planted ties, K17 at phase 24's fixed
-   level (33 x 201 nodes); 1e-12 of the value scale, identical splitdim and
+   level (33 x 201 nodes); K14 bit-equal to its plain version (val, err
+   and splitdim), K15 1e-12 of the value scale, identical splitdim and
    pools, bit-identical repeats; kernel, plain, bound and library times
-   (``torch.matmul`` by [wk, we] for K14, ``torch.einsum`` for K17);
+   (``torch.matmul`` by [wk, we] for K14, ``torch.einsum`` for K17); K14's
+   device time (torch.profiler) and the host time of its call, of the bare
+   ctypes launch and of ``torch.matmul``;
 23. TAI main path: the flagship's DOS by TAI() (HCubatureJL, cap 4096,
    nbisect 4) under SweepSolver(abstol=1e-3, chunk=33, scan=True) at phase
    7's 33 frequencies, three walls; trips, host syncs, launches of K1, K15
@@ -157,11 +160,13 @@ non-zero):
    transport contraction) and K20 (the Fermi count) against their plain
    versions at the transport main path's shapes: K18 on the flagship's
    npt=60 grid (216,000 points), K19 on its pack at 64 equal frequencies, at
-   a 960-node trip with Omega != 0 and at a scalar self-energy, K20 at five
-   (mu, beta), beta = inf twice; 1e-12 relative, bit-identical repeats;
-   kernel, plain, bound and library times (the reference's two
-   ``torch.einsum`` for K18, ``torch.matmul`` of the materialized pair rows
-   by Wmat for K19, at 64 and at 960 rows);
+   a 960-node trip with Omega != 0, at a scalar self-energy and at the
+   B11d shape (256 equal lanes on the npt=100 pack, 1e6 points), K20 at
+   five (mu, beta), beta = inf twice; 1e-12 relative, bit-identical
+   repeats; kernel (by events and, for K19, device time by torch.profiler),
+   plain, bound and library times (the reference's two ``torch.einsum``
+   for K18, ``torch.matmul`` of the materialized pair rows by Wmat for K19,
+   at 64 and at 960 rows);
 26. transport main path: ``examples/transport_example.py``'s flow at full
    width: the flagship on the full zone, spectral_velocity_pack(npt=60),
    ElectronCountSolver.find_mu at filling 1 and beta 40,
@@ -270,12 +275,17 @@ no device time (late in a long ``--profile`` run it has recorded none).
 for K1's share of its device time, and prints a JSON object of their
 numbers (``"fourier"``) before the last line: about 3 minutes with the
 build, the quick before/after run for the Fourier-evaluation kernels
-(``tools/fourier_ab.py`` runs the same phases on another checkout's
-package). ``--phases-29-30`` runs phases 1-2 and 29-30 alone (phase 26's chemical
+(``tools/kernel_ab.py --phases fourier`` runs the same phases on another
+checkout's package). ``--phases-29-30`` runs phases 1-2 and 29-30 alone (phase 26's chemical
 potential is found again first), so that with ``--profile`` the last two
 profiles are the process's first; ``--phases-31-32`` runs phases 1-2 and
 31-32 alone (without phase 12, so the AutoPTR lanes are not held against
 its ladder), profiling the AutoPTR ladder and the k-path spectral map.
+``--phases-22-26`` runs phases 1-2, 22 (at phase 7's 33 frequencies) and
+25-26 alone and prints their numbers (``"rule_transport"``: K14's call,
+K19's four cases, the sweep's wall and counts) as a JSON object before the
+last line (``tools/kernel_ab.py --phases rule_transport`` runs the same
+phases on another checkout's package).
 
 The second-to-last line is a JSON object with each kernel's numbers, the
 last line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -296,9 +306,10 @@ IAI_OMEGAS = 33  # one SweepSolver chunk of the IAI leg
 IAI_ABSTOL = 1e-3
 # the least time the card could take: NVIDIA's data sheet for the H100 SXM
 # at 700 W, FP64 outside the tensor cores, and FP64 on the tensor cores
-# (DMMA) for the functions that are complex matrix products (K1, K11: the
-# phase matrix by the coefficients; K12: dH_j by the eigenvectors), which a
-# library product runs there; none of the port's kernels uses them
+# (DMMA) for the functions that are matrix products (K1, K11: the phase
+# matrix by the coefficients; K12: dH_j by the eigenvectors; K19: the pair
+# products by Wmat), which a library product runs there; K1, K11 and K19
+# run theirs there too
 PEAK_FP64 = 34e12
 PEAK_FP64_MMA = 67e12
 PEAK_BYTES = 3.35e12
@@ -349,8 +360,9 @@ TR_NPT, TR_ETA, TR_BETA, TR_OMEGAS, TR_OMEGA_MAX, TR_ABSTOL = 60, 5e-3, 40.0, 32
 # FP64 operations of one Lorentzian g / ((y - e)^2 + g^2) / pi as K19's
 # function needs it (csrc/transport_gamma.cu): a subtraction, an FMA (2),
 # one reciprocal counted as the four DFMAs of its Newton sequence (8) and a
-# multiply by the width, 1/pi folded into scale (K19 itself makes two IEEE
-# divisions, so that its bits match the plain version's)
+# multiply by the width, 1/pi folded into scale (K19 itself forms 1 / (x^2 +
+# g^2) by rcp.approx and two Newton steps, 9 operations and an SFU op, and
+# applies (g1 / pi)(g2 / pi) once per pair and chunk)
 LORENTZ_RECIP_FLOPS = 12
 # FP64 operations of one K20 term at finite beta: the subtraction and the
 # multiply, exp (~25), the add and the division (8), the weight's multiply
@@ -520,6 +532,11 @@ def device_ms(fn, reps):
     return total / reps / 1e3 if total > 0 else None
 
 
+def ms_text(v):
+    """A device time from :func:`device_ms` for a printed line."""
+    return "not captured" if v is None else f"{v:.4f} ms"
+
+
 def profile(label, fn):
     """Run ``fn()`` under torch.profiler and print the device busy time (the
     sum of kernel and copy times on the one stream), its share of the wall
@@ -613,10 +630,12 @@ def check_dmma(counts):
 
 
 def bound(flops, nbytes, peak=PEAK_FP64, mma_flops=0):
-    """(bound_ms, bound_by): the larger of FP64 operations over the peak
-    rate ``peak`` (plus ``mma_flops`` over the tensor cores' FP64 rate) and
-    bytes over the memory rate."""
-    t_ops, t_bytes = (flops / peak + mma_flops / PEAK_FP64_MMA) * 1e3, nbytes / PEAK_BYTES * 1e3
+    """(bound_ms, bound_by): the largest of FP64 operations over the peak
+    rate ``peak``, ``mma_flops`` over the tensor cores' FP64 rate (the CUDA
+    cores and the tensor cores can work at the same time) and bytes over the
+    memory rate."""
+    t_ops = max(flops / peak, mma_flops / PEAK_FP64_MMA) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -695,6 +714,22 @@ def main():
     except (OSError, subprocess.SubprocessError) as e:
         fail(f"cuobjdump --dump-sass of {cuda_lib.LIBRARY.name}: {e}")
     print(f"SASS of fourier_points.cu's entries (cuobjdump): {dmma_text(dmma)}", flush=True)
+    try:
+        dmma19 = cuda_lib.sass_counts(cuda_lib.LIBRARY, "DMMA", "transport_gamma_partial")
+    except (OSError, subprocess.SubprocessError) as e:
+        fail(f"cuobjdump --dump-sass of {cuda_lib.LIBRARY.name}: {e}")
+    print(f"SASS of transport_gamma.cu's K19 entries (cuobjdump): {len(dmma19)} entries, "
+          f"{sum(dmma19.values())} DMMA instructions, the fewest in an entry {min(dmma19.values(), default=0)}",
+          flush=True)
+    if not (dmma19 and all(dmma19.values())):
+        fail(f"transport_gamma.cu: a K19 entry without DMMA instructions ({dmma19})")
+    if "--phases-22-26" in sys.argv[1:]:
+        # phases 22 and 25-26 alone, in a process of their own
+        h = flagship_series(device=dev)
+        print(json.dumps({"rule_transport": rule_transport_phases(np, torch, dev, h)}, default=str), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
     if "--phases-fourier" in sys.argv[1:]:
         # phases 3-4, 6a, 19 and phase 32's AutoPTR DOS ladder alone, in a process of their own
         h = flagship_series(device=dev)
@@ -754,8 +789,8 @@ def main():
     kernels += block_phases(np, torch, dev, h, cold)
     kernels += repair_phases(np, torch, dev)
     kernels += ggr_phases(np, torch, dev, h, ltm_dos)
-    kernels += cubature_phases(np, torch, dev, h, cold)
-    k_tr, mu_filling = transport_phases(np, torch, dev, h)
+    kernels += cubature_phases(np, torch, dev, h, cold)[0]
+    k_tr, mu_filling, _ = transport_phases(np, torch, dev, h)
     kernels += k_tr
     kernels += berry_phases(np, torch, dev)
     kernels += lindhard_sigma_phases(np, torch, dev, h, mu_filling)
@@ -1273,7 +1308,8 @@ def iai_phases(np, torch, dev, h):
 
     rep = "autobzcore_tpu/ops/adaptive.py:"
     cold = {"oms": oms, "d": d_iai, "ne": ne, "numevals": sweep.numevals, "wall": wall,
-            "d_ptr": d_ptr, "bz": bz, "trips": dict(st.trips), "syncs": st.syncs}
+            "d_ptr": d_ptr, "bz": bz, "trips": dict(st.trips), "syncs": st.syncs,
+            "k3": {k: v for k, v in t3.items() if k.endswith(("ms", "us"))}}
     return cold, [
         {"name": "fourier_contract", "route": "cuda", "source": src + "fourier_contract.cu",
          "replaces": "autobzcore_tpu/ops/fourier_eval.py:104", "launches": launches["fourier_contract"],
@@ -2583,28 +2619,22 @@ def ggr_phases(np, torch, dev, h, ltm_dos):
                   t13["gauss"]["bound"], None)]
 
 
-def cubature_phases(np, torch, dev, h, cold):
-    """Phases 22-24: K14-K17 against their plain versions, the TAI leg and
-    the fixed-rule nest. Returns the kernels' JSON entries."""
-    from autobzcore_torch import (FBZ, IAI, PTR, TAI, AbsoluteEstimate, AuxQuadGKJL, CubicLimits,
-                                  EvalCounter, FourierValue, InversionSymIBZ, IntegralProblem, NestedQuad,
-                                  QuadGKJL, QuadratureFunction, init, load_bz, solve, trapz)
-    from autobzcore_torch.models.observables import (dos_integrand, dos_trace, gm_leaf_dos,
-                                                     gm_leaf_dos_plain)
-    from autobzcore_torch.models.tight_binding import synthetic_wannier
+def rule_phase(np, torch, dev, h, oms):
+    """Phase 22: K14-K17 against their plain versions at the TAI leg's
+    shapes (the frequencies ``oms``), with K14's device time and the host
+    cost of its call. Returns each kernel's numbers and bound."""
+    from autobzcore_torch import FourierValue, QuadratureFunction, trapz
+    from autobzcore_torch.models.observables import dos_trace, gm_leaf_dos, gm_leaf_dos_plain
     from autobzcore_torch.ops import adaptive as tad
+    from autobzcore_torch.ops import cuda_lib
     from autobzcore_torch.ops import genz_malik as tgm
     from autobzcore_torch.ops.fourier_eval import fourier_points
-    from autobzcore_torch.parallel.sweep import SweepSolver
-    from autobzcore_torch.parameters import LaneParams
 
-    src = "autobzcore_torch/csrc/"
     rng = np.random.default_rng(22)
     pts, wk, we, di = tgm.gm_rule_tensors(3, dev)
     P, nb = pts.shape[0], 4
     L, K = IAI_OMEGAS, 2 * nb
     B = L * K
-    oms = cold["oms"]
 
     # 22. K14-K17 against their plain versions ------------------------------------------
     # one trip of the TAI leg: 33 lanes x 8 boxes x 33 nodes of the flagship, a
@@ -2633,13 +2663,13 @@ def cubature_phases(np, torch, dev, h, cold):
 
     e14, e15 = rule_err(k14, p14), max(rule_err(k15, p15), rule_err(k15, via14))
     bits14, bits15 = all(map(torch.equal, k14, p14)), all(map(torch.equal, k15, p15))
-    ok14 = (e14 <= 1e-12 and torch.equal(k14[2], p14[2]) and all(map(torch.equal, k14, k14r))
+    ok14 = (bits14 and all(map(torch.equal, k14, k14r))
             and bool((k14[0][dead] == 0).all() and (k14[1][dead] == 0).all())
             and bool(torch.isfinite(k14[0]).all()))
     ok15 = (e15 <= 1e-12 and torch.equal(k15[2], p15[2]) and torch.equal(k15[2], via14[2])
             and all(map(torch.equal, k15, k15r)))
     if not ok14:
-        fail(f"K14 gm_rule_reduce vs plain: rel {e14:.3e}, splitdim equal {torch.equal(k14[2], p14[2])}")
+        fail(f"K14 gm_rule_reduce vs plain: rel {e14:.3e}, bit-equal {[bool(torch.equal(a, b)) for a, b in zip(k14, p14)]}")
     if not ok15:
         fail(f"K15 gm_leaf_dos vs plain and K1 + trace + K14: rel {e15:.3e}")
     W2 = torch.stack([wk, we], dim=1)
@@ -2647,6 +2677,35 @@ def cubature_phases(np, torch, dev, h, cold):
            "plain_ms": cuda_ms(lambda: tgm.gm_rule_reduce_plain(*a14), 50),
            "library_ms": cuda_ms(lambda: torch.matmul(D, W2), 200),
            "err": max(float((k14[0] - p14[0]).abs().max()), float((k14[1] - p14[1]).abs().max()))}
+    # what a K14 call costs: its device time (torch.profiler) beside
+    # torch.matmul's, and the host time of the wrapper, of the bare ctypes
+    # launch it ends in (the same arguments, no checks, no allocation) and
+    # of torch.matmul; and the wrapper's three output allocations against
+    # one allocation cut into views
+    lib = cuda_lib.load_kernels()
+    o14 = tuple(torch.empty_like(t) for t in k14)
+    bare14 = (fx.data_ptr(), vol.data_ptr(), wk.data_ptr(), we.data_ptr(), di.data_ptr(), o14[0].data_ptr(),
+              o14[1].data_ptr(), o14[2].data_ptr(), B, P, 1, 0, di.shape[0], tgm.RATIO,
+              torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check_launch(lib.gm_rule_reduce_launch(*bare14), "gm_rule_reduce (bare)")
+    torch.cuda.synchronize()
+    if not all(map(torch.equal, o14, k14)):
+        fail("K14 gm_rule_reduce: the bare launch differs from the wrapper's")
+
+    def alloc3():
+        return (torch.empty(B, dtype=torch.float64, device=dev), torch.empty(B, dtype=torch.float64, device=dev),
+                torch.empty(B, dtype=torch.int32, device=dev))
+
+    def alloc1():
+        buf = torch.empty(3 * B, dtype=torch.float64, device=dev)
+        return buf[:B], buf[B:2 * B], buf[2 * B:].view(torch.int32)[:B]
+
+    t14.update(device_ms=device_ms(lambda: tgm.gm_rule_reduce(*a14), 50),
+               library_device_ms=device_ms(lambda: torch.matmul(D, W2), 50),
+               host_us=host_us(lambda: tgm.gm_rule_reduce(*a14), 500),
+               bare_host_us=host_us(lambda: lib.gm_rule_reduce_launch(*bare14), 500),
+               library_host_us=host_us(lambda: torch.matmul(D, W2), 500),
+               alloc3_host_us=host_us(alloc3, 500), alloc1_host_us=host_us(alloc1, 500))
     t15 = {"ms": cuda_ms(lambda: gm_leaf_dos(*a15), 200),
            "plain_ms": cuda_ms(lambda: gm_leaf_dos_plain(*a15), 20),
            "err": max(float((k15[0] - p15[0]).abs().max()), float((k15[1] - p15[1]).abs().max()))}
@@ -2656,9 +2715,13 @@ def cubature_phases(np, torch, dev, h, cold):
     b15 = bound(B * P * (TRACE_FLOPS[3] + 8) + B * (4 * P + 30),
                 nbytes(H, om_b, eta_b, vol, wk, we, di) + B * (8 + 8 + 4))
     print(f"K14 gm_rule_reduce: {B} boxes x {P} nodes ({int(dead.sum())} dead, NaN at their nodes): "
-          f"max |d val|, |d err| / max|val| {e14:.3e} (<= 1e-12; bit-equal {bits14}), splitdim identical, "
-          f"dead boxes 0, repeat bit-identical; {t14['ms']:.4f} ms (plain {t14['plain_ms']:.4f}, torch.matmul by [wk, we] "
-          f"{t14['library_ms']:.4f}; bound {b14[0]:.5f} ms by {b14[1]}); K15 gm_leaf_dos: vs plain and K1 + "
+          f"val, err and splitdim bit-equal to the plain version ({bits14}; max |d| / max|val| {e14:.3e}), "
+          f"dead boxes 0, repeat bit-identical; a call by events {t14['ms']:.4f} ms (plain {t14['plain_ms']:.4f}, "
+          f"torch.matmul by [wk, we] {t14['library_ms']:.4f}; bound {b14[0]:.5f} ms by {b14[1]}); device time "
+          f"(profiler) {ms_text(t14['device_ms'])} (torch.matmul {ms_text(t14['library_device_ms'])}); host time a call "
+          f"(500 calls, no sync) {t14['host_us']:.1f} us (its bare ctypes launch {t14['bare_host_us']:.1f} us, "
+          f"torch.matmul {t14['library_host_us']:.1f} us; the outputs' three torch.empty {t14['alloc3_host_us']:.1f} "
+          f"us, one torch.empty and views {t14['alloc1_host_us']:.1f} us); K15 gm_leaf_dos: vs plain and K1 + "
           f"trace + K14 {e15:.3e} (<= 1e-12; bit-equal to plain {bits15}), splitdim identical, repeat bit-identical; {t15['ms']:.4f} ms "
           f"(plain {t15['plain_ms']:.4f}; bound {b15[0]:.5f} ms by {b15[1]})", flush=True)
 
@@ -2738,6 +2801,30 @@ def cubature_phases(np, torch, dev, h, cold):
           f"{t17['library_ms']:.4f}; bound {b17[0]:.6f} by {b17[1]})", flush=True)
     del H, D, fx, a14, a15, sel_in, pool, ref, pool_k, pool_p
     torch.cuda.empty_cache()
+    return {"t14": t14, "t15": t15, "t16s": t16s, "t16u": t16u, "t17": t17, "b14": b14, "b15": b15,
+            "b16s": b16s, "b16u": b16u, "b17": b17}
+
+
+def cubature_phases(np, torch, dev, h, cold):
+    """Phases 22-24: K14-K17 against their plain versions, the TAI leg and
+    the fixed-rule nest. Returns the kernels' JSON entries and the TAI leg's
+    numbers (phase 22's under "rule")."""
+    from autobzcore_torch import (FBZ, IAI, PTR, TAI, AbsoluteEstimate, AuxQuadGKJL, CubicLimits,
+                                  EvalCounter, InversionSymIBZ, IntegralProblem, NestedQuad, QuadGKJL,
+                                  QuadratureFunction, init, load_bz, solve, trapz)
+    from autobzcore_torch.models.observables import dos_integrand, gm_leaf_dos
+    from autobzcore_torch.models.tight_binding import synthetic_wannier
+    from autobzcore_torch.ops import adaptive as tad
+    from autobzcore_torch.ops import genz_malik as tgm
+    from autobzcore_torch.ops.fourier_eval import fourier_points
+    from autobzcore_torch.parallel.sweep import SweepSolver
+    from autobzcore_torch.parameters import LaneParams
+
+    src = "autobzcore_torch/csrc/"
+    oms = cold["oms"]
+    rule = rule_phase(np, torch, dev, h, oms)
+    t14, t15, t16s, t16u, t17 = (rule[k] for k in ("t14", "t15", "t16s", "t16u", "t17"))
+    b14, b15, b16s, b16u, b17 = (rule[k] for k in ("b14", "b15", "b16s", "b16u", "b17"))
 
     # 23. the TAI leg at full width ---------------------------------------------------------
     bz = cold["bz"]
@@ -2766,6 +2853,8 @@ def cubature_phases(np, torch, dev, h, cold):
     if min(launches.values()) <= 0:
         fail(f"the TAI main path did not go through every kernel: {launches}")
     trips = st.trips.get(1, 0)
+    tai = {"tai_walls": walls, "tai_numevals": int(np.sum(ne)), "tai_trips": trips, "tai_syncs": st.syncs,
+           "tai_retcodes": [str(r) for r in np.atleast_1d(rc)]}
     print(f"TAI main path: flagship FBZ, eta {ETA}, {IAI_OMEGAS} omegas, abstol {IAI_ABSTOL}, cap 4096, "
           f"nbisect 4: walls {', '.join(f'{w:.3f}' for w in walls)} s; numevals {int(np.sum(ne))} (per omega "
           f"min {ne.min()} max {ne.max()}); retcode {rc}; trips {trips}; host syncs {st.syncs}; launches "
@@ -2918,14 +3007,23 @@ def cubature_phases(np, torch, dev, h, cold):
             entry("gm_pool_select", "gm_pool.cu", gm + "204", t16s, b16s, None),
             entry("gm_pool_update", "gm_pool.cu", gm + "216", t16u, b16u, None),
             entry("fixed_rule_reduce", "fixed_rule.cu", "autobzcore_tpu/ops/adaptive.py:644", t17, b17,
-                  t17["library_ms"])]
+                  t17["library_ms"])], dict(tai, rule=rule)
+
+
+def rule_transport_phases(np, torch, dev, h):
+    """``--phases-22-26``: phase 22 (K14-K17, K14's call) at the TAI leg's
+    frequencies and phases 25-26 (K18-K20, the transport main path).
+    Returns K14's and K19's numbers and the sweep's."""
+    rule = rule_phase(np, torch, dev, h, np.linspace(*WINDOW, IAI_OMEGAS))
+    _, _, tr = transport_phases(np, torch, dev, h)
+    return dict(tr, k14=dict(rule["t14"], bound_ms=rule["b14"][0]))
 
 
 def transport_phases(np, torch, dev, h):
     """Phases 25-26: K18-K20 against their plain versions at the main path's
     shapes, then the transport main path (``examples/transport_example.py``'s
-    flow) at full width. Returns the kernels' JSON entries and the chemical
-    potential at filling 1."""
+    flow) at full width. Returns the kernels' JSON entries, the chemical
+    potential at filling 1 and the numbers of K19 and the sweep."""
     from autobzcore_torch import FBZ, CubicSymIBZ, load_bz
     from autobzcore_torch.ops.eigh3 import EIGH_CHUNK
     from autobzcore_torch.models import observables as obs
@@ -2979,10 +3077,12 @@ def transport_phases(np, torch, dev, h):
     e, Wm, sc = pack.e, pack.Wmat, pack.scale
     lo, hi = -2.0 - 0.6, 0.6  # a window like the main path's: [mu - max Omega - t, mu + t]
 
-    def k19_bound(B, same):
+    def k19_bound(B, same, e, Wm):
         # per (pair, point): m Lorentzians at equal frequencies, else 2m, and
         # the m^2 pair products at the FP64 rate; the 2 m^2 d^2 operations of
-        # the contraction by Wmat, a real FP64 matrix product, on the tensor cores
+        # the contraction by Wmat, a real FP64 matrix product, on the tensor
+        # cores, which work beside the CUDA cores: the longer of the two counts
+        K = e.shape[0]
         lorentz = (1 if same else 2) * m * LORENTZ_RECIP_FLOPS + m * m
         return bound(B * K * lorentz, nbytes(e, Wm) + 8 * B * ((2 if same else 4) + d * d),
                      mma_flops=B * K * 2 * m * m * d * d)
@@ -3013,8 +3113,9 @@ def transport_phases(np, torch, dev, h):
         B = y1.shape[0]
         t19[tag] = {"err": float((k - p_).abs().max()), "rel": r, "B": B, "plain": p_,
                     "ms": cuda_ms(lambda: obs.transport_gamma(e, Wm, y1, g1, y2, g2, sc), 5),
+                    "device_ms": device_ms(lambda: obs.transport_gamma(e, Wm, y1, g1, y2, g2, sc), 5),
                     "plain_ms": cuda_ms(lambda: obs.transport_gamma_plain(e, Wm, y1, g1, y2, g2, sc), 2),
-                    "bound": k19_bound(B, y2 is y1 and g2 is g1)}
+                    "bound": k19_bound(B, y2 is y1 and g2 is g1, e, Wm)}
     # the library call: torch.matmul of the materialized pair rows by Wmat, at
     # 64 equal frequencies and at the trip (960 rows, 14.9 GB, built 64 rows at a time)
     for tag in ("equal64", "trip960"):
@@ -3030,12 +3131,34 @@ def transport_phases(np, torch, dev, h):
         del pairs
     t19["selfenergy960"].pop("plain")
     torch.cuda.empty_cache()
-    print(f"K19 transport_gamma on the flagship's npt={TR_NPT} pack: " + "; ".join(
-        f"{tag} (B = {t['B']}): max rel vs plain {t['rel']:.3e} (<= 1e-12), repeat bit-identical, {t['ms']:.4f} ms "
-        f"(plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]})"
-        for tag, t in t19.items()) + "; torch.matmul of the materialized pair rows by Wmat: " + ", ".join(
-        f"{tag} {t19[tag]['library_ms']:.4f} ms (rel {t19[tag]['library_rel']:.3e})" for tag in ("equal64", "trip960")),
-        flush=True)
+    # the B11d shape: the transport integrand under PTR(100), 256 equal lanes on the
+    # flagship's 1e6-point pack (phase 32's sweep)
+    p100 = obs.spectral_velocity_pack(h, bz, NPT)
+    e1, W1, sc1 = p100.e, p100.Wmat, p100.scale
+    om256 = torch.as_tensor(np.linspace(*WINDOW, TR_PTR_OMEGAS), device=dev)
+    eta256 = torch.full_like(om256, ETA)
+    k, k2 = obs.transport_gamma(e1, W1, om256, eta256, om256, eta256, sc1), \
+        obs.transport_gamma(e1, W1, om256, eta256, om256, eta256, sc1)
+    p_ = obs.transport_gamma_plain(e1, W1, om256, eta256, om256, eta256, sc1)
+    r, same = rel(k, p_), torch.equal(k, k2)
+    if not (r <= 1e-12 and same):
+        fail(f"K19 transport_gamma at the B11d shape: max rel vs plain {r:.3e}, repeat identical {same}")
+    t19["ptr256"] = {"err": float((k - p_).abs().max()), "rel": r, "B": TR_PTR_OMEGAS, "K": e1.shape[0],
+                     "ms": cuda_ms(lambda: obs.transport_gamma(e1, W1, om256, eta256, om256, eta256, sc1), 3),
+                     "device_ms": device_ms(lambda: obs.transport_gamma(e1, W1, om256, eta256, om256, eta256, sc1), 3),
+                     "plain_ms": cuda_ms(lambda: obs.transport_gamma_plain(e1, W1, om256, eta256, om256, eta256, sc1),
+                                         1),
+                     "bound": k19_bound(TR_PTR_OMEGAS, True, e1, W1)}
+    del p100, e1, W1, k, k2, p_
+    torch.cuda.empty_cache()
+    print(f"K19 transport_gamma on the flagship's npt={TR_NPT} pack ({K} points) and, for ptr256, its npt={NPT} "
+          f"pack: " + "; ".join(
+              f"{tag} (B = {t['B']}): max rel vs plain {t['rel']:.3e} (<= 1e-12), repeat bit-identical, {t['ms']:.4f} "
+              f"ms by events, device {ms_text(t['device_ms'])} (plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} "
+              f"ms by {t['bound'][1]})" for tag, t in t19.items()) +
+          "; torch.matmul of the materialized pair rows by Wmat: " + ", ".join(
+              f"{tag} {t19[tag]['library_ms']:.4f} ms (rel {t19[tag]['library_rel']:.3e})"
+              for tag in ("equal64", "trip960")), flush=True)
     # K20 at several (mu, beta), beta = inf among them
     wk = torch.as_tensor(np.asarray(pack.weights), dtype=torch.float64, device=dev)
     errs20 = []
@@ -3155,6 +3278,8 @@ def transport_phases(np, torch, dev, h):
     if "--profile" in sys.argv[1:]:
         profile("transport main path (the 32-Omega sweep)", lambda: tr.KineticCoefficientSolver(
             h, bz, TR_NPT, eta=TR_ETA, beta=TR_BETA, alpha=0, mu=mu, pack=pack).sweep(omegas, abstol=TR_ABSTOL))
+    trips26, syncs26, nev1 = kc.stats.trips.get(1, 0), kc.stats.syncs, kc1.numevals
+    numevals26, retcode26 = kc.numevals, kc.retcode
     del pack, kc, kc1, ec
     torch.cuda.empty_cache()
 
@@ -3167,7 +3292,12 @@ def transport_phases(np, torch, dev, h):
                   t18["library_ms"]),
             entry("transport_gamma", "transport_gamma.cu", "autobzcore_tpu/models/observables.py:379",
                   t19["trip960"], t19["trip960"]["bound"], t19["trip960"]["library_ms"]),
-            entry("fermi_count", "fermi_count.cu", "autobzcore_tpu/models/transport.py:302", t20, b20, None)], mu
+            entry("fermi_count", "fermi_count.cu", "autobzcore_tpu/models/transport.py:302", t20, b20, None)], mu, {
+        "k19": {tag: {"ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "rel": t["rel"],
+                      "bound_ms": t["bound"][0], "library_ms": t.get("library_ms")} for tag, t in t19.items()},
+        "sweep_s": t3 - t2, "numevals": int(numevals26), "retcode": str(retcode26), "gk_trips": trips26,
+        "host_syncs": syncs26, "alpha1_s": t4 - t3, "alpha1_numevals": int(nev1), "launches": launches,
+        "mu": mu, "phases_s": wall}
 
 
 def berry_phases(np, torch, dev):

@@ -1100,10 +1100,10 @@ def test_box_wrappers_take_plain_versions_on_cpu_without_counting():
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["real", "complex", "nan_at_origin"])
 def test_box_rule_kernel_matches_plain_on_card(cuda_device, kind):
-    """K14 against its plain version on 264 boxes with dead slots: values
-    and errors within 1e-12 of the value scale, dead boxes exactly 0 (also
-    where the integrand is NaN at the origin), splitdim identical (the first
-    NaN where the dead boxes' differences are NaN), repeats bit-identical."""
+    """K14 against its plain version on 264 boxes with dead slots: values,
+    errors and splitdim bit-equal to the plain version's, dead boxes exactly
+    0 (also where the integrand is NaN at the origin; splitdim the first NaN
+    where the dead boxes' differences are NaN), repeats bit-identical."""
     from autobzcore_torch.ops import genz_malik as tgm
 
     rng = np.random.default_rng(140)
@@ -1119,13 +1119,60 @@ def test_box_rule_kernel_matches_plain_on_card(cuda_device, kind):
     want = tgm.gm_rule_reduce_plain(fx, vol, wk, we, di)
     torch.cuda.synchronize()
     assert tgm.gm_rule_reduce.launches == before + 2
-    scale = float(want[0].abs().max())
-    assert float((got[0] - want[0]).abs().max()) <= 1e-12 * scale
-    assert float((got[1] - want[1]).abs().max()) <= 1e-12 * scale
-    assert torch.equal(got[2], want[2])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     assert bool((got[0][torch.as_tensor(dead, device=cuda_device)] == 0).all())
     assert bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 264, 265])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("kind", ["real", "complex", "channels"])
+def test_box_rule_kernel_is_bit_equal_at_any_box_count(cuda_device, B, d, kind):
+    """K14 against its plain version, torch.equal on all three outputs, at
+    box counts on both sides of its boxes a block (8), in 2-D and 3-D, for
+    real, complex and three-channel real values, a box in five dead."""
+    from autobzcore_torch.ops import genz_malik as tgm
+
+    rng = np.random.default_rng(1400 + B + 10 * d)
+    dead = np.arange(B)[::5]
+    nodes, vol, (pts, wk, we, di) = _gm_boxes(rng, cuda_device, B, d, dead)
+    x = nodes
+    fx = {"real": torch.exp(torch.sin(3 * x[..., 0]) * torch.cos(2 * x[..., -1])),
+          "complex": torch.exp(1j * x.sum(-1)) * (1 + x[..., 0]),
+          "channels": torch.stack([torch.cos(x.sum(-1)), (x * x).sum(-1), torch.sin(5 * x[..., 1])], -1)}[kind]
+    fx = fx.contiguous()
+    got = tgm.gm_rule_reduce(fx, vol, wk, we, di)
+    want = tgm.gm_rule_reduce_plain(fx, vol, wk, we, di)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert bool((got[1][torch.as_tensor(dead, device=cuda_device)] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,V,is_complex", [(3, 150, False), (3, 200, False), (3, 100, True),
+                                            (3, 1500, False), (2, 320, False)])
+def test_box_rule_kernel_is_bit_equal_at_wide_values(cuda_device, d, V, is_complex):
+    """K14 on 20 boxes whose values have many channels: at 150 real
+    channels its rows are still staged in shared memory (one box a block);
+    past that it reads them from device memory, and at 1,500 channels in
+    several channel tiles. torch.equal on all three outputs against the
+    plain version, dead boxes 0."""
+    from autobzcore_torch.ops import genz_malik as tgm
+
+    rng = np.random.default_rng(1500 + V + d)
+    dead = np.arange(20)[::6]
+    nodes, vol, (pts, wk, we, di) = _gm_boxes(rng, cuda_device, 20, d, dead)
+    freq = torch.as_tensor(rng.uniform(0.5, 4.0, V), device=cuda_device)
+    phase = nodes.sum(-1)[..., None] * freq + nodes[..., :1]
+    fx = (torch.exp(1j * phase) * (1 + nodes[..., -1:]) if is_complex else torch.cos(phase)).contiguous()
+    got = tgm.gm_rule_reduce(fx, vol, wk, we, di)
+    want = tgm.gm_rule_reduce_plain(fx, vol, wk, we, di)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert bool((got[1][torch.as_tensor(dead, device=cuda_device)] == 0).all())
+    assert bool((got[0][torch.as_tensor(dead, device=cuda_device)] == 0).all())
 
 
 @pytest.mark.gpu
@@ -1409,6 +1456,69 @@ def test_transport_gamma_kernel_matches_plain_on_card(cuda_device, m, d):
     assert torch.equal(eq, obs.transport_gamma(e, Wm, y1, g1, y1.clone(), g1.clone(), 0.37))
     want_eq = obs.transport_gamma_plain(e, Wm, y1, g1, y1, g1, 0.37)
     assert float((eq - want_eq).abs().max() / want_eq.abs().max()) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_transport_gamma_kernel_at_any_pair_count(cuda_device, m, d):
+    """K19 against its plain version within 1e-12 at pair counts around
+    its n8 tiles, 16-pair warps and 128-pair blocks, over a point count
+    that is not a multiple of its 16-point stage or 512-point chunk, at
+    unequal and equal frequencies; repeats bit-identical."""
+    from autobzcore_torch.models import observables as obs
+
+    rng = np.random.default_rng(1900 + 10 * m + d)
+    e, U, dH, w, Wm = _transport_pack(rng, 1300, m, d, cuda_device)
+    for B in (1, 15, 16, 17, 63, 64, 65, 960):
+        y1 = torch.as_tensor(rng.uniform(-3, 3, B), device=cuda_device)
+        y2 = y1 + torch.as_tensor(rng.uniform(0, 1, B), device=cuda_device)
+        g1 = torch.as_tensor(rng.uniform(0.01, 0.3, B), device=cuda_device)
+        g2 = torch.as_tensor(rng.uniform(0.01, 0.3, B), device=cuda_device)
+        for args in ((y1, g1, y2, g2), (y1, g1, y1, g1)):
+            got = obs.transport_gamma(e, Wm, *args, 0.37)
+            want = obs.transport_gamma_plain(e, Wm, *args, 0.37)
+            assert float((got - want).abs().max() / want.abs().max()) <= 1e-12, (B, args[2] is args[0])
+            assert torch.equal(got, obs.transport_gamma(e, Wm, *args, 0.37))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, 3, 5])
+def test_transport_gamma_pairs_do_not_depend_on_their_place(cuda_device, m):
+    """A random permutation of 200 pairs permutes K19's output bit for
+    bit, at unequal and at equal frequencies, and a pair alone gives the
+    bits it has in the launch."""
+    from autobzcore_torch.models import observables as obs
+
+    rng = np.random.default_rng(1950 + m)
+    e, U, dH, w, Wm = _transport_pack(rng, 700, m, 3, cuda_device)
+    B = 200
+    y1 = torch.as_tensor(rng.uniform(-3, 3, B), device=cuda_device)
+    y2 = y1 + torch.as_tensor(rng.uniform(0, 1, B), device=cuda_device)
+    g1 = torch.as_tensor(rng.uniform(0.01, 0.3, B), device=cuda_device)
+    g2 = torch.as_tensor(rng.uniform(0.01, 0.3, B), device=cuda_device)
+    perm = torch.as_tensor(rng.permutation(B), device=cuda_device)
+    for same in (False, True):
+        args = (y1, g1, y1, g1) if same else (y1, g1, y2, g2)
+        got = obs.transport_gamma(e, Wm, *args, 0.5)
+        pa = tuple(a[perm].contiguous() for a in args[:2])
+        pargs = pa + pa if same else pa + tuple(a[perm].contiguous() for a in args[2:])
+        assert torch.equal(obs.transport_gamma(e, Wm, *pargs, 0.5), got[perm])
+        i = 137
+        one = tuple(a[i:i + 1].contiguous() for a in args[:2])
+        oargs = one + one if same else one + tuple(a[i:i + 1].contiguous() for a in args[2:])
+        assert torch.equal(obs.transport_gamma(e, Wm, *oargs, 0.5), got[i:i + 1])
+
+
+@pytest.mark.gpu
+def test_transport_gamma_entries_hold_dmma(cuda_device):
+    """Every K19 entry of the built library runs its product on the FP64
+    tensor cores: its SASS holds DMMA instructions."""
+    from autobzcore_torch.ops import cuda_lib
+
+    cuda_lib.load_kernels()
+    counts = cuda_lib.sass_counts(cuda_lib.LIBRARY, "DMMA", "transport_gamma_partial")
+    assert len(counts) >= 12 and all(counts.values()), counts
 
 
 @pytest.mark.gpu

@@ -36,8 +36,8 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PACKAGE.rglob("*.py"))
-                         + ["chip_smoke.py", "examples/aps_example_torch.py", "tools/fourier_ab.py",
-                            "tools/fourier_variants.py"])
+                         + ["chip_smoke.py", "examples/aps_example_torch.py", "tools/kernel_ab.py",
+                            "tools/kernel_variants.py"])
 def test_no_source_imports_jax(path):
     """Also the imports inside functions, which an import test cannot see."""
     tree = ast.parse((REPO / path).read_text())
@@ -107,3 +107,26 @@ def test_chip_smoke_refuses_without_cuda():
 def test_chip_smoke_refuses_without_the_package(tmp_path):
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     _assert_refused(_run(["chip_smoke.py"], cwd=tmp_path))
+
+
+@pytest.mark.parametrize("source", ["fourier_points", "transport_gamma"])
+def test_kernel_variants_patch_the_current_source(source):
+    """Every variant of ``tools/kernel_variants.py`` is a text patch that
+    still applies to the package's source, and changes it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("kernel_variants", REPO / "tools" / "kernel_variants.py")
+    kv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kv)
+    text = (PACKAGE / "csrc" / f"{source}.cu").read_text()
+    variants = kv.SOURCES[source][0](text)
+    assert variants and all(v != text for v in variants.values())
+
+
+@pytest.mark.parametrize("args", [["tree", "label"], ["tree", "label", "--phases", "k19"],
+                                  ["tree", "--phases", "fourier"]])
+def test_kernel_ab_refuses_bad_arguments(args):
+    """``tools/kernel_ab.py`` prints its usage and runs nothing without a
+    tree, a label and a known group of phases."""
+    out = _run([str(REPO / "tools" / "kernel_ab.py"), *args], cwd=REPO, timeout=60)
+    assert out.returncode != 0 and "--phases fourier|rule_transport" in out.stderr

@@ -1,0 +1,148 @@
+#!/usr/bin/env python3
+"""Time a group of kernels and the paths that run them, for the
+``autobzcore_torch`` package of any checkout, on one NVIDIA GPU.
+
+    python3 tools/kernel_ab.py TREE LABEL --phases fourier|rule_transport [--iai] [--out DIR]
+
+It imports ``autobzcore_torch`` from the checkout at TREE (its kernels
+build there at first use) and runs this repository's ``chip_smoke.py``
+phase functions on it:
+
+- ``--phases fourier``: the Fourier-evaluation kernels (K1, K11, K3):
+  phases 3-4 (K1 and the flagship PTR leg), 6a (K3 at the outer and mid
+  shapes, with its host cost a call), phase 19's K11 (at the flagship's 1e6
+  points, a GGR init chunk of 4,096 points and the bands30 chunk) and phase
+  32's AutoPTR DOS ladder (with K1's share of its device time from
+  torch.profiler), then the GGR init of phase 20 and phase 32's AutoPTR
+  transport ladder;
+- ``--phases rule_transport``: the Genz-Malik box rule (K14) and the
+  transport contraction (K19): phase 22 (K14-K17 at the TAI leg's shapes,
+  with K14's device time and the host cost of its call) and phases 25-26
+  (K18-K20, K19's device time in its four cases, the transport main path's
+  sweep with its numevals, retcode, GK trips and K19 launches).
+
+``--iai`` adds phases 6-8 (K3's call in phase 6a; the cold IAI chunk's
+wall, evals, trips and syncs), and to ``rule_transport`` phases 22-24 for
+the TAI leg's three walls and counts: the paths whose wrappers share the
+host helpers of ``ops/cuda_lib.py`` and ``_device.py``. So two checkouts,
+for example a commit and its parent unpacked with ``git archive``, compare
+on one card in one call: run each in a process of its own, in turns
+(parent, change, change, parent). The last line is a JSON object of the
+numbers; with ``--out DIR`` a copy goes to ``DIR/ab_PHASES_LABEL.json`` (a
+later run of the same phases and label replaces it).
+"""
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def load_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fourier(cs, np, torch, dev, h):
+    from autobzcore_torch import FBZ, GGR, AutoPTR, DOSProblem, IntegralProblem, MixedParameters, load_bz
+    from autobzcore_torch.dos import init as dos_init
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.parallel.sweep import sweep_solve
+
+    out = cs.fourier_phases(np, torch, dev, h)
+    bz = load_bz(FBZ(), np.eye(3))
+    # phase 20's GGR init at the flagship, npt 100
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dos_init(DOSProblem(h, 0.5, bz), GGR(npt=cs.NPT))
+    torch.cuda.synchronize()
+    out["ggr_init_s"] = time.perf_counter() - t0
+    # phase 32's transport ladder: AutoPTR up to npt 300 at 32 omegas, reltol 1e-3
+    om32 = torch.as_tensor(np.linspace(*cs.WINDOW, cs.TR_AUTOPTR_OMEGAS), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, conv, nev = sweep_solve(IntegralProblem(obs.transport_integrand(h, eta=cs.ETA), bz),
+                                  AutoPTR(device=dev, **cs.TR_AUTOPTR_KW), MixedParameters(om32), reltol=1e-3)
+    torch.cuda.synchronize()
+    out["transport_ladder_s"] = time.perf_counter() - t0
+    out["transport_ladder_numevals"] = int(nev.sum())
+    torch.cuda.empty_cache()
+    print(f"GGR init {out['ggr_init_s']:.4f} s; transport ladder {out['transport_ladder_s']:.3f} s, "
+          f"numevals {out['transport_ladder_numevals']}, certified {int(conv.sum())}", flush=True)
+    return out
+
+
+def rule_transport(cs, np, torch, dev, h):
+    return cs.rule_transport_phases(np, torch, dev, h)
+
+
+PHASES = {"fourier": fourier, "rule_transport": rule_transport}
+
+
+def compare(tree, label, phases, iai):
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import numpy as np
+    import torch
+
+    from autobzcore_torch.models.tight_binding import flagship_series
+    from autobzcore_torch.ops import cuda_lib
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    if not str(Path(cuda_lib.__file__).resolve()).startswith(str(Path(tree).resolve())):
+        sys.exit(f"imported {cuda_lib.__file__}, not the package of {tree}")
+    cs = load_smoke()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cuda_lib.load_kernels()
+    print(f"{label}: kernels ready in {time.perf_counter() - t0:.1f} s ({cuda_lib.LIBRARY})", flush=True)
+    dev = torch.device("cuda", 0)
+    h = flagship_series(device=dev)
+    out = {"label": label, "tree": str(tree), "phases": phases, "card": smi}
+    out.update(PHASES[phases](cs, np, torch, dev, h))
+    if iai:
+        cold, _ = cs.iai_phases(np, torch, dev, h)
+        out.update(iai_wall=cold["wall"], iai_numevals=int(cold["numevals"]),
+                   iai_lane_numevals=[int(n) for n in cold["ne"]], iai_trips=cold["trips"],
+                   iai_syncs=cold["syncs"], k3=cold.get("k3"))
+        if phases == "rule_transport":
+            _, tai = cs.cubature_phases(np, torch, dev, h, cold)
+            tai.pop("rule")
+            out.update(tai)
+    return out
+
+
+def main():
+    argv = sys.argv[1:]
+    out_dir, phases = None, None
+    for flag in ("--out", "--phases"):
+        if flag in argv:
+            i = argv.index(flag)
+            if i + 1 >= len(argv):
+                sys.exit(__doc__)
+            if flag == "--out":
+                out_dir = Path(argv[i + 1])
+            else:
+                phases = argv[i + 1]
+            del argv[i:i + 2]
+    args = [a for a in argv if not a.startswith("--")]
+    if len(args) != 2 or phases not in PHASES:
+        sys.exit(__doc__)
+    out = compare(args[0], args[1], phases, "--iai" in argv)
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        (out_dir / f"ab_{phases}_{args[1]}.json").write_text(json.dumps(out, indent=1, default=str))
+    print(json.dumps(out, default=str), flush=True)
+
+
+if __name__ == "__main__":
+    main()
