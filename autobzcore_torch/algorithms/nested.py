@@ -10,11 +10,14 @@ live lanes (one host sync), contracts the series at their nodes (kernel K3),
 solves all the inner lanes to completion as one batched pool, and reduces
 their values and counts with the rule (K5). Inner solves of finished lanes
 are skipped (the reference computes and discards them). The innermost level
-of a ``dos_trace`` integrand runs the fused leaf kernel K4; any other
-integrand evaluates its 1-D series with K3, calls the user function and
-reduces with K5. A lane may carry an omega block (``SweepSolver(block=W)``):
-its parameter is a (W,) vector, its values (W,) channels at every level and
-its error the 2-norm over them; the fused leaf then runs K4 over the block.
+of a ``dos_trace`` integrand starts its pools with the fused leaf kernel K4
+and runs them to their ends in one launch of the fused leaf solve
+(``gk_leaf_dos_solve``: the lanes' select, K4 and update trips on the
+device, no host test between trips); any other integrand evaluates its 1-D
+series with K3, calls the user function and reduces with K5. A lane may
+carry an omega block (``SweepSolver(block=W)``): its parameter is a (W,)
+vector, its values (W,) channels at every level and its error the 2-norm
+over them; the fused leaf then runs K4 and the solve over the block.
 
 Per-level tolerances follow the reference: an inner solve at node ``x`` gets
 ``atol / len(inner segments)``, per lane, so wedge limits give every lane its
@@ -68,8 +71,9 @@ from .gk import QuadGKJL, _budget
 from .quadrature import QuadratureFunction
 
 _TINY = torch.finfo(REAL).tiny
-# leaf trips between host tests of "any lane live" on the card (the fused
-# leaf needs no live-lane list, so it need not sync on every trip)
+# leaf trips between host tests of "any lane live" on the card's trip route
+# (plain_kernels=True, or a DOS leaf the fused solve does not take): the
+# fused leaf rule needs no live-lane list, so it need not sync on every trip
 LEAF_SYNC_EVERY = 4
 
 
@@ -363,7 +367,9 @@ class NestedQuad(IntegralAlgorithm):
         atol_t = torch.as_tensor(atol, dtype=REAL, device=device).expand(L).contiguous()
         level = _Level(dom, carrier, (), params, atol_t)
         segs = dom.outer_segments(device).expand(L, -1).contiguous()
-        return self._solve_level(cacheval, level, segs, dom.ndim, float(rtol), maxiters)
+        out = self._solve_level(cacheval, level, segs, dom.ndim, float(rtol), maxiters)
+        cacheval["stats"].read_device_trips()
+        return out
 
     def _solve_level(self, cacheval, level, segs, d_rem, rtol, maxiters, init_pool=None,
                      seed_n=None, mid_seed=None, coarsen_seed=None, return_state=False):
@@ -384,7 +390,7 @@ class NestedQuad(IntegralAlgorithm):
                                       "(ROADMAP A5)")
         kernels = cacheval["kernels"]
         xk, wk, wg = gk_rule(alg.order, segs.device)
-        sync_every = 1
+        sync_every, solve = 1, None
         if d_rem > 1:
             rule = self._nonleaf_rule(cacheval, level, xk, wk, wg, d_rem, rtol, maxiters, kernels,
                                       mid_seed)
@@ -395,7 +401,7 @@ class NestedQuad(IntegralAlgorithm):
 
                 lanes = dos_lanes(level.params, segs.shape[0], segs.device)
             if lanes is not None:
-                rule = _fused_dos_rule(level, lanes, xk, wk, wg, kernels.leaf_dos)
+                rule, solve = self._fused_dos_leaf(cacheval, level, lanes, xk, wk, wg, cap, nbisect)
                 if segs.device.type == "cuda":
                     sync_every = LEAF_SYNC_EVERY
             else:
@@ -406,7 +412,33 @@ class NestedQuad(IntegralAlgorithm):
                                  stats=cacheval["stats"], level=d_rem, init_pool=init_pool,
                                  seed_width=self.warm_width if d_rem == ndim else self.inner_seed_width,
                                  seed_coarsen=d_rem == ndim if coarsen_seed is None else coarsen_seed,
-                                 seed_n=seed_n, return_state=return_state)
+                                 seed_n=seed_n, return_state=return_state, solve=solve)
+
+    def _fused_dos_leaf(self, cacheval, level, lanes, xk, wk, wg, cap, nbisect):
+        """The innermost level of a ``dos_trace`` nest: the rule (K4) that
+        starts its pools, and the fused solve that runs them to their ends
+        in one launch (:func:`~autobzcore_torch.models.observables.gk_leaf_dos_solve`),
+        or None where the nest runs its plain versions (the trip route) or
+        the solve does not take the leaf's shape. The solve counts the most
+        trips of any lane into the nest's :class:`LoopStats` on the device;
+        the nest's entries read them when their solve is done."""
+        from ..models.observables import gk_leaf_dos_solve, leaf_dos_rule, leaf_solve_takes
+
+        om, eta = lanes
+        car = level.carrier
+        args = (car.c, car.cmap, car.offset[0], car.period[0], om, eta, xk, wk, wg)
+        rule = leaf_dos_rule(*args, cacheval["kernels"].leaf_dos)
+        W = om.shape[1] if om.ndim == 2 else 1
+        m = math.isqrt(car.c.shape[-1])
+        if self.plain_kernels or not leaf_solve_takes(om.device, cap, W, nbisect, xk.shape[0],
+                                                      car.c.shape[1], m):
+            return rule, None
+        stats = cacheval["stats"]
+
+        def solve(pool, nb):
+            stats.device_trip(1, gk_leaf_dos_solve(pool, *args, nb))
+
+        return rule, solve
 
     def _fixed_level(self, cacheval, level, segs, alg, d_rem, rtol, maxiters):
         """A fixed level (reference ``solve_level`` with a
@@ -502,6 +534,7 @@ class NestedQuad(IntegralAlgorithm):
         val, err, ne, conv, state = self._solve_level(
             cacheval, level, segs, cacheval["dom"].ndim, float(rtol), maxiters, init_pool=init,
             mid_seed=pool.mid if cacheval["carry_mid"] else None, return_state=True)
+        cacheval["stats"].read_device_trips()
         new_pool = WarmPool(state.a[0], state.b[0], state.err[0], state.n[:1].clone(), pool.mid)
         return val, err, ne, conv, new_pool
 
@@ -521,6 +554,7 @@ class NestedQuad(IntegralAlgorithm):
         _, _, ne, _, state = self._solve_level(
             cacheval, inner, segs2, cacheval["dom"].ndim - 1, float(rtol), maxiters,
             init_pool=init, seed_n=n0, coarsen_seed=True, return_state=True)
+        cacheval["stats"].read_device_trips()
         return pool._replace(mid=_mid_seed_norm(state, segs2)), ne
 
     def solve_fn_warm(self, cacheval):
@@ -569,24 +603,5 @@ def _leaf_rule(level, xk, wk, wg, kernels):
             fx = fx.to(REAL)
         out = kernels.rule_reduce(fx.contiguous(), None, half.contiguous(), wk, wg)
         return scatter_lanes(L, live, *out)
-
-    return rule
-
-
-def _fused_dos_rule(level, lanes, xk, wk, wg, leaf):
-    """Innermost rule of ``dos_trace``: kernel K4 on every lane (inactive
-    lanes are skipped inside the kernel), or on the live lanes when the loop
-    has them at hand."""
-    om, eta = lanes
-    car = level.carrier
-
-    def rule(ca, cb, active, live):
-        args = (car.offset[0], car.period[0])
-        if live is None or live.numel() == ca.shape[0]:
-            return leaf(car.c, car.cmap, *args, ca, cb, om, eta, active, xk, wk, wg)
-        ones = torch.ones(live.numel(), dtype=torch.bool, device=ca.device)
-        out = leaf(car.c, car.cmap[live], *args, ca[live], cb[live], om[live], eta[live], ones,
-                   xk, wk, wg)
-        return scatter_lanes(ca.shape[0], live, *out)
 
     return rule

@@ -1,6 +1,7 @@
-// Pool pieces shared by the interval pool (K5, gk_pool.cu) and the box pool
-// (K16, gm_pool.cu): the worst-k selection and the lane totals. Every thread
-// of the block calls each function; blockDim.x must be kPoolThreads.
+// Pool pieces shared by the interval pool (K5, gk_pool.cu), the box pool
+// (K16, gm_pool.cu) and the fused leaf solve (gk_leaf_dos.cu): the worst-k
+// selection and the lane totals. Every thread of the block calls each
+// function; blockDim.x is a power of two up to kPoolThreads.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,7 +53,11 @@ __device__ inline void pool_select_worst(const double* __restrict__ el, int cap,
 
 // tot_val, tot_err over lane l's whole pool (err: (L, cap), val: (L, cap, V))
 // and tol = max(atol, rtol |tot_val|_2), reduced in a fixed tree order; red:
-// kPoolThreads shared scratch entries
+// kPoolThreads shared scratch entries. The order is that of kPoolThreads
+// threads whatever blockDim.x (a power of two up to kPoolThreads): entry v
+// of red sums slots v, v + kPoolThreads, ... in order, then a tree halves
+// the entries, so a smaller block (the fused leaf solve, gk_leaf_dos.cu)
+// gets the bits of the pool kernels' totals.
 __device__ inline void pool_lane_totals(const double* __restrict__ err,
                                         const double* __restrict__ val,
                                         double* __restrict__ tot_val, double* __restrict__ tot_err,
@@ -60,13 +65,15 @@ __device__ inline void pool_lane_totals(const double* __restrict__ err,
                                         double* red, int64_t l, int cap, int V, double rtol) {
   double norm2 = 0.0;
   for (int f = -1; f < V; ++f) {
-    double s = 0.0;
-    for (int q = threadIdx.x; q < cap; q += blockDim.x)
-      s += f < 0 ? err[l * cap + q] : val[(l * cap + q) * V + f];
-    red[threadIdx.x] = s;
+    for (int v = threadIdx.x; v < kPoolThreads; v += blockDim.x) {
+      double s = 0.0;
+      for (int q = v; q < cap; q += kPoolThreads)
+        s += f < 0 ? err[l * cap + q] : val[(l * cap + q) * V + f];
+      red[v] = s;
+    }
     __syncthreads();
-    for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-      if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+    for (int w = kPoolThreads / 2; w > 0; w >>= 1) {
+      for (int v = threadIdx.x; v < w; v += blockDim.x) red[v] += red[v + w];
       __syncthreads();
     }
     const double tot = red[0];

@@ -310,10 +310,14 @@ def zone_average(e, F, mode, mu=0.0, beta=None, vd=None):
     lead = {"band": (m,), "dipole": (d,)}.get(mode, ())
     C = d * d
     out = torch.empty(lead + (d, d), dtype=REAL, device=e.device)
-    partials = torch.empty((lib.zone_average_num_chunks(K), out.numel()), dtype=REAL, device=e.device)
+    card = torch.cuda.current_device() if e.device.index is None else e.device.index
+    rows = lib.zone_average_num_rows(K, m, C, d, _AVERAGE_MODES[mode], card)
+    if rows < 1:
+        raise RuntimeError(f"zone_average: the card refuses the kernel's shared memory at m = {m}, d = {d}")
+    partials = torch.empty((rows, out.numel()), dtype=REAL, device=e.device)
     stream = stream_handle(e.device)
     check_launch(lib.zone_average_launch(e.data_ptr(), F.data_ptr(), None if vd is None else vd.data_ptr(), K, m, C,
-                                         d, _AVERAGE_MODES[mode], mu, np.inf if beta is None else beta,
+                                         d, _AVERAGE_MODES[mode], mu, np.inf if beta is None else beta, rows,
                                          partials.data_ptr(), out.data_ptr(), stream), "zone_average")
     zone_average.launches += 1
     return out

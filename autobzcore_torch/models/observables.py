@@ -49,7 +49,8 @@ from .._device import COMPLEX, REAL, check_tensor
 from ..algorithms.ptr import register_kernel_sum
 from ..brillouin import LatticeRep, TrivialRep
 from ..fourier import FourierIntegrand, FourierSeries, FourierValue, JacobianSeries
-from ..ops.adaptive import gk_nodes, gk_rule_reduce_plain
+from ..ops.adaptive import (_check_pool, gk_nodes, gk_rule_reduce_plain, pool_kernels, refine_lanes,
+                            scatter_lanes)
 from ..ops.cuda_lib import check_launch, load_kernels, stream_handle
 from ..ops.fourier_eval import (fourier_contract_plain, fourier_points, fourier_points_derivs,
                                 jacobian_orders)
@@ -451,6 +452,110 @@ def gk_leaf_dos(c, cmap, offset, period, ca, cb, om, eta, active, xk, wk, wg):
 
 
 gk_leaf_dos.launches = 0
+
+
+def leaf_dos_rule(c, cmap, offset, period, om, eta, xk, wk, wg, leaf):
+    """The innermost rule of a nested ``dos_trace`` solve for
+    :func:`~autobzcore_torch.ops.adaptive.gk_adaptive_lanes`: ``leaf`` (K4's
+    wrapper or its plain version) on every lane, inactive lanes skipped
+    inside it, or on the live lanes where the loop has them at hand."""
+    def rule(ca, cb, active, live):
+        if live is None or live.numel() == ca.shape[0]:
+            return leaf(c, cmap, offset, period, ca, cb, om, eta, active, xk, wk, wg)
+        ones = torch.ones(live.numel(), dtype=torch.bool, device=ca.device)
+        out = leaf(c, cmap[live], offset, period, ca[live], cb[live], om[live], eta[live], ones, xk, wk, wg)
+        return scatter_lanes(ca.shape[0], live, *out)
+
+    return rule
+
+
+def gk_leaf_dos_solve_plain(pool, c, cmap, offset, period, om, eta, xk, wk, wg, nbisect, kernels=False):
+    """Plain PyTorch version of the fused leaf solve
+    (:func:`gk_leaf_dos_solve`): the trip route, the loop of
+    ``gk_adaptive_lanes`` on the started ``pool`` in place, each trip the
+    plain select, K4 and update, the host's test every trip. With
+    ``kernels``, the trips run K5's select, K4 and K5's update instead (what
+    the fused solve is held to on the card). Returns each lane's trips (L,)
+    int64."""
+    rule = leaf_dos_rule(c, cmap, offset, period, om, eta, xk, wk, wg,
+                         gk_leaf_dos if kernels else gk_leaf_dos_plain)
+    return refine_lanes(pool, rule, pool_kernels(not kernels), nbisect, count_trips=True)
+
+
+SOLVE_MAX_SMEM = 227 * 1024 - 8 * 1024  # a block's shared memory on an H100, less the solve's static scratch
+
+
+def leaf_solve_takes(device, cap, W, nbisect, P, nterms, m):
+    """Whether :func:`gk_leaf_dos_solve` takes a leaf of this shape on
+    ``device``: any on the CPU; on the card m <= 3, nbisect and P at most
+    64, and one lane's pool, rule and coefficients in a block's shared
+    memory."""
+    if device.type != "cuda":
+        return True
+    if m > 3 or nbisect > 64 or P > 64:
+        return False
+    return load_kernels().gk_leaf_dos_solve_smem(cap, W, nbisect, P, nterms, m) <= SOLVE_MAX_SMEM
+
+
+def gk_leaf_dos_solve(pool, c, cmap, offset, period, om, eta, xk, wk, wg, nbisect):
+    """Run every lane of a started leaf-level DOS pool to its end, in
+    place: what the trip route (:func:`gk_leaf_dos_solve_plain` with
+    ``kernels``) does trip by trip (K5's select, K4 at the 2 nbisect
+    children, K5's update, the host's test), with the same pools, totals,
+    counts and ``active``. The pool's values are float64, (L, cap) for one
+    frequency per lane (om, eta (L,)) or (L, cap, W) for an omega block (om,
+    eta (L, W)); c (Lc, n, m*m) complex128, cmap (L,) int64, xk/wk/wg
+    (npts,) the rule. Returns each lane's trips (L,) int64.
+
+    CPU pools take the plain version; CUDA pools launch the fused solve
+    (``csrc/gk_leaf_dos.cu``: one block a lane, its pool in shared memory
+    for all its trips), which takes m <= 3 and raises on anything else it
+    does not take (see :func:`leaf_solve_takes`)."""
+    _check_pool(pool)
+    L, cap = pool.a.shape
+    dev = pool.a.device
+    if pool.tot_val is None:
+        raise ValueError("gk_leaf_dos_solve takes a started pool (its totals computed)")
+    block = om.ndim == 2
+    W = om.shape[1] if block else 1
+    if pool.val.dtype != REAL or pool.val.shape != ((L, cap, W) if block else (L, cap)):
+        raise ValueError(f"the pool's values must be float64 {(L, cap, W) if block else (L, cap)}, got "
+                         f"{pool.val.dtype} {tuple(pool.val.shape)}")
+    check_tensor(c, "c", device=dev, dtype=COMPLEX, ndim=3)
+    check_tensor(cmap, "cmap", device=dev, dtype=torch.int64, shape=(L,), ndim=1)
+    for name, t in (("om", om), ("eta", eta)):
+        check_tensor(t, name, device=dev, dtype=REAL, shape=(L, W) if block else (L,), ndim=om.ndim)
+    P = xk.shape[0]
+    for name, t in (("xk", xk), ("wk", wk), ("wg", wg)):
+        check_tensor(t, name, device=dev, dtype=REAL, shape=(P,), ndim=1)
+    m = math.isqrt(c.shape[-1])
+    if m * m != c.shape[-1]:
+        raise ValueError(f"c must hold square values, got V = {c.shape[-1]}")
+    offset, period = int(offset), float(period)
+    if dev.type == "cpu":
+        return gk_leaf_dos_solve_plain(pool, c, cmap, offset, period, om, eta, xk, wk, wg, nbisect)
+    if dev.type != "cuda":
+        raise ValueError(f"gk_leaf_dos_solve runs on cpu or cuda tensors, got {dev}")
+    if not leaf_solve_takes(dev, cap, W, nbisect, P, c.shape[1], m):
+        raise ValueError(f"the fused leaf solve takes m <= 3, nbisect and npts <= 64 and a lane in a block's "
+                         f"shared memory: got m = {m}, nbisect {nbisect}, {P} nodes, cap {cap}, W = {W}")
+    trips = torch.empty(L, dtype=torch.int64, device=dev)
+    if L == 0:
+        return trips
+    lib = load_kernels()
+    rc = lib.gk_leaf_dos_solve_launch(
+        pool.a.data_ptr(), pool.b.data_ptr(), pool.err.data_ptr(), pool.l1.data_ptr(), pool.val.data_ptr(),
+        pool.n.data_ptr(), pool.evals.data_ptr(), pool.tot_val.data_ptr(), pool.tot_err.data_ptr(),
+        pool.tol.data_ptr(), pool.atol.data_ptr(), pool.active.data_ptr(), trips.data_ptr(), c.data_ptr(),
+        cmap.data_ptr(), om.data_ptr(), eta.data_ptr(), xk.data_ptr(), wk.data_ptr(), wg.data_ptr(), L,
+        c.shape[0], cap, W, nbisect, P, c.shape[1], m, offset, period, float(pool.rtol), float(pool.max_evals),
+        stream_handle(dev))
+    check_launch(rc, "gk_leaf_dos_solve")
+    gk_leaf_dos_solve.launches += 1
+    return trips
+
+
+gk_leaf_dos_solve.launches = 0
 
 
 NEG_INV_PI = -1.0 / math.pi

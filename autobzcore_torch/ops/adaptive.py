@@ -630,17 +630,36 @@ def pool_kernels(plain=False):
 @dataclass
 class LoopStats:
     """Refinement trips and seed trips of each nest level (index 1 =
-    innermost), and host syncs."""
+    innermost), and host syncs. A fused leaf solve runs its lanes' trips on
+    the device: :meth:`device_trip` keeps each launch's most trips of any
+    lane there, and :meth:`read_device_trips` adds them into ``trips`` with
+    one host read. The nest reads them once a solve is done, just before
+    its results are read, so the read adds no wait of its own."""
 
     trips: dict = field(default_factory=dict)
     seed_trips: dict = field(default_factory=dict)
     syncs: int = 0
+    pending: list = field(default_factory=list, repr=False)  # (level, 0-d int64 device tensor)
 
     def trip(self, level):
         self.trips[level] = self.trips.get(level, 0) + 1
 
     def seed_trip(self, level):
         self.seed_trips[level] = self.seed_trips.get(level, 0) + 1
+
+    def device_trip(self, level, lane_trips):
+        """Count one launch's trips at ``level``: the most of its lanes'
+        ``lane_trips`` (L,), kept on the device until read."""
+        if lane_trips.numel():
+            self.pending.append((level, lane_trips.amax()))
+
+    def read_device_trips(self):
+        """Add the pending device counts into ``trips`` (one host read)."""
+        for level in {lv for lv, _ in self.pending}:
+            most = torch.stack([t for lv, t in self.pending if lv == level])
+            self.trips[level] = self.trips.get(level, 0) + int(most.sum())
+        self.pending.clear()
+        return self.trips
 
 
 def seed_chunk_width(seed_width, nbisect, cap):
@@ -704,7 +723,7 @@ def _seeded_pool(rule, segs, atol, init_pool, *, cap, nbisect, rtol, maxiters, k
 
 def gk_adaptive_lanes(rule, segs, atol, *, cap, nbisect, rtol=0.0, maxiters=None, presplit=1,
                       sync_every=1, kernels=None, stats=None, level=0, init_pool=None,
-                      seed_width=None, seed_coarsen=True, seed_n=None, return_state=False):
+                      seed_width=None, seed_coarsen=True, seed_n=None, return_state=False, solve=None):
     """Adaptive GK integration of L independent lanes (the reference's
     ``gk_adaptive`` under ``vmap``).
 
@@ -726,9 +745,11 @@ def gk_adaptive_lanes(rule, segs, atol, *, cap, nbisect, rtol=0.0, maxiters=None
 
     The host tests whether any lane is live every ``sync_every`` trips (with
     1, it also hands ``rule`` the live lanes); trips past the last live lane
-    change nothing. Returns (tot_val (L, *V), tot_err (L,), evals (L,),
-    converged (L,) bool), and with ``return_state`` the final
-    :class:`GKPool` as well."""
+    change nothing (:func:`refine_lanes`). ``solve(pool, nbisect)``, where
+    given, takes the started pool to its end in place of that loop (the
+    fused leaf solve of a nested DOS, one launch). Returns (tot_val (L,
+    *V), tot_err (L,), evals (L,), converged (L,) bool), and with
+    ``return_state`` the final :class:`GKPool` as well."""
     kernels = kernels or pool_kernels()
     L, S1 = segs.shape
     if init_pool is not None:
@@ -738,6 +759,21 @@ def gk_adaptive_lanes(rule, segs, atol, *, cap, nbisect, rtol=0.0, maxiters=None
     else:
         pool = _cold_pool(rule, segs, atol, cap=cap, nbisect=nbisect, rtol=rtol, maxiters=maxiters,
                           presplit=presplit, kernels=kernels)
+    if solve is not None:
+        solve(pool, nbisect)
+    else:
+        refine_lanes(pool, rule, kernels, nbisect, sync_every=sync_every, stats=stats, level=level)
+    out = (pool.tot_val, pool.tot_err, pool.evals, pool.tot_err <= pool.tol)
+    return out + (pool,) if return_state else out
+
+
+def refine_lanes(pool, rule, kernels, nbisect, *, sync_every=1, stats=None, level=0, count_trips=False):
+    """The refinement loop of :func:`gk_adaptive_lanes` on a started pool:
+    each trip selects (``kernels.select``), evaluates the children
+    (``rule``) and writes them back (``kernels.update``) until no lane is
+    live; the host tests that every ``sync_every`` trips. With
+    ``count_trips``, returns each lane's trips (L,) int64."""
+    lane_trips = torch.zeros(pool.nlanes, dtype=torch.int64, device=pool.a.device) if count_trips else None
     trips = 0
     while True:
         idx, ca, cb = kernels.select(pool, nbisect)
@@ -751,14 +787,15 @@ def gk_adaptive_lanes(rule, segs, atol, *, cap, nbisect, rtol=0.0, maxiters=None
                     break
             elif not bool(pool.active.any()):
                 break
+        if lane_trips is not None:
+            lane_trips += pool.active
         cval, cerr, cl1, count = rule(ca, cb, pool.active, live)
         kernels.update(pool, nbisect, idx, ca, cb, cval.contiguous(), cerr.contiguous(),
                        cl1.contiguous(), count.contiguous())
         trips += 1
         if stats is not None:
             stats.trip(level)
-    out = (pool.tot_val, pool.tot_err, pool.evals, pool.tot_err <= pool.tol)
-    return out + (pool,) if return_state else out
+    return lane_trips
 
 
 def _cold_pool(rule, segs, atol, *, cap, nbisect, rtol, maxiters, presplit, kernels):

@@ -65,6 +65,10 @@ def _bind(lib):
     lib.fourier_contract_launch.restype = i
     lib.gk_leaf_dos_launch.argtypes = [vp] * 14 + [ll, ll, i, i, i, i, i, i, dbl, vp]
     lib.gk_leaf_dos_launch.restype = i
+    lib.gk_leaf_dos_solve_smem.argtypes = [i] * 6
+    lib.gk_leaf_dos_solve_smem.restype = ll
+    lib.gk_leaf_dos_solve_launch.argtypes = [vp] * 20 + [ll, ll] + [i] * 7 + [dbl, dbl, dbl, vp]
+    lib.gk_leaf_dos_solve_launch.restype = i
     lib.gk_pool_select_launch.argtypes = [vp] * 11 + [ll, i, i, dbl, vp]
     lib.gk_pool_select_launch.restype = i
     lib.gk_pool_update_launch.argtypes = [vp] * 19 + [ll, i, i, i, dbl, i, vp]
@@ -121,9 +125,9 @@ def _bind(lib):
     lib.plaquette_flux_launch.restype = i
     lib.wilson_loops_launch.argtypes = [vp, i, i, i, i, vp, vp]
     lib.wilson_loops_launch.restype = i
-    lib.zone_average_num_chunks.argtypes = [ll]
-    lib.zone_average_num_chunks.restype = ll
-    lib.zone_average_launch.argtypes = [vp, vp, vp, ll, i, i, i, i, dbl, dbl, vp, vp, vp]
+    lib.zone_average_num_rows.argtypes = [ll, i, i, i, i, i]
+    lib.zone_average_num_rows.restype = ll
+    lib.zone_average_launch.argtypes = [vp, vp, vp, ll, i, i, i, i, dbl, dbl, ll, vp, vp, vp]
     lib.zone_average_launch.restype = i
     lib.chi0_num_blocks.argtypes = [ll, i]
     lib.chi0_num_blocks.restype = ll

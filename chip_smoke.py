@@ -29,15 +29,25 @@ non-zero):
    IAI main path (33 frequencies: 990 mid and 29,700 leaf lanes), with
    kernel, plain and (K3) ``torch.matmul`` times; K3 also at the outer
    level's shape (33 lanes on one coefficient set), both shapes
-   bit-identical on repeat, with the device time of K3 and of
+   bit-identical on repeat, with the device time of K3, K4 and of
    ``torch.matmul`` from torch.profiler beside the time of a call (which
    the host's enqueue sets at these sizes) and K3's share of its bound;
+   then the fused leaf solve (``gk_leaf_dos_solve``) against the trip
+   route (K5's select, K4, K5's update) on the same 29,700 started leaf
+   pools: pools, totals, counts, active and every lane's trips identical;
+   and against its plain version (the trip route on the plain kernels):
+   lanes on the same path with totals within 1e-12 of their l1, at most
+   1 % of the lanes on another path (within the two error estimates);
+   the solve's device time (torch.profiler) and host time a call beside
+   the trip route's wall, device time, launches and host tests;
 7. IAI main path: the flagship cold IAI leg at full width,
    IAI(inner_cap=64, inner_nbisect=4) under SweepSolver(abstol=1e-3,
    chunk=33, scan=True) at 33 frequencies in [-6, 7] eV, eta = 0.05, with
-   K3/K4/K5's launch counts, trips, host syncs and peak memory; checks: the
-   retcode, 1 frequency against the same solve on the plain versions
-   (within abstol) and all 33 against PTR(npt=400) (within 1e-2 max|D|);
+   K3/K4/K5's and the fused solve's launch counts, the leaf's launches,
+   trips, host syncs, the device's busy share (nvidia-smi's utilization)
+   and peak memory; checks: the retcode, the trip route's 7,280,048,325
+   evals, 1 frequency against the same solve on the plain versions (within
+   abstol) and all 33 against PTR(npt=400) (within 1e-2 max|D|);
 8. cubic IBZ through IAI: tb_integer(3) on CubicSymIBZ against the full
    zone at 4 frequencies, eta = 0.1, abstol 1e-3 (within 2 abstol);
 9. kernels K6 (coarsening) and K5's seed entry against their plain versions
@@ -50,8 +60,10 @@ non-zero):
    SweepSolver(abstol=1e-3, chunk=33, scan=True, warm=True): call 1 at the
    33 frequencies of phase 7, call 2 at their 32 midpoints (the next
    interpolation frontier), seeded from the pools call 1 left; wall, evals
-   against phase 7's cold chunk, trips, syncs, launches of K3-K6; checks:
-   retcodes, values within 2 abstol of phase 7's, both calls against
+   against phase 7's cold chunk, trips, syncs, launches of K3-K6 and the
+   fused solve, leaf launches, busy share (nvidia-smi); checks:
+   retcodes, evals (``IAI_WARM_NUMEVALS``), values within 2 abstol of
+   phase 7's, both calls against
    PTR(npt=400), and a 2-frequency warm chain on the plain versions against
    the kernels (identical counts and carried pools, values within abstol);
 11. kernels K7 (fused eigenvalue + Lorentzian tail of a full-grid slab), K8
@@ -85,12 +97,15 @@ non-zero):
    plain path (1e-12);
 16. K4 over an omega block (W = 2, 4) and K5 at V = W against their plain
    versions at the IAI main path's lane shapes: 1e-12 of l1, identical
-   pools; kernel and plain times;
+   pools; kernel (by events and device time) and plain times; the fused
+   leaf solve over the block against the trip route and its plain
+   version as in phase 6;
 17. omega-block IAI main path: phase 7's 33 frequencies, cold, under
    SweepSolver(abstol=1e-3, chunk=36, scan=True, block=W) at W = 2 and 4,
    three walls each beside phase 7's; evals per omega, trips, syncs, K4
-   block launches, peak memory; checks: retcodes, values within 2 abstol
-   of phase 7's, all 33 within 1e-2 max|D| of PTR(npt=400), and a
+   block and fused solve launches, leaf launches, busy share (nvidia-smi,
+   first wall), peak memory; checks: retcodes, evals
+   (``BLOCK_NUMEVALS``), values within 2 abstol of phase 7's, all 33 within 1e-2 max|D| of PTR(npt=400), and a
    2-frequency warm block chain on the plain versions against the kernels
    (identical counts and block certificates, values within abstol);
 18. the repairs: the PTR leg of synthetic_wannier(4) at npt=60 over 264
@@ -190,7 +205,7 @@ non-zero):
    every weight mode (1e-13 of the terms' scale); bit-identical repeats;
    kernel, plain, bound and library times (the reference's two
    ``torch.einsum`` for K21, ``torch.einsum`` of precomputed weights for
-   K24);
+   K24, both also by torch.profiler's device time);
 28. topology main path: ``examples/topology_example.py``'s modes at full
    width: point (Haldane at npt 1024: build wall, peak memory, K21
    launches; Chern = -+1 to 1e-8, AHC = C/2pi to 1e-8, Streda slope to
@@ -290,6 +305,8 @@ phases on another checkout's package).
 The second-to-last line is a JSON object with each kernel's numbers, the
 last line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script exits non-zero and prints no result.
+``tools/kernel_ab.py --phases iai`` runs phases 6-10, 16-17 and phase 27's
+K24 on another checkout's package (one block wall each).
 """
 import json
 import math
@@ -304,6 +321,13 @@ W_FLAGSHIP = 264
 WINDOW = (-6.0, 7.0)
 IAI_OMEGAS = 33  # one SweepSolver chunk of the IAI leg
 IAI_ABSTOL = 1e-3
+IAI_NUMEVALS = 7_280_048_325  # phase 7's cold chunk, as the trip route counts it
+# phase 10's two warm calls, and phase 17's block chunks by width. The first
+# warm call's count moves with K4's last bits: before K4's node arithmetic
+# became the function it shares with the fused solve it counted
+# 5,666,197,230 (the same inputs, values within 1.2e-14)
+IAI_WARM_NUMEVALS = (5_692_670_790, 5_629_264_980)
+BLOCK_NUMEVALS = {2: 8_492_924_835, 4: 10_453_783_125}
 # the least time the card could take: NVIDIA's data sheet for the H100 SXM
 # at 700 W, FP64 outside the tensor cores, and FP64 on the tensor cores
 # (DMMA) for the functions that are matrix products (K1, K11: the phase
@@ -511,25 +535,104 @@ def host_us(fn, reps):
     return 1e6 * t / reps
 
 
-def device_ms(fn, reps):
-    """Mean device milliseconds of the kernels ``fn()`` launches, over
+def device_ms(fn, reps, name=None):
+    """Mean device milliseconds of the kernels ``fn()`` launches (those whose
+    name holds ``name``, or one of a tuple of names, where given), over
     ``reps`` runs under torch.profiler (the sum of their kernel times,
     without the gaps between launches that the host's enqueue leaves), after
-    one warm-up run; None where the profiler recorded no device time."""
+    one warm-up run; None where the profiler recorded no device time, or
+    fewer kernels for the ``reps`` runs than ``reps`` times those of one
+    run (late in a long process it has been seen to drop records)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
+    names = (name,) if isinstance(name, str) else name
+
+    def run(n):
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA
+                and (names is None or any(k in e.key for k in names))]
+        return sum(e.self_device_time_total for e in rows), sum(e.count for e in rows)
+
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if getattr(e, "device_type", None) == DeviceType.CUDA)
-    return total / reps / 1e3 if total > 0 else None
+    _, one = run(1)
+    total, count = run(reps)
+    return total / reps / 1e3 if total > 0 and one > 0 and count == one * reps else None
+
+
+class SmiBusy:
+    """The device's busy share while the block runs, from nvidia-smi's
+    ``utilization.gpu`` (the share of each sample period in which a kernel
+    ran) sampled every 200 ms: ``share`` after the block, None where
+    nvidia-smi gave no sample. It costs the run nothing, unlike the
+    profiler, whose processing of a leg's millions of launch events takes
+    longer than the leg."""
+
+    def __enter__(self):
+        self.share, self.samples = None, 0
+        try:
+            self.proc = subprocess.Popen(["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+                                          "-lms", "200"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            self.proc = None
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is None:
+            return False
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        vals = [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+        if vals:
+            self.share, self.samples = sum(vals) / len(vals) / 100, len(vals)
+        return False
+
+    def text(self):
+        return "not sampled" if self.share is None else f"{100 * self.share:.1f} % ({self.samples} samples)"
+
+
+def leaf_solve_launches(reset=False):
+    """The fused leaf solve's launch count (zeroed with ``reset``), or None
+    where the package has none (an older checkout under
+    ``tools/kernel_ab.py``)."""
+    from autobzcore_torch.models import observables as obs
+
+    fn = getattr(obs, "gk_leaf_dos_solve", None)
+    if fn is None:
+        return None
+    if reset:
+        fn.launches = 0
+    return fn.launches
+
+
+def leaf_launches(launches, stats):
+    """The IAI leaf level's launches: K4 (the pools' starts, and on the trip
+    route every trip) and the fused solve's where it ran; on the trip route
+    a leaf trip adds K5's select and update to K4."""
+    k4 = launches.get("gk_leaf_dos", launches.get("gk_leaf_dos_block", 0))
+    solve = launches.get("gk_leaf_dos_solve") or 0
+    pool = 0 if solve else 2 * stats.trips.get(1, 0)
+    return {"K4": k4, "solve": solve, "select+update": pool, "total": k4 + solve + pool}
+
+
+def warm_iai_sweep(prob, chunk, plain=False):
+    """Phase 10's warm IAI sweep of ``prob`` (``plain`` on the plain
+    versions of every kernel)."""
+    from autobzcore_torch import IAI
+    from autobzcore_torch.parallel.sweep import SweepSolver
+
+    return SweepSolver(prob, IAI(inner_cap=64, inner_nbisect=4, warm_width=8, plain_kernels=plain),
+                       abstol=IAI_ABSTOL, chunk=chunk, scan=True, warm=True)
 
 
 def ms_text(v):
@@ -781,12 +884,20 @@ def main():
 
     cold, k_iai = iai_phases(np, torch, dev, h)
     kernels += k_iai
-    kernels += warm_phases(np, torch, dev, h, cold)
+    k_warm, warm = warm_phases(np, torch, dev, h, cold)
+    kernels += k_warm
+    counts = (warm["call1"]["numevals"], warm["call2"]["numevals"])
+    if counts != IAI_WARM_NUMEVALS:
+        fail(f"warm IAI calls: numevals {counts}, expected {IAI_WARM_NUMEVALS}")
     k_fg, ladder = fullgrid_phases(np, torch, dev, h, cold)
     kernels += k_fg
     k_ltm, ltm_dos = ltm_phases(np, torch, dev, h)
     kernels += k_ltm
-    kernels += block_phases(np, torch, dev, h, cold)
+    k_block, block = block_phases(np, torch, dev, h, cold)
+    kernels += k_block
+    counts = {W: block[W]["numevals"] for W in BLOCKS}
+    if counts != BLOCK_NUMEVALS:
+        fail(f"block IAI main path: numevals {counts}, expected {BLOCK_NUMEVALS}")
     kernels += repair_phases(np, torch, dev)
     kernels += ggr_phases(np, torch, dev, h, ltm_dos)
     kernels += cubature_phases(np, torch, dev, h, cold)[0]
@@ -1077,6 +1188,110 @@ def fourier_phases(np, torch, dev, h):
                 ladder_busy_s=None if prof is None else prof["busy"])
 
 
+def leaf_solve_phase(np, torch, dev, args, label):
+    """The fused leaf solve (``gk_leaf_dos_solve``) against the trip route
+    (K5's select, K4, K5's update, the host's test every trip) and against
+    its plain version (the trip route on the plain select, K4 and update)
+    on the same started pools: K4's cold start of the leaf lanes ``args``
+    (phase 6b's or 16's inputs) on [0, 1], cap 64, nbisect 4, atol
+    IAI_ABSTOL. Against the trip route, pools, totals, n, evals, active and
+    every lane's trips must be torch.equal. Against the plain version, a
+    lane whose a, b, n, evals, active and trips are equal to the plain
+    lane's (the same bisections) must hold its totals to 1e-12 of its l1;
+    a lane that K4's rounding (~1e-14 of the plain K4's) sent another way
+    must agree within the two error estimates, and at most 1 % of the lanes
+    may do so. ``err`` is the largest |d tot_val| and |d tot_err| against
+    the plain version over all lanes. Times: the solve's device time
+    (torch.profiler), a call by events and its host time (back to back, no
+    sync), the trip route's wall (host clock), device time, launches and
+    host tests, and the plain version once. Returns its numbers, or None
+    where the package has no fused solve (an older checkout under
+    ``tools/kernel_ab.py``)."""
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.ops import adaptive as tad
+
+    if not hasattr(obs, "gk_leaf_dos_solve"):
+        return None
+    c1, cmap, off, period = args[:4]
+    om, eta = args[6:8]
+    xk, wk, wg = args[9:12]
+    L, nb, cap = c1.shape[0], 4, 64
+    W = om.shape[1] if om.ndim == 2 else 1
+    segs = torch.tensor([0.0, 1.0], dtype=torch.float64, device=dev).expand(L, 2).contiguous()
+    atol = torch.full((L,), IAI_ABSTOL, dtype=torch.float64, device=dev)
+    rule = obs.leaf_dos_rule(c1, cmap, off, period, om, eta, xk, wk, wg, obs.gk_leaf_dos)
+    held = []
+    tad.gk_adaptive_lanes(rule, segs, atol, cap=cap, nbisect=nb, solve=lambda pool, _: held.append(pool))
+    start = held[0]
+
+    def clone():
+        return tad.GKPool(**{k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in start.__dict__.items()})
+
+    sargs = (c1, cmap, off, period, om, eta, xk, wk, wg, nb)
+    fields = ("a", "b", "err", "l1", "val", "n", "evals", "tot_val", "tot_err", "tol", "active")
+    ref = clone()
+    sel0, upd0 = tad.gk_pool_launches["select"], tad.gk_pool_launches["update"]
+    k40 = obs.gk_leaf_dos.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = obs.gk_leaf_dos_solve_plain(ref, *sargs, kernels=True)
+    torch.cuda.synchronize()
+    trip_wall = time.perf_counter() - t0
+    trip_launches = (tad.gk_pool_launches["select"] - sel0 + tad.gk_pool_launches["update"] - upd0
+                     + obs.gk_leaf_dos.launches - k40)
+    got = clone()
+    trips = obs.gk_leaf_dos_solve(got, *sargs)
+    same = [k for k in fields if not torch.equal(getattr(got, k), getattr(ref, k))]
+    if same or not torch.equal(trips, want):
+        fail(f"gk_leaf_dos_solve vs the trip route ({label}): fields that differ {same}, trips equal "
+             f"{torch.equal(trips, want)}")
+    # the plain version on the same started pool
+    plain = clone()
+    plain_trips, plain_ms = timed_once(lambda: obs.gk_leaf_dos_solve_plain(plain, *sargs))
+    path = ((got.a == plain.a).all(1) & (got.b == plain.b).all(1) & (got.n == plain.n)
+            & (got.evals == plain.evals) & (got.active == plain.active) & (trips == plain_trips))
+    d_val = (got.tot_val - plain.tot_val).abs().reshape(L, -1).amax(1)
+    d_err = (got.tot_err - plain.tot_err).abs()
+    live = torch.arange(cap, device=dev)[None, :] < plain.n[:, None]
+    scale = torch.where(live, plain.l1, 0.0).sum(1).clamp_min(1e-300)
+    rel_same = float(torch.where(path, torch.maximum(d_val, d_err) / scale, 0.0).max())
+    other = int((~path).sum())
+    slack = float(torch.where(path, 0.0, d_val - (got.tot_err + plain.tot_err + 1e-12 * scale)).max())
+    err = max(float(d_val.max()), float(d_err.max()))
+    if not (rel_same <= 1e-12 and slack <= 0.0 and other <= L // 100):
+        fail(f"gk_leaf_dos_solve vs its plain version ({label}): same-path lanes' totals rel {rel_same:.3e} "
+             f"(<= 1e-12), {other} lanes on another path (<= {L // 100}), their |d tot_val| past the two "
+             f"error estimates by {slack:.3e}")
+    nodes = float((got.evals - start.evals).sum())  # evaluated nodes: 2 nbisect x 15 a lane's trip
+    reps = 10
+    pools = [clone() for _ in range(3 * reps + 4)]  # cuda_ms, device_ms and host_us each run reps + 1 or 2
+    it = iter(pools)
+    t = {"ms": cuda_ms(lambda: obs.gk_leaf_dos_solve(next(it), *sargs), reps),
+         "device_ms": device_ms(lambda: obs.gk_leaf_dos_solve(next(it), *sargs), reps, "gk_leaf_dos_solve"),
+         "host_us": host_us(lambda: obs.gk_leaf_dos_solve(next(it), *sargs), reps)}
+    del pools
+    t["trip_device_ms"] = device_ms(lambda: obs.gk_leaf_dos_solve_plain(clone(), *sargs, kernels=True), 3,
+                                    ("gk_pool", "gk_leaf_dos"))
+    t.update(plain_ms=plain_ms, err=err, rel_same=rel_same, other_path=other, trip_wall_ms=1e3 * trip_wall,
+             trip_launches=trip_launches, trip_syncs=int(want.max()) + 1, trips_max=int(want.max()),
+             trips_mean=float(want.float().mean()), nodes=nodes, L=L, W=W)
+    flops = nodes * (5 * (8 * 9 + 6) + W * (TRACE_FLOPS[3] + 9))
+    t["bound"] = bound(flops, 2 * nbytes(start.a, start.b, start.err, start.l1, start.val)
+                       + nbytes(c1, cmap, om, eta) + 2 * L * (5 + W) * 8)
+    dev_ms = t["device_ms"]
+    print(f"gk_leaf_dos_solve vs the trip route ({label}): {L} lanes x cap {cap}, nbisect {nb}, W = {W}: pools, "
+          f"totals, counts, active and trips identical (trips per lane max {t['trips_max']}, mean "
+          f"{t['trips_mean']:.2f}; {nodes:.4g} nodes); vs its plain version: {L - other} lanes on the same "
+          f"path, their totals rel {rel_same:.3e} (<= 1e-12 of l1), {other} on another path (<= {L // 100}, "
+          f"within the two error estimates), max |d tot_val|, |d tot_err| {err:.3e}; the solve: device "
+          f"{ms_text(dev_ms)} (profiler), a call {t['ms']:.4f} ms by events, host {t['host_us']:.1f} us; bound "
+          f"{t['bound'][0]:.4f} ms by {t['bound'][1]}"
+          + ("" if dev_ms is None else f" ({100 * t['bound'][0] / dev_ms:.1f} % of the device time)")
+          + f"; the trip route: wall {t['trip_wall_ms']:.3f} ms, device {ms_text(t['trip_device_ms'])}, "
+          f"{trip_launches} launches, {t['trip_syncs']} host tests; plain version {plain_ms:.1f} ms", flush=True)
+    return t
+
+
 def iai_phases(np, torch, dev, h):
     """Phases 6-8: K3-K5 against their plain versions, the IAI main path and
     the cubic-IBZ check through IAI. Returns the kernels' JSON entries."""
@@ -1129,13 +1344,16 @@ def iai_phases(np, torch, dev, h):
     a4 = leaf_inputs(L_leaf, 3)
     got, want = gk_leaf_dos(*a4), gk_leaf_dos_plain(*a4)
     e4 = float(max((got[0] - want[0]).abs().max(), (got[1] - want[1]).abs().max()))
-    t4 = {"ms": cuda_ms(lambda: gk_leaf_dos(*a4), 50), "plain_ms": cuda_ms(lambda: gk_leaf_dos_plain(*a4), 5)}
+    t4 = {"ms": cuda_ms(lambda: gk_leaf_dos(*a4), 50), "plain_ms": cuda_ms(lambda: gk_leaf_dos_plain(*a4), 5),
+          "device_ms": device_ms(lambda: gk_leaf_dos(*a4), 50, "gk_leaf_dos"),
+          "host_us": host_us(lambda: gk_leaf_dos(*a4), 200)}
     b4 = bound(L_leaf * 2 * P * (5 * (8 * 9 + 6) + TRACE_FLOPS[3] + 9),
                nbytes(*a4[:2], *a4[4:9]) + 4 * L_leaf * 2 * 8)
     print(f"K4 gk_leaf_dos: 900 lanes x 2 intervals, max |d val|, |d err| / l1 at m=1,2,3: "
           f"{errs4[0]:.3e}, {errs4[1]:.3e}, {errs4[2]:.3e} (<= 1e-12); {L_leaf} lanes m=3: "
-          f"{t4['ms']:.4f} ms (plain {t4['plain_ms']:.4f}; bound {b4[0]:.4f} ms by {b4[1]}), "
-          f"max|d| {e4:.3e}", flush=True)
+          f"{t4['ms']:.4f} ms a call by events (device {ms_text(t4['device_ms'])}, host {t4['host_us']:.1f} us; "
+          f"plain {t4['plain_ms']:.4f}; bound {b4[0]:.4f} ms by {b4[1]}), max|d| {e4:.3e}", flush=True)
+    ts = leaf_solve_phase(np, torch, dev, a4, f"phase 6's {L_leaf} leaf lanes, m = 3")
 
     # 6c. K5: pools of the leaf level (cap 64, nbisect 1) with planted ties,
     # lanes with n < nbisect (at nbisect 4) and stopped lanes; then the rule
@@ -1193,7 +1411,8 @@ def iai_phases(np, torch, dev, h):
     # select only narrows `active`, so it repeats on one pool unchanged
     pool_k, pool_p = clone(pool_s), clone(pool_s)
     t5s = {"ms": cuda_ms(lambda: tad.gk_pool_select(pool_k, nb), 30),
-           "plain_ms": cuda_ms(lambda: tad.gk_pool_select_plain(pool_p, nb), 10)}
+           "plain_ms": cuda_ms(lambda: tad.gk_pool_select_plain(pool_p, nb), 10),
+           "library_ms": cuda_ms(lambda: torch.topk(pool_s.err, nb, dim=1), 30)}
     # an update moves n on, so each timed call clones the pool first
     clone_ms = cuda_ms(lambda: clone(pool_s), 30)
     t5u = {"ms": cuda_ms(lambda: tad.gk_pool_update(clone(pool_s), *upd_args), 30) - clone_ms,
@@ -1217,8 +1436,8 @@ def iai_phases(np, torch, dev, h):
     b5r = bound(L_mid * 2 * P * 7, nbytes(fx, cnt, half, wk, wg) + L_mid * (3 * 2 + 1) * 8)
     print(f"K5 gk_pool: select/update vs plain (lanes, nbisect, live, totals rel, abs): {checks5}, picks "
           f"and pools identical; at {L_leaf} lanes x cap 64: select {t5s['ms']:.4f} ms (plain "
-          f"{t5s['plain_ms']:.4f}; bound {b5s[0]:.4f} by {b5s[1]}), update {t5u['ms']:.4f} ms "
-          f"(plain {t5u['plain_ms']:.4f}; bound {b5u[0]:.4f} by {b5u[1]}); rule reduce "
+          f"{t5s['plain_ms']:.4f}; torch.topk {t5s['library_ms']:.4f}; bound {b5s[0]:.4f} by {b5s[1]}), update "
+          f"{t5u['ms']:.4f} ms (plain {t5u['plain_ms']:.4f}; bound {b5u[0]:.4f} by {b5u[1]}); rule reduce "
           f"{tuple(fx.shape)}: max|d| {e5r:.3e}, {t5r['ms']:.4f} ms (plain {t5r['plain_ms']:.4f}; "
           f"bound {b5r[0]:.5f} by {b5r[1]})", flush=True)
     del a4, got, want
@@ -1234,29 +1453,36 @@ def iai_phases(np, torch, dev, h):
     tad.gk_rule_reduce.launches = 0
     for key in tad.gk_pool_launches:
         tad.gk_pool_launches[key] = 0
-    t0 = time.perf_counter()
-    sweep = SweepSolver(prob, IAI(inner_cap=64, inner_nbisect=4), abstol=IAI_ABSTOL,
-                        chunk=IAI_OMEGAS, scan=True)
-    d_iai = sweep(oms)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    solve_launches = leaf_solve_launches(reset=True)
+    with SmiBusy() as busy:
+        t0 = time.perf_counter()
+        sweep = SweepSolver(prob, IAI(inner_cap=64, inner_nbisect=4), abstol=IAI_ABSTOL,
+                            chunk=IAI_OMEGAS, scan=True)
+        d_iai = sweep(oms)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {"fourier_contract": fourier_contract.launches, "gk_leaf_dos": gk_leaf_dos.launches,
                 "gk_pool_select": tad.gk_pool_launches["select"],
                 "gk_pool_update": tad.gk_pool_launches["update"] + tad.gk_pool_launches["totals"],
                 "gk_rule_reduce": tad.gk_rule_reduce.launches}
+    if solve_launches is not None:
+        launches["gk_leaf_dos_solve"] = leaf_solve_launches()
     peak = torch.cuda.max_memory_allocated() / 2**20
     ne = sweep.lane_numevals
     st = sweep.stats
+    leaf = leaf_launches(launches, st)
     print(f"IAI main path: flagship FBZ, eta {ETA}, {IAI_OMEGAS} omegas, abstol {IAI_ABSTOL}: wall "
           f"{wall:.3f} s ({wall / IAI_OMEGAS:.4f} s/omega); numevals {sweep.numevals} (per omega "
           f"min {ne.min()} max {ne.max()} mean {ne.mean():.4g}); retcode {sweep.retcode}; trips "
           f"(level 3 outer, 2 mid, 1 leaf) {dict(sorted(st.trips.items(), reverse=True))}; host "
-          f"syncs {st.syncs} ({st.syncs / IAI_OMEGAS:.1f} per omega); launches {launches}; peak "
-          f"device memory {peak:.1f} MiB", flush=True)
+          f"syncs {st.syncs} ({st.syncs / IAI_OMEGAS:.1f} per omega); launches {launches}; leaf launches {leaf}; "
+          f"device busy {busy.text()} (nvidia-smi); peak device memory {peak:.1f} MiB", flush=True)
     if min(launches.values()) <= 0:
         fail(f"the IAI main path did not go through every kernel: {launches}")
     if not sweep.retcode or d_iai.shape != (IAI_OMEGAS,) or not np.all(np.isfinite(d_iai)):
         fail(f"IAI sweep: retcode {sweep.retcode}, shape {d_iai.shape}")
+    if sweep.numevals != IAI_NUMEVALS:
+        fail(f"IAI sweep: numevals {sweep.numevals}, the trip route's {IAI_NUMEVALS}")
     if "--profile" in sys.argv[1:]:
         profile("IAI main path", lambda: SweepSolver(prob, IAI(inner_cap=64, inner_nbisect=4),
                                                      abstol=IAI_ABSTOL, chunk=IAI_OMEGAS,
@@ -1308,9 +1534,16 @@ def iai_phases(np, torch, dev, h):
 
     rep = "autobzcore_tpu/ops/adaptive.py:"
     cold = {"oms": oms, "d": d_iai, "ne": ne, "numevals": sweep.numevals, "wall": wall,
-            "d_ptr": d_ptr, "bz": bz, "trips": dict(st.trips), "syncs": st.syncs,
-            "k3": {k: v for k, v in t3.items() if k.endswith(("ms", "us"))}}
-    return cold, [
+            "d_ptr": d_ptr, "bz": bz, "trips": dict(st.trips), "syncs": st.syncs, "busy": busy.share,
+            "launches": launches, "leaf_launches": leaf,
+            "k3": {k: v for k, v in t3.items() if k.endswith(("ms", "us"))},
+            "k4": {k: v for k, v in t4.items() if k.endswith(("ms", "us"))}, "solve": ts}
+    entries = [] if ts is None else [
+        {"name": "gk_leaf_dos_solve", "route": "cuda", "source": src + "gk_leaf_dos.cu",
+         "replaces": "autobzcore_tpu/ops/adaptive.py:236", "launches": launches["gk_leaf_dos_solve"],
+         "max_abs_err": ts["err"], "ms": ts["device_ms"] if ts["device_ms"] is not None else ts["ms"],
+         "plain_ms": ts["plain_ms"], "bound_ms": ts["bound"][0], "bound_by": ts["bound"][1], "library_ms": None}]
+    return cold, entries + [
         {"name": "fourier_contract", "route": "cuda", "source": src + "fourier_contract.cu",
          "replaces": "autobzcore_tpu/ops/fourier_eval.py:104", "launches": launches["fourier_contract"],
          "max_abs_err": t3["err"], "ms": t3["ms"], "plain_ms": t3["plain_ms"],
@@ -1322,7 +1555,7 @@ def iai_phases(np, torch, dev, h):
         {"name": "gk_pool_select", "route": "cuda", "source": src + "gk_pool.cu",
          "replaces": rep + "427", "launches": launches["gk_pool_select"], "max_abs_err": e5s,
          "ms": t5s["ms"], "plain_ms": t5s["plain_ms"], "bound_ms": b5s[0], "bound_by": b5s[1],
-         "library_ms": None},
+         "library_ms": t5s["library_ms"]},
         {"name": "gk_pool_update", "route": "cuda", "source": src + "gk_pool.cu",
          "replaces": rep + "446", "launches": launches["gk_pool_update"],
          "max_abs_err": max(c[4] for c in checks5), "ms": t5u["ms"], "plain_ms": t5u["plain_ms"],
@@ -1337,16 +1570,16 @@ def iai_phases(np, torch, dev, h):
 def warm_phases(np, torch, dev, h, cold):
     """Phases 9-10: the warm IAI main path (two calls) with K6 and K5's seed
     entry checked against their plain versions between them. Returns the
-    two kernels' JSON entries."""
+    two kernels' JSON entries and each call's numbers (wall, numevals,
+    trips, syncs, launches, busy share) by ``"call1"``, ``"call2"``."""
     import copy
 
-    from autobzcore_torch import IAI, PTR, IntegralProblem, solve
+    from autobzcore_torch import PTR, IntegralProblem, solve
     from autobzcore_torch.algorithms.nested import _mid_seed_pool
     from autobzcore_torch.interop import pool_to_arrays
     from autobzcore_torch.models.observables import dos_integrand, gk_leaf_dos
     from autobzcore_torch.ops import adaptive as tad
     from autobzcore_torch.ops.fourier_eval import fourier_contract
-    from autobzcore_torch.parallel.sweep import SweepSolver
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     from torch_parity import dyadic_pools
@@ -1356,21 +1589,24 @@ def warm_phases(np, torch, dev, h, cold):
     prob = IntegralProblem(dos_integrand(h, ETA), bz)
 
     def warm_sweep(chunk, plain=False):
-        return SweepSolver(prob, IAI(inner_cap=64, inner_nbisect=4, warm_width=8, plain_kernels=plain),
-                           abstol=IAI_ABSTOL, chunk=chunk, scan=True, warm=True)
+        return warm_iai_sweep(prob, chunk, plain)
 
     def reset():
         fourier_contract.launches = gk_leaf_dos.launches = 0
         tad.gk_rule_reduce.launches = tad.coarsen_pool.launches = 0
         for key in tad.gk_pool_launches:
             tad.gk_pool_launches[key] = 0
+        leaf_solve_launches(reset=True)
 
     def launches():
-        return {"fourier_contract": fourier_contract.launches, "gk_leaf_dos": gk_leaf_dos.launches,
-                "gk_pool_select": tad.gk_pool_launches["select"],
-                "gk_pool_update": tad.gk_pool_launches["update"] + tad.gk_pool_launches["totals"],
-                "gk_rule_reduce": tad.gk_rule_reduce.launches,
-                "gk_pool_seed": tad.gk_pool_launches["seed"], "coarsen_pool": tad.coarsen_pool.launches}
+        out = {"fourier_contract": fourier_contract.launches, "gk_leaf_dos": gk_leaf_dos.launches,
+               "gk_pool_select": tad.gk_pool_launches["select"],
+               "gk_pool_update": tad.gk_pool_launches["update"] + tad.gk_pool_launches["totals"],
+               "gk_rule_reduce": tad.gk_rule_reduce.launches,
+               "gk_pool_seed": tad.gk_pool_launches["seed"], "coarsen_pool": tad.coarsen_pool.launches}
+        if leaf_solve_launches() is not None:
+            out["gk_leaf_dos_solve"] = leaf_solve_launches()
+        return out
 
     def run(sweep, xs):
         before = copy.deepcopy(sweep.stats)
@@ -1378,23 +1614,27 @@ def warm_phases(np, torch, dev, h, cold):
         reset()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        d = sweep(xs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with SmiBusy() as busy:
+            t0 = time.perf_counter()
+            d = sweep(xs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         st = sweep.stats
         delta = lambda new, old: {k: v - old.get(k, 0) for k, v in sorted(new.items(), reverse=True)}  # noqa: E731
         ne = sweep.numevals - ne0
         out = {"d": d, "wall": wall, "launches": launches(), "numevals": ne,
                "harvest": ne - sum(sweep.chunk_evals[nchunks:]), "trips": delta(st.trips, before.trips),
                "seed_trips": delta(st.seed_trips, before.seed_trips), "syncs": st.syncs - before.syncs,
-               "peak": torch.cuda.max_memory_allocated() / 2**20}
+               "peak": torch.cuda.max_memory_allocated() / 2**20, "busy": busy.share, "retcode": sweep.retcode}
+        leaf = out["launches"]["gk_leaf_dos"] + out["launches"].get("gk_leaf_dos_solve", 0)
+        out["leaf_launches"] = leaf + (0 if "gk_leaf_dos_solve" in out["launches"] else 2 * out["trips"].get(1, 0))
         pool = pool_to_arrays(sweep._pool)
         print(f"warm IAI call ({len(xs)} omegas in [{xs.min():.4g}, {xs.max():.4g}]): wall {wall:.3f} s "
               f"({wall / len(xs):.4f} s/omega); numevals {ne} (harvests {out['harvest']:.0f}); retcode "
               f"{sweep.retcode}; trips (level 3 outer, 2 mid, 1 leaf) {out['trips']}, seed trips "
               f"{out['seed_trips']}; host syncs {out['syncs']} ({out['syncs'] / len(xs):.1f} per omega); "
-              f"launches {out['launches']}; carried pool: outer n {pool[3]}, mid tn {pool[4][3]}; "
+              f"launches {out['launches']}; leaf launches {out['leaf_launches']}; device busy {busy.text()} "
+              f"(nvidia-smi); carried pool: outer n {pool[3]}, mid tn {pool[4][3]}; "
               f"chunk evals {sweep.chunk_evals[nchunks:]}; peak device memory {out['peak']:.1f} MiB",
               flush=True)
         if not sweep.retcode or d.shape != xs.shape or not np.all(np.isfinite(d)):
@@ -1540,6 +1780,7 @@ def warm_phases(np, torch, dev, h, cold):
     if not (npl == nk and same_pool and dpair <= IAI_ABSTOL and rk and rp):
         fail(f"warm IAI kernels vs plain path: numevals {nk} vs {npl}, pools {same_pool}, max|d| {dpair:.3e}")
 
+    numbers = {f"call{i}": {k: v for k, v in c.items() if k != "d"} for i, c in ((1, c1), (2, c2))}
     return [
         {"name": "coarsen_pool", "route": "cuda", "source": src + "gk_coarsen.cu",
          "replaces": "autobzcore_tpu/ops/adaptive.py:143", "launches": total["coarsen_pool"],
@@ -1549,7 +1790,7 @@ def warm_phases(np, torch, dev, h, cold):
          "replaces": "autobzcore_tpu/ops/adaptive.py:344", "launches": total["gk_pool_seed"],
          "max_abs_err": e5d, "ms": t5d["ms"], "plain_ms": t5d["plain_ms"], "bound_ms": b5d[0],
          "bound_by": b5d[1], "library_ms": None},
-    ]
+    ], numbers
 
 
 def fullgrid_phases(np, torch, dev, h, cold):
@@ -1958,10 +2199,13 @@ def ltm_phases(np, torch, dev, h):
              "bound_by": b10[1], "library_ms": None}], D
 
 
-def block_phases(np, torch, dev, h, cold):
-    """Phases 16-17: K4's block entry and K5 at V = W against their plain
-    versions, then the omega-block IAI main path. Returns the block entry's
-    JSON entry."""
+def block_phases(np, torch, dev, h, cold, wall_runs=BLOCK_WALL_RUNS):
+    """Phases 16-17: K4's block entry, the fused leaf solve over a block and
+    K5 at V = W against their plain versions (the solve against the trip
+    route), then the omega-block IAI main path, ``wall_runs`` walls each.
+    Returns the JSON entries of the block entry and the block solve, and
+    each width's numbers (walls, numevals, trips, syncs, launches, busy
+    share, K4's and the solve's times) by W."""
     import copy
 
     from autobzcore_torch import IAI, IntegralProblem
@@ -2008,8 +2252,11 @@ def block_phases(np, torch, dev, h, cold):
         e16 = max(e16, float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
         t16[W] = {"L": L, "rel": e, "ms": cuda_ms(lambda: gk_leaf_dos(*a), 50),
                   "plain_ms": cuda_ms(lambda: gk_leaf_dos_plain(*a), 5),
+                  "device_ms": device_ms(lambda: gk_leaf_dos(*a), 50, "gk_leaf_dos"),
+                  "host_us": host_us(lambda: gk_leaf_dos(*a), 200),
                   "bound": bound(L * 2 * P * (5 * (8 * 9 + 6) + W * (TRACE_FLOPS[3] + 9)),
                                  nbytes(*a[:2], *a[4:9]) + L * 2 * (W + 2) * 8 + L * 8)}
+        t16[W]["solve"] = leaf_solve_phase(np, torch, dev, a, f"phase 16, W = {W}: {L} leaf lanes")
         del a, got, want
 
     def pool_v(L, nb, W):
@@ -2064,7 +2311,8 @@ def block_phases(np, torch, dev, h, cold):
         del pool, ref, base, fx, cnt
     print("K4 block entry vs plain: " + "; ".join(
         f"W={W}: {t16[W]['L']} lanes x 2 intervals, max |d|/l1 {t16[W]['rel']:.3e} (<= 1e-12), "
-        f"{t16[W]['ms']:.4f} ms (plain {t16[W]['plain_ms']:.4f}; bound {t16[W]['bound'][0]:.4f} ms by "
+        f"{t16[W]['ms']:.4f} ms a call by events (device {ms_text(t16[W]['device_ms'])}, host "
+        f"{t16[W]['host_us']:.1f} us; plain {t16[W]['plain_ms']:.4f}; bound {t16[W]['bound'][0]:.4f} ms by "
         f"{t16[W]['bound'][1]})" for W in BLOCKS) + ". K5 at V=W: identical pools; " + "; ".join(
         f"V={W}: update {t5[W]['update_ms']:.4f} ms (plain {t5[W]['update_plain_ms']:.4f}), totals and rule "
         f"reduce rel {t5[W]['rel']:.3e}" for W in BLOCKS), flush=True)
@@ -2080,43 +2328,52 @@ def block_phases(np, torch, dev, h, cold):
         tad.gk_rule_reduce.launches = 0
         for key in tad.gk_pool_launches:
             tad.gk_pool_launches[key] = 0
+        leaf_solve_launches(reset=True)
 
     def blocked(W, plain=False, warm=False, chunk=BLOCK_CHUNK):
         return SweepSolver(prob, IAI(inner_cap=64, inner_nbisect=4, plain_kernels=plain,
                                      warm_width=8 if warm else None, device=dev),
                            abstol=IAI_ABSTOL, chunk=chunk, scan=True, block=W, warm=warm)
 
-    total_block_launches, res = 0, {}
+    total_block_launches, total_solve_launches, res = 0, 0, {}
     for W in BLOCKS:
         walls = []
-        for r in range(BLOCK_WALL_RUNS):
+        for r in range(wall_runs):
             reset()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            sw = blocked(W)
-            d = sw(oms)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+            with SmiBusy() as busy:
+                t0 = time.perf_counter()
+                sw = blocked(W)
+                d = sw(oms)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
             if r == 0:
                 launches = {"fourier_contract": fourier_contract.launches,
                             "gk_leaf_dos_block": gk_leaf_dos.launches,
                             "gk_pool_select": tad.gk_pool_launches["select"],
                             "gk_pool_update": tad.gk_pool_launches["update"] + tad.gk_pool_launches["totals"],
                             "gk_rule_reduce": tad.gk_rule_reduce.launches}
+                if leaf_solve_launches() is not None:
+                    launches["gk_leaf_dos_solve"] = leaf_solve_launches()
                 peak = torch.cuda.max_memory_allocated() / 2**20
-                first = (d, sw.numevals, sw.retcode, copy.deepcopy(sw.stats), sw.block_certificates)
-        d, ne, ok, st, bc = first
+                first = (d, sw.numevals, sw.retcode, copy.deepcopy(sw.stats), sw.block_certificates, busy.share)
+        d, ne, ok, st, bc, share = first
         total_block_launches += launches["gk_leaf_dos_block"]
+        total_solve_launches += launches.get("gk_leaf_dos_solve", 0)
         dcold = float(np.max(np.abs(d - cold["d"])))
         dptr = float(np.max(np.abs(d - cold["d_ptr"])))
-        res[W] = {"walls": walls, "numevals": ne}
+        leaf = leaf_launches(launches, st)
+        res[W] = {"walls": walls, "numevals": ne, "retcode": ok, "trips": dict(st.trips), "syncs": st.syncs,
+                  "launches": launches, "leaf_launches": leaf, "busy": share}
         print(f"block IAI main path, block={W}: {IAI_OMEGAS} omegas (chunk {BLOCK_CHUNK}, {len(bc[0])} real blocks), "
               f"walls {', '.join(f'{w:.3f}' for w in walls)} s (phase 7, block 1: {cold['wall']:.3f} s); numevals "
               f"{ne} ({ne / IAI_OMEGAS:.4g} per omega; phase 7 {cold['numevals'] / IAI_OMEGAS:.4g}); retcode {ok}; "
               f"trips (level 3 outer, 2 mid, 1 leaf) {dict(sorted(st.trips.items(), reverse=True))}; host syncs "
-              f"{st.syncs}; launches {launches}; peak device memory {peak:.1f} MiB; vs phase 7 max|d| {dcold:.3e} "
-              f"(<= 2 abstol); vs PTR(npt=400) max|d| {dptr:.4e} (<= {1e-2 * dmax:.4e})", flush=True)
+              f"{st.syncs}; launches {launches}; leaf launches {leaf}; device busy (first wall) "
+              f"{'not sampled' if share is None else f'{100 * share:.1f} %'} (nvidia-smi); peak device memory "
+              f"{peak:.1f} MiB; vs phase 7 max|d| {dcold:.3e} (<= 2 abstol); vs PTR(npt=400) max|d| {dptr:.4e} "
+              f"(<= {1e-2 * dmax:.4e})", flush=True)
         if min(launches.values()) <= 0:
             fail(f"the block IAI main path did not go through every kernel: {launches}")
         if not (ok and d.shape == (IAI_OMEGAS,) and dcold <= 2 * IAI_ABSTOL and dptr <= 1e-2 * dmax):
@@ -2142,10 +2399,20 @@ def block_phases(np, torch, dev, h, cold):
     if not (npl == nk and same_bc and dpair <= IAI_ABSTOL and rk and rp):
         fail(f"warm block chain kernels vs plain: numevals {nk} vs {npl}, certificates {same_bc}, max|d| {dpair:.3e}")
     W0 = BLOCKS[0]
+    solve_entry = [] if t16[W0]["solve"] is None else [
+        {"name": "gk_leaf_dos_solve_block", "route": "cuda", "source": src + "gk_leaf_dos.cu",
+         "replaces": "autobzcore_tpu/ops/adaptive.py:236", "launches": total_solve_launches,
+         "max_abs_err": max(t16[W]["solve"]["err"] for W in BLOCKS),
+         "ms": t16[W0]["solve"]["device_ms"] if t16[W0]["solve"]["device_ms"] is not None else t16[W0]["solve"]["ms"],
+         "plain_ms": t16[W0]["solve"]["plain_ms"], "bound_ms": t16[W0]["solve"]["bound"][0],
+         "bound_by": t16[W0]["solve"]["bound"][1], "library_ms": None}]
+    numbers = {W: dict(res[W], k4={k: v for k, v in t16[W].items() if k.endswith(("ms", "us"))},
+                       solve=t16[W]["solve"]) for W in BLOCKS}
     return [{"name": "gk_leaf_dos_block", "route": "cuda", "source": src + "gk_leaf_dos.cu",
              "replaces": "autobzcore_tpu/models/observables.py:138", "launches": total_block_launches,
              "max_abs_err": e16, "ms": t16[W0]["ms"], "plain_ms": t16[W0]["plain_ms"],
-             "bound_ms": t16[W0]["bound"][0], "bound_by": t16[W0]["bound"][1], "library_ms": None}]
+             "bound_ms": t16[W0]["bound"][0], "bound_by": t16[W0]["bound"][1], "library_ms": None}
+            ] + solve_entry, numbers
 
 
 def repair_phases(np, torch, dev):
@@ -2769,7 +3036,8 @@ def rule_phase(np, torch, dev, h, oms):
     pool_k, pool_p = sel_in.clone(), sel_in.clone()
     clone_ms = cuda_ms(lambda: sel_in.clone(), 50)
     t16s = {"ms": cuda_ms(lambda: tgm.gm_pool_select(pool_k, nb), 100),
-            "plain_ms": cuda_ms(lambda: tgm.gm_pool_select_plain(pool_p, nb), 20), "err": 0.0}
+            "plain_ms": cuda_ms(lambda: tgm.gm_pool_select_plain(pool_p, nb), 20), "err": 0.0,
+            "library_ms": cuda_ms(lambda: torch.topk(sel_in.err, nb, dim=1), 100)}
     t16u = {"ms": cuda_ms(lambda: tgm.gm_pool_update(sel_in.clone(), *upd), 100) - clone_ms,
             "plain_ms": cuda_ms(lambda: tgm.gm_pool_update_plain(sel_in.clone(), *upd), 20) - clone_ms,
             "err": e16}
@@ -2779,7 +3047,8 @@ def rule_phase(np, torch, dev, h, oms):
                  + L * (5 * 8 + 1))
     print(f"K16 gm_pool: {L} lanes x cap {cap} x d 3, ties planted: select picks and children identical, "
           f"update pools identical, totals rel {rel16:.3e} (<= 1e-14); select {t16s['ms']:.4f} ms (plain "
-          f"{t16s['plain_ms']:.4f}; bound {b16s[0]:.5f} by {b16s[1]}), update {t16u['ms']:.4f} ms (plain "
+          f"{t16s['plain_ms']:.4f}; torch.topk {t16s['library_ms']:.4f}; bound {b16s[0]:.5f} by {b16s[1]}), update "
+          f"{t16u['ms']:.4f} ms (plain "
           f"{t16u['plain_ms']:.4f}; bound {b16u[0]:.5f} by {b16u[1]})", flush=True)
 
     # K17 at phase 24's fixed level: 33 lanes x 1 segment x 201 trapezoid nodes
@@ -3004,7 +3273,7 @@ def cubature_phases(np, torch, dev, h, cold):
     gm = "autobzcore_tpu/ops/genz_malik.py:"
     return [entry("gm_rule_reduce", "gm_rule.cu", gm + "93", t14, b14, t14["library_ms"]),
             entry("gm_leaf_dos", "gm_rule.cu", "autobzcore_tpu/models/observables.py:149", t15, b15, None),
-            entry("gm_pool_select", "gm_pool.cu", gm + "204", t16s, b16s, None),
+            entry("gm_pool_select", "gm_pool.cu", gm + "204", t16s, b16s, t16s["library_ms"]),
             entry("gm_pool_update", "gm_pool.cu", gm + "216", t16u, b16u, None),
             entry("fixed_rule_reduce", "fixed_rule.cu", "autobzcore_tpu/ops/adaptive.py:644", t17, b17,
                   t17["library_ms"])], dict(tai, rule=rule)
@@ -3300,6 +3569,49 @@ def transport_phases(np, torch, dev, h):
         "mu": mu, "phases_s": wall}
 
 
+def k24_phase(np, torch, dev, hw, bz3, reps=20):
+    """Phase 27's K24: the Weyl pack at npt 192 (7,077,888 points, m = 2,
+    d = 3) in every weight mode against the plain version (1e-13 of the
+    terms' scale, bit-identical repeats), then the AHC's step mode by events
+    (``reps`` calls) and by torch.profiler's device time, beside
+    ``torch.einsum`` of precomputed weights and the bound. Returns
+    (times, bound)."""
+    from autobzcore_torch.models import berry as br
+
+    pw = br.berry_pack(hw, bz3, WEYL_NPT)
+    e, Om, vd = pw.e, pw.Om, pw.vd
+    t24 = {}
+    for tag, mode, beta in (("step", "step", None), ("fermi", "fermi", 40.0), ("entropy", "entropy", 40.0),
+                            ("dipole", "dipole", 40.0), ("grand", "grand", 40.0), ("grand T=0", "grand", None),
+                            ("band", "band", None)):
+        got, again = br.zone_average(e, Om, mode, 0.1, beta, vd=vd), br.zone_average(e, Om, mode, 0.1, beta, vd=vd)
+        want = br.zone_average_plain(e, Om, mode, 0.1, beta, vd=vd)
+        scale = float(br.zone_average_plain(e, Om.abs(), mode, 0.1, beta, vd=vd.abs()).abs().max())
+        r = float((got - want).abs().max()) / scale
+        if not (r <= 1e-13 and torch.equal(got, again)):
+            fail(f"K24 zone_average {tag}: |d| vs plain {r:.3e} of the terms' scale (> 1e-13), repeat identical "
+                 f"{torch.equal(got, again)}")
+        t24[tag] = r
+    w_step = br.zone_weights(e, "step", 0.0)
+    t24k = {"err": max(t24.values()), "ms": cuda_ms(lambda: br.zone_average(e, Om, "step", 0.0), reps),
+            "plain_ms": cuda_ms(lambda: br.zone_average_plain(e, Om, "step", 0.0), 3),
+            "library_ms": cuda_ms(lambda: torch.einsum("km,kmab->ab", w_step, Om), reps),
+            "device_ms": device_ms(lambda: br.zone_average(e, Om, "step", 0.0), reps, "zone_average"),
+            "library_device_ms": device_ms(lambda: torch.einsum("km,kmab->ab", w_step, Om), reps),
+            "fermi_ms": cuda_ms(lambda: br.zone_average(e, Om, "fermi", 0.0, 40.0), reps)}
+    b24 = bound(Om.numel() * 2 + e.numel() * 2, nbytes(e, Om) + 8 * 9)
+    share = "" if t24k["device_ms"] is None else f", {100 * b24[0] / t24k['device_ms']:.1f} % of it on the device"
+    print(f"K24 zone_average on the Weyl pack (npt {WEYL_NPT}, {e.shape[0]} points, m = 2, d = 3), |d| vs plain of the "
+          "terms' scale: " + ", ".join(f"{k} {v:.3e}" for k, v in t24.items()) + " (<= 1e-13), repeats bit-identical; "
+          f"the AHC (step) {t24k['ms']:.4f} ms by events, device {ms_text(t24k['device_ms'])} (profiler; plain "
+          f"{t24k['plain_ms']:.4f} ms; torch.einsum of precomputed weights {t24k['library_ms']:.4f} ms by events, "
+          f"device {ms_text(t24k['library_device_ms'])}; bound {b24[0]:.4f} ms by {b24[1]}{share}); Fermi weights "
+          f"{t24k['fermi_ms']:.4f} ms", flush=True)
+    del pw, e, Om, vd, w_step
+    torch.cuda.empty_cache()
+    return t24k, b24
+
+
 def berry_phases(np, torch, dev):
     """Phases 27-28: K21-K24 against their plain versions at the main path's
     shapes, then the topology main path (``examples/topology_example.py``'s
@@ -3415,31 +3727,7 @@ def berry_phases(np, torch, dev):
         f"{t23[n]['bound'][0]:.5f} ms by {t23[n]['bound'][1]})" for n in t22), flush=True)
 
     # K24 on the Weyl pack at npt 192 in every weight mode
-    pw = br.berry_pack(hw, bz3, WEYL_NPT)
-    e, Om, vd = pw.e, pw.Om, pw.vd
-    t24 = {}
-    for tag, mode, beta in (("step", "step", None), ("fermi", "fermi", 40.0), ("entropy", "entropy", 40.0),
-                            ("dipole", "dipole", 40.0), ("grand", "grand", 40.0), ("grand T=0", "grand", None),
-                            ("band", "band", None)):
-        got, again = br.zone_average(e, Om, mode, 0.1, beta, vd=vd), br.zone_average(e, Om, mode, 0.1, beta, vd=vd)
-        want = br.zone_average_plain(e, Om, mode, 0.1, beta, vd=vd)
-        scale = float(br.zone_average_plain(e, Om.abs(), mode, 0.1, beta, vd=vd.abs()).abs().max())
-        r = float((got - want).abs().max()) / scale
-        if not (r <= 1e-13 and torch.equal(got, again)):
-            fail(f"K24 zone_average {tag}: |d| vs plain {r:.3e} of the terms' scale (> 1e-13), repeat identical "
-                 f"{torch.equal(got, again)}")
-        t24[tag] = r
-    w_step = br.zone_weights(e, "step", 0.0)
-    t24k = {"err": max(t24.values()), "ms": cuda_ms(lambda: br.zone_average(e, Om, "step", 0.0), 20),
-            "plain_ms": cuda_ms(lambda: br.zone_average_plain(e, Om, "step", 0.0), 3),
-            "library_ms": cuda_ms(lambda: torch.einsum("km,kmab->ab", w_step, Om), 3)}
-    b24 = bound(Om.numel() * 2 + e.numel() * 2, nbytes(e, Om) + 8 * 9)
-    print(f"K24 zone_average on the Weyl pack (npt {WEYL_NPT}, {e.shape[0]} points, m = 2, d = 3), |d| vs plain of the "
-          "terms' scale: " + ", ".join(f"{k} {v:.3e}" for k, v in t24.items()) + " (<= 1e-13), repeats bit-identical; "
-          f"the AHC (step) {t24k['ms']:.4f} ms (plain {t24k['plain_ms']:.4f} ms, torch.einsum of precomputed weights "
-          f"{t24k['library_ms']:.4f} ms, bound {b24[0]:.4f} ms by {b24[1]})", flush=True)
-    del pw, e, Om, vd, w_step
-    torch.cuda.empty_cache()
+    t24k, b24 = k24_phase(np, torch, dev, hw, bz3)
     t27 = time.perf_counter() - t_phases
 
     # 28. the topology main path at full width ----------------------------------------------

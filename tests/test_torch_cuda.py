@@ -863,6 +863,106 @@ def test_leaf_dos_block_entry_matches_plain_on_card(cuda_device, m, W):
         assert torch.equal(got[0][..., 0], one[0]) and torch.equal(got[1], one[1]) and torch.equal(got[2], one[2])
 
 
+POOL_FIELDS = ("a", "b", "err", "l1", "val", "n", "evals", "tot_val", "tot_err", "tol", "active")
+
+
+def _solve_problem(rng, dev, m, W, L=300):
+    """Leaf lanes for the fused solve: _leaf_inputs' series, a tenth of them
+    constant (every node the same value, so equal-width intervals tie
+    exactly), W frequencies a lane, tolerances from 1e-7 down to 1e-300
+    (lanes that finish at different trips, and lanes that only cap or the
+    budget stop)."""
+    c, cmap, off, _, _, om, _, _ = _leaf_inputs(rng, dev, m, L=L)
+    c[::10] = 0
+    c[::10, c.shape[1] // 2] = torch.as_tensor(random_hermitian(rng, 1, m)[0].reshape(-1), device=dev)
+    omb = (om[:, None] + torch.as_tensor(rng.uniform(-0.3, 0.3, (L, W)), device=dev)).contiguous()
+    if W == 1:
+        omb = omb[:, 0].contiguous()
+    etab = torch.full_like(omb, 0.05)
+    segs = torch.tensor([0.0, 1.0], dtype=torch.float64, device=dev).expand(L, 2).contiguous()
+    atol = torch.as_tensor(10.0 ** rng.uniform(-7, -2, L), device=dev)
+    atol[::7] = 1e-300
+    return c, cmap, off, 1.0, omb, etab, segs, atol
+
+
+def _started_pool(problem, dev, cap, nbisect, maxiters=None, init_pool=None):
+    """The pool of a leaf-level solve after its start (K4's cold start, or
+    K6 and K5's seed entry from ``init_pool``), taken through the solve hook
+    of gk_adaptive_lanes before any trip."""
+    c, cmap, off, period, om, eta, segs, atol = problem
+    xk, wk, wg = tad.gk_rule(7, dev)
+    rule = tobs.leaf_dos_rule(c, cmap, off, period, om, eta, xk, wk, wg, tobs.gk_leaf_dos)
+    held = []
+    tad.gk_adaptive_lanes(rule, segs, atol, cap=cap, nbisect=nbisect, rtol=0.0, maxiters=maxiters,
+                          init_pool=init_pool, solve=lambda pool, nb: held.append(_clone_pool(pool)))
+    return held[0], (xk, wk, wg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", ["cold", "seeded"])
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 5, 6, 7, 9])
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_leaf_solve_matches_the_trip_route_on_card(cuda_device, m, W, start):
+    """The fused leaf solve against the trip route (K5's select, K4, K5's
+    update until no lane is live) on the same started pools: pools, totals,
+    n, evals, active and every lane's trips torch.equal; a fifth of the
+    lanes inactive, planted ties, lanes stopped by cap. Every channel group
+    K4 compiles (1-8, and two groups at 9) against the solve's one path."""
+    rng = np.random.default_rng(300 + 10 * m + W)
+    problem = _solve_problem(rng, cuda_device, m, W)
+    init = None
+    if start == "seeded":
+        init = dyadic_pools(rng, problem[6].shape[0], 64, [0.0, 0.5, 1.0], cuda_device)
+    pool, rule = _started_pool(problem, cuda_device, 64, 4, init_pool=init)
+    pool.active[::5] = False
+    ref = _clone_pool(pool)
+    c, cmap, off, period, om, eta = problem[:6]
+    before = tobs.gk_leaf_dos_solve.launches
+    trips = tobs.gk_leaf_dos_solve(pool, c, cmap, off, period, om, eta, *rule, 4)
+    assert tobs.gk_leaf_dos_solve.launches == before + 1
+    want = tobs.gk_leaf_dos_solve_plain(ref, c, cmap, off, period, om, eta, *rule, 4, kernels=True)
+    stats = tad.LoopStats()
+    stats.device_trip(1, trips)
+    assert torch.equal(trips, want) and stats.read_device_trips() == {1: int(want.max())}
+    for k in POOL_FIELDS:
+        assert torch.equal(getattr(pool, k), getattr(ref, k)), k
+    assert int(want.min()) == 0 and int(want.max()) > int(want[want > 0].min())  # lanes end at different trips
+    assert bool((pool.n[::7] > 64 - 4).any())  # lanes that only cap stopped
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,W", [(3, 1), (2, 9)])
+def test_leaf_solve_stops_at_the_budget_as_the_trip_route_on_card(cuda_device, m, W):
+    """An evaluation budget that stops lanes at different trips (seeded
+    pools start from different counts)."""
+    rng = np.random.default_rng(330 + m + W)
+    problem = _solve_problem(rng, cuda_device, m, W, L=200)
+    init = dyadic_pools(rng, 200, 64, [0.0, 0.5, 1.0], cuda_device)
+    pool, rule = _started_pool(problem, cuda_device, 64, 4, maxiters=1500, init_pool=init)
+    ref = _clone_pool(pool)
+    c, cmap, off, period, om, eta = problem[:6]
+    trips = tobs.gk_leaf_dos_solve(pool, c, cmap, off, period, om, eta, *rule, 4)
+    want = tobs.gk_leaf_dos_solve_plain(ref, c, cmap, off, period, om, eta, *rule, 4, kernels=True)
+    assert torch.equal(trips, want)
+    for k in POOL_FIELDS:
+        assert torch.equal(getattr(pool, k), getattr(ref, k)), k
+    assert bool((pool.evals >= 1500).any())
+
+
+@pytest.mark.gpu
+def test_leaf_solve_refuses_what_it_does_not_take_on_card(cuda_device):
+    rng = np.random.default_rng(340)
+    problem = _solve_problem(rng, cuda_device, 2, 1, L=8)
+    pool, rule = _started_pool(problem, cuda_device, 16, 2)
+    c, cmap, off, period, om, eta = problem[:6]
+    with pytest.raises(ValueError):  # 65 bisections a trip
+        tobs.gk_leaf_dos_solve(pool, c, cmap, off, period, om, eta, *rule, 65)
+    big = torch.zeros((8, 5, 16), dtype=torch.complex128, device=cuda_device)
+    with pytest.raises(ValueError):  # four bands
+        tobs.gk_leaf_dos_solve(pool, big, cmap, off, period, om, eta, *rule, 2)
+    assert not tobs.leaf_solve_takes(cuda_device, 1 << 14, 9, 4, 15, 5, 3)  # a pool past shared memory
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("W", [2, 4])
 def test_pool_kernels_at_block_width_on_card(cuda_device, W):
@@ -1667,6 +1767,38 @@ def test_zone_average_kernel_matches_plain_on_card(cuda_device, mode):
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= 1e-13 * scale
     assert torch.equal(got, br.zone_average(e, F, name, 0.2, beta, vd=vd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,m,d,aligned", [(37, 1, 1, True), (37, 3, 3, True), (1001, 2, 3, True),
+                                           (1001, 3, 1, True), (5003, 1, 3, True), (20001, 2, 3, False)],
+                         ids=["below_a_chunk_m1_c1", "below_a_chunk_m3_c9", "ragged_m2_c9", "ragged_m3_c1",
+                              "ragged_m1_c9", "unaligned_m2_c9"])
+def test_zone_average_kernel_shapes_on_card(cuda_device, K, m, d, aligned):
+    """K24 in every weight mode where its chunks are partial: fewer points
+    than one chunk, a count that is no multiple of a chunk, m = 1, 2, 3
+    with C = 1 and 9 columns, and fields 8 bytes off 16-byte alignment (the
+    threads copy what the bulk copies cannot); 1e-13 of the terms' scale,
+    bit-identical repeats."""
+    from autobzcore_torch.models import berry as br
+
+    rng = np.random.default_rng(220 + K + m + d)
+    e = torch.as_tensor(np.sort(rng.normal(size=(K, m)), axis=1), device=cuda_device)
+
+    def field(shape):
+        flat = torch.as_tensor(rng.normal(size=int(np.prod(shape)) + 1), device=cuda_device)
+        return (flat[:-1] if aligned else flat[1:]).view(shape)
+
+    F, vd = field((K, m, d, d)), field((K, m, d))
+    assert (F.data_ptr() % 16 == 0) == aligned
+    for name, beta in (("step", None), ("fermi", 7.0), ("entropy", 7.0), ("dipole", 7.0), ("grand", 7.0),
+                       ("grand", None), ("band", None)):
+        got = br.zone_average(e, F, name, 0.2, beta, vd=vd)
+        want = br.zone_average_plain(e, F, name, 0.2, beta, vd=vd)
+        scale = float(br.zone_average_plain(e, F.abs(), name, 0.2, beta, vd=vd.abs()).abs().max())
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-13 * scale, name
+        assert torch.equal(got, br.zone_average(e, F, name, 0.2, beta, vd=vd)), name
 
 
 @pytest.mark.gpu

@@ -2,7 +2,7 @@
 """Time a group of kernels and the paths that run them, for the
 ``autobzcore_torch`` package of any checkout, on one NVIDIA GPU.
 
-    python3 tools/kernel_ab.py TREE LABEL --phases fourier|rule_transport [--iai] [--out DIR]
+    python3 tools/kernel_ab.py TREE LABEL --phases fourier|rule_transport|iai|k24|warm_plain [--iai] [--out DIR]
 
 It imports ``autobzcore_torch`` from the checkout at TREE (its kernels
 build there at first use) and runs this repository's ``chip_smoke.py``
@@ -19,7 +19,20 @@ phase functions on it:
   transport contraction (K19): phase 22 (K14-K17 at the TAI leg's shapes,
   with K14's device time and the host cost of its call) and phases 25-26
   (K18-K20, K19's device time in its four cases, the transport main path's
-  sweep with its numevals, retcode, GK trips and K19 launches).
+  sweep with its numevals, retcode, GK trips and K19 launches);
+- ``--phases iai``: the IAI leaf (K4 and the fused leaf solve) and the zone
+  average (K24): phases 6-10 (K3-K6, the fused solve against the trip
+  route where the checkout has it, the cold chunk, the cubic wedge, the two
+  warm calls) and 16-17 (the block entries, one wall of each block width),
+  each leg's wall, evals, retcode, trips, host syncs, leaf launches and
+  device busy share (nvidia-smi), then phase 27's K24 at the Weyl AHC by
+  events and by device time beside ``torch.einsum``;
+- ``--phases k24``: phase 27's K24 alone, first in its process (where the
+  profiler's device times are whole);
+- ``--phases warm_plain``: phase 10's first warm call (the 33 frequencies
+  of phase 7's cold chunk) on the kernels and then on the plain versions of
+  every kernel (``plain_kernels=True``), each with its wall, numevals,
+  retcode and trips, and the largest difference of their values.
 
 ``--iai`` adds phases 6-8 (K3's call in phase 6a; the cold IAI chunk's
 wall, evals, trips and syncs), and to ``rule_transport`` phases 22-24 for
@@ -82,7 +95,48 @@ def rule_transport(cs, np, torch, dev, h):
     return cs.rule_transport_phases(np, torch, dev, h)
 
 
-PHASES = {"fourier": fourier, "rule_transport": rule_transport}
+def k24(cs, np, torch, dev, h):
+    from autobzcore_torch import FBZ, load_bz
+    from autobzcore_torch.models.tight_binding import tb_weyl
+
+    t, b = cs.k24_phase(np, torch, dev, tb_weyl(2.0, device=dev), load_bz(FBZ(), np.eye(3)))
+    return {"k24": dict(t, bound_ms=b[0])}
+
+
+def iai(cs, np, torch, dev, h):
+    cold, _ = cs.iai_phases(np, torch, dev, h)
+    _, warm = cs.warm_phases(np, torch, dev, h, cold)
+    _, block = cs.block_phases(np, torch, dev, h, cold, wall_runs=1)
+    keys = ("wall", "trips", "syncs", "busy", "launches", "leaf_launches", "k3", "k4", "solve")
+    return dict(k24(cs, np, torch, dev, h),
+                cold=dict({k: cold[k] for k in keys}, numevals=int(cold["numevals"]),
+                          lane_numevals=[int(n) for n in cold["ne"]]),
+                warm=warm, block=block)
+
+
+def warm_plain(cs, np, torch, dev, h):
+    from autobzcore_torch import FBZ, IntegralProblem, load_bz
+    from autobzcore_torch.models.observables import dos_integrand
+
+    prob = IntegralProblem(dos_integrand(h, cs.ETA), load_bz(FBZ(), np.eye(3)))
+    oms = np.linspace(*cs.WINDOW, cs.IAI_OMEGAS)
+    out, values = {}, {}
+    for route, plain in (("kernels", False), ("plain", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep = cs.warm_iai_sweep(prob, cs.IAI_OMEGAS, plain)
+        values[route] = sweep(oms)
+        torch.cuda.synchronize()
+        out[route] = {"wall": time.perf_counter() - t0, "numevals": int(sweep.numevals),
+                      "retcode": bool(sweep.retcode), "trips": dict(sweep.stats.trips)}
+        print(f"warm call 1 ({cs.IAI_OMEGAS} omegas) on the {route}: {out[route]}", flush=True)
+    out["max_abs_d"] = float(np.max(np.abs(values["kernels"] - values["plain"])))
+    print(f"warm call 1, kernels vs plain versions: numevals {out['kernels']['numevals']} vs "
+          f"{out['plain']['numevals']}, max|d D| {out['max_abs_d']:.3e}", flush=True)
+    return {"warm_plain": out}
+
+
+PHASES = {"fourier": fourier, "rule_transport": rule_transport, "iai": iai, "k24": k24, "warm_plain": warm_plain}
 
 
 def compare(tree, label, phases, iai):
@@ -109,7 +163,7 @@ def compare(tree, label, phases, iai):
     h = flagship_series(device=dev)
     out = {"label": label, "tree": str(tree), "phases": phases, "card": smi}
     out.update(PHASES[phases](cs, np, torch, dev, h))
-    if iai:
+    if iai and phases != "iai":
         cold, _ = cs.iai_phases(np, torch, dev, h)
         out.update(iai_wall=cold["wall"], iai_numevals=int(cold["numevals"]),
                    iai_lane_numevals=[int(n) for n in cold["ne"]], iai_trips=cold["trips"],
