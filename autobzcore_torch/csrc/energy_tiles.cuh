@@ -1,5 +1,4 @@
-// The tile loop of a per-energy sum in FP64, shared by K10 (tetra_dos.cu)
-// and K13 (ggr_dos.cu):
+// The tile loop of a per-energy sum in FP64, of K13 (ggr_dos.cu):
 //
 //   out[j] = scale * sum over terms t of f_t(E_j)
 //
@@ -7,8 +6,8 @@
 //
 // The design:
 //  * a block of kTileThreads threads stages a tile of kTileThreads terms,
-//    one per thread, into shared memory (Tile::stage: K10 sorts a cell's
-//    simplices there, K13 puts a term's closed-form constants);
+//    one per thread, into shared memory (Tile::stage: K13 puts a term's
+//    closed-form constants there);
 //  * each thread owns kTileLanes energy lanes, kTileThreads apart
 //    (blockIdx.y picks the block's kTileThreads * kTileLanes lanes), and
 //    walks the tile's terms in a fixed order, every thread reading the same

@@ -23,7 +23,7 @@
 // division. At the flagship (1e6 points x 3 bands, 1001 energies) that is
 // ~3e9 pairs, so FP64 throughput is the limit; the inputs are 100 MB.
 //
-// The design is energy_tiles.cuh's tile loop, as K10's (csrc/tetra_dos.cu):
+// The design is energy_tiles.cuh's tile loop:
 // a thread stages one term of a tile, putting its constants in shared
 // memory (in box mode the sorted |v|, the branch thresholds w1..w4 and the
 // per-term parts of the closed forms, in Gaussian mode e, sigma and norm);
@@ -215,9 +215,15 @@ int launch(const double* e, const double* a, const double* nrm, const double* w,
 
 }  // namespace
 
+// Rows of the partials scratch of K13 for nterms terms and W energies
+// (energy_tiles.cuh): one per tile, at most kTileMaxBlocks over all the lane
+// groups.
+extern "C" long long energy_tiles_num_blocks(long long nterms, int W) {
+  return autobz::tile_num_blocks(nterms, W);
+}
+
 // e: (K, m) float64; w: (K,); E: (W,); partials:
-// (energy_tiles_num_blocks(K m, W), W) scratch (the entry is in
-// tetra_dos.cu); out: (W,), written. d = 1..3 is box mode, with a the
+// (energy_tiles_num_blocks(K m, W), W) scratch; out: (W,), written. d = 1..3 is box mode, with a the
 // velocities (K, d, m), b the half box width and vtol the gate, nrm unused;
 // d = 0 is Gaussian mode, with a the widths sigma (K, m) and nrm the norms
 // (K, m). Every output is multiplied by scale. Returns cudaGetLastError()

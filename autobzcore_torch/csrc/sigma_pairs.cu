@@ -11,11 +11,13 @@
 //   sum:       G[b, a, c] = scale * sum_k w_k Re Tr[v_a A1 v_c A2],
 //   pointwise: T[n, a, c] = Re Tr[v_a A v_c A]   (one Z per point, no sum),
 //
-// with A_i = (G_i - G_i^H) / (-2 pi i), G_i = (Z_i - H_k)^{-1} by
-// small_inverse.cuh (the adjugate over the determinant for m <= 3,
-// Gauss-Jordan for 4 <= m <= 8), v_a = dH/dz_a (d <= 3). When Z2 is Z1 (equal frequencies) the inverse is taken once.
-// The kernel works with A' = 2 pi A = i (G - G^H) and folds 1 / (4 pi^2)
-// into the final scale.
+// with A_i = (G_i - G_i^H) / (-2 pi i), G_i = (Z_i - H_k)^{-1} (the
+// adjugate over the determinant for m <= 3, small_inverse.cuh's
+// Gauss-Jordan for 4 <= m <= 8), v_a = dH/dz_a (d <= 3). When Z2 is Z1
+// (equal frequencies) the inverse is taken once. The kernel works with
+// A' = 2 pi A = i (G - G^H) and folds 1 / (4 pi^2) into the final scale.
+// H and v_a are Hermitian, so the kernel reads their Hermitian parts
+// ((X + X^H) / 2: the inputs themselves where they are exactly Hermitian).
 //
 // What bounds it on an H100: FP64 arithmetic. Per (pair, k) at m = d = 3
 // the function needs one spectral function (about 230 operations with M and
@@ -24,21 +26,42 @@
 // with the sums): about 860 operations at equal frequencies, 1,610 at
 // unequal ones (two spectral functions, v_a A1 and v_c A2, all 9 traces).
 // At the main path's 256 equal frequencies over K = 1e6 points that is
-// 2.2e11 (6.5 ms at 34 TFLOP/s) against a 576 MB read of H and V (0.17 ms).
-// The kernel itself forms all nine traces and the full A.
+// 2.2e11 (6.5 ms at 34 TFLOP/s) against a 576 MB read of H and V (0.17 ms);
+// a kinetic trip's 960 unequal pairs need 1.5e12 (45 ms).
 //
-// The design: K2's tile loop. A block covers 32 pair lanes (one per thread
-// of a warp) and a chunk of kChunkK points; it stages H_k, V_k and w_k
-// through shared memory in tiles of kTileK points, the four warps taking
-// every fourth point of a tile, all threads of a warp reading the same
-// point, which shared memory broadcasts. For m <= 3 the lanes' Z matrices
-// sit in shared memory too (registers go to A1, the d products v_c A2 and
-// the d^2 sums); above, the tiles shrink to keep shared memory near 16 KB,
-// each thread reads its lane's Z through L1, and the products are loops over
-// local memory. The cross-block sum is a second pass in chunk order
-// (column_sum.cuh), one partial row per k-chunk: no atomics, repeats are
-// bit-identical, and the sums do not depend on the launch shape. The
-// pointwise entry runs one thread per point.
+// The design: a block covers 32 pair lanes (one per thread of a warp) and a
+// chunk of kChunkK points; it stages the points in tiles of kTile through
+// shared memory as packed Hermitian matrices (m real diagonal values and
+// m (m - 1) / 2 complex ones: 9 doubles for H and for each v_a at m = 3)
+// with their weights, the four warps taking every fourth point of a tile and
+// all threads of a warp reading the same point, which shared memory
+// broadcasts. Per (pair, point) a thread keeps only what one product needs:
+//  * A' as a packed Hermitian from the adjugate, with one reciprocal of the
+//    determinant, into which the weight w_k is folded at unequal
+//    frequencies;
+//  * at equal frequencies the d products B_c = v_c A (the Hermitian
+//    structure of both factors: a real diagonal on each side), then
+//    Re Tr[B_a B_c] for a <= c only (the trace is symmetric in (a, c)),
+//    mirrored when the sums are written;
+//  * at unequal frequencies, for one c at a time, B_c = v_c A2 and the
+//    Hermitian part of Y_c = A1 B_c (m real and m (m - 1) / 2 complex
+//    values), whose real inner product with v_a is Re Tr[v_a A1 v_c A2]:
+//    9 multiply-adds per (a, c) at m = 3 instead of a product of two
+//    general matrices, and no product v_a A1 kept across the c's.
+// For m <= 3 the lanes' Z matrices sit in shared memory; above, the tiles
+// shrink to keep shared memory near 16 KB and each thread reads its lane's Z
+// through L1. Up to m = 4 every loop unrolls, so the packed matrices stay in
+// registers (the Gauss-Jordan inverse works in local memory); above, the
+// same code runs as loops over local memory. At m <= 3 a block asks for
+// three blocks an SM (168 registers a thread): at four (128 registers) the
+// unequal m = 3 instance spilled more and ran 12 % slower on an H100, at one
+// a kinetic trip's 960 pairs ran 2 % slower; at m = 4 it asks for one, and
+// the unrolled instances take 180-255 registers and run 4-5x faster than
+// as loops (tools/kernel_variants.py sigma_pairs). The cross-block sum is a
+// second pass in chunk order (column_sum.cuh), one partial row per k-chunk:
+// no atomics, repeats are bit-identical, and a pair's sums depend neither
+// on its row nor on the number of pairs. The pointwise entry runs
+// one thread per point through the same functions.
 
 #include <cuda_runtime.h>
 
@@ -49,8 +72,6 @@
 
 namespace {
 
-using autobz::cmul;
-using autobz::csub;
 using autobz::GeneralInverse;
 
 constexpr int kLanes = 32;     // pair lanes per block
@@ -60,148 +81,329 @@ constexpr int kChunkK = 2048;  // points per partial row
 constexpr int kThreads = kLanes * kKWarps;
 constexpr double kInvFourPi2 = 0.025330295910584444;  // 1 / (4 pi^2)
 
-// points per shared tile: kTileK for m <= 3, else near 16 KB of H and V
-template <int M, int D>
-__host__ __device__ constexpr int tile_k() {
-  return M <= 3 ? kTileK : 16384 / (16 * (1 + D) * M * M);
-}
-
-// A' = i (G - G^H) of M = z - h
+// the loops unroll (and index registers) up to four bands: the helpers'
+// loops run over 0..M (triangles by a test inside), which an unroll count of
+// 8 unrolls fully; above, they run as loops over local memory
 template <int M>
-__device__ __forceinline__ void spectral(const double2* z, const double2* h, double2* A) {
+constexpr int kUnroll = M <= 4 ? 8 : 1;
+
+// blocks an SM the sum kernel asks for: three (168 registers a thread) for
+// the closed forms; one at four bands and above, whose unrolled m = 4
+// instances need up to 255 registers
+template <int M>
+constexpr int kMinBlocks = M <= 3 ? 3 : 1;
+
+// A Hermitian m x m matrix, packed: o the entries above the diagonal (row by
+// row), d the real diagonal.
+template <int M>
+struct Herm {
+  static constexpr int P = M * (M - 1) / 2;
+  double2 o[P > 0 ? P : 1];
+  double d[M];
+};
+
+// the slot of entry (i, j), i < j, in Herm::o
+template <int M>
+__host__ __device__ constexpr int upper(int i, int j) {
+  return i * (2 * M - i - 1) / 2 + (j - i - 1);
+}
+
+// entry (i, j), i != j
+template <int M>
+__device__ __forceinline__ double2 herm_at(const Herm<M>& h, int i, int j) {
+  if (i < j) return h.o[upper<M>(i, j)];
+  const double2 x = h.o[upper<M>(j, i)];
+  return make_double2(x.x, -x.y);
+}
+
+// s += a b for complex a, b; s += r b for real r
+__device__ __forceinline__ void cmac(double2& s, double2 a, double2 b) {
+  s.x = fma(a.x, b.x, s.x);
+  s.x = fma(-a.y, b.y, s.x);
+  s.y = fma(a.x, b.y, s.y);
+  s.y = fma(a.y, b.x, s.y);
+}
+__device__ __forceinline__ void rmac(double2& s, double r, double2 b) {
+  s.x = fma(r, b.x, s.x);
+  s.y = fma(r, b.y, s.y);
+}
+// s + Re(a b), s + Im(a b), s - Im(a b)
+__device__ __forceinline__ double re_mac(double s, double2 a, double2 b) { return fma(-a.y, b.y, fma(a.x, b.x, s)); }
+__device__ __forceinline__ double im_mac(double s, double2 a, double2 b) { return fma(a.y, b.x, fma(a.x, b.y, s)); }
+__device__ __forceinline__ double im_msub(double s, double2 a, double2 b) { return fma(-a.y, b.x, fma(-a.x, b.y, s)); }
+
+// s + Re(A_il b), s + Im(A_il b), s - Im(A_il b) for entry (i, l) of a
+// packed Hermitian A
+template <int M>
+__device__ __forceinline__ double re_mac_at(double s, const Herm<M>& A, int i, int l, double2 b) {
+  return i == l ? fma(A.d[i], b.x, s) : re_mac(s, herm_at(A, i, l), b);
+}
+template <int M>
+__device__ __forceinline__ double im_mac_at(double s, const Herm<M>& A, int i, int l, double2 b) {
+  return i == l ? fma(A.d[i], b.y, s) : im_mac(s, herm_at(A, i, l), b);
+}
+template <int M>
+__device__ __forceinline__ double im_msub_at(double s, const Herm<M>& A, int i, int l, double2 b) {
+  return i == l ? fma(-A.d[i], b.y, s) : im_msub(s, herm_at(A, i, l), b);
+}
+
+// The Hermitian part of one row-major complex matrix x (its upper and lower
+// triangles averaged) into packed form.
+template <int M, int U = kUnroll<M>>
+__device__ __forceinline__ void pack_hermitian(const double2* __restrict__ x, Herm<M>& h) {
+#pragma unroll (U)
+  for (int i = 0; i < M; ++i) {
+    h.d[i] = x[i * M + i].x;
+#pragma unroll (U)
+    for (int j = 0; j < M; ++j) {
+      if (j > i) {
+        const double2 u = x[i * M + j], l = x[j * M + i];
+        h.o[upper<M>(i, j)] = make_double2(0.5 * (u.x + l.x), 0.5 * (u.y - l.y));
+      }
+    }
+  }
+}
+
+// The adjugate of a (3 x 3 as cross products of column pairs, the rows of
+// GeneralInverse<3>), returning the determinant (the first row of a times
+// the first column of adj).
+template <int M>
+__device__ __forceinline__ double2 adjugate(const double2* a, double2* adj) {
+  static_assert(M <= 3, "the closed forms take M <= 3");
+  if constexpr (M == 1) {
+    adj[0] = make_double2(1.0, 0.0);
+    return a[0];
+  } else if constexpr (M == 2) {
+    adj[0] = a[3];
+    adj[1] = make_double2(-a[1].x, -a[1].y);
+    adj[2] = make_double2(-a[2].x, -a[2].y);
+    adj[3] = a[0];
+  } else {
+#pragma unroll
+    for (int row = 0; row < 3; ++row) {
+      const int p = (row + 1) % 3, q = (row + 2) % 3;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const int i1 = (i + 1) % 3, i2 = (i + 2) % 3;
+        // a[i1, p] a[i2, q] - a[i2, p] a[i1, q]
+        const double2 u = a[3 * i1 + p], v = a[3 * i2 + q], x = a[3 * i2 + p], y = a[3 * i1 + q];
+        double re = u.x * v.x;
+        re = fma(-u.y, v.y, re);
+        re = fma(-x.x, y.x, re);
+        re = fma(x.y, y.y, re);
+        double im = u.x * v.y;
+        im = fma(u.y, v.x, im);
+        im = fma(-x.x, y.y, im);
+        im = fma(-x.y, y.x, im);
+        adj[3 * row + i] = make_double2(re, im);
+      }
+    }
+  }
+  double2 det = make_double2(0.0, 0.0);
+#pragma unroll
+  for (int j = 0; j < M; ++j) cmac(det, a[j], adj[j * M]);
+  return det;
+}
+
+// f A' = f i (G - G^H), packed, of M = z - h for z (row-major, general) and
+// a packed Hermitian h.
+template <int M, int U = kUnroll<M>>
+__device__ __forceinline__ void spectral(const double2* z, const Herm<M>& h, double f, Herm<M>& A) {
   constexpr int MM = M * M;
-  double2 a[MM], g[MM];
-#pragma unroll
-  for (int i = 0; i < MM; ++i) a[i] = csub(z[i], h[i]);
-  GeneralInverse<M>::inverse(a, g);
-#pragma unroll
+  double2 a[MM];
+#pragma unroll (U)
   for (int j = 0; j < M; ++j) {
-#pragma unroll
+#pragma unroll (U)
     for (int k = 0; k < M; ++k) {
-      const double2 x = g[j * M + k], y = g[k * M + j];  // D = x - conj(y); i D
-      A[j * M + k] = make_double2(-(x.y + y.y), x.x - y.x);
-    }
-  }
-}
-
-// pair_terms for 4 <= M <= kMaxInverse: the same sums, loops not unrolled
-template <int M, int D, bool Same>
-__device__ void pair_terms_loop(const double2* v, const double2* A1, const double2* A2, double wk, double* acc) {
-  constexpr int MM = M * M;
-  double2 vA2[D * MM];               // (v_c A2)[k, i]
-  double2 vA1[Same ? 1 : D * MM];    // (v_a A1)[i, k]
-#pragma unroll 1
-  for (int c = 0; c < D; ++c) {
-#pragma unroll 1
-    for (int k = 0; k < M; ++k) {
-#pragma unroll 1
-      for (int i = 0; i < M; ++i) {
-        double2 s = make_double2(0.0, 0.0), u = make_double2(0.0, 0.0);
-#pragma unroll 1
-        for (int l = 0; l < M; ++l) {
-          s = autobz::cadd(s, cmul(v[c * MM + k * M + l], A2[l * M + i]));
-          if (!Same) u = autobz::cadd(u, cmul(v[c * MM + k * M + l], A1[l * M + i]));
-        }
-        vA2[c * MM + k * M + i] = s;
-        if (!Same) vA1[c * MM + k * M + i] = u;
+      const double2 zz = z[j * M + k];
+      if (j == k) {
+        a[j * M + k] = make_double2(zz.x - h.d[j], zz.y);
+      } else {
+        const double2 hh = herm_at(h, j, k);
+        a[j * M + k] = make_double2(zz.x - hh.x, zz.y - hh.y);
       }
     }
   }
-  const double2* vA = Same ? vA2 : vA1;
-#pragma unroll 1
-  for (int a = 0; a < D; ++a) {
-#pragma unroll 1
-    for (int i = 0; i < M; ++i) {
-#pragma unroll 1
-      for (int c = 0; c < D; ++c) {
-        double t = 0.0;
-#pragma unroll 1
-        for (int k = 0; k < M; ++k) {
-          const double2 r = vA[a * MM + i * M + k], y = vA2[c * MM + k * M + i];
-          t += r.x * y.x - r.y * y.y;
-        }
-        acc[a * D + c] += wk * t;
-      }
-    }
-  }
-}
-
-// acc[a, c] += wk * Re Tr[v_a A1 v_c A2] for one point (v: D blocks of M x M);
-// with Same (A2 is A1) the rows of v_a A1 are those of the products v_c A2
-// already formed, so they are read, not computed again
-template <int M, int D, bool Same>
-__device__ __forceinline__ void pair_terms_small(const double2* v, const double2* A1, const double2* A2, double wk,
-                                                 double* acc) {
-  constexpr int MM = M * M;
-  double2 vA2[D * MM];  // (v_c A2)[k, i]
+  if constexpr (M <= 3) {
+    // G = adj / det; with r = -f / det: f A'_jj = 2 Im(adj_jj r), and for
+    // j < k f A'_jk = Im((adj_jk + adj_kj) r) + i Re((adj_kj - adj_jk) r)
+    double2 adj[MM];
+    const double2 det = adjugate<M>(a, adj);
+    const double s = -f / fma(det.x, det.x, det.y * det.y);
+    const double2 r = make_double2(det.x * s, -det.y * s);
 #pragma unroll
-  for (int c = 0; c < D; ++c) {
-#pragma unroll
-    for (int k = 0; k < M; ++k) {
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-        double2 s = make_double2(0.0, 0.0);
-#pragma unroll
-        for (int l = 0; l < M; ++l) s = autobz::cadd(s, cmul(v[c * MM + k * M + l], A2[l * M + i]));
-        vA2[c * MM + k * M + i] = s;
-      }
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < D; ++a) {
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      double2 r[M];  // row i of v_a A1
+    for (int j = 0; j < M; ++j) {
+      A.d[j] = 2.0 * im_mac(0.0, adj[j * M + j], r);
 #pragma unroll
       for (int k = 0; k < M; ++k) {
-        if (Same) {
-          r[k] = vA2[a * MM + i * M + k];
-        } else {
-          double2 s = make_double2(0.0, 0.0);
-#pragma unroll
-          for (int j = 0; j < M; ++j) s = autobz::cadd(s, cmul(v[a * MM + i * M + j], A1[j * M + k]));
-          r[k] = s;
+        if (k > j) {
+          const double2 x = adj[j * M + k], y = adj[k * M + j];
+          A.o[upper<M>(j, k)] = make_double2(im_mac(0.0, make_double2(x.x + y.x, x.y + y.y), r),
+                                             re_mac(0.0, make_double2(y.x - x.x, y.y - x.y), r));
         }
       }
-#pragma unroll
-      for (int c = 0; c < D; ++c) {
-        double t = 0.0;
-#pragma unroll
-        for (int k = 0; k < M; ++k) {
-          const double2 y = vA2[c * MM + k * M + i];
-          t += r[k].x * y.x - r[k].y * y.y;
-        }
-        acc[a * D + c] += wk * t;
+    }
+  } else {
+    double2 g[MM];
+    GeneralInverse<M>::inverse(a, g);
+#pragma unroll (U)
+    for (int j = 0; j < M; ++j) {
+      A.d[j] = -2.0 * f * g[j * M + j].y;
+#pragma unroll (U)
+      for (int k = j + 1; k < M; ++k) {
+        const double2 x = g[j * M + k], y = g[k * M + j];
+        A.o[upper<M>(j, k)] = make_double2(-f * (x.y + y.y), f * (x.x - y.x));
       }
     }
   }
 }
 
-// the closed-form sizes unrolled, the larger ones as loops
-template <int M, int D, bool Same>
-__device__ __forceinline__ void pair_terms(const double2* v, const double2* A1, const double2* A2, double wk,
-                                           double* acc) {
-  if constexpr (M <= 3) {
-    pair_terms_small<M, D, Same>(v, A1, A2, wk, acc);
-  } else {
-    pair_terms_loop<M, D, Same>(v, A1, A2, wk, acc);
+// B = v A for packed Hermitian v and A (row-major, general)
+template <int M, int U = kUnroll<M>>
+__device__ __forceinline__ void herm_product(const Herm<M>& v, const Herm<M>& A, double2* B) {
+#pragma unroll (U)
+  for (int k = 0; k < M; ++k) {
+#pragma unroll (U)
+    for (int i = 0; i < M; ++i) {
+      double2 s = make_double2(0.0, 0.0);
+#pragma unroll (U)
+      for (int l = 0; l < M; ++l) {
+        if (k == l && l == i) {
+          s.x = fma(v.d[k], A.d[k], s.x);
+        } else if (k == l) {
+          rmac(s, v.d[k], herm_at(A, l, i));
+        } else if (l == i) {
+          rmac(s, A.d[i], herm_at(v, k, l));
+        } else {
+          cmac(s, herm_at(v, k, l), herm_at(A, l, i));
+        }
+      }
+      B[k * M + i] = s;
+    }
   }
 }
 
+// Y = A B for a packed Hermitian A and a general B, kept as the parts that a
+// real inner product with a Hermitian matrix reads: Y.d[i] = Re Y_ii and,
+// for i < j, Y.o = Y_ij + conj(Y_ji)
+template <int M, int U = kUnroll<M>>
+__device__ __forceinline__ void herm_part_product(const Herm<M>& A, const double2* B, Herm<M>& Y) {
+#pragma unroll (U)
+  for (int i = 0; i < M; ++i) {
+    double re = 0.0;
+#pragma unroll (U)
+    for (int l = 0; l < M; ++l) re = re_mac_at(re, A, i, l, B[l * M + i]);
+    Y.d[i] = re;
+#pragma unroll (U)
+    for (int j = 0; j < M; ++j) {
+      if (j > i) {
+        double p = 0.0, q = 0.0;
+#pragma unroll (U)
+        for (int l = 0; l < M; ++l) {
+          p = re_mac_at(p, A, i, l, B[l * M + j]);
+          q = im_mac_at(q, A, i, l, B[l * M + j]);
+        }
+#pragma unroll (U)
+        for (int l = 0; l < M; ++l) {
+          p = re_mac_at(p, A, j, l, B[l * M + i]);
+          q = im_msub_at(q, A, j, l, B[l * M + i]);
+        }
+        Y.o[upper<M>(i, j)] = make_double2(p, q);
+      }
+    }
+  }
+}
+
+// s + Re Tr[Y v] for the parts of Y that herm_part_product keeps and a packed
+// Hermitian v
+template <int M, int U = kUnroll<M>>
+__device__ __forceinline__ double herm_dot(const Herm<M>& Y, const Herm<M>& v, double s) {
+#pragma unroll (U)
+  for (int i = 0; i < M; ++i) s = fma(Y.d[i], v.d[i], s);
+#pragma unroll (U)
+  for (int p = 0; p < Herm<M>::P; ++p) s = fma(Y.o[p].y, v.o[p].y, fma(Y.o[p].x, v.o[p].x, s));
+  return s;
+}
+
+// Re Tr[X Y] for general X, Y
+template <int M, int U = kUnroll<M>>
+__device__ __forceinline__ double re_trace(const double2* X, const double2* Y) {
+  double t = 0.0;
+#pragma unroll (U)
+  for (int i = 0; i < M; ++i) {
+#pragma unroll (U)
+    for (int k = 0; k < M; ++k) t = re_mac(t, X[i * M + k], Y[k * M + i]);
+  }
+  return t;
+}
+
+// the sums a thread keeps: the pairs a <= c at equal frequencies, all d^2 else
+template <int D, bool Same>
+__host__ __device__ constexpr int num_sums() {
+  return Same ? D * (D + 1) / 2 : D * D;
+}
+
+// the sum index of output (a, c)
+template <int D, bool Same>
+__device__ __forceinline__ int sum_index(int a, int c) {
+  if constexpr (Same) {
+    const int lo = a < c ? a : c, hi = a < c ? c : a;
+    return lo * D - lo * (lo - 1) / 2 + (hi - lo);
+  } else {
+    return a * D + c;
+  }
+}
+
+// acc[q] += w Re Tr[v_a A v_c A] over the pairs q = (a <= c), row by row
+template <int M, int D>
+__device__ __forceinline__ void terms_equal(const Herm<M>* v, const Herm<M>& A, double w, double* acc) {
+  double2 B[D][M * M];
+#pragma unroll
+  for (int c = 0; c < D; ++c) herm_product<M>(v[c], A, B[c]);
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      if (c >= a) acc[sum_index<D, true>(a, c)] = fma(w, re_trace<M>(B[a], B[c]), acc[sum_index<D, true>(a, c)]);
+    }
+  }
+}
+
+// acc[a D + c] += Re Tr[v_a A1 v_c A2] (the weight folded into A1)
+template <int M, int D>
+__device__ __forceinline__ void terms_unequal(const Herm<M>* v, const Herm<M>& A1, const Herm<M>& A2, double* acc) {
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    double2 B[M * M];
+    herm_product<M>(v[c], A2, B);
+    Herm<M> Y;
+    herm_part_product<M>(A1, B, Y);
+#pragma unroll
+    for (int a = 0; a < D; ++a) acc[a * D + c] = herm_dot<M>(Y, v[a], acc[a * D + c]);
+  }
+}
+
+// points per shared tile: kTileK for m <= 3, else near 16 KB of H, V and w
+template <int M, int D>
+__host__ __device__ constexpr int tile_k() {
+  return M <= 3 ? kTileK : 16384 / (static_cast<int>(sizeof(Herm<M>)) * (1 + D) + 8);
+}
+
 template <int M, int D, bool Same>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<M>)
 sigma_pairs_partials(const double2* __restrict__ H, const double2* __restrict__ V, const double* __restrict__ w,
                      const double2* __restrict__ Z1, const double2* __restrict__ Z2,
                      double* __restrict__ partials, int64_t K, int B) {
   constexpr int MM = M * M;
   constexpr int DD = D * D;
+  constexpr int NQ = num_sums<D, Same>();
   constexpr int kTile = tile_k<M, D>();
   constexpr bool kZShared = M <= 3;
-  __shared__ double2 hs[kTile * MM];
-  __shared__ double2 vs[kTile * D * MM];
+  __shared__ Herm<M> hs[kTile];
+  __shared__ Herm<M> vs[kTile][D];
   __shared__ double ws[kTile];
   __shared__ double2 zs[kZShared ? kLanes * (Same ? 1 : 2) * MM : 1];
-  __shared__ double red[kKWarps][kLanes][DD];
+  __shared__ double red[kKWarps - 1][kLanes][NQ];
 
   const int lane = threadIdx.x % kLanes;
   const int kw = threadIdx.x / kLanes;
@@ -230,38 +432,50 @@ sigma_pairs_partials(const double2* __restrict__ H, const double2* __restrict__ 
   for (int64_t c = blockIdx.y; c < nchunks; c += gridDim.y) {
     const int64_t kbeg = c * kChunkK;
     const int64_t kend = K < kbeg + kChunkK ? K : kbeg + kChunkK;
-    double acc[DD];
+    double acc[NQ];
 #pragma unroll
-    for (int q = 0; q < DD; ++q) acc[q] = 0.0;
+    for (int q = 0; q < NQ; ++q) acc[q] = 0.0;
     for (int64_t t0 = kbeg; t0 < kend; t0 += kTile) {
       const int nk = static_cast<int>(kend - t0 < kTile ? kend - t0 : kTile);
       __syncthreads();  // the previous tile (and chunk's reduction) is consumed; zs is written
-      for (int i = threadIdx.x; i < nk * MM; i += kThreads) hs[i] = H[t0 * MM + i];
-      for (int i = threadIdx.x; i < nk * D * MM; i += kThreads) vs[i] = V[t0 * D * MM + i];
-      for (int i = threadIdx.x; i < nk; i += kThreads) ws[i] = w[t0 + i];
+      for (int i = threadIdx.x; i < nk * (1 + D); i += kThreads) {
+        const int j = i / (1 + D), u = i - j * (1 + D);
+        if (u == 0) {
+          pack_hermitian<M>(H + (t0 + j) * MM, hs[j]);
+          ws[j] = w[t0 + j];
+        } else {
+          pack_hermitian<M>(V + ((t0 + j) * D + u - 1) * MM, vs[j][u - 1]);
+        }
+      }
       __syncthreads();
       for (int j = kw; j < nk; j += kKWarps) {
-        double2 A1[MM];
-        spectral<M>(z1, hs + j * MM, A1);
-        if (Same) {
-          pair_terms<M, D, true>(vs + j * D * MM, A1, A1, ws[j], acc);
+        if constexpr (Same) {
+          Herm<M> A;
+          spectral<M>(z1, hs[j], 1.0, A);
+          terms_equal<M, D>(vs[j], A, ws[j], acc);
         } else {
-          double2 A2[MM];
-          spectral<M>(z2, hs + j * MM, A2);
-          pair_terms<M, D, false>(vs + j * D * MM, A1, A2, ws[j], acc);
+          Herm<M> A1, A2;
+          spectral<M>(z1, hs[j], ws[j], A1);
+          spectral<M>(z2, hs[j], 1.0, A2);
+          terms_unequal<M, D>(vs[j], A1, A2, acc);
         }
       }
     }
+    if (kw > 0) {
 #pragma unroll
-    for (int q = 0; q < DD; ++q) red[kw][lane][q] = acc[q];
+      for (int q = 0; q < NQ; ++q) red[kw - 1][lane][q] = acc[q];
+    }
     __syncthreads();
     if (kw == 0 && live) {
 #pragma unroll
-      for (int q = 0; q < DD; ++q) {
-        double s = red[0][lane][q];
+      for (int q = 0; q < NQ; ++q) {
 #pragma unroll
-        for (int u = 1; u < kKWarps; ++u) s += red[u][lane][q];
-        partials[(c * B + bi) * DD + q] = s;
+        for (int u = 0; u < kKWarps - 1; ++u) acc[q] += red[u][lane][q];
+      }
+#pragma unroll
+      for (int a = 0; a < D; ++a) {
+#pragma unroll
+        for (int cc = 0; cc < D; ++cc) partials[(c * B + bi) * DD + a * D + cc] = acc[sum_index<D, Same>(a, cc)];
       }
     }
   }
@@ -272,23 +486,26 @@ __global__ void sigma_pairs_points_kernel(const double2* __restrict__ H, const d
                                           const double2* __restrict__ Z, int64_t z_stride,
                                           double* __restrict__ out, int64_t N) {
   constexpr int MM = M * M;
+  constexpr int NQ = num_sums<D, true>();
   const int64_t n = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  double2 z[MM], h[MM], v[D * MM], A[MM];
+  double2 z[MM];
 #pragma unroll
-  for (int i = 0; i < MM; ++i) {
-    z[i] = Z[n * z_stride + i];
-    h[i] = H[n * MM + i];
+  for (int i = 0; i < MM; ++i) z[i] = Z[n * z_stride + i];
+  Herm<M> h, v[D], A;
+  pack_hermitian<M>(H + n * MM, h);
+#pragma unroll
+  for (int c = 0; c < D; ++c) pack_hermitian<M>(V + (n * D + c) * MM, v[c]);
+  spectral<M>(z, h, 1.0, A);
+  double acc[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) acc[q] = 0.0;
+  terms_equal<M, D>(v, A, 1.0, acc);
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) out[n * D * D + a * D + c] = kInvFourPi2 * acc[sum_index<D, true>(a, c)];
   }
-#pragma unroll
-  for (int i = 0; i < D * MM; ++i) v[i] = V[n * D * MM + i];
-  spectral<M>(z, h, A);
-  double acc[D * D];
-#pragma unroll
-  for (int q = 0; q < D * D; ++q) acc[q] = 0.0;
-  pair_terms<M, D, true>(v, A, A, 1.0, acc);
-#pragma unroll
-  for (int q = 0; q < D * D; ++q) out[n * D * D + q] = kInvFourPi2 * acc[q];
 }
 
 template <int M, int D>

@@ -13,7 +13,8 @@ the full grid with the host's orbit map (``ops.symptr.symptr_orbit_map``)
 into the band-major grid ``eg`` (m, npt^d). The cache holds ``eg``, not the
 reference's sorted-corner tensor (d+1, d!, m npt^d), which kernel K10
 (``csrc/tetra_dos.cu``, :func:`tetra_dos`) builds in registers: each energy
-sweep is one launch over every (cell, simplex, band) term.
+sweep is one launch in which every (cell, simplex, band) term reaches only
+the energies of its support.
 :func:`tetra_dos_plain` builds the corners the reference's way (rolls, a
 stack, the min/max exchange network) and evaluates the closed forms in
 energy chunks.
@@ -177,14 +178,27 @@ def tetra_dos_plain(eg, d, E, tol, vol, nos=False):
     return out
 
 
+def in_sorted_order(fn, E):
+    """``fn`` of the energies E (W,) sorted ascending, its values (W,) put
+    back in E's order; one energy goes as it is."""
+    if E.shape[0] <= 1:
+        return fn(E)
+    Es, order = torch.sort(E)
+    out = fn(Es)
+    return torch.empty_like(out).index_copy_(0, order, out)
+
+
 def tetra_dos(eg, d, E, tol, vol, nos=False):
     """``out[j] = vol * sum over (cell, simplex, band) f(E[j], sorted
     corners)`` for the band-major eigenvalue grid eg (m, npt^d) float64 of a
-    periodic npt^d grid (d in 1, 2, 3) and energies E (W,) float64; f is the
-    DOS closed form, or N(E)'s with ``nos``. Returns (W,) float64.
+    periodic npt^d grid (d in 1, 2, 3) and energies E (W,) float64, in any
+    order and with repeats; f is the DOS closed form, or N(E)'s with
+    ``nos``. Returns (W,) float64.
 
     CPU tensors take the plain version; CUDA tensors launch K10, and
-    anything the kernel does not take raises."""
+    anything the kernel does not take raises. K10 takes the energies sorted:
+    above one energy the wrapper sorts a copy on the card and puts the
+    values back in E's order."""
     check_tensor(eg, "eg", dtype=REAL, ndim=2)
     check_tensor(E, "E", device=eg.device, dtype=REAL, ndim=1)
     if d not in _SIMPLICES:
@@ -198,17 +212,20 @@ def tetra_dos(eg, d, E, tol, vol, nos=False):
         return tetra_dos_plain(eg, d, E, tol, vol, nos)
     if eg.device.type != "cuda":
         raise ValueError(f"tetra_dos runs on cpu or cuda tensors, got {eg.device}")
-    W = E.shape[0]
-    out = torch.empty(W, dtype=REAL, device=eg.device)
     lib = load_kernels()
-    partials = torch.empty((lib.energy_tiles_num_blocks(m * N, max(W, 1)), max(W, 1)), dtype=REAL,
-                           device=eg.device)
-    stream = stream_handle(eg.device)
-    rc = lib.tetra_dos_launch(eg.data_ptr(), m, npt, d, E.data_ptr(), W, tol, vol, int(bool(nos)),
-                              partials.data_ptr(), out.data_ptr(), stream)
-    check_launch(rc, "tetra_dos")
-    tetra_dos.launches += 1
-    return out
+
+    def launch(Es):
+        W = Es.shape[0]
+        out = torch.empty(W, dtype=REAL, device=eg.device)
+        partials = torch.empty((lib.tetra_dos_num_blocks(m, npt, d, max(W, 1)), max(W, 1)), dtype=REAL,
+                               device=eg.device)
+        rc = lib.tetra_dos_launch(eg.data_ptr(), m, npt, d, Es.data_ptr(), W, tol, vol, int(bool(nos)),
+                                  partials.data_ptr(), out.data_ptr(), stream_handle(eg.device))
+        check_launch(rc, "tetra_dos")
+        tetra_dos.launches += 1
+        return out
+
+    return in_sorted_order(launch, E)
 
 
 tetra_dos.launches = 0

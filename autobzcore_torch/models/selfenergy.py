@@ -20,7 +20,9 @@ Gauss-Jordan with partial pivoting for 4 <= m <= 8) in two kernels,
   k-sum of ``Re Tr[v_a A1 v_b A2]`` at frequency pairs
   (SigmaTransportSolver, SigmaKineticCoefficientSolver), and
   :func:`sigma_pairs_points`, the same at points at one frequency
-  (:func:`transport_distribution_sigma`).
+  (:func:`transport_distribution_sigma`); it reads only the Hermitian
+  parts of H and dH, and for m <= 3 forms the Hermitian spectral functions
+  from the adjugate itself.
 
 CPU tensors take the kernels' plain versions, which are the reference's
 operations (batched ``torch.linalg.solve`` above three bands); on the card
@@ -191,8 +193,9 @@ def sigma_pairs_points_plain(H, V, Z):
 def sigma_pairs_points(H, V, Z):
     """``T[n, a, b] = Re Tr[v_a A v_b A]`` with ``A = (G - G^H) / (-2 pi
     i)``, ``G = (Z_n - H_n)^{-1}``, for H (N, m, m), V (N, d, m, m) and Z (N,
-    m, m) or one (m, m) for all, complex128, d <= 3. Returns (N, d, d)
-    float64.
+    m, m) or one (m, m) for all, complex128, d <= 3. H and V must be
+    Hermitian: the kernel reads only their Hermitian parts ``(X + X^H) /
+    2``, the plain version the matrices as given. Returns (N, d, d) float64.
 
     CPU tensors take the plain version; CUDA tensors launch K28's pointwise
     entry (``csrc/sigma_pairs.cu``), and anything the kernel does not take
@@ -355,7 +358,9 @@ def sigma_pairs_sum(H, V, w, Z1, Z2, scale, chunk=4):
     """``G[b, a, c] = scale * sum_k w_k Re Tr[v_a A1 v_c A2]`` with ``A_i =
     (G_i - G_i^H) / (-2 pi i)``, ``G_i = (Z_i[b] - H_k)^{-1}``, for H (K, m,
     m), V (K, d, m, m), Z1 and Z2 (B, m, m) complex128 and weights w (K,)
-    float64. Equal frequencies are asked for by identity: when ``Z2 is Z1``
+    float64. H and V must be Hermitian: the kernel reads only their
+    Hermitian parts ``(X + X^H) / 2``, the plain version the matrices as
+    given. Equal frequencies are asked for by identity: when ``Z2 is Z1``
     the inverse is taken once. Returns (B, d, d) float64.
 
     CPU tensors take the plain version (``chunk`` pairs at a time); CUDA

@@ -89,6 +89,8 @@ def _bind(lib):
     lib.fullgrid_tail_launch.restype = i
     lib.energy_tiles_num_blocks.argtypes = [ll, i]
     lib.energy_tiles_num_blocks.restype = ll
+    lib.tetra_dos_num_blocks.argtypes = [ll, i, i, i]
+    lib.tetra_dos_num_blocks.restype = ll
     lib.tetra_dos_launch.argtypes = [vp, ll, i, i, vp, i, dbl, dbl, i, vp, vp, vp]
     lib.tetra_dos_launch.restype = i
     lib.gm_rule_reduce_launch.argtypes = [vp] * 8 + [ll, i, i, i, i, dbl, vp]

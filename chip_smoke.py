@@ -94,7 +94,8 @@ non-zero):
    of the DOS's integral (2e-2), N(7 eV) = 3 (1e-12), N monotone, dN/dE
    against D away from the band edges (5e-2), tb_integer(3) on CubicSymIBZ
    against the full zone (npt 60, E 0.8, 1e-12), 5 energies against the
-   plain path (1e-12);
+   plain path (1e-12); then a Fermi-level step's one-energy N(E) call (K10
+   and its column sum) by events and by device time;
 16. K4 over an omega block (W = 2, 4) and K5 at V = W against their plain
    versions at the IAI main path's lane shapes: 1e-12 of l1, identical
    pools; kernel (by events and device time) and plain times; the fused
@@ -227,8 +228,9 @@ non-zero):
    shapes: K25 and K26 on the flagship's 64^3 grid (100 omegas; q = 0 and
    (1/4, 0, 0) for K26), K27 on the 100^3 grid at 1000 omegas with the
    tabulated Fermi-liquid Sigma and at the PTR(48) points, K28 on the 100^3
-   grid at 256 equal frequencies and 32 unequal pairs and at the PTR(24)
-   points; then both above three bands (Gauss-Jordan in place of the
+   grid at 256 equal frequencies, 32 unequal pairs and a kinetic trip's 960
+   unequal pairs (whose first 32 rows must be the 32-pair launch's bits)
+   and at the PTR(24) points; then both above three bands (Gauss-Jordan in place of the
    closed forms) on a 4-band synthetic_wannier model on the 64^3 grid, K27
    at 64 frequencies in both modes and K28 at 32 equal and 32 unequal
    pairs; 1e-12 of the value scale, bit-identical repeats; kernel, plain
@@ -247,9 +249,13 @@ non-zero):
    SigmaTransportSolver(npt=100) at 256 omegas (wall, peak memory,
    symmetry, positive diagonal), Sigma = -0.005i at npt 60 against
    TransportSolver (1e-9), the transport integrand under PTR(24) against
-   the CPU (1e-10); SigmaKineticCoefficientSolver at npt 100, beta 40, 8 Omegas in [0, 2] eV, alpha 0 then 1 (GK trips, K28
-   launches), Sigma = -0.05i against KineticCoefficientSolver (1e-9, equal
-   numevals and retcodes); launches of K25-K28, and both phases within 60 s;
+   the CPU (1e-10); SigmaKineticCoefficientSolver at npt 100, beta 40, 8
+   Omegas in [0, 2] eV, alpha 0 then 1 (the step's wall split into the
+   solvers' grid builds, K28's device time summed over its launches by
+   CUDA events, and the rest; pairs per launch, GK trips, numevals and
+   retcodes, which must be SE_KIN_NUMEVALS and SE_KIN_RETCODES), Sigma =
+   -0.05i against KineticCoefficientSolver (1e-9, equal numevals and
+   retcodes); launches of K25-K28, and both phases within 60 s;
 31. K29 (the k-path spectral map) on the flagship path Gamma-X-M-Gamma-R-X
    at npts 1000 (3,787 points) x 4,001 omegas and on config 5's 30 bands,
    K30 (band expectations) fused with eigh2 on Haldane, with the three
@@ -407,6 +413,11 @@ LH_NPT, LH_BETA, LH_ETA, LH_NQ, LH_OMEGAS, LH_OMEGA_MAX = 64, 40.0, 0.01, 33, 10
 SE_NPT, SE_OMEGAS, SE_TR_OMEGAS, SE_SIGMA_POINTS = 100, 1000, 256, 2001
 # the kinetic step on the other legs' npt-100 grid, 8 Omegas
 SE_KIN_NPT, SE_KIN_OMEGAS = 100, 8
+# the pairs of a full kinetic GK trip: 8 Omegas x 8 new intervals x 15 nodes
+SE_TRIP_PAIRS = 960
+# the kinetic step's evaluations at alpha 0 and 1, and their retcodes (alpha 1
+# fills its interval cap at this abstol), as K28's parent design counted them
+SE_KIN_NUMEVALS, SE_KIN_RETCODES = [38_400, 58_800], [True, False]
 # phase 29's step above three bands: a 4-band synthetic_wannier model on
 # the 64^3 grid, 64 frequencies for K27 and 32 pairs for K28
 M4_BANDS, M4_NPT, M4_OMEGAS, M4_PAIRS = 4, 64, 64, 32
@@ -856,7 +867,7 @@ def main():
         h = flagship_series(device=dev)
         bz = load_bz(FBZ(), np.eye(3))
         mu = tr.ElectronCountSolver(h, bz, TR_NPT, pack=obs.spectral_velocity_pack(h, bz, TR_NPT)).find_mu(1.0, TR_BETA)
-        print(json.dumps({"kernels": lindhard_sigma_phases(np, torch, dev, h, mu)}), flush=True)
+        print(json.dumps({"kernels": lindhard_sigma_phases(np, torch, dev, h, mu)[0]}), flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return
@@ -891,7 +902,7 @@ def main():
         fail(f"warm IAI calls: numevals {counts}, expected {IAI_WARM_NUMEVALS}")
     k_fg, ladder = fullgrid_phases(np, torch, dev, h, cold)
     kernels += k_fg
-    k_ltm, ltm_dos = ltm_phases(np, torch, dev, h)
+    k_ltm, ltm = ltm_phases(np, torch, dev, h)
     kernels += k_ltm
     k_block, block = block_phases(np, torch, dev, h, cold)
     kernels += k_block
@@ -899,12 +910,12 @@ def main():
     if counts != BLOCK_NUMEVALS:
         fail(f"block IAI main path: numevals {counts}, expected {BLOCK_NUMEVALS}")
     kernels += repair_phases(np, torch, dev)
-    kernels += ggr_phases(np, torch, dev, h, ltm_dos)
+    kernels += ggr_phases(np, torch, dev, h, ltm["dos"])
     kernels += cubature_phases(np, torch, dev, h, cold)[0]
     k_tr, mu_filling, _ = transport_phases(np, torch, dev, h)
     kernels += k_tr
     kernels += berry_phases(np, torch, dev)
-    kernels += lindhard_sigma_phases(np, torch, dev, h, mu_filling)
+    kernels += lindhard_sigma_phases(np, torch, dev, h, mu_filling)[0]
     kernels += slice12_phases(np, torch, dev, h, ladder)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2066,7 +2077,9 @@ def band_grid(np, rng, m, npt, d):
 
 def ltm_phases(np, torch, dev, h):
     """Phases 14-15: K10 against its plain version, then the LTM main path.
-    Returns K10's JSON entry and the LTM DOS at the 1001 energies."""
+    Returns K10's JSON entry and the leg's numbers: the LTM DOS at the 1001
+    energies (``dos``), K10's times (``k10``) and the path's walls
+    (``ltm``)."""
     from autobzcore_torch import FBZ, CubicSymIBZ, DOSProblem, load_bz
     from autobzcore_torch.dos import LTM
     from autobzcore_torch.dos import init as dos_init
@@ -2090,7 +2103,8 @@ def ltm_phases(np, torch, dev, h):
     p_nos = tet.tetra_dos_plain(eg, 3, E[sub], tol, vol, nos=True)
     torch.cuda.synchronize()
     err10 = float((got[False][0] - p_dos).abs().max())
-    rel = {"dos": err10 / float(p_dos.abs().max()),
+    scale10 = {False: float(p_dos.abs().max()), True: float(p_nos.abs().max())}
+    rel = {"dos": err10 / scale10[False],
            "nos": float((got[True][0][sub] - p_nos).abs().max() / p_nos.abs().max())}
     same = all(torch.equal(a, b) for a, b in got.values())
     if not (max(rel.values()) <= 1e-12 and same):
@@ -2189,6 +2203,47 @@ def ltm_phases(np, torch, dev, h):
         fail(f"LTM checks: integral {integral}, N(7) {N[-1]}, monotone {mono}, dN/dE {dnd}")
     if not (rel_ibz <= 1e-12 and rel5 <= 1e-12 and np.all(np.isfinite(D)) and D.shape == ws.shape):
         fail(f"LTM checks: IBZ rel {rel_ibz:.3e}, 5 energies rel {rel5:.3e}")
+    # the few-energy kernel (W <= 4, every Fermi step's launch) against the
+    # plain version: at ef, below and above every band, at a grid eigenvalue,
+    # unsorted and repeated; DOS and N(E) to 1e-12 of phase 14's value scale,
+    # the DOS exactly 0 outside the bands, N(E) exactly 0 below them
+    tol1, vol1 = cache.cacheval["tol"], cache.cacheval["vol"]
+    lo, hi, eig = float(eg.min()), float(eg.max()), float(eg.reshape(-1)[12345])
+    few_sets = ([ef], [lo - 1.0], [hi + 1.0], [ef, lo - 1.0], [hi + 1.0, ef, eig], [ef, lo - 1.0, hi + 1.0, ef])
+    err_few = {False: 0.0, True: 0.0}
+    for es in few_sets:
+        Ef = torch.as_tensor(es, dtype=torch.float64, device=dev)
+        out_ = (Ef < lo) | (Ef > hi)
+        for nos in (False, True):
+            k = tet.tetra_dos(eg, 3, Ef, tol1, vol1, nos)
+            pl = tet.tetra_dos_plain(eg, 3, Ef, tol1, vol1, nos)
+            err_few[nos] = max(err_few[nos], float((k - pl).abs().max()))
+            zero = bool(torch.all(k[Ef < lo] == 0.0)) and (nos or bool(torch.all(k[out_] == 0.0)))
+            if not (err_few[nos] <= 1e-12 * scale10[nos] and zero
+                    and torch.equal(k, tet.tetra_dos(eg, 3, Ef, tol1, vol1, nos))):
+                fail(f"K10 at {len(es)} energies {es} (nos={nos}): max|d| vs plain {err_few[nos]:.3e} (scale "
+                     f"{scale10[nos]:.3e}), zero outside the bands {zero}, or a repeat differs")
+    err10 = max(err10, err_few[False])
+    print(f"K10 at 1-4 energies (the Fermi steps' kernel): {len(few_sets)} sets at ef = {ef:.10f}, below and above "
+          f"the bands, a grid eigenvalue, unsorted and repeated: max|d| vs plain DOS {err_few[False]:.3e} "
+          f"({err_few[False] / scale10[False]:.3e} of max|D|), N(E) {err_few[True]:.3e} "
+          f"({err_few[True] / scale10[True]:.3e} of max|N|; <= 1e-12); DOS 0 outside the bands, N 0 below them; "
+          f"repeats bit-identical", flush=True)
+    # a Fermi-level step's call: N(E) at one energy (K10 and its column sum)
+    E1 = torch.as_tensor([ef], dtype=torch.float64, device=dev)
+    t_w1 = {"ms": cuda_ms(lambda: tet.tetra_dos(eg, 3, E1, tol1, vol1, True), 20),
+            "device_ms": device_ms(lambda: tet.tetra_dos(eg, 3, E1, tol1, vol1, True), 20)}
+    b_w1 = bound(n_terms * TETRA_TEST_FLOPS, nbytes(eg, E1) + 8)
+    print(f"LTM Fermi step: N(E) at one energy {t_w1['ms']:.4f} ms a call by events, device "
+          f"{ms_text(t_w1['device_ms'])} (torch.profiler; bound {b_w1[0]:.4f} ms by {b_w1[1]}); fermi_level(1.5) "
+          f"{launches['tetra_dos'] - 2} steps, "
+          f"{1e3 * (t4 - t3) / max(launches['tetra_dos'] - 2, 1):.4f} ms a step (host clock, with its host read)",
+          flush=True)
+    numbers = {"dos": D,
+               "k10": dict(t10, w1_ms=t_w1["ms"], w1_device_ms=t_w1["device_ms"], bound_ms=b10[0],
+                           w1_bound_ms=b_w1[0], few_err=[err_few[False], err_few[True]]),
+               "ltm": {"init_s": t1 - t0, "dos_sweep_s": t2 - t1, "nos_sweep_s": t3 - t2, "fermi_s": t4 - t3,
+                       "fermi_steps": launches["tetra_dos"] - 2, "launches": launches, "ef": ef}}
     if "--profile" in sys.argv[1:]:
         profile("LTM main path", ltm_path)
     del cache, eg
@@ -2196,7 +2251,7 @@ def ltm_phases(np, torch, dev, h):
     return [{"name": "tetra_dos", "route": "cuda", "source": src + "tetra_dos.cu",
              "replaces": "autobzcore_tpu/dos/tetrahedron.py:68", "launches": launches["tetra_dos"],
              "max_abs_err": err10, "ms": t10["ms"], "plain_ms": t10["plain_ms"], "bound_ms": b10[0],
-             "bound_by": b10[1], "library_ms": None}], D
+             "bound_by": b10[1], "library_ms": None}], numbers
 
 
 def block_phases(np, torch, dev, h, cold, wall_runs=BLOCK_WALL_RUNS):
@@ -3930,11 +3985,54 @@ def fermi_liquid_sigma(np, ws, m=3):
     return R - 1j * Gam
 
 
+def kinetic_step(np, torch, se, h, bz, sigma, mu):
+    """Phase 30's kinetic step: SigmaKineticCoefficientSolver at npt
+    SE_KIN_NPT, beta LH_BETA, SE_KIN_OMEGAS Omegas in [0, 2] eV, alpha 0
+    then 1, at abstol TR_ABSTOL, with its split: the wall (the solvers'
+    builds and solves, ending in a synchronize), the builds (``_grid``), the
+    device time of the integrand summed over the step's GK trips (CUDA
+    events around each trip's integrand call: its one K28 launch with the
+    column sum, and the few small kernels around it that build the Z
+    matrices, the group average and the Fermi window), the pairs each K28
+    launch takes (the trip's nodes) and the GK trips of each alpha. Returns
+    the solvers, their values and the split."""
+    spans, pairs = [], []
+
+    class Timed(se.SigmaKineticCoefficientSolver):
+        def _integrand(self, w, Omega):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = super()._integrand(w, Omega)
+            stop.record()
+            spans.append((start, stop))
+            pairs.append(torch.as_tensor(w).numel())
+            return out
+
+    Om_k = np.linspace(0.0, 2.0, SE_KIN_OMEGAS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kin = [Timed(h, bz, SE_KIN_NPT, sigma, LH_BETA, alpha=a, mu=mu) for a in (0, 1)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    A = [k(Om_k, abstol=TR_ABSTOL) for k in kin]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    k28 = sum(a.elapsed_time(b) for a, b in spans)
+    split = {"wall_s": t2 - t0, "build_s": t1 - t0, "solve_s": t2 - t1, "integrand_ms": k28,
+             "integrand_share": k28 / (1e3 * (t2 - t0)), "launches": len(pairs),
+             "pairs": [min(pairs), float(np.mean(pairs)), max(pairs)] if pairs else [0, 0.0, 0],
+             "trips": [k.stats.trips.get(1, 0) for k in kin], "numevals": [int(k.numevals) for k in kin],
+             "retcodes": [bool(k.retcode) for k in kin]}
+    return kin, A, split
+
+
 def lindhard_sigma_phases(np, torch, dev, h, mu):
     """Phases 29-30: K25-K28 against their plain versions at the main path's
     shapes, then the Lindhard map and the matrix self-energy legs at the
     reference record's sizes, with phase 26's chemical potential ``mu``.
-    Returns the kernels' JSON entries."""
+    Returns the kernels' JSON entries and the legs' numbers: K28's times and
+    bounds (``k28``, with its m = 4 times in ``k28_m4``), the self-energy
+    sweeps' walls and the kinetic step's split (``kinetic``)."""
     from autobzcore_torch import (FBZ, IAI, PTR, CubicSymIBZ, FourierIntegrand, IntegralProblem, JacobianSeries,
                                   load_bz, solve)
     from autobzcore_torch.models import lindhard as li
@@ -4054,7 +4152,19 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
         fail("K28 sigma_pairs_sum (unequal): two runs on the same inputs differ")
     msu = cuda_ms(lambda: se.sigma_pairs_sum(H, V, w, Za, Zb, sct), 3)
     bu = bound(32 * K * pair_flops(m, d, False), nbytes(H, V, w, Za, Zb, ku))
-    del tslv, H, V, w, Zt, k28, p28, ku, pu
+    # a kinetic trip's shape: 960 unequal pairs (w, w + 0.5 eV) over the window;
+    # the first 32 are the 32-pair launch's, whose rows must come back bit for bit
+    om_t = torch.cat([om_tr[:32], torch.linspace(*WINDOW, SE_TRIP_PAIRS - 32, dtype=torch.float64, device=dev)])
+    Zta, Ztb = se._zmat(om_t, sigma, m).contiguous(), se._zmat(om_t + 0.5, sigma, m).contiguous()
+    kt = se.sigma_pairs_sum(H, V, w, Zta, Ztb, sct)
+    if not (torch.equal(kt[:32], ku) and torch.equal(kt, se.sigma_pairs_sum(H, V, w, Zta, Ztb, sct))):
+        fail(f"K28 sigma_pairs_sum at {SE_TRIP_PAIRS} unequal pairs: the first 32 rows differ from the 32-pair "
+             "launch's, or a repeat differs")
+    mst = cuda_ms(lambda: se.sigma_pairs_sum(H, V, w, Zta, Ztb, sct), 2)
+    bt = bound(SE_TRIP_PAIRS * K * pair_flops(m, d, False), nbytes(H, V, w, Zta, Ztb, kt))
+    numbers = {"k28": {"equal_256_ms": t28["ms"], "unequal_32_ms": msu, f"unequal_{SE_TRIP_PAIRS}_ms": mst,
+                       "bound_ms": [b28[0], bu[0], bt[0]], "rel": [rel28, relu]}}
+    del tslv, H, V, w, Zt, k28, p28, ku, pu, kt, Zta, Ztb
     torch.cuda.empty_cache()
     # the pointwise entry at the PTR(24) rule's points of the Jacobian series
     Hj, Vj = obs.gathered_grid(h, 3, [np.arange(24) / 24] * 3, None, jacobian=True)
@@ -4069,7 +4179,9 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
     print(f"K28 sigma_pairs_sum on the flagship's npt={SE_NPT} grid ({K} points, d = m = 3): {SE_TR_OMEGAS} equal "
           f"frequencies max|d| vs plain {err28:.3e} ({rel28:.3e} relative, <= 1e-12), repeat bit-identical, "
           f"{t28['ms']:.4f} ms (plain {t28['plain_ms']:.1f} ms, bound {b28[0]:.4f} ms by {b28[1]}); 32 unequal pairs "
-          f"{relu:.3e}, {msu:.4f} ms (plain {pmsu:.1f} ms, bound {bu[0]:.4f} ms by {bu[1]}); pointwise at the PTR(24) "
+          f"{relu:.3e}, {msu:.4f} ms (plain {pmsu:.1f} ms, bound {bu[0]:.4f} ms by {bu[1]}); {SE_TRIP_PAIRS} unequal "
+          f"pairs (a kinetic trip; the first 32 rows the 32-pair launch's bits) {mst:.4f} ms (bound {bt[0]:.4f} ms by "
+          f"{bt[1]}, {100 * bt[0] / mst:.1f} %); pointwise at the PTR(24) "
           f"points ({Hj.shape[0]}) {err28p:.3e}, {t28p['ms']:.4f} ms (plain {t28p['plain_ms']:.4f} ms, bound "
           f"{b28p[0]:.5f} ms by {b28p[1]})", flush=True)
     del Hj, Vj, k28p, Hp
@@ -4112,6 +4224,8 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
               f"K28 {M4_PAIRS} {'equal' if sm else 'unequal'} pairs {r:.3e} relative (<= 1e-12), {ms:.4f} ms (plain "
               f"{pms:.1f} ms, bound {b[0]:.4f} ms by {b[1]})" for sm, (r, ms, pms, b) in t4p.items())
           + f"; repeats bit-identical; phase 29 {time.perf_counter() - t_phases:.3f} s", flush=True)
+    numbers["k28_m4"] = {"equal_ms": t4p[True][1], "unequal_ms": t4p[False][1],
+                         "bound_ms": [t4p[True][3][0], t4p[False][3][0]]}
     del h4, s4, H4, V4, w4, Z4, Za4, Zb4, k4, p4
     torch.cuda.empty_cache()
 
@@ -4164,6 +4278,7 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
     om_d = np.linspace(*WINDOW, SE_OMEGAS)
     D = dos(om_d)
     t2 = time.perf_counter()
+    t_dos_sweep = t2 - t1
     P = se.SigmaDOSSolver(h, bz, SE_NPT, sigma, project=True)(om_d)
     t3 = time.perf_counter()
     peak_dos = (torch.cuda.max_memory_allocated() - base) / 2**20
@@ -4210,6 +4325,7 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
     t1 = time.perf_counter()
     G = tslv(np.linspace(*WINDOW, SE_TR_OMEGAS))
     t2 = time.perf_counter()
+    t_tr_sweep = t2 - t1
     peak_tr = (torch.cuda.max_memory_allocated() - base) / 2**20
     del tslv
     torch.cuda.empty_cache()
@@ -4238,17 +4354,12 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
         fail("self-energy transport checks")
 
     # the self-energy kinetic coefficients: beta 40, phase 26's mu, 8 Omegas in [0, 2] eV, alpha 0 then 1
-    Om_k = np.linspace(0.0, 2.0, SE_KIN_OMEGAS)
     before_kin = se.sigma_pairs_sum.launches
-    t0 = time.perf_counter()
-    kin = [se.SigmaKineticCoefficientSolver(h, bz, SE_KIN_NPT, sigma, LH_BETA, alpha=a, mu=mu) for a in (0, 1)]
-    A = [k(Om_k, abstol=TR_ABSTOL) for k in kin]
-    torch.cuda.synchronize()
+    kin, A, split = kinetic_step(np, torch, se, h, bz, sigma, mu)
     t1 = time.perf_counter()
-    trips = [k.stats.trips.get(1, 0) for k in kin]
     kin_launches = se.sigma_pairs_sum.launches - before_kin
     # constant Sigma = -0.05i against the KineticCoefficientSolver (K19) at the same settings
-    Om_c = Om_k[:4]
+    Om_c = np.linspace(0.0, 2.0, SE_KIN_OMEGAS)[:4]
     ks = se.SigmaKineticCoefficientSolver(h, bz, SE_KIN_NPT, lambda om: -1j * ETA, LH_BETA, mu=mu)
     kr = tr.KineticCoefficientSolver(h, bz, SE_KIN_NPT, eta=ETA, beta=LH_BETA, mu=mu)
     a_s, a_r = ks(Om_c, abstol=TR_ABSTOL), kr(Om_c, abstol=TR_ABSTOL)
@@ -4257,9 +4368,14 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
     launches = {k.__name__: k.launches for k in kernels}
     wall = time.perf_counter() - t_phases
     print(f"self-energy kinetic main path: flagship, FBZ, npt={SE_KIN_NPT} ({SE_KIN_NPT**3} points), beta {LH_BETA}, "
-          f"{SE_KIN_OMEGAS} Omegas in [0, 2] eV, abstol {TR_ABSTOL}: alpha 0 and 1 "
-          f"{t1 - t0:.4f} s, numevals {[k.numevals for k in kin]}, retcodes {[k.retcode for k in kin]}, GK trips {trips}, "
-          f"K28 launches {kin_launches}; sigma_xx(0) = {float(A[0][0, 0, 0])!r}, A1_xx(0) = {float(A[1][0, 0, 0])!r}; "
+          f"{SE_KIN_OMEGAS} Omegas in [0, 2] eV, abstol {TR_ABSTOL}: alpha 0 and 1 {split['wall_s']:.4f} s (builds "
+          f"{split['build_s']:.4f} s, the integrand's device time (K28 and its small neighbours) "
+          f"{split['integrand_ms']:.1f} ms = {100 * split['integrand_share']:.1f} % of the wall by CUDA events, the "
+          f"rest "
+          f"{split['wall_s'] - split['build_s'] - 1e-3 * split['integrand_ms']:.4f} s), numevals "
+          f"{split['numevals']}, retcodes {split['retcodes']}, GK trips {split['trips']}, K28 launches {kin_launches}, "
+          f"pairs per launch min {split['pairs'][0]}, mean {split['pairs'][1]:.1f}, max {split['pairs'][2]}; sigma_xx(0) "
+          f"= {float(A[0][0, 0, 0])!r}, A1_xx(0) = {float(A[1][0, 0, 0])!r}; "
           f"Sigma = -{ETA}i vs KineticCoefficientSolver at 4 Omegas {kin_err:.3e} (<= 1e-9), numevals {ks.numevals} vs "
           f"{kr.numevals}, retcodes {ks.retcode} vs {kr.retcode}, {t2 - t1:.4f} s; launches {launches}; phases 29-30 "
           f"{wall:.3f} s (<= 60)", flush=True)
@@ -4268,10 +4384,15 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
         fail("self-energy kinetic output")
     if not (kin_err <= 1e-9 and ks.numevals == kr.numevals and ks.retcode == kr.retcode):
         fail("self-energy kinetic checks: the constant Sigma disagrees with KineticCoefficientSolver")
+    if not (split["numevals"] == SE_KIN_NUMEVALS and split["retcodes"] == SE_KIN_RETCODES):
+        fail(f"self-energy kinetic step: numevals {split['numevals']}, retcodes {split['retcodes']}, expected "
+             f"{SE_KIN_NUMEVALS}, {SE_KIN_RETCODES}")
     if min(launches.values()) <= 0:
         fail(f"the Lindhard and self-energy main paths did not go through every kernel: {launches}")
     if wall > 60.0:
         fail(f"phases 29-30 took {wall:.1f} s (> 60)")
+    numbers.update(kinetic=split, sigma_dos_sweep_s=t_dos_sweep, sigma_transport_sweep_s=t_tr_sweep,
+                   kinetic_check=[kin_err, ks.numevals, kr.numevals])
     if "--profile" in sys.argv[1:]:
         profile(f"Lindhard map ({LH_NQ} q x {LH_OMEGAS} omegas)", lambda: [slv(q, oms) for q in qs])
         profile(f"self-energy DOS sweep ({SE_OMEGAS} omegas)", lambda: dos(om_d))
@@ -4289,7 +4410,8 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
                   t27[False]["bound"]),
             entry("sigma_trace_points", "sigma_trace.cu", "autobzcore_tpu/models/selfenergy.py:122", t27p, b27p),
             entry("sigma_pairs_sum", "sigma_pairs.cu", "autobzcore_tpu/models/selfenergy.py:279", t28, b28),
-            entry("sigma_pairs_points", "sigma_pairs.cu", "autobzcore_tpu/models/selfenergy.py:138", t28p, b28p)]
+            entry("sigma_pairs_points", "sigma_pairs.cu", "autobzcore_tpu/models/selfenergy.py:138", t28p,
+                  b28p)], numbers
 
 
 def autoptr_dos_ladder(np, torch, dev, h, bz):

@@ -814,6 +814,58 @@ def test_tetra_kernel_matches_plain_on_card(cuda_device, d, npt, m, nos):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d,npt,m", [(1, 997, 2), (2, 61, 3), (3, 23, 2), (3, 16, 3)])
+@pytest.mark.parametrize("nos", [False, True], ids=["dos", "nos"])
+def test_tetra_kernel_takes_energies_in_any_order_on_card(cuda_device, d, npt, m, nos):
+    """K10 at 1001 energies in no order, with repeats, grid eigenvalues and
+    energies outside every band, then at one to four of them (a Fermi-level
+    step's one energy and the term-by-term kernel's few, unsorted and
+    repeated): 1e-12 relative against the plain version, bit-identical
+    repeats, a repeated energy the same bits at each of its places; the DOS
+    exactly 0 outside the bands, N(E) exactly 0 below them and, above them,
+    the plain version's bits (the band count to 1e-12)."""
+    rng = np.random.default_rng(900 + 10 * d + m)
+    eg = _eig_grid(rng, m, npt, d, cuda_device)
+    lo, hi = float(eg.min()), float(eg.max())
+    E = torch.linspace(lo - 1, hi + 1, 1001, dtype=torch.float64, device=cuda_device)
+    E[:7] = eg.reshape(-1)[rng.integers(0, eg.numel(), 7)]  # grid eigenvalues
+    eig = float(E[0])
+    E[7:12] = E[500]  # repeats
+    twice = float(E[500])
+    E = E[torch.as_tensor(rng.permutation(1001), device=cuda_device)].contiguous()
+    tol, vol = 1e-9 * (hi - lo), 1.0 / (len(ttet._SIMPLICES[d]) * npt**d)
+    before = ttet.tetra_dos.launches
+    got = ttet.tetra_dos(eg, d, E, tol, vol, nos)
+    assert ttet.tetra_dos.launches == before + 1
+    want = ttet.tetra_dos_plain(eg, d, E, tol, vol, nos)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-12 * scale
+    assert torch.equal(got, ttet.tetra_dos(eg, d, E, tol, vol, nos))
+    rep = got[E == twice]
+    assert rep.numel() == 6 and torch.all(rep == rep[0])
+    below, above = E < lo, E > hi
+    assert torch.all(got[below] == 0.0)
+    if nos:
+        assert torch.equal(got[above], want[above])
+        assert torch.all((got[above] - m).abs() <= 1e-12 * m)
+    else:
+        assert torch.all(got[above] == 0.0)
+    i_eig, i_rep = int(torch.nonzero(E == eig)[0]), int(torch.nonzero(E == twice)[0])
+    i_lo, i_hi = int(torch.nonzero(below)[0]), int(torch.nonzero(above)[0])
+    for idx in ([0], [i_rep], [i_lo], [i_hi], [i_rep, i_lo], [i_hi, i_rep, i_eig], [i_hi, i_rep, i_lo, i_rep]):
+        few = E[idx].contiguous()
+        g1 = ttet.tetra_dos(eg, d, few, tol, vol, nos)
+        w1 = ttet.tetra_dos_plain(eg, d, few, tol, vol, nos)
+        assert float((g1 - w1).abs().max()) <= 1e-12 * scale
+        assert torch.equal(g1, ttet.tetra_dos(eg, d, few, tol, vol, nos))
+        assert torch.all(g1[few < lo] == 0.0)
+        if not nos:
+            assert torch.all(g1[few > hi] == 0.0)
+        rep = g1[few == twice]
+        assert rep.numel() == 0 or torch.all(rep == rep[0])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["FBZ", "CubicSymIBZ"])
 def test_ltm_on_card_matches_cpu(cuda_device, kind):
     """The init on the card (grid products, K9, the scatter) gives the CPU's
@@ -2100,6 +2152,52 @@ def test_sigma_pairs_kernel_matches_plain_on_card(cuda_device, m, d):
         want = se.sigma_pairs_points_plain(H, V, Zp)
         assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
         assert torch.equal(got, se.sigma_pairs_points(H, V, Zp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(1, 1), (1, 3), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3), (4, 2), (5, 3), (6, 1),
+                                 (7, 2), (8, 3)])
+def test_sigma_pairs_rows_do_not_depend_on_the_batch_on_card(cuda_device, m, d):
+    """K28's sum over 4,099 points (a partial chunk and tile) at 45 pairs
+    (not a multiple of 32), equal (Z2 is Z1) and unequal: 1e-12 of the value
+    scale against the plain version, bit-identical repeats, and each pair's
+    row the same bits in a reversed batch, in the batch's first 13 rows and
+    alone (a one-pair launch)."""
+    from autobzcore_torch.models import selfenergy as se
+
+    rng = np.random.default_rng(360 + 10 * m + d)
+    H, V, w, Z1, Z2 = _sigma_inputs(rng, 4_099, m, d, 45, cuda_device)
+
+    def run(Za, Zb, same):
+        return se.sigma_pairs_sum(H, V, w, Za, Za if same else Zb, 0.3)
+
+    for same in (True, False):
+        got = run(Z1, Z2, same)
+        want = se.sigma_pairs_sum_plain(H, V, w, Z1, Z1 if same else Z2, 0.3)
+        assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+        assert torch.equal(got, run(Z1, Z2, same))
+        assert torch.equal(run(Z1.flip(0).contiguous(), Z2.flip(0).contiguous(), same).flip(0), got)
+        assert torch.equal(run(Z1[:13].contiguous(), Z2[:13].contiguous(), same), got[:13])
+        for b in (0, 31, 44):
+            assert torch.equal(run(Z1[b:b + 1].contiguous(), Z2[b:b + 1].contiguous(), same)[0], got[b])
+
+
+@pytest.mark.gpu
+def test_sigma_pairs_kernel_at_a_kinetic_trip_on_card(cuda_device):
+    """K28 at a kinetic trip's shape, 960 unequal pairs at m = d = 3, over
+    12,345 points: 1e-12 of the value scale against the plain version,
+    bit-identical repeats."""
+    from autobzcore_torch.models import selfenergy as se
+
+    rng = np.random.default_rng(370)
+    H, V, w, Z1, Z2 = _sigma_inputs(rng, 12_345, 3, 3, 960, cuda_device)
+    before = se.sigma_pairs_sum.launches
+    got = se.sigma_pairs_sum(H, V, w, Z1, Z2, 0.3)
+    assert se.sigma_pairs_sum.launches == before + 1
+    want = se.sigma_pairs_sum_plain(H, V, w, Z1, Z2, 0.3)
+    assert got.shape == (960, 3, 3)
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    assert torch.equal(got, se.sigma_pairs_sum(H, V, w, Z1, Z2, 0.3))
 
 
 @pytest.mark.gpu

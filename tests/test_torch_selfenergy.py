@@ -250,6 +250,52 @@ def test_inv_small_matches_reference(m):
     assert rel(got, want) <= 1e-12
 
 
+def _z_pairs(rng, B, m):
+    """B matrices Z = w I - Sigma with a causal, non-Hermitian Sigma = R - i
+    Gamma (R Hermitian, Gamma Hermitian positive definite)."""
+    a = rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))
+    R = 0.15 * (a + a.conj().transpose(0, 2, 1))
+    g = rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))
+    Gam = 0.05 * np.einsum("bij,bkj->bik", g, g.conj()) + 0.05 * np.eye(m)
+    return rng.uniform(-3, 3, B)[:, None, None] * np.eye(m) - (R - 1j * Gam)
+
+
+@pytest.mark.parametrize("m,d", [(1, 1), (1, 3), (2, 1), (2, 2), (2, 3), (3, 1), (3, 2), (3, 3), (4, 2), (4, 3)])
+def test_sigma_pairs_sum_plain_matches_reference_at_unequal_pairs(m, d):
+    """K28's plain version at unequal frequency pairs (Z2 is not Z1, as a
+    kinetic trip hands them over) against the reference's two-frequency
+    integrand (``selfenergy.py:380-393``: two spectral functions by
+    ``_inv_small``, v_a A1 and v_b A2 by einsum, the real trace, the
+    weighted k-sum and the scale) on random Hermitian H and v_a, 7 pairs:
+    1e-12 of the value scale."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(70 + 10 * m + d)
+    K, B = 60, 7
+    H = rng.normal(size=(K, m, m)) + 1j * rng.normal(size=(K, m, m))
+    H = (H + H.conj().transpose(0, 2, 1)) / 2
+    V = rng.normal(size=(K, d, m, m)) + 1j * rng.normal(size=(K, d, m, m))
+    V = (V + V.conj().transpose(0, 1, 3, 2)) / 2
+    w = rng.random(K) + 0.5
+    Z1, Z2 = _z_pairs(rng, B, m), _z_pairs(rng, B, m)
+
+    def spectral(Z):
+        G = jobs._inv_small(jnp.asarray(Z)[None] - jnp.asarray(H))
+        return (G - jnp.conj(jnp.swapaxes(G, -1, -2))) / (-2j * jnp.pi)
+
+    want = []
+    for b in range(B):
+        A1, A2 = spectral(Z1[b]), spectral(Z2[b])
+        vA1 = jnp.einsum("kaij,kjn->kain", V, A1)
+        vA2 = jnp.einsum("kbij,kjn->kbin", V, A2)
+        Gam = jnp.real(jnp.einsum("kaij,kbji->kab", vA1, vA2))
+        want.append(np.asarray(jnp.einsum("k,kab->ab", w, Gam) * 0.7))
+    got = ts.sigma_pairs_sum_plain(torch.as_tensor(H), torch.as_tensor(V), torch.as_tensor(w), torch.as_tensor(Z1),
+                                   torch.as_tensor(Z2), 0.7).numpy()
+    assert got.shape == (B, d, d)
+    assert rel(got, np.stack(want)) <= 1e-12
+
+
 @pytest.mark.parametrize("matrix", [False, True])
 def test_sigma_interpolant_matches_reference(matrix):
     """Inside, at and outside the grid, one frequency and a vector of them:

@@ -185,6 +185,88 @@ def test_corners_are_the_reference_corners(d, npt):
     np.testing.assert_array_equal(ttet.sorted_corners(torch.as_tensor(eg), d).numpy(), np.asarray(jnp.stack(vs)))
 
 
+def _reference_corners(eg, d):
+    """The reference's corner build (``tetrahedron.py:196-214``: rolls, a
+    stack and the exchange network) in jnp on a band-major grid (m, npt^d)."""
+    import jax.numpy as jnp
+
+    from autobzcore_tpu.dos.tetrahedron import _SIMPLICES as JSIMPLICES
+
+    m, npt = eg.shape[0], round(eg.shape[1] ** (1.0 / d))
+    g = jnp.asarray(eg).reshape((m,) + (npt,) * d)
+    cs = jnp.stack([jnp.roll(g, tuple(-((v >> j) & 1) for j in range(d)), axis=tuple(range(1, d + 1)))
+                    for v in range(2**d)]).reshape(2**d, -1)
+    vs = [jnp.stack([cs[sx[k]] for sx in JSIMPLICES[d]]) for k in range(d + 1)]
+    nets = {2: [(0, 1)], 3: [(0, 1), (1, 2), (0, 1)], 4: [(0, 1), (2, 3), (0, 2), (1, 3), (1, 2)]}
+    for i, j in nets[d + 1]:
+        vs[i], vs[j] = jnp.minimum(vs[i], vs[j]), jnp.maximum(vs[i], vs[j])
+    return jnp.stack(vs)
+
+
+def _band_grid(rng, m, npt, d):
+    """m smooth periodic bands on an npt^d grid, band-major: a cosine band
+    (exact ties, flat simplices) and m - 1 random ones."""
+    x = np.meshgrid(*[np.arange(npt) / npt] * d, indexing="ij")
+    bands = [sum(np.cos(2 * np.pi * xi) for xi in x)]
+    for _ in range(m - 1):
+        ph = rng.random(d)
+        bands.append(sum(rng.normal() * np.cos(2 * np.pi * (xi + q)) for xi, q in zip(x, ph)) + rng.normal())
+    return np.stack([b.reshape(-1) for b in bands])
+
+
+@pytest.mark.parametrize("d,npt,m", [(1, 40, 2), (2, 9, 3), (3, 5, 2)])
+@pytest.mark.parametrize("nos", [False, True], ids=["dos", "nos"])
+def test_tetra_plain_matches_reference_at_any_energies(d, npt, m, nos):
+    """K10's plain version against the reference's closed forms
+    (``tetrahedron.py:47-128`` over its corner build, on the same grid) at
+    energies in no order, with repeats, at corner eigenvalues of the grid
+    (where the one-sided forms apply) and outside every band: 1e-12 of the
+    value scale, exact zeros where the reference's are, a repeated energy the
+    same bits; and through ``in_sorted_order`` (the sort K10's wrapper does
+    on the card) the same bits as unsorted."""
+    import jax.numpy as jnp
+
+    from autobzcore_tpu.dos import tetrahedron as jtet
+
+    rng = np.random.default_rng(60 + 10 * d + m)
+    eg = _band_grid(rng, m, npt, d)
+    lo, hi = eg.min(), eg.max()
+    E = np.concatenate([np.linspace(lo - 0.5, hi + 0.5, 40), rng.choice(eg.reshape(-1), 9), [0.3 * lo] * 3,
+                        [lo, hi]])
+    E = E[rng.permutation(E.size)]
+    tol, vol = 1e-9 * (hi - lo), 1.0 / (len(ttet._SIMPLICES[d]) * npt**d)
+    formula = (jtet._NOS_FORMULAS if nos else jtet._DOS_FORMULAS)[d]
+    ec = _reference_corners(eg, d)
+    want = vol * np.asarray(jnp.sum(formula(jnp.asarray(E)[:, None, None], ec, tol), axis=(1, 2)))
+    Et = torch.as_tensor(E)
+    got = ttet.tetra_dos_plain(torch.as_tensor(eg), d, Et, tol, vol, nos).numpy()
+    assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
+    assert np.array_equal(got == 0.0, want == 0.0)
+    assert np.all(got[E == 0.3 * lo] == got[E == 0.3 * lo][0])
+    sorted_first = ttet.in_sorted_order(lambda Es: ttet.tetra_dos_plain(torch.as_tensor(eg), d, Es, tol, vol, nos),
+                                        Et).numpy()
+    assert np.array_equal(sorted_first, got)
+
+
+def test_in_sorted_order_hands_sorted_energies_and_puts_values_back():
+    """The wrapper's host helper: ``fn`` sees E sorted ascending (repeats
+    kept), and its values come back in E's order; one energy and none pass
+    as they are."""
+    E = torch.tensor([0.3, -1.0, 0.3, 2.0, -1.0, 0.0, 5.5], dtype=torch.float64)
+    seen = []
+
+    def fn(Es):
+        seen.append(Es.clone())
+        return 2.0 * Es + Es**2
+
+    out = ttet.in_sorted_order(fn, E)
+    assert torch.equal(seen[0], torch.sort(E).values)
+    assert torch.equal(out, 2.0 * E + E**2)
+    for Ew in (E[:1], E[:0]):
+        assert torch.equal(ttet.in_sorted_order(fn, Ew), 2.0 * Ew + Ew**2)
+        assert torch.equal(seen[-1], Ew)
+
+
 def test_tetra_wrapper_takes_plain_version_on_cpu_without_counting():
     eg = torch.as_tensor(np.random.default_rng(0).normal(size=(2, 64)))
     E = torch.linspace(-3, 3, 9, dtype=torch.float64)

@@ -2,7 +2,8 @@
 """Time a group of kernels and the paths that run them, for the
 ``autobzcore_torch`` package of any checkout, on one NVIDIA GPU.
 
-    python3 tools/kernel_ab.py TREE LABEL --phases fourier|rule_transport|iai|k24|warm_plain [--iai] [--out DIR]
+    python3 tools/kernel_ab.py TREE LABEL --phases fourier|rule_transport|iai|k24|warm_plain|selfenergy|ltm
+        [--iai] [--out DIR]
 
 It imports ``autobzcore_torch`` from the checkout at TREE (its kernels
 build there at first use) and runs this repository's ``chip_smoke.py``
@@ -29,6 +30,17 @@ phase functions on it:
   events and by device time beside ``torch.einsum``;
 - ``--phases k24``: phase 27's K24 alone, first in its process (where the
   profiler's device times are whole);
+- ``--phases selfenergy``: the matrix self-energy kernels and paths:
+  phases 29-30 at phase 26's chemical potential (K25-K28 against their
+  plain versions, K28 at 256 equal frequencies, 32 unequal pairs and a
+  kinetic trip's 960, and at m = 4; the Lindhard map, the self-energy DOS
+  and transport sweeps, and the kinetic step with its split: builds, the
+  integrand's device time summed over its trips (K28 with its small
+  neighbours), pairs per launch, trips, numevals, retcodes);
+- ``--phases ltm``: the tetrahedron DOS (K10): phases 14-15 (K10 against
+  its plain version at 1001 energies, DOS and N(E), then the LTM main
+  path's init, sweep and fermi_level walls and a Fermi step's one-energy
+  call);
 - ``--phases warm_plain``: phase 10's first warm call (the 33 frequencies
   of phase 7's cold chunk) on the kernels and then on the plain versions of
   every kernel (``plain_kernels=True``), each with its wall, numevals,
@@ -114,6 +126,23 @@ def iai(cs, np, torch, dev, h):
                 warm=warm, block=block)
 
 
+def selfenergy(cs, np, torch, dev, h):
+    from autobzcore_torch import FBZ, load_bz
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.models import transport as tr
+
+    bz = load_bz(FBZ(), np.eye(3))
+    mu = tr.ElectronCountSolver(h, bz, cs.TR_NPT, pack=obs.spectral_velocity_pack(h, bz, cs.TR_NPT)).find_mu(
+        1.0, cs.TR_BETA)
+    return {"selfenergy": cs.lindhard_sigma_phases(np, torch, dev, h, mu)[1]}
+
+
+def ltm(cs, np, torch, dev, h):
+    _, numbers = cs.ltm_phases(np, torch, dev, h)
+    numbers.pop("dos")
+    return {"ltm": numbers}
+
+
 def warm_plain(cs, np, torch, dev, h):
     from autobzcore_torch import FBZ, IntegralProblem, load_bz
     from autobzcore_torch.models.observables import dos_integrand
@@ -136,7 +165,8 @@ def warm_plain(cs, np, torch, dev, h):
     return {"warm_plain": out}
 
 
-PHASES = {"fourier": fourier, "rule_transport": rule_transport, "iai": iai, "k24": k24, "warm_plain": warm_plain}
+PHASES = {"fourier": fourier, "rule_transport": rule_transport, "iai": iai, "k24": k24, "warm_plain": warm_plain,
+          "selfenergy": selfenergy, "ltm": ltm}
 
 
 def compare(tree, label, phases, iai):

@@ -27,6 +27,29 @@ SOURCE is a file of ``autobzcore_torch/csrc/`` with a patch table here:
   trip with Omega != 0, as phase 25 of ``chip_smoke.py``, and its npt=100
   pack (1e6 points) at 256 equal lanes (the B11d shape).
 
+- ``sigma_pairs`` (K28): ``minblocks=N`` (N = 1-4), the kernel's
+  ``__launch_bounds__`` asking for N blocks of 128 threads an SM at every m
+  (the package asks for 3 at m <= 3, at most 168 registers a thread, and 1
+  above); ``tile=N`` (N = 16, 64) points a shared tile at m <= 3 (the
+  package has 32); ``loops4``, the packed-Hermitian helpers run as loops over
+  local memory at m = 4 as above it (the package unrolls them up to m = 4).
+  Shapes: the flagship's npt=100 grid (H and V at 1e6 points, m = d = 3)
+  with phase 30's Fermi-liquid Sigma at 32 unequal pairs (w, w + 0.5 eV),
+  at a kinetic trip's 960 and at the transport sweep's 256 equal
+  frequencies, each checked on its first 32 pairs; and phase 29's step
+  above three bands (synthetic_wannier(4) at npt 64, 262,144 points) at 32
+  equal and 32 unequal pairs.
+
+- ``tetra_dos`` (K10): ``chunk256``, 256 sorted energies a block row (the
+  package has 512); ``pairs2048``, rounds of 2,048 pairs (the package has
+  1,024); ``brick2x8x8``, tiles of 2 x 8 x 8 cells (the package has 4 x 4
+  x 8); ``noforms``, the closed forms replaced by one product (wrong
+  values): what the staging, the supports, the pair numbering and the walk
+  cost without them; ``nofew``, one energy on the tile kernel instead of
+  the term-by-term one. Shapes: the flagship's eigenvalue grid at
+  npt=100 with 1001 energies over [-6, 7] eV (the DOS and N(E)) and one
+  energy (a Fermi-level step's N(E)), against the package's kernel.
+
 Each variant is a copy of the source, changed by a text patch, built on its
 own with the package's nvcc flags into a library of its own under
 ``build/autobzcore_torch/variants/``; ``package`` is the source as it is,
@@ -192,8 +215,126 @@ def transport_cases(torch, cs, dev, stream):
             ("ptr256", 5, None, *case(p100, om256, eta256, om256, eta256))]
 
 
+# sigma_pairs.cu: K28
+BOUNDS = "__global__ void __launch_bounds__(kThreads, kMinBlocks<M>)\nsigma_pairs_partials("
+TILE = "constexpr int kTileK = 32;     // points per shared tile for m <= 3"
+
+
+UNROLL = "constexpr int kUnroll = M <= 4 ? 8 : 1;"
+LOOPS = ("#pragma unroll (U)\n    for (int j = 0; j < M; ++j) {\n      A.d[j] = -2.0",
+         "#pragma unroll (U)\n      for (int k = j + 1; k < M; ++k) {")
+
+
+def sigma_variants(src):
+    p = lambda s, old, new: patch("sigma_pairs", s, old, new)  # noqa: E731
+    out = {f"minblocks={n}": p(src, BOUNDS, BOUNDS.replace("kMinBlocks<M>)", f"{n})")) for n in (1, 2, 3, 4)}
+    out.update({f"tile={n}": p(src, TILE, TILE.replace("32;", f"{n};")) for n in (16, 64)})
+    loops = p(src, UNROLL, UNROLL.replace("M <= 4", "M <= 3"))
+    for loop in LOOPS:
+        loops = p(loops, loop, loop.replace("#pragma unroll (U)", "#pragma unroll 1"))
+    out["loops4"] = loops
+    return out
+
+
+def sigma_cases(torch, cs, dev, stream):
+    """(tag, reps, skip(name), launcher(lib) -> (go, result), want) of K28."""
+    from autobzcore_torch import FBZ, load_bz
+    from autobzcore_torch.models import selfenergy as se
+    from autobzcore_torch.models.tight_binding import flagship_series, synthetic_wannier
+
+    bz = load_bz(FBZ(), np.eye(3))
+    h = flagship_series(device=dev)
+    (H, V), w, sc, _ = se._grid(h, bz, cs.SE_NPT, jacobian=True)
+    ws = np.linspace(-8.0, 8.0, cs.SE_SIGMA_POINTS)
+    sigma = se.SigmaInterpolant(ws, cs.fermi_liquid_sigma(np, ws), device=dev)
+    m4 = cs.M4_BANDS
+    (H4, V4), w4, sc4, _ = se._grid(synthetic_wannier(m4, nr=3, ndim=3, seed=1, device=dev), bz, cs.M4_NPT,
+                                    jacobian=True)
+    s4 = se.SigmaInterpolant(ws, cs.fermi_liquid_sigma(np, ws, m4), device=dev)
+    om4 = torch.linspace(*cs.WINDOW, cs.M4_PAIRS, dtype=torch.float64, device=dev)
+    Z4, Z4b = se._zmat(om4, s4, m4).contiguous(), se._zmat(om4 + 0.5, s4, m4).contiguous()
+    om256 = torch.linspace(*cs.WINDOW, cs.SE_TR_OMEGAS, dtype=torch.float64, device=dev)
+    om960 = torch.linspace(*cs.WINDOW, cs.SE_TRIP_PAIRS, dtype=torch.float64, device=dev)
+    Z256 = se._zmat(om256, sigma, 3).contiguous()
+    Z960, Z960b = se._zmat(om960, sigma, 3).contiguous(), se._zmat(om960 + 0.5, sigma, 3).contiguous()
+    Z32, Z32b = Z256[:32].contiguous(), se._zmat(om256[:32] + 0.5, sigma, 3).contiguous()
+
+    def case(Z1, Z2, H=H, V=V, w=w, sc=sc):
+        K, B, m = H.shape[0], Z1.shape[0], H.shape[-1]
+
+        def launcher(lib):
+            lib.sigma_pairs_num_chunks.argtypes = [LL]
+            lib.sigma_pairs_num_chunks.restype = LL
+            lib.sigma_pairs_sum_launch.argtypes = [VP] * 5 + [INT, VP, VP, LL, INT, INT, INT, DBL, VP]
+            out = torch.empty((B, 3, 3), dtype=torch.float64, device=dev)
+            part = torch.empty((lib.sigma_pairs_num_chunks(K), B, 3, 3), dtype=torch.float64, device=dev)
+            args = (H.data_ptr(), V.data_ptr(), w.data_ptr(), Z1.data_ptr(), Z2.data_ptr(), int(Z2 is Z1),
+                    part.data_ptr(), out.data_ptr(), K, B, m, 3, float(sc), stream)
+            return (lambda: lib.sigma_pairs_sum_launch(*args)), (lambda: out)
+        want = se.sigma_pairs_sum_plain(H, V, w, Z1[:32], Z1[:32] if Z2 is Z1 else Z2[:32], sc)
+        return launcher, want
+
+    def first32(launcher):
+        def first(lib):
+            go, result = launcher(lib)
+            return go, (lambda: result()[:32])
+        return first
+
+    cases = [("unequal32", 3, None, *case(Z32, Z32b)), ("unequal960", 2, None, *case(Z960, Z960b)),
+             ("equal256", 3, None, *case(Z256, Z256)),
+             ("m4equal32", 3, None, *case(Z4, Z4, H4, V4, w4, sc4)),
+             ("m4unequal32", 3, None, *case(Z4, Z4b, H4, V4, w4, sc4))]
+    return [(tag, reps, skip, first32(launcher), want) for tag, reps, skip, launcher, want in cases]
+
+
+# tetra_dos.cu: K10
+FORMS = "        sh.val[i] = kNos ? nos_term(En, e, tol) : dos_term(En, e, tol);\n"
+
+
+def tetra_variants(src):
+    p = lambda s, old, new: patch("tetra_dos", s, old, new)  # noqa: E731
+    nofew = p(src, "  if (W <= kFewE) {\n", "  if (W < 0) {\n")
+    return {"chunk256": p(src, "constexpr int kChunkE = 512;", "constexpr int kChunkE = 256;"),
+            "pairs2048": p(src, "constexpr int kPairs = 1024;", "constexpr int kPairs = 2048;"),
+            "brick2x8x8": p(src, "(j < 2 ? 4 : 8))", "(j == 0 ? 2 : 8))"),
+            "noforms": p(src, FORMS, "        sh.val[i] = En * e[0];\n"),
+            "nofew": p(nofew, "  if (m > 0 && W <= kFewE) {\n", "  if (m > 0 && W < 0) {\n")}
+
+
+def tetra_cases(torch, cs, dev, stream):
+    """(tag, reps, skip(name), launcher(lib) -> (go, result), want) of K10."""
+    from autobzcore_torch import FBZ, load_bz
+    from autobzcore_torch.dos import LTM
+    from autobzcore_torch.dos import tetrahedron as tet
+    from autobzcore_torch.models.tight_binding import flagship_series
+
+    cv = LTM(npt=cs.NPT).init_cacheval(flagship_series(device=dev), 0.0, load_bz(FBZ(), np.eye(3)))
+    eg, tol, vol = cv["eg"], cv["tol"], cv["vol"]
+    E = torch.as_tensor(np.linspace(*cs.WINDOW, cs.LTM_ENERGIES), device=dev)
+    E1 = torch.as_tensor([0.9424544925], dtype=torch.float64, device=dev)
+
+    def case(En, nos):
+        W = En.shape[0]
+
+        def launcher(lib):
+            lib.tetra_dos_num_blocks.argtypes = [LL, INT, INT, INT]
+            lib.tetra_dos_num_blocks.restype = LL
+            lib.tetra_dos_launch.argtypes = [VP, LL, INT, INT, VP, INT, DBL, DBL, INT, VP, VP, VP]
+            out = torch.empty(W, dtype=torch.float64, device=dev)
+            part = torch.empty((lib.tetra_dos_num_blocks(3, cs.NPT, 3, W), W), dtype=torch.float64, device=dev)
+            args = (eg.data_ptr(), 3, cs.NPT, 3, En.data_ptr(), W, tol, vol, int(nos), part.data_ptr(),
+                    out.data_ptr(), stream)
+            return (lambda: lib.tetra_dos_launch(*args)), (lambda: out)
+        return launcher, tet.tetra_dos(eg, 3, En, tol, vol, nos)
+
+    return [("dos1001", 10, None, *case(E, False)), ("nos1001", 10, None, *case(E, True)),
+            ("nos1", 50, None, *case(E1, True))]
+
+
 SOURCES = {"fourier_points": (fourier_variants, fourier_cases),
-           "transport_gamma": (transport_variants, transport_cases)}
+           "transport_gamma": (transport_variants, transport_cases),
+           "sigma_pairs": (sigma_variants, sigma_cases),
+           "tetra_dos": (tetra_variants, tetra_cases)}
 
 
 def main():
