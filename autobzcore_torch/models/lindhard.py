@@ -82,7 +82,9 @@ def chi0(e, f, U, shift, omega, eta, scale):
 
     CPU tensors take the plain version; CUDA tensors launch K25
     (``csrc/lindhard_chi0.cu``), and anything the kernel does not take
-    raises."""
+    raises: it takes ``1e-150 <= |eta| <= 1e150`` (below, its sum of
+    ``a / (x^2 + eta^2)`` overflows before the factor ``-eta``; above,
+    ``x^2 + eta^2`` nears the top of the double range)."""
     _check_grid(e, f, "f")
     d, npt, shift = _grid_shift(e, shift)
     m = e.shape[-1]
@@ -95,11 +97,13 @@ def chi0(e, f, U, shift, omega, eta, scale):
     lib = load_kernels()
     if d > 3 or m > lib.chi0_max_bands():
         raise ValueError(f"K25 takes d <= 3 and m <= {lib.chi0_max_bands()}, got d = {d}, m = {m}")
+    if not 1e-150 <= abs(float(eta)) <= 1e150:
+        raise ValueError(f"K25 takes 1e-150 <= |eta| <= 1e150, got {eta!r}")
     W = omega.shape[0]
     out = torch.empty(W, dtype=COMPLEX, device=e.device)
     if W == 0:
         return out
-    partials = torch.empty((lib.chi0_num_blocks(npt**d, m), W), dtype=COMPLEX, device=e.device)
+    partials = torch.empty((W, lib.chi0_num_blocks(npt**d, m)), dtype=COMPLEX, device=e.device)
     sh = (ctypes.c_int * 3)(*(shift + (0,) * (3 - d)))
     stream = stream_handle(e.device)
     check_launch(lib.chi0_launch(e.data_ptr(), f.data_ptr(), U.data_ptr(), d, npt, sh, m, omega.data_ptr(), W,

@@ -331,7 +331,7 @@ def _dos_trace_launch(H, w, omega, eta, scale, grid_cap):
     K, m = H.shape[0], H.shape[-1]
     W = omega.shape[0]
     lib = load_kernels()
-    partials = torch.empty((max(lib.dos_trace_num_chunks(K), 1), W), dtype=REAL, device=H.device)
+    partials = torch.empty((W, max(lib.dos_trace_num_chunks(K), 1)), dtype=REAL, device=H.device)
     out = torch.empty(W, dtype=REAL, device=H.device)
     stream = stream_handle(H.device)
     err = lib.dos_trace_weighted_sum_launch(

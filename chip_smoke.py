@@ -17,8 +17,12 @@ non-zero):
    instructions; then each against its plain PyTorch version on the card,
    in FP64, at stated tolerances; K1 and K2 run twice must be
    bit-identical; kernel and plain times at the flagship shapes (K = 1e6
-   points, W = 264), K1's share of its bound and its library time
-   (``torch.matmul`` of the precomputed phases);
+   points, W = 264), K1's and K2's shares of their bounds, K1's library
+   time (``torch.matmul`` of the precomputed phases); K2's every 33rd lane
+   alone bit-equal to the 264-lane launch's, and K2 at a late AutoPTR
+   rung's shape (8 lanes on the npt=400 grid's 6.4e7 points from K1,
+   checked against the plain version on its first 2^20 points, 1e-10),
+   its time, share of its bytes bound and per-pair time against W = 264;
 4. PTR main path: the flagship PTR leg at full width through the public
    entry points (synthetic 3-band series on the full zone, PTR(npt=100),
    eta = 0.05, SweepSolver(chunk=264) under hchebinterp over [-6, 7] eV,
@@ -225,8 +229,9 @@ non-zero):
    self-energy DOS trace: trace and diagonal sums, pointwise) and K28 (the
    self-energy transport distribution: sums at equal and unequal
    frequencies, pointwise) against their plain versions at the main path's
-   shapes: K25 and K26 on the flagship's 64^3 grid (100 omegas; q = 0 and
-   (1/4, 0, 0) for K26), K27 on the 100^3 grid at 1000 omegas with the
+   shapes: K25 and K26 on the flagship's 64^3 grid (100 omegas, and K25
+   at every 12th of them, 9 omegas, bit-equal to the 100-omega launch's;
+   q = 0 and (1/4, 0, 0) for K26), K27 on the 100^3 grid at 1000 omegas with the
    tabulated Fermi-liquid Sigma and at the PTR(48) points, K28 on the 100^3
    grid at 256 equal frequencies, 32 unequal pairs and a kinetic trip's 960
    unequal pairs (whose first 32 rows must be the 32-pair launch's bits)
@@ -241,7 +246,8 @@ non-zero):
    33 q = (j/64, 0, 0) by 100 omegas in [0, 4] eV (build wall and peak
    memory, map wall, max Im chi0 over omega > 0 at 1e-12), cooper_bubble at
    beta 40 and 80, certified_chi0 at q = (1/4, 0, 0) (rungs multiples of
-   4); SigmaDOSSolver(npt=100) at 1000 omegas in [-6, 7] eV with a
+   4) with K25 timed alone at each rung's grid and 9 omegas;
+   SigmaDOSSolver(npt=100) at 1000 omegas in [-6, 7] eV with a
    tabulated causal Fermi-liquid Sigma on 2001 frequencies, then
    project=True (rows sum to the total, 1e-12), Sigma = -0.05i against the
    PTR DOS (K2, 1e-10), the DOS integrand under PTR(48) and under IAI on
@@ -292,10 +298,11 @@ which prints their device busy time, its share of the wall and the device
 time of the leading kernels, or "not captured" where the profiler recorded
 no device time (late in a long ``--profile`` run it has recorded none).
 ``--phases-fourier`` runs phases 1-4, 6a (K3), phase 19's K11 and phase
-32's AutoPTR DOS ladder alone, the ladder once more under torch.profiler
-for K1's share of its device time, and prints a JSON object of their
-numbers (``"fourier"``) before the last line: about 3 minutes with the
-build, the quick before/after run for the Fourier-evaluation kernels
+32's AutoPTR DOS ladder alone, the PTR leg once more under torch.profiler
+for K2's device time and the ladder for K1's and K2's device time per rung
+and their shares, and prints a JSON object of their numbers
+(``"fourier"``) before the last line: about 3 minutes with the build, the
+quick before/after run for the Fourier-evaluation kernels and K2
 (``tools/kernel_ab.py --phases fourier`` runs the same phases on another
 checkout's package). ``--phases-29-30`` runs phases 1-2 and 29-30 alone (phase 26's chemical
 potential is found again first), so that with ``--profile`` the last two
@@ -346,6 +353,20 @@ PEAK_BYTES = 3.35e12
 # FP64 operations (an FMA counts 2) of Im Tr (z - H)^-1 by the closed forms
 # of csrc/small_trace.cuh, per matrix: m = 1, 2, 3
 TRACE_FLOPS = {1: 9, 2: 27, 3: 120}
+# K2's form at m = 3 (csrc/dos_trace.cu), the cheapest exact form it uses:
+# per (lane, k) pair the shifts d_i 6, A = d0 d1 - p01 8, d0 + d1 2, A - q
+# 2, S 8, det (six complex products in one chain) 24, Im(S conj det) 3,
+# |det|^2 3, the reciprocal 8, the quotient and the weighted sum 3: 67; per
+# k its invariants (three products p_ij 18, the cyclic term 26, q 2): 46.
+# The first count, TRACE_FLOPS[3] + 2 = 122 a pair, stays beside it.
+DOS3_PAIR_FLOPS, DOS3_K_FLOPS = 67, 46
+# phase 3's K2 at a late AutoPTR rung's shape: 8 lanes on the npt = 400
+# grid (6.4e7 points), checked against the plain version on its first 2^20
+DOS_RUNG_NPT, DOS_RUNG_LANES, DOS_RUNG_SLICE = 400, 8, 1 << 20
+# names of K2's kernels in a profile (its pairs and its second pass; the
+# parent design's names too, for tools/kernel_ab.py) and of K1's
+K2_KERNELS = ("dos_pairs_kernel", "dos_partials_kernel", "lane_sum_kernel<double>", "column_sum_kernel<double>")
+K1_KERNELS = ("fourier_points",)
 # FP64 operations of one Lorentzian term eta / ((w - e)^2 + eta^2) summed
 # with its weight (csrc/lorentzian.cuh): a subtraction (1), an FMA (2), the
 # reciprocal, counted as the four DFMAs of its Newton sequence (8), and the
@@ -651,12 +672,14 @@ def ms_text(v):
     return "not captured" if v is None else f"{v:.4f} ms"
 
 
-def profile(label, fn):
+def profile(label, fn, events=False):
     """Run ``fn()`` under torch.profiler and print the device busy time (the
     sum of kernel and copy times on the one stream), its share of the wall
     and the leading kernels by device time; "not captured" where the
     profiler recorded no device time. Returns the wall, the busy time and
-    the kernels' (name, count, device microseconds), or None."""
+    the kernels' (name, count, device microseconds), or None; with
+    ``events`` also each device event's (name, start, microseconds) in
+    start order (``"events"``, None where the profiler gave none)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -683,7 +706,42 @@ def profile(label, fn):
     print(f"profile {label}: wall {wall:.3f} s (profiled), device busy {busy:.4f} s "
           f"({100 * busy / wall:.2f} %); top: " + "; ".join(
               f"{k[:48]} x{n} {t / 1e3:.3f} ms" for k, n, t in top), flush=True)
-    return {"wall": wall, "busy": busy, "rows": rows}
+    out = {"wall": wall, "busy": busy, "rows": rows}
+    if events:
+        try:
+            evs = sorted(((e.name, e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                          if getattr(e, "device_type", None) == DeviceType.CUDA), key=lambda e: e[1])
+        except (AttributeError, RuntimeError):
+            evs = []
+        out["events"] = evs or None
+    return out
+
+
+def device_sum_ms(prof, names):
+    """Device milliseconds of the kernels whose name holds one of ``names``
+    in a :func:`profile` result (None where it is None)."""
+    if prof is None:
+        return None
+    return sum(t for k, _, t in prof["rows"] if any(n in k for n in names)) / 1e3
+
+
+def ladder_split(events):
+    """Per rung of a profiled AutoPTR DOS ladder, K1's and K2's device
+    milliseconds: from the device events in start order, each launch of
+    K2's pair kernel opens a rung; K1's launches before it and K2's second
+    pass after it belong to that rung. None without events."""
+    if not events:
+        return None
+    rungs, k1 = [], 0.0
+    for name, _, us in events:
+        if any(n in name for n in K2_KERNELS[:2]):
+            rungs.append({"k1_ms": k1 / 1e3, "k2_ms": us / 1e3})
+            k1 = 0.0
+        elif any(n in name for n in K2_KERNELS[2:]) and rungs:
+            rungs[-1]["k2_ms"] += us / 1e3
+        elif any(n in name for n in K1_KERNELS):
+            k1 += us
+    return rungs or None
 
 
 def ptxas_report(log):
@@ -998,12 +1056,53 @@ def ptr_phases(np, torch, dev, h):
     del Pm
     b1 = bound(Hg.shape[0] * (125 * (8 * 9 + 6)),
                nbytes(h.c, Xg) + Hg.numel() * Hg.element_size(), PEAK_FP64_MMA)
-    b2 = bound(Hg.shape[0] * W_FLAGSHIP * (TRACE_FLOPS[3] + 2), nbytes(Hg, wg, omg, etag) + 8 * W_FLAGSHIP)
-    print(f"kernels at K={Hg.shape[0]}, W={W_FLAGSHIP}: K1 {t['k1']:.4f} ms, {100 * b1[0] / t['k1']:.1f} % of its "
+    K = Hg.shape[0]
+    b2 = bound(K * (W_FLAGSHIP * DOS3_PAIR_FLOPS + DOS3_K_FLOPS), nbytes(Hg, wg, omg, etag) + 8 * W_FLAGSHIP)
+    b2_first = bound(K * W_FLAGSHIP * (TRACE_FLOPS[3] + 2), nbytes(Hg, wg, omg, etag) + 8 * W_FLAGSHIP)
+    # a lane's value does not depend on the other lanes of its launch: every
+    # 33rd lane alone is the launch of 264's bits
+    d264 = dos_trace_weighted_sum(Hg, wg, omg, etag, sc)
+    step = W_FLAGSHIP // DOS_RUNG_LANES
+    if not torch.equal(dos_trace_weighted_sum(Hg, wg, omg[::step].contiguous(), etag[::step].contiguous(), sc),
+                       d264[::step]):
+        fail(f"K2: the {DOS_RUNG_LANES} lanes alone differ from the same lanes in the launch of {W_FLAGSHIP}")
+    print(f"kernels at K={K}, W={W_FLAGSHIP}: K1 {t['k1']:.4f} ms, {100 * b1[0] / t['k1']:.1f} % of its "
           f"bound {b1[0]:.4f} ms by {b1[1]} (plain {t['k1_plain']:.3f} ms, max|dH| {k1_abs:.3e}, repeat "
           f"bit-identical; torch.matmul of the phases {t['k1_library']:.4f} ms, max|dH| {k1_lib_abs:.3e}); K2 "
-          f"{t['k2']:.3f} ms (plain {t['k2_plain']:.3f} ms, max|dD| {k2_abs:.3e})", flush=True)
+          f"{t['k2']:.4f} ms, {100 * b2[0] / t['k2']:.1f} % of its bound {b2[0]:.4f} ms by {b2[1]} (first count "
+          f"{b2_first[0]:.4f} ms; plain {t['k2_plain']:.3f} ms, max|dD| {k2_abs:.3e}; {1e12 * t['k2'] / 1e3 / (K * W_FLAGSHIP):.3f} "
+          f"ps a pair; its {DOS_RUNG_LANES} lanes every {step}th alone bit-equal to the launch's)", flush=True)
     del Hp
+
+    # K2 at a late AutoPTR rung's shape: 8 lanes on the npt = 400 grid
+    # (6.4e7 points, H from K1), held against the plain version on a slice
+    Xl = (frac_nodes(DOS_RUNG_NPT, 3, dev) * torch.as_tensor(h.period, device=dev)).contiguous()
+    Hl = fourier_points(h.c, Xl, *args).reshape(-1, 3, 3)
+    del Xl
+    Kl = Hl.shape[0]
+    wl = torch.ones(Kl, dtype=torch.float64, device=dev)
+    om8, eta8 = omg[::step].contiguous(), etag[::step].contiguous()
+    scl = (2 * math.pi) ** 3 / DOS_RUNG_NPT**3
+    Hs, ws8 = Hl[:DOS_RUNG_SLICE], wl[:DOS_RUNG_SLICE]
+    want8 = dos_trace_weighted_sum_plain(Hs, ws8, om8, eta8, scl)
+    k2_rung_rel = float((dos_trace_weighted_sum(Hs, ws8, om8, eta8, scl) - want8).abs().max() / want8.abs().max())
+    if not k2_rung_rel <= 1e-10:
+        fail(f"K2 at {DOS_RUNG_LANES} lanes on the first {DOS_RUNG_SLICE} points of the npt={DOS_RUNG_NPT} grid: max "
+             f"rel err {k2_rung_rel:.3e} > 1e-10")
+    d8 = dos_trace_weighted_sum(Hl, wl, om8, eta8, scl)
+    if not (torch.equal(d8, dos_trace_weighted_sum(Hl, wl, om8, eta8, scl)) and bool(torch.isfinite(d8).all())):
+        fail(f"K2 at {DOS_RUNG_LANES} lanes on {Kl} points: not finite, or two runs differ")
+    t["k2_rung"] = cuda_ms(lambda: dos_trace_weighted_sum(Hl, wl, om8, eta8, scl), 5)
+    b2_rung = bound(Kl * (DOS_RUNG_LANES * DOS3_PAIR_FLOPS + DOS3_K_FLOPS),
+                    nbytes(Hl, wl, om8, eta8) + 8 * DOS_RUNG_LANES)
+    per_pair = (t["k2"] / (K * W_FLAGSHIP), t["k2_rung"] / (Kl * DOS_RUNG_LANES))
+    print(f"K2 at a late AutoPTR rung's shape: {DOS_RUNG_LANES} lanes on the npt={DOS_RUNG_NPT} grid ({Kl} points): "
+          f"{t['k2_rung']:.4f} ms, {100 * b2_rung[0] / t['k2_rung']:.1f} % of its bound {b2_rung[0]:.4f} ms by "
+          f"{b2_rung[1]}; {1e9 * per_pair[1]:.3f} ps a pair, {per_pair[1] / per_pair[0]:.3f}x the per-pair time at "
+          f"W={W_FLAGSHIP}; on its first {DOS_RUNG_SLICE} points max rel err vs plain {k2_rung_rel:.3e} (<= 1e-10); "
+          "repeat bit-identical", flush=True)
+    del Hl, wl, Hs, ws8
+    torch.cuda.empty_cache()
 
     # 4. PTR main path at full width ----------------------------------------
     bz = load_bz(FBZ(), np.eye(3))
@@ -1072,7 +1171,10 @@ def ptr_phases(np, torch, dev, h):
     del Hg, Xg, wg
     torch.cuda.empty_cache()
     info = {"k1_ms": t["k1"], "k1_library_ms": t["k1_library"], "k1_bound_ms": b1[0], "ptr_wall": wall,
-            "omegas": interp.numevals, "panels": len(interp.panels), "numevals": sweep.numevals}
+            "omegas": interp.numevals, "panels": len(interp.panels), "numevals": sweep.numevals,
+            "k2_ms": t["k2"], "k2_bound_ms": b2[0], "k2_first_bound_ms": b2_first[0], "k2_rung_ms": t["k2_rung"],
+            "k2_rung_bound_ms": b2_rung[0], "k2_rung_rel": k2_rung_rel, "k2_max_abs_err": k2_abs,
+            "ptr_launches": launches}
     return kernels, info
 
 
@@ -1166,12 +1268,23 @@ def k3_phase(np, torch, dev, h, rng):
 
 def fourier_phases(np, torch, dev, h):
     """``--phases-fourier``: phases 3-4, 6a, phase 19's K11 and phase 32's
-    AutoPTR DOS ladder, the ladder once more under torch.profiler for K1's
-    share of its device time. Returns their numbers."""
-    from autobzcore_torch import FBZ, AutoPTR, MixedParameters, load_bz
-    from autobzcore_torch.parallel.sweep import sweep_solve
+    AutoPTR DOS ladder; the PTR leg once more under torch.profiler for K2's
+    device time, and the ladder for K1's and K2's device time per rung and
+    their shares of its device time. Returns their numbers."""
+    from autobzcore_torch import FBZ, PTR, AutoPTR, IntegralProblem, MixedParameters, load_bz
+    from autobzcore_torch.models.observables import dos_integrand
+    from autobzcore_torch.parallel.sweep import SweepSolver, sweep_solve
+    from autobzcore_torch.utils.chebinterp import hchebinterp
 
     _, ptr = ptr_phases(np, torch, dev, h)
+    prob = IntegralProblem(dos_integrand(h, ETA), load_bz(FBZ(), np.eye(3)))
+    prof = profile("PTR main path", lambda: hchebinterp(SweepSolver(prob, PTR(npt=NPT), chunk=W_FLAGSHIP),
+                                                         *WINDOW, atol=1e-2))
+    ptr.update(ptr_k2_device_ms=device_sum_ms(prof, K2_KERNELS), ptr_k1_device_ms=device_sum_ms(prof, K1_KERNELS),
+               ptr_busy_ms=None if prof is None else 1e3 * prof["busy"])
+    if prof is not None:
+        print(f"PTR leg: K2 {ptr['ptr_k2_device_ms']:.3f} ms and K1 {ptr['ptr_k1_device_ms']:.3f} ms of "
+              f"{ptr['ptr_busy_ms']:.3f} ms device time (wall {ptr['ptr_wall']:.4f} s unprofiled)", flush=True)
     t3 = k3_phase(np, torch, dev, h, np.random.default_rng(1))
     k11 = k11_phase(np, torch, dev, h)
     t11 = k11["t"]
@@ -1180,11 +1293,17 @@ def fourier_phases(np, torch, dev, h):
     lad = autoptr_dos_ladder(np, torch, dev, h, load_bz(FBZ(), np.eye(3)))
     prof = profile(f"AutoPTR ladder ({AUTOPTR_OMEGAS} omegas)", lambda: sweep_solve(
         lad["prob"], AutoPTR(device=dev, **AUTOPTR_KW), MixedParameters(torch.as_tensor(lad["ws"], device=dev)),
-        abstol=AUTOPTR_ABSTOL))
-    k1_dev = None if prof is None else sum(t for k, _, t in prof["rows"] if "fourier_points" in k) / 1e6
+        abstol=AUTOPTR_ABSTOL), events=True)
+    k1_dev = None if prof is None else device_sum_ms(prof, K1_KERNELS) / 1e3
+    k2_dev = None if prof is None else device_sum_ms(prof, K2_KERNELS) / 1e3
+    split = None if prof is None else ladder_split(prof["events"])
     if prof is not None:
-        print(f"AutoPTR ladder: K1 {1e3 * k1_dev:.3f} ms of {1e3 * prof['busy']:.3f} ms device time "
-              f"({100 * k1_dev / prof['busy']:.2f} %)", flush=True)
+        busy = prof["busy"]
+        print(f"AutoPTR ladder: K1 {1e3 * k1_dev:.3f} ms ({100 * k1_dev / busy:.2f} %) and K2 {1e3 * k2_dev:.3f} ms "
+              f"({100 * k2_dev / busy:.2f} %) of {1e3 * busy:.3f} ms device time; per rung (npt, active lanes, K1 ms, "
+              f"K2 ms): " + ("not split (no device events)" if split is None else "; ".join(
+                  f"({n}, {a}, {r['k1_ms']:.3f}, {r['k2_ms']:.3f})"
+                  for n, a, r in zip(lad["rungs"], lad["active"], split))), flush=True)
     return dict(ptr, k3_ms=t3["ms"], k3_library_ms=t3["library_ms"], k3_bound_ms=t3["bound"][0],
                 k3_outer_ms=t3["outer_ms"], k3_outer_library_ms=t3["outer_library_ms"],
                 k3_outer_bound_ms=t3["outer_bound"][0],
@@ -1194,9 +1313,10 @@ def fourier_phases(np, torch, dev, h):
                 k11_bands30_ms=t11["bands30_ms"],
                 **{f"k11_chunk_{k}": t11[f"chunk_{k}"] for k in ("ms", "device_ms", "host_us", "library_ms",
                                                                   "library_device_ms", "bound_ms")},
-                ladder_wall=lad["wall"], ladder_active=lad["active"],
-                ladder_numevals=int(lad["nev"].sum()), ladder_k1_device_s=k1_dev,
-                ladder_busy_s=None if prof is None else prof["busy"])
+                ladder_wall=lad["wall"], ladder_active=lad["active"], ladder_rungs=list(lad["rungs"]),
+                ladder_certified=int(lad["conv"].sum()), ladder_launches=list(lad["launches"]),
+                ladder_numevals=int(lad["nev"].sum()), ladder_k1_device_s=k1_dev, ladder_k2_device_s=k2_dev,
+                ladder_split=split, ladder_busy_s=None if prof is None else prof["busy"])
 
 
 def leaf_solve_phase(np, torch, dev, args, label):
@@ -4076,6 +4196,16 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
            "plain_ms": cuda_ms(lambda: li.chi0_plain(e, f, U, shift, om_map, LH_ETA, sc), 2)}
     b25 = bound(K * m * m * LH_OMEGAS * CHI0_TERM_FLOPS + K * (8 * m**3 + 6 * m * m),
                 nbytes(e, f, U, om_map) + 16 * LH_OMEGAS)
+    # certified_chi0's width (9 omegas): every 12th of the map's, which alone
+    # must give the 100-omega launch's bits for them
+    om9 = om_map[::12].contiguous()
+    k25_9 = li.chi0(e, f, U, shift, om9, LH_ETA, sc)
+    err25_9 = check("K25 chi0 at 9 omegas", k25_9, li.chi0_plain(e, f, U, shift, om9, LH_ETA, sc), 1e-12)[0]
+    if not torch.equal(k25_9, k25[::12]):
+        fail("K25 chi0: 9 omegas alone differ from the same omegas in the launch of 100")
+    t25_9 = {"ms": cuda_ms(lambda: li.chi0(e, f, U, shift, om9, LH_ETA, sc), 20),
+             "bound": bound(K * m * m * om9.shape[0] * CHI0_TERM_FLOPS + K * (8 * m**3 + 6 * m * m),
+                            nbytes(e, f, U, om9) + 16 * om9.shape[0])}
     errs26 = []
     for sh in ((0, 0, 0), (LH_NPT // 4, 0, 0)):
         k26 = li.cooper_mean(e, f, sh, mu, LH_BETA)
@@ -4087,7 +4217,9 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
     b26 = bound(K * m * COOPER_FLOPS, nbytes(e, f) + 8)
     print(f"K25 chi0 on the flagship's npt={LH_NPT} grid ({K} points, m = {m}, {LH_OMEGAS} omegas, q = (1/8, 0, 0)): "
           f"max|d| vs plain {err25:.3e} ({rel25:.3e} of max|chi0|, <= 1e-12), repeat bit-identical; {t25['ms']:.4f} ms "
-          f"(plain {t25['plain_ms']:.4f} ms, bound {b25[0]:.4f} ms by {b25[1]}); K26 cooper_mean at q = 0 and (1/4, 0, 0): "
+          f"(plain {t25['plain_ms']:.4f} ms, bound {b25[0]:.4f} ms by {b25[1]}, {100 * b25[0] / t25['ms']:.1f} %); at 9 omegas "
+          f"(every 12th: the launch of 100's bits) max|d| {err25_9:.3e}, {t25_9['ms']:.4f} ms (bound "
+          f"{t25_9['bound'][0]:.4f} ms by {t25_9['bound'][1]}); K26 cooper_mean at q = 0 and (1/4, 0, 0): "
           f"max|d| {t26['err']:.3e} (<= 1e-12 relative), repeats bit-identical; {t26['ms']:.4f} ms (plain "
           f"{t26['plain_ms']:.4f} ms, bound {b26[0]:.5f} ms by {b26[1]})", flush=True)
     del slv, e, f, U, k25, p25
@@ -4253,6 +4385,15 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
     cert = li.certified_chi0(h, bz, [0.25, 0.0, 0.0], np.linspace(0.0, LH_OMEGA_MAX, 9), LH_BETA, mu=mu, eta=LH_ETA,
                              abstol=1e-2, nmin=16, nmax=64)
     t4 = time.perf_counter()
+    # K25 alone at each certified rung's grid and 9 omegas (by events)
+    om_c = torch.linspace(0.0, LH_OMEGA_MAX, 9, dtype=torch.float64, device=dev)
+    rung_ms, lh_walls, n25 = [], (t1 - t0, t2 - t1), li.chi0.launches
+    for n in cert.npts:
+        rs = li.LindhardSolver(h, bz, n, LH_BETA, mu=mu, eta=LH_ETA)
+        sh = li._grid_shift_of([0.25, 0.0, 0.0], 3, n)
+        rung_ms.append(cuda_ms(lambda: li.chi0(rs._e, rs._f, rs._U, sh, om_c, LH_ETA, 1.0), 20))
+        del rs
+    li.chi0.launches = n25  # the timing's launches are not the main path's
     im_max = float(chi_map[:, oms > 0].imag.max())
     print(f"Lindhard main path: flagship, FBZ, npt={LH_NPT} ({LH_NPT**3} points), beta {LH_BETA}, mu = {mu!r} eV, eta "
           f"{LH_ETA}: build {t1 - t0:.4f} s (peak {peak_build:.1f} MiB); the {LH_NQ}-q x {LH_OMEGAS}-omega map "
@@ -4260,7 +4401,8 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
           f"{complex(chi_map[LH_NQ // 2, 25])!r}; max Im chi0 over omega > 0 {im_max:.3e} (<= 1e-12); cooper_bubble(q = "
           f"0) beta 40 {cb40!r}, beta 80 {cb80!r} (both with the beta-80 build {t3 - t2:.4f} s); certified_chi0(q = "
           f"(1/4, 0, 0), 9 omegas, abstol 1e-2, nmin 16, nmax 64): rungs {cert.npts}, resid {cert.resid:.3e}, retcode "
-          f"{cert.retcode}, {t4 - t3:.4f} s", flush=True)
+          f"{cert.retcode}, {t4 - t3:.4f} s; K25 at each rung (by events): "
+          + ", ".join(f"npt {n} {ms:.4f} ms" for n, ms in zip(cert.npts, rung_ms)), flush=True)
     if not (chi_map.shape == (LH_NQ, LH_OMEGAS) and np.all(np.isfinite(chi_map)) and im_max <= 1e-12):
         fail(f"Lindhard map: shape {chi_map.shape}, finite {np.all(np.isfinite(chi_map))}, max Im {im_max:.3e}")
     if not (math.isfinite(cb40) and math.isfinite(cb80) and all(n % 4 == 0 for n in cert.npts)
@@ -4392,7 +4534,12 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
     if wall > 60.0:
         fail(f"phases 29-30 took {wall:.1f} s (> 60)")
     numbers.update(kinetic=split, sigma_dos_sweep_s=t_dos_sweep, sigma_transport_sweep_s=t_tr_sweep,
-                   kinetic_check=[kin_err, ks.numevals, kr.numevals])
+                   kinetic_check=[kin_err, ks.numevals, kr.numevals],
+                   k25={"ms": t25["ms"], "bound_ms": b25[0], "ms_9": t25_9["ms"], "bound_ms_9": t25_9["bound"][0],
+                        "err": err25, "err_9": err25_9, "certified_rungs": list(cert.npts),
+                        "certified_rung_ms": rung_ms},
+                   lindhard_build_s=lh_walls[0], lindhard_map_s=lh_walls[1], lindhard_launches=launches["chi0"],
+                   certified_resid=cert.resid, certified_retcode=bool(cert.retcode))
     if "--profile" in sys.argv[1:]:
         profile(f"Lindhard map ({LH_NQ} q x {LH_OMEGAS} omegas)", lambda: [slv(q, oms) for q in qs])
         profile(f"self-energy DOS sweep ({SE_OMEGAS} omegas)", lambda: dos(om_d))

@@ -777,6 +777,95 @@ def test_dos_kernel_grid_cap_loop_is_bit_identical(cuda_device):
     assert float((full - want).abs().max() / want.abs().max()) <= 1e-10
 
 
+def _near_degenerate(rng, K, m, center, split):
+    """K Hermitian matrices with one m-fold eigenvalue ``center`` split by
+    ``split``, in random unitary bases."""
+    Q = np.linalg.qr(rng.normal(size=(K, m, m)) + 1j * rng.normal(size=(K, m, m)))[0]
+    ev = center + split * np.arange(m)
+    return Q @ (ev[:, None] * np.swapaxes(Q.conj(), 1, 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 8, 31, 33, 264])
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_dos_kernel_lane_widths_on_card(cuda_device, m, W):
+    """K2 at every lane width its launch sizes itself to, on general complex
+    H (not Hermitian) over a K that is no multiple of a chunk or of a warp's
+    32 substreams: 1e-10 relative, bit-identical repeats, and each lane the
+    bits it has in a launch of 264 (alone too)."""
+    rng = np.random.default_rng(40 + m)
+    K = 2 * 4096 + 1061
+    H = torch.as_tensor(rng.normal(size=(K, m, m)) + 1j * rng.normal(size=(K, m, m)), device=cuda_device)
+    w = torch.as_tensor(rng.random(K) + 0.5, device=cuda_device)
+    om264 = torch.linspace(-3, 3, 264, dtype=torch.float64, device=cuda_device)
+    eta264 = torch.as_tensor(rng.uniform(0.02, 0.2, 264), device=cuda_device)
+    all264 = tobs.dos_trace_weighted_sum(H, w, om264, eta264, 0.5)
+    sel = torch.as_tensor(np.linspace(0, 263, W).round().astype(np.int64), device=cuda_device)
+    om, eta = om264[sel].contiguous(), eta264[sel].contiguous()
+    got = tobs.dos_trace_weighted_sum(H, w, om, eta, 0.5)
+    want = tobs.dos_trace_weighted_sum_plain(H, w, om, eta, 0.5)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-10
+    assert torch.equal(got, tobs.dos_trace_weighted_sum(H, w, om, eta, 0.5))
+    assert torch.equal(got, all264[sel])
+    j = W // 2
+    assert torch.equal(tobs.dos_trace_weighted_sum(H, w, om[j:j + 1], eta[j:j + 1], 0.5), got[j:j + 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, 3])
+def test_dos_kernel_near_degenerate_on_card(cuda_device, m):
+    """K2 where its form's shifts are smallest: an m-fold eigenvalue split
+    by 1e-9 at eta 1e-3, frequencies on the cluster and beside it, within
+    1e-10 of the plain version relative to the largest lane."""
+    rng = np.random.default_rng(50 + m)
+    K = 5000
+    H = torch.as_tensor(_near_degenerate(rng, K, m, 0.7, 1e-9), device=cuda_device)
+    w = torch.as_tensor(rng.random(K) + 0.5, device=cuda_device)
+    om = torch.as_tensor(0.7 + np.array([-3e-3, -1e-3, -1e-6, 0.0, 5e-10, 1e-6, 1e-3, 2e-2]), device=cuda_device)
+    eta = torch.full_like(om, 1e-3)
+    got = tobs.dos_trace_weighted_sum(H, w, om, eta, 0.5)
+    want = tobs.dos_trace_weighted_sum_plain(H, w, om, eta, 0.5)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3])
+def test_dos_kernel_exact_where_its_reciprocal_does_not_hold_on_card(cuda_device, m):
+    """At eta 1e-160 on an eigenvalue, |det|^2 is subnormal and K2's
+    reciprocal by rcp.approx does not hold: those pairs take a correctly
+    rounded division, so the lane equals the plain version (1e-10 relative,
+    ~1e160 in size) and the other lanes keep their bits."""
+    rng = np.random.default_rng(60 + m)
+    K = 300
+    H = torch.as_tensor(random_hermitian(rng, K, m), device=cuda_device)
+    H[7] = torch.diag(torch.arange(1, m + 1, dtype=torch.float64, device=cuda_device) * 0.5).to(H.dtype)
+    w = torch.as_tensor(rng.random(K) + 0.5, device=cuda_device)
+    om = torch.tensor([0.5, -0.3, 1.1], dtype=torch.float64, device=cuda_device)
+    eta = torch.tensor([1e-160, 0.05, 0.05], dtype=torch.float64, device=cuda_device)
+    got = tobs.dos_trace_weighted_sum(H, w, om, eta, 0.5)
+    want = tobs.dos_trace_weighted_sum_plain(H, w, om, eta, 0.5)
+    assert bool(torch.isfinite(got).all())
+    assert float(((got - want).abs() / want.abs()).max()) <= 1e-10
+    assert torch.equal(got[1:], tobs.dos_trace_weighted_sum(H, w, om[1:].contiguous(), eta[1:].contiguous(), 0.5))
+
+
+@pytest.mark.gpu
+def test_dos_kernel_grid_cap_loop_is_bit_identical_at_few_lanes(cuda_device):
+    """The capped grid at a late AutoPTR rung's width (8 lanes, one lane
+    group): 3 block rows loop over the 245 k-chunks of 1e6 points and give
+    the uncapped launch's bits."""
+    rng = np.random.default_rng(8)
+    K = 1_000_000
+    H = torch.as_tensor(random_hermitian(rng, K, 3), device=cuda_device)
+    w = torch.as_tensor(rng.random(K), device=cuda_device)
+    om = torch.linspace(-3, 3, 8, dtype=torch.float64, device=cuda_device)
+    eta = torch.full_like(om, 0.05)
+    full = tobs._dos_trace_launch(H, w, om, eta, 0.5, tobs.DOS_GRID_CAP)
+    assert torch.equal(full, tobs._dos_trace_launch(H, w, om, eta, 0.5, 3))
+    want = tobs.dos_trace_weighted_sum_plain(H, w, om, eta, 0.5)
+    assert float((full - want).abs().max() / want.abs().max()) <= 1e-10
+
+
 def _eig_grid(rng, m, npt, d, device):
     """A band-major grid (m, npt^d) of smooth periodic bands with exact
     ties (a cosine band) beside random ones."""
@@ -2077,6 +2166,54 @@ def test_chi0_kernel_matches_plain_on_card(cuda_device, d, npt, m):
     assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
     assert torch.equal(got, li.chi0(e, f, U, shift, om, 0.05, 0.01))
     assert torch.equal(got[:7], li.chi0(e, f, U, shift, om[:7].contiguous(), 0.05, 0.01))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 9, 100, 129])
+@pytest.mark.parametrize("d,npt,m", [(1, 37, 1), (2, 12, 3), (3, 13, 3), (3, 9, 5), (2, 19, 8)])
+def test_chi0_kernel_frequency_widths_on_card(cuda_device, d, npt, m, W):
+    """K25 at every width its blocks size themselves to (one frequency,
+    certified_chi0's nine, the map's hundred, and 129: two block rows), on
+    grids that are no multiple of a tile, m = 1, 3, 5, 8: 1e-12 of
+    max|chi|, bit-identical repeats, and each frequency the bits it has in
+    the launch of 129 (alone too)."""
+    from autobzcore_torch.models import lindhard as li
+
+    rng = np.random.default_rng(330 + d + m)
+    e, f, U = _lindhard_inputs(rng, d, npt, m, cuda_device)
+    shift = tuple(int(s) for s in rng.integers(0, npt, d))
+    om129 = torch.linspace(-1.0, 3.0, 129, dtype=torch.float64, device=cuda_device)
+    all129 = li.chi0(e, f, U, shift, om129, 0.05, 0.01)
+    sel = torch.as_tensor(np.linspace(0, 128, W).round().astype(np.int64), device=cuda_device)
+    om = om129[sel].contiguous()
+    got = li.chi0(e, f, U, shift, om, 0.05, 0.01)
+    want = li.chi0_plain(e, f, U, shift, om, 0.05, 0.01)
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    assert torch.equal(got, li.chi0(e, f, U, shift, om, 0.05, 0.01))
+    assert torch.equal(got, all129[sel])
+    j = W // 2
+    assert torch.equal(li.chi0(e, f, U, shift, om[j:j + 1], 0.05, 0.01), got[j:j + 1])
+
+
+@pytest.mark.gpu
+def test_chi0_kernel_exact_where_its_reciprocal_does_not_hold_on_card(cuda_device):
+    """A frequency of 1e200 makes x^2 + eta^2 overflow, where K25's
+    reciprocal by rcp.approx does not hold: its terms take a correctly
+    rounded division, so chi0 there is the plain version's ~1e-200 within
+    1e-12 of max|chi|, and the other frequencies keep their bits. An eta
+    below 1e-150 (where the kernel's sums would overflow) raises."""
+    from autobzcore_torch.models import lindhard as li
+
+    e, f, U = _lindhard_inputs(np.random.default_rng(340), 2, 12, 3, cuda_device)
+    om = torch.tensor([0.0, 1e200, 0.7, 2.0], dtype=torch.float64, device=cuda_device)
+    got = li.chi0(e, f, U, (1, 3), om, 0.05, 0.01)
+    want = li.chi0_plain(e, f, U, (1, 3), om, 0.05, 0.01)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    keep = torch.tensor([0, 2, 3], device=cuda_device)
+    assert torch.equal(got[keep], li.chi0(e, f, U, (1, 3), om[keep].contiguous(), 0.05, 0.01))
+    with pytest.raises(ValueError):
+        li.chi0(e, f, U, (1, 3), om, 1e-160, 0.01)
 
 
 @pytest.mark.gpu

@@ -174,6 +174,32 @@ def test_chi0_matches_reference(solvers, case, qkind):
     assert np.array_equal(st(q, torch.as_tensor(om)), got)
 
 
+@pytest.mark.parametrize("case", ["integer2", "flagship"])
+@pytest.mark.parametrize("W,eta", [(1, 1e-2), (9, 1e-2), (9, 1e-4)])
+def test_chi0_plain_matches_reference_at_widths(case, W, eta):
+    """chi0's plain version (K25's yardstick) at the widths K25 sizes its
+    blocks to, one frequency and certified_chi0's nine, and at a broadening
+    a hundred times smaller than the map's: 1e-12 of max|chi0|, and a
+    frequency's value the same bits alone as among the nine. The reference's
+    query runs on the port's grid (energies and eigenvectors): the two
+    eigensolvers' energies differ by ~1e-15, which a term near resonance
+    amplifies by 1/eta (1e-11 of max|chi0| at eta 1e-4 with each package's
+    own grid), and this test is about the sum."""
+    import jax.numpy as jnp
+
+    name, kw, d, npt, beta, mu = CASES[case]
+    (hj, ht), (bzj, bzt) = model(name, **kw), fbz(d)
+    sj = jl.LindhardSolver(hj, bzj, npt, beta, mu=mu, eta=eta)
+    st = tl.LindhardSolver(ht, bzt, npt, beta, mu=mu, eta=eta)
+    sj._e, sj._Ur, sj._Ui = (jnp.asarray(a) for a in (st._e.numpy(), st._U.real.numpy(), st._U.imag.numpy()))
+    q = QS[d]["on"]
+    om = np.linspace(0.05, 3.0, W)
+    got = st(q, om)
+    assert got.shape == (W,)
+    assert curve_err(got, np.asarray(sj(q, om))) <= 1e-12
+    assert np.array_equal(st(q, om[-1:]), got[-1:])
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_grid_and_occupations_match_reference(solvers, case):
     """The cached energies (1e-12 of their scale) and the occupations the

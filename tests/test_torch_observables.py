@@ -59,6 +59,40 @@ def test_plain_weighted_sum_matches_reference(m):
     assert rel_err(got, want) <= 1e-12
 
 
+def _near_degenerate(rng, K, m, center=0.7, split=1e-9):
+    """K Hermitian matrices with one m-fold eigenvalue ``center`` split by
+    ``split`` (center, center + split, ...), in random unitary bases."""
+    a = rng.normal(size=(K, m, m)) + 1j * rng.normal(size=(K, m, m))
+    Q = np.linalg.qr(a)[0]
+    ev = center + split * np.arange(m)
+    return Q @ (ev[:, None] * np.swapaxes(Q.conj(), 1, 2))
+
+
+@pytest.mark.parametrize("m,kind", [(1, "non_hermitian"), (2, "non_hermitian"), (3, "non_hermitian"),
+                                    (2, "near_degenerate"), (3, "near_degenerate")])
+def test_plain_weighted_sum_matches_reference_on_hard_matrices(m, kind):
+    """The PTR rule's sum (the reference's ``tree_weighted_sum`` of
+    ``dos_trace``) on the matrices K2's form must keep: general complex H
+    (not Hermitian, its eigenvalues off the real axis) at eta 0.1, and an
+    m-fold eigenvalue split by 1e-9 at eta 1e-3 with frequencies on and
+    beside it."""
+    rng = np.random.default_rng(20 + m)
+    if kind == "non_hermitian":
+        H = rng.normal(size=(300, m, m)) + 1j * rng.normal(size=(300, m, m))
+        om, eta = OMEGAS, ETA
+    else:
+        H = _near_degenerate(rng, 300, m)
+        om, eta = 0.7 + np.array([-3e-3, -1e-3, 0.0, 5e-10, 1e-3, 2e-2]), 1e-3
+    w = rng.random(300) + 0.5
+    scale = 0.0123
+    fx = jax.vmap(lambda h: jobs.dos_trace(JValue(None, h), jnp.asarray(om), eta=eta))(jnp.asarray(H))
+    want = scale * np.asarray(tree_weighted_sum(jnp.asarray(w), fx, axis=0))
+    omt = torch.as_tensor(om)
+    got = tobs.dos_trace_weighted_sum_plain(torch.as_tensor(H), torch.as_tensor(w), omt,
+                                            torch.full_like(omt, eta), scale).numpy()
+    assert rel_err(got, want) <= 1e-12
+
+
 def test_plain_weighted_sum_chunks_over_k():
     """Enough k-points and lanes that the plain version takes several
     chunks; the sum must not depend on the chunking."""

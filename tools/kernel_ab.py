@@ -9,13 +9,16 @@ It imports ``autobzcore_torch`` from the checkout at TREE (its kernels
 build there at first use) and runs this repository's ``chip_smoke.py``
 phase functions on it:
 
-- ``--phases fourier``: the Fourier-evaluation kernels (K1, K11, K3):
-  phases 3-4 (K1 and the flagship PTR leg), 6a (K3 at the outer and mid
-  shapes, with its host cost a call), phase 19's K11 (at the flagship's 1e6
-  points, a GGR init chunk of 4,096 points and the bands30 chunk) and phase
-  32's AutoPTR DOS ladder (with K1's share of its device time from
-  torch.profiler), then the GGR init of phase 20 and phase 32's AutoPTR
-  transport ladder;
+- ``--phases fourier``: the Fourier-evaluation kernels (K1, K11, K3) and
+  the PTR DOS sum (K2): phases 3-4 (K1; K2 at the PTR shape, 1e6 k x 264
+  lanes, and at a late AutoPTR rung's, 8 lanes on the npt=400 grid's 6.4e7
+  points; the flagship PTR leg, once more under torch.profiler for K2's
+  device time), 6a (K3 at the outer and mid shapes, with its host cost a
+  call), phase 19's K11 (at the flagship's 1e6 points, a GGR init chunk of
+  4,096 points and the bands30 chunk) and phase 32's AutoPTR DOS ladder
+  (its rungs, active lanes and certified lanes, and from torch.profiler K1's
+  and K2's device time per rung and their shares of its device time), then
+  the GGR init of phase 20 and phase 32's AutoPTR transport ladder;
 - ``--phases rule_transport``: the Genz-Malik box rule (K14) and the
   transport contraction (K19): phase 22 (K14-K17 at the TAI leg's shapes,
   with K14's device time and the host cost of its call) and phases 25-26
@@ -30,10 +33,12 @@ phase functions on it:
   events and by device time beside ``torch.einsum``;
 - ``--phases k24``: phase 27's K24 alone, first in its process (where the
   profiler's device times are whole);
-- ``--phases selfenergy``: the matrix self-energy kernels and paths:
-  phases 29-30 at phase 26's chemical potential (K25-K28 against their
-  plain versions, K28 at 256 equal frequencies, 32 unequal pairs and a
-  kinetic trip's 960, and at m = 4; the Lindhard map, the self-energy DOS
+- ``--phases selfenergy``: the Lindhard and matrix self-energy kernels and
+  paths: phases 29-30 at phase 26's chemical potential (K25-K28 against
+  their plain versions, K25 at the map's 100 omegas and certified_chi0's 9
+  and at each certified rung, K28 at 256 equal frequencies, 32 unequal pairs
+  and a kinetic trip's 960, and at m = 4; the Lindhard map's build and
+  wall, the self-energy DOS
   and transport sweeps, and the kinetic step with its split: builds, the
   integrand's device time summed over its trips (K28 with its small
   neighbours), pairs per launch, trips, numevals, retcodes);

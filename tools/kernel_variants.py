@@ -2,7 +2,8 @@
 """Time variants of one kernel source on one NVIDIA GPU, at the main path's
 shapes, against the kernels' plain versions.
 
-    python3 tools/kernel_variants.py SOURCE [--only NAME,...] [--other NAME=FILE.cu ...] [--out DIR]
+    python3 tools/kernel_variants.py SOURCE [--only NAME,...] [--other NAME=FILE.cu ...] [--base FILE.cu]
+        [--out DIR]
 
 SOURCE is a file of ``autobzcore_torch/csrc/`` with a patch table here:
 
@@ -50,12 +51,30 @@ SOURCE is a file of ``autobzcore_torch/csrc/`` with a patch table here:
   npt=100 with 1001 energies over [-6, 7] eV (the DOS and N(E)) and one
   energy (a Fermi-level step's N(E)), against the package's kernel.
 
+- ``dos_trace`` (K2): ``div``, every pair's quotient a correctly rounded
+  division (``__ddiv_rn``) instead of ``rcp.approx.ftz.f64`` and two
+  Newton steps; ``r8``, at most 8 lanes a thread (the package takes up to
+  16). Shapes: the flagship's npt=100 grid (1e6 points, m = 3) at the PTR
+  leg's 264 lanes, and its npt=400 grid (6.4e7 points) at 8 lanes (a late
+  AutoPTR rung), checked on their whole grids.
+- ``lindhard_chi0`` (K25): ``noloop``, the frequency loop over a tile's
+  terms taken out (wrong values): what building the tiles, the launch and
+  the second pass cost; ``nobuild``, the terms' build replaced by constant
+  terms (wrong values): what the frequency loop costs. The patches hold for
+  this package's source and for the design before it (the parent's, given
+  by ``--base``); ``nounroll``, the term loop not unrolled (the package
+  unrolls it twice). Shapes: phase 29's flagship grid at npt 64 (262,144
+  points, m = 3) at q = (1/8, 0, 0), with the map's 100 omegas and
+  certified_chi0's 9.
+
 Each variant is a copy of the source, changed by a text patch, built on its
 own with the package's nvcc flags into a library of its own under
 ``build/autobzcore_torch/variants/``; ``package`` is the source as it is,
 and ``--other NAME=FILE.cu`` adds another source with the same C entry
 points as it is, for example the parent's (``git show HEAD~1:...`` into a
-file). ``--only`` keeps the named variants. Each variant is timed in two
+file). ``--base FILE.cu`` patches that source instead of the package's
+and times it as ``base`` beside ``package``. ``--only`` keeps the named
+variants. Each variant is timed in two
 rounds, by events, by torch.profiler's device time and by the host time of
 its ctypes launch. The last line is a JSON object of the numbers; with
 ``--out DIR`` a copy goes to ``DIR/variants_SOURCE.json``.
@@ -331,10 +350,118 @@ def tetra_cases(torch, cs, dev, stream):
             ("nos1", 50, None, *case(E1, True))]
 
 
+# dos_trace.cu: K2
+QUOTIENT = "__device__ __forceinline__ double quotient(double num, double den) {\n"
+LANES = "  for (int R = 1; R <= 16; R *= 2) {\n"
+
+
+def dos_variants(src):
+    p = lambda old, new: patch("dos_trace", src, old, new)  # noqa: E731
+    return {"div": p(QUOTIENT, QUOTIENT + "  return __ddiv_rn(num, den);\n"),
+            "r8": p(LANES, LANES.replace("16", "8"))}
+
+
+def dos_cases(torch, cs, dev, stream):
+    """(tag, reps, skip(name), launcher(lib) -> (go, result), want) of K2."""
+    from autobzcore_torch.algorithms.ptr import frac_nodes
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.models.tight_binding import flagship_series
+    from autobzcore_torch.ops.fourier_eval import fourier_points
+
+    h = flagship_series(device=dev)
+    period = torch.as_tensor(h.period, device=dev)
+    om264 = torch.linspace(*cs.WINDOW, cs.W_FLAGSHIP, dtype=torch.float64, device=dev)
+    step = cs.W_FLAGSHIP // cs.DOS_RUNG_LANES
+
+    def case(npt, om):
+        H = fourier_points(h.c, (frac_nodes(npt, 3, dev) * period).contiguous(), h.offset, h.period).reshape(-1, 3, 3)
+        K, W = H.shape[0], om.shape[0]
+        w = torch.ones(K, dtype=torch.float64, device=dev)
+        eta = torch.full_like(om, cs.ETA)
+        sc = (2 * np.pi) ** 3 / npt**3
+
+        def launcher(lib):
+            lib.dos_trace_num_chunks.argtypes = [LL]
+            lib.dos_trace_num_chunks.restype = LL
+            lib.dos_trace_weighted_sum_launch.argtypes = [VP] * 6 + [LL, INT, INT, DBL, INT, VP]
+            out = torch.empty(W, dtype=torch.float64, device=dev)
+            part = torch.empty((lib.dos_trace_num_chunks(K), W), dtype=torch.float64, device=dev)
+            args = (H.data_ptr(), w.data_ptr(), om.data_ptr(), eta.data_ptr(), part.data_ptr(), out.data_ptr(), K, W,
+                    3, -sc / np.pi, 0, stream)
+            return (lambda: lib.dos_trace_weighted_sum_launch(*args)), (lambda: out)
+        return launcher, obs.dos_trace_weighted_sum_plain(H, w, om, eta, sc)
+
+    return [("ptr264", 10, None, *case(cs.NPT, om264)),
+            ("rung8", 5, None, *case(cs.DOS_RUNG_NPT, om264[::step].contiguous()))]
+
+
+# lindhard_chi0.cu: K25, this design's text and the previous design's
+CHI0_LOOP = ("    if (worker) {\n      double re0", "    const int nt = wi < W ? np * mm : 0;")
+CHI0_BUILD = ("    for (int it = threadIdx.x; it < np * m; it += blockDim.x) {\n",
+              "    for (int p = threadIdx.x; p < np; p += kThreads) {\n")
+
+
+def patch_any(name, src, olds, new):
+    """Apply the first of the alternative patches ``olds`` that the source
+    holds; ``new(old)`` gives the replacement."""
+    for old in olds:
+        if src.count(old) == 1:
+            return src.replace(old, new(old))
+    sys.exit(f"{name}.cu holds none of the texts this variant patches:\n{olds}")
+
+
+def chi0_variants(src):
+    p = lambda olds, new: patch_any("lindhard_chi0", src, olds, new)  # noqa: E731
+    noloop = p(CHI0_LOOP, lambda old: old.replace("if (worker) {", "if (worker && np < 0) {") if "worker" in old
+               else "    const int nt = 0;")
+    # constant terms in place of the build, then the build's loop taken out
+    fill = ("    for (int j = threadIdx.x; j < np * mm; j += blockDim.x) ts[j] = make_double2(1e-3, 0.25 * (j % 7));\n")
+    nobuild = p(CHI0_BUILD, lambda old: fill + old.replace("< np * m;", "< 0;").replace("< np;", "< 0;"))
+    out = {"noloop": noloop, "nobuild": nobuild}
+    if "#pragma unroll 2\n" in src:
+        out["nounroll"] = src.replace("#pragma unroll 2\n", "#pragma unroll 1\n")
+    return out
+
+
+def chi0_cases(torch, cs, dev, stream):
+    """(tag, reps, skip(name), launcher(lib) -> (go, result), want) of K25."""
+    from autobzcore_torch import FBZ, load_bz
+    from autobzcore_torch.models import lindhard as li
+    from autobzcore_torch.models.tight_binding import flagship_series
+
+    slv = li.LindhardSolver(flagship_series(device=dev), load_bz(FBZ(), np.eye(3)), cs.LH_NPT, cs.LH_BETA,
+                            eta=cs.LH_ETA)
+    e, f, U = slv._e, slv._f, slv._U
+    K, m, npt = e.numel() // 3, 3, cs.LH_NPT
+    shift = (ctypes.c_int * 3)(npt // 8, 0, 0)
+    sc = slv._vol / npt**3
+
+    def case(om):
+        W = om.shape[0]
+
+        def launcher(lib):
+            lib.chi0_num_blocks.argtypes = [LL, INT]
+            lib.chi0_num_blocks.restype = LL
+            lib.chi0_launch.argtypes = [VP, VP, VP, INT, INT, ctypes.POINTER(INT), INT, VP, INT, DBL, DBL, VP, VP,
+                                        VP]
+            out = torch.empty(W, dtype=torch.complex128, device=dev)
+            part = torch.empty((lib.chi0_num_blocks(K, m), W), dtype=torch.complex128, device=dev)
+            args = (e.data_ptr(), f.data_ptr(), U.data_ptr(), 3, npt, shift, m, om.data_ptr(), W, cs.LH_ETA, sc,
+                    part.data_ptr(), out.data_ptr(), stream)
+            return (lambda: lib.chi0_launch(*args)), (lambda: out)
+        return launcher, li.chi0_plain(e, f, U, (npt // 8, 0, 0), om, cs.LH_ETA, sc)
+
+    om100 = torch.linspace(0.0, cs.LH_OMEGA_MAX, cs.LH_OMEGAS, dtype=torch.float64, device=dev)
+    om9 = torch.linspace(0.0, cs.LH_OMEGA_MAX, 9, dtype=torch.float64, device=dev)
+    return [("map100", 20, None, *case(om100)), ("cert9", 20, None, *case(om9))]
+
+
 SOURCES = {"fourier_points": (fourier_variants, fourier_cases),
            "transport_gamma": (transport_variants, transport_cases),
            "sigma_pairs": (sigma_variants, sigma_cases),
-           "tetra_dos": (tetra_variants, tetra_cases)}
+           "tetra_dos": (tetra_variants, tetra_cases),
+           "lindhard_chi0": (chi0_variants, chi0_cases),
+           "dos_trace": (dos_variants, dos_cases)}
 
 
 def main():
@@ -342,11 +469,13 @@ def main():
     if not argv or argv[0] not in SOURCES:
         sys.exit(__doc__)
     source = argv.pop(0)
-    out_dir, others, only = None, {}, None
+    out_dir, others, only, base = None, {}, None, None
     while argv:
         flag = argv.pop(0)
         if flag == "--out" and argv:
             out_dir = Path(argv.pop(0))
+        elif flag == "--base" and argv:
+            base = Path(argv.pop(0)).read_text()
         elif flag == "--only" and argv:
             only = set(argv.pop(0).split(","))
         elif flag == "--other" and argv and "=" in argv[0]:
@@ -369,7 +498,9 @@ def main():
     print(smi, flush=True)
     make_variants, make_cases = SOURCES[source]
     text = (CSRC / f"{source}.cu").read_text()
-    srcs = {"package": text, **make_variants(text)}
+    srcs = {"package": text, **make_variants(text if base is None else base)}
+    if base is not None:
+        srcs["base"] = base
     if only is not None:
         srcs = {k: v for k, v in srcs.items() if k in only}
     srcs.update(others)
