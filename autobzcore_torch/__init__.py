@@ -27,8 +27,8 @@ and the box and Gaussian energy sums (K13, ``dos.ggr.ggr_box_sum`` and
 ``dos.ggr.gaussian_sum``), and for Genz-Malik cubature (``HCubatureJL``,
 ``TAI``) the box rule (K14, ``ops.genz_malik.gm_rule_reduce``), the box rule
 fused with the DOS trace (K15, ``models.observables.gm_leaf_dos``) and the
-box-pool step (K16, ``ops.genz_malik.gm_pool_select`` and
-``gm_pool_update``), and for fixed rules (``QuadratureFunction``, fixed nest
+box-pool step (K16, ``ops.genz_malik.gm_pool_step``, one launch a trip
+after ``gm_pool_begin``), and for fixed rules (``QuadratureFunction``, fixed nest
 levels) the rule's reduction (K17, ``ops.adaptive.fixed_rule_reduce``), and
 for the transport family (``TransportSolver``, ``KineticCoefficientSolver``,
 ``ElectronCountSolver``) the band-pair velocity pack (K18,

@@ -1,7 +1,8 @@
-// Pool pieces shared by the interval pool (K5, gk_pool.cu), the box pool
-// (K16, gm_pool.cu) and the fused leaf solve (gk_leaf_dos.cu): the worst-k
-// selection and the lane totals. Every thread of the block calls each
-// function; blockDim.x is a power of two up to kPoolThreads.
+// Pool pieces shared by the interval pool (K5, gk_pool.cu) and the fused
+// leaf solve (gk_leaf_dos.cu): the worst-k selection and the lane totals
+// (the box pool, K16 in gm_pool.cu, takes only the constants and keeps the
+// totals' order in its own one-pass form). Every thread of the block calls
+// each function; blockDim.x is a power of two up to kPoolThreads.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -36,6 +36,7 @@ from ..ops.cuda_lib import check_launch, load_kernels, stream_handle
 from ..ops.eigh3 import EIGH_CHUNK, eigh_chunked
 from ..ops.fourier_eval import fourier_points_derivs, jacobian_orders
 from .interfaces import DOSAlgorithm, DOSSolution
+from .tetrahedron import in_sorted_order
 
 _EPS = 1e-300
 _PLAIN_TERMS = 1 << 22  # (energy, k, band) terms per pass of K13's plain version
@@ -159,21 +160,31 @@ def gaussian_sum_plain(e, sigma, norm, w, E, scale):
     return out
 
 
+# the most energies K13 takes in any order (kFewE in csrc/ggr_dos.cu)
+_FEW_E = 4
+
+
 def _k13(mode, e, a, nrm, w, E, b, vtol, scale):
     """One K13 launch: ``mode`` d = 1..3 (box, a the velocities) or 0
-    (Gaussian, a the widths, nrm the norms)."""
+    (Gaussian, a the widths, nrm the norms). K13 takes up to ``_FEW_E``
+    energies in any order (term by term) and more sorted: then a copy is
+    sorted on the card and the values go back in E's order."""
     K, m = e.shape
-    W = E.shape[0]
-    out = torch.empty(W, dtype=REAL, device=e.device)
     lib = load_kernels()
-    partials = torch.empty((lib.energy_tiles_num_blocks(K * m, max(W, 1)), max(W, 1)), dtype=REAL,
-                           device=e.device)
-    stream = stream_handle(e.device)
-    rc = lib.ggr_dos_launch(mode, e.data_ptr(), a.data_ptr(), None if nrm is None else nrm.data_ptr(),
-                            w.data_ptr(), K, m, E.data_ptr(), W, float(b), float(vtol), float(scale),
-                            partials.data_ptr(), out.data_ptr(), stream)
-    check_launch(rc, "ggr_dos")
-    return out
+
+    def launch(Es):
+        W = Es.shape[0]
+        out = torch.empty(W, dtype=REAL, device=e.device)
+        # one partial per (energy, block), energy-major
+        partials = torch.empty((max(W, 1), lib.ggr_dos_num_blocks(K, m, max(W, 1))), dtype=REAL,
+                               device=e.device)
+        rc = lib.ggr_dos_launch(mode, e.data_ptr(), a.data_ptr(), None if nrm is None else nrm.data_ptr(),
+                                w.data_ptr(), K, m, Es.data_ptr(), W, float(b), float(vtol), float(scale),
+                                partials.data_ptr(), out.data_ptr(), stream_handle(e.device))
+        check_launch(rc, "ggr_dos")
+        return out
+
+    return launch(E) if E.shape[0] <= _FEW_E else in_sorted_order(launch, E)
 
 
 def _check_spectral(e, w, E, extra):
@@ -192,11 +203,12 @@ def ggr_box_sum(e, v, w, E, b, vtol):
     """GGR's DOS at the energies E (W,): ``sum over (k, band) of w_k f_d(b,
     |E - e_kb|, |v_kb|)`` with f_d the reference's box-broadened closed form
     in d = 1, 2, 3, for energies e (K, m), velocities v (K, d, m), weights w
-    (K,), all float64, the half box width b and the gate vtol. Returns (W,)
-    float64.
+    (K,), all float64, the half box width b and the gate vtol; the energies
+    E in any order and with repeats. Returns (W,) float64.
 
-    CPU tensors take the plain version; CUDA tensors launch K13 in box mode,
-    and anything the kernel does not take raises."""
+    CPU tensors take the plain version; CUDA tensors launch K13 in box mode
+    (above 4 energies on a sorted copy of E), and anything the kernel does
+    not take raises."""
     check_tensor(v, "v", dtype=REAL, ndim=3)
     K, m = _check_spectral(e, w, E, [("v", v, (e.shape[0], v.shape[1], e.shape[1]))])
     d = v.shape[1]
@@ -214,12 +226,13 @@ ggr_box_sum.launches = 0
 
 def gaussian_sum(e, sigma, norm, w, E, scale):
     """``scale * sum over (k, band) of w_k norm_kb exp(-0.5 ((E - e_kb) /
-    sigma_kb)^2)`` at the energies E (W,), for e, sigma, norm (K, m) and w
-    (K,), all float64: the dense Gaussian sum, with no truncation beyond
-    FP64 underflow. Returns (W,) float64.
+    sigma_kb)^2)`` at the energies E (W,) (in any order, with repeats), for
+    e, sigma, norm (K, m) and w (K,), all float64: the dense Gaussian sum,
+    with no truncation beyond FP64 underflow. Returns (W,) float64.
 
     CPU tensors take the plain version; CUDA tensors launch K13 in Gaussian
-    mode, and anything the kernel does not take raises."""
+    mode (above 4 energies on a sorted copy of E), and anything the kernel
+    does not take raises."""
     K, m = _check_spectral(e, w, E, [("sigma", sigma, (e.shape[0], e.shape[1])),
                                      ("norm", norm, (e.shape[0], e.shape[1]))])
     if e.device.type == "cpu":

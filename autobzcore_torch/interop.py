@@ -55,8 +55,8 @@ def box_pool_from_arrays(state, npts, atol, rtol=0.0, maxiters=None, device="cud
     JAX package's box-pool state ``(pool_c, pool_h, pool_val, pool_err, n,
     pool_sd, evals)`` of one ``gm_adaptive`` solve (numpy arrays and
     numbers), with the rule's ``npts`` nodes per box and the solve's
-    tolerances. Its totals and loop test are left to
-    :func:`~autobzcore_torch.ops.genz_malik.gm_pool_totals`."""
+    tolerances. Its totals, loop test and first picks are left to
+    :func:`~autobzcore_torch.ops.genz_malik.gm_pool_begin`."""
     import torch
 
     from .ops.adaptive import _as_eval_budget

@@ -87,8 +87,8 @@ def _bind(lib):
     lib.lorentzian_sum_launch.restype = i
     lib.fullgrid_tail_launch.argtypes = [vp, vp, ll, ll, i, i, vp, i, dbl, dbl, vp, vp, vp]
     lib.fullgrid_tail_launch.restype = i
-    lib.energy_tiles_num_blocks.argtypes = [ll, i]
-    lib.energy_tiles_num_blocks.restype = ll
+    lib.ggr_dos_num_blocks.argtypes = [ll, i, i]
+    lib.ggr_dos_num_blocks.restype = ll
     lib.tetra_dos_num_blocks.argtypes = [ll, i, i, i]
     lib.tetra_dos_num_blocks.restype = ll
     lib.tetra_dos_launch.argtypes = [vp, ll, i, i, vp, i, dbl, dbl, i, vp, vp, vp]
@@ -97,10 +97,8 @@ def _bind(lib):
     lib.gm_rule_reduce_launch.restype = i
     lib.gm_leaf_dos_launch.argtypes = [vp] * 10 + [ll, i, i, i, i, dbl, dbl, vp]
     lib.gm_leaf_dos_launch.restype = i
-    lib.gm_pool_select_launch.argtypes = [vp] * 8 + [ll, i, i, i, vp]
-    lib.gm_pool_select_launch.restype = i
-    lib.gm_pool_update_launch.argtypes = [vp] * 18 + [ll, i, i, i, i, dbl, dbl, dbl, i, vp]
-    lib.gm_pool_update_launch.restype = i
+    lib.gm_pool_launch.argtypes = [i] + [vp] * 18 + [ll, i, i, i, i, dbl, dbl, dbl, vp]
+    lib.gm_pool_launch.restype = i
     lib.fixed_rule_reduce_launch.argtypes = [vp] * 4 + [ll, i, i, i, vp]
     lib.fixed_rule_reduce_launch.restype = i
     lib.velocity_pairs_max_bands.argtypes = [i]

@@ -18,12 +18,15 @@ Kernels, each beside its plain PyTorch version:
   their node values: ``val7``, ``err`` and ``splitdim``, dead (zero-volume)
   boxes masked to exactly 0. K15, the same rule fused with the DOS trace,
   is ``models.observables.gm_leaf_dos``;
-- :func:`gm_pool_select` (K16, ``csrc/gm_pool.cu``): each live lane's worst
-  ``nbisect`` boxes (ties to the lower slot, as ``lax.top_k``) split along
-  their ``splitdim``;
-- :func:`gm_pool_update` (K16): the two sequential scatters, ``n +=
-  nbisect``, ``evals += 2 nbisect P``, the totals, and the loop test of the
-  next trip into ``active`` (:func:`gm_pool_totals` starts the loop).
+- :func:`gm_pool_step` (K16, ``csrc/gm_pool.cu``), one launch a trip after
+  the rule: the two sequential scatters, ``n += nbisect``, ``evals += 2
+  nbisect P``, the totals and the loop test of the next trip into
+  ``active``, then each live lane's worst ``nbisect`` boxes (ties to the
+  lower slot, as ``lax.top_k``) split along their ``splitdim``: the next
+  trip's children. :func:`gm_pool_begin` starts the loop (the totals, the
+  test and the first children). Their plain route is
+  :func:`gm_pool_totals_plain`, :func:`gm_pool_select_plain` and
+  :func:`gm_pool_update_plain`.
 
 The reference's loop facts hold trip for trip: the test ``tot_err >
 max(atol, rtol |tot_val|)``, ``n + nbisect <= cap`` and ``evals <
@@ -244,7 +247,8 @@ def gm_box_eval_plain(batch_f, p, centers, halves, pts, wk, we, diff_idx):
 class GMPool:
     """Box pools of L lanes, one row per lane (the reference's ``(pool_c,
     pool_h, pool_val, pool_err, n, pool_sd, evals)`` state of one solve),
-    with each lane's totals, tolerance and live flag."""
+    with each lane's totals, tolerance and live flag, and once the loop has
+    started (:func:`gm_pool_begin`) the next trip's picks and children."""
 
     c: torch.Tensor  # (L, cap, d) float64
     h: torch.Tensor
@@ -261,6 +265,9 @@ class GMPool:
     tot_val: torch.Tensor = None  # (L, *V)
     tot_err: torch.Tensor = None  # (L,)
     tol: torch.Tensor = None  # (L,)
+    idx: torch.Tensor = None  # (L, nbisect) int64: the next trip's picks
+    cc: torch.Tensor = None  # (L, 2 nbisect, d): their children, left ones first
+    hh: torch.Tensor = None
 
     @property
     def cap(self):
@@ -290,16 +297,6 @@ def gm_pool_totals_plain(pool, nbisect):
                    & (pool.evals < pool.max_evals))
 
 
-def gm_pool_totals(pool, nbisect):
-    """Recompute every lane's totals and tolerance and apply the loop test
-    (see :func:`gm_pool_totals_plain`); K16's update entry in totals mode on
-    CUDA."""
-    if pool.c.device.type == "cpu":
-        return gm_pool_totals_plain(pool, nbisect)
-    _pool_call(pool, "totals", nbisect)
-    return None
-
-
 def gm_pool_select_plain(pool, nbisect):
     """Plain PyTorch version of K16's select: for every active lane, its
     worst ``nbisect`` boxes (a stable descending sort keeps tied errors in
@@ -323,21 +320,6 @@ def gm_pool_select_plain(pool, nbisect):
     return idx, torch.where(live, ca, zero), torch.where(live, ha, zero)
 
 
-def gm_pool_select(pool, nbisect):
-    """Each active lane's worst boxes and their children (see
-    :func:`gm_pool_select_plain`). CPU pools take the plain version; CUDA
-    pools launch K16's select."""
-    if pool.c.device.type == "cpu":
-        return gm_pool_select_plain(pool, nbisect)
-    L, d = pool.c.shape[0], pool.ndim
-    dev = pool.c.device
-    idx = torch.empty((L, nbisect), dtype=torch.int64, device=dev)
-    cc = torch.empty((L, 2 * nbisect, d), dtype=REAL, device=dev)
-    hh = torch.empty_like(cc)
-    _pool_call(pool, "select", nbisect, idx, cc, hh)
-    return idx, cc, hh
-
-
 def gm_pool_update_plain(pool, nbisect, idx, cc, hh, cval, cerr, csd):
     """Plain PyTorch version of K16's update, in place on the active lanes:
     left children over their parents, then right children to the fresh
@@ -359,30 +341,70 @@ def gm_pool_update_plain(pool, nbisect, idx, cc, hh, cval, cerr, csd):
     gm_pool_totals_plain(pool, nbisect)
 
 
-def gm_pool_update(pool, nbisect, idx, cc, hh, cval, cerr, csd):
-    """Write a trip's children into the active lanes' pools and test the
-    next trip (see :func:`gm_pool_update_plain`). CPU pools take the plain
-    version; CUDA pools launch K16's update."""
-    L, d = pool.c.shape[0], pool.ndim
-    dev = pool.c.device
-    check_tensor(idx, "idx", device=dev, dtype=torch.int64, ndim=2, shape=(L, nbisect))
-    for name, t in (("cc", cc), ("hh", hh)):
-        check_tensor(t, name, device=dev, dtype=REAL, ndim=3, shape=(L, 2 * nbisect, d))
+def gm_pool_begin_plain(pool, nbisect):
+    """Plain PyTorch version of K16's start of the loop: the totals and the
+    loop test (:func:`gm_pool_totals_plain`), then the first trip's picks
+    and children (:func:`gm_pool_select_plain`) into ``pool.idx``,
+    ``pool.cc`` and ``pool.hh``."""
+    gm_pool_totals_plain(pool, nbisect)
+    pool.idx, pool.cc, pool.hh = gm_pool_select_plain(pool, nbisect)
+
+
+def gm_pool_begin(pool, nbisect):
+    """Start the loop (see :func:`gm_pool_begin_plain`). CPU pools take the
+    plain version; a CUDA pool is checked here, once for its solve, gets
+    the buffers of its totals and of its picks and children, and launches
+    K16 as the start (totals and select)."""
+    if pool.c.device.type == "cpu":
+        return gm_pool_begin_plain(pool, nbisect)
+    _check_pool(pool)
+    pool.idx, pool.cc, pool.hh = _pick_buffers(pool, nbisect)
+    _pool_launch(pool, "begin", nbisect, pool.idx, pool.cc, pool.hh)
+    return None
+
+
+def gm_pool_step_plain(pool, nbisect, cval, cerr, csd):
+    """Plain PyTorch version of K16's step: :func:`gm_pool_update_plain`
+    with the pool's picks and children and the rule's values, errors and
+    splitdims of the children (cval (L, 2 nbisect, *V), cerr, csd (L, 2
+    nbisect)), then :func:`gm_pool_select_plain` for the next trip's."""
+    gm_pool_update_plain(pool, nbisect, pool.idx, pool.cc, pool.hh, cval, cerr, csd)
+    pool.idx, pool.cc, pool.hh = gm_pool_select_plain(pool, nbisect)
+
+
+def gm_pool_step(pool, nbisect, cval, cerr, csd):
+    """A trip's pool step after the rule (see :func:`gm_pool_step_plain`),
+    in place. CPU pools take the plain version; a CUDA pool, started by
+    :func:`gm_pool_begin`, launches K16 as a step, which overwrites its
+    picks and children with the next trip's."""
+    if pool.c.device.type == "cpu":
+        return gm_pool_step_plain(pool, nbisect, cval, cerr, csd)
+    # the pool and its buffers were checked at gm_pool_begin; what changes
+    # every trip is checked here: the rule's children, and that the buffers
+    # are the begun ones for this nbisect
+    if pool.idx is None or pool.idx.shape[1] != nbisect:
+        raise ValueError("gm_pool_step needs a pool started by gm_pool_begin with the same nbisect")
+    _check_children(pool, nbisect, cval, cerr, csd)
+    _pool_launch(pool, "step", nbisect, pool.idx, pool.cc, pool.hh, cval, cerr, csd)
+    return None
+
+
+def _check_children(pool, nbisect, cval, cerr, csd):
+    L, dev = pool.c.shape[0], pool.c.device
     check_tensor(cerr, "cerr", device=dev, dtype=REAL, ndim=2, shape=(L, 2 * nbisect))
     check_tensor(csd, "csd", device=dev, dtype=torch.int32, ndim=2, shape=(L, 2 * nbisect))
     check_tensor(cval, "cval", device=dev, dtype=pool.val.dtype,
                  shape=(L, 2 * nbisect) + tuple(pool.val.shape[2:]), ndim=pool.val.ndim)
-    if dev.type == "cpu":
-        return gm_pool_update_plain(pool, nbisect, idx, cc, hh, cval, cerr, csd)
-    _pool_call(pool, "update", nbisect, idx, cc, hh, cval, cerr, csd)
-    return None
 
 
 def _check_pool(pool):
     """Raise unless the pool's tensors have the shapes, dtypes and layout the
-    pool kernel reads and writes through raw pointers."""
+    pool kernel reads and writes through raw pointers, and give it its
+    totals' buffers where it has none."""
     L, cap, d = pool.c.shape
     dev = pool.c.device
+    if dev.type != "cuda":
+        raise ValueError(f"gm_pool runs on cpu or cuda tensors, got {dev}")
     for name in ("c", "h"):
         check_tensor(getattr(pool, name), name, device=dev, dtype=REAL, ndim=3, shape=(L, cap, d))
     check_tensor(pool.err, "err", device=dev, dtype=REAL, ndim=2, shape=(L, cap))
@@ -401,44 +423,41 @@ def _check_pool(pool):
     if pool.tot_val is not None:
         check_tensor(pool.tot_val, "tot_val", device=dev, dtype=pool.val.dtype,
                      shape=(L,) + tuple(pool.val.shape[2:]))
-
-
-def _pool_call(pool, entry, nbisect, idx=None, cc=None, hh=None, cval=None, cerr=None, csd=None):
-    """Launch one of K16's entry points on a CUDA pool."""
-    if pool.c.device.type != "cuda":
-        raise ValueError(f"gm_pool runs on cpu or cuda tensors, got {pool.c.device}")
-    _check_pool(pool)
-    L, cap, d = pool.c.shape
-    if L == 0:
-        return
-    dev = pool.c.device
-    if pool.tot_val is None:
+    else:
         pool.tot_val = torch.empty((L,) + tuple(pool.val.shape[2:]), dtype=pool.val.dtype, device=dev)
         pool.tot_err = torch.empty((L,), dtype=REAL, device=dev)
         pool.tol = torch.empty((L,), dtype=REAL, device=dev)
+
+
+def _pick_buffers(pool, nbisect):
+    L, d = pool.c.shape[0], pool.ndim
+    dev = pool.c.device
+    cc = torch.empty((L, 2 * nbisect, d), dtype=REAL, device=dev)
+    return torch.empty((L, nbisect), dtype=torch.int64, device=dev), cc, torch.empty_like(cc)
+
+
+def _pool_launch(pool, entry, nbisect, idx, cc, hh, cval=None, cerr=None, csd=None):
+    """One launch of K16 on a checked CUDA pool: the start (``entry``
+    "begin") or a trip's step ("step")."""
+    L, cap, d = pool.c.shape
+    if L == 0:
+        return
     val = _real(pool.val)
     V = math.prod(val.shape[2:])
-    lib = load_kernels()
-    stream = stream_handle(dev)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-    if entry == "select":
-        rc = lib.gm_pool_select_launch(pool.c.data_ptr(), pool.h.data_ptr(), pool.err.data_ptr(),
-                                       pool.sd.data_ptr(), pool.active.data_ptr(), idx.data_ptr(),
-                                       cc.data_ptr(), hh.data_ptr(), L, cap, d, nbisect, stream)
-    else:
-        rc = lib.gm_pool_update_launch(
-            pool.c.data_ptr(), pool.h.data_ptr(), pool.err.data_ptr(), pool.sd.data_ptr(),
-            val.data_ptr(), pool.n.data_ptr(), pool.evals.data_ptr(), _real(pool.tot_val).data_ptr(),
-            pool.tot_err.data_ptr(), pool.tol.data_ptr(), pool.atol.data_ptr(),
-            pool.active.data_ptr(), ptr(idx), ptr(cc), ptr(hh),
-            ptr(None if cval is None else _real(cval)), ptr(cerr), ptr(csd), L, cap, d, V,
-            nbisect, float(2 * nbisect * pool.npts), float(pool.rtol), float(pool.max_evals),
-            int(entry == "update"), stream)
+    rc = load_kernels().gm_pool_launch(
+        int(entry == "step"), pool.c.data_ptr(), pool.h.data_ptr(), pool.err.data_ptr(), pool.sd.data_ptr(),
+        val.data_ptr(), pool.n.data_ptr(), pool.evals.data_ptr(), _real(pool.tot_val).data_ptr(),
+        pool.tot_err.data_ptr(), pool.tol.data_ptr(), pool.atol.data_ptr(), pool.active.data_ptr(),
+        idx.data_ptr(), cc.data_ptr(), hh.data_ptr(), ptr(None if cval is None else _real(cval)), ptr(cerr), ptr(csd),
+        L, cap, d, V, nbisect, float(2 * nbisect * pool.npts), float(pool.rtol), float(pool.max_evals),
+        stream_handle(pool.c.device))
     check_launch(rc, f"gm_pool_{entry}")
     gm_pool_launches[entry] += 1
 
 
-gm_pool_launches = {"select": 0, "update": 0, "totals": 0}
+# launches of K16 by entry: a solve's start ("begin") and its trips ("step")
+gm_pool_launches = {"begin": 0, "step": 0}
 
 
 def box_kernels(plain=False):
@@ -446,28 +465,26 @@ def box_kernels(plain=False):
     ``plain`` their plain versions, which run on any device (to hold a whole
     solve on the card against the kernels)."""
     if plain:
-        return SimpleNamespace(select=gm_pool_select_plain, update=gm_pool_update_plain,
-                               totals=gm_pool_totals_plain, rule_reduce=gm_rule_reduce_plain)
-    return SimpleNamespace(select=gm_pool_select, update=gm_pool_update, totals=gm_pool_totals,
-                           rule_reduce=gm_rule_reduce)
+        return SimpleNamespace(begin=gm_pool_begin_plain, step=gm_pool_step_plain,
+                               rule_reduce=gm_rule_reduce_plain)
+    return SimpleNamespace(begin=gm_pool_begin, step=gm_pool_step, rule_reduce=gm_rule_reduce)
 
 
 # --- the loop ----------------------------------------------------------------------------
 def gm_trip(pool, rule, nbisect, kernels, live=None):
-    """One refinement trip of every active lane: select, the rule on the
-    children (``rule(cc, hh, active, live)``, see :func:`gm_adaptive_lanes`),
-    update."""
-    idx, cc, hh = kernels.select(pool, nbisect)
-    cval, cerr, csd = rule(cc, hh, pool.active, live)
-    kernels.update(pool, nbisect, idx, cc, hh, cval.contiguous(), cerr.contiguous(),
-                   csd.contiguous())
+    """One refinement trip of every active lane of a started pool (see
+    :func:`gm_pool_begin`): the rule on the children (``rule(cc, hh, active,
+    live)``, see :func:`gm_adaptive_lanes`), then the step, which also
+    picks the next trip's children."""
+    cval, cerr, csd = rule(pool.cc, pool.hh, pool.active, live)
+    kernels.step(pool, nbisect, cval.contiguous(), cerr.contiguous(), csd.contiguous())
 
 
 def gm_pool_start(rule, a, b, atol, *, cap, nbisect, npts, rtol=0.0, maxiters=None,
                   kernels=None):
     """The cold pools: each lane's box [a, b] (L, d) evaluated in slot 0
-    (centre (a + b) / 2, half (b - a) / 2), ``evals = P``, then the totals
-    and the first loop test."""
+    (centre (a + b) / 2, half (b - a) / 2), ``evals = P``, then the totals,
+    the first loop test and the first trip's children (``kernels.begin``)."""
     kernels = kernels or box_kernels()
     L, d = a.shape
     dev = a.device
@@ -487,7 +504,7 @@ def gm_pool_start(rule, a, b, atol, *, cap, nbisect, npts, rtol=0.0, maxiters=No
                   atol=torch.as_tensor(atol, dtype=REAL, device=dev).expand(L).contiguous(),
                   rtol=float(rtol), max_evals=_as_eval_budget(maxiters), npts=int(npts),
                   active=everyone)
-    kernels.totals(pool, nbisect)
+    kernels.begin(pool, nbisect)
     return pool
 
 
@@ -500,8 +517,9 @@ def gm_adaptive_lanes(rule, a, b, atol, *, cap, nbisect, npts, rtol=0.0, maxiter
     (L, K, d) of the lanes that ``active`` (L,) marks and returns (val (L, K,
     *V), err (L, K), splitdim (L, K) int32), zeros elsewhere; ``live`` holds
     the active lanes' indices. ``a``, ``b`` (L, d) are each lane's box,
-    ``atol`` a number or (L,) tensor, ``npts`` the rule's nodes per box. The
-    host reads the live lanes once a trip (one sync, counted in ``stats``).
+    ``atol`` a number or (L,) tensor, ``npts`` the rule's nodes per box. A
+    trip is the rule and one pool step; the host reads the live lanes once
+    a trip (one sync, counted in ``stats``).
     Returns (tot_val (L, *V), tot_err (L,), evals (L,), converged (L,) bool),
     and with ``return_state`` the final :class:`GMPool` as well."""
     kernels = kernels or box_kernels()

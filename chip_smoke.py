@@ -386,13 +386,25 @@ LTM_ENERGIES = 1001
 # is a constant), and ~30 for each (energy, term) pair inside the support
 # (the piece's compares, a dozen multiply-adds and a division counted as 8)
 TETRA_TEST_FLOPS, TETRA_SUPPORT_FLOPS = 2, 30
-# FP64 operations of K13's work (csrc/ggr_dos.cu): in box mode two compares
-# per (k, band) term for its support and ~30 per (energy, term) pair inside
-# the support (the branch compares, a dozen multiplies and adds, a division
-# counted as 8); in Gaussian mode ~40 per pair whose exp does not underflow
-# (the division, 8; libdevice's exp, ~25; the scaling and the sum)
-GGR_TEST_FLOPS, GGR_SUPPORT_FLOPS, GAUSS_PAIR_FLOPS = 2, 30, 40
+# FP64 operations of K13's work (csrc/ggr_dos.cu), an FMA counted as 2: in
+# box mode two compares per (k, band) term for its support and ~30 per
+# (energy, term) pair inside the support (the branch compares, a dozen
+# multiplies and adds, a division counted as 8); in Gaussian mode 28 per
+# pair whose exp does not underflow, in the form the kernel runs: x = (E -
+# e) * (1 / sigma) (2), its square and the test against 1500 (2), -x^2 / 2
+# (1), exp_neg (20: an FMA and a subtraction for n, two FMAs for r, six for
+# the polynomial, the table's factor), the norm and the weight (2), the add
+# into the sum (1). The first count, 40 a pair (a division, 8; libdevice's
+# exp, ~25; the scaling and the sum), stays beside it.
+GGR_TEST_FLOPS, GGR_SUPPORT_FLOPS, GAUSS_PAIR_FLOPS, GAUSS_PAIR_FLOPS_FIRST = 2, 30, 28, 40
 GAUSS_UNDERFLOW = 1500.0  # t^2 above which K13 drops exp(-t^2 / 2) as 0.0
+# K13's times before its redesign (the former tile loop, PERF.md's kernel
+# table; NVIDIA H100 80GB HBM3, 700 W), printed beside phase 19's
+K13_PARENT_MS = {"box": 2.9444, "gauss": 10.9326, "box30": 0.7536}
+# names of K13's kernels in a profile (its passes, and the former design's
+# for tools/kernel_ab.py): a call's device time without the wrapper's sort
+K13_KERNELS = ("ggr_partials_kernel", "ggr_few_kernel", "lane_sum_kernel", "energy_partials_kernel",
+               "column_sum_kernel")
 # BASELINE config 5: synthetic_wannier(30, nr=5), GGR(npt=60) on the
 # inversion wedge, 1000 energies over [-8, 8]
 BANDS30, BANDS30_NPT, BANDS30_ENERGIES, BANDS30_WINDOW = 30, 60, 1000, (-8.0, 8.0)
@@ -401,7 +413,8 @@ BLOCKS = (2, 4)  # omega-block widths of phases 16-17
 BLOCK_CHUNK = 36  # phase 17's SweepSolver chunk: 33 frequencies and their pads
 BLOCK_WALL_RUNS = 3
 TAI_RUNS = 3  # phase 23's walls
-UNCONVERGED_EVALS = 33 + 1023 * 8 * 33  # a TAI lane that fills its cap-4096 pool
+TAI_TRIPS = 1023  # phase 23's trips: an unconverged lane fills its cap-4096 pool
+UNCONVERGED_EVALS = 33 + TAI_TRIPS * 8 * 33  # the evals of such a lane
 FIXED_NPT = 201  # phase 24's trapezoid rule on the outermost coordinate
 FIXED_OMEGAS = IAI_OMEGAS
 # phases 25-26, examples/transport_example.py's defaults: the flagship on the
@@ -968,7 +981,7 @@ def main():
     if counts != BLOCK_NUMEVALS:
         fail(f"block IAI main path: numevals {counts}, expected {BLOCK_NUMEVALS}")
     kernels += repair_phases(np, torch, dev)
-    kernels += ggr_phases(np, torch, dev, h, ltm["dos"])
+    kernels += ggr_phases(np, torch, dev, h, ltm["dos"])[0]
     kernels += cubature_phases(np, torch, dev, h, cold)[0]
     k_tr, mu_filling, _ = transport_phases(np, torch, dev, h)
     kernels += k_tr
@@ -1562,15 +1575,19 @@ def iai_phases(np, torch, dev, h):
     e5r = max(float((g - w).abs().max()) for g, w in zip(got[:3], want[:3]))
     if not (e5r <= 1e-12 * float(want[2].max()) and torch.equal(got[3], want[3])):
         fail(f"K5 rule reduce vs plain: max|d| {e5r:.3e}")
+    # the library call: one torch.matmul of the node values by the Kronrod
+    # weights and their difference with the Gauss weights (as K14's [wk, we])
+    W5 = torch.stack([wk, wk - wg], dim=1)
     t5r = {"ms": cuda_ms(lambda: tad.gk_rule_reduce(fx, cnt, half, wk, wg), 50),
-           "plain_ms": cuda_ms(lambda: tad.gk_rule_reduce_plain(fx, cnt, half, wk, wg), 20)}
+           "plain_ms": cuda_ms(lambda: tad.gk_rule_reduce_plain(fx, cnt, half, wk, wg), 20),
+           "library_ms": cuda_ms(lambda: torch.matmul(fx, W5), 50)}
     b5r = bound(L_mid * 2 * P * 7, nbytes(fx, cnt, half, wk, wg) + L_mid * (3 * 2 + 1) * 8)
     print(f"K5 gk_pool: select/update vs plain (lanes, nbisect, live, totals rel, abs): {checks5}, picks "
           f"and pools identical; at {L_leaf} lanes x cap 64: select {t5s['ms']:.4f} ms (plain "
           f"{t5s['plain_ms']:.4f}; torch.topk {t5s['library_ms']:.4f}; bound {b5s[0]:.4f} by {b5s[1]}), update "
           f"{t5u['ms']:.4f} ms (plain {t5u['plain_ms']:.4f}; bound {b5u[0]:.4f} by {b5u[1]}); rule reduce "
-          f"{tuple(fx.shape)}: max|d| {e5r:.3e}, {t5r['ms']:.4f} ms (plain {t5r['plain_ms']:.4f}; "
-          f"bound {b5r[0]:.5f} by {b5r[1]})", flush=True)
+          f"{tuple(fx.shape)}: max|d| {e5r:.3e}, {t5r['ms']:.4f} ms (plain {t5r['plain_ms']:.4f}; torch.matmul "
+          f"by [wk, wk - wg] {t5r['library_ms']:.4f}; bound {b5r[0]:.5f} by {b5r[1]})", flush=True)
     del a4, got, want
 
     # 7. IAI main path at full width ------------------------------------------
@@ -1694,7 +1711,7 @@ def iai_phases(np, torch, dev, h):
         {"name": "gk_rule_reduce", "route": "cuda", "source": src + "gk_pool.cu",
          "replaces": rep + "72", "launches": launches["gk_rule_reduce"], "max_abs_err": e5r,
          "ms": t5r["ms"], "plain_ms": t5r["plain_ms"], "bound_ms": b5r[0], "bound_by": b5r[1],
-         "library_ms": None},
+         "library_ms": t5r["library_ms"]},
     ]
 
 
@@ -2886,6 +2903,7 @@ def ggr_phases(np, torch, dev, h, ltm_dos):
         return lambda: G.gaussian_sum_plain(c["energies"], c["sigma"], c["norm"], c["weights"], En, c["inv_total"])
 
     t13 = {}
+    perm = torch.as_tensor(np.random.default_rng(19).permutation(LTM_ENERGIES), device=dev)
     for tag, fn, plain, c, En in (("box", box, box_plain, cv, E), ("gauss", gauss, gauss_plain, ca_, E),
                                   ("box30", box, box_plain, cv30, E30)):
         k, k2, p_ = fn(c, En)(), fn(c, En)(), plain(c, En)()
@@ -2893,21 +2911,36 @@ def ggr_phases(np, torch, dev, h, ltm_dos):
         r, same = rel(k, p_), torch.equal(k, k2)
         if not (r <= 1e-12 and same):
             fail(f"K13 {tag} at {En.shape[0]} energies: max rel vs plain {r:.3e}, repeat identical {same}")
+        if En is E:
+            # the same energies shuffled: the values follow them
+            ks = fn(c, E[perm])()
+            r_perm, same_perm = rel(ks, p_[perm]), bool(torch.equal(ks, k[perm]))
+            print(f"K13 {tag} on the {LTM_ENERGIES} energies shuffled: max rel vs plain {r_perm:.3e} (<= 1e-12), "
+                  f"bit-equal to the sorted call's values in the same order {same_perm}", flush=True)
+            if not r_perm <= 1e-12:
+                fail(f"K13 {tag} on shuffled energies: max rel vs plain {r_perm:.3e}")
         if tag == "gauss":
             pairs = gauss_support(torch, c["energies"], c["sigma"], En)
-            b13 = bound(pairs * GAUSS_PAIR_FLOPS, nbytes(c["energies"], c["sigma"], c["norm"], c["weights"], En)
-                        + 8 * En.shape[0])
+            gbytes = nbytes(c["energies"], c["sigma"], c["norm"], c["weights"], En) + 8 * En.shape[0]
+            b13 = bound(pairs * GAUSS_PAIR_FLOPS, gbytes)
+            first = bound(pairs * GAUSS_PAIR_FLOPS_FIRST, gbytes)
             terms = c["energies"].numel()
         else:
             terms, pairs = ggr_support(torch, c["energies"], c["velocities"], En, c["b"], c["vtol"])
             b13 = bound(terms * GGR_TEST_FLOPS + pairs * GGR_SUPPORT_FLOPS,
                         nbytes(c["energies"], c["velocities"], c["weights"], En) + 8 * En.shape[0])
+            first = None
         t13[tag] = {"err": float((k - p_).abs().max()), "rel": r, "ms": cuda_ms(fn(c, En), 5),
-                    "plain_ms": once_ms(plain(c, En)), "bound": b13, "terms": terms, "pairs": pairs}
+                    "device_ms": device_ms(fn(c, En), 5, K13_KERNELS),
+                    "plain_ms": once_ms(plain(c, En)), "bound": b13, "bound_first": first, "terms": terms,
+                    "pairs": pairs}
     print("K13 ggr_box_sum / gaussian_sum: " + "; ".join(
         f"{tag} ({t['terms']} terms x {E30.shape[0] if tag == 'box30' else LTM_ENERGIES} energies, {t['pairs']} "
         f"pairs in the support): max rel vs plain {t['rel']:.3e} (<= 1e-12), repeat bit-identical, {t['ms']:.4f} ms "
-        f"(plain {t['plain_ms']:.1f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]})"
+        f"a call by events (its kernels' device time {ms_text(t['device_ms'])}), "
+        f"{100 * t['bound'][0] / t['ms']:.1f} % of its bound {t['bound'][0]:.4f} ms by {t['bound'][1]} "
+        + (f"(first count {t['bound_first'][0]:.4f} ms) " if t["bound_first"] else "")
+        + f"(the former tile loop {K13_PARENT_MS[tag]} ms; plain {t['plain_ms']:.1f} ms)"
         for tag, t in t13.items()), flush=True)
     del J, cv, ca_, cv30
     torch.cuda.empty_cache()
@@ -3003,13 +3036,13 @@ def ggr_phases(np, torch, dev, h, ltm_dos):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
+    t0_30 = time.perf_counter()
     g30 = GGR(npt=BANDS30_NPT)
     c30 = dos_init(DOSProblem(s30, 0.0, bzi), g30)
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
+    t1_30 = time.perf_counter()
     D30 = g30.dos_sweep(c30.cacheval, w30)
-    t2 = time.perf_counter()
+    t2_30 = time.perf_counter()
     launches30 = counts()
     peak30 = (torch.cuda.max_memory_allocated() - base) / 2**20
     if min(launches30["fourier_points_derivs"], launches30["band_velocity"], launches30["ggr_box_sum"]) <= 0:
@@ -3034,8 +3067,8 @@ def ggr_phases(np, torch, dev, h, ltm_dos):
     rel30 = float(np.max(np.abs(d5 - p5)) / np.max(np.abs(p5)))
     print(f"config 5: synthetic_wannier({BANDS30}, nr=5), GGR(npt={BANDS30_NPT}), InversionSymIBZ "
           f"({c30.cacheval['numevals']} points x {BANDS30} bands), {BANDS30_ENERGIES} energies in "
-          f"{list(BANDS30_WINDOW)}: init {t1 - t0:.4f} s (by event time {t_init30:.3f} ms, cuSOLVER eigh "
-          f"{t_eigh30:.3f} ms, {100 * t_eigh30 / t_init30:.1f} %), dos_sweep {t2 - t1:.4f} s; launches {launches30}; "
+          f"{list(BANDS30_WINDOW)}: init {t1_30 - t0_30:.4f} s (by event time {t_init30:.3f} ms, cuSOLVER eigh "
+          f"{t_eigh30:.3f} ms, {100 * t_eigh30 / t_init30:.1f} %), dos_sweep {t2_30 - t1_30:.4f} s; launches {launches30}; "
           f"peak device memory {peak30:.1f} MiB above the earlier phases'; eigh of {EIGH_CAP} of its matrices "
           f"{eigh_cost_text(eigh_cost30)}; spectrum [{lo30:.4f}, {hi30:.4f}]; integral "
           f"{integral30:.6f} (30 within 5 %); min D {float(D30.min()):.3e}; 5 energies in the spectrum vs the plain "
@@ -3052,13 +3085,16 @@ def ggr_phases(np, torch, dev, h, ltm_dos):
                 "launches": launches[name], "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
 
+    numbers = {"k13": {tag: {k: v for k, v in t.items() if k != "bound"} for tag, t in t13.items()},
+               "ggr_init_s": t1 - t0, "ggr_sweep_s": t2 - t1, "agb_init_s": t3 - t2, "agb_sweep_s": t4 - t3,
+               "bands30_init_s": t1_30 - t0_30, "bands30_sweep_s": t2_30 - t1_30}
     return [entry("fourier_points_derivs", "fourier_points.cu", "autobzcore_tpu/ops/fourier_eval.py:115",
                   dict(t11, err=err11), b11, t11["library_ms"]),
             entry("band_velocity", "band_velocity.cu", "autobzcore_tpu/dos/ggr.py:278", t12["flagship"],
                   t12["flagship"]["bound"], t12["flagship"]["library_ms"]),
             entry("ggr_box_sum", "ggr_dos.cu", "autobzcore_tpu/dos/ggr.py:30", t13["box"], t13["box"]["bound"], None),
             entry("gaussian_sum", "ggr_dos.cu", "autobzcore_tpu/dos/tetrahedron.py:325", t13["gauss"],
-                  t13["gauss"]["bound"], None)]
+                  t13["gauss"]["bound"], None)], numbers
 
 
 def rule_phase(np, torch, dev, h, oms):
@@ -3188,43 +3224,61 @@ def rule_phase(np, torch, dev, h, oms):
         tgm.gm_pool_totals_plain(pool, nb)
         return pool
 
-    pool = random_pool()
-    ref = pool.clone()
-    idx, cc, hh = tgm.gm_pool_select(pool, nb)
-    ridx, rcc, rhh = tgm.gm_pool_select_plain(ref, nb)
-    if not (torch.equal(idx, ridx) and torch.equal(cc, rcc) and torch.equal(hh, rhh)):
-        fail("K16 select: picks or children differ from the plain version")
+    if not hasattr(tgm, "gm_pool_step"):
+        fail("K16 has no step entry: a TAI trip must be the rule and one gm_pool_step after gm_pool_begin")
+    # the start (totals, select) and a trip's step (update, totals, the next
+    # trip's select) against the plain route (update, then select)
+    sel_in = random_pool()
     cval = torch.as_tensor(rng.normal(size=(L, K)), device=dev)
     cerr = torch.as_tensor(rng.random((L, K)), device=dev)
     csd = torch.as_tensor(rng.integers(0, 3, (L, K)).astype(np.int32), device=dev)
-    sel_in = pool.clone()
-    upd = (nb, idx, cc, hh, cval, cerr, csd)
-    tgm.gm_pool_update(pool, *upd)
-    tgm.gm_pool_update_plain(ref, nb, ridx, rcc, rhh, cval, cerr, csd)
-    same16 = all(torch.equal(getattr(pool, k), getattr(ref, k))
-                 for k in ("c", "h", "err", "sd", "val", "n", "evals", "active"))
-    rel16 = max(float(((getattr(pool, k) - getattr(ref, k)).abs()
-                       / getattr(ref, k).abs().clamp_min(1e-300)).max()) for k in ("tot_val", "tot_err", "tol"))
-    e16 = max(float((getattr(pool, k) - getattr(ref, k)).abs().max()) for k in ("tot_val", "tot_err"))
-    if not (same16 and rel16 <= 1e-14):
-        fail(f"K16 update: pools identical {same16}, totals rel {rel16:.3e}")
-    pool_k, pool_p = sel_in.clone(), sel_in.clone()
-    clone_ms = cuda_ms(lambda: sel_in.clone(), 50)
-    t16s = {"ms": cuda_ms(lambda: tgm.gm_pool_select(pool_k, nb), 100),
-            "plain_ms": cuda_ms(lambda: tgm.gm_pool_select_plain(pool_p, nb), 20), "err": 0.0,
-            "library_ms": cuda_ms(lambda: torch.topk(sel_in.err, nb, dim=1), 100)}
-    t16u = {"ms": cuda_ms(lambda: tgm.gm_pool_update(sel_in.clone(), *upd), 100) - clone_ms,
-            "plain_ms": cuda_ms(lambda: tgm.gm_pool_update_plain(sel_in.clone(), *upd), 20) - clone_ms,
-            "err": e16}
-    b16s = bound(0, nbytes(sel_in.err, sel_in.active) + L * nb * (6 * 8 + 4) + nbytes(idx, cc, hh))
-    b16u = bound(L * cap * 2, nbytes(idx, cc, hh, cval, cerr, csd) + L * K * (8 * 8 + 4)
-                 + nbytes(sel_in.err, sel_in.val, sel_in.n, sel_in.evals, sel_in.atol, sel_in.active)
-                 + L * (5 * 8 + 1))
-    print(f"K16 gm_pool: {L} lanes x cap {cap} x d 3, ties planted: select picks and children identical, "
-          f"update pools identical, totals rel {rel16:.3e} (<= 1e-14); select {t16s['ms']:.4f} ms (plain "
-          f"{t16s['plain_ms']:.4f}; torch.topk {t16s['library_ms']:.4f}; bound {b16s[0]:.5f} by {b16s[1]}), update "
-          f"{t16u['ms']:.4f} ms (plain "
-          f"{t16u['plain_ms']:.4f}; bound {b16u[0]:.5f} by {b16u[1]})", flush=True)
+    begun, begun_p = sel_in.clone(), sel_in.clone()
+    tgm.gm_pool_begin(begun, nb)
+    tgm.gm_pool_begin_plain(begun_p, nb)
+    stepped, stepped_p = begun.clone(), begun_p.clone()
+    tgm.gm_pool_step(stepped, nb, cval, cerr, csd)
+    tgm.gm_pool_step_plain(stepped_p, nb, cval, cerr, csd)
+    again = begun.clone()
+    tgm.gm_pool_step(again, nb, cval, cerr, csd)
+    keys = ("c", "h", "err", "sd", "val", "n", "evals", "active", "idx", "cc", "hh")
+    same = (all(torch.equal(getattr(begun, k), getattr(begun_p, k)) for k in keys)
+            and all(torch.equal(getattr(stepped, k), getattr(stepped_p, k)) for k in keys)
+            and all(torch.equal(getattr(stepped, k), getattr(again, k)) for k in keys + ("tot_val", "tot_err")))
+    rel_step = max(float(((getattr(a, k) - getattr(b, k)).abs() / getattr(b, k).abs().clamp_min(1e-300)).max())
+                   for a, b in ((begun, begun_p), (stepped, stepped_p)) for k in ("tot_val", "tot_err", "tol"))
+    if not (same and rel_step <= 1e-14):
+        fail(f"K16 start and step vs the plain route: identical {same}, totals rel {rel_step:.3e}")
+
+    def timing_pool(begin):
+        """``sel_in`` started by ``begin``, with room in every lane for the
+        timed steps (n at most 3,000 of 4,096; no budget), so that repeated
+        steps keep the same lanes live and need no copy of the pool between
+        calls."""
+        out = sel_in.clone()
+        out.n.clamp_(max=3000)
+        out.max_evals = 1e300
+        begin(out, nb)
+        return out
+
+    step_k, step_p = timing_pool(tgm.gm_pool_begin), timing_pool(tgm.gm_pool_begin_plain)
+    t16 = {"ms": cuda_ms(lambda: tgm.gm_pool_step(step_k, nb, cval, cerr, csd), 100),
+           "plain_ms": cuda_ms(lambda: tgm.gm_pool_step_plain(step_p, nb, cval, cerr, csd), 20),
+           "device_ms": device_ms(lambda: tgm.gm_pool_step(step_k, nb, cval, cerr, csd), 50, "gm_pool"),
+           "begin_device_ms": device_ms(lambda: tgm.gm_pool_begin(sel_in.clone(), nb), 50, "gm_pool"),
+           "library_device_ms": device_ms(lambda: torch.topk(sel_in.err, nb, dim=1), 50),
+           "err": max(float((getattr(stepped, k) - getattr(stepped_p, k)).abs().max()) for k in ("tot_val", "tot_err")),
+           "library_ms": None}
+    idx, cc, hh = begun.idx, begun.cc, begun.hh
+    b16 = bound(L * cap * 2, nbytes(idx, cc, hh, cval, cerr, csd) + L * K * (8 * 8 + 4)
+                + nbytes(sel_in.err, sel_in.val, sel_in.n, sel_in.evals, sel_in.atol, sel_in.active)
+                + L * (5 * 8 + 1) + nbytes(idx, cc, hh))
+    print(f"K16 gm_pool at {L} lanes x cap {cap} x d 3, ties planted: the start (totals, select) and a step (a "
+          f"trip's one launch: update, totals, the next trip's select) give picks, children and pools identical to "
+          f"the plain route (update then select), totals rel {rel_step:.3e} (<= 1e-14), repeat bit-identical; the "
+          f"step {t16['ms']:.4f} ms by events, device {ms_text(t16['device_ms'])} (plain {t16['plain_ms']:.4f}; "
+          f"bound {b16[0]:.5f} by {b16[1]}); the start, device {ms_text(t16['begin_device_ms'])} (its one pass "
+          f"over the pool makes the totals and the picks) against torch.topk of the errors alone, device "
+          f"{ms_text(t16['library_device_ms'])}", flush=True)
 
     # K17 at phase 24's fixed level: 33 lanes x 1 segment x 201 trapezoid nodes
     x201, w201 = QuadratureFunction(trapz, npt=FIXED_NPT).rule(dev)
@@ -3243,10 +3297,15 @@ def rule_phase(np, torch, dev, h, oms):
     print(f"K17 fixed_rule_reduce {tuple(fx17.shape)}: max|d| {e17:.3e} (<= 1e-12 max|v|), repeat "
           f"bit-identical; {t17['ms']:.4f} ms (plain {t17['plain_ms']:.4f}, torch.einsum "
           f"{t17['library_ms']:.4f}; bound {b17[0]:.6f} by {b17[1]})", flush=True)
-    del H, D, fx, a14, a15, sel_in, pool, ref, pool_k, pool_p
+    del H, D, fx, a14, a15, sel_in, begun, begun_p, stepped, stepped_p, again, step_k, step_p
     torch.cuda.empty_cache()
-    return {"t14": t14, "t15": t15, "t16s": t16s, "t16u": t16u, "t17": t17, "b14": b14, "b15": b15,
-            "b16s": b16s, "b16u": b16u, "b17": b17}
+    return {"t14": t14, "t15": t15, "t16": t16, "t17": t17, "b14": b14, "b15": b15, "b16": b16, "b17": b17}
+
+
+def k16_chunk_entries(trips):
+    """K16's launches by entry (``genz_malik.gm_pool_launches``) in a TAI
+    chunk of ``trips`` trips: one start, then one step a trip."""
+    return {"begin": 1, "step": trips}
 
 
 def cubature_phases(np, torch, dev, h, cold):
@@ -3267,8 +3326,8 @@ def cubature_phases(np, torch, dev, h, cold):
     src = "autobzcore_torch/csrc/"
     oms = cold["oms"]
     rule = rule_phase(np, torch, dev, h, oms)
-    t14, t15, t16s, t16u, t17 = (rule[k] for k in ("t14", "t15", "t16s", "t16u", "t17"))
-    b14, b15, b16s, b16u, b17 = (rule[k] for k in ("b14", "b15", "b16s", "b16u", "b17"))
+    t14, t15, t16, t17 = (rule[k] for k in ("t14", "t15", "t16", "t17"))
+    b14, b15, b16, b17 = (rule[k] for k in ("b14", "b15", "b16", "b17"))
 
     # 23. the TAI leg at full width ---------------------------------------------------------
     bz = cold["bz"]
@@ -3287,9 +3346,10 @@ def cubature_phases(np, torch, dev, h, cold):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if run == 0:
+            # K16 by entry: a chunk's start and its trips' steps
+            entries16 = dict(tgm.gm_pool_launches)
             launches = {"fourier_points": fourier_points.launches, "gm_leaf_dos": gm_leaf_dos.launches,
-                        "gm_pool_select": tgm.gm_pool_launches["select"],
-                        "gm_pool_update": tgm.gm_pool_launches["update"] + tgm.gm_pool_launches["totals"]}
+                        "gm_pool_step": sum(entries16.values())}
             d_tai, ne, st, rc = d_run, sweep.lane_numevals, sweep.stats, sweep.retcode
             peak = torch.cuda.max_memory_allocated() / 2**20
         elif not np.array_equal(d_run, d_tai):
@@ -3302,12 +3362,26 @@ def cubature_phases(np, torch, dev, h, cold):
     print(f"TAI main path: flagship FBZ, eta {ETA}, {IAI_OMEGAS} omegas, abstol {IAI_ABSTOL}, cap 4096, "
           f"nbisect 4: walls {', '.join(f'{w:.3f}' for w in walls)} s; numevals {int(np.sum(ne))} (per omega "
           f"min {ne.min()} max {ne.max()}); retcode {rc}; trips {trips}; host syncs {st.syncs}; launches "
-          f"{launches}; peak device memory {peak:.1f} MiB", flush=True)
+          f"{launches}, K16's by entry {entries16}; peak device memory {peak:.1f} MiB", flush=True)
     if not (d_tai.shape == (IAI_OMEGAS,) and np.all(np.isfinite(d_tai))):
         fail(f"TAI sweep: shape {d_tai.shape}, finite {np.all(np.isfinite(d_tai))}")
-    if "--profile" in sys.argv[1:]:
-        profile("TAI main path", lambda: SweepSolver(prob, TAI(), abstol=IAI_ABSTOL, chunk=IAI_OMEGAS,
-                                                     scan=True)(oms))
+    if trips != TAI_TRIPS:
+        fail(f"TAI: {trips} trips, expected {TAI_TRIPS}")
+    if entries16 != k16_chunk_entries(trips):
+        fail(f"TAI: K16 ran {entries16} for {trips} trips, expected {k16_chunk_entries(trips)}")
+    # one more chunk under torch.profiler: K16's device time a trip beside K15's and K1's
+    prof = profile("TAI main path", lambda: SweepSolver(prob, TAI(), abstol=IAI_ABSTOL, chunk=IAI_OMEGAS,
+                                                        scan=True)(oms))
+    k16_dev = device_sum_ms(prof, ("gm_pool",))
+    n16 = None if prof is None else sum(n for k, n, _ in prof["rows"] if "gm_pool" in k)
+    tai.update(tai_k16_device_ms=k16_dev, tai_k16_kernels=n16, tai_busy=None if prof is None else prof["busy"],
+               tai_profiled_wall=None if prof is None else prof["wall"],
+               tai_k15_device_ms=device_sum_ms(prof, ("gm_leaf_dos",)),
+               tai_k1_device_ms=device_sum_ms(prof, ("fourier_points",)))
+    print(f"TAI profiled chunk: K16 {ms_text(k16_dev)} of device time over {n16} kernels "
+          f"({ms_text(None if k16_dev is None else k16_dev / trips)} a trip; the former select and update 0.0225 a "
+          f"trip: 14.907 ms over 1,023 and 8.117 over 1,024), K15 {ms_text(tai['tai_k15_device_ms'])}, K1 "
+          f"{ms_text(tai['tai_k1_device_ms'])}", flush=True)
 
     # the kernels against the plain versions: the same lanes with their final pools
     jac = abs(np.linalg.det(bz.B))  # the BZ layer's scale, (2 pi)^3
@@ -3448,8 +3522,7 @@ def cubature_phases(np, torch, dev, h, cold):
     gm = "autobzcore_tpu/ops/genz_malik.py:"
     return [entry("gm_rule_reduce", "gm_rule.cu", gm + "93", t14, b14, t14["library_ms"]),
             entry("gm_leaf_dos", "gm_rule.cu", "autobzcore_tpu/models/observables.py:149", t15, b15, None),
-            entry("gm_pool_select", "gm_pool.cu", gm + "204", t16s, b16s, t16s["library_ms"]),
-            entry("gm_pool_update", "gm_pool.cu", gm + "216", t16u, b16u, None),
+            entry("gm_pool_step", "gm_pool.cu", gm + "196", t16, b16, None),
             entry("fixed_rule_reduce", "fixed_rule.cu", "autobzcore_tpu/ops/adaptive.py:644", t17, b17,
                   t17["library_ms"])], dict(tai, rule=rule)
 

@@ -1245,6 +1245,47 @@ def test_ggr_sum_kernel_matches_plain_on_card(cuda_device, mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("energies", ["unsorted", "one", "four"])
+@pytest.mark.parametrize("mode", [1, 2, 3, 0], ids=["box1d", "box2d", "box3d", "gauss"])
+def test_ggr_sum_kernel_takes_any_energies_on_card(cuda_device, mode, energies):
+    """K13 against its plain version on energies in any order: 700 shuffled
+    with 9 repeats and two beyond every band (exactly 0 there), and the
+    few-energy path at one and at four energies (a repeat and one beyond
+    the bands among them); gated terms in box mode, terms centred on an
+    energy with a tiny sigma in Gaussian mode; within 1e-12 of max|D|,
+    bit-identical on repeat."""
+    from autobzcore_torch.dos import ggr as tggr
+
+    rng = np.random.default_rng(140 + mode)
+    K, m = 2001, 3
+    grid = np.linspace(-4, 4, 700)
+    e = rng.normal(size=(K, m))
+    e[:40, 0] = grid[rng.integers(0, 700, 40)]  # terms centred on energies of the grid
+    E = {"unsorted": np.concatenate([rng.permutation(grid), grid[rng.integers(0, 700, 9)], [-60.0, 60.0]]),
+         "one": e[:1, 0], "four": np.array([e[0, 0], 0.3, e[0, 0], -60.0])}[energies]
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=cuda_device)  # noqa: E731
+    e, E = put(e), put(E)
+    w = put(rng.integers(1, 5, size=K).astype(float))
+    if mode:
+        v = rng.normal(size=(K, mode, m)) * 3
+        v[40:90] = 0.0  # gated off
+        args = (e, put(v), w, E, 0.02, 1e-10)
+        fn, plain = tggr.ggr_box_sum, tggr.ggr_box_sum_plain
+    else:
+        sigma = rng.uniform(0.001, 0.3, size=(K, m))
+        sigma[:40, 0] = 1e-7
+        sigma = put(sigma)
+        args = (e, sigma, 1.0 / (np.sqrt(2 * np.pi) * sigma), w, E, 1.0 / float(w.sum()))
+        fn, plain = tggr.gaussian_sum, tggr.gaussian_sum_plain
+    got, again, want = fn(*args), fn(*args), plain(*args)
+    assert got.shape == E.shape
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    assert torch.equal(got, again)
+    if energies != "one":
+        assert float(got[-1]) == 0.0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("alg", ["GGR", "AGB"])
 def test_spectral_dos_on_card_matches_cpu(cuda_device, alg):
     """GGR and AGB with the init (K11, eigh, K12) and the sweep (K13) on the
@@ -1478,46 +1519,127 @@ def _random_box_pool(rng, dev, L, cap, d, nb, V=()):
 @pytest.mark.gpu
 @pytest.mark.parametrize("V", [(), (2,)])
 def test_box_pool_kernels_match_plain_on_card(cuda_device, V):
-    """K16's select and update against their plain versions on 33 lanes x
-    cap 4096 x d = 3 with planted equal errors: lax.top_k's tie order (the
-    lower slot), identical children and pools, totals within 1e-14, the same
-    loop test; then the totals entry."""
+    """K16's start and step against the plain route (totals, select; then
+    update, select) on 33 lanes x cap 4096 x d = 3 with planted equal
+    errors and V value fields: lax.top_k's tie order (the lower slot),
+    identical picks, children and pools, totals within 1e-14, the same loop
+    test."""
     from autobzcore_torch.ops import genz_malik as tgm
 
     rng = np.random.default_rng(160 + len(V))
     L, cap, d, nb = 33, 4096, 3, 4
     pool = _random_box_pool(rng, cuda_device, L, cap, d, nb, V)
     ref = pool.clone()
-    idx, cc, hh = tgm.gm_pool_select(pool, nb)
-    ridx, rcc, rhh = tgm.gm_pool_select_plain(ref, nb)
-    assert torch.equal(idx, ridx) and torch.equal(cc, rcc) and torch.equal(hh, rhh)
+    tgm.gm_pool_begin(pool, nb)
+    tgm.gm_pool_begin_plain(ref, nb)
+    assert torch.equal(pool.active, ref.active)
+    assert torch.equal(pool.idx, ref.idx) and torch.equal(pool.cc, ref.cc) and torch.equal(pool.hh, ref.hh)
     cval = torch.as_tensor(rng.normal(size=(L, 2 * nb) + V), device=cuda_device)
     cerr = torch.as_tensor(rng.random((L, 2 * nb)), device=cuda_device)
     csd = torch.as_tensor(rng.integers(0, d, (L, 2 * nb)).astype(np.int32), device=cuda_device)
-    tgm.gm_pool_update(pool, nb, idx, cc, hh, cval, cerr, csd)
-    tgm.gm_pool_update_plain(ref, nb, ridx, rcc, rhh, cval, cerr, csd)
-    for name in ("c", "h", "err", "sd", "val", "n", "evals", "active"):
+    tgm.gm_pool_step(pool, nb, cval, cerr, csd)
+    tgm.gm_pool_step_plain(ref, nb, cval, cerr, csd)
+    for name in ("c", "h", "err", "sd", "val", "n", "evals", "active", "idx", "cc", "hh"):
         assert torch.equal(getattr(pool, name), getattr(ref, name)), name
     for name in ("tot_val", "tot_err", "tol"):
         g, w = getattr(pool, name), getattr(ref, name)
         assert float(((g - w).abs() / w.abs().clamp_min(1e-300)).max()) <= 1e-14, name
-    fresh = _random_box_pool(rng, cuda_device, L, cap, d, nb, V)
-    plain = fresh.clone()
-    tgm.gm_pool_totals(fresh, nb)
-    tgm.gm_pool_totals_plain(plain, nb)
-    assert torch.equal(fresh.active, plain.active)
+
+
+def _same_pools(a, b, totals_rel=None):
+    """The pools' arrays, picks and children identical; the totals identical
+    too, or within totals_rel: tot_err and tol (sums of non-negative terms)
+    lane by lane, tot_val (random values that cancel, summed in another
+    order by the plain version) of the largest |tot_val|."""
+    for name in ("c", "h", "err", "sd", "val", "n", "evals", "active", "idx", "cc", "hh"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    for name in ("tot_val", "tot_err", "tol"):
+        g, w = getattr(a, name), getattr(b, name)
+        if totals_rel is None:
+            assert torch.equal(g, w), name
+        elif name == "tot_val":
+            assert float((g - w).abs().max()) <= totals_rel * float(w.abs().max()), name
+        else:
+            assert float(((g - w).abs() / w.abs().clamp_min(1e-300)).max()) <= totals_rel, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb", [1, 4, 64])
+def test_box_pool_step_matches_plain_on_card(cuda_device, nb):
+    """K16's start and three steps (the route of a TAI trip) against the
+    plain route (update, then select) on 33 lanes x cap 4096 x d = 3: tied
+    errors, dead slots, lanes with fewer live boxes than nbisect and a few
+    inactive ones; identical picks, children and pools, totals within
+    1e-14; a second run bit-identical."""
+    from autobzcore_torch.ops import genz_malik as tgm
+
+    rng = np.random.default_rng(190 + nb)
+    L, cap, d = 33, 4096, 3
+    start = _random_box_pool(rng, cuda_device, L, cap, d, min(max(nb, 2), 8))
+    kern, plain, again = start.clone(), start.clone(), start.clone()
+    before = dict(tgm.gm_pool_launches)
+    tgm.gm_pool_begin(kern, nb)
+    tgm.gm_pool_begin(again, nb)
+    tgm.gm_pool_begin_plain(plain, nb)
+    _same_pools(kern, plain, 1e-14)
+    for _ in range(3):
+        cval = torch.as_tensor(rng.normal(size=(L, 2 * nb)), device=cuda_device)
+        cerr = torch.as_tensor(rng.random((L, 2 * nb)) * 0.5, device=cuda_device)
+        csd = torch.as_tensor(rng.integers(0, d, (L, 2 * nb)).astype(np.int32), device=cuda_device)
+        for pool in (kern, again):
+            tgm.gm_pool_step(pool, nb, cval, cerr, csd)
+        tgm.gm_pool_step_plain(plain, nb, cval, cerr, csd)
+        _same_pools(kern, plain, 1e-14)
+        _same_pools(kern, again)
+    assert tgm.gm_pool_launches["begin"] == before["begin"] + 2
+    assert tgm.gm_pool_launches["step"] == before["step"] + 6
+
+
+@pytest.mark.gpu
+def test_box_pool_step_guards_out_of_range_picks(cuda_device):
+    """A step whose picks lie outside the lane's slots writes nothing to
+    that lane's pool, sets its totals to NaN and stops it; the other lanes
+    step as the plain route does."""
+    from autobzcore_torch.ops import genz_malik as tgm
+
+    rng = np.random.default_rng(199)
+    L, cap, d, nb = 8, 256, 2, 4
+    pool = _random_box_pool(rng, cuda_device, L, cap, d, nb)
+    pool.active.fill_(True)
+    tgm.gm_pool_begin(pool, nb)
+    ok = pool.active.clone()
+    ok[:2] = False
+    pool.idx[0, 1] = cap
+    pool.idx[1, 0] = -1
+    ref, snap = pool.clone(), pool.clone()
+    ref.active.copy_(ok)
+    cval = torch.as_tensor(rng.normal(size=(L, 2 * nb)), device=cuda_device)
+    cerr = torch.as_tensor(rng.random((L, 2 * nb)), device=cuda_device)
+    csd = torch.as_tensor(rng.integers(0, d, (L, 2 * nb)).astype(np.int32), device=cuda_device)
+    tgm.gm_pool_step(pool, nb, cval, cerr, csd)
+    tgm.gm_pool_step_plain(ref, nb, cval, cerr, csd)
+    for name in ("c", "h", "err", "sd", "val", "n", "evals"):
+        assert torch.equal(getattr(pool, name)[:2], getattr(snap, name)[:2]), name
+        assert torch.equal(getattr(pool, name)[2:], getattr(ref, name)[2:]), name
+    assert bool(torch.isnan(pool.tot_err[:2]).all()) and bool(torch.isnan(pool.tot_val[:2]).all())
+    assert not bool(pool.active[:2].any()) and torch.equal(pool.active[2:], ref.active[2:])
+    assert not bool(pool.cc[:2].any()) and torch.equal(pool.idx[2:], ref.idx[2:])
 
 
 @pytest.mark.gpu
 def test_box_pool_tie_order_on_card(cuda_device):
-    """Every live error equal: K16 picks the lowest slots, in slot order."""
+    """Every live error equal: K16's start picks the lowest slots, in slot
+    order."""
     from autobzcore_torch.ops import genz_malik as tgm
 
     pool = _random_box_pool(np.random.default_rng(170), cuda_device, 4, 256, 2, 4)
     pool.err.fill_(0.5)
     pool.active.fill_(True)
-    idx, _, _ = tgm.gm_pool_select(pool, 4)
-    assert torch.equal(idx.cpu(), torch.arange(4).expand(4, 4))
+    pool.atol.zero_()
+    pool.max_evals = 1e300
+    tgm.gm_pool_begin(pool, 4)
+    assert bool(pool.active.all())
+    assert torch.equal(pool.idx.cpu(), torch.arange(4).expand(4, 4))
 
 
 @pytest.mark.gpu

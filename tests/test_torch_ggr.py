@@ -66,19 +66,34 @@ def test_spectral_data_matches_reference(parity):
     assert tc["numevals"] == jc["numevals"]
 
 
-def test_sweep_matches_reference(parity):
+def _sweep_energies(window, order):
+    """101 energies over the window; with ``order == "unsorted"`` shuffled
+    from a seed, five of them repeated and two beyond every band appended
+    (the sum there is exactly 0), as K13's wrapper takes them."""
+    Es = np.linspace(*window, 101)
+    if order == "grid":
+        return Es
+    rng = np.random.default_rng(5)
+    return np.concatenate([rng.permutation(Es), Es[rng.integers(0, 101, 5)], [window[0] - 40.0, window[1] + 40.0]])
+
+
+@pytest.mark.parametrize("order", ["grid", "unsorted"])
+def test_sweep_matches_reference(parity, order):
     npt = parity["npt"]
-    Es = np.linspace(*parity["window"], 101)
+    Es = _sweep_energies(parity["window"], order)
     got = tdos.GGR(npt).dos_sweep(parity["t"].cacheval, Es)
     want = np.asarray(J.GGR(npt).dos_sweep(parity["j"].cacheval, Es))
-    assert got.shape == (101,) and got.dtype == np.float64
+    assert got.shape == Es.shape and got.dtype == np.float64
     assert np.max(np.abs(got - want)) <= 1e-10 * np.max(np.abs(want))
+    if order == "unsorted":
+        assert np.all(got[-2:] == 0.0)
     sol = tdos.solve_(parity["t"])
     assert sol.retcode and sol.err is None and sol.numevals == parity["j"].cacheval["numevals"]
     assert sol.u == pytest.approx(float(jdos.solve_(parity["j"]).u), rel=1e-10)
 
 
-def test_agb_sweep_matches_reference(parity):
+@pytest.mark.parametrize("order", ["grid", "unsorted"])
+def test_agb_sweep_matches_reference(parity, order):
     npt = parity["npt"]
     js, ts = parity["series"]
     kind = parity["kind"]
@@ -88,7 +103,7 @@ def test_agb_sweep_matches_reference(parity):
                    tdos.AdaptiveGaussianBroadening(npt=npt))
     jdos.solve_(jc)
     tdos.solve_(tc)
-    Es = np.linspace(*parity["window"], 101)
+    Es = _sweep_energies(parity["window"], order)
     got = tdos.AdaptiveGaussianBroadening(npt).dos_sweep(tc.cacheval, Es)
     want = np.asarray(jdos.AdaptiveGaussianBroadening(npt).dos_sweep(jc.cacheval, Es))
     assert np.max(np.abs(got - want)) <= 1e-10 * np.max(np.abs(want))

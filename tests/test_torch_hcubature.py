@@ -174,7 +174,7 @@ def test_one_trip_from_a_reference_pool(n):
     want = _reference_trip(state, jf, 1.3, nb)
     pool = interop.box_pool_from_arrays(state, 17, atol=1e-9, device="cpu")
     np.testing.assert_array_equal(interop.box_pool_to_arrays(pool)[0], c)
-    tgm.gm_pool_totals(pool, nb)
+    tgm.gm_pool_begin(pool, nb)  # the totals, the loop test and the trip's children
     assert bool(pool.active[0])
     rule_t = tgm.gm_rule_tensors(d, "cpu")
 
@@ -193,6 +193,121 @@ def test_one_trip_from_a_reference_pool(n):
     _close(float(pool.tot_err[0]), tot_err, scale=vscale)
     _close(float(pool.tot_val[0]), tot_val, scale=vscale)
     assert bool(pool.active[0]) == (tot_err > max(1e-9, 0.0) and want[4] + nb <= cap)
+
+
+def _step_pool(rng, case, L=6, cap=48, d=3, nb=4):
+    """A mid-loop box pool of L lanes made with numpy: random boxes in n live
+    slots, and per ``case`` tied errors, dead slots among the live ones,
+    fewer live boxes than nbisect, or lanes that stop in their first step
+    (tot_err falls to atol, n + nbisect passes cap, evals reach the
+    budget)."""
+    n = rng.integers(nb + 1, cap - 3 * nb, L)
+    if case == "few_live":
+        n[:] = rng.integers(1, nb, L)
+    live = np.arange(cap)[None, :] < n[:, None]
+    if case == "dead":
+        live &= rng.random((L, cap)) > 0.3
+    err = rng.integers(0, 3, (L, cap)) * 0.5 if case == "ties" else rng.random((L, cap))
+    err = np.where(live, err, 0.0)
+    atol = np.full(L, 1e-12)
+    evals = np.full(L, 33.0 * 9)
+    if case == "stops":
+        atol[0] = 0.9 * err[0].sum()  # the children's small errors bring tot_err below atol
+        n[1] = cap - 2 * nb + 1  # one step, then no room for the next
+        evals[2] = 1000.0 - 2 * nb * 33  # one step, then the budget is spent
+    put = lambda a, dt=torch.float64: torch.as_tensor(a, dtype=dt)  # noqa: E731
+    return tgm.GMPool(c=put(np.where(live[..., None], rng.random((L, cap, d)), 0.0)),
+                      h=put(np.where(live[..., None], rng.random((L, cap, d)) * 0.1, 0.0)),
+                      err=put(err), sd=put(np.where(live, rng.integers(0, d, (L, cap)), 0), torch.int32),
+                      val=put(np.where(live, rng.normal(size=(L, cap)), 0.0)), n=put(n, torch.int64),
+                      evals=put(evals), atol=put(atol), rtol=0.0, max_evals=1000.0 if case == "stops" else 1e9,
+                      npts=33, active=torch.ones(L, dtype=torch.bool))
+
+
+def _step_rule(cc, hh, active, live):
+    """A deterministic stand-in for the rule: each child's value, error and
+    splitdim from its centre and half, zeros on inactive lanes."""
+    vol = torch.prod(2 * hh, dim=-1)
+    val = torch.cos(cc.sum(-1)) * vol
+    err = 1e-3 * torch.abs(torch.sin(3 * cc.sum(-1))) * vol
+    sd = torch.argmax(hh * (1 + cc), dim=-1).to(torch.int32)
+    on = active[:, None]
+    return (torch.where(on, val, 0.0), torch.where(on, err, 0.0),
+            torch.where(on, sd, torch.zeros((), dtype=torch.int32)))
+
+
+@pytest.mark.parametrize("case", ["ties", "dead", "few_live", "stops"])
+def test_step_route_equals_update_then_select(case):
+    """A trip as the rule on the pending children and one K16 step (its
+    plain route, which the CPU takes) against the trip as it was: select,
+    the rule, update. Four trips on pools with planted ties, dead slots,
+    fewer live boxes than nbisect, and lanes that stop in the step: the
+    pools, picks and children stay identical, and a stopped lane gets zero
+    children."""
+    rng = np.random.default_rng({"ties": 1, "dead": 2, "few_live": 3, "stops": 4}[case])
+    nb = 4
+    step = _step_pool(rng, case, nb=nb)
+    old = step.clone()
+    tgm.gm_pool_begin(step, nb)
+    tgm.gm_pool_totals_plain(old, nb)
+    assert bool(step.active.all())
+    k = tgm.box_kernels()
+    fields = ("c", "h", "err", "sd", "val", "n", "evals", "active", "tot_val", "tot_err", "tol")
+    for trip in range(4):
+        idx, cc, hh = tgm.gm_pool_select_plain(old, nb)
+        assert torch.equal(step.idx, idx) and torch.equal(step.cc, cc) and torch.equal(step.hh, hh)
+        live = step.active.nonzero().squeeze(1)
+        if live.numel() == 0:
+            break
+        tgm.gm_trip(step, _step_rule, nb, k, live)
+        tgm.gm_pool_update_plain(old, nb, idx, cc, hh, *_step_rule(cc, hh, old.active, live))
+        for name in fields:
+            assert torch.equal(getattr(step, name), getattr(old, name)), (trip, name)
+        if case == "stops" and trip == 0:
+            assert not bool(step.active[:3].any()) and bool(step.active[3:].all())
+            assert not bool(step.cc[:3].any()) and not bool(step.hh[:3].any())
+    assert trip == 3 or case == "stops"
+
+
+# a complex integrand whose fourth differences tie along no axis (KINDS'
+# complex one ties, where rounding picks the split: ROADMAP C3)
+STEP_KINDS = {"real": KINDS["real"],
+              "complex": (lambda x, p: jnp.exp(1j * p * (x[..., 0] + 2 * x[..., 1])) * (1 + x[..., 0] ** 2),
+                          lambda x, p: torch.exp(1j * p * (x[..., 0] + 2 * x[..., 1])) * (1 + x[..., 0] ** 2))}
+
+
+@pytest.mark.parametrize("kind,abstol", [("real", 2e-6), ("complex", 1e-5)])
+def test_step_route_solve_matches_reference_gm_adaptive(kind, abstol):
+    """Lanes of gm_adaptive_lanes through the step route (the pool's start,
+    then a rule and one step a trip) against the reference's gm_adaptive
+    per lane: equal numevals and retcodes, values within 1e-12."""
+    jf, tf = STEP_KINDS[kind]
+    d, cap, nb = 2, 64, 4
+    ps = [0.4, 1.3, 2.9]
+    a, b = np.zeros(d), np.full(d, 1.5)
+    want = [jgm.gm_adaptive(jf, p, a, b, cap=cap, nbisect=nb, abstol=abstol) for p in ps]
+    rule_t = tgm.gm_rule_tensors(d, "cpu")
+    P = rule_t[0].shape[0]
+
+    def rule(cc, hh, active, live):
+        if live is None:
+            live = active.nonzero().squeeze(1)
+        outs = {int(j): tgm.gm_box_eval_plain(tf, ps[int(j)], cc[j], hh[j], *rule_t) for j in live}
+        proto = next(iter(outs.values()))
+        full = [torch.zeros((len(ps),) + tuple(o.shape), dtype=o.dtype) for o in proto]
+        for j, out in outs.items():
+            for f, o in zip(full, out):
+                f[j] = o
+        return tuple(full)
+
+    A = torch.as_tensor(np.tile(a, (len(ps), 1)))
+    B = torch.as_tensor(np.tile(b, (len(ps), 1)))
+    val, err, ne, conv = tgm.gm_adaptive_lanes(rule, A, B, abstol, cap=cap, nbisect=nb, npts=P,
+                                               kernels=tgm.box_kernels())
+    for j, (wv, we, wn, wc) in enumerate(want):
+        _close(val[j].numpy(), np.asarray(wv))
+        assert int(ne[j]) == int(wn) and bool(conv[j]) == bool(wc)
+    assert not bool(conv.all()) and bool(conv.any())  # both kinds of lane
 
 
 def _peak_j(x, p):

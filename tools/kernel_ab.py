@@ -2,8 +2,8 @@
 """Time a group of kernels and the paths that run them, for the
 ``autobzcore_torch`` package of any checkout, on one NVIDIA GPU.
 
-    python3 tools/kernel_ab.py TREE LABEL --phases fourier|rule_transport|iai|k24|warm_plain|selfenergy|ltm
-        [--iai] [--out DIR]
+    python3 tools/kernel_ab.py TREE LABEL
+        --phases fourier|rule_transport|iai|k24|warm_plain|selfenergy|ltm|ggr|tai|pools [--iai] [--out DIR]
 
 It imports ``autobzcore_torch`` from the checkout at TREE (its kernels
 build there at first use) and runs this repository's ``chip_smoke.py``
@@ -46,6 +46,18 @@ phase functions on it:
   its plain version at 1001 energies, DOS and N(E), then the LTM main
   path's init, sweep and fermi_level walls and a Fermi step's one-energy
   call);
+- ``--phases ggr``: the spectral-grid DOS (K11-K13): phases 19-21 (K13 in
+  box and Gaussian mode at the flagship's 3e6 terms x 1001 energies, on
+  them shuffled, and at the bands30 shape; the GGR and AGB main path's init
+  and sweep walls, checked against an LTM sweep at npt 100; config 5);
+- ``--phases tai``: the Genz-Malik box pool (K14-K17): phases 22-24 (K16's
+  entries and its step against the plain route, by events and by device
+  time beside ``torch.topk``; the TAI chunk's three walls, its counts, K16's
+  launches by entry and, from a profiled chunk, its device time a trip;
+  the fixed-outer nest), over the PTR(npt=400) values of phase 7;
+- ``--phases pools``: the interval pools on the IAI path (K5, K6): the cold
+  chunk of phase 7 and the two warm calls of phase 10 under torch.profiler
+  (device activity only), each kernel's launches and device time by name;
 - ``--phases warm_plain``: phase 10's first warm call (the 33 frequencies
   of phase 7's cold chunk) on the kernels and then on the plain versions of
   every kernel (``plain_kernels=True``), each with its wall, numevals,
@@ -109,6 +121,7 @@ def fourier(cs, np, torch, dev, h):
 
 
 def rule_transport(cs, np, torch, dev, h):
+    k16_step_shim(cs, torch)
     return cs.rule_transport_phases(np, torch, dev, h)
 
 
@@ -170,8 +183,134 @@ def warm_plain(cs, np, torch, dev, h):
     return {"warm_plain": out}
 
 
+def ggr(cs, np, torch, dev, h):
+    from autobzcore_torch import FBZ, DOSProblem, load_bz
+    from autobzcore_torch.dos import LTM
+    from autobzcore_torch.dos import init as dos_init
+
+    # the LTM sweep that phase 20 checks GGR against (phase 15's at npt 100)
+    ltm = LTM(npt=cs.NPT)
+    ws = np.linspace(*cs.WINDOW, cs.LTM_ENERGIES)
+    ltm_dos = ltm.dos_sweep(dos_init(DOSProblem(h, 0.5, load_bz(FBZ(), np.eye(3))), ltm).cacheval, ws)
+    torch.cuda.empty_cache()
+    entries, numbers = cs.ggr_phases(np, torch, dev, h, ltm_dos)
+    return {"ggr": numbers, "kernels": entries}
+
+
+def phase7_frequencies(cs, np, torch, dev, h):
+    """Phase 7's frequencies, zone and PTR(npt=400) values, which phases
+    22-24 read from the cold chunk's record."""
+    from autobzcore_torch import FBZ, PTR, IntegralProblem, load_bz, solve
+    from autobzcore_torch.models.observables import dos_integrand
+
+    bz = load_bz(FBZ(), np.eye(3))
+    oms = np.linspace(*cs.WINDOW, cs.IAI_OMEGAS)
+    d_ptr = solve(IntegralProblem(dos_integrand(h, cs.ETA), bz, torch.as_tensor(oms, device=dev)),
+                  PTR(npt=400)).u.cpu().numpy()
+    torch.cuda.empty_cache()
+    return {"oms": oms, "bz": bz, "d_ptr": d_ptr}
+
+
+def k16_step_shim(cs, torch):
+    """Phases 22-23 drive K16 through its start and step entries
+    (``gm_pool_begin``, ``gm_pool_step``). A checkout from before them runs
+    a trip as a select launch and an update launch: give its module the two
+    entries made of those, and their plain route, a ``GMPool.clone`` that
+    keeps the picks, and tell phase 23 that checkout's launches by entry."""
+    import copy
+
+    from autobzcore_torch.ops import genz_malik as tgm
+
+    if hasattr(tgm, "gm_pool_step"):
+        return
+
+    def begin(totals, select):
+        def run(pool, nb):
+            totals(pool, nb)
+            pool.idx, pool.cc, pool.hh = select(pool, nb)
+        return run
+
+    def step(update, select):
+        def run(pool, nb, cval, cerr, csd):
+            update(pool, nb, pool.idx, pool.cc, pool.hh, cval, cerr, csd)
+            pool.idx, pool.cc, pool.hh = select(pool, nb)
+        return run
+
+    def clone(pool):
+        out = copy.copy(pool)
+        for k, v in vars(pool).items():
+            if isinstance(v, torch.Tensor):
+                setattr(out, k, v.clone())
+        return out
+
+    tgm.gm_pool_begin = begin(tgm.gm_pool_totals, tgm.gm_pool_select)
+    tgm.gm_pool_begin_plain = begin(tgm.gm_pool_totals_plain, tgm.gm_pool_select_plain)
+    tgm.gm_pool_step = step(tgm.gm_pool_update, tgm.gm_pool_select)
+    tgm.gm_pool_step_plain = step(tgm.gm_pool_update_plain, tgm.gm_pool_select_plain)
+    tgm.GMPool.clone = clone
+    cs.k16_chunk_entries = lambda trips: {"select": trips, "update": trips, "totals": 1}
+    print("K16 has no step entry in this checkout: phases 22-23 run its select and update as the start and "
+          "the step", flush=True)
+
+
+def tai(cs, np, torch, dev, h):
+    k16_step_shim(cs, torch)
+    entries, numbers = cs.cubature_phases(np, torch, dev, h, phase7_frequencies(cs, np, torch, dev, h))
+    return {"tai": numbers, "kernels": entries}
+
+
+def device_rows(torch, fn):
+    """``fn()`` under torch.profiler with device activity only: its wall and,
+    per kernel name, (launches, device milliseconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = {e.key: (e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA and e.self_device_time_total > 0}
+    return wall, rows
+
+
+POOL_KERNELS = ("gk_pool_select", "gk_pool_update", "gk_rule_reduce", "gk_pool_seed", "gk_coarsen")
+
+
+def pools(cs, np, torch, dev, h):
+    from autobzcore_torch import FBZ, IAI, IntegralProblem, load_bz
+    from autobzcore_torch.models.observables import dos_integrand
+    from autobzcore_torch.parallel.sweep import SweepSolver
+
+    prob = IntegralProblem(dos_integrand(h, cs.ETA), load_bz(FBZ(), np.eye(3)))
+    oms = np.linspace(*cs.WINDOW, cs.IAI_OMEGAS)
+    warm = cs.warm_iai_sweep(prob, cs.IAI_OMEGAS)
+    runs = {"cold": lambda: SweepSolver(prob, IAI(inner_cap=64, inner_nbisect=4), abstol=cs.IAI_ABSTOL,
+                                        chunk=cs.IAI_OMEGAS, scan=True)(oms),
+            "warm1": lambda: warm(oms), "warm2": lambda: warm((oms[1:] + oms[:-1]) / 2)}
+    out = {}
+    for name, fn in runs.items():
+        wall, rows = device_rows(torch, fn)
+        busy = sum(ms for _, ms in rows.values())
+        per = {}
+        for key in POOL_KERNELS:
+            hits = [(n, ms) for k, (n, ms) in rows.items() if key in k]
+            n, ms = sum(x[0] for x in hits), sum(x[1] for x in hits)
+            per[key] = {"launches": n, "device_ms": ms, "ms_a_launch": ms / n if n else None}
+        out[name] = {"wall": wall, "device_ms": busy, "kernels": per}
+        print(f"{name} IAI under the profiler: wall {wall:.3f} s, device {busy:.1f} ms; " + "; ".join(
+            f"{k} x{v['launches']} {v['device_ms']:.3f} ms"
+            + ("" if v["ms_a_launch"] is None else f" ({v['ms_a_launch']:.5f} a launch)") for k, v in per.items()),
+            flush=True)
+        torch.cuda.empty_cache()
+    return {"pools": out}
+
+
 PHASES = {"fourier": fourier, "rule_transport": rule_transport, "iai": iai, "k24": k24, "warm_plain": warm_plain,
-          "selfenergy": selfenergy, "ltm": ltm}
+          "selfenergy": selfenergy, "ltm": ltm, "ggr": ggr, "tai": tai, "pools": pools}
 
 
 def compare(tree, label, phases, iai):

@@ -57,6 +57,30 @@ SOURCE is a file of ``autobzcore_torch/csrc/`` with a patch table here:
   16). Shapes: the flagship's npt=100 grid (1e6 points, m = 3) at the PTR
   leg's 264 lanes, and its npt=400 grid (6.4e7 points) at 8 lanes (a late
   AutoPTR rung), checked on their whole grids.
+- ``ggr_dos`` (K13): ``noeval``, a pair's closed form replaced by its
+  energy (wrong values): what the staging, the supports, the pair
+  numbering and the walks over a tile's terms cost; ``nowalk``, no energy
+  walks the tile's terms (wrong values): the staging, the supports, the
+  barriers, box mode's pair evaluation and the partials; ``chunk512``, 512
+  sorted energies a block row (the package has 1,024); ``pairsN``, box
+  mode's rounds of N pairs (the package has 1,536; above it a block holds
+  more shared memory, and fewer blocks fit an SM); ``plainwalk``, box
+  mode's owner of an energy walking all of a tile's terms (the package
+  walks only those a ballot finds in its warp's 32 energies).
+  Shapes: phase 19's, the flagship's spectral grid at npt=100 (3e6 terms)
+  at 1001 energies over [-6, 7] eV in box and in Gaussian mode, and
+  config 5's (893,730 terms) at 1000 energies in box mode.
+- ``gm_pool`` (K16): ``noscatter``, the update's writes taken out;
+  ``noloads``, the pass over the pool reading no memory; ``noselect``, the
+  select taken out; ``rounds``, the select by rounds of a block arg-max at
+  nbisect 4 (the package merges per-thread lists up to 4); ``top1``, a
+  thread's list only its best slot; ``warpmerge0``, a lane's own list
+  taken for its warp's (warp 0 still merges the warps' lists);
+  ``nochildren``, no pick's box read (zero children); each but ``rounds``
+  gives wrong pools, with valid picks, so that the lanes keep stepping:
+  what its part costs. Shape: the step of
+  phase 23's TAI trip, 33 lanes x cap 4096 x d = 3, one value, nbisect 4,
+  on a started pool of random lanes.
 - ``lindhard_chi0`` (K25): ``noloop``, the frequency loop over a tile's
   terms taken out (wrong values): what building the tiles, the launch and
   the second pass cost; ``nobuild``, the terms' build replaced by constant
@@ -456,12 +480,147 @@ def chi0_cases(torch, cs, dev, stream):
     return [("map100", 20, None, *case(om100)), ("cert9", 20, None, *case(om9))]
 
 
+# ggr_dos.cu: K13
+GGR_BOX_EVAL = "          pair_val[i] = in.value(sh.sf + q, kThreads, sh.sE[j], x, nullptr) ? x : 0.0;\n"
+GGR_GAUSS_EVAL = ("            const bool i0 = in.value(sh.sf + q, kThreads, En, x0, sh.tab) && t0;\n"
+                  "            const bool i1 = in.value(sh.sf + q + 1, kThreads, En, x1, sh.tab) && t1;\n")
+GGR_WALK = "for (int j = rlo + tid; j < rhi; j += kThreads) {"  # Gaussian mode's
+GGR_BALLOT_WALK = "for (int j0 = rlo + warp * 32; j0 < rhi; j0 += kThreads) {"  # box mode's
+PLAIN_WALK = """        for (int j = rlo + tid; j < rhi; j += kThreads) {
+          double a = sh.acc[j];
+          for (int q = 0; q < nt; ++q) {
+            const int2 sp = sh.sup[q];
+            const int p = sh.off[q] + (j - sp.x) - r0;
+            if (j >= sp.x && j < sp.y && p >= 0 && p < np) a = add(a, pair_val[p]);
+          }
+          sh.acc[j] = a;
+        }
+"""
+
+
+def ggr_variants(src):
+    p = lambda s, old, new: patch("ggr_dos", s, old, new)  # noqa: E731
+    noeval = p(p(src, GGR_BOX_EVAL, "          pair_val[i] = sh.sE[j];\n"), GGR_GAUSS_EVAL,
+               "            x0 = x1 = En;\n            const bool i0 = t0, i1 = t1;\n")
+    nowalk = p(p(src, GGR_WALK, "for (int j = rlo + tid; j < rlo; j += kThreads) {"), GGR_BALLOT_WALK,
+               "for (int j0 = rlo + warp * 32; j0 < rlo; j0 += kThreads) {")
+    head = src.index("        " + GGR_BALLOT_WALK)
+    tail = src.index("        __syncthreads();\n      }\n    }\n  }\n", head)
+    pairs = "constexpr int kPairs = 1536;"
+
+    return {"noeval": noeval, "nowalk": nowalk,
+            "chunk512": p(src, "constexpr int kChunkE = 1024;", "constexpr int kChunkE = 512;"),
+            "pairs1024": p(src, pairs, "constexpr int kPairs = 1024;"),
+            "pairs3072": p(src, pairs, "constexpr int kPairs = 3072;"),
+            "pairs6144": p(src, pairs, "constexpr int kPairs = 6144;"),
+            "plainwalk": src[:head] + PLAIN_WALK + src[tail:]}
+
+
+def ggr_cases(torch, cs, dev, stream):
+    """(tag, reps, skip(name), launcher(lib) -> (go, result), want) of K13."""
+    from autobzcore_torch import FBZ, GGR, InversionSymIBZ, load_bz
+    from autobzcore_torch.dos import AdaptiveGaussianBroadening
+    from autobzcore_torch.dos import ggr as G
+    from autobzcore_torch.models.tight_binding import flagship_series, synthetic_wannier
+
+    h = flagship_series(device=dev)
+    bz = load_bz(FBZ(), np.eye(3))
+    box = GGR(npt=cs.NPT).init_cacheval(h, 0.0, bz)
+    gauss = AdaptiveGaussianBroadening(npt=cs.NPT).init_cacheval(h, 0.0, bz)
+    s30 = synthetic_wannier(cs.BANDS30, nr=5, device=dev)
+    box30 = GGR(npt=cs.BANDS30_NPT).init_cacheval(s30, 0.0, load_bz(InversionSymIBZ(), np.eye(3)))
+    E = torch.as_tensor(np.linspace(*cs.WINDOW, cs.LTM_ENERGIES), device=dev)
+    E30 = torch.as_tensor(np.linspace(*cs.BANDS30_WINDOW, cs.BANDS30_ENERGIES), device=dev)
+
+    def case(c, En, gaussian):
+        K, m = c["energies"].shape
+        W = En.shape[0]
+        if gaussian:
+            mode, a, nrm, b, vtol, scale = 0, c["sigma"], c["norm"], 0.0, 0.0, c["inv_total"]
+            want = G.gaussian_sum(c["energies"], a, nrm, c["weights"], En, scale)
+        else:
+            mode, a, nrm, b, vtol, scale = c["velocities"].shape[1], c["velocities"], None, c["b"], c["vtol"], 1.0
+            want = G.ggr_box_sum(c["energies"], a, c["weights"], En, b, vtol)
+
+        def launcher(lib):
+            lib.ggr_dos_num_blocks.argtypes = [LL, INT, INT]
+            lib.ggr_dos_num_blocks.restype = LL
+            lib.ggr_dos_launch.argtypes = [INT, VP, VP, VP, VP, LL, INT, VP, INT, DBL, DBL, DBL, VP, VP, VP]
+            out = torch.empty(W, dtype=torch.float64, device=dev)
+            part = torch.empty((W, lib.ggr_dos_num_blocks(K, m, W)), dtype=torch.float64, device=dev)
+            args = (mode, c["energies"].data_ptr(), a.data_ptr(), None if nrm is None else nrm.data_ptr(),
+                    c["weights"].data_ptr(), K, m, En.data_ptr(), W, b, vtol, scale, part.data_ptr(),
+                    out.data_ptr(), stream)
+            return (lambda: lib.ggr_dos_launch(*args)), (lambda: out)
+        return launcher, want
+
+    return [("box1001", 10, None, *case(box, E, False)), ("gauss1001", 5, None, *case(gauss, E, True)),
+            ("box30", 10, None, *case(box30, E30, False))]
+
+
+# gm_pool.cu: K16
+MERGE_OWN = "    for (int i = 0; i < kFast; ++i) {\n      mv[i] = %s[i];\n      ms[i] = %s[i];\n    }\n"
+
+
+def pool_variants(src):
+    p = lambda old, new: patch("gm_pool", src, old, new)  # noqa: E731
+    return {"noscatter": p("        if (j < nb && at >= n0 && at < n0 + nb) continue;\n", "        continue;\n"),
+            "noloads": p("          x[i] = s < cap ? p[s * stride] : 0.0;\n", "          x[i] = 0.25 * s;\n"),
+            "noselect": p("    live = sh.live;\n  }\n", "    live = sh.live;\n  }\n  return;\n"),
+            "rounds": p("  if (nb <= kFast) {\n", "  if (nb < 0) {\n"),
+            "top1": p("    for (int base = tid; base < cap; base += kThreads * kBatch) {\n",
+                      "    tv[0] = bv;\n    ts[0] = bs;\n"
+                      "    for (int base = tid; base < 0; base += kThreads * kBatch) {\n"),
+            "warpmerge0": p("    warp_merge(tv, ts, nb, mv, ms);\n", MERGE_OWN % ("tv", "ts")),
+            "nochildren": p("    if (s >= 0) {\n", "    if (s < -1) {\n")}
+
+
+def pool_cases(torch, cs, dev, stream):
+    """(tag, reps, skip(name), launcher(lib) -> (go, result), want) of K16:
+    the step of phase 23's trip (33 lanes x cap 4096 x d = 3, one value,
+    nbisect 4) on a started pool of 33 random lanes whose n leaves room for
+    the timed steps; the result is tot_err after one step."""
+    from autobzcore_torch.ops import genz_malik as tgm
+
+    rng = np.random.default_rng(16)
+    L, cap, d, nb = cs.IAI_OMEGAS, 4096, 3, 4
+    n = rng.integers(50, 400, L)
+    live = np.arange(cap)[None, :] < n[:, None]
+    put = lambda a, dt=torch.float64: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    pool = tgm.GMPool(c=put(np.where(live[..., None], rng.random((L, cap, d)), 0.0)),
+                      h=put(np.where(live[..., None], rng.random((L, cap, d)) * 0.1, 0.0)),
+                      err=put(np.where(live, rng.random((L, cap)), 0.0)),
+                      sd=put(np.where(live, rng.integers(0, d, (L, cap)), 0), torch.int32),
+                      val=put(np.where(live, rng.normal(size=(L, cap)), 0.0)), n=put(n, torch.int64),
+                      evals=put(np.zeros(L)), atol=put(np.zeros(L)), rtol=0.0, max_evals=1e300, npts=33,
+                      active=torch.ones(L, dtype=torch.bool, device=dev))
+    tgm.gm_pool_begin_plain(pool, nb)
+    cval = put(rng.normal(size=(L, 2 * nb)))
+    cerr = put(rng.random((L, 2 * nb)) * 1e-3)
+    csd = put(rng.integers(0, d, (L, 2 * nb)), torch.int32)
+    ref = pool.clone()
+    tgm.gm_pool_step_plain(ref, nb, cval, cerr, csd)
+
+    def launcher(lib):
+        lib.gm_pool_launch.argtypes = [INT] + [VP] * 18 + [LL, INT, INT, INT, INT, DBL, DBL, DBL, VP]
+        q = pool.clone()
+        args = (1, q.c.data_ptr(), q.h.data_ptr(), q.err.data_ptr(), q.sd.data_ptr(), q.val.data_ptr(),
+                q.n.data_ptr(), q.evals.data_ptr(), q.tot_val.data_ptr(), q.tot_err.data_ptr(), q.tol.data_ptr(),
+                q.atol.data_ptr(), q.active.data_ptr(), q.idx.data_ptr(), q.cc.data_ptr(), q.hh.data_ptr(),
+                cval.data_ptr(), cerr.data_ptr(), csd.data_ptr(), L, cap, d, 1, nb, float(2 * nb * 33), 0.0,
+                1e300, stream)
+        return (lambda: lib.gm_pool_launch(*args)), (lambda: q.tot_err)
+    return [("step", 100, None, launcher, ref.tot_err)]
+
+
 SOURCES = {"fourier_points": (fourier_variants, fourier_cases),
            "transport_gamma": (transport_variants, transport_cases),
            "sigma_pairs": (sigma_variants, sigma_cases),
            "tetra_dos": (tetra_variants, tetra_cases),
            "lindhard_chi0": (chi0_variants, chi0_cases),
-           "dos_trace": (dos_variants, dos_cases)}
+           "dos_trace": (dos_variants, dos_cases),
+           "ggr_dos": (ggr_variants, ggr_cases),
+           "gm_pool": (pool_variants, pool_cases)}
 
 
 def main():
