@@ -22,8 +22,8 @@ import torch
 
 from .._device import REAL, as_device
 from ..interfaces import IntegralSolution
-from ..ops.adaptive import (LoopStats, _as_eval_budget, gk_adaptive_lanes, gk_nodes, gk_rule,
-                            pool_kernels, scatter_lanes)
+from ..ops.adaptive import (LoopStats, NodeChildren, _as_eval_budget, gk_adaptive_lanes, gk_nodes,
+                            gk_rule, pool_kernels)
 from ..parameters import LaneParams
 from ..utils.tree import tree_norm
 from ..wrappers import BatchIntegrand, InplaceIntegrand
@@ -135,8 +135,7 @@ class QuadGKJL(IntegralAlgorithm):
             fx = fx.reshape((live.numel(), I, P) + tuple(fx.shape[1:]))
             if not fx.is_complex():
                 fx = fx.to(REAL)
-            out = kernels.rule_reduce(fx.contiguous(), None, half.contiguous(), wk, wg)
-            return scatter_lanes(L, live, *out)
+            return NodeChildren(fx.contiguous(), None, half.contiguous(), live, wk, wg)
 
         segs = torch.as_tensor(cacheval["segs"], dtype=REAL, device=dev).expand(L, -1).contiguous()
         atol_t = torch.as_tensor(atol, dtype=REAL, device=dev).expand(L).contiguous()

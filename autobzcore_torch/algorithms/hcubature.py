@@ -20,7 +20,7 @@ import torch
 from .._device import REAL, as_device
 from ..domains import HyperCube
 from ..interfaces import IntegralSolution
-from ..ops.adaptive import (LoopStats, gk_adaptive_lanes, gk_nodes, gk_rule, pool_kernels,
+from ..ops.adaptive import (LoopStats, NodeChildren, gk_adaptive_lanes, gk_nodes, gk_rule, pool_kernels,
                             scatter_lanes)
 from ..ops.genz_malik import box_kernels, gm_adaptive_lanes, gm_box_nodes, gm_rule_tensors
 from ..parameters import LaneParams
@@ -110,7 +110,7 @@ class HCubatureJL(IntegralAlgorithm):
         if "gk_rule" in cacheval:
             segs = cacheval["segs"].expand(L, -1).contiguous()
             atol_t = torch.as_tensor(atol, dtype=REAL, device=dev).expand(L).contiguous()
-            return gk_adaptive_lanes(self._gk_rule(cacheval, params, L), segs, atol_t, cap=self.cap,
+            return gk_adaptive_lanes(self._gk_rule(cacheval, params), segs, atol_t, cap=self.cap,
                                      nbisect=self.nbisect, rtol=rtol, maxiters=maxiters,
                                      kernels=cacheval["kernels"], stats=cacheval["stats"],
                                      return_state=return_state)
@@ -122,13 +122,13 @@ class HCubatureJL(IntegralAlgorithm):
                                  return_state=return_state)
 
     @staticmethod
-    def _gk_rule(cacheval, params, L):
+    def _gk_rule(cacheval, params):
         """The 1-D rule of :func:`gk_adaptive_lanes` (the reference's
         ``gk_adaptive`` at order 7): the integrand at the live lanes' Kronrod
         nodes, scalars lifted to 1-vectors for a HyperCube."""
         xk, wk, wg = cacheval["gk_rule"]
         evaluate = _evaluator(cacheval["f"], params)
-        kernels, lift = cacheval["kernels"], cacheval["lift"]
+        lift = cacheval["lift"]
 
         def rule(ca, cb, active, live):
             if live is None:
@@ -140,8 +140,7 @@ class HCubatureJL(IntegralAlgorithm):
             if not fx.is_complex():
                 fx = fx.to(REAL)
             fx = fx.reshape((live.numel(), I, P) + tuple(fx.shape[1:])).contiguous()
-            out = kernels.rule_reduce(fx, None, half.contiguous(), wk, wg)
-            return scatter_lanes(L, live, *out)
+            return NodeChildren(fx, None, half.contiguous(), live, wk, wg)
 
         return rule
 

@@ -7,14 +7,15 @@ over each outer node panel. Here every level is a lane-batched pool
 level has one lane per solve, and a level's lanes are the (lane, node) pairs
 of one trip of the level above. Each trip of a non-leaf level gathers its
 live lanes (one host sync), contracts the series at their nodes (kernel K3),
-solves all the inner lanes to completion as one batched pool, and reduces
-their values and counts with the rule (K5). Inner solves of finished lanes
+solves all the inner lanes to completion as one batched pool, and hands
+their values and counts to the pool's step (K5), which reduces them with the
+rule on the way into the pool. Inner solves of finished lanes
 are skipped (the reference computes and discards them). The innermost level
 of a ``dos_trace`` integrand starts its pools with the fused leaf kernel K4
 and runs them to their ends in one launch of the fused leaf solve
 (``gk_leaf_dos_solve``: the lanes' select, K4 and update trips on the
 device, no host test between trips); any other integrand evaluates its 1-D
-series with K3, calls the user function and reduces with K5. A lane may
+series with K3 and calls the user function, and K5's step reduces. A lane may
 carry an omega block (``SweepSolver(block=W)``): its parameter is a (W,)
 vector, its values (W,) channels at every level and its error the 2-norm
 over them; the fused leaf then runs K4 and the solve over the block.
@@ -60,9 +61,9 @@ from .._device import REAL, as_device
 from ..fourier import lanes_per_point
 from ..interfaces import IntegralSolution
 from ..limits import IteratedLimits
-from ..ops.adaptive import (LoopStats, fixed_rule_nodes, fixed_rule_reduce,
+from ..ops.adaptive import (LoopStats, NodeChildren, fixed_rule_nodes, fixed_rule_reduce,
                             fixed_rule_reduce_plain, gk_adaptive_lanes, gk_nodes, gk_rule,
-                            pool_kernels, scatter_lanes)
+                            pool_kernels)
 from ..parameters import LaneParams
 from ..utils.tree import tree_norm
 from ..wrappers import BatchIntegrand, InplaceIntegrand
@@ -392,8 +393,7 @@ class NestedQuad(IntegralAlgorithm):
         xk, wk, wg = gk_rule(alg.order, segs.device)
         sync_every, solve = 1, None
         if d_rem > 1:
-            rule = self._nonleaf_rule(cacheval, level, xk, wk, wg, d_rem, rtol, maxiters, kernels,
-                                      mid_seed)
+            rule = self._nonleaf_rule(cacheval, level, xk, wk, wg, d_rem, rtol, maxiters, mid_seed)
         else:
             lanes = None
             if cacheval["fused_dos"]:
@@ -405,7 +405,7 @@ class NestedQuad(IntegralAlgorithm):
                 if segs.device.type == "cuda":
                     sync_every = LEAF_SYNC_EVERY
             else:
-                rule = _leaf_rule(level, xk, wk, wg, kernels)
+                rule = _leaf_rule(level, xk, wk, wg)
         return gk_adaptive_lanes(rule, segs, level.atol, cap=cap, nbisect=nbisect, rtol=rtol,
                                  maxiters=maxiters, presplit=self._presplit_for(d_rem),
                                  sync_every=sync_every, kernels=kernels,
@@ -463,13 +463,11 @@ class NestedQuad(IntegralAlgorithm):
         return (out, torch.zeros(L, dtype=REAL, device=segs.device), count,
                 torch.ones(L, dtype=torch.bool, device=segs.device))
 
-    def _nonleaf_rule(self, cacheval, level, xk, wk, wg, d_rem, rtol, maxiters, kernels,
-                      mid_seed=None):
+    def _nonleaf_rule(self, cacheval, level, xk, wk, wg, d_rem, rtol, maxiters, mid_seed=None):
         def rule(ca, cb, active, live):
             if live is None:
                 live = active.nonzero().squeeze(1)
-            L, I = ca.shape
-            P = xk.shape[0]
+            I, P = ca.shape[1], xk.shape[0]
             nodes, half = gk_nodes(ca[live], cb[live], xk)
             inner, segs2 = level.take(live).spawn(nodes.reshape(live.numel(), I * P))
             # a carried partition seeds this level's inner pools, every one
@@ -479,9 +477,7 @@ class NestedQuad(IntegralAlgorithm):
                                               init_pool=seed[0], seed_n=seed[1])
             La = live.numel()
             fx = val.reshape((La, I, P) + tuple(val.shape[1:])).contiguous()
-            out = kernels.rule_reduce(fx, ne.reshape(La, I, P).contiguous(), half.contiguous(),
-                                      wk, wg)
-            return scatter_lanes(L, live, *out)
+            return NodeChildren(fx, ne.reshape(La, I, P).contiguous(), half.contiguous(), live, wk, wg)
 
         return rule
 
@@ -586,22 +582,20 @@ class NestedQuad(IntegralAlgorithm):
         return fn
 
 
-def _leaf_rule(level, xk, wk, wg, kernels):
+def _leaf_rule(level, xk, wk, wg):
     """Innermost rule of a generic integrand: the 1-D series (K3) or the
-    plain function at the live lanes' nodes, the user function, then the
-    rule's reduction (K5)."""
+    plain function at the live lanes' nodes and the user function; the
+    pool's step (K5) reduces their values."""
     def rule(ca, cb, active, live):
         if live is None:
             live = active.nonzero().squeeze(1)
-        L, I = ca.shape
-        P = xk.shape[0]
+        I, P = ca.shape[1], xk.shape[0]
         nodes, half = gk_nodes(ca[live], cb[live], xk)
         sub = level.take(live)
         fx = sub.carrier.eval_batch(nodes.reshape(live.numel(), I * P), sub.coords, sub.params)
         fx = fx.reshape((live.numel(), I, P) + tuple(fx.shape[2:]))
         if not fx.is_complex():
             fx = fx.to(REAL)
-        out = kernels.rule_reduce(fx.contiguous(), None, half.contiguous(), wk, wg)
-        return scatter_lanes(L, live, *out)
+        return NodeChildren(fx.contiguous(), None, half.contiguous(), live, wk, wg)
 
     return rule

@@ -49,8 +49,8 @@ from .._device import COMPLEX, REAL, check_tensor
 from ..algorithms.ptr import register_kernel_sum
 from ..brillouin import LatticeRep, TrivialRep
 from ..fourier import FourierIntegrand, FourierSeries, FourierValue, JacobianSeries
-from ..ops.adaptive import (_check_pool, gk_nodes, gk_rule_reduce_plain, pool_kernels, refine_lanes,
-                            scatter_lanes)
+from ..ops.adaptive import (ReducedChildren, _check_pool, gk_nodes, gk_rule_reduce_plain, pool_kernels,
+                            refine_lanes)
 from ..ops.cuda_lib import check_launch, load_kernels, stream_handle
 from ..ops.fourier_eval import (fourier_contract_plain, fourier_points, fourier_points_derivs,
                                 jacobian_orders)
@@ -458,13 +458,14 @@ def leaf_dos_rule(c, cmap, offset, period, om, eta, xk, wk, wg, leaf):
     """The innermost rule of a nested ``dos_trace`` solve for
     :func:`~autobzcore_torch.ops.adaptive.gk_adaptive_lanes`: ``leaf`` (K4's
     wrapper or its plain version) on every lane, inactive lanes skipped
-    inside it, or on the live lanes where the loop has them at hand."""
+    inside it, or on the live lanes where the loop has them at hand; the
+    children come reduced (:class:`~autobzcore_torch.ops.adaptive.ReducedChildren`)."""
     def rule(ca, cb, active, live):
         if live is None or live.numel() == ca.shape[0]:
-            return leaf(c, cmap, offset, period, ca, cb, om, eta, active, xk, wk, wg)
+            return ReducedChildren(*leaf(c, cmap, offset, period, ca, cb, om, eta, active, xk, wk, wg))
         ones = torch.ones(live.numel(), dtype=torch.bool, device=ca.device)
         out = leaf(c, cmap[live], offset, period, ca[live], cb[live], om[live], eta[live], ones, xk, wk, wg)
-        return scatter_lanes(ca.shape[0], live, *out)
+        return ReducedChildren(*out, live=live)
 
     return rule
 
@@ -472,11 +473,11 @@ def leaf_dos_rule(c, cmap, offset, period, om, eta, xk, wk, wg, leaf):
 def gk_leaf_dos_solve_plain(pool, c, cmap, offset, period, om, eta, xk, wk, wg, nbisect, kernels=False):
     """Plain PyTorch version of the fused leaf solve
     (:func:`gk_leaf_dos_solve`): the trip route, the loop of
-    ``gk_adaptive_lanes`` on the started ``pool`` in place, each trip the
-    plain select, K4 and update, the host's test every trip. With
-    ``kernels``, the trips run K5's select, K4 and K5's update instead (what
-    the fused solve is held to on the card). Returns each lane's trips (L,)
-    int64."""
+    ``gk_adaptive_lanes`` on the started ``pool`` in place (its first picks,
+    then each trip the plain K4 and pool step, the host's test every trip).
+    With ``kernels``, the trips run K4 and K5's step instead, after K5's
+    start makes the first picks (what the fused solve is held to on the
+    card). Returns each lane's trips (L,) int64."""
     rule = leaf_dos_rule(c, cmap, offset, period, om, eta, xk, wk, wg,
                          gk_leaf_dos if kernels else gk_leaf_dos_plain)
     return refine_lanes(pool, rule, pool_kernels(not kernels), nbisect, count_trips=True)
@@ -500,8 +501,8 @@ def leaf_solve_takes(device, cap, W, nbisect, P, nterms, m):
 def gk_leaf_dos_solve(pool, c, cmap, offset, period, om, eta, xk, wk, wg, nbisect):
     """Run every lane of a started leaf-level DOS pool to its end, in
     place: what the trip route (:func:`gk_leaf_dos_solve_plain` with
-    ``kernels``) does trip by trip (K5's select, K4 at the 2 nbisect
-    children, K5's update, the host's test), with the same pools, totals,
+    ``kernels``) does trip by trip (K4 at the 2 nbisect children, K5's
+    step, the host's test), with the same pools, totals,
     counts and ``active``. The pool's values are float64, (L, cap) for one
     frequency per lane (om, eta (L,)) or (L, cap, W) for an omega block (om,
     eta (L, W)); c (Lc, n, m*m) complex128, cmap (L,) int64, xk/wk/wg
@@ -511,7 +512,8 @@ def gk_leaf_dos_solve(pool, c, cmap, offset, period, om, eta, xk, wk, wg, nbisec
     (``csrc/gk_leaf_dos.cu``: one block a lane, its pool in shared memory
     for all its trips), which takes m <= 3 and raises on anything else it
     does not take (see :func:`leaf_solve_takes`)."""
-    _check_pool(pool)
+    if not pool.checked:  # else K5's start checked it, or made it, for this solve
+        _check_pool(pool)
     L, cap = pool.a.shape
     dev = pool.a.device
     if pool.tot_val is None:

@@ -10,20 +10,27 @@ explicit tensors with one row per lane: ``a``, ``b``, ``err``, ``l1`` (L, cap),
 tolerance and ``active``. A host loop steps every live lane; a finished lane
 changes nothing and counts nothing.
 
-Kernel K5 (``csrc/gk_pool.cu``) carries the pool step, each entry point
-beside its plain PyTorch version:
+Kernel K5 (``csrc/gk_pool.cu``) carries the pool, each entry point beside
+its plain PyTorch version:
 
-- :func:`gk_pool_select`: the loop test of every live lane and, where it
-  holds, its worst ``nbisect`` intervals (ties to the lower index, as
-  ``lax.top_k``) bisected into child endpoints;
-- :func:`gk_rule_reduce`: the rule's reduction of node values (and per-node
-  counts) to ``val``, ``err``, ``l1`` and a count per lane, with dead
-  (zero-width) intervals masked to exactly 0;
-- :func:`gk_pool_update`: the two sequential scatters (left children over
-  their parents, then right children to ``n..n+nbisect-1``, so the right
-  child wins where a dead slot and a fresh slot collide), ``n += nbisect``,
-  ``evals += count``, and the totals and tolerance recomputed over the whole
-  pool.
+- :func:`gk_pool_start`: a cold pool from the rule's outputs on the
+  breakpoints' segments (padded to cap, ``n``, ``evals``), or the pool as it
+  stands, then its totals and tolerance and, with ``select``, the first loop
+  test and picks;
+- :func:`gk_pool_step`, one launch a trip after the rule: the children's
+  reduction from their node values (:class:`NodeChildren`; or as the rule
+  reduced them, :class:`ReducedChildren`), the two sequential scatters (left
+  children over their parents, then right children to ``n..n+nbisect-1``,
+  so the right child wins where a dead slot and a fresh slot collide),
+  ``n += nbisect``, ``evals += count``, the totals and tolerance, and the
+  next trip's loop test and worst ``nbisect`` intervals (ties to the lower
+  index, as ``lax.top_k``) bisected into child endpoints;
+- :func:`gk_rule_reduce`: the rule's reduction alone (node values and
+  per-node counts to ``val``, ``err``, ``l1`` and a count per lane, dead
+  intervals exactly 0). No solver here launches it: it serves the public
+  :func:`gk_rule_eval` (a rule on one set of intervals, outside a pool)
+  and the card tests, which hand the plain pool versions the step's
+  reduction bits with it (the step reduces with the same code).
 
 The warm start seeds a pool from an inherited partition instead of the
 domain's breakpoints (reference ``gk_adaptive(init_pool=...)``):
@@ -32,8 +39,9 @@ domain's breakpoints (reference ``gk_adaptive(init_pool=...)``):
   pool by left endpoint, merge dyadic sibling pairs that are stale or that
   cap pressure gives up, and compact the survivors to the front;
 - :func:`gk_pool_seed` (K5's seed entry): write one chunk of re-evaluated
-  seed intervals to contiguous slots, ``n = n0``, ``evals += count``, and the
-  totals and tolerance.
+  seed intervals to contiguous slots (the first chunk also starts the pool
+  from the partition), ``n = n0``, ``evals += count``, the totals and
+  tolerance, and with ``select`` the first picks.
 
 Fixed rules (kernel family B5 fixed): :func:`fixed_rule_reduce` (kernel
 K17, ``csrc/fixed_rule.cu``) reduces node values (L, S, npt, *V) over the
@@ -48,9 +56,11 @@ slice.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass, field
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -269,7 +279,9 @@ def fixed_rule_eval(batch_f, p, segs, x, w, node_builder=lambda x: x, stats=Fals
 class GKPool:
     """Interval pools of L lanes, one row per lane (the reference's
     ``(pool_a, pool_b, pool_val, pool_err, pool_l1, n, evals)`` state of one
-    solve), with each lane's totals, tolerance and live flag."""
+    solve), with each lane's totals, tolerance and live flag, and once the
+    loop has started (a start or seed with ``nbisect``) the next trip's picks
+    and children."""
 
     a: torch.Tensor  # (L, cap) float64
     b: torch.Tensor
@@ -285,6 +297,11 @@ class GKPool:
     tot_err: torch.Tensor = None  # (L,)
     tol: torch.Tensor = None  # (L,)
     active: torch.Tensor = None  # (L,) bool
+    idx: torch.Tensor = None  # (L, nbisect) int64: the next trip's picks
+    ca: torch.Tensor = None  # (L, 2 nbisect): their children, left halves first
+    cb: torch.Tensor = None
+    ptrs: object = field(default=None, repr=False)  # the checked CUDA pool's pointers (K5)
+    checked: bool = field(default=False, repr=False)  # its tensors have the kernels' layout
 
     @property
     def cap(self):
@@ -297,6 +314,66 @@ class GKPool:
     def real_val(self):
         """The value pool as float64 (complex values as (re, im) pairs)."""
         return torch.view_as_real(self.val) if self.val.is_complex() else self.val
+
+    def clone(self):
+        """A copy with tensors of its own, in the same layout (its pointers
+        taken anew)."""
+        return GKPool(**{k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                         for k, v in vars(self).items() if k != "ptrs"})
+
+
+class NodeChildren(NamedTuple):
+    """A trip's children as the rule's node values: ``fx`` (La, K, npts, *V)
+    float64 or complex128 at the Kronrod nodes of K intervals of each of the
+    lanes ``live`` (La,) int64 (ascending), per-node ``counts`` (La, K,
+    npts) float64 or None (each node counts 1), ``half`` widths (La, K) and
+    the rule's weights ``wk``, ``wg`` (npts,). The pool's entries reduce
+    them (:func:`gk_rule_reduce_plain`) on the way in."""
+
+    fx: torch.Tensor
+    counts: torch.Tensor | None
+    half: torch.Tensor
+    live: torch.Tensor
+    wk: torch.Tensor
+    wg: torch.Tensor
+
+
+class ReducedChildren(NamedTuple):
+    """A trip's children as a rule reduced them: ``val`` (R, K, *V), ``err``,
+    ``l1`` (R, K) and ``count`` (R,), for the lanes ``live`` (R,) int64
+    (ascending), or with ``live`` None for every lane (R = L; lanes the rule
+    did not evaluate hold zeros)."""
+
+    val: torch.Tensor
+    err: torch.Tensor
+    l1: torch.Tensor
+    count: torch.Tensor
+    live: torch.Tensor | None = None
+
+
+def as_children(out):
+    """A rule's output as children: :class:`NodeChildren` or
+    :class:`ReducedChildren` as they are, a plain (val, err, l1, count)
+    tuple as every lane's reduced children."""
+    return out if isinstance(out, (NodeChildren, ReducedChildren)) else ReducedChildren(*out)
+
+
+def reduced_children(ch, L):
+    """Plain PyTorch version of what the pool's entries take in: the
+    children ``ch`` as every lane's (val, err, l1, count) (L, ...), reduced
+    by :func:`gk_rule_reduce_plain` where they are node values, zero on the
+    lanes the rule did not evaluate."""
+    if isinstance(ch, NodeChildren):
+        out, live = gk_rule_reduce_plain(ch.fx, ch.counts, ch.half, ch.wk, ch.wg), ch.live
+    else:
+        out, live = tuple(ch[:4]), ch.live
+    return out if live is None else scatter_lanes(L, live, *out)
+
+
+def _child_values(ch):
+    """(the value shape *V, dtype) of the children ``ch``."""
+    v = ch.fx if isinstance(ch, NodeChildren) else ch.val
+    return tuple(v.shape[3 if isinstance(ch, NodeChildren) else 2:]), v.dtype
 
 
 def _flat(t, lead):
@@ -311,20 +388,12 @@ def gk_pool_totals_plain(pool):
     pool.tol = torch.maximum(pool.atol, pool.rtol * norm)
 
 
-def gk_pool_totals(pool):
-    """Recompute every lane's ``tot_val``, ``tot_err`` and ``tol =
-    max(atol, rtol * |tot_val|)`` over its whole pool (K5 on CUDA)."""
-    if pool.a.device.type == "cpu":
-        return gk_pool_totals_plain(pool)
-    _pool_call(pool, "totals", None, None, None, None, None, None, None, 0, update=False)
-    return None
-
-
 def gk_pool_select_plain(pool, nbisect):
     """Plain PyTorch version of K5's select. Updates ``pool.active`` with the
     loop test and returns (idx (L, nbisect) int64, ca, cb (L, 2 nbisect)):
     the worst intervals of each lane, ties to the lower index, and their
-    children (left halves first). Lanes that stop get zero-width children."""
+    children (left halves first). Lanes that stop get zero picks and
+    zero-width children."""
     pool.active = (pool.active & (pool.tot_err > pool.tol) & (pool.n + nbisect <= pool.cap)
                    & (pool.evals < pool.max_evals))
     # a stable descending sort keeps tied errors in index order, as top_k
@@ -334,21 +403,8 @@ def gk_pool_select_plain(pool, nbisect):
     ca, cb = torch.cat([aa, mm], dim=1), torch.cat([mm, bb], dim=1)
     live = pool.active[:, None]
     zero = torch.zeros((), dtype=REAL, device=ca.device)
+    idx = torch.where(live, idx, torch.zeros((), dtype=idx.dtype, device=idx.device))
     return idx, torch.where(live, ca, zero), torch.where(live, cb, zero)
-
-
-def gk_pool_select(pool, nbisect):
-    """The loop test and worst-interval selection of every live lane (see
-    :func:`gk_pool_select_plain`). CPU pools take the plain version; CUDA
-    pools launch K5's select."""
-    if pool.a.device.type == "cpu":
-        return gk_pool_select_plain(pool, nbisect)
-    L = pool.nlanes
-    idx = torch.empty((L, nbisect), dtype=torch.int64, device=pool.a.device)
-    ca = torch.empty((L, 2 * nbisect), dtype=REAL, device=pool.a.device)
-    cb = torch.empty_like(ca)
-    _pool_call(pool, "select", idx, ca, cb, None, None, None, None, nbisect, update=False)
-    return idx, ca, cb
 
 
 def gk_pool_update_plain(pool, nbisect, idx, ca, cb, cval, cerr, cl1, count):
@@ -371,71 +427,195 @@ def gk_pool_update_plain(pool, nbisect, idx, ca, cb, cval, cerr, cl1, count):
     gk_pool_totals_plain(pool)
 
 
-def gk_pool_update(pool, nbisect, idx, ca, cb, cval, cerr, cl1, count):
-    """Write a trip's children into the live lanes' pools (see
-    :func:`gk_pool_update_plain`). CPU pools take the plain version; CUDA
-    pools launch K5's update."""
-    L = pool.nlanes
-    check_tensor(idx, "idx", device=pool.a.device, dtype=torch.int64, shape=(L, nbisect), ndim=2)
-    for name, t in (("ca", ca), ("cb", cb), ("cerr", cerr), ("cl1", cl1)):
-        check_tensor(t, name, device=pool.a.device, dtype=REAL, shape=(L, 2 * nbisect), ndim=2)
-    check_tensor(cval, "cval", device=pool.a.device, dtype=pool.val.dtype,
-                 shape=(L, 2 * nbisect) + tuple(pool.val.shape[2:]), ndim=pool.val.ndim)
-    check_tensor(count, "count", device=pool.a.device, dtype=REAL, shape=(L,), ndim=1)
+def _select_into(pool, nbisect):
+    pool.idx, pool.ca, pool.cb = gk_pool_select_plain(pool, nbisect)
+
+
+def gk_pool_start_plain(pool, nbisect, a0=None, b0=None, children=None, select=True):
+    """Plain PyTorch version of K5's start, in place: with ``children`` (the
+    rule's on the intervals (a0, b0) (L, K), every lane in lane order) the
+    cold pool, slots 0..K-1 from them and zeros to cap, ``n = K``, ``evals``
+    their count, every lane live; without, the pool as it stands. Then the
+    totals (:func:`gk_pool_totals_plain`) and, with ``select``, the first
+    loop test and picks (:func:`gk_pool_select_plain`) into ``pool.idx``,
+    ``pool.ca`` and ``pool.cb``."""
+    if children is not None:
+        L, K = a0.shape
+        val0, err0, l10, count0 = reduced_children(children, L)
+        for arr, v in ((pool.a, a0), (pool.b, b0), (pool.err, err0), (pool.l1, l10), (pool.val, val0)):
+            arr.zero_()
+            arr[:, :K] = v
+        pool.n.fill_(K)
+        pool.evals.copy_(count0)
+        pool.active.fill_(True)
+    gk_pool_totals_plain(pool)
+    if select:
+        _select_into(pool, nbisect)
+
+
+def gk_pool_step_plain(pool, nbisect, children):
+    """Plain PyTorch version of K5's step: the children (their node values
+    reduced, :func:`reduced_children`) into the live lanes'
+    pools with the pool's picks (:func:`gk_pool_update_plain`), then the next
+    trip's loop test and picks (:func:`gk_pool_select_plain`)."""
+    val, err, l1, count = reduced_children(children, pool.nlanes)
+    gk_pool_update_plain(pool, nbisect, pool.idx, pool.ca, pool.cb, val, err, l1, count)
+    _select_into(pool, nbisect)
+
+
+def gk_pool_start(pool, nbisect, a0=None, b0=None, children=None, select=True):
+    """Start a pool's loop (see :func:`gk_pool_start_plain`). CPU pools take
+    the plain version; a CUDA pool is checked here, once for its solve, gets
+    the buffers of its totals and of its picks and children, and launches
+    K5's start."""
+    L, cap = pool.a.shape
+    form, kid, K, P, cplx = -1, _NO_KIDS, 0, 0, 0
+    if children is not None:
+        children = as_children(children)
+        check_tensor(a0, "a0", device=pool.a.device, dtype=REAL, ndim=2)
+        K = a0.shape[1]
+        check_tensor(b0, "b0", device=pool.a.device, dtype=REAL, ndim=2, shape=(L, K))
+        if a0.shape[0] != L or not 1 <= K <= cap:
+            raise ValueError(f"a cold start takes (L, K) = ({L}, 1..{cap}) intervals, got {tuple(a0.shape)}")
+        form, kid, P, cplx = _check_children(pool, children, L, K, lane_order=True)
     if pool.a.device.type == "cpu":
-        return gk_pool_update_plain(pool, nbisect, idx, ca, cb, cval, cerr, cl1, count)
-    _pool_call(pool, "update", idx, ca, cb, cval, cerr, cl1, count, nbisect, update=True)
+        return gk_pool_start_plain(pool, nbisect, a0, b0, children, select)
+    _begin(pool, nbisect, picks=select)
+    if select:
+        pool.idx, pool.ca, pool.cb = pool.ptrs[2]
+    if L == 0:
+        return None
+    rc = load_kernels().gk_pool_start_launch(
+        pool.ptrs[0], 0 if a0 is None else a0.data_ptr(), 0 if b0 is None else b0.data_ptr(), form, *kid, L, cap,
+        pool.ptrs[1], nbisect, float(pool.rtol), float(pool.max_evals), K, P, cplx, int(select),
+        stream_handle(pool.a.device))
+    check_launch(rc, "gk_pool_start")
+    gk_pool_launches["start"] += 1
     return None
 
 
-def _pool_call(pool, entry, idx, ca, cb, cval, cerr, cl1, count, nbisect, update, seed=None):
-    """Launch one of K5's pool entry points on a CUDA pool (``nbisect`` is
-    the chunk width C for the seed entry, ``seed`` its (start, n0,
-    seeding))."""
+def gk_pool_step(pool, nbisect, children):
+    """A trip's pool step after the rule (see :func:`gk_pool_step_plain`),
+    in place. CPU pools take the plain version; a CUDA pool, started with
+    ``nbisect`` (:func:`gk_pool_start`, or :func:`gk_pool_seed` with it),
+    launches K5's step over the children's lanes, which overwrites its picks
+    and children with the next trip's. The pool was checked at its start
+    (again here where a field was rebound since); the children are checked
+    here."""
+    children = as_children(children)
+    L, cap = pool.a.shape
+    form, kid, P, cplx = _check_children(pool, children, L, 2 * nbisect)
+    if pool.a.device.type == "cpu":
+        return gk_pool_step_plain(pool, nbisect, children)
+    if pool.idx is None or pool.idx.shape[1] != nbisect:
+        raise ValueError("gk_pool_step needs a pool started with its picks for the same nbisect")
+    if pool.ptrs is None or pool.ptrs[2][0] is None or _stale(pool):  # a copy, or a field rebound
+        _begin(pool, nbisect)
+    live = children.live
+    R = L if live is None else live.shape[0]
+    if R == 0:
+        return None
+    rc = load_kernels().gk_pool_step_launch(
+        pool.ptrs[0], 0 if live is None else live.data_ptr(), *kid, L, R, cap, pool.ptrs[1], nbisect,
+        float(pool.rtol), float(pool.max_evals), P, cplx, form, stream_handle(pool.a.device))
+    check_launch(rc, "gk_pool_step")
+    gk_pool_launches["step"] += 1
+    return None
+
+
+_NO_KIDS = (0,) * 8
+
+
+def _fields(pool):
+    """The pool's tensors whose pointers K5's entries take, in their order."""
+    return (pool.a, pool.b, pool.err, pool.l1, pool.val, pool.n, pool.evals, pool.tot_val, pool.tot_err,
+            pool.tol, pool.atol, pool.active)
+
+
+def _stale(pool):
+    """Whether a field of the pool, or a pick buffer it holds, is no longer
+    the tensor whose pointer :func:`_begin` took (rebound since)."""
+    held, bufs = pool.ptrs[3], pool.ptrs[2]
+    return (any(t is not h for t, h in zip(_fields(pool), held))
+            or any(t is not None and t is not h for t, h in zip((pool.idx, pool.ca, pool.cb), bufs)))
+
+
+def _begin(pool, nbisect, picks=True):
+    """Check a CUDA pool once for its solve and give it its totals' and
+    (with ``picks``) picks' buffers and its pointers for K5 (``pool.ptrs``:
+    the ctypes array of its 15 pointers, the doubles a slot's value, and the
+    pick buffers, the pool's own where it has picks for this nbisect, which
+    become its ``idx``, ``ca``, ``cb`` once an entry has made picks; without
+    ``picks`` none, and null pointers the entry does not touch; and the
+    fields they were taken from, which :func:`_stale` compares). A pool
+    whose fields were rebound since is checked again."""
     if pool.a.device.type != "cuda":
         raise ValueError(f"gk_pool runs on cpu or cuda tensors, got {pool.a.device}")
     L, cap = pool.a.shape
-    _check_pool(pool)
-    if L == 0:
-        return
+    dev = pool.a.device
     if cap > _POOL_MAX_CAP:
         raise ValueError(f"the CUDA pool takes cap <= {_POOL_MAX_CAP}, got {cap}")
-    val = pool.real_val()
-    V = math.prod(val.shape[2:])
+    if not 1 <= nbisect <= POOL_MAX_BISECT:
+        raise ValueError(f"the CUDA pool takes nbisect in 1..{POOL_MAX_BISECT}, got {nbisect}")
     if pool.tot_val is None:
-        pool.tot_val = torch.empty((L,) + tuple(pool.val.shape[2:]), dtype=pool.val.dtype,
-                                   device=pool.val.device)
-        pool.tot_err = torch.empty((L,), dtype=REAL, device=pool.a.device)
-        pool.tol = torch.empty((L,), dtype=REAL, device=pool.a.device)
-    tot_val = torch.view_as_real(pool.tot_val) if pool.tot_val.is_complex() else pool.tot_val
-    cval_r = None if cval is None else (torch.view_as_real(cval) if cval.is_complex() else cval)
-    lib = load_kernels()
-    stream = stream_handle(pool.a.device)
-    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-    if entry == "select":
-        rc = lib.gk_pool_select_launch(
-            pool.a.data_ptr(), pool.b.data_ptr(), pool.err.data_ptr(), pool.n.data_ptr(),
-            pool.evals.data_ptr(), pool.tot_err.data_ptr(), pool.tol.data_ptr(),
-            pool.active.data_ptr(), idx.data_ptr(), ca.data_ptr(), cb.data_ptr(),
-            L, cap, nbisect, float(pool.max_evals), stream)
-    elif entry == "seed":
-        start, n0, seeding = seed
-        rc = lib.gk_pool_seed_launch(
-            pool.a.data_ptr(), pool.b.data_ptr(), pool.err.data_ptr(), pool.l1.data_ptr(),
-            val.data_ptr(), pool.n.data_ptr(), pool.evals.data_ptr(), tot_val.data_ptr(),
-            pool.tot_err.data_ptr(), pool.tol.data_ptr(), pool.atol.data_ptr(), seeding.data_ptr(),
-            n0.data_ptr(), ca.data_ptr(), cb.data_ptr(), cval_r.data_ptr(), cerr.data_ptr(),
-            cl1.data_ptr(), count.data_ptr(), L, cap, V, nbisect, int(start), float(pool.rtol),
-            stream)
-    else:
-        rc = lib.gk_pool_update_launch(
-            pool.a.data_ptr(), pool.b.data_ptr(), pool.err.data_ptr(), pool.l1.data_ptr(),
-            val.data_ptr(), pool.n.data_ptr(), pool.evals.data_ptr(), tot_val.data_ptr(),
-            pool.tot_err.data_ptr(), pool.tol.data_ptr(), pool.atol.data_ptr(),
-            pool.active.data_ptr(), ptr(idx), ptr(ca), ptr(cb), ptr(cval_r), ptr(cerr),
-            ptr(cl1), ptr(count), L, cap, V, nbisect, float(pool.rtol), int(update), stream)
-    check_launch(rc, f"gk_pool_{entry}")
-    gk_pool_launches[entry] += 1
+        pool.tot_val = torch.empty((L,) + tuple(pool.val.shape[2:]), dtype=pool.val.dtype, device=dev)
+        pool.tot_err = torch.empty((L,), dtype=REAL, device=dev)
+        pool.tol = torch.empty((L,), dtype=REAL, device=dev)
+    if pool.ptrs is not None and _stale(pool):
+        pool.checked = False
+    bufs = (pool.idx, pool.ca, pool.cb)
+    if not picks:
+        bufs = (None,) * 3
+    elif pool.idx is None or pool.idx.shape != (L, nbisect):
+        ca = torch.empty((L, 2 * nbisect), dtype=REAL, device=dev)
+        bufs = (torch.empty((L, nbisect), dtype=torch.int64, device=dev), ca, torch.empty_like(ca))
+    if not pool.checked:
+        _check_pool(pool)
+        pool.checked = True
+    if picks:
+        for name, t in zip(("idx", "ca", "cb"), bufs):
+            check_tensor(t, name, device=dev, dtype=torch.int64 if name == "idx" else REAL, ndim=2,
+                         shape=(L, nbisect * (1 if name == "idx" else 2)))
+    val = pool.real_val()
+    tensors = (pool.a, pool.b, pool.err, pool.l1, val, pool.n, pool.evals, _real(pool.tot_val), pool.tot_err,
+               pool.tol, pool.atol, pool.active) + bufs
+    pool.ptrs = ((ctypes.c_void_p * len(tensors))(*(0 if t is None else t.data_ptr() for t in tensors)),
+                 math.prod(val.shape[2:]), bufs, _fields(pool))
+
+
+def _real(t):
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
+def _check_children(pool, ch, L, K, lane_order=False):
+    """Raise unless the children ``ch`` fit the pool (K of them a row; with
+    ``lane_order`` every lane's, in lane order); returns (form, the 8
+    pointers the kernel takes, npts, complex)."""
+    dev, vshape, dtype = pool.a.device, tuple(pool.val.shape[2:]), pool.val.dtype
+    if dtype not in (REAL, COMPLEX):
+        raise ValueError(f"the pool's values have dtype {dtype}, expected float64 or complex128")
+    live = ch.live
+    R = L if live is None else live.shape[0]
+    if live is not None:
+        check_tensor(live, "live", device=dev, dtype=torch.int64, ndim=1)
+        if R > L or (lane_order and R != L):
+            raise ValueError(f"children of {R} lanes do not fit {L} lanes here")
+    if isinstance(ch, NodeChildren):
+        P = ch.fx.shape[2] if ch.fx.ndim >= 3 else -1
+        check_tensor(ch.fx, "fx", device=dev, dtype=dtype, ndim=3 + len(vshape), shape=(R, K, P) + vshape)
+        check_tensor(ch.half, "half", device=dev, dtype=REAL, ndim=2, shape=(R, K))
+        for name in ("wk", "wg"):
+            check_tensor(getattr(ch, name), name, device=dev, dtype=REAL, ndim=1, shape=(P,))
+        if ch.counts is not None:
+            check_tensor(ch.counts, "counts", device=dev, dtype=REAL, ndim=3, shape=(R, K, P))
+        ptrs = (_real(ch.fx).data_ptr(), 0 if ch.counts is None else ch.counts.data_ptr(), ch.half.data_ptr(),
+                ch.wk.data_ptr(), ch.wg.data_ptr(), 0, 0, 0)
+        return 1, ptrs, P, int(dtype == COMPLEX)
+    check_tensor(ch.val, "val", device=dev, dtype=dtype, ndim=2 + len(vshape), shape=(R, K) + vshape)
+    for name in ("err", "l1"):
+        check_tensor(getattr(ch, name), name, device=dev, dtype=REAL, ndim=2, shape=(R, K))
+    check_tensor(ch.count, "count", device=dev, dtype=REAL, ndim=1, shape=(R,))
+    return 0, (_real(ch.val).data_ptr(), 0, 0, 0, 0, ch.err.data_ptr(), ch.l1.data_ptr(), ch.count.data_ptr()), 0, 0
 
 
 def _check_pool(pool):
@@ -461,8 +641,11 @@ def _check_pool(pool):
                      shape=(L,) + tuple(pool.val.shape[2:]))
 
 
-_POOL_MAX_CAP = 1 << 16  # the pool kernels keep a lane's reduction in one block
-gk_pool_launches = {"select": 0, "update": 0, "totals": 0, "seed": 0}
+_POOL_MAX_CAP = 1 << 16  # the pool kernels keep a lane's picks in shared memory
+POOL_MAX_BISECT = 64
+# launches of K5 by entry: a solve's start (cold, or the pool as it stands),
+# its seed chunks and its trips' steps
+gk_pool_launches = {"start": 0, "seed": 0, "step": 0}
 
 
 # --- the warm start: K6 (coarsening) and K5's seed entry ------------------------------
@@ -574,57 +757,88 @@ COARSEN_MAX_CAP = 2048  # K6 keeps a lane's sort keys in shared memory
 COARSEN_MAX_SEGS = 64
 
 
-def gk_pool_seed_plain(pool, start, ca, cb, cval, cerr, cl1, count, n0, seeding):
-    """Plain PyTorch version of K5's seed entry, in place: for the lanes that
-    ``seeding`` (L,) marks, the chunk's intervals (ca, cb) (L, C), values,
-    errors and l1 go to slots ``start..start+C-1``, ``n = n0`` and ``evals +=
-    count`` (every slot of the chunk counts, dead or re-evaluated); then every
-    lane's totals and tolerance."""
+def gk_pool_seed_plain(pool, start, children, n0, seeding, nbisect, partition=None, select=False):
+    """Plain PyTorch version of K5's seed entry, in place: with
+    ``partition`` (a, b (L, cap), the first chunk of a solve) every lane
+    starts from the partition with zero values, ``n = 0``, ``evals = 0`` and
+    live; then for the lanes that ``seeding`` (L,) marks, the chunk's
+    children (K a row, :func:`reduced_children`) go to slots
+    ``start..start+K-1``, whose intervals the pool holds, ``n = n0`` and
+    ``evals += count`` (every slot of the chunk counts, dead or
+    re-evaluated); then every lane's totals and tolerance, and with
+    ``select`` the first loop test and picks (:func:`gk_pool_select_plain`)
+    for the pool's ``nbisect``."""
+    L = pool.nlanes
+    if partition is not None:
+        pool.a.copy_(partition[0])
+        pool.b.copy_(partition[1])
+        for t in (pool.err, pool.l1, pool.val, pool.n, pool.evals):
+            t.zero_()
+        pool.active.fill_(True)
+    cval, cerr, cl1, count = reduced_children(as_children(children), L)
     live = seeding.nonzero().squeeze(1)
     if live.numel():
-        C = ca.shape[1]
         rows = live[:, None]
-        slots = start + torch.arange(C, device=live.device)
-        for arr, c in ((pool.a, ca), (pool.b, cb), (pool.err, cerr), (pool.l1, cl1), (pool.val, cval)):
+        slots = start + torch.arange(cval.shape[1], device=live.device)
+        for arr, c in ((pool.err, cerr), (pool.l1, cl1), (pool.val, cval)):
             arr[rows, slots] = c[live]
         pool.n[live] = n0[live]
         pool.evals[live] += count[live]
     gk_pool_totals_plain(pool)
+    if select:
+        _select_into(pool, nbisect)
 
 
-def gk_pool_seed(pool, start, ca, cb, cval, cerr, cl1, count, n0, seeding):
+def gk_pool_seed(pool, start, children, n0, seeding, nbisect, partition=None, select=False):
     """Write one seed chunk into the seeding lanes' pools (see
-    :func:`gk_pool_seed_plain`). CPU pools take the plain version; CUDA pools
-    launch K5's seed entry."""
+    :func:`gk_pool_seed_plain`). CPU pools take the plain version; a CUDA
+    pool is checked at its first chunk (``partition`` given) and launches
+    K5's seed entry, which with ``select`` also makes the first picks."""
+    children = as_children(children)
     L, cap = pool.a.shape
     dev = pool.a.device
-    C = ca.shape[1] if ca.ndim == 2 else -1
-    if not (0 <= start and start + C <= cap and C > 0):
-        raise ValueError(f"seed chunk of {C} slots at {start} does not fit cap {cap}")
-    for name, t in (("ca", ca), ("cb", cb), ("cerr", cerr), ("cl1", cl1)):
-        check_tensor(t, name, device=dev, dtype=REAL, shape=(L, C), ndim=2)
-    check_tensor(cval, "cval", device=dev, dtype=pool.val.dtype,
-                 shape=(L, C) + tuple(pool.val.shape[2:]), ndim=pool.val.ndim)
-    check_tensor(count, "count", device=dev, dtype=REAL, shape=(L,), ndim=1)
     check_tensor(n0, "n0", device=dev, dtype=torch.int64, shape=(L,), ndim=1)
     check_tensor(seeding, "seeding", device=dev, dtype=torch.bool, shape=(L,), ndim=1)
+    if partition is not None:
+        for name, t in zip(("partition a", "partition b"), partition):
+            check_tensor(t, name, device=dev, dtype=REAL, shape=(L, cap), ndim=2)
+    K = (children.fx if isinstance(children, NodeChildren) else children.val).shape[1]
+    if not (0 <= start and start + K <= cap and K > 0):
+        raise ValueError(f"seed chunk of {K} slots at {start} does not fit cap {cap}")
+    form, kid, P, cplx = _check_children(pool, children, L, K)
     if dev.type == "cpu":
-        return gk_pool_seed_plain(pool, start, ca, cb, cval, cerr, cl1, count, n0, seeding)
-    _pool_call(pool, "seed", None, ca, cb, cval, cerr, cl1, count, C, update=True,
-               seed=(start, n0, seeding))
+        return gk_pool_seed_plain(pool, start, children, n0, seeding, nbisect, partition, select)
+    if (partition is not None or pool.ptrs is None or pool.ptrs[2][0] is None
+            or pool.ptrs[2][0].shape[1] != nbisect or _stale(pool)):
+        _begin(pool, nbisect)
+    if select:
+        pool.idx, pool.ca, pool.cb = pool.ptrs[2]
+    if L == 0:
+        return None
+    rows = None
+    live = children.live
+    if live is not None and live.shape[0] < L:
+        rows = torch.full((L,), -1, dtype=torch.int64, device=dev)
+        rows[live] = torch.arange(live.shape[0], device=dev)
+    pa, pb = (0, 0) if partition is None else (partition[0].data_ptr(), partition[1].data_ptr())
+    rc = load_kernels().gk_pool_seed_launch(
+        pool.ptrs[0], pa, pb, n0.data_ptr(), seeding.data_ptr(), 0 if rows is None else rows.data_ptr(), form,
+        *kid, L, cap, pool.ptrs[1], nbisect, float(pool.rtol), float(pool.max_evals), K, P, cplx,
+        int(start), int(select), stream_handle(dev))
+    check_launch(rc, "gk_pool_seed")
+    gk_pool_launches["seed"] += 1
     return None
 
 
 def pool_kernels(plain=False):
-    """The pool step's functions: the wrappers of K5 and K6, or with
-    ``plain`` their plain versions, which run on any device (to hold a whole
-    solve on the card against the kernels)."""
+    """The pool's functions: the wrappers of K5 (``start``, ``seed``,
+    ``step``) and K6 (``coarsen``), or with ``plain`` their plain versions,
+    which run on any device (to hold a whole solve on the card against the
+    kernels)."""
     if plain:
-        return SimpleNamespace(select=gk_pool_select_plain, update=gk_pool_update_plain,
-                               totals=gk_pool_totals_plain, rule_reduce=gk_rule_reduce_plain,
+        return SimpleNamespace(start=gk_pool_start_plain, step=gk_pool_step_plain,
                                coarsen=coarsen_pool_plain, seed=gk_pool_seed_plain)
-    return SimpleNamespace(select=gk_pool_select, update=gk_pool_update, totals=gk_pool_totals,
-                           rule_reduce=gk_rule_reduce, coarsen=coarsen_pool, seed=gk_pool_seed)
+    return SimpleNamespace(start=gk_pool_start, step=gk_pool_step, coarsen=coarsen_pool, seed=gk_pool_seed)
 
 
 @dataclass
@@ -669,11 +883,12 @@ def seed_chunk_width(seed_width, nbisect, cap):
 
 
 def _seeded_pool(rule, segs, atol, init_pool, *, cap, nbisect, rtol, maxiters, kernels, stats,
-                 level, seed_width, seed_coarsen, seed_n):
+                 level, seed_width, seed_coarsen, seed_n, select=True):
     """The warm start (reference ``gk_adaptive`` with ``init_pool``): the
     inherited pools, coarsened when ``seed_coarsen``, re-evaluated in chunks
     of C intervals at ``start = min(k C, cap - C)``, every chunk's count
-    added. ``seed_n`` is the host's count of the most live seed slots of any
+    added; with ``select`` the last chunk's launch also makes the first
+    picks. ``seed_n`` is the host's count of the most live seed slots of any
     lane where the caller knows it (then the trip count needs no sync), else
     None."""
     a_in, b_in, e_in, n_in = init_pool
@@ -686,6 +901,7 @@ def _seeded_pool(rule, segs, atol, init_pool, *, cap, nbisect, rtol, maxiters, k
         seed_n = None
     else:
         a_c, b_c, n0 = a_in, b_in, n_in
+    a_c, b_c, n0 = a_c.contiguous(), b_c.contiguous(), n0.contiguous()
     C = seed_chunk_width(seed_width, nbisect, cap)
     if seed_n is None:
         if stats is not None:
@@ -693,7 +909,6 @@ def _seeded_pool(rule, segs, atol, init_pool, *, cap, nbisect, rtol, maxiters, k
         seed_n = int(n0.max())
     if seed_n <= 0:
         raise ValueError("a warm-start pool needs at least one live interval")
-    everyone = torch.ones(L, dtype=torch.bool, device=dev)
     pool = None
     k = 0
     while k * C < seed_n:
@@ -704,21 +919,28 @@ def _seeded_pool(rule, segs, atol, init_pool, *, cap, nbisect, rtol, maxiters, k
             stats.syncs += 1
         ca = a_c[:, start:start + C].contiguous()
         cb = b_c[:, start:start + C].contiguous()
-        cval, cerr, cl1, count = rule(ca, cb, seeding, live)
-        if pool is None:
-            val = torch.zeros((L, cap) + tuple(cval.shape[2:]), dtype=cval.dtype, device=dev)
-            pool = GKPool(a=a_c.clone(), b=b_c.clone(), err=torch.zeros((L, cap), dtype=REAL, device=dev),
-                          l1=torch.zeros((L, cap), dtype=REAL, device=dev), val=val,
-                          n=torch.zeros(L, dtype=torch.int64, device=dev),
-                          evals=torch.zeros(L, dtype=_count_dtype(), device=dev),
-                          atol=atol.contiguous(), rtol=float(rtol),
-                          max_evals=_as_eval_budget(maxiters), active=everyone.clone())
-        kernels.seed(pool, start, ca, cb, cval.contiguous(), cerr.contiguous(), cl1.contiguous(),
-                     count.contiguous(), n0.contiguous(), seeding)
+        kids = as_children(rule(ca, cb, seeding, live))
+        first = pool is None
+        if first:
+            vshape, dtype = _child_values(kids)
+            pool = _empty_pool(L, cap, vshape, dtype, dev, atol, rtol, maxiters)
+        kernels.seed(pool, start, kids, n0, seeding, nbisect, partition=(a_c, b_c) if first else None,
+                     select=select and (k + 1) * C >= seed_n)
         k += 1
         if stats is not None:
             stats.seed_trip(level)
     return pool
+
+
+def _empty_pool(L, cap, vshape, dtype, dev, atol, rtol, maxiters):
+    """An unwritten pool of L lanes in the kernels' layout, for a start or
+    seed entry to fill."""
+    e = lambda *shape, dt=REAL: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+    return GKPool(a=e(L, cap), b=e(L, cap), err=e(L, cap), l1=e(L, cap), val=e(L, cap, *vshape, dt=dtype),
+                  n=e(L, dt=torch.int64), evals=e(L, dt=_count_dtype()), atol=atol.contiguous(),
+                  rtol=float(rtol), max_evals=_as_eval_budget(maxiters), active=e(L, dt=torch.bool),
+                  checked=dtype in (REAL, COMPLEX) and atol.dtype == REAL and tuple(atol.shape) == (L,)
+                  and atol.device == torch.device(dev))
 
 
 def gk_adaptive_lanes(rule, segs, atol, *, cap, nbisect, rtol=0.0, maxiters=None, presplit=1,
@@ -729,11 +951,13 @@ def gk_adaptive_lanes(rule, segs, atol, *, cap, nbisect, rtol=0.0, maxiters=None
 
     ``rule(ca, cb, active, live)`` evaluates the rule on the intervals
     (ca, cb) (L, I) of the lanes that ``active`` (L,) marks, and returns
-    (val (L, I, *V), err (L, I), l1 (L, I), count (L,)); ``live`` holds the
-    indices of the active lanes when the loop has them at hand (else None).
-    ``segs`` (L, S+1) are each lane's breakpoints, ``atol`` (L,) its absolute
-    tolerance. ``presplit=P`` starts from P uniform pieces per segment,
-    clamped to leave refinement room.
+    their children: :class:`NodeChildren` (the node values of the lanes
+    ``live``, which the pool reduces), or :class:`ReducedChildren` or a
+    (val (L, I, *V), err (L, I), l1 (L, I), count (L,)) tuple; ``live``
+    holds the indices of the active lanes when the loop has them at hand
+    (else None). ``segs`` (L, S+1) are each lane's breakpoints, ``atol``
+    (L,) its absolute tolerance. ``presplit=P`` starts from P uniform pieces
+    per segment, clamped to leave refinement room.
 
     ``init_pool=(a, b, e, n)`` ((L, cap) each, ``n`` (L,) int64) warm-starts
     every lane from an inherited partition instead (``presplit`` is then
@@ -746,19 +970,20 @@ def gk_adaptive_lanes(rule, segs, atol, *, cap, nbisect, rtol=0.0, maxiters=None
     The host tests whether any lane is live every ``sync_every`` trips (with
     1, it also hands ``rule`` the live lanes); trips past the last live lane
     change nothing (:func:`refine_lanes`). ``solve(pool, nbisect)``, where
-    given, takes the started pool to its end in place of that loop (the
-    fused leaf solve of a nested DOS, one launch). Returns (tot_val (L,
-    *V), tot_err (L,), evals (L,), converged (L,) bool), and with
-    ``return_state`` the final :class:`GKPool` as well."""
+    given, takes the started pool (its totals, no picks) to its end in place
+    of that loop (the fused leaf solve of a nested DOS, one launch). Returns
+    (tot_val (L, *V), tot_err (L,), evals (L,), converged (L,) bool), and
+    with ``return_state`` the final :class:`GKPool` as well."""
     kernels = kernels or pool_kernels()
     L, S1 = segs.shape
     if init_pool is not None:
         pool = _seeded_pool(rule, segs, atol, init_pool, cap=cap, nbisect=nbisect, rtol=rtol,
                             maxiters=maxiters, kernels=kernels, stats=stats, level=level,
-                            seed_width=seed_width, seed_coarsen=seed_coarsen, seed_n=seed_n)
+                            seed_width=seed_width, seed_coarsen=seed_coarsen, seed_n=seed_n,
+                            select=solve is None)
     else:
         pool = _cold_pool(rule, segs, atol, cap=cap, nbisect=nbisect, rtol=rtol, maxiters=maxiters,
-                          presplit=presplit, kernels=kernels)
+                          presplit=presplit, kernels=kernels, select=solve is None)
     if solve is not None:
         solve(pool, nbisect)
     else:
@@ -769,14 +994,17 @@ def gk_adaptive_lanes(rule, segs, atol, *, cap, nbisect, rtol=0.0, maxiters=None
 
 def refine_lanes(pool, rule, kernels, nbisect, *, sync_every=1, stats=None, level=0, count_trips=False):
     """The refinement loop of :func:`gk_adaptive_lanes` on a started pool:
-    each trip selects (``kernels.select``), evaluates the children
-    (``rule``) and writes them back (``kernels.update``) until no lane is
-    live; the host tests that every ``sync_every`` trips. With
-    ``count_trips``, returns each lane's trips (L,) int64."""
+    each trip evaluates the pool's children (``rule``) and steps
+    (``kernels.step``: the update, the totals and the next picks) until no
+    lane is live; the host tests that every ``sync_every`` trips. A pool
+    started without its picks (the fused solve's form) gets them first
+    (``kernels.start`` on the pool as it stands). With ``count_trips``,
+    returns each lane's trips (L,) int64."""
+    if pool.idx is None:
+        kernels.start(pool, nbisect)
     lane_trips = torch.zeros(pool.nlanes, dtype=torch.int64, device=pool.a.device) if count_trips else None
     trips = 0
     while True:
-        idx, ca, cb = kernels.select(pool, nbisect)
         live = None
         if trips % sync_every == 0:
             if stats is not None:
@@ -789,18 +1017,17 @@ def refine_lanes(pool, rule, kernels, nbisect, *, sync_every=1, stats=None, leve
                 break
         if lane_trips is not None:
             lane_trips += pool.active
-        cval, cerr, cl1, count = rule(ca, cb, pool.active, live)
-        kernels.update(pool, nbisect, idx, ca, cb, cval.contiguous(), cerr.contiguous(),
-                       cl1.contiguous(), count.contiguous())
+        kernels.step(pool, nbisect, as_children(rule(pool.ca, pool.cb, pool.active, live)))
         trips += 1
         if stats is not None:
             stats.trip(level)
     return lane_trips
 
 
-def _cold_pool(rule, segs, atol, *, cap, nbisect, rtol, maxiters, presplit, kernels):
+def _cold_pool(rule, segs, atol, *, cap, nbisect, rtol, maxiters, presplit, kernels, select=True):
     """The cold start: the breakpoints' segments (P-presplit), evaluated in
-    one trip."""
+    one trip and written to a new pool by ``kernels.start`` (with
+    ``select``, with the first picks)."""
     L, S1 = segs.shape
     nseg = S1 - 1
     P = max(1, min(int(presplit), (cap - 2 * nbisect) // max(nseg, 1)))
@@ -810,21 +1037,12 @@ def _cold_pool(rule, segs, atol, *, cap, nbisect, rtol, maxiters, presplit, kern
         allpts = a0[..., None] + (b0 - a0)[..., None] * t
         a0 = allpts[..., :-1].reshape(L, -1)
         b0 = allpts[..., 1:].reshape(L, -1)
-        nseg *= P
     a0, b0 = a0.contiguous(), b0.contiguous()
     everyone = torch.ones(L, dtype=torch.bool, device=segs.device)
-    val0, err0, l10, count0 = rule(a0, b0, everyone, torch.arange(L, device=segs.device))
-
-    def pad(v):
-        out = torch.zeros((L, cap) + tuple(v.shape[2:]), dtype=v.dtype, device=v.device)
-        out[:, :nseg] = v
-        return out
-
-    pool = GKPool(a=pad(a0), b=pad(b0), err=pad(err0), l1=pad(l10), val=pad(val0),
-                  n=torch.full((L,), nseg, dtype=torch.int64, device=segs.device),
-                  evals=count0.to(_count_dtype()).clone(), atol=atol.contiguous(),
-                  rtol=float(rtol), max_evals=_as_eval_budget(maxiters), active=everyone.clone())
-    kernels.totals(pool)
+    kids = as_children(rule(a0, b0, everyone, torch.arange(L, device=segs.device)))
+    vshape, dtype = _child_values(kids)
+    pool = _empty_pool(L, cap, vshape, dtype, segs.device, atol, rtol, maxiters)
+    kernels.start(pool, nbisect, a0, b0, kids, select=select)
     return pool
 
 
@@ -859,9 +1077,16 @@ def gk_adaptive(batch_f, p, segs, *, order=7, cap=256, nbisect=4, abstol=None, r
     xk, wk, wg = gk_rule(order, segs.device)
     atol, rtol = _gk_tolerances(abstol, reltol)
 
+    lane0 = torch.zeros(1, dtype=torch.int64, device=segs.device)
+
     def rule(ca, cb, active, live):
-        out = gk_rule_eval(batch_f, p, ca[0], cb[0], xk, wk, wg, node_builder, stats)
-        return tuple(o[None] for o in out)
+        nodes, half = gk_nodes(ca[:1], cb[:1], xk)
+        K, P = ca.shape[1], xk.shape[0]
+        out = batch_f(node_builder(nodes.reshape(-1)), p)
+        fx, per_node = out if stats else (out, None)
+        counts = None if per_node is None else per_node.to(REAL).reshape(1, K, P).contiguous()
+        return NodeChildren(fx.reshape((1, K, P) + tuple(fx.shape[1:])).contiguous(), counts,
+                            half.contiguous(), lane0, wk, wg)
 
     if init_pool is not None:
         a_in, b_in, e_in, n_in = (t if isinstance(t, torch.Tensor) else torch.tensor(np.asarray(t))

@@ -69,14 +69,16 @@ def _bind(lib):
     lib.gk_leaf_dos_solve_smem.restype = ll
     lib.gk_leaf_dos_solve_launch.argtypes = [vp] * 20 + [ll, ll] + [i] * 7 + [dbl, dbl, dbl, vp]
     lib.gk_leaf_dos_solve_launch.restype = i
-    lib.gk_pool_select_launch.argtypes = [vp] * 11 + [ll, i, i, dbl, vp]
-    lib.gk_pool_select_launch.restype = i
-    lib.gk_pool_update_launch.argtypes = [vp] * 19 + [ll, i, i, i, dbl, i, vp]
-    lib.gk_pool_update_launch.restype = i
+    pool = ctypes.POINTER(vp)  # a pool's pointers, as one array
+    lib.gk_pool_start_launch.argtypes = [pool, vp, vp, i] + [vp] * 8 + [ll, i, i, i, dbl, dbl] + [i] * 4 + [vp]
+    lib.gk_pool_start_launch.restype = i
+    lib.gk_pool_seed_launch.argtypes = ([pool] + [vp] * 5 + [i] + [vp] * 8 + [ll, i, i, i, dbl, dbl]
+                                        + [i] * 5 + [vp])
+    lib.gk_pool_seed_launch.restype = i
+    lib.gk_pool_step_launch.argtypes = [pool] + [vp] * 9 + [ll, ll, i, i, i, dbl, dbl] + [i] * 3 + [vp]
+    lib.gk_pool_step_launch.restype = i
     lib.gk_rule_reduce_launch.argtypes = [vp] * 9 + [ll, i, i, i, i, vp]
     lib.gk_rule_reduce_launch.restype = i
-    lib.gk_pool_seed_launch.argtypes = [vp] * 19 + [ll, i, i, i, i, dbl, vp]
-    lib.gk_pool_seed_launch.restype = i
     lib.gk_coarsen_launch.argtypes = [vp] * 9 + [ll, i, i, dbl, dbl, vp]
     lib.gk_coarsen_launch.restype = i
     lib.eigvalsh_small_launch.argtypes = [vp, vp, ll, i, vp]

@@ -31,13 +31,19 @@ non-zero):
 5. cubic IBZ: tb_integer(3) on CubicSymIBZ against the full zone (PTR);
 6. kernels K3, K4, K5: each against its plain version at the shapes of the
    IAI main path (33 frequencies: 990 mid and 29,700 leaf lanes), with
-   kernel, plain and (K3) ``torch.matmul`` times; K3 also at the outer
+   kernel, plain and (K3) ``torch.matmul`` times; K5's start at the leaf
+   pools' 29,700 x 64 and its step at the mid level's 990 x 64 (nbisect
+   1), the outermost level's 33 x 2048 and at nbisect 4, identical pools
+   and picks, by events with the host's us, device time, and beside the
+   step ``torch.matmul`` by [wk, wk - wg] and ``torch.topk``, each with its
+   bound; K3 also at the outer
    level's shape (33 lanes on one coefficient set), both shapes
    bit-identical on repeat, with the device time of K3, K4 and of
    ``torch.matmul`` from torch.profiler beside the time of a call (which
    the host's enqueue sets at these sizes) and K3's share of its bound;
    then the fused leaf solve (``gk_leaf_dos_solve``) against the trip
-   route (K5's select, K4, K5's update) on the same 29,700 started leaf
+   route (K5's start for the first picks, then K4 and K5's step) on the
+   same 29,700 started leaf
    pools: pools, totals, counts, active and every lane's trips identical;
    and against its plain version (the trip route on the plain kernels):
    lanes on the same path with totals within 1e-12 of their l1, at most
@@ -47,7 +53,8 @@ non-zero):
 7. IAI main path: the flagship cold IAI leg at full width,
    IAI(inner_cap=64, inner_nbisect=4) under SweepSolver(abstol=1e-3,
    chunk=33, scan=True) at 33 frequencies in [-6, 7] eV, eta = 0.05, with
-   K3/K4/K5's and the fused solve's launch counts, the leaf's launches,
+   K3/K4's, K5's by entry (one step a mid or outer trip, at most 3,900 in
+   all) and the fused solve's launch counts, the leaf's launches,
    trips, host syncs, the device's busy share (nvidia-smi's utilization)
    and peak memory; checks: the retcode, the trip route's 7,280,048,325
    evals, 1 frequency against the same solve on the plain versions (within
@@ -100,9 +107,9 @@ non-zero):
    against the full zone (npt 60, E 0.8, 1e-12), 5 energies against the
    plain path (1e-12); then a Fermi-level step's one-energy N(E) call (K10
    and its column sum) by events and by device time;
-16. K4 over an omega block (W = 2, 4) and K5 at V = W against their plain
-   versions at the IAI main path's lane shapes: 1e-12 of l1, identical
-   pools; kernel (by events and device time) and plain times; the fused
+16. K4 over an omega block (W = 2, 4) and K5 at V = W (the blocked leaf
+   start and mid step at nbisect 4) against their plain versions at the
+   IAI main path's lane shapes: 1e-12 of l1, identical pools; kernel (by events and device time) and plain times; the fused
    leaf solve over the block against the trip route and its plain
    version as in phase 6;
 17. omega-block IAI main path: phase 7's 33 frequencies, cold, under
@@ -341,6 +348,7 @@ IAI_NUMEVALS = 7_280_048_325  # phase 7's cold chunk, as the trip route counts i
 # 5,666,197,230 (the same inputs, values within 1.2e-14)
 IAI_WARM_NUMEVALS = (5_692_670_790, 5_629_264_980)
 BLOCK_NUMEVALS = {2: 8_492_924_835, 4: 10_453_783_125}
+K5_COLD_MAX = 3900  # K5's launches in phase 7's cold chunk: one start a pool, one step a trip
 # the least time the card could take: NVIDIA's data sheet for the H100 SXM
 # at 700 W, FP64 outside the tensor cores, and FP64 on the tensor cores
 # (DMMA) for the functions that are matrix products (K1, K11: the phase
@@ -660,14 +668,203 @@ def leaf_solve_launches(reset=False):
     return fn.launches
 
 
+def k5_launches(reset=False):
+    """K5's launches by entry (``gk_pool_start``, ``gk_pool_step``,
+    ``gk_pool_seed``), zeroed with ``reset``."""
+    from autobzcore_torch.ops import adaptive as tad
+
+    if reset:
+        for key in tad.gk_pool_launches:
+            tad.gk_pool_launches[key] = 0
+    return {f"gk_pool_{k}": v for k, v in tad.gk_pool_launches.items()}
+
+
+def k5_random_pool(np, torch, dev, rng, L, cap, nb, V=()):
+    """Pools of L lanes at cap with planted error ties, lanes with n <
+    nbisect, stopped lanes and lanes without room, their totals by the plain
+    version."""
+    from autobzcore_torch.ops import adaptive as tad
+
+    n = torch.as_tensor(rng.integers(1, cap - nb + 3, L), device=dev)
+    if nb > 1:
+        n[: L // 20] = torch.as_tensor(rng.integers(1, nb, L // 20), device=dev)
+    live = torch.arange(cap, device=dev)[None, :] < n[:, None]
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    a0 = torch.where(live, torch.as_tensor(rng.random((L, cap)), device=dev), zero)
+    b0 = torch.where(live, a0 + torch.as_tensor(rng.random((L, cap)), device=dev), zero)
+    err = torch.where(live, torch.as_tensor(rng.integers(0, 6, (L, cap)) * 0.125, device=dev), zero)
+    val = torch.where(live.reshape((L, cap) + (1,) * len(V)),
+                      torch.as_tensor(rng.normal(size=(L, cap) + V), device=dev), zero)
+    pool = tad.GKPool(a=a0, b=b0, err=err, l1=2 * err, val=val.contiguous(), n=n,
+                      evals=torch.as_tensor(rng.integers(0, 2000, L).astype(np.float64), device=dev),
+                      atol=torch.as_tensor(rng.random(L) * 4, device=dev), rtol=1e-3, max_evals=1500.0,
+                      active=torch.as_tensor(rng.random(L) > 0.05, device=dev))
+    tad.gk_pool_totals_plain(pool)
+    return pool
+
+
+def k5_tree_sum(torch, x):
+    """Each lane's sum of x (L, cap) in the pool kernels' order: entry v of
+    256 sums slots v, v + 256, ... in order, then a halving tree."""
+    L, cap = x.shape
+    n = -(-cap // 256) * 256
+    e = torch.zeros((L, n), dtype=x.dtype, device=x.device)
+    e[:, :cap] = x
+    e = e.reshape(L, n // 256, 256)
+    s = e[:, 0]
+    for k in range(1, n // 256):
+        s = s + e[:, k]
+    w = 128
+    while w:
+        s = s[:, :w] + s[:, w:2 * w]
+        w //= 2
+    return s[:, 0]
+
+
+def k5_same(got, want, picks):
+    """(identical, totals rel, max abs d) of a kernel's pool ``got`` and the
+    plain version's ``want``: identical pools, n, evals and live flags (and
+    picks), got's totals bit for bit the sums in the kernels' tree order;
+    rel: the totals' and tolerance's largest difference from the plain
+    version's (another order) relative to each lane's sum of magnitudes."""
+    import torch
+
+    keys = ("a", "b", "err", "l1", "val", "n", "evals", "active") + (("idx", "ca", "cb") if picks else ())
+    same = all(torch.equal(getattr(got, k), getattr(want, k)) for k in keys)
+    L, cap = got.a.shape
+    val = got.real_val().reshape(L, cap, -1)
+    real = lambda t: (torch.view_as_real(t) if t.is_complex() else t).reshape(L, -1)  # noqa: E731
+    tv, rv = real(got.tot_val), real(want.tot_val)
+    same = (same and torch.equal(got.tot_err, k5_tree_sum(torch, got.err))
+            and all(torch.equal(tv[:, f], k5_tree_sum(torch, val[:, :, f].contiguous())) for f in range(val.shape[2])))
+    mag_e, mag_v = got.err.sum(1).clamp_min(1e-300), val.abs().sum(1).clamp_min(1e-300)
+    d_e, d_v, d_t = (got.tot_err - want.tot_err).abs(), (tv - rv).abs(), (got.tol - want.tol).abs()
+    rel = max(float((d_e / mag_e).max()), float((d_v / mag_v).max()),
+              float((d_t / (got.atol + got.rtol * mag_v.norm(dim=1)).clamp_min(1e-300)).max()))
+    return same, rel, max(float(d_e.max()), float(d_v.max()), float(d_t.max()))
+
+
+def k5_shape(np, torch, dev, rng, label, L, cap, nb, V=(), entry="step", reps=30):
+    """K5 at one of the path's shapes against its plain version, then timed:
+    ``entry`` "start", a cold start of L pools from one reduced child a lane
+    (the leaf pools' start: K4's outputs on one segment, no picks), or
+    "step", a pool started as it stands (with picks) and a trip's step from
+    the live lanes' node values with per-node counts (the mid and outer
+    levels' form), the plain version taking them reduced by the reduction
+    alone (the step's bits). Identical pools, n, evals, live flags and
+    picks, the totals in the kernels' order and within 1e-14 of the plain
+    version's (relative to each lane's sum of magnitudes); times by events
+    with the host's us a call,
+    device time, the plain version, and beside the step `torch.matmul` of
+    its node values by [wk, wk - wg] (the reduction) and `torch.topk` of the
+    pool's errors (the select); the bound by bytes."""
+    from autobzcore_torch.ops import adaptive as tad
+
+    xk, wk, wg = tad.gk_rule(7, dev)
+    P = xk.shape[0]
+    f64 = dict(dtype=torch.float64, device=dev)
+    base = k5_random_pool(np, torch, dev, rng, L, cap, nb, V)
+    if entry == "start":
+        a0 = torch.as_tensor(rng.random((L, 1)) * 0.5, **f64)
+        b0 = a0 + 0.5
+        kids = tad.ReducedChildren(torch.as_tensor(rng.normal(size=(L, 1) + V), **f64),
+                                   torch.as_tensor(rng.random((L, 1)), **f64), torch.as_tensor(rng.random((L, 1)), **f64),
+                                   torch.full((L,), 2.0 * P, **f64))
+        got = tad._empty_pool(L, cap, V, torch.float64, dev, base.atol, 1e-3, None)
+        want = tad._empty_pool(L, cap, V, torch.float64, dev, base.atol, 1e-3, None)
+        tad.gk_pool_start(got, nb, a0, b0, kids, select=False)
+        tad.gk_pool_start_plain(want, nb, a0, b0, kids, select=False)
+        same, rel, err = k5_same(got, want, picks=False)
+        again = tad._empty_pool(L, cap, V, torch.float64, dev, base.atol, 1e-3, None)
+        tad.gk_pool_start(again, nb, a0, b0, kids, select=False)
+        rep_same, rep_rel, _ = k5_same(got, again, picks=False)
+        same = same and rep_same and rep_rel == 0.0
+        run = lambda: tad.gk_pool_start(got, nb, a0, b0, kids, select=False)  # noqa: E731
+        run_p = lambda: tad.gk_pool_start_plain(want, nb, a0, b0, kids, select=False)  # noqa: E731
+        t = {"ms": cuda_ms(run, reps), "device_ms": device_ms(run, reps, "gk_pool_start"),
+             "host_us": host_us(run, reps), "plain_ms": cuda_ms(run_p, 5), "library_ms": None}
+        b = bound(0, nbytes(a0, b0, *kids[:4]) + nbytes(got.a, got.b, got.err, got.l1, got.val)
+                  + L * (8 * (3 + max(1, math.prod(V))) + 1))
+    else:
+        got, want = base.clone(), base.clone()
+        tad.gk_pool_start(got, nb)
+        tad.gk_pool_start_plain(want, nb)
+        same0, rel0, _ = k5_same(got, want, picks=True)
+        live = want.active.nonzero().squeeze(1)
+        _, half = tad.gk_nodes(want.ca[live], want.cb[live], xk)
+        fx = torch.as_tensor(rng.normal(size=(live.numel(), 2 * nb, P) + V), **f64)
+        cnt = torch.as_tensor(rng.integers(100, 5000, (live.numel(), 2 * nb, P)).astype(np.float64), **f64)
+        kids = tad.NodeChildren(fx, cnt, half.contiguous(), live, wk, wg)
+        reduced = tad.ReducedChildren(*tad.gk_rule_reduce(fx, cnt, kids.half, wk, wg), live)
+        plain_red = tad.gk_rule_reduce_plain(fx, cnt, kids.half, wk, wg)
+        e_red = max(float((g - w).abs().max()) for g, w in zip(reduced[:3], plain_red[:3]))
+        tad.gk_pool_step(got, nb, kids)
+        tad.gk_pool_step_plain(want, nb, reduced)
+        same, rel, err = k5_same(got, want, picks=True)
+        same = same and same0 and e_red <= 1e-12 * float(plain_red[2].max())
+        rel = max(rel, rel0)
+        err = max(err, e_red)
+
+        reps = min(reps, (cap - 2) // nb - 2)
+
+        def timing_pool(begin=tad.gk_pool_start):
+            # room for every timed step of one timing in every live lane (n
+            # at most 2), no budget, a tolerance of 0: repeated steps keep
+            # the same lanes live
+            out = base.clone()
+            out.n.clamp_(max=2)
+            out.max_evals = 1e300
+            out.atol.zero_()
+            out.active[live] = True
+            begin(out, nb)
+            return out
+
+        def stepper(pool, step=tad.gk_pool_step, children=kids):
+            return lambda: step(pool, nb, children)
+
+        W5 = torch.stack([wk, wk - wg], dim=1)
+        fxp = fx.movedim(2, -1)  # the nodes last
+        t = {"ms": cuda_ms(stepper(timing_pool()), reps),
+             "device_ms": device_ms(stepper(timing_pool()), reps, "gk_pool_step"),
+             "host_us": host_us(stepper(timing_pool()), reps),
+             "plain_ms": cuda_ms(stepper(timing_pool(tad.gk_pool_start_plain), tad.gk_pool_step_plain, reduced),
+                                 min(reps, 5)),
+             "library_ms": cuda_ms(lambda: torch.matmul(fxp, W5), reps),
+             "library_device_ms": device_ms(lambda: torch.matmul(fxp, W5), reps),
+             "topk_ms": cuda_ms(lambda: torch.topk(base.err, nb, dim=1), reps)}
+        # the live lanes' bytes only (the step reads no other lane): their
+        # children's node values and counts; each pool's err and val (the
+        # totals and the next picks); the picks and children read and the
+        # next written; the picked parents' a and b; the children written to
+        # the pool; n, evals and active read and written, atol read, the
+        # totals and tol written
+        La, Vd = live.numel(), max(1, math.prod(V))
+        b = bound(La * 2 * nb * P * Vd * 6,
+                  nbytes(fx, cnt, kids.half, live) + La * cap * (1 + Vd) * 8 + 2 * La * (8 * nb + 16 * 2 * nb)
+                  + La * nb * 16 + La * 2 * nb * (4 + Vd) * 8 + La * (8 * (7 + Vd) + 2))
+    if not (same and rel <= 1e-14):
+        fail(f"K5 {entry} at {label} ({L} lanes x cap {cap}, nbisect {nb}, V {V}) vs its plain version: "
+             f"identical {same}, totals rel {rel:.3e}")
+    t.update(L=L, cap=cap, nb=nb, V=V, rel=rel, err=err, bound=b)
+    print(f"K5 {entry} at {label} ({L} lanes x cap {cap}, nbisect {nb}, V {V}): identical pools, n, evals, live "
+          f"flags{' and picks' if entry == 'step' else ''} to the plain version, totals in the tree order, rel "
+          f"{rel:.3e} of their magnitudes (<= 1e-14); "
+          f"{t['ms']:.4f} ms a call by events (device {ms_text(t['device_ms'])}, host {t['host_us']:.1f} us; plain "
+          f"{t['plain_ms']:.4f}; bound {b[0]:.5f} ms by {b[1]})"
+          + ("" if entry == "start" else
+             f"; torch.matmul by [wk, wk - wg] {t['library_ms']:.4f} ms (device {ms_text(t['library_device_ms'])}), "
+             f"torch.topk {t['topk_ms']:.4f}"), flush=True)
+    return t
+
+
 def leaf_launches(launches, stats):
     """The IAI leaf level's launches: K4 (the pools' starts, and on the trip
     route every trip) and the fused solve's where it ran; on the trip route
-    a leaf trip adds K5's select and update to K4."""
+    a leaf trip adds K5's step to K4."""
     k4 = launches.get("gk_leaf_dos", launches.get("gk_leaf_dos_block", 0))
     solve = launches.get("gk_leaf_dos_solve") or 0
-    pool = 0 if solve else 2 * stats.trips.get(1, 0)
-    return {"K4": k4, "solve": solve, "select+update": pool, "total": k4 + solve + pool}
+    pool = 0 if solve else stats.trips.get(1, 0)
+    return {"K4": k4, "solve": solve, "K5": pool, "total": k4 + solve + pool}
 
 
 def warm_iai_sweep(prob, chunk, plain=False):
@@ -716,10 +913,11 @@ def profile(label, fn, events=False):
               f"{len(dev_rows)} device-side rows and no device time)", flush=True)
         return None
     top = sorted(rows, key=lambda r: -r[2])[:8]
+    kernels = sum(n for k, n, _ in rows if not k.startswith(("Memcpy", "Memset")))
     print(f"profile {label}: wall {wall:.3f} s (profiled), device busy {busy:.4f} s "
-          f"({100 * busy / wall:.2f} %); top: " + "; ".join(
+          f"({100 * busy / wall:.2f} %), {kernels} kernel launches; top: " + "; ".join(
               f"{k[:48]} x{n} {t / 1e3:.3f} ms" for k, n, t in top), flush=True)
-    out = {"wall": wall, "busy": busy, "rows": rows}
+    out = {"wall": wall, "busy": busy, "rows": rows, "kernel_launches": kernels}
     if events:
         try:
             evs = sorted(((e.name, e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
@@ -1334,8 +1532,9 @@ def fourier_phases(np, torch, dev, h):
 
 def leaf_solve_phase(np, torch, dev, args, label):
     """The fused leaf solve (``gk_leaf_dos_solve``) against the trip route
-    (K5's select, K4, K5's update, the host's test every trip) and against
-    its plain version (the trip route on the plain select, K4 and update)
+    (K5's start for the first picks, then K4 and K5's step, the host's test
+    every trip) and against its plain version (the trip route on the plain
+    start, K4 and step)
     on the same started pools: K4's cold start of the leaf lanes ``args``
     (phase 6b's or 16's inputs) on [0, 1], cap 64, nbisect 4, atol
     IAI_ABSTOL. Against the trip route, pools, totals, n, evals, active and
@@ -1368,21 +1567,18 @@ def leaf_solve_phase(np, torch, dev, args, label):
     tad.gk_adaptive_lanes(rule, segs, atol, cap=cap, nbisect=nb, solve=lambda pool, _: held.append(pool))
     start = held[0]
 
-    def clone():
-        return tad.GKPool(**{k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in start.__dict__.items()})
-
+    clone = start.clone
     sargs = (c1, cmap, off, period, om, eta, xk, wk, wg, nb)
     fields = ("a", "b", "err", "l1", "val", "n", "evals", "tot_val", "tot_err", "tol", "active")
     ref = clone()
-    sel0, upd0 = tad.gk_pool_launches["select"], tad.gk_pool_launches["update"]
+    k50 = sum(k5_launches().values())
     k40 = obs.gk_leaf_dos.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = obs.gk_leaf_dos_solve_plain(ref, *sargs, kernels=True)
     torch.cuda.synchronize()
     trip_wall = time.perf_counter() - t0
-    trip_launches = (tad.gk_pool_launches["select"] - sel0 + tad.gk_pool_launches["update"] - upd0
-                     + obs.gk_leaf_dos.launches - k40)
+    trip_launches = sum(k5_launches().values()) - k50 + obs.gk_leaf_dos.launches - k40
     got = clone()
     trips = obs.gk_leaf_dos_solve(got, *sargs)
     same = [k for k in fields if not torch.equal(getattr(got, k), getattr(ref, k))]
@@ -1499,95 +1695,14 @@ def iai_phases(np, torch, dev, h):
           f"plain {t4['plain_ms']:.4f}; bound {b4[0]:.4f} ms by {b4[1]}), max|d| {e4:.3e}", flush=True)
     ts = leaf_solve_phase(np, torch, dev, a4, f"phase 6's {L_leaf} leaf lanes, m = 3")
 
-    # 6c. K5: pools of the leaf level (cap 64, nbisect 1) with planted ties,
-    # lanes with n < nbisect (at nbisect 4) and stopped lanes; then the rule
-    # reduction of the mid level (per-node counts of the inner solves)
-    def random_pool(L, nb):
-        n = torch.as_tensor(rng.integers(1, 64 - nb + 3, L), device=dev)
-        if nb > 1:
-            n[: L // 20] = torch.as_tensor(rng.integers(1, nb, L // 20), device=dev)
-        live = torch.arange(64, device=dev)[None, :] < n[:, None]
-        zero = torch.zeros((), dtype=torch.float64, device=dev)
-        a0 = torch.where(live, torch.as_tensor(rng.random((L, 64)), device=dev), zero)
-        b0 = torch.where(live, a0 + torch.as_tensor(rng.random((L, 64)), device=dev), zero)
-        err = torch.where(live, torch.as_tensor(rng.integers(0, 6, (L, 64)) * 0.125, device=dev), zero)
-        val = torch.where(live, torch.as_tensor(rng.normal(size=(L, 64)), device=dev), zero)
-        pool = tad.GKPool(a=a0, b=b0, err=err, l1=2 * err, val=val, n=n,
-                          evals=torch.as_tensor(rng.integers(0, 2000, L).astype(np.float64), device=dev),
-                          atol=torch.as_tensor(rng.random(L) * 4, device=dev), rtol=1e-3, max_evals=1500.0,
-                          active=torch.as_tensor(rng.random(L) > 0.05, device=dev))
-        tad.gk_pool_totals_plain(pool)
-        return pool
-
-    def clone(pool):
-        return tad.GKPool(**{k: (v.clone() if isinstance(v, torch.Tensor) else v)
-                             for k, v in pool.__dict__.items()})
-
-    checks5, e5s = [], 0.0
-    for L, nb in ((900, 1), (900, 4), (L_leaf, 1)):
-        pool = random_pool(L, nb)
-        ref = clone(pool)
-        idx, ca, cb = tad.gk_pool_select(pool, nb)
-        ridx, rca, rcb = tad.gk_pool_select_plain(ref, nb)
-        live = ref.active
-        if not (torch.equal(pool.active, live) and torch.equal(idx[live], ridx[live])
-                and torch.equal(ca, rca) and torch.equal(cb, rcb)):
-            fail(f"K5 select at {L} lanes, nbisect {nb}: picks differ from the plain version")
-        e5s = max(e5s, float((idx[live] - ridx[live]).abs().max()), float((ca - rca).abs().max()),
-                  float((cb - rcb).abs().max()))
-        cval = torch.as_tensor(rng.normal(size=(L, 2 * nb)), device=dev)
-        cerr = torch.as_tensor(rng.random((L, 2 * nb)), device=dev)
-        count = torch.full((L,), 30.0 * nb, dtype=torch.float64, device=dev)
-        sel_in = (clone(pool), nb)
-        tad.gk_pool_update(pool, nb, idx, ca, cb, cval, cerr, cerr, count)
-        tad.gk_pool_update_plain(ref, nb, ridx, rca, rcb, cval, cerr, cerr, count)
-        same = all(torch.equal(getattr(pool, k), getattr(ref, k))
-                   for k in ("a", "b", "err", "l1", "val", "n", "evals"))
-        d_err, d_val = (pool.tot_err - ref.tot_err).abs(), (pool.tot_val - ref.tot_val).abs()
-        rel = max(float((d_err / ref.tot_err.abs().clamp_min(1e-300)).max()),
-                  float((d_val / ref.tot_val.abs().clamp_min(1e-300)).max()))
-        if not (same and rel <= 1e-14):
-            fail(f"K5 update at {L} lanes, nbisect {nb}: pools identical {same}, totals rel {rel:.3e}")
-        checks5.append((L, nb, int(live.sum()), rel, max(float(d_err.max()), float(d_val.max()))))
-    # times at the leaf level's widest trip (the last pool above)
-    pool_s, nb = sel_in
-    upd_args = (nb, idx, ca, cb, cval, cerr, cerr, count)
-    # select only narrows `active`, so it repeats on one pool unchanged
-    pool_k, pool_p = clone(pool_s), clone(pool_s)
-    t5s = {"ms": cuda_ms(lambda: tad.gk_pool_select(pool_k, nb), 30),
-           "plain_ms": cuda_ms(lambda: tad.gk_pool_select_plain(pool_p, nb), 10),
-           "library_ms": cuda_ms(lambda: torch.topk(pool_s.err, nb, dim=1), 30)}
-    # an update moves n on, so each timed call clones the pool first
-    clone_ms = cuda_ms(lambda: clone(pool_s), 30)
-    t5u = {"ms": cuda_ms(lambda: tad.gk_pool_update(clone(pool_s), *upd_args), 30) - clone_ms,
-           "plain_ms": cuda_ms(lambda: tad.gk_pool_update_plain(clone(pool_s), *upd_args), 10) - clone_ms}
-    b5s = bound(0, nbytes(pool_s.err, pool_s.n, pool_s.evals, pool_s.tot_err, pool_s.tol, pool_s.active)
-                + 2 * 2 * L_leaf * 8 + nbytes(idx, ca, cb))
-    b5u = bound(L_leaf * 64 * 2, nbytes(ca, cb, cval, cerr, cerr, count, idx) + 2 * L_leaf * 2 * 5 * 8
-                + nbytes(pool_s.err, pool_s.val) + 3 * L_leaf * 8)
-    # rule reduction at the mid level's shape: 990 lanes x 2 intervals x 15
-    # nodes of inner-solve values and counts
-    fx = torch.as_tensor(rng.normal(size=(L_mid, 2, P)), device=dev)
-    cnt = torch.as_tensor(rng.integers(100, 5000, (L_mid, 2, P)).astype(np.float64), device=dev)
-    half = torch.as_tensor(rng.random((L_mid, 2)), device=dev)
-    half[::7, 1] = 0.0
-    got, want = tad.gk_rule_reduce(fx, cnt, half, wk, wg), tad.gk_rule_reduce_plain(fx, cnt, half, wk, wg)
-    e5r = max(float((g - w).abs().max()) for g, w in zip(got[:3], want[:3]))
-    if not (e5r <= 1e-12 * float(want[2].max()) and torch.equal(got[3], want[3])):
-        fail(f"K5 rule reduce vs plain: max|d| {e5r:.3e}")
-    # the library call: one torch.matmul of the node values by the Kronrod
-    # weights and their difference with the Gauss weights (as K14's [wk, we])
-    W5 = torch.stack([wk, wk - wg], dim=1)
-    t5r = {"ms": cuda_ms(lambda: tad.gk_rule_reduce(fx, cnt, half, wk, wg), 50),
-           "plain_ms": cuda_ms(lambda: tad.gk_rule_reduce_plain(fx, cnt, half, wk, wg), 20),
-           "library_ms": cuda_ms(lambda: torch.matmul(fx, W5), 50)}
-    b5r = bound(L_mid * 2 * P * 7, nbytes(fx, cnt, half, wk, wg) + L_mid * (3 * 2 + 1) * 8)
-    print(f"K5 gk_pool: select/update vs plain (lanes, nbisect, live, totals rel, abs): {checks5}, picks "
-          f"and pools identical; at {L_leaf} lanes x cap 64: select {t5s['ms']:.4f} ms (plain "
-          f"{t5s['plain_ms']:.4f}; torch.topk {t5s['library_ms']:.4f}; bound {b5s[0]:.4f} by {b5s[1]}), update "
-          f"{t5u['ms']:.4f} ms (plain {t5u['plain_ms']:.4f}; bound {b5u[0]:.4f} by {b5u[1]}); rule reduce "
-          f"{tuple(fx.shape)}: max|d| {e5r:.3e}, {t5r['ms']:.4f} ms (plain {t5r['plain_ms']:.4f}; torch.matmul "
-          f"by [wk, wk - wg] {t5r['library_ms']:.4f}; bound {b5r[0]:.5f} by {b5r[1]})", flush=True)
+    # 6c. K5 at the path's shapes against its plain version: the leaf pools'
+    # start (K4's reduced children, no picks), the mid level's step (nbisect
+    # 1, node values with the inner solves' counts), the outermost level's
+    # (cap 2048) and a step at nbisect 4
+    t5 = {"leaf_start": k5_shape(np, torch, dev, rng, "the leaf pools' start", L_leaf, 64, 1, entry="start"),
+          "mid_step": k5_shape(np, torch, dev, rng, "the mid level's trip", L_mid, 64, 1),
+          "outer_step": k5_shape(np, torch, dev, rng, "the outermost level's trip", IAI_OMEGAS, 2048, 1),
+          "nb4_step": k5_shape(np, torch, dev, rng, "nbisect 4", 900, 64, 4)}
     del a4, got, want
 
     # 7. IAI main path at full width ------------------------------------------
@@ -1598,9 +1713,7 @@ def iai_phases(np, torch, dev, h):
     torch.cuda.reset_peak_memory_stats()
     fourier_contract.launches = 0
     gk_leaf_dos.launches = 0
-    tad.gk_rule_reduce.launches = 0
-    for key in tad.gk_pool_launches:
-        tad.gk_pool_launches[key] = 0
+    k5_launches(reset=True)
     solve_launches = leaf_solve_launches(reset=True)
     with SmiBusy() as busy:
         t0 = time.perf_counter()
@@ -1610,9 +1723,7 @@ def iai_phases(np, torch, dev, h):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {"fourier_contract": fourier_contract.launches, "gk_leaf_dos": gk_leaf_dos.launches,
-                "gk_pool_select": tad.gk_pool_launches["select"],
-                "gk_pool_update": tad.gk_pool_launches["update"] + tad.gk_pool_launches["totals"],
-                "gk_rule_reduce": tad.gk_rule_reduce.launches}
+                **{k: v for k, v in k5_launches().items() if k != "gk_pool_seed"}}
     if solve_launches is not None:
         launches["gk_leaf_dos_solve"] = leaf_solve_launches()
     peak = torch.cuda.max_memory_allocated() / 2**20
@@ -1627,6 +1738,13 @@ def iai_phases(np, torch, dev, h):
           f"device busy {busy.text()} (nvidia-smi); peak device memory {peak:.1f} MiB", flush=True)
     if min(launches.values()) <= 0:
         fail(f"the IAI main path did not go through every kernel: {launches}")
+    k5 = sum(v for k, v in launches.items() if k.startswith(("gk_pool", "gk_rule")))
+    mid_outer = st.trips.get(2, 0) + st.trips.get(3, 0)
+    print(f"IAI main path: K5 launches by entry {({k: v for k, v in launches.items() if k.startswith('gk_pool')})}, "
+          f"{k5} in all; mid and outer trips {mid_outer}", flush=True)
+    if launches["gk_pool_step"] != mid_outer or k5 > K5_COLD_MAX:
+        fail(f"K5 on the IAI main path: {launches['gk_pool_step']} steps for {mid_outer} mid and outer trips (one "
+             f"each), {k5} launches in all (<= {K5_COLD_MAX})")
     if not sweep.retcode or d_iai.shape != (IAI_OMEGAS,) or not np.all(np.isfinite(d_iai)):
         fail(f"IAI sweep: retcode {sweep.retcode}, shape {d_iai.shape}")
     if sweep.numevals != IAI_NUMEVALS:
@@ -1685,7 +1803,8 @@ def iai_phases(np, torch, dev, h):
             "d_ptr": d_ptr, "bz": bz, "trips": dict(st.trips), "syncs": st.syncs, "busy": busy.share,
             "launches": launches, "leaf_launches": leaf,
             "k3": {k: v for k, v in t3.items() if k.endswith(("ms", "us"))},
-            "k4": {k: v for k, v in t4.items() if k.endswith(("ms", "us"))}, "solve": ts}
+            "k4": {k: v for k, v in t4.items() if k.endswith(("ms", "us"))}, "solve": ts,
+            "k5": {k: {q: v for q, v in t.items() if q != "V"} for k, t in t5.items()}}
     entries = [] if ts is None else [
         {"name": "gk_leaf_dos_solve", "route": "cuda", "source": src + "gk_leaf_dos.cu",
          "replaces": "autobzcore_tpu/ops/adaptive.py:236", "launches": launches["gk_leaf_dos_solve"],
@@ -1700,18 +1819,15 @@ def iai_phases(np, torch, dev, h):
          "replaces": "autobzcore_tpu/fourier.py:394", "launches": launches["gk_leaf_dos"],
          "max_abs_err": e4, "ms": t4["ms"], "plain_ms": t4["plain_ms"],
          "bound_ms": b4[0], "bound_by": b4[1], "library_ms": None},
-        {"name": "gk_pool_select", "route": "cuda", "source": src + "gk_pool.cu",
-         "replaces": rep + "427", "launches": launches["gk_pool_select"], "max_abs_err": e5s,
-         "ms": t5s["ms"], "plain_ms": t5s["plain_ms"], "bound_ms": b5s[0], "bound_by": b5s[1],
-         "library_ms": t5s["library_ms"]},
-        {"name": "gk_pool_update", "route": "cuda", "source": src + "gk_pool.cu",
-         "replaces": rep + "446", "launches": launches["gk_pool_update"],
-         "max_abs_err": max(c[4] for c in checks5), "ms": t5u["ms"], "plain_ms": t5u["plain_ms"],
-         "bound_ms": b5u[0], "bound_by": b5u[1], "library_ms": None},
-        {"name": "gk_rule_reduce", "route": "cuda", "source": src + "gk_pool.cu",
-         "replaces": rep + "72", "launches": launches["gk_rule_reduce"], "max_abs_err": e5r,
-         "ms": t5r["ms"], "plain_ms": t5r["plain_ms"], "bound_ms": b5r[0], "bound_by": b5r[1],
-         "library_ms": t5r["library_ms"]},
+        {"name": "gk_pool_start", "route": "cuda", "source": src + "gk_pool.cu",
+         "replaces": rep + "378", "launches": launches["gk_pool_start"], "max_abs_err": t5["leaf_start"]["err"],
+         "ms": t5["leaf_start"]["ms"], "plain_ms": t5["leaf_start"]["plain_ms"],
+         "bound_ms": t5["leaf_start"]["bound"][0], "bound_by": t5["leaf_start"]["bound"][1], "library_ms": None},
+        {"name": "gk_pool_step", "route": "cuda", "source": src + "gk_pool.cu",
+         "replaces": rep + "422", "launches": launches["gk_pool_step"],
+         "max_abs_err": max(t5[k]["err"] for k in ("mid_step", "outer_step", "nb4_step")),
+         "ms": t5["mid_step"]["ms"], "plain_ms": t5["mid_step"]["plain_ms"], "bound_ms": t5["mid_step"]["bound"][0],
+         "bound_by": t5["mid_step"]["bound"][1], "library_ms": t5["mid_step"]["library_ms"]},
     ]
 
 
@@ -1741,17 +1857,13 @@ def warm_phases(np, torch, dev, h, cold):
 
     def reset():
         fourier_contract.launches = gk_leaf_dos.launches = 0
-        tad.gk_rule_reduce.launches = tad.coarsen_pool.launches = 0
-        for key in tad.gk_pool_launches:
-            tad.gk_pool_launches[key] = 0
+        tad.coarsen_pool.launches = 0
+        k5_launches(reset=True)
         leaf_solve_launches(reset=True)
 
     def launches():
         out = {"fourier_contract": fourier_contract.launches, "gk_leaf_dos": gk_leaf_dos.launches,
-               "gk_pool_select": tad.gk_pool_launches["select"],
-               "gk_pool_update": tad.gk_pool_launches["update"] + tad.gk_pool_launches["totals"],
-               "gk_rule_reduce": tad.gk_rule_reduce.launches,
-               "gk_pool_seed": tad.gk_pool_launches["seed"], "coarsen_pool": tad.coarsen_pool.launches}
+               **k5_launches(), "coarsen_pool": tad.coarsen_pool.launches}
         if leaf_solve_launches() is not None:
             out["gk_leaf_dos_solve"] = leaf_solve_launches()
         return out
@@ -1834,63 +1946,68 @@ def warm_phases(np, torch, dev, h, cold):
     cap_o = pool.a.shape[0]
     b6 = bound(cap_o * 24, nbytes(*outer) + 2 * cap_o * 8 + 8)
     # the seed entry: the coarsened outer pool seeded chunk by chunk (C = 8)
-    # with random chunk values, then the mid shape of an outer seed trip
-    # (120 lanes = 8 intervals x 15 nodes, cap 64, C = 2), some lanes idle
+    # from random node values with counts, the first chunk starting the pool
+    # from the partition and the last making the first picks; then the mid
+    # shape of an outer seed trip (120 lanes = 8 intervals x 15 nodes, cap
+    # 64, C = 2), some lanes idle. The plain version takes the node values
+    # reduced by the reduction alone (the entry's bits).
     a_c, b_c, n0 = tad.coarsen_pool(*outer)
+    xk, wk, wg = tad.gk_rule(7, dev)
+    P = xk.shape[0]
 
-    def seeded(seed_fn, L, cap, C, a_s, b_s, n_s, trips, seeding):
+    def chunk_kids(g, a_s, b_s, start, C, seeding, kernel):
+        live = seeding.nonzero().squeeze(1)
+        _, half = tad.gk_nodes(a_s[live, start:start + C], b_s[live, start:start + C], xk)
+        fx = torch.as_tensor(g.normal(size=(live.numel(), C, P)), device=dev)
+        cnt = torch.as_tensor(g.integers(15, 5000, (live.numel(), C, P)).astype(np.float64), device=dev)
+        kids = tad.NodeChildren(fx, cnt, half.contiguous(), live, wk, wg)
+        return kids if kernel else tad.ReducedChildren(*tad.gk_rule_reduce(fx, cnt, kids.half, wk, wg), live)
+
+    def seeded(kernel, L, cap, C, a_s, b_s, n_s, trips, seeding):
         g = np.random.default_rng(10)
-        pl = tad.GKPool(a=a_s.clone(), b=b_s.clone(), err=torch.zeros((L, cap), dtype=torch.float64, device=dev),
-                        l1=torch.zeros((L, cap), dtype=torch.float64, device=dev),
-                        val=torch.zeros((L, cap), dtype=torch.float64, device=dev),
-                        n=torch.zeros(L, dtype=torch.int64, device=dev),
-                        evals=torch.zeros(L, dtype=torch.float64, device=dev),
-                        atol=torch.full((L,), 1e-6, dtype=torch.float64, device=dev), rtol=0.0,
-                        max_evals=1e18, active=torch.ones(L, dtype=torch.bool, device=dev))
+        pl = tad._empty_pool(L, cap, (), torch.float64, dev, torch.full((L,), 1e-6, dtype=torch.float64, device=dev),
+                             0.0, None)
+        seed_fn = tad.gk_pool_seed if kernel else tad.gk_pool_seed_plain
         for k in range(trips):
             start = min(k * C, cap - C)
-            ch = [torch.as_tensor(g.random((L, C)), device=dev) for _ in range(3)]
-            seed_fn(pl, start, a_s[:, start:start + C].contiguous(), b_s[:, start:start + C].contiguous(),
-                    ch[0], ch[1], ch[2], torch.full((L,), 15.0 * C, dtype=torch.float64, device=dev),
-                    n_s, seeding)
+            seed_fn(pl, start, chunk_kids(g, a_s, b_s, start, C, seeding, kernel), n_s, seeding, 1,
+                    partition=(a_s, b_s) if k == 0 else None, select=k == trips - 1)
         return pl
 
+    e5d = 0.0
     n0h = int(n0[0])
     shapes = [(1, cap_o, 8, a_c, b_c, n0, -(-n0h // 8), torch.ones(1, dtype=torch.bool, device=dev))]
     ra, rb, _, rn = dyadic_pools(rng, 120, 64, [0.0, 1.0], dev)
     shapes.append((120, 64, 2, ra, rb, rn, 16, torch.as_tensor(rng.random(120) > 0.1, device=dev)))
-    fields = ("a", "b", "err", "l1", "val", "n", "evals", "tot_val", "tot_err", "tol")
-    e5d = 0.0
     for L, cap, C, a_s, b_s, n_s, trips, seeding in shapes:
-        got = seeded(tad.gk_pool_seed, L, cap, C, a_s, b_s, n_s, trips, seeding)
-        want = seeded(tad.gk_pool_seed_plain, L, cap, C, a_s, b_s, n_s, trips, seeding)
-        same = all(torch.equal(getattr(got, k), getattr(want, k)) for k in fields[:7])
-        # the totals and tolerance to a relative 1e-14 per lane (the kernel
-        # sums in another order)
-        rel = max(float(((getattr(got, k) - getattr(want, k)).reshape(L, -1).abs().amax(1)
-                         / getattr(want, k).reshape(L, -1).abs().amax(1).clamp_min(1e-300)).max())
-                  for k in fields[7:])
+        got = seeded(True, L, cap, C, a_s, b_s, n_s, trips, seeding)
+        want = seeded(False, L, cap, C, a_s, b_s, n_s, trips, seeding)
+        same, rel, err = k5_same(got, want, picks=True)
         if not (same and rel <= 1e-14):
-            fail(f"K5 seed entry vs plain at {L} lanes x cap {cap}: pools identical {same}, "
+            fail(f"K5 seed entry vs plain at {L} lanes x cap {cap}: pools and picks identical {same}, "
                  f"totals and tol rel {rel:.3e}")
-        e5d = max([e5d] + [float((getattr(got, k) - getattr(want, k)).abs().max())
-                           for k in fields])
+        e5d = max(e5d, err)
     L, cap, C = 120, 64, 2
-    sp = seeded(tad.gk_pool_seed, L, cap, C, ra, rb, rn, 1, shapes[1][7])
-    chunk = [torch.as_tensor(rng.random((L, C)), device=dev) for _ in range(5)]
-    cnt = torch.full((L,), 30.0, dtype=torch.float64, device=dev)
-    seed_args = (sp, 4, *chunk, cnt, rn, shapes[1][7])
-    t5d = {"ms": cuda_ms(lambda: tad.gk_pool_seed(*seed_args), 200),
-           "plain_ms": cuda_ms(lambda: tad.gk_pool_seed_plain(*seed_args), 50)}
-    b5d = bound(L * cap * 2, nbytes(*chunk, cnt, rn, shapes[1][7]) + 5 * L * C * 8 + 2 * L * cap * 8
-                + L * 4 * 8)
+    seeding = shapes[1][7]
+    sp, spp = seeded(True, L, cap, C, ra, rb, rn, 1, seeding), seeded(False, L, cap, C, ra, rb, rn, 1, seeding)
+    g = np.random.default_rng(11)
+    kids = chunk_kids(g, ra, rb, 4, C, seeding, True)
+    red = tad.ReducedChildren(*tad.gk_rule_reduce(kids.fx, kids.counts, kids.half, wk, wg), kids.live)
+    seed_run = lambda: tad.gk_pool_seed(sp, 4, kids, rn, seeding, 1)  # noqa: E731
+    t5d = {"ms": cuda_ms(seed_run, 200), "device_ms": device_ms(seed_run, 50, "gk_pool_seed"),
+           "host_us": host_us(seed_run, 200),
+           "plain_ms": cuda_ms(lambda: tad.gk_pool_seed_plain(spp, 4, red, rn, seeding, 1), 50)}
+    # the seeding lanes write err, l1 and val at C slots; every lane's totals
+    # read its pool's err and val
+    b5d = bound(kids.fx.numel() * 6, nbytes(kids.fx, kids.counts, kids.half, rn, seeding)
+                + 3 * kids.fx.shape[0] * C * 8 + nbytes(sp.err, sp.val) + L * 6 * 8)
     print(f"K6 coarsen_pool vs plain: identical a2, b2, n2 (max|d| {e6:.3e}) on {'; '.join(merged)}; "
           f"at 1 lane x cap "
           f"{cap_o}: {t6['ms']:.4f} ms (plain {t6['plain_ms']:.4f}; bound {b6[0]:.6f} ms by {b6[1]}). "
-          f"K5 seed vs plain: identical seeded pools, max|d| over pools, totals and tol {e5d:.3e} (outer: "
-          f"{-(-n0h // 8)} chunks of 8 into cap "
-          f"{cap_o}; mid: 120 lanes x cap 64, C = 2); at 120 x 64: {t5d['ms']:.4f} ms (plain "
-          f"{t5d['plain_ms']:.4f}; bound {b5d[0]:.6f} ms by {b5d[1]})", flush=True)
+          f"K5 seed vs plain: identical seeded pools and first picks, max|d| over totals and tol {e5d:.3e} "
+          f"(outer: {-(-n0h // 8)} chunks of 8 into cap {cap_o}; mid: 120 lanes x cap 64, C = 2); at 120 x 64: "
+          f"{t5d['ms']:.4f} ms by events (device {ms_text(t5d['device_ms'])}, host {t5d['host_us']:.1f} us; "
+          f"plain {t5d['plain_ms']:.4f}; bound {b5d[0]:.6f} ms by {b5d[1]})", flush=True)
 
     # 10, call 2: the midpoints, as the next interpolation frontier -----------------
     mids = (oms[:-1] + oms[1:]) / 2
@@ -1937,8 +2054,7 @@ def warm_phases(np, torch, dev, h, cold):
         {"name": "gk_pool_seed", "route": "cuda", "source": src + "gk_pool.cu",
          "replaces": "autobzcore_tpu/ops/adaptive.py:344", "launches": total["gk_pool_seed"],
          "max_abs_err": e5d, "ms": t5d["ms"], "plain_ms": t5d["plain_ms"], "bound_ms": b5d[0],
-         "bound_by": b5d[1], "library_ms": None},
-    ], numbers
+         "bound_by": b5d[1], "library_ms": None}], numbers
 
 
 def fullgrid_phases(np, torch, dev, h, cold):
@@ -2451,63 +2567,17 @@ def block_phases(np, torch, dev, h, cold, wall_runs=BLOCK_WALL_RUNS):
         t16[W]["solve"] = leaf_solve_phase(np, torch, dev, a, f"phase 16, W = {W}: {L} leaf lanes")
         del a, got, want
 
-    def pool_v(L, nb, W):
-        n = torch.as_tensor(rng.integers(1, 64 - nb + 3, L), device=dev)
-        live = torch.arange(64, device=dev)[None, :] < n[:, None]
-        zero = torch.zeros((), dtype=torch.float64, device=dev)
-        a0 = torch.where(live, torch.as_tensor(rng.random((L, 64)), device=dev), zero)
-        b0 = torch.where(live, a0 + torch.as_tensor(rng.random((L, 64)), device=dev), zero)
-        err = torch.where(live, torch.as_tensor(rng.integers(0, 6, (L, 64)) * 0.125, device=dev), zero)
-        val = torch.where(live[..., None], torch.as_tensor(rng.normal(size=(L, 64, W)), device=dev), zero)
-        pool = tad.GKPool(a=a0, b=b0, err=err, l1=2 * err, val=val.contiguous(), n=n,
-                          evals=torch.as_tensor(rng.integers(0, 2000, L).astype(np.float64), device=dev),
-                          atol=torch.as_tensor(rng.random(L) * 4, device=dev), rtol=1e-3, max_evals=1500.0,
-                          active=torch.as_tensor(rng.random(L) > 0.05, device=dev))
-        tad.gk_pool_totals_plain(pool)
-        return pool
-
-    def clone(pool):
-        return tad.GKPool(**{k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in pool.__dict__.items()})
-
-    t5 = {}
-    for W in BLOCKS:
-        L = t16[W]["L"]
-        pool = pool_v(L, 4, W)
-        ref = clone(pool)
-        idx, ca, cb = tad.gk_pool_select(pool, 4)
-        ridx, rca, rcb = tad.gk_pool_select_plain(ref, 4)
-        base = clone(pool)  # after the select, which narrows `active`
-        live = ref.active
-        cval = torch.as_tensor(rng.normal(size=(L, 8, W)), device=dev)
-        cerr = torch.as_tensor(rng.random((L, 8)), device=dev)
-        count = torch.full((L,), 120.0, dtype=torch.float64, device=dev)
-        tad.gk_pool_update(pool, 4, idx, ca, cb, cval, cerr, cerr, count)
-        tad.gk_pool_update_plain(ref, 4, ridx, rca, rcb, cval, cerr, cerr, count)
-        same = (torch.equal(idx[live], ridx[live]) and torch.equal(ca, rca)
-                and all(torch.equal(getattr(pool, k), getattr(ref, k)) for k in ("a", "b", "err", "l1", "val", "n", "evals")))
-        # the totals sum the pool in another order: hold them to the rounding
-        # of that sum, relative to the sum of the magnitudes
-        rel_t = float(((pool.tot_val - ref.tot_val).abs() / ref.val.abs().sum(1).clamp_min(1e-300)).max())
-        fx = torch.as_tensor(rng.normal(size=(-(-IAI_OMEGAS // W) * 2 * P, 2, P, W)), device=dev)
-        cnt = torch.as_tensor(rng.integers(100, 5000, fx.shape[:3]).astype(np.float64), device=dev)
-        half = torch.as_tensor(rng.random(fx.shape[:2]), device=dev)
-        gr, wr = tad.gk_rule_reduce(fx, cnt, half, wk, wg), tad.gk_rule_reduce_plain(fx, cnt, half, wk, wg)
-        er = max(float((g - w).abs().max()) for g, w in zip(gr[:3], wr[:3])) / float(wr[2].max())
-        if not (same and rel_t <= 1e-14 and er <= 1e-12 and torch.equal(gr[3], wr[3])):
-            fail(f"K5 at V={W}: pools identical {same}, totals rel {rel_t:.3e}, rule reduce rel {er:.3e}")
-        upd = (4, idx, ca, cb, cval, cerr, cerr, count)
-        clone_ms = cuda_ms(lambda: clone(base), 20)
-        t5[W] = {"update_ms": cuda_ms(lambda: tad.gk_pool_update(clone(base), *upd), 20) - clone_ms,
-                 "update_plain_ms": cuda_ms(lambda: tad.gk_pool_update_plain(clone(base), *upd), 5) - clone_ms,
-                 "rel": max(rel_t, er)}
-        del pool, ref, base, fx, cnt
+    # K5 at V = W: the leaf pools' start and the mid level's step (nbisect
+    # 4) of the blocked chunk
+    t5 = {W: {"start": k5_shape(np, torch, dev, rng, f"the blocked leaf start, V = {W}", t16[W]["L"], 64, 1,
+                                V=(W,), entry="start", reps=10),
+              "step": k5_shape(np, torch, dev, rng, f"the blocked mid trip, V = {W}",
+                               -(-IAI_OMEGAS // W) * 2 * P, 64, 4, V=(W,), reps=10)} for W in BLOCKS}
     print("K4 block entry vs plain: " + "; ".join(
         f"W={W}: {t16[W]['L']} lanes x 2 intervals, max |d|/l1 {t16[W]['rel']:.3e} (<= 1e-12), "
         f"{t16[W]['ms']:.4f} ms a call by events (device {ms_text(t16[W]['device_ms'])}, host "
         f"{t16[W]['host_us']:.1f} us; plain {t16[W]['plain_ms']:.4f}; bound {t16[W]['bound'][0]:.4f} ms by "
-        f"{t16[W]['bound'][1]})" for W in BLOCKS) + ". K5 at V=W: identical pools; " + "; ".join(
-        f"V={W}: update {t5[W]['update_ms']:.4f} ms (plain {t5[W]['update_plain_ms']:.4f}), totals and rule "
-        f"reduce rel {t5[W]['rel']:.3e}" for W in BLOCKS), flush=True)
+        f"{t16[W]['bound'][1]})" for W in BLOCKS), flush=True)
     torch.cuda.empty_cache()
 
     # 17. the omega-block IAI main path --------------------------------------------
@@ -2517,9 +2587,7 @@ def block_phases(np, torch, dev, h, cold, wall_runs=BLOCK_WALL_RUNS):
 
     def reset():
         fourier_contract.launches = gk_leaf_dos.launches = 0
-        tad.gk_rule_reduce.launches = 0
-        for key in tad.gk_pool_launches:
-            tad.gk_pool_launches[key] = 0
+        k5_launches(reset=True)
         leaf_solve_launches(reset=True)
 
     def blocked(W, plain=False, warm=False, chunk=BLOCK_CHUNK):
@@ -2543,9 +2611,7 @@ def block_phases(np, torch, dev, h, cold, wall_runs=BLOCK_WALL_RUNS):
             if r == 0:
                 launches = {"fourier_contract": fourier_contract.launches,
                             "gk_leaf_dos_block": gk_leaf_dos.launches,
-                            "gk_pool_select": tad.gk_pool_launches["select"],
-                            "gk_pool_update": tad.gk_pool_launches["update"] + tad.gk_pool_launches["totals"],
-                            "gk_rule_reduce": tad.gk_rule_reduce.launches}
+                            **{k: v for k, v in k5_launches().items() if k != "gk_pool_seed"}}
                 if leaf_solve_launches() is not None:
                     launches["gk_leaf_dos_solve"] = leaf_solve_launches()
                 peak = torch.cuda.max_memory_allocated() / 2**20
@@ -2599,7 +2665,9 @@ def block_phases(np, torch, dev, h, cold, wall_runs=BLOCK_WALL_RUNS):
          "plain_ms": t16[W0]["solve"]["plain_ms"], "bound_ms": t16[W0]["solve"]["bound"][0],
          "bound_by": t16[W0]["solve"]["bound"][1], "library_ms": None}]
     numbers = {W: dict(res[W], k4={k: v for k, v in t16[W].items() if k.endswith(("ms", "us"))},
-                       solve=t16[W]["solve"]) for W in BLOCKS}
+                       solve=t16[W]["solve"],
+                       k5={e: {q: v for q, v in t.items() if q != "V"} for e, t in t5[W].items()})
+               for W in BLOCKS}
     return [{"name": "gk_leaf_dos_block", "route": "cuda", "source": src + "gk_leaf_dos.cu",
              "replaces": "autobzcore_tpu/models/observables.py:138", "launches": total_block_launches,
              "max_abs_err": e16, "ms": t16[W0]["ms"], "plain_ms": t16[W0]["plain_ms"],

@@ -121,14 +121,20 @@ def _torch_f(x, p):
     return 1.0 / ((x - p) ** 2 + 1e-3) + torch.sin(7 * x)
 
 
-def _lanes(ps, segs, *, cap, nbisect, abstol, reltol=None, maxiters=None, presplit=1, order=7):
-    """The port's pool over one lane per peak position."""
+def _lanes(ps, segs, *, cap, nbisect, abstol, reltol=None, maxiters=None, presplit=1, order=7,
+           node_values=False):
+    """The port's pool over one lane per peak position; the rule hands the
+    pool its reduced children, or with ``node_values`` the live lanes' node
+    values for the step to reduce."""
     xk, wk, wg = tad.gk_rule(order, "cpu")
     p = torch.as_tensor(ps)
 
     def rule(ca, cb, active, live):
         nodes, half = tad.gk_nodes(ca, cb, xk)
         fx = _torch_f(nodes, p[:, None, None])
+        if node_values:
+            live = active.nonzero().squeeze(1) if live is None else live
+            return tad.NodeChildren(fx[live].contiguous(), None, half[live].contiguous(), live, wk, wg)
         out = tad.gk_rule_reduce(fx.contiguous(), None, half.contiguous(), wk, wg)
         zero = torch.zeros((), dtype=torch.float64)
         return [torch.where(active.reshape((-1,) + (1,) * (o.ndim - 1)), o, zero) for o in out]
@@ -160,11 +166,10 @@ POOL_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(POOL_CASES))
-def test_pool_matches_vmapped_reference(case):
+def _check_pool_case(case, node_values):
     kw = dict(POOL_CASES[case])
     segs = kw.pop("segs", (0.0, 1.0))
-    got = _lanes(PS, segs, **kw)
+    got = _lanes(PS, segs, node_values=node_values, **kw)
     want = _jax_lanes(PS, segs, **kw)
     val, err, ne, conv = (np.asarray(w) for w in want)
     np.testing.assert_array_equal(got[2].numpy(), ne)
@@ -181,6 +186,18 @@ def test_pool_matches_vmapped_reference(case):
         assert np.all(ne == 15 * (1 + 2 * 2 * ((24 - 1) // 2)))
 
 
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+def test_pool_matches_vmapped_reference(case):
+    _check_pool_case(case, node_values=False)
+
+
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+def test_pool_from_node_values_matches_vmapped_reference(case):
+    """The same pools with the rule handing the step its live lanes' node
+    values (the nest's and QuadGKJL's form), which the step reduces."""
+    _check_pool_case(case, node_values=True)
+
+
 def test_pool_collision_keeps_the_right_child():
     """nbisect = 2 on one segment: the second pick is the dead slot 1,
     which the fresh right child must overwrite (two sequential scatters)."""
@@ -190,12 +207,10 @@ def test_pool_collision_keeps_the_right_child():
                       val=torch.tensor([[9.0, 0, 0, 0]], **f64), n=torch.ones(1, dtype=torch.int64),
                       evals=torch.zeros(1, dtype=torch.float64), atol=torch.zeros(1, dtype=torch.float64),
                       rtol=0.0, max_evals=1e9, active=torch.ones(1, dtype=torch.bool))
-    tad.gk_pool_totals(pool)
-    idx, ca, cb = tad.gk_pool_select(pool, 2)
-    assert idx.tolist() == [[0, 1]]
+    tad.gk_pool_start(pool, 2)
+    assert pool.idx.tolist() == [[0, 1]]
     cval = torch.tensor([[1.0, 2.0, 3.0, 4.0]], dtype=torch.float64)
-    tad.gk_pool_update(pool, 2, idx, ca, cb, cval, cval / 10, cval,
-                       torch.tensor([60.0], dtype=torch.float64))
+    tad.gk_pool_step(pool, 2, tad.ReducedChildren(cval, cval / 10, cval, torch.tensor([60.0], dtype=torch.float64)))
     assert pool.a[0].tolist() == [0.0, 0.5, 0.0, 0.0] and pool.b[0].tolist() == [0.5, 1.0, 0.0, 0.0]
     assert pool.val[0].tolist() == [1.0, 3.0, 4.0, 0.0] and pool.n.tolist() == [3]
     assert float(pool.tot_val[0]) == 8.0 and float(pool.evals[0]) == 60.0

@@ -359,62 +359,203 @@ def _random_pool(rng, dev, L=900, cap=64, nb=4, V=(), complex_vals=False):
 
 
 def _clone_pool(pool):
-    return tad.GKPool(**{k: (v.clone() if isinstance(v, torch.Tensor) else v)
-                         for k, v in pool.__dict__.items()})
+    return pool.clone()
+
+
+def _node_children(rng, pool, live, P=15, counts=True, ca=None, cb=None):
+    """Random node values (and per-node counts) of the live lanes'
+    children, at their intervals (ca, cb), by default the pool's picks'
+    children."""
+    dev = pool.a.device
+    xk, wk, wg = tad.gk_rule(7, dev)
+    ca, cb = (pool.ca, pool.cb) if ca is None else (ca, cb)
+    _, half = tad.gk_nodes(ca[live], cb[live], xk)
+    La, K = half.shape
+    V = tuple(pool.val.shape[2:])
+    fx = torch.as_tensor(rng.normal(size=(La, K, P) + V), device=dev)
+    if pool.val.is_complex():
+        fx = torch.complex(fx, torch.as_tensor(rng.normal(size=(La, K, P) + V), device=dev))
+    cnt = torch.as_tensor(rng.integers(15, 5000, (La, K, P)).astype(np.float64), device=dev) if counts else None
+    return tad.NodeChildren(fx.contiguous(), cnt, half.contiguous(), live, wk, wg)
+
+
+def _reduced_on_card(kids):
+    """Node children reduced by K5's reduction alone on the card, for the
+    plain versions to take in: the step's reduction gives its bits (the
+    plain reduction sums in another order, within 1e-12)."""
+    return tad.ReducedChildren(*tad.gk_rule_reduce(kids.fx, kids.counts, kids.half, kids.wk, kids.wg), kids.live)
+
+
+def _tree_sum(x):
+    """Each lane's sum of x (L, cap) in the pool kernels' order: entry v of
+    256 sums slots v, v + 256, ... in order, then a halving tree."""
+    L, cap = x.shape
+    n = -(-cap // 256) * 256
+    e = torch.zeros((L, n), dtype=x.dtype, device=x.device)
+    e[:, :cap] = x
+    e = e.reshape(L, n // 256, 256)
+    s = e[:, 0]
+    for k in range(1, n // 256):
+        s = s + e[:, k]
+    w = 128
+    while w:
+        s = s[:, :w] + s[:, w:2 * w]
+        w //= 2
+    return s[:, 0]
+
+
+def _assert_pools_match(pool, ref, picks=True):
+    """Identical pools, n, evals, live flags (and picks); the totals bit for
+    bit the sums in the kernels' tree order, and within 1e-14 of the plain
+    version's (another order) relative to each lane's sum of magnitudes."""
+    L, cap = pool.a.shape
+    for name in ("a", "b", "err", "l1", "val", "n", "evals", "active") + (("idx", "ca", "cb") if picks else ()):
+        assert torch.equal(getattr(pool, name), getattr(ref, name)), name
+    val = pool.real_val().reshape(L, cap, -1)
+    tv = (torch.view_as_real(pool.tot_val) if pool.tot_val.is_complex() else pool.tot_val).reshape(L, -1)
+    assert torch.equal(pool.tot_err, _tree_sum(pool.err))
+    assert all(torch.equal(tv[:, f], _tree_sum(val[:, :, f].contiguous())) for f in range(val.shape[2]))
+    mag = pool.err.sum(1).clamp_min(1e-300)
+    assert float(((pool.tot_err - ref.tot_err).abs() / mag).max()) <= 1e-14
+    rv = (torch.view_as_real(ref.tot_val) if ref.tot_val.is_complex() else ref.tot_val).reshape(L, -1)
+    mag = val.abs().sum(1).clamp_min(1e-300)
+    assert float(((tv - rv).abs() / mag).max()) <= 1e-14
+    assert float(((pool.tol - ref.tol).abs() / (pool.atol + pool.rtol * mag.norm(dim=1))).max()) <= 1e-14
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("nb", [1, 2, 4])
 @pytest.mark.parametrize("V,complex_vals", [((), False), ((3,), True)], ids=["real", "complex3"])
 def test_pool_kernels_match_plain_on_card(cuda_device, nb, V, complex_vals):
+    """K5's start (on the pool as it stands) and three steps (from node
+    values with counts, without, and reduced children) against their plain
+    versions (node values reduced by the reduction alone): identical picks,
+    live flags, pools, n and evals, totals within 1e-14."""
     rng = np.random.default_rng(30 + nb)
     pool = _random_pool(rng, cuda_device, nb=nb, V=V, complex_vals=complex_vals)
     ref = _clone_pool(pool)
     before = dict(tad.gk_pool_launches)
-    idx, ca, cb = tad.gk_pool_select(pool, nb)
-    ridx, rca, rcb = tad.gk_pool_select_plain(ref, nb)
-    assert torch.equal(pool.active, ref.active)
+    tad.gk_pool_start(pool, nb)
+    tad.gk_pool_start_plain(ref, nb)
+    _assert_pools_match(pool, ref)
     live = ref.active
     assert 0 < int(live.sum()) < live.numel()
-    assert torch.equal(idx[live], ridx[live])
-    assert torch.equal(ca, rca) and torch.equal(cb, rcb)
+    pool.max_evals = ref.max_evals = 1e300  # the budget stopped lanes at the start; the rest go on
     L = pool.nlanes
-    cval = torch.as_tensor(rng.normal(size=(L, 2 * nb) + V), device=cuda_device).to(pool.val.dtype)
-    cerr = torch.as_tensor(rng.random((L, 2 * nb)), device=cuda_device)
-    cl1 = cerr * 3
-    count = torch.full((L,), 2.0 * nb * 15, dtype=torch.float64, device=cuda_device)
-    tad.gk_pool_update(pool, nb, idx, ca, cb, cval, cerr, cl1, count)
-    tad.gk_pool_update_plain(ref, nb, ridx, rca, rcb, cval, cerr, cl1, count)
-    for name in ("a", "b", "err", "l1", "val", "n", "evals"):
-        assert torch.equal(getattr(pool, name), getattr(ref, name)), name
-    assert float(((pool.tot_err - ref.tot_err).abs() / ref.tot_err.abs().clamp_min(1e-300)).max()) <= 1e-14
-    tv, rv = pool.tot_val.reshape(L, -1), ref.tot_val.reshape(L, -1)
-    assert float(((tv - rv).abs().amax(1) / rv.abs().amax(1).clamp_min(1e-300)).max()) <= 1e-14
-    assert torch.allclose(pool.tol, ref.tol, rtol=1e-14, atol=0)
-    assert tad.gk_pool_launches["select"] == before["select"] + 1
-    assert tad.gk_pool_launches["update"] == before["update"] + 1
+    for trip in range(3):
+        live = ref.active.nonzero().squeeze(1)
+        if trip < 2:
+            kids = _node_children(rng, ref, live, counts=trip == 0)
+        else:
+            cval = torch.as_tensor(rng.normal(size=(L, 2 * nb) + V), device=cuda_device).to(pool.val.dtype)
+            cerr = torch.as_tensor(rng.random((L, 2 * nb)), device=cuda_device)
+            kids = tad.ReducedChildren(cval, cerr, cerr * 3, torch.full((L,), 2.0 * nb * 15, dtype=torch.float64,
+                                                                        device=cuda_device))
+        tad.gk_pool_step(pool, nb, kids)
+        tad.gk_pool_step_plain(ref, nb, _reduced_on_card(kids) if trip < 2 else kids)
+        _assert_pools_match(pool, ref)
+        if trip == 0:  # the plain reduction within 1e-12 of the values' scale
+            want = tad.gk_rule_reduce_plain(kids.fx, kids.counts, kids.half, kids.wk, kids.wg)
+            got = tad.gk_rule_reduce(kids.fx, kids.counts, kids.half, kids.wk, kids.wg)
+            for g, w in zip(got[:3], want[:3]):
+                assert float((g - w).abs().max()) <= 1e-12 * float(want[2].max())
+            assert torch.equal(got[3], want[3])
+    assert tad.gk_pool_launches["start"] == before["start"] + 1
+    assert tad.gk_pool_launches["step"] == before["step"] + 3
 
 
 @pytest.mark.gpu
 def test_pool_select_breaks_the_collision_as_the_reference(cuda_device):
     """One live slot of n = 1 and nbisect = 2: the second pick is the dead
     slot 1 (error 0, the lowest such index), which the fresh right child
-    of slot 0 must overwrite."""
+    of slot 0 must overwrite; in both teams of a lane (a warp at cap 8, a
+    block at cap 512)."""
     dev = cuda_device
     z = lambda *s: torch.zeros(s, dtype=torch.float64, device=dev)  # noqa: E731
-    a, b, err = z(1, 8), z(1, 8), z(1, 8)
-    b[0, 0], err[0, 0] = 1.0, 0.5
-    pool = tad.GKPool(a=a, b=b, err=err, l1=err.clone(), val=z(1, 8), n=torch.ones(1, dtype=torch.int64, device=dev),
-                      evals=z(1), atol=z(1) + 1e-9, rtol=0.0, max_evals=1e9,
-                      active=torch.ones(1, dtype=torch.bool, device=dev))
-    tad.gk_pool_totals(pool)
-    idx, ca, cb = tad.gk_pool_select(pool, 2)
-    assert idx.tolist() == [[0, 1]]
-    cval = torch.tensor([[1.0, 2.0, 3.0, 4.0]], dtype=torch.float64, device=dev)
-    tad.gk_pool_update(pool, 2, idx, ca, cb, cval, cval / 10, cval, z(1) + 60)
-    assert pool.n.tolist() == [3]
-    assert pool.a[0, :3].tolist() == [0.0, 0.5, 0.0] and pool.b[0, :3].tolist() == [0.5, 1.0, 0.0]
-    assert pool.val[0, :3].tolist() == [1.0, 3.0, 4.0]
+    for cap in (8, 512):
+        a, b, err = z(1, cap), z(1, cap), z(1, cap)
+        b[0, 0], err[0, 0] = 1.0, 0.5
+        pool = tad.GKPool(a=a, b=b, err=err, l1=err.clone(), val=z(1, cap),
+                          n=torch.ones(1, dtype=torch.int64, device=dev), evals=z(1), atol=z(1) + 1e-9, rtol=0.0,
+                          max_evals=1e9, active=torch.ones(1, dtype=torch.bool, device=dev))
+        tad.gk_pool_start(pool, 2)
+        assert pool.idx.tolist() == [[0, 1]]
+        cval = torch.tensor([[1.0, 2.0, 3.0, 4.0]], dtype=torch.float64, device=dev)
+        tad.gk_pool_step(pool, 2, tad.ReducedChildren(cval, cval / 10, cval, z(1) + 60))
+        assert pool.n.tolist() == [3]
+        assert pool.a[0, :3].tolist() == [0.0, 0.5, 0.0] and pool.b[0, :3].tolist() == [0.5, 1.0, 0.0]
+        assert pool.val[0, :3].tolist() == [1.0, 3.0, 4.0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [64, 2048])
+def test_pool_warp_totals_equal_the_block_form_on_card(cuda_device, cap):
+    """The start and two steps at the nest's mid cap (a warp a lane) and the
+    outermost level's (a block a lane): totals bit for bit the block tree's
+    sums (:func:`_tree_sum`, the fused leaf solve's order), pools and picks
+    identical to the plain versions'."""
+    rng = np.random.default_rng(80 + cap)
+    base = _random_pool(rng, cuda_device, L=200, cap=cap, nb=4, V=(2,))
+    base.err = base.err * torch.as_tensor(rng.random(base.err.shape), device=cuda_device)  # few ties
+    pool, ref = _clone_pool(base), _clone_pool(base)
+    tad.gk_pool_start(pool, 4)
+    tad.gk_pool_start_plain(ref, 4)
+    _assert_pools_match(pool, ref)
+    pool.max_evals = ref.max_evals = 1e300
+    for _ in range(2):
+        kids = _node_children(rng, ref, ref.active.nonzero().squeeze(1))
+        tad.gk_pool_step(pool, 4, kids)
+        tad.gk_pool_step_plain(ref, 4, _reduced_on_card(kids))
+        _assert_pools_match(pool, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [96, 320])
+def test_pool_picks_take_ties_in_slot_order_on_card(cuda_device, cap):
+    """Equal errors are picked lowest slot first, as lax.top_k, across a
+    warp's slots and past them (cap 96, a warp a lane; cap 320, a block); a
+    NaN-free lane with fewer live slots than picks takes its dead slots in
+    order."""
+    dev = cuda_device
+    L, nb = 3, 6
+    err = torch.zeros((L, cap), dtype=torch.float64, device=dev)
+    err[0, :] = 0.25  # every slot tied
+    err[1, [70, 5, 33, 64]] = 0.5  # four tied, then the rest tied at 0
+    err[2, 90] = 1.0
+    a = torch.arange(cap, dtype=torch.float64, device=dev).expand(L, cap).contiguous()
+    pool = tad.GKPool(a=a, b=a + 1, err=err, l1=err.clone(), val=torch.zeros((L, cap), dtype=torch.float64, device=dev),
+                      n=torch.full((L,), cap - nb, dtype=torch.int64, device=dev),
+                      evals=torch.zeros(L, dtype=torch.float64, device=dev),
+                      atol=torch.zeros(L, dtype=torch.float64, device=dev), rtol=0.0, max_evals=1e9,
+                      active=torch.ones(L, dtype=torch.bool, device=dev))
+    ref = _clone_pool(pool)
+    tad.gk_pool_start(pool, nb)
+    tad.gk_pool_start_plain(ref, nb)
+    assert pool.idx.tolist() == [[0, 1, 2, 3, 4, 5], [5, 33, 64, 70, 0, 1], [90, 0, 1, 2, 3, 4]]
+    assert torch.equal(pool.idx, ref.idx) and torch.equal(pool.ca, ref.ca) and torch.equal(pool.cb, ref.cb)
+
+
+@pytest.mark.gpu
+def test_pool_step_takes_rebound_fields_on_card(cuda_device):
+    """Fields rebound on a started pool (a value pool replaced, the totals
+    recomputed by the plain version) are what the next step reads and
+    writes: the pool is checked again and its pointers taken anew."""
+    rng = np.random.default_rng(85)
+    pool = _random_pool(rng, cuda_device, L=300, cap=64, nb=2)
+    tad.gk_pool_start(pool, 2)
+    ref = _clone_pool(pool)
+    old_val = pool.val
+    pool.val = pool.val.clone()
+    tad.gk_pool_totals_plain(pool)
+    tad.gk_pool_totals_plain(ref)
+    old_val.fill_(float("nan"))
+    kids = _node_children(rng, ref, ref.active.nonzero().squeeze(1))
+    tad.gk_pool_step(pool, 2, kids)
+    tad.gk_pool_step_plain(ref, 2, _reduced_on_card(kids))
+    _assert_pools_match(pool, ref)
+    with pytest.raises(ValueError):
+        pool.err = pool.err[:, :32]
+        tad.gk_pool_step(pool, 2, _node_children(rng, pool, pool.active.nonzero().squeeze(1)))
 
 
 @pytest.mark.gpu
@@ -460,8 +601,8 @@ def test_iai_on_card_matches_cpu(cuda_device, kind):
 @pytest.mark.gpu
 def test_kernels_refuse_out_of_range_maps_and_slots(cuda_device):
     """A lane map entry outside the coefficient tensors gives NaN (K3, K4)
-    and an update with a pick outside the pool, or without room, writes
-    nothing and sets the lane's totals to NaN (K5)."""
+    and a step with a pick outside the pool, or without room, writes
+    nothing, sets the lane's totals to NaN and stops it (K5)."""
     dev = cuda_device
     s = ttb.flagship_series(device=dev)
     c = _flat_coeffs(s)
@@ -476,17 +617,25 @@ def test_kernels_refuse_out_of_range_maps_and_slots(cuda_device):
     active = torch.ones(4, dtype=torch.bool, device=dev)
     val = tobs.gk_leaf_dos(c1, cm, off, 1.0, a, b, om, eta, active, xk, wk, wg)[0]
     assert torch.isnan(val[1]).all() and torch.isfinite(val[[0, 2, 3]]).all()
-    pool = _random_pool(rng, dev, L=3, cap=8, nb=1)
-    pool.active[:] = True
-    pool.n[:] = torch.tensor([2, 2, 8], device=dev)  # lane 2 has no room
-    before = _clone_pool(pool)
-    idx = torch.tensor([[0], [9], [1]], dtype=torch.int64, device=dev)  # lane 1 picks past cap
-    ch = torch.ones((3, 2), dtype=torch.float64, device=dev)
-    tad.gk_pool_update(pool, 1, idx, ch, ch, ch.clone(), ch.clone(), ch.clone(),
-                       torch.ones(3, dtype=torch.float64, device=dev))
-    assert torch.isfinite(pool.tot_err[0]) and torch.isnan(pool.tot_err[1:]).all()
-    for name in ("a", "b", "err", "val", "n", "evals"):
-        assert torch.equal(getattr(pool, name)[1:], getattr(before, name)[1:]), name
+    for cap in (8, 512):  # a warp a lane, a block a lane
+        pool = _random_pool(rng, dev, L=3, cap=cap, nb=1)
+        pool.active[:] = True
+        pool.atol[:] = 0.0
+        pool.n[:] = 2
+        pool.err[:, :2] = 0.5
+        pool.evals[:] = 0.0
+        tad.gk_pool_start(pool, 1)
+        assert bool(pool.active.all())
+        pool.n[:] = torch.tensor([2, 2, cap], device=dev)  # lane 2 has no room
+        pool.idx[:] = torch.tensor([[0], [cap + 1], [1]], dtype=torch.int64, device=dev)  # lane 1 picks past cap
+        before = _clone_pool(pool)
+        ch = torch.ones((3, 2), dtype=torch.float64, device=dev)
+        tad.gk_pool_step(pool, 1, tad.ReducedChildren(ch, ch.clone(), ch.clone(),
+                                                      torch.ones(3, dtype=torch.float64, device=dev)))
+        assert torch.isfinite(pool.tot_err[0]) and torch.isnan(pool.tot_err[1:]).all()
+        assert pool.active.tolist() == [True, False, False] and torch.all(pool.ca[1:] == 0)
+        for name in ("a", "b", "err", "val", "n", "evals"):
+            assert torch.equal(getattr(pool, name)[1:], getattr(before, name)[1:]), name
 
 
 # --- the warm start: K6 coarsen_pool and K5's seed entry ---------------------------
@@ -510,12 +659,14 @@ def test_warm_wrappers_take_plain_versions_on_cpu_without_counting():
     pool = _random_pool(rng, "cpu", L=5, cap=16, nb=1)
     ch = torch.ones((5, 4), dtype=torch.float64)
     seeding = torch.ones(5, dtype=torch.bool)
-    before = tad.gk_pool_launches["seed"]
-    tad.gk_pool_seed(pool, 12, ch, ch, ch.clone(), ch.clone(), ch.clone(), ch[:, 0].clone(),
-                     pool.n.clone(), seeding)
-    assert tad.gk_pool_launches["seed"] == before
+    before = dict(tad.gk_pool_launches)
+    tad.gk_pool_seed(pool, 12, tad.ReducedChildren(ch, ch.clone(), ch.clone(), ch[:, 0].clone()), pool.n.clone(),
+                     seeding, 1, select=True)
+    tad.gk_pool_step(pool, 1, tad.ReducedChildren(ch[:, :2].clone(), ch[:, :2].clone(), ch[:, :2].clone(),
+                                                  ch[:, 0].clone()))
+    assert tad.gk_pool_launches == before
     with pytest.raises(ValueError, match="does not fit"):
-        tad.gk_pool_seed(pool, 13, ch, ch, ch, ch, ch, ch[:, 0], pool.n, seeding)
+        tad.gk_pool_seed(pool, 13, tad.ReducedChildren(ch, ch, ch, ch[:, 0]), pool.n, seeding, 1)
 
 
 @pytest.mark.gpu
@@ -542,28 +693,29 @@ def test_coarsen_kernel_matches_plain_on_card(cuda_device, cap):
 @pytest.mark.gpu
 @pytest.mark.parametrize("V,complex_vals", [((), False), ((3,), True)], ids=["real", "complex3"])
 def test_pool_seed_kernel_matches_plain_on_card(cuda_device, V, complex_vals):
-    """K5's seed entry against its plain version: a chunk written to the
-    seeding lanes' contiguous slots, n = n0, evals += count, the totals."""
+    """K5's seed entry against its plain version: a first chunk starting
+    the pool from a partition, then a chunk from the seeding lanes' node
+    values (a fifth of the lanes not seeding) written to their contiguous
+    slots with the first picks: n = n0, evals += count, identical pools and
+    picks, totals within 1e-14."""
     rng = np.random.default_rng(70)
-    pool = _random_pool(rng, cuda_device, L=300, cap=64, nb=1, V=V, complex_vals=complex_vals)
-    ref = _clone_pool(pool)
-    L, C, start = pool.nlanes, 8, 56
-    ca = torch.as_tensor(rng.random((L, C)), device=cuda_device)
-    cb = ca + torch.as_tensor(rng.random((L, C)), device=cuda_device)
-    cval = torch.as_tensor(rng.normal(size=(L, C) + V), device=cuda_device).to(pool.val.dtype)
-    cerr = torch.as_tensor(rng.random((L, C)), device=cuda_device)
-    count = torch.full((L,), 8.0 * 15, dtype=torch.float64, device=cuda_device)
-    n0 = torch.as_tensor(rng.integers(50, 64, L), device=cuda_device)
-    seeding = torch.as_tensor(rng.random(L) > 0.2, device=cuda_device)
+    base = _random_pool(rng, cuda_device, L=300, cap=64, nb=1, V=V, complex_vals=complex_vals)
+    L, C, dev = base.nlanes, 8, cuda_device
+    part = (base.a, base.b)
+    n0 = torch.as_tensor(rng.integers(50, 64, L), device=dev)
+    pool = tad._empty_pool(L, 64, V, base.val.dtype, dev, base.atol, base.rtol, None)
+    ref = tad._empty_pool(L, 64, V, base.val.dtype, dev, base.atol, base.rtol, None)
     before = tad.gk_pool_launches["seed"]
-    tad.gk_pool_seed(pool, start, ca, cb, cval, cerr, cerr * 3, count, n0, seeding)
-    assert tad.gk_pool_launches["seed"] == before + 1
-    tad.gk_pool_seed_plain(ref, start, ca, cb, cval, cerr, cerr * 3, count, n0, seeding)
-    for name in ("a", "b", "err", "l1", "val", "n", "evals"):
-        assert torch.equal(getattr(pool, name), getattr(ref, name)), name
-    assert float(((pool.tot_err - ref.tot_err).abs() / ref.tot_err.abs().clamp_min(1e-300)).max()) <= 1e-14
-    tv, rv = pool.tot_val.reshape(L, -1), ref.tot_val.reshape(L, -1)
-    assert float(((tv - rv).abs().amax(1) / rv.abs().amax(1).clamp_min(1e-300)).max()) <= 1e-14
+    for k, start in enumerate((0, 56)):
+        seeding = torch.ones(L, dtype=torch.bool, device=dev) if k == 0 else torch.as_tensor(rng.random(L) > 0.2,
+                                                                                              device=dev)
+        live = seeding.nonzero().squeeze(1)
+        kids = _node_children(rng, ref, live, ca=base.a[:, start:start + C], cb=base.b[:, start:start + C])
+        first = part if k == 0 else None
+        tad.gk_pool_seed(pool, start, kids, n0, seeding, 4, partition=first, select=k == 1)
+        tad.gk_pool_seed_plain(ref, start, _reduced_on_card(kids), n0, seeding, 4, partition=first, select=k == 1)
+        _assert_pools_match(pool, ref, picks=k == 1)
+    assert tad.gk_pool_launches["seed"] == before + 2
 
 
 @pytest.mark.gpu
@@ -1107,21 +1259,25 @@ def test_leaf_solve_refuses_what_it_does_not_take_on_card(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("W", [2, 4])
 def test_pool_kernels_at_block_width_on_card(cuda_device, W):
-    """K5's select, update and rule reduction with V = W channels."""
+    """K5's start and step (reduced children, then node values) and the
+    rule reduction with V = W channels."""
     rng = np.random.default_rng(90 + W)
     pool = _random_pool(rng, cuda_device, L=900, cap=64, nb=4, V=(W,))
     ref = _clone_pool(pool)
-    idx, ca, cb = tad.gk_pool_select(pool, 4)
-    ridx, rca, rcb = tad.gk_pool_select_plain(ref, 4)
-    live = ref.active
-    assert torch.equal(pool.active, live) and torch.equal(idx[live], ridx[live])
+    tad.gk_pool_start(pool, 4)
+    tad.gk_pool_start_plain(ref, 4)
+    _assert_pools_match(pool, ref)
     cval = torch.as_tensor(rng.normal(size=(900, 8, W)), device=cuda_device)
     cerr = torch.as_tensor(rng.random((900, 8)), device=cuda_device)
     count = torch.full((900,), 120.0, dtype=torch.float64, device=cuda_device)
-    tad.gk_pool_update(pool, 4, idx, ca, cb, cval, cerr, cerr, count)
-    tad.gk_pool_update_plain(ref, 4, ridx, rca, rcb, cval, cerr, cerr, count)
-    for name in ("a", "b", "err", "l1", "val", "n", "evals"):
-        assert torch.equal(getattr(pool, name), getattr(ref, name)), name
+    kids = tad.ReducedChildren(cval, cerr, cerr, count)
+    tad.gk_pool_step(pool, 4, kids)
+    tad.gk_pool_step_plain(ref, 4, kids)
+    _assert_pools_match(pool, ref)
+    kids = _node_children(rng, ref, ref.active.nonzero().squeeze(1))
+    tad.gk_pool_step(pool, 4, kids)
+    tad.gk_pool_step_plain(ref, 4, _reduced_on_card(kids))
+    _assert_pools_match(pool, ref)
     fx = torch.as_tensor(rng.normal(size=(300, 2, 15, W)), device=cuda_device)
     half = torch.as_tensor(rng.random((300, 2)), device=cuda_device)
     _, wk, wg = tad.gk_rule(7, cuda_device)

@@ -57,7 +57,10 @@ phase functions on it:
   the fixed-outer nest), over the PTR(npt=400) values of phase 7;
 - ``--phases pools``: the interval pools on the IAI path (K5, K6): the cold
   chunk of phase 7 and the two warm calls of phase 10 under torch.profiler
-  (device activity only), each kernel's launches and device time by name;
+  (device activity only), each kernel's launches and device time by name,
+  K5's by entry and nest level (each launch through the checkout's library
+  tagged in order and paired with the profiler's kernels of its name), and
+  all kernel launches of each leg;
 - ``--phases warm_plain``: phase 10's first warm call (the 33 frequencies
   of phase 7's cold chunk) on the kernels and then on the plain versions of
   every kernel (``plain_kernels=True``), each with its wall, numevals,
@@ -137,9 +140,9 @@ def iai(cs, np, torch, dev, h):
     cold, _ = cs.iai_phases(np, torch, dev, h)
     _, warm = cs.warm_phases(np, torch, dev, h, cold)
     _, block = cs.block_phases(np, torch, dev, h, cold, wall_runs=1)
-    keys = ("wall", "trips", "syncs", "busy", "launches", "leaf_launches", "k3", "k4", "solve")
+    keys = ("wall", "trips", "syncs", "busy", "launches", "leaf_launches", "k3", "k4", "solve", "k5")
     return dict(k24(cs, np, torch, dev, h),
-                cold=dict({k: cold[k] for k in keys}, numevals=int(cold["numevals"]),
+                cold=dict({k: cold.get(k) for k in keys}, numevals=int(cold["numevals"]),
                           lane_numevals=[int(n) for n in cold["ne"]]),
                 warm=warm, block=block)
 
@@ -253,6 +256,132 @@ def k16_step_shim(cs, torch):
           "the step", flush=True)
 
 
+def k5_step_shim(cs, torch):
+    """Phases 6c, 7, 9 and 16 drive K5 through its start, step and seed
+    entries (``gk_pool_start``, ``gk_pool_step``, ``gk_pool_seed``, with the
+    children as ``NodeChildren`` or ``ReducedChildren``). A checkout from
+    before them runs a trip as a select, a rule reduction and an update
+    launch: give its module the three entries made of those, with their
+    plain route (its own seed entries, which take its calls as before, made
+    to take the phases' too), the children's types, ``_empty_pool`` and a
+    ``GKPool.clone`` that keeps the picks (a stopped lane's zeroed, one
+    more launch a pick); count its totals as starts, its
+    updates as steps and its selects and reductions beside them; and lift
+    phase 7's bound on K5's launches a cold chunk, which that checkout's
+    three launches a trip exceed."""
+    import copy
+    from typing import NamedTuple
+
+    from autobzcore_torch.ops import adaptive as tad
+
+    if hasattr(tad, "gk_pool_step"):
+        return
+
+    class NodeChildren(NamedTuple):
+        fx: torch.Tensor
+        counts: torch.Tensor
+        half: torch.Tensor
+        live: torch.Tensor
+        wk: torch.Tensor
+        wg: torch.Tensor
+
+    class ReducedChildren(NamedTuple):
+        val: torch.Tensor
+        err: torch.Tensor
+        l1: torch.Tensor
+        count: torch.Tensor
+        live: torch.Tensor = None
+
+    def reduced(ch, L, reduce):
+        if isinstance(ch, NodeChildren):
+            out, live = reduce(ch.fx, ch.counts, ch.half, ch.wk, ch.wg), ch.live
+        else:
+            out, live = tuple(ch[:4]), ch.live
+        return [o.contiguous() for o in (out if live is None else tad.scatter_lanes(L, live, *out))]
+
+    def entries(select, update, totals, seed, reduce):
+        def pick(pool, nb):
+            # a stopped lane's picks are zero, as the start and step entries
+            # leave them (this checkout's select leaves them unwritten)
+            picks = select(pool, nb)  # the loop test first: it updates pool.active
+            live = pool.active[:, None]
+            pool.idx, pool.ca, pool.cb = (torch.where(live, t, torch.zeros((), dtype=t.dtype, device=t.device))
+                                          for t in picks)
+
+        def start(pool, nb, a0=None, b0=None, children=None, select=True):
+            if children is not None:
+                K = a0.shape[1]
+                val, err, l1, count = reduced(children, pool.nlanes, reduce)
+                for arr, v in ((pool.a, a0), (pool.b, b0), (pool.err, err), (pool.l1, l1), (pool.val, val)):
+                    arr.zero_()
+                    arr[:, :K] = v
+                pool.n.fill_(K)
+                pool.evals.copy_(count)
+                pool.active.fill_(True)
+            totals(pool)
+            if select:
+                pick(pool, nb)
+
+        def step(pool, nb, children):
+            update(pool, nb, pool.idx, pool.ca, pool.cb, *reduced(children, pool.nlanes, reduce))
+            pick(pool, nb)
+
+        def seed_chunk(pool, start, children, *args, partition=None, select=False):
+            if not isinstance(children, (NodeChildren, ReducedChildren)):  # the checkout's own call
+                return seed(pool, start, children, *args)
+            n0, seeding, nb = args
+            if partition is not None:
+                pool.a.copy_(partition[0])
+                pool.b.copy_(partition[1])
+                for t in (pool.err, pool.l1, pool.val, pool.n, pool.evals):
+                    t.zero_()
+                pool.active.fill_(True)
+            val, err, l1, count = reduced(children, pool.nlanes, reduce)
+            C = err.shape[1]
+            seed(pool, start, pool.a[:, start:start + C].contiguous(), pool.b[:, start:start + C].contiguous(),
+                 val, err, l1, count, n0, seeding)
+            if select:
+                pick(pool, nb)
+
+        return start, step, seed_chunk
+
+    def empty_pool(L, cap, vshape, dtype, dev, atol, rtol, maxiters):
+        e = lambda *shape, dt=torch.float64: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+        return tad.GKPool(a=e(L, cap), b=e(L, cap), err=e(L, cap), l1=e(L, cap), val=e(L, cap, *vshape, dt=dtype),
+                          n=e(L, dt=torch.int64), evals=e(L), atol=atol.contiguous(), rtol=float(rtol),
+                          max_evals=tad._as_eval_budget(maxiters), active=e(L, dt=torch.bool))
+
+    def clone(pool):
+        out = copy.copy(pool)
+        for k, v in vars(pool).items():
+            if isinstance(v, torch.Tensor):
+                setattr(out, k, v.clone())
+        return out
+
+    def launches(reset=False):
+        c = tad.gk_pool_launches
+        if reset:
+            for key in c:
+                c[key] = 0
+            tad.gk_rule_reduce.launches = 0
+        return {"gk_pool_start": c["totals"], "gk_pool_step": c["update"], "gk_pool_seed": c["seed"],
+                "gk_pool_select": c["select"], "gk_rule_reduce": tad.gk_rule_reduce.launches}
+
+    tad.NodeChildren, tad.ReducedChildren = NodeChildren, ReducedChildren
+    tad.gk_pool_start, tad.gk_pool_step, tad.gk_pool_seed = entries(
+        tad.gk_pool_select, tad.gk_pool_update, tad.gk_pool_totals, tad.gk_pool_seed, tad.gk_rule_reduce)
+    tad.gk_pool_start_plain, tad.gk_pool_step_plain, tad.gk_pool_seed_plain = entries(
+        tad.gk_pool_select_plain, tad.gk_pool_update_plain, tad.gk_pool_totals_plain, tad.gk_pool_seed_plain,
+        tad.gk_rule_reduce_plain)
+    tad._empty_pool = empty_pool
+    tad.GKPool.clone = clone
+    cs.k5_launches = launches
+    cs.K5_COLD_MAX = float("inf")
+    print("K5 has no start and step entries in this checkout: phases 6c, 9 and 16 run its select, reduction "
+          "and update as the start, step and seed; phase 7 counts its totals as starts and its updates as steps",
+          flush=True)
+
+
 def tai(cs, np, torch, dev, h):
     k16_step_shim(cs, torch)
     entries, numbers = cs.cubature_phases(np, torch, dev, h, phase7_frequencies(cs, np, torch, dev, h))
@@ -277,10 +406,92 @@ def device_rows(torch, fn):
     return wall, rows
 
 
-POOL_KERNELS = ("gk_pool_select", "gk_pool_update", "gk_rule_reduce", "gk_pool_seed", "gk_coarsen")
+POOL_KERNELS = ("gk_pool_select", "gk_pool_update", "gk_rule_reduce", "gk_pool_seed", "gk_pool_start",
+                "gk_pool_step", "gk_coarsen")
+
+
+def k5_entry(name, args):
+    """The entry of one call of a K5 launcher of either checkout: the launch
+    function's name and its arguments (``args[-2]`` is the update flag of
+    the old update launcher, the select flag of a start or seed, the form of
+    the children of a step), or None for another function."""
+    flag = args[-2] if len(args) > 1 else 0
+    return {"gk_pool_select_launch": lambda: "select",
+            "gk_pool_update_launch": lambda: "update" if flag else "totals",
+            "gk_rule_reduce_launch": lambda: "reduce",
+            "gk_pool_seed_launch": lambda: "seed+select" if flag and "start" in _LAUNCHERS else "seed",
+            "gk_pool_start_launch": lambda: "start+select" if flag else "start",
+            "gk_pool_step_launch": lambda: {0: "step(reduced)", 1: "step(nodes)"}.get(flag, "step")}.get(
+                name, lambda: None)()
+
+
+_LAUNCHERS = set()
+
+
+class K5Tags:
+    """Every K5 launch of a leg in launch order, each with its entry and the
+    nest level whose pool it serves (3 outermost, 1 the leaf), so the
+    profiler's kernels of one name split by entry and level in order."""
+
+    def __init__(self):
+        from autobzcore_torch.algorithms import nested
+        from autobzcore_torch.ops import cuda_lib
+
+        self.tags, self.levels = [], []
+        lib = cuda_lib.load_kernels()
+        for name in ("gk_pool_select_launch", "gk_pool_update_launch", "gk_rule_reduce_launch",
+                     "gk_pool_seed_launch", "gk_pool_start_launch", "gk_pool_step_launch"):
+            try:
+                fn = getattr(lib, name)
+            except AttributeError:
+                continue
+            _LAUNCHERS.add(name.split("_")[2])
+            setattr(lib, name, self._wrap(name, fn))
+        lanes = nested.gk_adaptive_lanes
+
+        def tagged(*args, **kw):
+            self.levels.append(kw.get("level", 0))
+            try:
+                return lanes(*args, **kw)
+            finally:
+                self.levels.pop()
+
+        nested.gk_adaptive_lanes = tagged
+
+    def _wrap(self, name, fn):
+        stem = name[:-len("_launch")]
+
+        def call(*args):
+            self.tags.append((stem, k5_entry(name, args), self.levels[-1] if self.levels else 0))
+            return fn(*args)
+
+        return call
+
+    def split(self, events):
+        """Launches and device ms by (entry, level) from the leg's device
+        events (name, start, us) in start order; None for a kernel name whose
+        events do not pair one to one with the calls."""
+        out, unmatched = {}, []
+        for stem in sorted({t[0] for t in self.tags}):
+            calls = [t for t in self.tags if t[0] == stem]
+            evs = [e for e in events if stem in e[0]]
+            if len(evs) != len(calls):
+                unmatched.append(f"{stem}: {len(calls)} calls, {len(evs)} kernels")
+                continue
+            for (_, entry, level), (_, _, us) in zip(calls, evs):
+                row = out.setdefault(f"{entry}@L{level}", [0, 0.0])
+                row[0] += 1
+                row[1] += us / 1e3
+        self.tags.clear()
+        return {k: {"launches": n, "device_ms": ms, "ms_a_launch": ms / n} for k, (n, ms) in sorted(out.items())}, \
+            unmatched
 
 
 def pools(cs, np, torch, dev, h):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
     from autobzcore_torch import FBZ, IAI, IntegralProblem, load_bz
     from autobzcore_torch.models.observables import dos_integrand
     from autobzcore_torch.parallel.sweep import SweepSolver
@@ -288,23 +499,42 @@ def pools(cs, np, torch, dev, h):
     prob = IntegralProblem(dos_integrand(h, cs.ETA), load_bz(FBZ(), np.eye(3)))
     oms = np.linspace(*cs.WINDOW, cs.IAI_OMEGAS)
     warm = cs.warm_iai_sweep(prob, cs.IAI_OMEGAS)
+    tags = K5Tags()
     runs = {"cold": lambda: SweepSolver(prob, IAI(inner_cap=64, inner_nbisect=4), abstol=cs.IAI_ABSTOL,
                                         chunk=cs.IAI_OMEGAS, scan=True)(oms),
             "warm1": lambda: warm(oms), "warm2": lambda: warm((oms[1:] + oms[:-1]) / 2)}
     out = {}
     for name, fn in runs.items():
-        wall, rows = device_rows(torch, fn)
+        tags.tags.clear()
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = {e.key: (e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA and e.self_device_time_total > 0}
+        events = sorted(((e.name, e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                         if getattr(e, "device_type", None) == DeviceType.CUDA), key=lambda e: e[1])
         busy = sum(ms for _, ms in rows.values())
+        kernels = {k: v for k, v in rows.items() if not k.startswith(("Memcpy", "Memset"))}
         per = {}
         for key in POOL_KERNELS:
             hits = [(n, ms) for k, (n, ms) in rows.items() if key in k]
             n, ms = sum(x[0] for x in hits), sum(x[1] for x in hits)
-            per[key] = {"launches": n, "device_ms": ms, "ms_a_launch": ms / n if n else None}
-        out[name] = {"wall": wall, "device_ms": busy, "kernels": per}
-        print(f"{name} IAI under the profiler: wall {wall:.3f} s, device {busy:.1f} ms; " + "; ".join(
-            f"{k} x{v['launches']} {v['device_ms']:.3f} ms"
-            + ("" if v["ms_a_launch"] is None else f" ({v['ms_a_launch']:.5f} a launch)") for k, v in per.items()),
-            flush=True)
+            if n:
+                per[key] = {"launches": n, "device_ms": ms, "ms_a_launch": ms / n}
+        by_entry, unmatched = tags.split(events)
+        out[name] = {"wall": wall, "device_ms": busy, "kernels": per, "k5_by_entry": by_entry,
+                     "k5_unmatched": unmatched, "all_kernel_launches": sum(n for n, _ in kernels.values()),
+                     "copies": sum(n for k, (n, _) in rows.items() if k not in kernels)}
+        print(f"{name} IAI under the profiler: wall {wall:.3f} s, device {busy:.1f} ms, "
+              f"{out[name]['all_kernel_launches']} kernel launches ({out[name]['copies']} copies); " + "; ".join(
+                  f"{k} x{v['launches']} {v['device_ms']:.3f} ms ({v['ms_a_launch']:.5f} a launch)"
+                  for k, v in per.items()), flush=True)
+        print(f"{name} K5 by entry and level: " + "; ".join(
+            f"{k} x{v['launches']} {v['device_ms']:.3f} ms ({v['ms_a_launch']:.5f})" for k, v in by_entry.items())
+            + (f"; unmatched {unmatched}" if unmatched else ""), flush=True)
         torch.cuda.empty_cache()
     return {"pools": out}
 
@@ -326,6 +556,7 @@ def compare(tree, label, phases, iai):
     if not str(Path(cuda_lib.__file__).resolve()).startswith(str(Path(tree).resolve())):
         sys.exit(f"imported {cuda_lib.__file__}, not the package of {tree}")
     cs = load_smoke()
+    k5_step_shim(cs, torch)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
