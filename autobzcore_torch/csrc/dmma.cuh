@@ -1,5 +1,5 @@
-// The FP64 tensor-core product (DMMA) shared by K1/K11 (fourier_points.cu)
-// and K19 (transport_gamma.cu).
+// The FP64 tensor-core products (DMMA) shared by K1/K11 (fourier_points.cu),
+// K19 (transport_gamma.cu) and K27's sums (sigma_trace.cu).
 #pragma once
 
 namespace autobz {
@@ -13,6 +13,14 @@ __device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[4], doubl
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
+// d += A B, m16n8k4: a_0 at row g, column t; a_1 at row g + 8, column t;
+// b_0 at row t, column g; d as for m16n8k8.
+__device__ __forceinline__ void dmma_k4(double (&d)[4], const double (&a)[2], double b0) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(b0));
 }
 
 }  // namespace autobz

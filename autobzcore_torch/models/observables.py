@@ -123,13 +123,18 @@ def _under_vmap(*ts):
     return any(torch._C._functorch.is_batchedtensor(t) for t in ts)
 
 
-def flat_pairs(H, Z):
+def flat_pairs(H, Z, scalar=False):
     """H and Z broadcast over their batch axes: (H (N, m, m), Z (N, m, m) or
-    one (m, m) for all, batch shape)."""
+    one (m, m) for all, batch shape); with ``scalar``, Z holds the z of z I:
+    (N,) or one () for all."""
     m = H.shape[-1]
-    batch = torch.broadcast_shapes(tuple(H.shape[:-2]), tuple(Z.shape[:-2]))
+    zbatch = tuple(Z.shape) if scalar else tuple(Z.shape[:-2])
+    batch = torch.broadcast_shapes(tuple(H.shape[:-2]), zbatch)
     Hf = H.expand(batch + (m, m)).reshape(-1, m, m).contiguous()
-    Zf = Z.contiguous() if Z.ndim == 2 else Z.expand(batch + (m, m)).reshape(-1, m, m).contiguous()
+    if scalar:
+        Zf = Z.contiguous() if Z.ndim == 0 else Z.expand(batch).reshape(-1).contiguous()
+    else:
+        Zf = Z.contiguous() if Z.ndim == 2 else Z.expand(batch + (m, m)).reshape(-1, m, m).contiguous()
     return Hf, Zf, batch
 
 
@@ -144,68 +149,88 @@ def spectral_function(hv, om, eta=None):
     ``G = ((om + i eta) I - H)^{-1}`` by :func:`_inv_small` (reference
     ``observables.py:160``). ``om`` and ``eta`` may carry leading axes
     (lanes, or one per point of a batch), which broadcast against H's. On a
-    batch of points it runs :func:`spectral_points` (K27's matrix mode on
-    the card). Inside ``vmap`` no kernel can launch: CPU tensors take the
-    plain arithmetic there, and card tensors raise, so that an adaptive
-    solve on the card builds ``FourierIntegrand(spectral_function, h,
-    eta=..., batched=True)``. A PTR rule sums it through K27's matrix mode
-    without calling it."""
+    batch of points it runs :func:`spectral_points` at the points' z = om +
+    i eta (K27's matrix pointwise entry on the card).
+    Inside ``vmap`` no kernel can launch: CPU tensors take the plain
+    arithmetic there, and card tensors raise, so that an adaptive solve on
+    the card builds ``FourierIntegrand(spectral_function, h, eta=...,
+    batched=True)``. A PTR rule sums it through K27's matrix mode without
+    calling it."""
     h = hv.s
     m = h.shape[-1]
     z = torch.as_tensor(om, dtype=REAL, device=h.device) + 1j * torch.as_tensor(eta, dtype=REAL, device=h.device)
-    Z = z[..., None, None] * torch.eye(m, dtype=COMPLEX, device=h.device)
-    if _under_vmap(h, Z):
+    if _under_vmap(h, z):
         if h.device.type != "cpu":
             raise ValueError("spectral_function cannot launch K27 under vmap: on the card, solve "
                              "FourierIntegrand(spectral_function, h, eta=..., batched=True)")
-        return spectral_points_plain(h, Z)
-    Hf, Zf, batch = flat_pairs(h, Z)
-    return spectral_points(Hf, Zf).reshape(tuple(batch) + (m, m))
+        return spectral_points_plain(h, z[..., None, None] * torch.eye(m, dtype=COMPLEX, device=h.device))
+    Hf, zf, batch = flat_pairs(h, z, scalar=True)
+    return spectral_points(Hf, zf).reshape(tuple(batch) + (m, m))
 
 
-def _check_pairs(H, Z):
+def _check_pairs(H, Z, scalar_ok=False):
+    """(N, m) of H (N, m, m) and Z, (m, m) or (N, m, m), or with
+    ``scalar_ok`` also the z of z I, () or (N,); raises on anything else."""
     check_tensor(H, "H", dtype=COMPLEX, ndim=3)
     N, m = H.shape[0], H.shape[-1]
     check_tensor(H, "H", shape=(N, m, m))
+    shapes = ((m, m), (N, m, m)) + (((), (N,)) if scalar_ok else ())
     if not isinstance(Z, torch.Tensor) or Z.dtype != COMPLEX or Z.device != H.device or not Z.is_contiguous() \
-            or tuple(Z.shape) not in ((m, m), (N, m, m)):
-        raise ValueError(f"Z must be a contiguous complex128 (m, m) or (N, m, m) tensor on H's device, m = {m}, "
-                         f"N = {N}")
+            or tuple(Z.shape) not in shapes:
+        raise ValueError(f"Z must be a contiguous complex128 (m, m) or (N, m, m) tensor"
+                         f"{', or z () or (N,),' if scalar_ok else ''} on H's device, m = {m}, N = {N}")
     return N, m
+
+
+def _as_matrix(Z, m):
+    """Z as matrices: a z (W,) or () becomes z I."""
+    return Z[..., None, None] * torch.eye(m, dtype=COMPLEX, device=Z.device) if Z.ndim <= 1 else Z
+
+
+def _check_bands(m):
+    """K27 takes m <= sigma_max_bands(): asked of the library only above three bands."""
+    if m > 3 and m > load_kernels().sigma_max_bands():
+        raise ValueError(f"K27 takes m <= {load_kernels().sigma_max_bands()}, got {m}")
 
 
 def spectral_points_plain(H, Z):
     """Plain PyTorch version of K27's matrix pointwise entry: ``A(Z_n -
     H_n)`` (N, m, m), the reference's operations (``_inv_small``, then
-    ``-(G - G^H) / (2 pi i)``)."""
-    return spectral_of(_inv_small(Z - H))
+    ``-(G - G^H) / (2 pi i)``); a z (N,) or () stands for z I."""
+    return spectral_of(_inv_small(_as_matrix(Z, H.shape[-1]) - H))
 
 
 def spectral_points(H, Z):
     """``A[n] = -(G - G^H) / (2 pi i)``, ``G = (Z_n - H_n)^{-1}``, for H (N,
-    m, m) and Z (N, m, m), or one (m, m) for all, complex128. Returns (N, m,
-    m) complex128.
+    m, m) complex128 and Z (N, m, m), or one (m, m) for all, or the z of Z =
+    z I, (N,) or one () for all (``spectral_function``'s form), complex128.
+    H must be Hermitian, as every caller's is; the kernel takes it as given,
+    as the plain version does. Returns (N, m, m) complex128.
 
     CPU tensors take the plain version; CUDA tensors launch K27's matrix
     pointwise entry (``csrc/sigma_trace.cu``), which takes m <= 8, and
     anything the kernel does not take raises."""
-    N, m = _check_pairs(H, Z)
+    N, m = _check_pairs(H, Z, scalar_ok=True)
     if H.device.type == "cpu":
         return spectral_points_plain(H, Z)
     if H.device.type != "cuda":
         raise ValueError(f"spectral_points runs on cpu or cuda tensors, got {H.device}")
-    lib = load_kernels()
-    if m > lib.sigma_max_bands():
-        raise ValueError(f"K27 takes m <= {lib.sigma_max_bands()}, got {m}")
+    _check_bands(m)
+    scalar = Z.ndim <= 1
+    if scalar and m > 3:  # the z form runs at m <= 3
+        Z, scalar = _as_matrix(Z, m).contiguous(), False
     out = torch.empty((N, m, m), dtype=COMPLEX, device=H.device)
     if N == 0:
         return out
-    stream = stream_handle(H.device)
-    check_launch(lib.sigma_spectral_points_launch(H.data_ptr(), Z.data_ptr(), 0 if Z.ndim == 2 else m * m,
-                                                  out.data_ptr(), N, m, 1.0 / (2 * math.pi), stream),
+    stride = (0 if Z.ndim == 0 else 1) if scalar else (0 if Z.ndim == 2 else m * m)
+    check_launch(load_kernels().sigma_spectral_points_launch(H.data_ptr(), Z.data_ptr(), stride, int(scalar),
+                                                             out.data_ptr(), N, m, _INV_2PI, stream_handle(H.device)),
                  "spectral_points")
     spectral_points.launches += 1
     return out
+
+
+_INV_2PI = 1.0 / (2 * math.pi)
 
 
 spectral_points.launches = 0
@@ -215,11 +240,12 @@ def spectral_weighted_sum_plain(H, w, Z, scale, chunk=8):
     """Plain PyTorch version of K27's matrix mode, the reference's
     operations: per frequency ``A(Z_w - H_k)`` by :func:`_inv_small` and the
     weighted k-sum, ``chunk`` frequencies at a time and k in chunks (at most
-    EIGH_CHUNK matrices a ``solve`` above three bands). Returns (W, m, m)
-    complex128."""
+    EIGH_CHUNK matrices a ``solve`` above three bands); a z (W,) stands for
+    z I. Returns (W, m, m) complex128."""
     from ..ops.eigh3 import EIGH_CHUNK
 
     K, m = H.shape[0], H.shape[-1]
+    Z = _as_matrix(Z, m)
     C = max(1, int(chunk))
     kc = max(1, (1 << 22) // max(1, C * m * m))
     if m > 3:
@@ -238,9 +264,12 @@ def spectral_weighted_sum_plain(H, w, Z, scale, chunk=8):
 
 def spectral_weighted_sum(H, w, Z, scale):
     """``S[j] = scale * sum_k w_k A(Z_j - H_k)``, the weighted k-sum of the
-    matrix spectral function (``spectral_function`` under the PTR rule, Z_j
-    = (om_j + i eta_j) I), for H (K, m, m) and Z (W, m, m) complex128 and
-    weights w (K,) float64. Returns (W, m, m) complex128, Hermitian.
+    matrix spectral function, for H (K, m, m) complex128, weights w (K,)
+    float64 and Z (W, m, m) complex128, or the lanes' z (W,) complex128 of
+    Z_j = z_j I (``spectral_function`` under the PTR rule, z_j = om_j + i
+    eta_j). H must be Hermitian: with z and m <= 3 the kernel reads its
+    Hermitian part ``(H + H^H) / 2``, the plain version H as given. Returns
+    (W, m, m) complex128, Hermitian.
 
     CPU tensors take the plain version; CUDA tensors launch K27's matrix
     mode (``csrc/sigma_trace.cu``), which takes m <= 8, and anything the
@@ -249,22 +278,25 @@ def spectral_weighted_sum(H, w, Z, scale):
     K, m = H.shape[0], H.shape[-1]
     check_tensor(H, "H", shape=(K, m, m))
     check_tensor(w, "w", device=H.device, dtype=REAL, ndim=1, shape=(K,))
-    check_tensor(Z, "Z", device=H.device, dtype=COMPLEX, ndim=3)
-    W = Z.shape[0]
-    check_tensor(Z, "Z", shape=(W, m, m))
+    check_tensor(Z, "Z", device=H.device, dtype=COMPLEX)
+    W = Z.shape[0] if Z.ndim else -1
+    if tuple(Z.shape) not in ((W,), (W, m, m)):
+        raise ValueError(f"Z must be (W, m, m) or z (W,), m = {m}, got {tuple(Z.shape)}")
     if H.device.type == "cpu":
         return spectral_weighted_sum_plain(H, w, Z, float(scale))
     if H.device.type != "cuda":
         raise ValueError(f"spectral_weighted_sum runs on cpu or cuda tensors, got {H.device}")
+    _check_bands(m)
+    scalar = Z.ndim == 1
+    if scalar and m > 3:  # the z form runs at m <= 3
+        Z, scalar = _as_matrix(Z, m).contiguous(), False
     lib = load_kernels()
-    if m > lib.sigma_max_bands():
-        raise ValueError(f"K27 takes m <= {lib.sigma_max_bands()}, got {m}")
     out = torch.empty((W, m, m), dtype=COMPLEX, device=H.device)
     if W:
         partials = torch.empty((max(lib.sigma_spectral_num_rows(K), 1), W, m, m), dtype=COMPLEX, device=H.device)
-        stream = stream_handle(H.device)
-        check_launch(lib.sigma_spectral_sum_launch(H.data_ptr(), w.data_ptr(), Z.data_ptr(), partials.data_ptr(),
-                                                   out.data_ptr(), K, W, m, float(scale) / (2 * math.pi), stream),
+        check_launch(lib.sigma_spectral_sum_launch(H.data_ptr(), w.data_ptr(), Z.data_ptr(), int(scalar),
+                                                   partials.data_ptr(), out.data_ptr(), K, W, m,
+                                                   float(scale) * _INV_2PI, stream_handle(H.device)),
                      "spectral_weighted_sum")
         spectral_weighted_sum.launches += 1
     return out
@@ -1206,14 +1238,13 @@ def _dos_sum(f, frac, weights, npt, scale):
 
 def _spectral_sum(f, frac, weights, npt, scale):
     """``spectral_function`` under a PTR rule: the series at the rule points
-    (K1), then K27's matrix mode at ``Z = (om + i eta) I`` per lane a
+    (K1), then K27's matrix mode at the lanes' ``z = om + i eta`` a
     solve."""
     def run_c(consts, p):
         w, H = consts
         m = H.shape[-1]
         om, eta, shape = _lanes(spectral_function, p, H.device)
-        Z = (om + 1j * eta).to(COMPLEX)[:, None, None] * torch.eye(m, dtype=COMPLEX, device=H.device)
-        return spectral_weighted_sum(H, w, Z.contiguous(), scale).reshape(tuple(shape) + (m, m))
+        return spectral_weighted_sum(H, w, torch.complex(om, eta), scale).reshape(tuple(shape) + (m, m))
 
     return _grid_values(f, frac, weights, npt), run_c
 

@@ -44,7 +44,7 @@ from ..brillouin import TrivialRep
 from ..fourier import FourierIntegrand
 from ..ops.cuda_lib import check_launch, load_kernels, stream_handle
 from .lindhard import _omega_tensor
-from .observables import (_check_pairs, _inv_small, _trace_inv_small, certified_ladder, flat_pairs, gathered_grid,
+from .observables import (_check_bands, _check_pairs, _inv_small, _trace_inv_small, certified_ladder, flat_pairs, gathered_grid,
                           group_average, reduced_grid, series_bands, spectral_of)
 from .transport import KineticCoefficientSolver, _real, fermi_window
 
@@ -140,7 +140,9 @@ def sigma_trace_points_plain(H, Z):
 
 def sigma_trace_points(H, Z):
     """``Tr (Z_n - H_n)^{-1}`` for H (N, m, m) and Z (N, m, m), or one (m,
-    m) for all points, complex128. Returns (N,) complex128.
+    m) for all points, complex128. H must be Hermitian, as every caller's
+    is; the kernel takes it as given, as the plain version does. Returns (N,)
+    complex128.
 
     CPU tensors take the plain version; CUDA tensors launch K27's pointwise
     entry (``csrc/sigma_trace.cu``), and anything the kernel does not take
@@ -150,15 +152,13 @@ def sigma_trace_points(H, Z):
         return sigma_trace_points_plain(H, Z)
     if H.device.type != "cuda":
         raise ValueError(f"sigma_trace_points runs on cpu or cuda tensors, got {H.device}")
-    lib = load_kernels()
-    if m > lib.sigma_max_bands():
-        raise ValueError(f"K27 takes m <= {lib.sigma_max_bands()}, got {m}")
+    _check_bands(m)
     out = torch.empty(N, dtype=COMPLEX, device=H.device)
     if N == 0:
         return out
-    stream = stream_handle(H.device)
-    check_launch(lib.sigma_trace_points_launch(H.data_ptr(), Z.data_ptr(), 0 if Z.ndim == 2 else m * m,
-                                               out.data_ptr(), N, m, stream), "sigma_trace_points")
+    check_launch(load_kernels().sigma_trace_points_launch(H.data_ptr(), Z.data_ptr(), 0 if Z.ndim == 2 else m * m,
+                                                          out.data_ptr(), N, m, stream_handle(H.device)),
+                 "sigma_trace_points")
     sigma_trace_points.launches += 1
     return out
 
@@ -289,7 +289,9 @@ def sigma_trace_sum(H, w, Z, scale, diagonal=False, chunk=8):
     """``D[j] = -scale / pi * sum_k w_k Im Tr (Z_j - H_k)^{-1}``, or with
     ``diagonal`` ``D[j, i] = -scale / pi * sum_k w_k Im [(Z_j -
     H_k)^{-1}]_ii``, for H (K, m, m) and Z (W, m, m) complex128 and weights
-    w (K,) float64. Returns (W,) or (W, m) float64.
+    w (K,) float64. H must be Hermitian: for m <= 3 the kernel reads its
+    Hermitian part ``(H + H^H) / 2``, the plain version H as given. Returns
+    (W,) or (W, m) float64.
 
     CPU tensors take the plain version (``chunk`` frequencies at a time);
     CUDA tensors launch K27 (``csrc/sigma_trace.cu``), which takes m <= 8,
@@ -305,9 +307,8 @@ def sigma_trace_sum(H, w, Z, scale, diagonal=False, chunk=8):
         return sigma_trace_sum_plain(H, w, Z, float(scale), diagonal, chunk)
     if H.device.type != "cuda":
         raise ValueError(f"sigma_trace_sum runs on cpu or cuda tensors, got {H.device}")
+    _check_bands(m)
     lib = load_kernels()
-    if m > lib.sigma_max_bands():
-        raise ValueError(f"K27 takes m <= {lib.sigma_max_bands()}, got {m}")
     J = m if diagonal else 1
     out = torch.empty((W, J), dtype=REAL, device=H.device)
     if W:

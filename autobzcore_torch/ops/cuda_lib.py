@@ -157,9 +157,9 @@ def _bind(lib):
     lib.sigma_pairs_points_launch.restype = i
     lib.sigma_spectral_num_rows.argtypes = [ll]
     lib.sigma_spectral_num_rows.restype = ll
-    lib.sigma_spectral_sum_launch.argtypes = [vp] * 5 + [ll, i, i, dbl, vp]
+    lib.sigma_spectral_sum_launch.argtypes = [vp, vp, vp, i, vp, vp, ll, i, i, dbl, vp]
     lib.sigma_spectral_sum_launch.restype = i
-    lib.sigma_spectral_points_launch.argtypes = [vp, vp, ll, vp, ll, i, dbl, vp]
+    lib.sigma_spectral_points_launch.argtypes = [vp, vp, ll, i, vp, ll, i, dbl, vp]
     lib.sigma_spectral_points_launch.restype = i
     lib.spectral_path_max_bands.argtypes = []
     lib.spectral_path_max_bands.restype = i

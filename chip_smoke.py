@@ -12,7 +12,8 @@ non-zero):
 2. build: every CUDA kernel from ``autobzcore_torch/csrc`` with nvcc (one
    compiler per source, in parallel), timed, with the DMMA (FP64
    tensor-core) instructions that ``cuobjdump --dump-sass`` finds in K1's
-   and K11's entries and in K19's (every K19 entry must hold some);
+   and K11's entries and in K19's and K27's m = 3 sums (every K19 entry and
+   both K27 sums must hold some);
 3. kernels K1, K2: first, every entry of K1 and K11 must hold DMMA
    instructions; then each against its plain PyTorch version on the card,
    in FP64, at stated tolerances; K1 and K2 run twice must be
@@ -239,7 +240,11 @@ non-zero):
    shapes: K25 and K26 on the flagship's 64^3 grid (100 omegas, and K25
    at every 12th of them, 9 omegas, bit-equal to the 100-omega launch's;
    q = 0 and (1/4, 0, 0) for K26), K27 on the 100^3 grid at 1000 omegas with the
-   tabulated Fermi-liquid Sigma and at the PTR(48) points, K28 on the 100^3
+   tabulated Fermi-liquid Sigma and at 64 lanes of Sigma = -1e-3 i, half on
+   an eigenvalue of some H_k (each lane also alone, bit-equal), at the
+   PTR(48) points (one Z, one per point, on poles) and at the largest leaf
+   trip of phase 30's IAI solve, each timed by events, by the profiler's
+   device time and on the host, K28 on the 100^3
    grid at 256 equal frequencies, 32 unequal pairs and a kinetic trip's 960
    unequal pairs (whose first 32 rows must be the 32-pair launch's bits)
    and at the PTR(24) points; then both above three bands (Gauss-Jordan in place of the
@@ -256,7 +261,8 @@ non-zero):
    4) with K25 timed alone at each rung's grid and 9 omegas;
    SigmaDOSSolver(npt=100) at 1000 omegas in [-6, 7] eV with a
    tabulated causal Fermi-liquid Sigma on 2001 frequencies, then
-   project=True (rows sum to the total, 1e-12), Sigma = -0.05i against the
+   project=True (its sweep's wall alone; rows sum to the total, 1e-12),
+   Sigma = -0.05i against the
    PTR DOS (K2, 1e-10), the DOS integrand under PTR(48) and under IAI on
    tb_integer(3) on the cubic wedge against the CPU (1e-10, equal counts);
    SigmaTransportSolver(npt=100) at 256 omegas (wall, peak memory,
@@ -275,9 +281,13 @@ non-zero):
    orbital projectors on the flagship and on Kane-Mele with Rashba coupling,
    K31 (the transport distribution at points) at the largest leaf trip of
    phase 32's graphene IAI solve, K27's matrix mode on the flagship's 1e6
-   points x 264 lanes (its trace against K2) and its pointwise entry at the
-   PTR(48) points, each against its plain version (1e-12, bit-identical
-   repeats) with kernel, plain, library and bound times;
+   points x 264 lanes z = w + i eta (its trace against K2; 64 lanes at eta
+   1e-3, half on poles, each also alone; the general route, a Z matrix a
+   lane, on 32) and its pointwise entry at the PTR(48) points (one z, one
+   per point, Z matrices, poles) and at the largest leaf trip of phase 32's
+   graphene IAI solve of spectral_function, each against its plain version
+   (1e-12, bit-identical repeats) with kernel, plain, library and bound
+   times, K27's by events, by the profiler's device time and on the host;
 32. the slice's paths at full width on the flagship over the full zone: the
    1000-omega DOS by sweep_solve's batched AutoPTR ladder (a=0.1, nmin 100,
    nmax 500, abstol 1e-3; wall, rungs with their active lanes, retcodes,
@@ -486,6 +496,33 @@ COOPER_FLOPS = 16
 #   entries 36 and the three Im G_jj 9, the three independent off-diagonal
 #   entries of A' 6: 230.
 GEN_TRACE_FLOPS, GEN_DIAG_FLOPS, GEN_POINT_FLOPS, SPECTRAL3_FLOPS = 131, 139, 133, 230
+# K27's forms at m = 3 since its redesign (csrc/sigma_trace.cu), H Hermitian:
+# - the trace sum per (w, k): on the FP64 tensor cores det M's real and
+#   imaginary rows over the record's 20 rows (80) and e2 M's over 12 (48):
+#   128; on the CUDA cores |det|^2 3, the guard's interval test 2, the
+#   reciprocal 8, the weight's product 1, Im(e2 conj det) 3, the sum 2: 19;
+#   per k its record (H's and adj H's reals, det H, e2 H, two norms): 130
+#   (the pairs the guard redoes take M formed directly, not counted);
+# - the diagonal sum per (w, k): det M 80 and three minors over 4 rows each
+#   (3 x 16) on the tensor cores: 128; on the CUDA cores 14 as above and per
+#   minor its constants adj Z_ii and adj H_ii 3, Im(minor conj det) 3, the
+#   sum 2: 38; per k its record 130;
+# - the pointwise trace: M 15, five cofactors 70, det 22, e2 4, the complex
+#   quotient 19 (|det|^2 3, reciprocal 8, e2 conj det 6, two products 2): 130;
+# - the matrix mode on z per (w, k): the shifts 3, det in shifts 17, c = w /
+#   det 14 (|det|^2 3, reciprocal 8, three products), S0 2, S1 and S2 (six
+#   diagonal complex-by-real products and twelve off-diagonal real FMAs each,
+#   4 flops a product) 72: 108; per k its record: 90;
+# - the matrix points on z: M 3, nine cofactors 126, det 22, its reciprocal
+#   13, G 54, the nine entries of A' / (2 pi) 36: 254; at m = 2 (graphene):
+#   M 2, det 14, its reciprocal 13, G 24, A' 16: 69.
+K27_TRACE_MMA_FLOPS, K27_TRACE_FLOPS, K27_DIAG_MMA_FLOPS, K27_DIAG_FLOPS, K27_SUM_K_FLOPS = 128, 19, 128, 38, 130
+K27_POINT_FLOPS = 130
+K27_SPECTRAL_Z_FLOPS, K27_SPECTRAL_K_FLOPS, K27_SPECTRAL_POINT_FLOPS, K27_SPECTRAL_POINT2_FLOPS = 108, 90, 254, 69
+# K27 at eta = 1e-3 (phases 29 and 31): constant Sigma = -1e-3 i on 64 lanes,
+# half of them on an eigenvalue of some H_k, where the trace's guard redoes
+# its pairs from M formed directly
+K27_POLE_ETA, K27_POLE_LANES = 1e-3, 64
 # phases 31-32: the k-path Gamma-X-M-Gamma-R-X at npts 1000 (3,787 points)
 # with 4,001 omegas in [-6, 7] eV; the reference's north-star workload, the
 # 1000-omega DOS by a batched AutoPTR ladder (BASELINE.md:35,104-116), on
@@ -655,17 +692,12 @@ class SmiBusy:
 
 
 def leaf_solve_launches(reset=False):
-    """The fused leaf solve's launch count (zeroed with ``reset``), or None
-    where the package has none (an older checkout under
-    ``tools/kernel_ab.py``)."""
+    """The fused leaf solve's launch count (zeroed with ``reset``)."""
     from autobzcore_torch.models import observables as obs
 
-    fn = getattr(obs, "gk_leaf_dos_solve", None)
-    if fn is None:
-        return None
     if reset:
-        fn.launches = 0
-    return fn.launches
+        obs.gk_leaf_dos_solve.launches = 0
+    return obs.gk_leaf_dos_solve.launches
 
 
 def k5_launches(reset=False):
@@ -862,7 +894,7 @@ def leaf_launches(launches, stats):
     route every trip) and the fused solve's where it ran; on the trip route
     a leaf trip adds K5's step to K4."""
     k4 = launches.get("gk_leaf_dos", launches.get("gk_leaf_dos_block", 0))
-    solve = launches.get("gk_leaf_dos_solve") or 0
+    solve = launches["gk_leaf_dos_solve"]
     pool = 0 if solve else stats.trips.get(1, 0)
     return {"K4": k4, "solve": solve, "K5": pool, "total": k4 + solve + pool}
 
@@ -1106,6 +1138,15 @@ def main():
           flush=True)
     if not (dmma19 and all(dmma19.values())):
         fail(f"transport_gamma.cu: a K19 entry without DMMA instructions ({dmma19})")
+    try:
+        dmma27 = cuda_lib.sass_counts(cuda_lib.LIBRARY, "DMMA", "sigma_trace_dmma")
+    except (OSError, subprocess.SubprocessError) as e:
+        fail(f"cuobjdump --dump-sass of {cuda_lib.LIBRARY.name}: {e}")
+    print(f"SASS of sigma_trace.cu's K27 sums at m = 3 (cuobjdump): {len(dmma27)} entries, "
+          f"{sum(dmma27.values())} DMMA instructions, the fewest in an entry {min(dmma27.values(), default=0)}",
+          flush=True)
+    if not (len(dmma27) == 2 and all(dmma27.values())):
+        fail(f"sigma_trace.cu: a K27 sum without DMMA instructions ({dmma27})")
     if "--phases-22-26" in sys.argv[1:]:
         # phases 22 and 25-26 alone, in a process of their own
         h = flagship_series(device=dev)
@@ -1124,7 +1165,7 @@ def main():
     if "--phases-31-32" in sys.argv[1:]:
         # phases 31-32 alone, in a process of their own (phase 12's ladder does not run)
         h = flagship_series(device=dev)
-        print(json.dumps({"kernels": slice12_phases(np, torch, dev, h, None)}), flush=True)
+        print(json.dumps({"kernels": slice12_phases(np, torch, dev, h, None)[0]}), flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return
@@ -1185,7 +1226,7 @@ def main():
     kernels += k_tr
     kernels += berry_phases(np, torch, dev)
     kernels += lindhard_sigma_phases(np, torch, dev, h, mu_filling)[0]
-    kernels += slice12_phases(np, torch, dev, h, ladder)
+    kernels += slice12_phases(np, torch, dev, h, ladder)[0]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1547,14 +1588,10 @@ def leaf_solve_phase(np, torch, dev, args, label):
     the plain version over all lanes. Times: the solve's device time
     (torch.profiler), a call by events and its host time (back to back, no
     sync), the trip route's wall (host clock), device time, launches and
-    host tests, and the plain version once. Returns its numbers, or None
-    where the package has no fused solve (an older checkout under
-    ``tools/kernel_ab.py``)."""
+    host tests, and the plain version once. Returns its numbers."""
     from autobzcore_torch.models import observables as obs
     from autobzcore_torch.ops import adaptive as tad
 
-    if not hasattr(obs, "gk_leaf_dos_solve"):
-        return None
     c1, cmap, off, period = args[:4]
     om, eta = args[6:8]
     xk, wk, wg = args[9:12]
@@ -1714,7 +1751,7 @@ def iai_phases(np, torch, dev, h):
     fourier_contract.launches = 0
     gk_leaf_dos.launches = 0
     k5_launches(reset=True)
-    solve_launches = leaf_solve_launches(reset=True)
+    leaf_solve_launches(reset=True)
     with SmiBusy() as busy:
         t0 = time.perf_counter()
         sweep = SweepSolver(prob, IAI(inner_cap=64, inner_nbisect=4), abstol=IAI_ABSTOL,
@@ -1723,9 +1760,8 @@ def iai_phases(np, torch, dev, h):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {"fourier_contract": fourier_contract.launches, "gk_leaf_dos": gk_leaf_dos.launches,
-                **{k: v for k, v in k5_launches().items() if k != "gk_pool_seed"}}
-    if solve_launches is not None:
-        launches["gk_leaf_dos_solve"] = leaf_solve_launches()
+                **{k: v for k, v in k5_launches().items() if k != "gk_pool_seed"},
+                "gk_leaf_dos_solve": leaf_solve_launches()}
     peak = torch.cuda.max_memory_allocated() / 2**20
     ne = sweep.lane_numevals
     st = sweep.stats
@@ -1805,7 +1841,7 @@ def iai_phases(np, torch, dev, h):
             "k3": {k: v for k, v in t3.items() if k.endswith(("ms", "us"))},
             "k4": {k: v for k, v in t4.items() if k.endswith(("ms", "us"))}, "solve": ts,
             "k5": {k: {q: v for q, v in t.items() if q != "V"} for k, t in t5.items()}}
-    entries = [] if ts is None else [
+    entries = [
         {"name": "gk_leaf_dos_solve", "route": "cuda", "source": src + "gk_leaf_dos.cu",
          "replaces": "autobzcore_tpu/ops/adaptive.py:236", "launches": launches["gk_leaf_dos_solve"],
          "max_abs_err": ts["err"], "ms": ts["device_ms"] if ts["device_ms"] is not None else ts["ms"],
@@ -1862,11 +1898,9 @@ def warm_phases(np, torch, dev, h, cold):
         leaf_solve_launches(reset=True)
 
     def launches():
-        out = {"fourier_contract": fourier_contract.launches, "gk_leaf_dos": gk_leaf_dos.launches,
-               **k5_launches(), "coarsen_pool": tad.coarsen_pool.launches}
-        if leaf_solve_launches() is not None:
-            out["gk_leaf_dos_solve"] = leaf_solve_launches()
-        return out
+        return {"fourier_contract": fourier_contract.launches, "gk_leaf_dos": gk_leaf_dos.launches,
+                **k5_launches(), "coarsen_pool": tad.coarsen_pool.launches,
+                "gk_leaf_dos_solve": leaf_solve_launches()}
 
     def run(sweep, xs):
         before = copy.deepcopy(sweep.stats)
@@ -1886,8 +1920,7 @@ def warm_phases(np, torch, dev, h, cold):
                "harvest": ne - sum(sweep.chunk_evals[nchunks:]), "trips": delta(st.trips, before.trips),
                "seed_trips": delta(st.seed_trips, before.seed_trips), "syncs": st.syncs - before.syncs,
                "peak": torch.cuda.max_memory_allocated() / 2**20, "busy": busy.share, "retcode": sweep.retcode}
-        leaf = out["launches"]["gk_leaf_dos"] + out["launches"].get("gk_leaf_dos_solve", 0)
-        out["leaf_launches"] = leaf + (0 if "gk_leaf_dos_solve" in out["launches"] else 2 * out["trips"].get(1, 0))
+        out["leaf_launches"] = out["launches"]["gk_leaf_dos"] + out["launches"]["gk_leaf_dos_solve"]
         pool = pool_to_arrays(sweep._pool)
         print(f"warm IAI call ({len(xs)} omegas in [{xs.min():.4g}, {xs.max():.4g}]): wall {wall:.3f} s "
               f"({wall / len(xs):.4f} s/omega); numevals {ne} (harvests {out['harvest']:.0f}); retcode "
@@ -2611,14 +2644,13 @@ def block_phases(np, torch, dev, h, cold, wall_runs=BLOCK_WALL_RUNS):
             if r == 0:
                 launches = {"fourier_contract": fourier_contract.launches,
                             "gk_leaf_dos_block": gk_leaf_dos.launches,
-                            **{k: v for k, v in k5_launches().items() if k != "gk_pool_seed"}}
-                if leaf_solve_launches() is not None:
-                    launches["gk_leaf_dos_solve"] = leaf_solve_launches()
+                            **{k: v for k, v in k5_launches().items() if k != "gk_pool_seed"},
+                            "gk_leaf_dos_solve": leaf_solve_launches()}
                 peak = torch.cuda.max_memory_allocated() / 2**20
                 first = (d, sw.numevals, sw.retcode, copy.deepcopy(sw.stats), sw.block_certificates, busy.share)
         d, ne, ok, st, bc, share = first
         total_block_launches += launches["gk_leaf_dos_block"]
-        total_solve_launches += launches.get("gk_leaf_dos_solve", 0)
+        total_solve_launches += launches["gk_leaf_dos_solve"]
         dcold = float(np.max(np.abs(d - cold["d"])))
         dptr = float(np.max(np.abs(d - cold["d_ptr"])))
         leaf = leaf_launches(launches, st)
@@ -2657,7 +2689,7 @@ def block_phases(np, torch, dev, h, cold, wall_runs=BLOCK_WALL_RUNS):
     if not (npl == nk and same_bc and dpair <= IAI_ABSTOL and rk and rp):
         fail(f"warm block chain kernels vs plain: numevals {nk} vs {npl}, certificates {same_bc}, max|d| {dpair:.3e}")
     W0 = BLOCKS[0]
-    solve_entry = [] if t16[W0]["solve"] is None else [
+    solve_entry = [
         {"name": "gk_leaf_dos_solve_block", "route": "cuda", "source": src + "gk_leaf_dos.cu",
          "replaces": "autobzcore_tpu/ops/adaptive.py:236", "launches": total_solve_launches,
          "max_abs_err": max(t16[W]["solve"]["err"] for W in BLOCKS),
@@ -4246,6 +4278,56 @@ def fermi_liquid_sigma(np, ws, m=3):
     return R - 1j * Gam
 
 
+def three_ways(fn, reps):
+    """A call's time three ways: by events over ``reps`` calls (``ms``), the
+    profiler's device time of all the kernels it launches (``device_ms``,
+    None where not captured) and its host time (``host_us``, the enqueue)."""
+    return {"ms": cuda_ms(fn, reps), "device_ms": device_ms(fn, reps), "host_us": host_us(fn, max(reps, 20))}
+
+
+def three_text(t):
+    return (f"{t['ms']:.4f} ms a call by events, device {ms_text(t['device_ms'])}, host {t['host_us']:.1f} us")
+
+
+def k27_pole_lanes(np, torch, rng, H, W, eta, scalar=False):
+    """W lanes at a constant Sigma = -eta i: z = om + i eta with half the om
+    at random in the window and half on an eigenvalue of some H_k, as (W,
+    m, m) matrices z I, or (W,) z with ``scalar``."""
+    Hn = H[torch.as_tensor(rng.integers(0, H.shape[0], W // 2), device=H.device)].cpu().numpy()
+    ev = np.linalg.eigvalsh(Hn)[np.arange(W // 2), rng.integers(0, H.shape[-1], W // 2)]
+    z = torch.as_tensor(np.concatenate([rng.uniform(*WINDOW, W - W // 2), ev]) + 1j * eta, device=H.device)
+    if scalar:
+        return z
+    return (z[:, None, None] * torch.eye(H.shape[-1], dtype=torch.complex128, device=H.device)).contiguous()
+
+
+def k27_leaf_trip(np, torch, dev, se, ws):
+    """(H, Z) of the largest IAI leaf trip of phase 30's self-energy DOS
+    integrand on the card (tb_integer(3), CubicSymIBZ, a scalar Fermi-liquid
+    Sigma, omega 0.7, abstol 1e-3): the points K27's pointwise entry takes
+    there, recorded from one solve."""
+    from autobzcore_torch import IAI, CubicSymIBZ, IntegralProblem, load_bz, solve
+    from autobzcore_torch.models.tight_binding import tb_integer
+
+    trip = {}
+    entry = se.sigma_trace_points
+
+    def recording(H, Z):
+        if H.shape[0] > trip.get("n", 0):
+            trip.update(n=H.shape[0], H=H.clone(), Z=Z.clone())
+        return entry(H, Z)
+
+    recording.launches = 0  # the entry counts its launches on the module's name, here this function
+    se.sigma_trace_points = recording
+    try:
+        sig = se.SigmaInterpolant(ws, 0.1 - 1j * (0.1 + 0.02 * ws**2), device=dev)
+        solve(IntegralProblem(se.dos_integrand_sigma(tb_integer(3, device=dev), sig), load_bz(CubicSymIBZ(), np.eye(3)),
+                              0.7), IAI(inner_cap=64, device=dev), abstol=1e-3)
+    finally:
+        se.sigma_trace_points = entry
+    return trip["H"], trip["Z"]
+
+
 def kinetic_step(np, torch, se, h, bz, sigma, mu):
     """Phase 30's kinetic step: SigmaKineticCoefficientSolver at npt
     SE_KIN_NPT, beta LH_BETA, SE_KIN_OMEGAS Omegas in [0, 2] eV, alpha 0
@@ -4365,12 +4447,15 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
           f"{t26['plain_ms']:.4f} ms, bound {b26[0]:.5f} ms by {b26[1]})", flush=True)
     del slv, e, f, U, k25, p25
 
-    # K27 on the DOS leg's grid (npt 100, 1e6 points) at its 1000 frequencies, both modes
+    # K27 on the DOS leg's grid (npt 100, 1e6 points) at its 1000 frequencies, both modes; each
+    # time by events, by the profiler's device time (K27 and its column sum) and on the host
     dslv = se.SigmaDOSSolver(h, bz, SE_NPT, sigma)
     H, w, scd = dslv._H, dslv._w, dslv._scale
     K = H.shape[0]
     om_dos = torch.linspace(*WINDOW, SE_OMEGAS, dtype=torch.float64, device=dev)
     Z = se._zmat(om_dos, sigma, m).contiguous()
+    # eta = 1e-3: constant Sigma = -1e-3 i, half the lanes on an eigenvalue of some H_k
+    Zpole = k27_pole_lanes(np, torch, rng, H, K27_POLE_LANES, K27_POLE_ETA)
     t27 = {}
     for diag in (False, True):
         k27 = se.sigma_trace_sum(H, w, Z, scd, diag)
@@ -4378,30 +4463,54 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
         err, r = check(f"K27 sigma_trace_sum (diagonal {diag})", k27, p27, 1e-12)
         if not torch.equal(k27, se.sigma_trace_sum(H, w, Z, scd, diag)):
             fail(f"K27 sigma_trace_sum (diagonal {diag}): two runs on the same inputs differ")
-        t27[diag] = {"err": err, "rel": r, "ms": cuda_ms(lambda: se.sigma_trace_sum(H, w, Z, scd, diag), 5),
-                     "plain_ms": pms, "bound": bound(K * SE_OMEGAS * (GEN_DIAG_FLOPS if diag else GEN_TRACE_FLOPS),
-                                                     nbytes(H, w, Z, k27))}
-    del k27, p27
-    # the pointwise entry at the PTR(48) rule's points, one Z (the rule's) and one per point
+        kp = se.sigma_trace_sum(H, w, Zpole, scd, diag)
+        errp, rp = check(f"K27 sigma_trace_sum at eta {K27_POLE_ETA:g}, lanes on poles (diagonal {diag})", kp,
+                         se.sigma_trace_sum_plain(H, w, Zpole, scd, diag), 1e-12)
+        if not (torch.equal(kp, se.sigma_trace_sum(H, w, Zpole, scd, diag))
+                and torch.equal(kp[-1:], se.sigma_trace_sum(H, w, Zpole[-1:].contiguous(), scd, diag))):
+            fail(f"K27 sigma_trace_sum at eta {K27_POLE_ETA:g} (diagonal {diag}): a repeat, or a lane alone, differs")
+        flops = K * (SE_OMEGAS * (K27_DIAG_FLOPS if diag else K27_TRACE_FLOPS) + K27_SUM_K_FLOPS)
+        mma = K * SE_OMEGAS * (K27_DIAG_MMA_FLOPS if diag else K27_TRACE_MMA_FLOPS)
+        t27[diag] = dict(three_ways(lambda: se.sigma_trace_sum(H, w, Z, scd, diag), 5), err=err, rel=r, pole_rel=rp,
+                         plain_ms=pms, bound=bound(flops, nbytes(H, w, Z, k27), mma_flops=mma),
+                         first_bound=bound(K * SE_OMEGAS * (GEN_DIAG_FLOPS if diag else GEN_TRACE_FLOPS),
+                                           nbytes(H, w, Z, k27))[0])
+    del k27, p27, kp
+    # the pointwise entry at the PTR(48) rule's points, one Z (the rule's) and one per point, and
+    # on poles at eta 1e-3
     Hp = obs.gathered_grid(h, 3, [np.arange(48) / 48] * 3, None).reshape(-1, m, m).contiguous()
     Z1 = se._zmat(0.7, sigma, m, device=dev).contiguous()
     Zn = se._zmat(torch.as_tensor(rng.uniform(*WINDOW, Hp.shape[0]), device=dev), sigma, m).contiguous()
+    Zq = k27_pole_lanes(np, torch, rng, Hp, Hp.shape[0], K27_POLE_ETA)
     errs = [check(f"K27 sigma_trace_points ({tag})", se.sigma_trace_points(Hp, Zs),
-                  se.sigma_trace_points_plain(Hp, Zs), 1e-12)[0] for tag, Zs in (("one Z", Z1), ("Z per point", Zn))]
+                  se.sigma_trace_points_plain(Hp, Zs), 1e-12)[0]
+            for tag, Zs in (("one Z", Z1), ("Z per point", Zn), (f"eta {K27_POLE_ETA:g} on poles", Zq))]
     if not torch.equal(se.sigma_trace_points(Hp, Zn), se.sigma_trace_points(Hp, Zn)):
         fail("K27 sigma_trace_points: two runs on the same inputs differ")
-    t27p = {"err": max(errs), "ms": cuda_ms(lambda: se.sigma_trace_points(Hp, Z1), 20),
-            "plain_ms": cuda_ms(lambda: se.sigma_trace_points_plain(Hp, Z1), 5)}
-    b27p = bound(Hp.shape[0] * GEN_POINT_FLOPS, nbytes(Hp, Z1) + 16 * Hp.shape[0])
+    t27p = dict(three_ways(lambda: se.sigma_trace_points(Hp, Z1), 20), err=max(errs),
+                plain_ms=cuda_ms(lambda: se.sigma_trace_points_plain(Hp, Z1), 5))
+    b27p = bound(Hp.shape[0] * K27_POINT_FLOPS, nbytes(Hp, Z1) + 16 * Hp.shape[0])
+    # and at the largest leaf trip of phase 30's IAI solve of the integrand (tb_integer(3), m = 1)
+    leaf = k27_leaf_trip(np, torch, dev, se, ws)
+    Hl, Zl = leaf
+    el = check("K27 sigma_trace_points (the IAI leaf trip)", se.sigma_trace_points(Hl, Zl),
+               se.sigma_trace_points_plain(Hl, Zl), 1e-12)[0]
+    t27l = dict(three_ways(lambda: se.sigma_trace_points(Hl, Zl), 50), err=el, n=Hl.shape[0],
+                bound=bound(Hl.shape[0] * K27_POINT_FLOPS, nbytes(Hl, Zl) + 16 * Hl.shape[0]))
     print(f"K27 sigma_trace_sum on the flagship's npt={SE_NPT} grid ({K} points, {SE_OMEGAS} omegas, the tabulated "
           f"Fermi-liquid Sigma): " + "; ".join(
               f"{'diagonal' if dg else 'trace'} mode max|d| vs plain {t['err']:.3e} ({t['rel']:.3e} of the value scale, "
-              f"<= 1e-12), repeat bit-identical, {t['ms']:.4f} ms (plain {t['plain_ms']:.1f} ms, bound "
-              f"{t['bound'][0]:.4f} ms by {t['bound'][1]})" for dg, t in t27.items())
-          + f"; pointwise at the PTR(48) points ({Hp.shape[0]}), one Z and one per point: max|d| {t27p['err']:.3e} "
-          f"(<= 1e-12 of the scale), {t27p['ms']:.4f} ms (plain {t27p['plain_ms']:.4f} ms, bound {b27p[0]:.5f} ms by "
-          f"{b27p[1]})", flush=True)
-    del dslv, H, w, Z, Zn
+              f"<= 1e-12; at eta {K27_POLE_ETA:g} with {K27_POLE_LANES // 2} of {K27_POLE_LANES} lanes on poles "
+              f"{t['pole_rel']:.3e}), repeats and a lane alone bit-identical, {three_text(t)} (plain "
+              f"{t['plain_ms']:.1f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]} [first count "
+              f"{t['first_bound']:.4f}], {100 * t['bound'][0] / t['ms']:.1f} % of it by events)"
+              for dg, t in t27.items())
+          + f"; pointwise at the PTR(48) points ({Hp.shape[0]}), one Z, one per point and at eta {K27_POLE_ETA:g} "
+          f"on poles: max|d| {t27p['err']:.3e} (<= 1e-12 of the scale), {three_text(t27p)} (plain "
+          f"{t27p['plain_ms']:.4f} ms, bound {b27p[0]:.5f} ms by {b27p[1]}); at the largest IAI leaf trip of phase "
+          f"30 ({t27l['n']} points, m = 1) max|d| {el:.3e}, {three_text(t27l)} (bound {t27l['bound'][0]:.5f} ms by "
+          f"{t27l['bound'][1]})", flush=True)
+    del dslv, H, w, Z, Zn, Zq, Zpole, Hl, Zl
     torch.cuda.empty_cache()
 
     # K28 on the transport leg's grid (npt 100: H and V, 576 MB) at its 256 frequencies
@@ -4436,7 +4545,10 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
     mst = cuda_ms(lambda: se.sigma_pairs_sum(H, V, w, Zta, Ztb, sct), 2)
     bt = bound(SE_TRIP_PAIRS * K * pair_flops(m, d, False), nbytes(H, V, w, Zta, Ztb, kt))
     numbers = {"k28": {"equal_256_ms": t28["ms"], "unequal_32_ms": msu, f"unequal_{SE_TRIP_PAIRS}_ms": mst,
-                       "bound_ms": [b28[0], bu[0], bt[0]], "rel": [rel28, relu]}}
+                       "bound_ms": [b28[0], bu[0], bt[0]], "rel": [rel28, relu]},
+               "k27": {"trace": dict(t27[False], bound=t27[False]["bound"][0]),
+                       "diagonal": dict(t27[True], bound=t27[True]["bound"][0]),
+                       "points_ptr48": dict(t27p, bound=b27p[0]), "points_leaf": dict(t27l, bound=t27l["bound"][0])}}
     del tslv, H, V, w, Zt, k28, p28, ku, pu, kt, Zta, Ztb
     torch.cuda.empty_cache()
     # the pointwise entry at the PTR(24) rule's points of the Jacobian series
@@ -4562,8 +4674,13 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
     D = dos(om_d)
     t2 = time.perf_counter()
     t_dos_sweep = t2 - t1
-    P = se.SigmaDOSSolver(h, bz, SE_NPT, sigma, project=True)(om_d)
+    pslv = se.SigmaDOSSolver(h, bz, SE_NPT, sigma, project=True)
+    torch.cuda.synchronize()
+    t2p = time.perf_counter()
+    P = pslv(om_d)
     t3 = time.perf_counter()
+    t_proj_sweep = t3 - t2p
+    del pslv
     peak_dos = (torch.cuda.max_memory_allocated() - base) / 2**20
     row_err = float(np.max(np.abs(P.sum(axis=1) - D)) / np.max(np.abs(D)))
     # Sigma = -0.05i I against the PTR DOS (K2) at the same grid and frequencies
@@ -4585,7 +4702,8 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
     t4 = time.perf_counter()
     print(f"self-energy DOS main path: flagship, FBZ, npt={SE_NPT} ({SE_NPT**3} points), the tabulated Fermi-liquid "
           f"Sigma on {SE_SIGMA_POINTS} frequencies, {SE_OMEGAS} omegas in {list(WINDOW)} eV: build {t1 - t0:.4f} s, "
-          f"sweep {t2 - t1:.4f} s, projected (build and sweep) {t3 - t2:.4f} s, peak {peak_dos:.1f} MiB; D(0) = "
+          f"sweep {t2 - t1:.4f} s, projected build {t2p - t2:.4f} s and sweep {t_proj_sweep:.4f} s, peak "
+          f"{peak_dos:.1f} MiB; D(0) = "
           f"{float(np.interp(0.0, om_d, D))!r}; projected rows vs the total {row_err:.3e} (<= 1e-12); Sigma = -{ETA}i "
           f"vs the PTR DOS (K2) {const_err:.3e} (<= 1e-10 of max|D|); the integrand under PTR(48) card vs CPU "
           f"{rel_pw[0]:.3e}, numevals {sp[0].numevals} vs {sp[1].numevals}; IAI on tb_integer(3), CubicSymIBZ, abstol "
@@ -4674,7 +4792,8 @@ def lindhard_sigma_phases(np, torch, dev, h, mu):
         fail(f"the Lindhard and self-energy main paths did not go through every kernel: {launches}")
     if wall > 60.0:
         fail(f"phases 29-30 took {wall:.1f} s (> 60)")
-    numbers.update(kinetic=split, sigma_dos_sweep_s=t_dos_sweep, sigma_transport_sweep_s=t_tr_sweep,
+    numbers.update(kinetic=split, sigma_dos_sweep_s=t_dos_sweep, sigma_projected_sweep_s=t_proj_sweep,
+                   sigma_transport_sweep_s=t_tr_sweep,
                    kinetic_check=[kin_err, ks.numevals, kr.numevals],
                    k25={"ms": t25["ms"], "bound_ms": b25[0], "ms_9": t25_9["ms"], "bound_ms_9": t25_9["bound"][0],
                         "err": err25, "err_9": err25_9, "certified_rungs": list(cert.npts),
@@ -4747,7 +4866,8 @@ def slice12_phases(np, torch, dev, h, ladder):
     transport integrand, the matrix spectral function and the k-path at full
     width. ``ladder`` is phase 12's certified full-grid DOS at its 1000
     omegas (None where phase 12 did not run). Returns the kernels' JSON
-    entries."""
+    entries and K27's numbers (its matrix mode and points three ways, the
+    spectral_function PTR wall)."""
     import sys as _sys
 
     import autobzcore_torch.models.kpath  # noqa: F401  (models.kpath is the function of that name)
@@ -4873,48 +4993,88 @@ def slice12_phases(np, torch, dev, h, ladder):
           f"(plain {t31['plain_ms']:.4f} ms, the reference's two einsums {t31['library_ms']:.4f} ms, bound "
           f"{b31[0]:.6f} ms by {b31[1]}, {100 * b31[0] / t31['ms']:.2f} % of it)", flush=True)
 
-    # K27's matrix mode on the flagship's npt=100 grid at 264 lanes Z = (w + i eta) I
+    # K27's matrix mode on the flagship's npt=100 grid at 264 lanes z = w + i eta (Z = z I), each time
+    # by events, by the profiler's device time (K27 and its column sum) and on the host
     H = evaluate_grid(h.c, 3, [np.arange(NPT) / NPT] * 3, h.offset, h.period).reshape(-1, 3, 3).contiguous()
     K = H.shape[0]
     w = torch.ones(K, dtype=torch.float64, device=dev)
     om_s = torch.linspace(*WINDOW, W_FLAGSHIP, dtype=torch.float64, device=dev)
     eta_s = torch.full_like(om_s, ETA)
-    Z = ((om_s + 1j * ETA).to(torch.complex128)[:, None, None] * torch.eye(3, dtype=torch.complex128,
-                                                                         device=dev)).contiguous()
+    z = (om_s + 1j * ETA).to(torch.complex128)
     sc = 1.0 / K
-    k27 = obs.spectral_weighted_sum(H, w, Z, sc)
-    p27, pms27 = timed_once(lambda: obs.spectral_weighted_sum_plain(H, w, Z, sc))
+    k27 = obs.spectral_weighted_sum(H, w, z, sc)
+    p27, pms27 = timed_once(lambda: obs.spectral_weighted_sum_plain(H, w, z, sc))
     err27 = check("K27 spectral_weighted_sum", k27, p27, 1e-12)
-    same("K27 spectral_weighted_sum", k27, obs.spectral_weighted_sum(H, w, Z, sc))
+    same("K27 spectral_weighted_sum", k27, obs.spectral_weighted_sum(H, w, z, sc))
     herm27 = torch.equal(k27, k27.conj().transpose(1, 2))
     k2 = obs.dos_trace_weighted_sum(H, w, om_s, eta_s, sc)
     tr_err = float((torch.diagonal(k27, dim1=1, dim2=2).sum(-1).real - k2).abs().max()) / float(k2.abs().max())
     if not (herm27 and tr_err <= 1e-12):
         fail(f"K27 spectral_weighted_sum: Hermitian {herm27}, trace vs K2 {tr_err:.3e} (<= 1e-12)")
-    t27 = {"err": err27, "ms": cuda_ms(lambda: obs.spectral_weighted_sum(H, w, Z, sc), 5), "plain_ms": pms27}
-    b27 = bound(K * W_FLAGSHIP * (SPECTRAL3_FLOPS + 2 * 9), nbytes(H, w, Z, k27))
-    del p27
-    # the pointwise entry at the PTR(48) points, one Z and one per point
-    Hp = obs.gathered_grid(h, 3, [np.arange(48) / 48] * 3, None).reshape(-1, 3, 3).contiguous()
+    # at eta 1e-3 with half the lanes on poles; the general route (a Z matrix a lane, on no path) on 32 lanes
     rng = np.random.default_rng(31)
+    zq = k27_pole_lanes(np, torch, rng, H, K27_POLE_LANES, K27_POLE_ETA, scalar=True)
+    kq = obs.spectral_weighted_sum(H, w, zq, sc)
+    errq = check(f"K27 spectral_weighted_sum at eta {K27_POLE_ETA:g}, lanes on poles", kq,
+                 obs.spectral_weighted_sum_plain(H, w, zq, sc), 1e-12)
+    same(f"K27 spectral_weighted_sum at eta {K27_POLE_ETA:g}", kq, obs.spectral_weighted_sum(H, w, zq, sc))
+    same(f"K27 spectral_weighted_sum at eta {K27_POLE_ETA:g}, a lane alone", kq[-1:],
+         obs.spectral_weighted_sum(H, w, zq[-1:].contiguous(), sc))
+    Zg = (z[:32, None, None] * torch.eye(3, dtype=torch.complex128, device=dev)).contiguous()
+    errg = check("K27 spectral_weighted_sum (the general route, a Z matrix a lane)", obs.spectral_weighted_sum(H, w, Zg, sc),
+                 p27[:32], 1e-12, scale=float(p27.abs().max()))
+    t27 = dict(three_ways(lambda: obs.spectral_weighted_sum(H, w, z, sc), 5), err=err27, plain_ms=pms27)
+    b27 = bound(K * W_FLAGSHIP * K27_SPECTRAL_Z_FLOPS + K * K27_SPECTRAL_K_FLOPS, nbytes(H, w, z, k27))
+    b27_first = bound(K * W_FLAGSHIP * (SPECTRAL3_FLOPS + 2 * 9), nbytes(H, w, k27) + 16 * 9 * W_FLAGSHIP)[0]
+    del p27, kq, Zg
+    # the pointwise entry at the PTR(48) points: one z, one per point, a Z matrix per point, poles
+    Hp = obs.gathered_grid(h, 3, [np.arange(48) / 48] * 3, None).reshape(-1, 3, 3).contiguous()
     zn = (torch.as_tensor(rng.uniform(*WINDOW, Hp.shape[0]), device=dev) + 1j * ETA).to(torch.complex128)
     Zn = (zn[:, None, None] * torch.eye(3, dtype=torch.complex128, device=dev)).contiguous()
-    Z1 = Z[W_FLAGSHIP // 2].contiguous()
+    z1 = z[W_FLAGSHIP // 2].contiguous()
+    zp = k27_pole_lanes(np, torch, rng, Hp, Hp.shape[0], K27_POLE_ETA, scalar=True)
     errs = [check(f"K27 spectral_points ({tag})", obs.spectral_points(Hp, Zs), obs.spectral_points_plain(Hp, Zs),
-                  1e-12) for tag, Zs in (("one Z", Z1), ("Z per point", Zn))]
-    same("K27 spectral_points", obs.spectral_points(Hp, Zn), obs.spectral_points(Hp, Zn))
-    t27p = {"err": max(errs), "ms": cuda_ms(lambda: obs.spectral_points(Hp, Z1), 20),
-            "plain_ms": cuda_ms(lambda: obs.spectral_points_plain(Hp, Z1), 5)}
-    b27p = bound(Hp.shape[0] * (SPECTRAL3_FLOPS + 9), nbytes(Hp, Z1) + 16 * 9 * Hp.shape[0])
-    print(f"K27 matrix mode on the flagship's npt={NPT} grid ({K} points, {W_FLAGSHIP} lanes Z = (w + {ETA}i) I): "
-          f"max|d| vs plain {err27:.3e} ({err27 / float(k27.abs().max()):.3e} of the value scale, <= 1e-12), repeat "
-          f"bit-identical, exactly Hermitian, trace vs K2 {tr_err:.3e} (<= 1e-12); {t27['ms']:.4f} ms (plain "
-          f"{pms27:.1f} ms, bound {b27[0]:.4f} ms by {b27[1]}, {100 * b27[0] / t27['ms']:.1f} % of it); pointwise at "
-          f"the PTR(48) points ({Hp.shape[0]}), one Z and one per point: max|d| {t27p['err']:.3e} (<= 1e-12 of the "
-          f"scale), {t27p['ms']:.4f} ms (plain {t27p['plain_ms']:.4f} ms, bound {b27p[0]:.5f} ms by {b27p[1]}, "
-          f"{100 * b27p[0] / t27p['ms']:.1f} % of it); phase 31 "
+                  1e-12) for tag, Zs in (("one z", z1), ("z per point", zn), ("Z per point", Zn),
+                                         (f"eta {K27_POLE_ETA:g} on poles", zp))]
+    same("K27 spectral_points", obs.spectral_points(Hp, zn), obs.spectral_points(Hp, zn))
+    t27p = dict(three_ways(lambda: obs.spectral_points(Hp, z1), 20), err=max(errs),
+                plain_ms=cuda_ms(lambda: obs.spectral_points_plain(Hp, z1), 5))
+    b27p = bound(Hp.shape[0] * K27_SPECTRAL_POINT_FLOPS, nbytes(Hp, z1) + 16 * 9 * Hp.shape[0])
+    # and at the largest leaf trip of phase 32's graphene IAI solve of spectral_function (m = 2)
+    gtrip = {}
+    entry = obs.spectral_points
+
+    def recording(H_, Z_):
+        if H_.shape[0] > gtrip.get("n", 0):
+            gtrip.update(n=H_.shape[0], H=H_.clone(), Z=Z_.clone())
+        return entry(H_, Z_)
+
+    recording.launches = 0  # the entry counts its launches on the module's name, here this function
+    obs.spectral_points = recording
+    try:
+        solve(IntegralProblem(FourierIntegrand(obs.spectral_function, hg, eta=0.2, batched=True), bz2, 0.5),
+              IAI(device=dev), abstol=1e-4)
+    finally:
+        obs.spectral_points = entry
+    Hg, zg = gtrip["H"], gtrip["Z"]
+    eg = check("K27 spectral_points (graphene's IAI leaf trip)", obs.spectral_points(Hg, zg),
+               obs.spectral_points_plain(Hg, zg), 1e-12)
+    t27g = dict(three_ways(lambda: obs.spectral_points(Hg, zg), 50), err=eg, n=Hg.shape[0],
+                bound=bound(Hg.shape[0] * K27_SPECTRAL_POINT2_FLOPS, nbytes(Hg, zg) + Hg.shape[0] * 4 * 16))
+    print(f"K27 matrix mode on the flagship's npt={NPT} grid ({K} points, {W_FLAGSHIP} lanes z = w + {ETA}i): "
+          f"max|d| vs plain {err27:.3e} ({err27 / float(k27.abs().max()):.3e} of the value scale, <= 1e-12; at eta "
+          f"{K27_POLE_ETA:g} with {K27_POLE_LANES // 2} of {K27_POLE_LANES} lanes on poles {errq:.3e}; the general "
+          f"route on 32 lanes {errg:.3e}), repeats and a lane alone bit-identical, exactly Hermitian, trace vs K2 "
+          f"{tr_err:.3e} (<= 1e-12); {three_text(t27)} (plain {pms27:.1f} ms, bound {b27[0]:.4f} ms by {b27[1]} "
+          f"[first count {b27_first:.4f}], {100 * b27[0] / t27['ms']:.1f} % of it by events); pointwise at the "
+          f"PTR(48) points ({Hp.shape[0]}), one z, one per point, a Z matrix per point and on poles: max|d| "
+          f"{t27p['err']:.3e} (<= 1e-12 of the scale), {three_text(t27p)} (plain {t27p['plain_ms']:.4f} ms, bound "
+          f"{b27p[0]:.5f} ms by {b27p[1]}); at graphene's largest IAI leaf trip ({t27g['n']} points, m = 2, one z) "
+          f"max|d| {eg:.3e}, {three_text(t27g)} (bound {t27g['bound'][0]:.5f} ms by {t27g['bound'][1]}); phase 31 "
           f"{time.perf_counter() - t_phases:.3f} s", flush=True)
-    del H, w, Z, k27, k2, Hp, Zn, U3, a31, e31, U31, dH31
+    k27_numbers = {"sum": dict(t27, bound=b27[0], first_bound=b27_first), "points_ptr48": dict(t27p, bound=b27p[0]),
+                   "points_graphene": dict(t27g, bound=t27g["bound"][0])}
+    del H, w, z, k27, k2, Hp, Zn, zn, zp, Hg, zg, U3, a31, e31, U31, dH31
     torch.cuda.empty_cache()
 
     # 32. the slice's paths at full width ------------------------------------------------------
@@ -5078,6 +5238,7 @@ def slice12_phases(np, torch, dev, h, ladder):
           f"{si[1].numevals}", flush=True)
     if not (sp_err <= 1e-12 and sp_herm <= 1e-14 and si_rel <= 1e-10 and si[0].numevals == si[1].numevals):
         fail("spectral_function checks")
+    k27_numbers.update(spectral_ptr_s=t_spec, graphene_iai_numevals=[int(si[0].numevals), int(si[1].numevals)])
     del A, Dd
 
     # the k-path: the flagship and config 5
@@ -5141,7 +5302,8 @@ def slice12_phases(np, torch, dev, h, ladder):
             entry("transport_points", "transport_points.cu", "autobzcore_tpu/models/observables.py:175", t31, b31,
                   t31["library_ms"]),
             entry("spectral_weighted_sum", "sigma_trace.cu", "autobzcore_tpu/models/observables.py:160", t27, b27),
-            entry("spectral_points", "sigma_trace.cu", "autobzcore_tpu/models/observables.py:160", t27p, b27p)]
+            entry("spectral_points", "sigma_trace.cu", "autobzcore_tpu/models/observables.py:160", t27p, b27p)], \
+        k27_numbers
 
 
 if __name__ == "__main__":

@@ -2524,24 +2524,44 @@ def test_sigma_trace_kernel_matches_plain_on_card(cuda_device, m, diagonal):
     """K27's sum in trace and diagonal mode over a ragged point count (a
     partial chunk and tile) and 37 lanes, and its pointwise entry with one
     Z per point and one for all: 1e-12 of the value scale, bit-identical
-    repeats. Above three bands the kernel's Gauss-Jordan inverse meets the
-    plain version's ``solve``."""
+    repeats. At m <= 3 also at a constant Sigma = -1e-3 i with half the
+    lanes on an eigenvalue of some H_k (where the m = 3 sums' guard redoes
+    pairs from M formed directly), a lane's bits the same alone as in the
+    launch of 37. Above three bands the kernel's Gauss-Jordan inverse meets
+    the plain version's ``solve``."""
     from autobzcore_torch.models import selfenergy as se
 
     rng = np.random.default_rng(330 + m)
     H, _, w, Z, _ = _sigma_inputs(rng, 10_007, m, 1, 37, cuda_device)
-    before = se.sigma_trace_sum.launches
-    got = se.sigma_trace_sum(H, w, Z, 0.3, diagonal)
-    assert se.sigma_trace_sum.launches == before + 1
-    want = se.sigma_trace_sum_plain(H, w, Z, 0.3, diagonal)
-    assert got.shape == want.shape == ((37, m) if diagonal else (37,))
-    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
-    assert torch.equal(got, se.sigma_trace_sum(H, w, Z, 0.3, diagonal))
-    for Zp in (_sigma_z(rng, 10_007, m, cuda_device), Z[3].contiguous()):
-        got = se.sigma_trace_points(H, Zp)
-        want = se.sigma_trace_points_plain(H, Zp)
+    cases = [Z]
+    if m <= 3:
+        z = _pole_lanes(rng, H, 37, 1e-3)
+        cases.append(torch.as_tensor(z[:, None, None] * np.eye(m), device=cuda_device).contiguous())
+    for Zc in cases:
+        before = se.sigma_trace_sum.launches
+        got = se.sigma_trace_sum(H, w, Zc, 0.3, diagonal)
+        assert se.sigma_trace_sum.launches == before + 1
+        want = se.sigma_trace_sum_plain(H, w, Zc, 0.3, diagonal)
+        assert got.shape == want.shape == ((37, m) if diagonal else (37,))
         assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
-        assert torch.equal(got, se.sigma_trace_points(H, Zp))
+        assert torch.equal(got, se.sigma_trace_sum(H, w, Zc, 0.3, diagonal))
+        assert torch.equal(got[-1:], se.sigma_trace_sum(H, w, Zc[-1:].contiguous(), 0.3, diagonal))
+        for Zp in (_sigma_z(rng, 10_007, m, cuda_device), Zc[3].contiguous(),
+                   Zc[torch.arange(10_007, device=cuda_device) % 37].contiguous()):
+            got = se.sigma_trace_points(H, Zp)
+            want = se.sigma_trace_points_plain(H, Zp)
+            assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+            assert torch.equal(got, se.sigma_trace_points(H, Zp))
+
+
+def _pole_lanes(rng, H, W, eta):
+    """W lane frequencies, half at random in [-3, 3] and half on an
+    eigenvalue of some H_k (numpy), each with eta: z = om + i eta."""
+    Hn = H.cpu().numpy()
+    ev = np.linalg.eigvalsh(Hn[rng.integers(0, Hn.shape[0], W // 2)])
+    om = np.concatenate([rng.uniform(-3.0, 3.0, W - W // 2), ev[np.arange(W // 2), rng.integers(0, Hn.shape[-1],
+                                                                                                 W // 2)]])
+    return om + 1j * eta
 
 
 @pytest.mark.gpu
@@ -2841,7 +2861,10 @@ def test_spectral_sum_kernel_matches_plain_on_card(cuda_device, m):
     """K27's matrix mode over a ragged point count and 37 lanes, and its
     pointwise entry with one Z per point and one for all: 1e-12 of the value
     scale, exactly Hermitian, bit-identical repeats; its trace against K27's
-    trace mode on the same inputs."""
+    trace mode on the same inputs. Then on the lanes' z (Z = z I, as
+    spectral_function and the PTR rule pass it) at eta 1e-3 and 0.1, half
+    the lanes on an eigenvalue of some H_k, against the plain versions at Z
+    = z I, a lane's bits the same alone."""
     from autobzcore_torch.models import selfenergy as se
 
     rng = np.random.default_rng(440 + m)
@@ -2861,6 +2884,22 @@ def test_spectral_sum_kernel_matches_plain_on_card(cuda_device, m):
         want = tobs.spectral_points_plain(H, Zp)
         assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
         assert torch.equal(got, tobs.spectral_points(H, Zp))
+    eye = torch.eye(m, dtype=torch.complex128, device=cuda_device)
+    for eta in (1e-3, 0.1):
+        z = torch.as_tensor(_pole_lanes(rng, H, 37, eta), device=cuda_device)
+        before = tobs.spectral_weighted_sum.launches
+        got = tobs.spectral_weighted_sum(H, w, z, 0.3)
+        assert tobs.spectral_weighted_sum.launches == before + 1
+        want = tobs.spectral_weighted_sum_plain(H, w, (z[:, None, None] * eye).contiguous(), 0.3)
+        assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+        assert torch.equal(got, got.conj().transpose(1, 2))
+        assert torch.equal(got, tobs.spectral_weighted_sum(H, w, z, 0.3))
+        assert torch.equal(got[-1:], tobs.spectral_weighted_sum(H, w, z[-1:].contiguous(), 0.3))
+        for zp in (z[torch.arange(10_007, device=cuda_device) % 37].contiguous(), z[-1].contiguous()):
+            got = tobs.spectral_points(H, zp)
+            want = tobs.spectral_points_plain(H, zp)
+            assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+            assert torch.equal(got, tobs.spectral_points(H, zp))
 
 
 @pytest.mark.gpu

@@ -297,3 +297,77 @@ def test_transport_ptr_sweep_equals_transport_solver():
     got = SweepSolver(T.IntegralProblem(tobs.transport_integrand(h, eta=0.1), bzt), T.PTR(npt=24, device="cpu"),
                       chunk=4)(oms)
     assert rel_err(got, want) <= 1e-12
+
+
+# --- K27's matrix mode on the z form (Z = z I) --------------------------------------------------------
+
+
+def _z_lanes(rng, H, W, eta):
+    """W lanes z = om + i eta, half at random om and half on an eigenvalue of
+    some H_k (a pole at small eta)."""
+    ev = np.linalg.eigvalsh(H[rng.integers(0, H.shape[0], W // 2)])
+    om = np.concatenate([rng.uniform(-4.0, 4.0, W - W // 2),
+                         ev[np.arange(W // 2), rng.integers(0, H.shape[-1], W // 2)]])
+    return om + 1j * eta
+
+
+@pytest.mark.parametrize("eta", [1e-3, 0.1])
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_k27_spectral_z_form_matches_plain(m, eta):
+    """K27's matrix mode on the lanes' z (csrc/sigma_trace.cu): det in
+    diagonal shifts, c_k = w_k / det, and G = z^2 S0 I + z S1 + S2 from the
+    lanes' three sums (Cayley-Hamilton), in numpy, against
+    spectral_weighted_sum_plain at Z = z I (relative 1e-12); the z form of
+    spectral_weighted_sum equal to its Z-matrix form."""
+    from torch_parity import k27_spectral_sum_z
+
+    rng = np.random.default_rng(31 + m)
+    K, W, scale = 300, 16, 0.21
+    H = random_hermitian(rng, K, m)
+    w = rng.random(K) + 0.5
+    z = _z_lanes(rng, H, W, eta)
+    Zm = torch.as_tensor(z[:, None, None] * np.eye(m))
+    Ht, wt, zt = torch.as_tensor(H), torch.as_tensor(w), torch.as_tensor(z)
+    want = tobs.spectral_weighted_sum_plain(Ht, wt, Zm, scale).numpy()
+    assert rel_err(k27_spectral_sum_z(H, w, z, scale), want) <= 1e-12
+    assert np.array_equal(tobs.spectral_weighted_sum(Ht, wt, zt, scale).numpy(), want)
+    assert np.array_equal(tobs.spectral_weighted_sum_plain(Ht, wt, zt, scale).numpy(), want)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("per_point", [False, True], ids=["one_z", "z_per_point"])
+def test_spectral_points_z_form(m, per_point):
+    """spectral_points on z (() or (N,)) equals it on Z = z I, and (m <= 3)
+    the kernel's direct form in numpy: the adjugate of M = z I - (H + H^H) /
+    2 and one reciprocal of det (relative 1e-12)."""
+    from torch_parity import k27_direct_inverse
+
+    rng = np.random.default_rng(41 + m)
+    N = 150
+    H = random_hermitian(rng, N, m)
+    z = _z_lanes(rng, H, N, 1e-3) if per_point else np.asarray(0.3 + 0.05j)
+    zt = torch.as_tensor(z)
+    got = tobs.spectral_points(torch.as_tensor(H), zt).numpy()
+    Zm = (zt[..., None, None] * torch.eye(m, dtype=torch.complex128)).contiguous()
+    assert np.array_equal(got, tobs.spectral_points(torch.as_tensor(H), Zm).numpy())
+    if m <= 3:
+        G = k27_direct_inverse(H, z)
+        assert rel_err(got, (G - np.conj(np.swapaxes(G, -1, -2))) / (-2j * np.pi)) <= 1e-12
+
+
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_spectral_weighted_sum_z_form_matches_reference(m):
+    """The z form of spectral_weighted_sum (the PTR rule's sum of
+    spectral_function) against the reference's spectral_function summed by
+    its ``tree_weighted_sum`` at each lane's (om, eta)."""
+    rng = np.random.default_rng(51 + m)
+    K, scale = 200, 0.013
+    H = random_hermitian(rng, K, m)
+    w = rng.random(K) + 0.5
+    etas = np.linspace(0.05, 0.2, len(OMEGAS))
+    want = np.stack([scale * np.asarray(tree_weighted_sum(jnp.asarray(w), jax.vmap(
+        lambda h: jobs.spectral_function(JValue(None, h), jnp.asarray(om), eta=eta))(jnp.asarray(H)), axis=0))
+        for om, eta in zip(OMEGAS, etas)])
+    got = tobs.spectral_weighted_sum(torch.as_tensor(H), torch.as_tensor(w), torch.as_tensor(OMEGAS + 1j * etas),
+                                     scale).numpy()
+    assert rel_err(got, want) <= 1e-12

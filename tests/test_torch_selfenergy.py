@@ -448,3 +448,61 @@ def test_pointwise_integrands_match_reference():
         batch = ts.dos_trace_sigma(T.FourierValue(None, Hb), torch.as_tensor(oms), Sigma=St, mu=0.1).numpy()
         single = [float(ts.dos_trace_sigma(T.FourierValue(None, Hb[i]), oms[i], Sigma=St, mu=0.1)) for i in range(5)]
         assert rel(batch, single) <= 1e-14
+
+
+# --- K27 at m <= 3: the identities its kernels run, in numpy, against the plain versions -------------
+
+
+def _k27_lanes(rng, H, W, eta):
+    """W lane matrices Z = (om + i eta) I - R + i G: half at random om, half
+    on an eigenvalue of some H_k (a pole at small eta), with a small
+    non-diagonal causal Sigma (R real symmetric, G positive semidefinite)."""
+    m = H.shape[-1]
+    ev = np.linalg.eigvalsh(H[rng.integers(0, H.shape[0], W // 2)])
+    om = np.concatenate([rng.uniform(-4.0, 4.0, W - W // 2), ev[np.arange(W // 2), rng.integers(0, m, W // 2)]])
+    R = rng.normal(scale=0.02, size=(W, m, m))
+    a = rng.normal(scale=0.01, size=(W, m, m))
+    return (om + 1j * eta)[:, None, None] * np.eye(m) - (R + np.swapaxes(R, 1, 2)) / 2 \
+        + 1j * (a @ np.swapaxes(a, 1, 2))
+
+
+@pytest.mark.parametrize("eta", [1e-3, 0.05])
+@pytest.mark.parametrize("diagonal", [False, True], ids=["trace", "diagonal"])
+def test_k27_trace_expansion_matches_plain(diagonal, eta):
+    """K27's trace and diagonal sums at m = 3 (csrc/sigma_trace.cu): the
+    expansion of det, e2 and the minors in a lane's and a k's invariants,
+    with near-pole pairs redone from M formed directly, against
+    sigma_trace_sum_plain on random Hermitian H and general Z, lanes on
+    eigenvalues included (relative 1e-12)."""
+    from torch_parity import k27_trace_terms, random_hermitian
+
+    rng = np.random.default_rng(27)
+    K, W, scale = 240, 24, 0.37
+    H = random_hermitian(rng, K, 3)
+    w = rng.random(K) + 0.5
+    Z = _k27_lanes(rng, H, W, eta)
+    terms, redone = k27_trace_terms(H, Z, diagonal)
+    got = -scale / np.pi * np.einsum("wk...,k->w...", terms, w)
+    want = ts.sigma_trace_sum_plain(torch.as_tensor(H), torch.as_tensor(w), torch.as_tensor(Z), scale,
+                                    diagonal).numpy()
+    assert got.shape == want.shape
+    assert rel(got, want) <= 1e-12
+    if eta < 0.01:  # the guard's route runs at the poles
+        assert redone > 0
+
+
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("per_point", [False, True], ids=["one_Z", "Z_per_point"])
+def test_k27_trace_points_direct_form_matches_plain(m, per_point):
+    """K27's pointwise entry at m <= 3: M = Z - (H + H^H) / 2 formed
+    directly, its adjugate and one reciprocal of det, against
+    sigma_trace_points_plain, near-pole points included (relative 1e-12)."""
+    from torch_parity import k27_direct_inverse, random_hermitian
+
+    rng = np.random.default_rng(270 + m)
+    N = 200
+    H = random_hermitian(rng, N, m)
+    Z = _k27_lanes(rng, H, N, 1e-3) if per_point else _k27_lanes(rng, H, 2, 1e-3)[1]
+    got = np.trace(k27_direct_inverse(H, Z), axis1=-2, axis2=-1)
+    want = ts.sigma_trace_points_plain(torch.as_tensor(H), torch.as_tensor(Z)).numpy()
+    assert rel(got, want) <= 1e-12

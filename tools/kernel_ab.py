@@ -3,7 +3,8 @@
 ``autobzcore_torch`` package of any checkout, on one NVIDIA GPU.
 
     python3 tools/kernel_ab.py TREE LABEL
-        --phases fourier|rule_transport|iai|k24|warm_plain|selfenergy|ltm|ggr|tai|pools [--iai] [--out DIR]
+        --phases fourier|rule_transport|iai|k24|warm_plain|selfenergy|spectral|ltm|ggr|tai|pools [--iai]
+        [--out DIR]
 
 It imports ``autobzcore_torch`` from the checkout at TREE (its kernels
 build there at first use) and runs this repository's ``chip_smoke.py``
@@ -26,7 +27,7 @@ phase functions on it:
   sweep with its numevals, retcode, GK trips and K19 launches);
 - ``--phases iai``: the IAI leaf (K4 and the fused leaf solve) and the zone
   average (K24): phases 6-10 (K3-K6, the fused solve against the trip
-  route where the checkout has it, the cold chunk, the cubic wedge, the two
+  route, the cold chunk, the cubic wedge, the two
   warm calls) and 16-17 (the block entries, one wall of each block width),
   each leg's wall, evals, retcode, trips, host syncs, leaf launches and
   device busy share (nvidia-smi), then phase 27's K24 at the Weyl AHC by
@@ -41,7 +42,15 @@ phase functions on it:
   wall, the self-energy DOS
   and transport sweeps, and the kinetic step with its split: builds, the
   integrand's device time summed over its trips (K28 with its small
-  neighbours), pairs per launch, trips, numevals, retcodes);
+  neighbours), pairs per launch, trips, numevals, retcodes); K27's trace
+  and diagonal sums and pointwise entry (at the PTR(48) points and the
+  largest IAI leaf trip) each by events, by the profiler's device time and
+  on the host, and the self-energy DOS and projected sweeps' walls;
+- ``--phases spectral``: phases 31-32 (K29-K31; K27's matrix mode on the
+  lanes' z and its pointwise entry at the PTR(48) points and at graphene's
+  largest IAI leaf trip, each three ways; the AutoPTR, transport,
+  spectral_function and k-path paths); on a checkout whose matrix mode
+  takes no z, ``k27_z_shim`` hands it Z = z I;
 - ``--phases ltm``: the tetrahedron DOS (K10): phases 14-15 (K10 against
   its plain version at 1001 energies, DOS and N(E), then the LTM main
   path's init, sweep and fermi_level walls and a Fermi step's one-energy
@@ -72,7 +81,10 @@ the TAI leg's three walls and counts: the paths whose wrappers share the
 host helpers of ``ops/cuda_lib.py`` and ``_device.py``. So two checkouts,
 for example a commit and its parent unpacked with ``git archive``, compare
 on one card in one call: run each in a process of its own, in turns
-(parent, change, change, parent). The last line is a JSON object of the
+(parent, change, change, parent). The IAI phases (``iai``, ``pools``,
+``warm_plain``, ``--iai``) need the fused leaf solve (``gk_leaf_dos_solve``),
+which the smoke's phases 6-10 and 16-17 run: a checkout without it is
+refused. The last line is a JSON object of the
 numbers; with ``--out DIR`` a copy goes to ``DIR/ab_PHASES_LABEL.json`` (a
 later run of the same phases and label replaces it).
 """
@@ -156,6 +168,11 @@ def selfenergy(cs, np, torch, dev, h):
     mu = tr.ElectronCountSolver(h, bz, cs.TR_NPT, pack=obs.spectral_velocity_pack(h, bz, cs.TR_NPT)).find_mu(
         1.0, cs.TR_BETA)
     return {"selfenergy": cs.lindhard_sigma_phases(np, torch, dev, h, mu)[1]}
+
+
+def spectral(cs, np, torch, dev, h):
+    k27_z_shim(cs, torch)
+    return {"spectral": cs.slice12_phases(np, torch, dev, h, None)[1]}
 
 
 def ltm(cs, np, torch, dev, h):
@@ -382,6 +399,40 @@ def k5_step_shim(cs, torch):
           flush=True)
 
 
+def k27_z_shim(cs, torch):
+    """Phases 31-32 hand K27's matrix mode and matrix points the lanes' z
+    of Z = z I (``spectral_weighted_sum(H, w, z, scale)``,
+    ``spectral_points(H, z)`` with z (W,), (N,) or ()). A checkout from
+    before that form takes only Z matrices: give its four functions (and
+    their plain versions) z as z I, keeping their launch counts."""
+    from autobzcore_torch.models import observables as obs
+
+    try:
+        obs.spectral_points(torch.zeros((1, 1, 1), dtype=torch.complex128), torch.zeros((), dtype=torch.complex128))
+        return
+    except ValueError:
+        pass
+
+    class ZForm:
+        def __init__(self, fn, zarg):
+            self.fn, self.zarg, self.__name__ = fn, zarg, fn.__name__
+
+        def __call__(self, *args, **kw):
+            args = list(args)
+            H, Z = args[0], args[self.zarg]
+            if Z.ndim <= 1:
+                eye = torch.eye(H.shape[-1], dtype=Z.dtype, device=Z.device)
+                args[self.zarg] = (Z[..., None, None] * eye).contiguous()
+            return self.fn(*args, **kw)
+
+        launches = property(lambda self: self.fn.launches, lambda self, v: setattr(self.fn, "launches", v))
+
+    for name, zarg in (("spectral_points", 1), ("spectral_points_plain", 1), ("spectral_weighted_sum", 2),
+                       ("spectral_weighted_sum_plain", 2)):
+        setattr(obs, name, ZForm(getattr(obs, name), zarg))
+    print("K27's matrix mode takes no z in this checkout: phases 31-32 hand it Z = z I", flush=True)
+
+
 def tai(cs, np, torch, dev, h):
     k16_step_shim(cs, torch)
     entries, numbers = cs.cubature_phases(np, torch, dev, h, phase7_frequencies(cs, np, torch, dev, h))
@@ -540,7 +591,7 @@ def pools(cs, np, torch, dev, h):
 
 
 PHASES = {"fourier": fourier, "rule_transport": rule_transport, "iai": iai, "k24": k24, "warm_plain": warm_plain,
-          "selfenergy": selfenergy, "ltm": ltm, "ggr": ggr, "tai": tai, "pools": pools}
+          "selfenergy": selfenergy, "spectral": spectral, "ltm": ltm, "ggr": ggr, "tai": tai, "pools": pools}
 
 
 def compare(tree, label, phases, iai):
@@ -548,6 +599,7 @@ def compare(tree, label, phases, iai):
     import numpy as np
     import torch
 
+    from autobzcore_torch.models import observables as obs
     from autobzcore_torch.models.tight_binding import flagship_series
     from autobzcore_torch.ops import cuda_lib
 
@@ -556,6 +608,8 @@ def compare(tree, label, phases, iai):
     if not str(Path(cuda_lib.__file__).resolve()).startswith(str(Path(tree).resolve())):
         sys.exit(f"imported {cuda_lib.__file__}, not the package of {tree}")
     cs = load_smoke()
+    if (phases in ("iai", "pools", "warm_plain") or iai) and not hasattr(obs, "gk_leaf_dos_solve"):
+        sys.exit(f"{tree} has no fused leaf solve (gk_leaf_dos_solve), which phases 6-10 and 16-17 run")
     k5_step_shim(cs, torch)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()

@@ -57,6 +57,21 @@ SOURCE is a file of ``autobzcore_torch/csrc/`` with a patch table here:
   16). Shapes: the flagship's npt=100 grid (1e6 points, m = 3) at the PTR
   leg's 264 lanes, and its npt=400 grid (6.4e7 points) at 8 lanes (a late
   AutoPTR rung), checked on their whole grids.
+- ``sigma_trace`` (K27): ``noguard``, the tensor-core expansion without
+  the guard's redo (near poles its values lose digits): what the guard
+  costs; ``direct``, every pair by the guard's direct form (M from H's
+  reals, cofactors, one reciprocal): what the expansion on the tensor
+  cores saves; ``guard8192`` and ``guard32768``, the guard's threshold
+  (the package's 2048) raised; ``minblocks5`` and ``minblocks4``, the
+  tensor-core entries asked for five or four blocks of 128 threads an SM;
+  ``pipelined``, a step's products issued before the previous step's
+  finish (two sets of accumulators); ``noinline``, the guard's direct route
+  a call of its own, whose registers the products' loop does not hold. ``--other parent=FILE.cu`` adds the previous design (its
+  trace and diagonal sums take the same arguments). Shapes:
+  the flagship's npt=100 grid (1e6 points) with phase 30's Fermi-liquid
+  Sigma at 1000 lanes in trace and in diagonal mode, and 64 lanes of Sigma
+  = -1e-3 i half on an eigenvalue of some H_k (trace mode), each checked on
+  all its lanes.
 - ``ggr_dos`` (K13): ``noeval``, a pair's closed form replaced by its
   energy (wrong values): what the staging, the supports, the pair
   numbering and the walks over a tile's terms cost; ``nowalk``, no energy
@@ -419,6 +434,75 @@ def dos_cases(torch, cs, dev, stream):
             ("rung8", 5, None, *case(cs.DOS_RUNG_NPT, om264[::step].contiguous()))]
 
 
+# sigma_trace.cu: K27
+GUARD = "          if (!(den >= lo && den < 0x1p1022)) {\n"
+GUARD2 = "constexpr double kGuard2 = 4194304.0;  // 2048^2\n"
+REDO = "__device__ void direct3("
+PIPELINE = """      double d0[4], n0s[kNum][4], d1[4], n1s[kNum][4];
+      products(0, d0, n0s);
+      for (int n0 = 0; n0 < nk; n0 += 16) {
+        const bool second = n0 + 8 < nk;
+        if (second) products(n0 + 8, d1, n1s);
+        finish(n0, d0, n0s);
+        if (second) {
+          if (n0 + 16 < nk) products(n0 + 16, d0, n0s);
+          finish(n0 + 8, d1, n1s);
+        }
+      }
+"""
+SERIAL = """      double d0[4], n0s[kNum][4];
+      for (int n0 = 0; n0 < nk; n0 += 8) {
+        products(n0, d0, n0s);
+        finish(n0, d0, n0s);
+      }
+"""
+BOUNDS27 = "__global__ void __launch_bounds__(kThreads)\nsigma_trace_dmma("
+
+
+def trace_variants(src):
+    p = lambda old, new: patch("sigma_trace", src, old, new)  # noqa: E731
+    return {"noguard": p(GUARD, "          if (out_of_range(den)) {\n"),
+            "direct": p(GUARD, "          if (true) {\n"),
+            "guard8192": p(GUARD2, "constexpr double kGuard2 = 67108864.0;\n"),
+            "guard32768": p(GUARD2, "constexpr double kGuard2 = 1073741824.0;\n"),
+            "minblocks5": p(BOUNDS27, BOUNDS27.replace("(kThreads)", "(kThreads, 5)")),
+            "minblocks4": p(BOUNDS27, BOUNDS27.replace("(kThreads)", "(kThreads, 4)")),
+            "pipelined": p(SERIAL, PIPELINE),
+            "noinline": p(REDO, REDO.replace("__device__ void", "__device__ __noinline__ void"))}
+
+
+def trace_cases(torch, cs, dev, stream):
+    """(tag, reps, skip(name), launcher(lib) -> (go, result), want) of K27's sums."""
+    from autobzcore_torch import FBZ, load_bz
+    from autobzcore_torch.models import selfenergy as se
+    from autobzcore_torch.models.tight_binding import flagship_series
+
+    h = flagship_series(device=dev)
+    (H,), w, sc, _ = se._grid(h, load_bz(FBZ(), np.eye(3)), cs.SE_NPT, jacobian=False)
+    ws = np.linspace(-8.0, 8.0, cs.SE_SIGMA_POINTS)
+    sigma = se.SigmaInterpolant(ws, cs.fermi_liquid_sigma(np, ws), device=dev)
+    Z = se._zmat(torch.linspace(*cs.WINDOW, cs.SE_OMEGAS, dtype=torch.float64, device=dev), sigma, 3).contiguous()
+    Zpole = cs.k27_pole_lanes(np, torch, np.random.default_rng(29), H, cs.K27_POLE_LANES, cs.K27_POLE_ETA)
+    K = H.shape[0]
+
+    def case(Zc, diag):
+        W, J = Zc.shape[0], 3 if diag else 1
+
+        def launcher(lib):
+            lib.sigma_trace_num_chunks.argtypes = [LL]
+            lib.sigma_trace_num_chunks.restype = LL
+            lib.sigma_trace_sum_launch.argtypes = [VP] * 5 + [LL, INT, INT, INT, DBL, VP]
+            out = torch.empty((W, J), dtype=torch.float64, device=dev)
+            part = torch.empty((lib.sigma_trace_num_chunks(K), W, J), dtype=torch.float64, device=dev)
+            args = (H.data_ptr(), w.data_ptr(), Zc.data_ptr(), part.data_ptr(), out.data_ptr(), K, W, 3, int(diag),
+                    -sc / np.pi, stream)
+            return (lambda: lib.sigma_trace_sum_launch(*args)), (lambda: out if diag else out[:, 0])
+        return launcher, se.sigma_trace_sum_plain(H, w, Zc, sc, diag)
+
+    return [("trace1000", 5, None, *case(Z, False)), ("diagonal1000", 5, None, *case(Z, True)),
+            ("trace64poles", 10, None, *case(Zpole, False))]
+
+
 # lindhard_chi0.cu: K25, this design's text and the previous design's
 CHI0_LOOP = ("    if (worker) {\n      double re0", "    const int nt = wi < W ? np * mm : 0;")
 CHI0_BUILD = ("    for (int it = threadIdx.x; it < np * m; it += blockDim.x) {\n",
@@ -619,6 +703,7 @@ SOURCES = {"fourier_points": (fourier_variants, fourier_cases),
            "tetra_dos": (tetra_variants, tetra_cases),
            "lindhard_chi0": (chi0_variants, chi0_cases),
            "dos_trace": (dos_variants, dos_cases),
+           "sigma_trace": (trace_variants, trace_cases),
            "ggr_dos": (ggr_variants, ggr_cases),
            "gm_pool": (pool_variants, pool_cases)}
 
