@@ -26,10 +26,28 @@
 // from global memory column by column. G is symmetric in (a, b) exactly, so a <= b is
 // summed and mirrored. The sums run in a fixed order, so repeats are
 // bit-identical.
+//
+// The fused entry (transport_points_eigh_launch), m <= 3: the whole of
+// transport_distribution at points, the jnp.linalg.eigh at
+// autobzcore_tpu/models/observables.py:184 included, which the card
+// otherwise ran as a cuSOLVER batched eigh before the entry above. It takes H
+// (N, m, m) and dH (N, d, m, m) as views of K11's output, with their
+// strides, and om and eta each as one value or one a point (a pointer with
+// stride 0 or 1, or a number), so a trip allocates only its output. Each
+// thread reads H's Hermitian part, runs the register eigensolver
+// (csrc/small_eigen.cuh eigh_rn), forms the band-basis velocities of dH_a's
+// Hermitian part (v_a = U^H S_a U, Hermitian: its diagonal and upper
+// triangle) and the A_n, and sums G over the diagonal and twice the upper
+// pairs. G is invariant under any unitary change of basis inside a
+// degenerate subspace, so it does not depend on which eigenbasis the solver
+// returns. A trip of some thousand points is bound by the launch; a point
+// reads 16 m^2 (1 + d) bytes, 432 at m = 2, d = 2.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "small_eigen.cuh"
 
 namespace {
 
@@ -125,6 +143,112 @@ void launch_m(int d, unsigned blocks, cudaStream_t st, const double* e, const do
   }
 }
 
+template <int M, int D>
+__global__ void __launch_bounds__(kThreads)
+transport_points_eigh_kernel(const double2* __restrict__ H, int64_t sh, const double2* __restrict__ dH, int64_t sk,
+                             int64_t sj, const double* __restrict__ om, int64_t som, double om0,
+                             const double* __restrict__ eta, int64_t seta, double eta0, double* __restrict__ out,
+                             int64_t N, double inv_pi) {
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= N) return;
+  double d[3], orr[3], oi[3], e[3], ur[3][3], ui[3][3];
+  autobz::load_hermitian<M>(H + p * sh, d, orr, oi);
+  autobz::eigh_rn<M>(d, orr, oi, e, ur, ui);
+  // band-basis velocities of S_a, the Hermitian part of dH_a: the real
+  // diagonal vd[a][n] and the upper entries (vr + i vi)[a][k], k over n < q
+  constexpr int kUpper = M * (M - 1) / 2 > 0 ? M * (M - 1) / 2 : 1;
+  double vd[D][3], vr[D][kUpper], vi[D][kUpper];
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+    double sd[3], sr[3], si[3];
+    autobz::load_hermitian<M>(dH + p * sk + a * sj, sd, sr, si);
+    // T = S_a U, S_a's lower entries the conjugates of its upper ones
+    double tr[3][3], ti[3][3];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+#pragma unroll
+      for (int q = 0; q < M; ++q) {
+        double xr = sd[i] * ur[i][q], xi = sd[i] * ui[i][q];
+#pragma unroll
+        for (int l = 0; l < M; ++l) {
+          if (l == i) continue;
+          const int k = i < l ? (i == 0 ? l - 1 : 2) : (l == 0 ? i - 1 : 2);  // (0,1) 0, (0,2) 1, (1,2) 2
+          const double hr = sr[k], hi = i < l ? si[k] : -si[k];
+          xr = fma(hr, ur[l][q], fma(-hi, ui[l][q], xr));
+          xi = fma(hr, ui[l][q], fma(hi, ur[l][q], xi));
+        }
+        tr[i][q] = xr;
+        ti[i][q] = xi;
+      }
+    }
+    // v[n][q] = sum_i conj(u_in) T[i][q] for n <= q
+    int k = 0;
+#pragma unroll
+    for (int n = 0; n < M; ++n) {
+#pragma unroll
+      for (int q = n; q < M; ++q) {
+        double xr = 0.0, xi = 0.0;
+#pragma unroll
+        for (int i = 0; i < M; ++i) {
+          xr = fma(ur[i][n], tr[i][q], fma(ui[i][n], ti[i][q], xr));
+          xi = fma(ur[i][n], ti[i][q], fma(-ui[i][n], tr[i][q], xi));
+        }
+        if (q == n) {
+          vd[a][n] = xr;
+        } else {
+          vr[a][k] = xr;
+          vi[a][k] = xi;
+          ++k;
+        }
+      }
+    }
+  }
+  const double w = om != nullptr ? om[p * som] : om0;
+  const double g = eta != nullptr ? eta[p * seta] : eta0;
+  double A[3];
+#pragma unroll
+  for (int n = 0; n < M; ++n) {
+    const double x = w - e[n];
+    A[n] = g / (x * x + g * g) * inv_pi;
+  }
+  double* o = out + p * D * D;
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+#pragma unroll
+    for (int b = a; b < D; ++b) {
+      double acc = 0.0;
+      int k = 0;
+#pragma unroll
+      for (int n = 0; n < M; ++n) {
+        double row = vd[a][n] * vd[b][n] * A[n];
+        double up = 0.0;
+#pragma unroll
+        for (int q = n + 1; q < M; ++q, ++k) up = fma(fma(vr[a][k], vr[b][k], vi[a][k] * vi[b][k]), A[q], up);
+        row = fma(2.0, up, row);
+        acc = fma(row, A[n], acc);
+      }
+      o[a * D + b] = acc;
+      o[b * D + a] = acc;
+    }
+  }
+}
+
+template <int M>
+void launch_eigh(int d, unsigned blocks, cudaStream_t st, const double2* H, int64_t sh, const double2* dH,
+                 int64_t sk, int64_t sj, const double* om, int64_t som, double om0, const double* eta, int64_t seta,
+                 double eta0, double* out, int64_t N, double inv_pi) {
+  if (d == 1) {
+    transport_points_eigh_kernel<M, 1><<<blocks, kThreads, 0, st>>>(H, sh, dH, sk, sj, om, som, om0, eta, seta,
+                                                                     eta0, out, N, inv_pi);
+  } else if (d == 2) {
+    transport_points_eigh_kernel<M, 2><<<blocks, kThreads, 0, st>>>(H, sh, dH, sk, sj, om, som, om0, eta, seta,
+                                                                     eta0, out, N, inv_pi);
+  } else {
+    transport_points_eigh_kernel<M, 3><<<blocks, kThreads, 0, st>>>(H, sh, dH, sk, sj, om, som, om0, eta, seta,
+                                                                     eta0, out, N, inv_pi);
+  }
+}
+
 }  // namespace
 
 // The largest band count K31 takes.
@@ -159,6 +283,36 @@ extern "C" int transport_points_launch(const void* e, const void* U, const void*
     case 6: launch_m<6>(d, blocks, st, ep, Up, Hp, wp, gp, op, n, sk, sj, inv_pi); break;
     case 7: launch_m<7>(d, blocks, st, ep, Up, Hp, wp, gp, op, n, sk, sj, inv_pi); break;
     default: launch_m<8>(d, blocks, st, ep, Up, Hp, wp, gp, op, n, sk, sj, inv_pi); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// H: complex128, the (m, m) block of point p at H + p * sh, its entries
+// contiguous; dH: complex128, the block of (point p, direction a) at dH + p *
+// sk + a * sj (complex entries); om, eta: float64 at om + p * som (stride 0
+// for one value), or null and then om0 (eta0) for every point; out: (N, d,
+// d) float64, written. Returns cudaErrorInvalidValue for m or d outside
+// 1..3, else cudaGetLastError() after the launch.
+extern "C" int transport_points_eigh_launch(const void* H, long long sh, const void* dH, long long sk, long long sj,
+                                            const void* om, long long som, double om0, const void* eta,
+                                            long long seta, double eta0, void* out, long long N, int m, int d,
+                                            double inv_pi, void* stream) {
+  if (m < 1 || m > 3 || d < 1 || d > 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>((N + kThreads - 1) / kThreads);
+  const auto* Hp = static_cast<const double2*>(H);
+  const auto* dp = static_cast<const double2*>(dH);
+  const auto* wp = static_cast<const double*>(om);
+  const auto* gp = static_cast<const double*>(eta);
+  auto* op = static_cast<double*>(out);
+  const int64_t n = static_cast<int64_t>(N);
+  if (m == 1) {
+    launch_eigh<1>(d, blocks, st, Hp, sh, dp, sk, sj, wp, som, om0, gp, seta, eta0, op, n, inv_pi);
+  } else if (m == 2) {
+    launch_eigh<2>(d, blocks, st, Hp, sh, dp, sk, sj, wp, som, om0, gp, seta, eta0, op, n, inv_pi);
+  } else {
+    launch_eigh<3>(d, blocks, st, Hp, sh, dp, sk, sj, wp, som, om0, gp, seta, eta0, op, n, inv_pi);
   }
   return static_cast<int>(cudaGetLastError());
 }

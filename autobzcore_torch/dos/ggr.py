@@ -7,12 +7,16 @@ respect to z = x/t at the points, eigendecompose H, take the band velocities
 every (k, band) at each energy. Second-order convergent and robust at band
 crossings (the reference's ``src/dos_ggr.jl``).
 
-The init runs in chunks of at most ``ops.eigh3.EIGH_CHUNK`` points: kernel K11
-(:func:`~autobzcore_torch.ops.fourier_eval.fourier_points_derivs`) gives
-(H, dH) at the representatives ``reps/npt * period`` (points, as the port's
-PTR rule, not a gather from a grid evaluation), ``torch.linalg.eigh`` the
-eigenpairs (the reference calls the library here too), and kernel K12
-(:func:`band_velocity`, ``csrc/band_velocity.cu``) the velocities. The cache
+Kernel K11 (:func:`~autobzcore_torch.ops.fourier_eval.fourier_points_derivs`)
+gives (H, dH) at the representatives ``reps/npt * period`` (points, as the
+port's PTR rule, not a gather from a grid evaluation). On the card at m <= 3
+K12's fused entry (:func:`band_velocity_eigh`, ``csrc/band_velocity.cu``)
+takes K11's output and writes the energies and velocities, its eigensolve in
+registers, in chunks of up to :data:`FUSED_CHUNK` points: one K11 and one K12
+launch a chunk, no cuSOLVER call. Otherwise (more bands, or the CPU) the
+init runs in chunks of at most ``ops.eigh3.EIGH_CHUNK`` points: K11,
+``torch.linalg.eigh`` for the eigenpairs (the reference calls the library
+here too) and K12 (:func:`band_velocity`) for the velocities. The cache
 keeps the energies (K, m), velocities (K, d, m) and weights in float64.
 Each ``dos_solve``/``dos_sweep`` is one launch of kernel K13
 (:func:`ggr_box_sum`, ``csrc/ggr_dos.cu``) and returns numpy, as the port's
@@ -40,6 +44,11 @@ from .tetrahedron import in_sorted_order
 
 _EPS = 1e-300
 _PLAIN_TERMS = 1 << 22  # (energy, k, band) terms per pass of K13's plain version
+# points a chunk of K11 and K12's fused entry: K11's output holds 16 m^2 (1 +
+# d) bytes a point (576 at m = 3, d = 3), so a chunk of 2^20 peaks near 0.7
+# GB with the energies and velocities; the flagship's npt=100 grid is one
+# chunk
+FUSED_CHUNK = 1 << 20
 
 
 def band_velocity_plain(U, dH):
@@ -84,6 +93,50 @@ def band_velocity(U, dH):
 
 
 band_velocity.launches = 0
+
+
+def band_velocity_eigh_plain(J):
+    """Plain version of K12's fused entry: ``torch.linalg.eigh`` of H = J[:,
+    0] (in the chunks the card's solver takes), then :func:`band_velocity_plain`
+    on dH = J[:, 1:]; returns ``(e (K, m), v (K, d, m))``."""
+    e, U = eigh_chunked(J[:, 0])
+    return e, band_velocity_plain(U, J[:, 1:])
+
+
+def band_velocity_eigh(J):
+    """Energies and band velocities from K11's output J (K, 1 + d, m, m)
+    complex128, contiguous (H, then dH_j), m <= 3, d <= 3: ``(e (K, m), v (K,
+    d, m))`` float64, e ascending and ``v[k, j, b] = Re u_b^H dH_j u_b`` for
+    the eigenvectors u_b of H's Hermitian part.
+
+    CPU tensors take the plain version (``torch.linalg.eigh``, then the
+    reference's einsum); CUDA tensors launch K12's fused entry, whose
+    eigensolve runs in registers (``ops.eigh3.eigh3_jacobi`` is its mirror);
+    anything it does not take raises, m > 3 with the route that takes it. At
+    exactly degenerate eigenvalues each band's velocity is that of the
+    solver's eigenbasis (ROADMAP C3, C6); their sum over the cluster does not
+    depend on the basis."""
+    check_tensor(J, "J", dtype=COMPLEX, ndim=4)
+    K, r, m, m2 = J.shape
+    if m2 != m or not 1 <= m <= 3 or not 2 <= r <= 4:
+        raise ValueError(f"band_velocity_eigh takes K11's output J (K, 1 + d, m, m) with m <= 3 and d <= 3, got "
+                         f"{tuple(J.shape)}; above three bands spectral_grid takes eigh_chunked, then band_velocity")
+    d = r - 1
+    if J.device.type == "cpu":
+        return band_velocity_eigh_plain(J)
+    if J.device.type != "cuda":
+        raise ValueError(f"band_velocity_eigh runs on cpu or cuda tensors, got {J.device}")
+    e = torch.empty((K, m), dtype=REAL, device=J.device)
+    v = torch.empty((K, d, m), dtype=REAL, device=J.device)
+    if K:
+        lib = load_kernels()
+        check_launch(lib.band_velocity_eigh_launch(J.data_ptr(), e.data_ptr(), v.data_ptr(), K, m, d,
+                                                   stream_handle(J.device)), "band_velocity_eigh")
+        band_velocity_eigh.launches += 1
+    return e, v
+
+
+band_velocity_eigh.launches = 0
 
 
 def _box_1d(b, dw, av, vtol):
@@ -265,19 +318,32 @@ def spectral_grid(h, bz, npt, points=fourier_points_derivs, velocities=band_velo
     """Energies e (K, m), velocities v (K, d, m) with respect to z = x/t and
     weights w (K,), float64 on the series' device, at the symmetry
     representatives of the ``npt^d`` grid (the full grid in C order on a
-    zone without symmetries). K11 (``points``), eigh and K12
-    (``velocities``) run in chunks of ``EIGH_CHUNK`` points; the plain
-    versions of K11 and K12 may be passed in their place."""
+    zone without symmetries). With the kernels (the defaults) on the card at
+    m <= 3, K11 and K12's fused entry (:func:`band_velocity_eigh`) run in
+    chunks of :data:`FUSED_CHUNK` points; otherwise K11 (``points``), eigh and
+    K12 (``velocities``) in chunks of ``EIGH_CHUNK`` points. Passing the plain
+    versions of K11 and K12 takes the latter route on them: the plain
+    route."""
     d, dev = bz.ndim, h.device
     frac, w = rule_points(npt, d, bz.syms, dev)
     X = (frac * torch.as_tensor(h.period, dtype=REAL, device=dev)).contiguous()
     m = h.valshape[0] if h.valshape else 1
     es, vs = [], []
-    for _, e, U, dH in eigen_chunks(h, X, points):
-        es.append(e)
-        vs.append(velocities(U, dH))
+    if m <= 3 and dev.type == "cuda" and velocities is band_velocity:
+        orders = jacobian_orders(d)
+        for s in range(0, X.shape[0], FUSED_CHUNK):
+            J = points(h.c, X[s:s + FUSED_CHUNK], h.offset, h.period, orders)
+            e, v = band_velocity_eigh(J.reshape(J.shape[:2] + (m, m)))
+            es.append(e)
+            vs.append(v)
+    else:
+        for _, e, U, dH in eigen_chunks(h, X, points):
+            es.append(e)
+            vs.append(velocities(U, dH))
     if not es:
         return (torch.empty((0, m), dtype=REAL, device=dev), torch.empty((0, d, m), dtype=REAL, device=dev), w)
+    if len(es) == 1:
+        return es[0], vs[0], w
     return torch.cat(es), torch.cat(vs), w
 
 

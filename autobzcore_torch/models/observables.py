@@ -459,8 +459,8 @@ def gk_leaf_dos(c, cmap, offset, period, ca, cb, om, eta, active, xk, wk, wg):
         raise ValueError(f"gk_leaf_dos runs on cpu or cuda tensors, got {dev}")
     if m > 3:
         raise NotImplementedError(
-            f"the CUDA leaf DOS kernel takes m <= 3 bands, got m = {m} "
-            "(the eigenvalue form for larger m comes with ROADMAP B2)")
+            f"the CUDA leaf DOS kernel takes m <= 3 bands, got m = {m}: above three bands the IAI nest "
+            "evaluates the leaf by its generic route (algorithms/nested.py fuses the DOS leaf only at m <= 3)")
     if P > 64:
         raise ValueError(f"gk_leaf_dos takes at most 64 Kronrod nodes, got {P}")
     if W < 1:
@@ -864,16 +864,125 @@ def transport_points(e, U, dH, om, eta):
 transport_points.launches = 0
 
 
+_INV_PI = 1.0 / math.pi
+
+
+def _point_values(x, name, n, dev):
+    """``(tensor or None, stride, value)`` of ``om`` or ``eta`` for K31's
+    fused entry: one value on the host as the value; one on the card, or n
+    (on the card, copied there if they are not), as a pointer with stride 0
+    or the values' own stride; nothing broadcast."""
+    if isinstance(x, (int, float)):
+        return None, 0, float(x)
+    x = torch.as_tensor(x, dtype=REAL)
+    if x.numel() == 1 and not x.is_cuda:
+        return None, 0, float(x)
+    x = x.to(dev)
+    if x.numel() == 1:
+        return x, 0, 0.0
+    if x.numel() != n:
+        raise ValueError(f"{name} must hold one value or one a point ({n}), got shape {tuple(x.shape)}")
+    x = x.reshape(n)
+    return x, x.stride(0), 0.0
+
+
+def _lane_values(x, n, dev):
+    """``om`` or ``eta`` as (n,) float64 on ``dev`` for the plain version."""
+    return torch.broadcast_to(torch.as_tensor(x, dtype=REAL, device=dev).reshape(-1), (n,))
+
+
+def transport_points_eigh_plain(H, dH, om, eta):
+    """Plain version of K31's fused entry: ``eigh`` of H (N, m, m) (in the
+    chunks the card's solver takes), then :func:`transport_points_plain`;
+    ``om`` and ``eta`` one value or one a point. Returns (N, d, d)."""
+    from ..ops.eigh3 import eigh_chunked
+
+    e, U = eigh_chunked(H)
+    n = e.shape[0]
+    return transport_points_plain(e, U, dH, _lane_values(om, n, H.device), _lane_values(eta, n, H.device))
+
+
+def transport_points_eigh(H, dH, om, eta):
+    """The transport distribution at N points from H (N, m, m) and dH (N, d,
+    m, m), complex128, m <= 3, d <= 3, each (m, m) block's entries
+    contiguous (views of K11's output, taken with their strides), and ``om``,
+    ``eta`` each a number or a float64 tensor of one value or one a point:
+    ``G[p, a, b] = Re sum_nq (v_a)_nq conj((v_b)_nq) A_n A_q`` with the
+    eigenpairs (e, U) of H's Hermitian part, ``v_a = U^H S_a U`` for the
+    Hermitian part S_a of dH_a and ``A_n = eta / ((om - e_n)^2 + eta^2) /
+    pi``. Returns (N, d, d) float64.
+
+    CPU tensors take the plain version (``eigh`` then the reference's
+    einsums); CUDA tensors launch K31's fused entry (``csrc/transport_points.cu``),
+    whose eigensolve runs in registers (``ops.eigh3.eigh3_jacobi`` is its
+    mirror), allocating only the output; anything it does not take raises,
+    m > 3 with the route that takes it. An adaptive trip calls it once, so
+    the checks read each shape and stride tuple once."""
+    try:
+        N, m, m2 = H.shape
+        N2, d, m3, m4 = dH.shape
+        dev = H.device
+        ok = H.dtype == COMPLEX and dH.dtype == COMPLEX and dH.device == dev
+    except (AttributeError, ValueError):
+        ok = False
+    if not ok or not (m2 == m3 == m4 == m and N2 == N and 1 <= d <= 3):
+        raise ValueError(f"transport_points_eigh takes complex128 H (N, m, m) and dH (N, d <= 3, m, m) on one device, "
+                         f"got {tuple(getattr(H, 'shape', ()))} and {tuple(getattr(dH, 'shape', ()))}")
+    if not 1 <= m <= 3:
+        raise ValueError(f"transport_points_eigh takes m <= 3 bands, got {m}; above three bands "
+                         "transport_distribution_points takes eigh_chunked, then transport_points")
+    if not H.is_cuda:
+        if dev.type == "cpu":
+            return transport_points_eigh_plain(H, dH, om, eta)
+        raise ValueError(f"transport_points_eigh runs on cpu or cuda tensors, got {dev}")
+    sh, s1, s2 = H.stride()
+    sk, sj, s3, s4 = dH.stride()
+    if s2 != 1 or s1 != m or s4 != 1 or s3 != m:
+        raise ValueError("transport_points_eigh needs the (m, m) blocks of H and dH contiguous")
+    wt, ws, w0 = _point_values(om, "om", N, dev)
+    gt, gs, g0 = _point_values(eta, "eta", N, dev)
+    out = torch.empty((N, d, d), dtype=REAL, device=dev)
+    if N:
+        check_launch(load_kernels().transport_points_eigh_launch(
+            H.data_ptr(), sh, dH.data_ptr(), sk, sj, None if wt is None else wt.data_ptr(), ws, w0,
+            None if gt is None else gt.data_ptr(), gs, g0, out.data_ptr(), N, m, d, _INV_PI, stream_handle(dev)),
+            "transport_points_eigh")
+        transport_points_eigh.launches += 1
+    return out
+
+
+transport_points_eigh.launches = 0
+
+
 def transport_distribution_points(hv, om, eta=None):
     """:func:`transport_distribution` over a batch of points: ``hv.s`` is
     the pair (H (..., m, m), dH (..., d, m, m)) and ``om``, ``eta`` are one
-    value or one per point. ``eigh`` (in the chunks the card's solver takes,
-    the reference's own ``jnp.linalg.eigh``), then :func:`transport_points`
-    (K31 on the card). Returns (..., d, d) float64."""
-    from ..ops.eigh3 import eigh_chunked
-
+    value or one per point. On the card at m <= 3 one launch of K31's fused
+    entry (:func:`transport_points_eigh`: the eigensolve in registers);
+    otherwise ``eigh`` (in the chunks the card's solver takes, the
+    reference's own ``jnp.linalg.eigh``), then :func:`transport_points` (K31
+    on the card). Returns (..., d, d) float64."""
     H, V = hv.s
     m, d = H.shape[-1], V.shape[-3]
+    if m <= 3 and H.is_cuda:
+        batch = tuple(H.shape[:-2])
+        n = math.prod(batch)
+        if H.ndim != 3:  # an adaptive trip hands over (n, m, m)
+            H, V = H.reshape(n, m, m), V.reshape(n, d, m, m)
+
+        def per_point(x):
+            # to the batch's shape, as the CPU route takes it (the same inputs raise on both); a
+            # view: one value goes on as it is, n values with their strides
+            if isinstance(x, (int, float)):
+                return x
+            x = torch.as_tensor(x, dtype=REAL)
+            xb = torch.broadcast_to(x, batch).reshape(n)
+            return x if x.numel() == 1 else xb
+
+        G = transport_points_eigh(H, V, per_point(om), per_point(eta))
+        return G.reshape(batch + (d, d))
+    from ..ops.eigh3 import eigh_chunked
+
     batch = tuple(H.shape[:-2])
     e, U = eigh_chunked(H.reshape(-1, m, m))
     n = e.shape[0]
@@ -891,8 +1000,10 @@ def transport_integrand(h: FourierSeries, eta):
     symmetrize the rank-2 tensor (reference ``observables.py:199``). It
     takes whole batches of points (``batched=True``): a PTR rule sums it by
     its velocity pack and one K19 launch a solve (its lanes' frequencies at
-    once); an IAI leaf trip or a TAI trip is one :func:`transport_points`
-    call (K31), with one frequency or one per point."""
+    once); an IAI leaf trip or a TAI trip is one K31 call with one frequency
+    or one per point: on the card at m <= 3 one launch of its fused entry
+    :func:`transport_points_eigh`, otherwise ``eigh`` then
+    :func:`transport_points`."""
     fi = FourierIntegrand(transport_distribution_points, JacobianSeries(h), eta=eta, batched=True)
     fi.rep = LatticeRep()
     return fi

@@ -54,6 +54,8 @@ def _bind(lib):
     lib.fourier_points_derivs_launch.restype = i
     lib.band_velocity_launch.argtypes = [vp, vp, vp, ll, i, i, ll, ll, vp]
     lib.band_velocity_launch.restype = i
+    lib.band_velocity_eigh_launch.argtypes = [vp, vp, vp, ll, i, i, vp]
+    lib.band_velocity_eigh_launch.restype = i
     lib.ggr_dos_launch.argtypes = [i, vp, vp, vp, vp, ll, i, vp, i, dbl, dbl, dbl, vp, vp, vp]
     lib.ggr_dos_launch.restype = i
     lib.dos_trace_num_chunks.argtypes = [ll]
@@ -173,6 +175,8 @@ def _bind(lib):
     lib.transport_points_max_bands.restype = i
     lib.transport_points_launch.argtypes = [vp] * 6 + [ll, i, i, ll, ll, dbl, vp]
     lib.transport_points_launch.restype = i
+    lib.transport_points_eigh_launch.argtypes = [vp, ll, vp, ll, ll, vp, ll, dbl, vp, ll, dbl, vp, ll, i, i, dbl, vp]
+    lib.transport_points_eigh_launch.restype = i
     return lib
 
 

@@ -11,11 +11,18 @@ CUDA tensors with m <= 3 it launches the kernel (one thread per matrix, the
 same closed forms); on CPU tensors it runs ``eigvalsh_small_plain``. The
 reference's split-complex ``eigvalsh3_split`` is TPU emulation and is not
 ported (ROADMAP "Not to port").
+
+``eigh3_jacobi`` is the PyTorch mirror of the register eigensolver that K12's
+and K31's fused entries run for m <= 3 (``csrc/small_eigen.cuh``
+``eigh_rn``): the same correctly rounded operations in the same order, so
+the two agree bit for bit. Its m = 2 form is ``eigh2``, which K21 and K30
+run on the card too.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .._device import COMPLEX, REAL, check_tensor
@@ -52,31 +59,36 @@ def eigvalsh2(h):
 def eigh2(h):
     """Closed-form eigendecomposition of batched Hermitian 2x2 ``h``: ``(e,
     U)`` with ascending eigenvalues and unitary ``U`` (columns are
-    eigenvectors).
+    eigenvectors), from h's diagonal and h_01 (the reference's reads).
 
     Branch-stable: the upper-band eigenvector uses ``[d + r, conj(b)]`` for
     ``d >= 0`` and ``[b, r - d]`` otherwise, with an identity fallback at
-    exact degeneracy r = 0."""
-    a = h[..., 0, 0].real
-    c = h[..., 1, 1].real
+    exact degeneracy r = 0. The correctly rounded operations of the card's
+    form (``csrc/small_eigen.cuh`` ``eigh_rn<2>``, K21's, K30's and the
+    fused entries'), so the two agree bit for bit."""
     b = h[..., 0, 1]
-    d = (a - c) / 2
-    r = torch.sqrt(d**2 + b.abs() ** 2)
-    mean = (a + c) / 2
-    e = torch.stack([mean - r, mean + r], dim=-1)
+    return _eigh2_rn(h[..., 0, 0].real, h[..., 1, 1].real, b.real, b.imag)
 
-    pos = d >= 0
-    v0 = torch.where(pos, (d + r).to(h.dtype), b)
-    v1 = torch.where(pos, b.conj(), (r - d).to(h.dtype))
-    n = torch.sqrt(v0.abs() ** 2 + v1.abs() ** 2)
-    ok = n > 0
-    nsafe = torch.where(ok, n, torch.ones_like(n))
-    # degenerate (r = 0): any orthonormal pair works; use the identity
-    up0 = torch.where(ok, v0 / nsafe, torch.zeros_like(v0))
-    up1 = torch.where(ok, v1 / nsafe, torch.ones_like(v1))
-    lo0 = -up1.conj()
-    lo1 = up0.conj()
-    U = torch.stack([torch.stack([lo0, up0], dim=-1), torch.stack([lo1, up1], dim=-1)], dim=-2)
+
+def _eigh2_rn(d0, d1, br, bi):
+    """eigh2 of the Hermitian 2x2 with diagonal (d0, d1) and h_01 = br + i bi
+    in the card's order of correctly rounded operations."""
+    one, zero = torch.ones_like(d0), torch.zeros_like(d0)
+    dd = (d0 - d1) * 0.5
+    r = _sqrt_rn(dd * dd + (br * br + bi * bi))
+    mean = (d0 + d1) * 0.5
+    e = torch.stack([mean - r, mean + r], dim=-1)
+    pos = dd >= 0.0
+    v0r, v0i = torch.where(pos, dd + r, br), torch.where(pos, zero, bi)
+    v1r, v1i = torch.where(pos, br, r - dd), torch.where(pos, -bi, zero)
+    nrm = _sqrt_rn((v0r * v0r + v0i * v0i) + (v1r * v1r + v1i * v1i))
+    ok = nrm > 0.0
+    n = torch.where(ok, nrm, one)
+    u0r, u0i = torch.where(ok, v0r / n, zero), torch.where(ok, v0i / n, zero)
+    u1r, u1i = torch.where(ok, v1r / n, one), torch.where(ok, v1i / n, zero)
+    # lower band (-conj(up1), conj(up0)), upper band (up0, up1)
+    U = torch.stack([torch.stack([torch.complex(-u1r, u1i), torch.complex(u0r, u0i)], dim=-1),
+                     torch.stack([torch.complex(u0r, -u0i), torch.complex(u1r, u1i)], dim=-1)], dim=-2)
     return e, U
 
 
@@ -197,6 +209,123 @@ def eigh_chunked(h):
         parts = [torch.linalg.eigh(flat[s:s + EIGH_CHUNK]) for s in range(0, flat.shape[0], EIGH_CHUNK)]
         e, U = torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
     return e.reshape(batch + (m,)), U.reshape(batch + (m, m))
+
+
+# the register eigensolver's constants (csrc/small_eigen.cuh): its fixed
+# sweep count, and eps^2 (eps = 2^-52) of its skip test |h_pq|^2 <= eps^2
+# ||H||_F^2
+JACOBI_SWEEPS = 5
+_EPS2 = 2.0**-104
+
+
+def _hermitian_parts(h):
+    """The Hermitian part of (..., m, m) ``h`` as the register solver reads
+    it: the real diagonal (d_0, ..) and the upper off-diagonals ``(h_il +
+    conj(h_li)) / 2`` at (0, 1), (0, 2), (1, 2) as (real, imag) pairs."""
+    m = h.shape[-1]
+    d = [h[..., i, i].real for i in range(m)]
+    o = [((h[..., i, l].real + h[..., l, i].real) * 0.5, (h[..., i, l].imag - h[..., l, i].imag) * 0.5)
+         for i in range(m) for l in range(i + 1, m)]
+    return d, o
+
+
+def _sqrt_rn(x):
+    """The correctly rounded square root, as the card's: ``torch.sqrt`` on
+    CUDA tensors; on CPU tensors numpy's, since torch's vectorized CPU sqrt
+    misses the correctly rounded value by an ulp on ~1 % of float64 inputs."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
+    return torch.sqrt(x)
+
+
+def _rotate_pair(c, sr, si, x, y):
+    (xr, xi), (yr, yi) = x, y
+    return ((c * xr - (sr * yr + si * yi), c * xi - (sr * yi - si * yr)),
+            ((sr * xr - si * xi) + c * yr, (sr * xi + si * xr) + c * yi))
+
+
+def _jacobi_rotate(d, o, U, p, q, k, x, y, tol2):
+    """The mirror of ``jacobi_rotate<P, Q>``: the pair (p, q) whose h_pq is
+    o[k], with (x, y) = (A_rp, A_rq); updates d, o[k] and U in place where
+    |h_pq|^2 > tol2 and returns the new (x, y)."""
+    gr, gi = o[k]
+    g2 = gr * gr + gi * gi
+    act = g2 > tol2
+    a = torch.where(act, _sqrt_rn(g2), torch.ones_like(g2))
+    ia = 1.0 / a
+    er, ei = gr * ia, gi * ia
+    th = (d[q] - d[p]) / (a + a)
+    t = 1.0 / (th.abs() + _sqrt_rn(th * th + 1.0))
+    t = torch.where(th < 0.0, -t, t)
+    c = 1.0 / _sqrt_rn(t * t + 1.0)
+    s = t * c
+    ta = t * a
+    d[p] = torch.where(act, d[p] - ta, d[p])
+    d[q] = torch.where(act, d[q] + ta, d[q])
+    zero = torch.zeros_like(gr)
+    o[k] = (torch.where(act, zero, gr), torch.where(act, zero, gi))
+    sr, si = s * er, s * ei
+
+    def keep(new, old):
+        return tuple(torch.where(act, n, v) for n, v in zip(new, old))
+
+    nx, ny = _rotate_pair(c, sr, si, x, y)
+    for i in range(3):
+        up, uq = _rotate_pair(c, sr, si, U[i][p], U[i][q])
+        U[i][p], U[i][q] = keep(up, U[i][p]), keep(uq, U[i][q])
+    return keep(nx, x), keep(ny, y)
+
+
+def _conj(z):
+    return z[0], -z[1]
+
+
+def eigh3_jacobi(h):
+    """Eigendecomposition ``(e (..., m), U (..., m, m))`` of the Hermitian
+    part of complex128 ``h`` (..., m, m) for m <= 3, ascending, eigenvectors
+    in columns: the PyTorch mirror of the register eigensolver of K12's and
+    K31's fused entries (``csrc/small_eigen.cuh`` ``eigh_rn``), batched over
+    the leading dimensions, the same operations in the same order. m = 1 is
+    trivial; m = 2 the reference's branch-stable :func:`eigh2` on the
+    Hermitian part; m = 3 a cyclic complex Jacobi: rotations (0, 1), (0, 2),
+    (1, 2) with the stable tangent, each skipped where |h_pq| <= eps
+    ||H||_F, :data:`JACOBI_SWEEPS` sweeps, then an ascending sort with the
+    vectors (equal eigenvalues keep their order)."""
+    m = h.shape[-1]
+    if h.ndim < 2 or h.shape[-2] != m or not 1 <= m <= 3:
+        raise ValueError(f"eigh3_jacobi takes (..., m, m) matrices with m <= 3, got {tuple(h.shape)}")
+    d, o = _hermitian_parts(h)
+    one, zero = torch.ones_like(d[0]), torch.zeros_like(d[0])
+    if m == 1:
+        return d[0][..., None], torch.complex(one, zero)[..., None, None]
+    if m == 2:
+        (br, bi), = o
+        return _eigh2_rn(d[0], d[1], br, bi)
+    f2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+    o2 = ((o[0][0] * o[0][0] + o[0][1] * o[0][1]) + (o[1][0] * o[1][0] + o[1][1] * o[1][1])) \
+        + (o[2][0] * o[2][0] + o[2][1] * o[2][1])
+    f2 = f2 + (o2 + o2)
+    tol2 = _EPS2 * f2
+    U = [[(one if i == j else zero, zero) for j in range(3)] for i in range(3)]
+    for _ in range(JACOBI_SWEEPS):
+        # (0, 1), r = 2: x = A_20 = conj(o_02), y = A_21 = conj(o_12)
+        x, y = _jacobi_rotate(d, o, U, 0, 1, 0, _conj(o[1]), _conj(o[2]), tol2)
+        o[1], o[2] = _conj(x), _conj(y)
+        # (0, 2), r = 1: x = A_10 = conj(o_01), y = A_12 = o_12
+        x, o[2] = _jacobi_rotate(d, o, U, 0, 2, 1, _conj(o[0]), o[2], tol2)
+        o[0] = _conj(x)
+        # (1, 2), r = 0: x = A_01 = o_01, y = A_02 = o_02
+        o[0], o[1] = _jacobi_rotate(d, o, U, 1, 2, 2, o[0], o[1], tol2)
+    e = list(d)
+    for a, b in ((0, 1), (1, 2), (0, 1)):
+        swap = e[a] > e[b]
+        e[a], e[b] = torch.where(swap, e[b], e[a]), torch.where(swap, e[a], e[b])
+        for i in range(3):
+            ua, ub = U[i][a], U[i][b]
+            U[i][a] = tuple(torch.where(swap, v, w) for v, w in zip(ub, ua))
+            U[i][b] = tuple(torch.where(swap, v, w) for v, w in zip(ua, ub))
+    Ut = torch.stack([torch.stack([torch.complex(*U[i][j]) for j in range(3)], dim=-1) for i in range(3)], dim=-2)
+    return torch.stack(e, dim=-1), Ut
 
 
 def eigh_small(h):

@@ -136,11 +136,21 @@ non-zero):
    ``torch.einsum``), K13 in both modes on the flagship's spectral grid at
    1001 energies over [-6, 7] eV and in box mode at the bands30 shape; max
    relative error <= 1e-12, bit-identical on repeat; kernel, plain and bound
-   times;
+   times; K12's fused entry (the eigensolve in registers) at the flagship's
+   1e6 points and on hard matrices at m = 1, 2, 3 (exactly degenerate pairs,
+   gaps of 1e-9 of the scale, scalar and zero H): energies against its
+   mirror ``eigh3_jacobi`` (1e-13 of the energy scale) and cuSOLVER's
+   (1e-12), velocities against the mirror's eigenvectors' (1e-13 of
+   max|v|) and cuSOLVER's by each band's gap g (1e-13 / g of max|v| for g
+   >= 1e-6, a cluster's sum to 1e-12 below), bit-identical repeats; its time
+   three ways at 1e6 points and a 4,096-point chunk, plain, library (eigh,
+   then ``torch.einsum``) and bound;
 20. GGR main path: the flagship GGR(npt=100) on the full zone through
    DOSProblem/init/dos_sweep at phase 15's 1001 energies, then
    AdaptiveGaussianBroadening(npt=100); init and sweep walls, K11-K13
-   launches, the init by event time with cuSOLVER's eigh share, peak memory,
+   launches (each init one K11 and one fused K12 launch, and no cuSOLVER
+   eigh call, or the phase fails), the init by event time beside the time
+   cuSOLVER's eigh would take over its chunks, peak memory,
    eigh's time and one call's memory in calls of EIGH_CHUNK and of 16,384;
    checks: both DOS integrate to 3 bands (2e-2), GGR against phase 15's LTM
    DOS 0.3 eV from the band edges (3e-2 of max|D|), tb_integer(3) GGR(npt=60)
@@ -280,7 +290,11 @@ non-zero):
    K30 (band expectations) fused with eigh2 on Haldane, with the three
    orbital projectors on the flagship and on Kane-Mele with Rashba coupling,
    K31 (the transport distribution at points) at the largest leaf trip of
-   phase 32's graphene IAI solve, K27's matrix mode on the flagship's 1e6
+   phase 32's Kane-Mele IAI solve (m = 4, the only shape the path sends its
+   first entry), its fused entry (the eigensolve in registers) at that of
+   the graphene solve and on hard matrices at m = 1, 2, 3 against the plain
+   route (eigh, then K31's plain version; 1e-12), timed three ways beside
+   the integrand's call and eigh_chunked, K27's matrix mode on the flagship's 1e6
    points x 264 lanes z = w + i eta (its trace against K2; 64 lanes at eta
    1e-3, half on poles, each also alone; the general route, a Z matrix a
    lane, on 32) and its pointwise entry at the PTR(48) points (one z, one
@@ -299,8 +313,10 @@ non-zero):
    AutoPTR_IAI at one omega with both counts; the transport integrand under
    PTR(100) at 256 omegas against TransportSolver (1e-12) and under AutoPTR
    up to npt 300 at 32 omegas, tb_integer(3) on the cubic wedge against the
-   full zone (1e-8) and graphene under IAI card against CPU (1e-10, equal
-   counts); spectral_function under PTR(100) at 264 omegas (its trace
+   full zone (1e-8) and under IAI card against CPU (1e-10, equal counts,
+   walls): graphene and a 3-band model (synthetic_wannier(3, nr=3, ndim=2,
+   seed=3), abstol 1e-3) with one fused K31 launch a trip and no cuSOLVER
+   eigh call, and Kane-Mele (m = 4) on eigh and K31; spectral_function under PTR(100) at 264 omegas (its trace
    against the PTR DOS, 1e-12; Hermitian, 1e-14) and batched under IAI on
    graphene card against CPU; the k-path's band structure, spectral map
    (its sum rule on a wide grid) and projector expectations (summing to
@@ -394,6 +410,37 @@ LORENTZ_FLOPS = 13
 # (csrc/small_eigen.cuh): ~60 multiplies and adds, a square root and three
 # divisions at 8 each, and arccos and two cosines at ~40 each
 EIG3_FLOPS = 210
+# FP64 operations (an FMA counts 2) of the register eigensolver
+# (csrc/small_eigen.cuh eigh_rn), a division or square root counted 8: the
+# Hermitian part 4 an off-diagonal; m = 2 (eigh2) 67; m = 3 ||H||_F^2 19, a
+# rotation 154 (|h_pq|^2 3, two square roots and three divisions, the
+# tangent's and the phase's products 16, and four pairs of the (x, y) update,
+# 20 each) or 4 where it is skipped, the sort 3. The rotations that fire
+# depend on the data: the count takes all 15 of the five sweeps, the most
+# they can need, and is an upper bound.
+EIGH_ROTATION_FLOPS = 154
+
+
+def eigh_rn_flops(m):
+    from autobzcore_torch.ops.eigh3 import JACOBI_SWEEPS
+
+    load = 4 * m * (m - 1) // 2
+    return load + {1: 0, 2: 67, 3: 19 + 3 * JACOBI_SWEEPS * EIGH_ROTATION_FLOPS + 3}[m]
+
+
+def k12_eigh_flops(m, d):
+    """K12's fused entry a point: the eigensolve, then d m quadratic forms,
+    5 a diagonal term and 12 an upper pair (w, the two sums, two FMAs)."""
+    return eigh_rn_flops(m) + d * m * (5 * m + 12 * m * (m - 1) // 2)
+
+
+def k31_eigh_flops(m, d):
+    """K31's fused entry a point: the eigensolve; per direction the
+    Hermitian part, T = S U (2 + 8 (m - 1) an entry) and the upper triangle of
+    U^H T (8 m an entry); m Lorentzians; the d (d + 1) / 2 sums (4 a band, 6
+    an upper pair)."""
+    per_a = 4 * m * (m - 1) // 2 + m * m * (2 + 8 * (m - 1)) + m * (m + 1) // 2 * 8 * m
+    return eigh_rn_flops(m) + d * per_a + m * LORENTZ_RECIP_FLOPS + d * (d + 1) // 2 * (4 * m + 6 * m * (m - 1) // 2)
 FULLGRID_OMEGAS = 1000
 FULLGRID_ABSTOL = 1e-3
 FULLGRID_NMIN, FULLGRID_NMAX = 400, 2000  # the ladder; phase 7's PTR runs at FULLGRID_NMIN
@@ -1061,6 +1108,42 @@ def nbytes(*ts):
 def random_hermitian(rng, K, m):
     a = rng.normal(size=(K, m, m)) + 1j * rng.normal(size=(K, m, m))
     return (a + a.conj().transpose(0, 2, 1)) / 2
+
+
+def hard_hermitian(np, rng, K, m, scale):
+    """K Hermitian m x m matrices at ``scale``, then (m > 1) as many exactly
+    degenerate pairs and pairs 1e-9 of the scale apart (rotated by random
+    unitaries), K scalar matrices and K / 10 zeros."""
+    parts = [random_hermitian(rng, K, m)]
+    if m > 1:
+        Q, _ = np.linalg.qr(rng.normal(size=(K, m, m)) + 1j * rng.normal(size=(K, m, m)))
+        for gap in (0.0, 1e-9):
+            e = np.sort(rng.uniform(-1, 1, size=(K, m)), axis=1)
+            e[:, 1] = e[:, 0] + gap
+            parts.append(np.einsum("kij,kj,klj->kil", Q, e, Q.conj()))
+    parts.append(np.eye(m)[None] * rng.normal(size=(K, 1, 1)) + 0j)
+    parts.append(np.zeros((K // 10, m, m), complex))
+    return np.concatenate(parts) * scale
+
+
+def velocity_errors(np, e, v, pv, scale, vmax):
+    """Per-band velocities v against pv (numpy, (K, d, m); e (K, m) the plain
+    route's ascending energies): the largest |v - pv| over its tolerance 1e-13
+    / min(g, 1) max|v| among bands whose gap g to their nearest neighbour
+    (over the energy scale) is at least 1e-6, and the largest error of a cluster's sum
+    (bands closer than that) over max|v|; each must be at most 1 and 1e-12."""
+    K, m = e.shape
+    g = np.full((K, m), np.inf)
+    de = np.diff(e, axis=1) / scale
+    if m > 1:
+        g[:, 1:] = de
+        g[:, :-1] = np.minimum(g[:, :-1], de)
+    sep = g >= 1e-6
+    ratio = np.abs(v - pv) / (1e-13 / np.minimum(np.where(sep, g, 1.0), 1.0) * vmax)[:, None, :]
+    worst = float(np.max(np.where(sep[:, None, :], ratio, 0.0), initial=0.0))
+    label = np.concatenate([np.zeros((K, 1), int), np.cumsum(de >= 1e-6, axis=1)], axis=1)
+    cl = max(float(np.abs(((v - pv) * (label == c)[:, None, :]).sum(-1)).max()) for c in range(m)) / vmax
+    return worst, cl
 
 
 def chebinterp_integral(interp):
@@ -2928,6 +3011,78 @@ def k11_phase(np, torch, dev, h):
             "Xg": Xg, "J": J, "J30": J30, "s30": s30, "X30": X30, "reps30": reps30}
 
 
+def k12_fused_phase(np, torch, dev, J):
+    """Phase 19's K12 fused entry (``dos.ggr.band_velocity_eigh``): at the
+    path's shape, K11's output J at the flagship's 1e6 points (one GGR init
+    chunk), and on hard H (``hard_hermitian``) with random dH at m = 1, 2, 3:
+    the energies against the register solver's mirror (``eigh3_jacobi``,
+    1e-13 of the energy scale, and whether bit-equal) and against the plain
+    route's (cuSOLVER's eigh, 1e-12), the velocities against the mirror's
+    eigenvectors' (1e-13 of max|v|) and the plain route's by each band's gap
+    (``velocity_errors``), bit-identical repeats. Then K12's fused entry three ways at the path's 1e6 points and at
+    a 4,096-point chunk, with the plain route (eigh_chunked, then the
+    einsum) and the library route (``torch.linalg.eigh`` in the chunks it
+    takes, then ``torch.einsum``) and the bound. Returns the numbers."""
+    from autobzcore_torch.dos import ggr as G
+    from autobzcore_torch.ops.eigh3 import EIGH_CHUNK, eigh3_jacobi
+
+    def check(tag, Jm):
+        e, v = G.band_velocity_eigh(Jm)
+        e2, v2 = G.band_velocity_eigh(Jm)
+        if not (torch.equal(e, e2) and torch.equal(v, v2)):
+            fail(f"K12 band_velocity_eigh ({tag}): two runs on the same inputs differ")
+        me, mU = eigh3_jacobi(Jm[:, 0])
+        mv = G.band_velocity_plain(mU, Jm[:, 1:])
+        del mU
+        pe, pv = G.band_velocity_eigh_plain(Jm)
+        scale = float(pe.abs().max()) or 1.0
+        vmax = float(mv.abs().max()) or 1.0
+        r = {"points": Jm.shape[0], "e_bits": bool(torch.equal(e, me)),
+             "e_mirror": float((e - me).abs().max()) / scale, "v_mirror": float((v - mv).abs().max()) / vmax,
+             "e_plain": float((e - pe).abs().max()) / scale}
+        r["v_gap"], r["v_cluster"] = velocity_errors(np, pe.cpu().numpy(), v.cpu().numpy(), pv.cpu().numpy(), scale,
+                                                     vmax)
+        r["err"] = float((v - pv).abs().max())
+        if not (r["e_mirror"] <= 1e-13 and r["v_mirror"] <= 1e-13 and r["e_plain"] <= 1e-12 and r["v_gap"] <= 1.0
+                and r["v_cluster"] <= 1e-12):
+            fail(f"K12 band_velocity_eigh ({tag}): {r}")
+        return r
+
+    out = {"path": check(f"the flagship's {J.shape[0]} points", J)}
+    rng = np.random.default_rng(1219)
+    scale = float(J[:, 0].abs().max())
+    for m in (1, 2, 3):
+        H = hard_hermitian(np, rng, 4096, m, scale)
+        K = H.shape[0]
+        Jm = torch.as_tensor(np.stack([H] + [random_hermitian(rng, K, m) for _ in range(3)], axis=1), device=dev)
+        out[f"hard{m}"] = check(f"hard matrices, m = {m}", Jm)
+    print("K12 band_velocity_eigh against the mirror and the plain route (e / v as fractions of the energy scale "
+          "and max|v|; v_gap the worst |dv| over its 1e-13 / min(g, 1) max|v| tolerance, v_cluster a cluster's sum): "
+          + "; ".join(f"{tag}: {v}" for tag, v in out.items()), flush=True)
+
+    C = EIGH_CHUNK
+    Jc = J[:C].contiguous()
+    K = J.shape[0]
+
+    def library():
+        parts = [torch.linalg.eigh(J[s:s + C, 0]) for s in range(0, K, C)]
+        U = torch.cat([p[1] for p in parts])
+        return torch.cat([p[0] for p in parts]), torch.einsum("kim,kdij,kjm->kdm", U.conj(), J[:, 1:], U).real
+
+    t = three_ways(lambda: G.band_velocity_eigh(J), 10)
+    t.update(plain_ms=once_ms(lambda: G.band_velocity_eigh_plain(J)), library_ms=cuda_ms(library, 2),
+             chunk=three_ways(lambda: G.band_velocity_eigh(Jc), 50))
+    b = bound(K * k12_eigh_flops(3, 3), nbytes(J) + 8 * K * 3 * 4)
+    bc = bound(C * k12_eigh_flops(3, 3), nbytes(Jc) + 8 * C * 3 * 4)
+    t.update(bound=b, chunk_bound_ms=bc[0], err=out["path"]["err"])
+    print(f"K12 band_velocity_eigh at the GGR init's {K} points (m = 3, d = 3): {three_text(t)}, "
+          f"{100 * b[0] / t['ms']:.1f} % of its bound {b[0]:.4f} ms by {b[1]} (operations at most "
+          f"{K * k12_eigh_flops(3, 3) / PEAK_FP64 * 1e3:.4f} ms); plain route {t['plain_ms']:.3f} ms, the library "
+          f"route (torch.linalg.eigh in {-(-K // C)} calls, torch.einsum) {t['library_ms']:.3f} ms; at a {C}-point "
+          f"chunk {three_text(t['chunk'])}, bound {bc[0]:.5f} ms", flush=True)
+    return t
+
+
 def ggr_phases(np, torch, dev, h, ltm_dos):
     """Phases 19-21: K11-K13 against their plain versions, the GGR and AGB
     main path at the flagship, and BASELINE config 5. Returns the kernels'
@@ -2979,6 +3134,7 @@ def ggr_phases(np, torch, dev, h, ltm_dos):
                                    PEAK_FP64_MMA),
                     "K": K}
     del J30
+    t12f = k12_fused_phase(np, torch, dev, J.reshape(-1, 4, 3, 3))
     print("K12 band_velocity on eigh's vectors of one init chunk: " + "; ".join(
         f"{tag} ({t['K']} points, m = {m}): max rel vs plain {t['rel']:.3e} (<= 1e-12), repeat bit-identical, "
         f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, torch.einsum {t['library_ms']:.4f} ms, bound "
@@ -3063,22 +3219,28 @@ def ggr_phases(np, torch, dev, h, ltm_dos):
 
     def counts():
         return {"fourier_points_derivs": fe.fourier_points_derivs.launches,
-                "band_velocity": G.band_velocity.launches, "ggr_box_sum": G.ggr_box_sum.launches,
-                "gaussian_sum": G.gaussian_sum.launches}
+                "band_velocity": G.band_velocity.launches, "band_velocity_eigh": G.band_velocity_eigh.launches,
+                "ggr_box_sum": G.ggr_box_sum.launches, "gaussian_sum": G.gaussian_sum.launches}
 
     def zero_counts():
-        fe.fourier_points_derivs.launches = G.band_velocity.launches = 0
+        fe.fourier_points_derivs.launches = G.band_velocity.launches = G.band_velocity_eigh.launches = 0
         G.ggr_box_sum.launches = G.gaussian_sum.launches = 0
 
     zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    ggr, cache, D, agb, cache_a, Da, (t0, t1, t2, t3, t4) = ggr_path()
+    with EighCount() as n_eigh:
+        ggr, cache, D, agb, cache_a, Da, (t0, t1, t2, t3, t4) = ggr_path()
     launches = counts()
     peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-    if min(launches.values()) <= 0:
-        fail(f"the GGR main path did not go through every kernel: {launches}")
+    # at m = 3 each init is one K11 and one fused K12 launch (the grid is one chunk), with no cuSOLVER call
+    inits = 2 * -(-NPT**3 // G.FUSED_CHUNK)
+    if not (launches["fourier_points_derivs"] == launches["band_velocity_eigh"] == inits
+            and launches["band_velocity"] == 0 and launches["ggr_box_sum"] > 0 and launches["gaussian_sum"] > 0
+            and n_eigh.calls == 0):
+        fail(f"the GGR main path: launches {launches} (K11 and fused K12 {inits} each), eigh calls {n_eigh.calls} "
+             "(0 at m = 3)")
     # the init by event time, and cuSOLVER's eigh in it over the same chunks
     t_init = cuda_ms(lambda: G.spectral_grid(h, bz, NPT), 2)
     Hs = [fe.fourier_points_derivs(h.c, Xg[s:s + C], h.offset, h.period, orders)[:, 0].reshape(-1, 3, 3)
@@ -3086,13 +3248,15 @@ def ggr_phases(np, torch, dev, h, ltm_dos):
     t_eigh = cuda_ms(lambda: [torch.linalg.eigh(x) for x in Hs], 2)
     # the chunk's trade-off: eigh time and one call's memory at the chunk and at the cap
     eigh_cost = eigh_chunk_cost(torch, torch.cat(Hs)[:EIGH_CAP], (C, EIGH_CAP))
+    n_chunks = len(Hs)
     del Hs
     e = cache.cacheval["energies"]
     edges = np.concatenate([e.min(0).values.cpu().numpy(), e.max(0).values.cpu().numpy()])
     print(f"GGR main path: flagship GGR(npt={NPT}) then AdaptiveGaussianBroadening(npt={NPT}), FBZ, "
           f"{LTM_ENERGIES} energies in {list(WINDOW)}: GGR init {t1 - t0:.4f} s, dos_sweep {t2 - t1:.4f} s; AGB init "
-          f"{t3 - t2:.4f} s, dos_sweep {t4 - t3:.4f} s; GGR init by event time {t_init:.3f} ms, cuSOLVER eigh "
-          f"{t_eigh:.3f} ms of it ({100 * t_eigh / t_init:.1f} %); launches {launches}; peak device memory "
+          f"{t3 - t2:.4f} s, dos_sweep {t4 - t3:.4f} s; GGR init by event time {t_init:.3f} ms (cuSOLVER eigh of its "
+          f"{n_chunks} {C}-point chunks alone {t_eigh:.3f} ms, not on its route at m = 3); launches {launches}, "
+          f"cuSOLVER eigh calls {n_eigh.calls}; peak device memory "
           f"{peak:.1f} MiB above what earlier phases hold; eigh of {EIGH_CAP} of its matrices {eigh_cost_text(eigh_cost)}; "
           f"bands {np.round(edges, 4).tolist()}", flush=True)
     integral, integral_a = float(np.trapezoid(D, ws)), float(np.trapezoid(Da, ws))
@@ -3180,21 +3344,224 @@ def ggr_phases(np, torch, dev, h, ltm_dos):
     del c30
     torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, t, b, library_ms):
+    def entry(name, source, replaces, t, b, library_ms, counted=None):
         return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
+                "launches": (launches if counted is None else counted)[name], "max_abs_err": t["err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
 
     numbers = {"k13": {tag: {k: v for k, v in t.items() if k != "bound"} for tag, t in t13.items()},
                "ggr_init_s": t1 - t0, "ggr_sweep_s": t2 - t1, "agb_init_s": t3 - t2, "agb_sweep_s": t4 - t3,
-               "bands30_init_s": t1_30 - t0_30, "bands30_sweep_s": t2_30 - t1_30}
+               "bands30_init_s": t1_30 - t0_30, "bands30_sweep_s": t2_30 - t1_30,
+               "k12_eigh": {k: v for k, v in t12f.items() if k != "bound"}, "ggr_eigh_calls": n_eigh.calls}
+    # K12's first entry is on the main path above three bands (config 5); its fused entry at m <= 3
     return [entry("fourier_points_derivs", "fourier_points.cu", "autobzcore_tpu/ops/fourier_eval.py:115",
                   dict(t11, err=err11), b11, t11["library_ms"]),
-            entry("band_velocity", "band_velocity.cu", "autobzcore_tpu/dos/ggr.py:278", t12["flagship"],
-                  t12["flagship"]["bound"], t12["flagship"]["library_ms"]),
+            entry("band_velocity", "band_velocity.cu", "autobzcore_tpu/dos/ggr.py:278", t12["bands30"],
+                  t12["bands30"]["bound"], t12["bands30"]["library_ms"], launches30),
+            entry("band_velocity_eigh", "band_velocity.cu", "autobzcore_tpu/dos/ggr.py:276", t12f, t12f["bound"],
+                  t12f["library_ms"]),
             entry("ggr_box_sum", "ggr_dos.cu", "autobzcore_tpu/dos/ggr.py:30", t13["box"], t13["box"]["bound"], None),
             entry("gaussian_sum", "ggr_dos.cu", "autobzcore_tpu/dos/tetrahedron.py:325", t13["gauss"],
                   t13["gauss"]["bound"], None)], numbers
+
+
+def kane_mele_transport(device):
+    """Phase 32's Kane-Mele model with Rashba coupling (m = 4), whose
+    transport trips take eigh and K31's first entry."""
+    from autobzcore_torch.models.tight_binding import tb_kane_mele
+
+    return tb_kane_mele(lam_so=0.08, lam_r=0.08, device=device)
+
+
+def iai_transport_trip(np, torch, dev, build=None):
+    """The largest leaf trip of one of phase 32's IAI transport solves (eta
+    0.3, omega 0.5, abstol 1e-2) on the card, of the model ``build(device=)``
+    (tb_graphene where None): its H (N, m, m) and dH (N, 2, m, m), views of
+    one K11 output as the solve hands them over, and its om, recorded from
+    one solve."""
+    from autobzcore_torch import IAI, FBZ, FourierIntegrand, IntegralProblem, JacobianSeries, MixedParameters, load_bz
+    from autobzcore_torch import solve
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.models.tight_binding import tb_graphene
+
+    build = build or tb_graphene
+    trip = {}
+
+    def recording(hv, om, eta=None):
+        H, V = hv.s
+        if H.shape[0] > trip.get("n", 0):
+            J = torch.cat([H[:, None], V], dim=1)  # one (N, 1 + d, m, m) tensor, as K11 writes it
+            trip.update(n=H.shape[0], H=J[:, 0], V=J[:, 1:], om=om)
+        return obs.transport_distribution_points(hv, om, eta=eta)
+
+    solve(IntegralProblem(FourierIntegrand(recording, JacobianSeries(build(device=dev)), eta=0.3, batched=True),
+                          load_bz(FBZ(), np.eye(2)), MixedParameters(0.5)), IAI(device=dev), abstol=1e-2)
+    return trip
+
+
+class EighCount:
+    """Counts ``torch.linalg.eigh`` calls (cuSOLVER's batched eigh on the
+    card) while the block runs: ``calls`` after it."""
+
+    def __enter__(self):
+        import torch
+
+        self.torch, self.real, self.calls = torch, torch.linalg.eigh, 0
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self.real(*args, **kw)
+
+        torch.linalg.eigh = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.linalg.eigh = self.real
+        return False
+
+
+def eigh_route_phase(np, torch, dev, h, walls=3):
+    """The route around K12 and K31, on a checkout with or without their
+    fused entries (``dos.ggr.band_velocity_eigh``,
+    ``models.observables.transport_points_eigh``; ``tools/kernel_ab.py
+    --phases eigh``): at one GGR init chunk (the first EIGH_CHUNK points of
+    the flagship's npt=100 grid) cuSOLVER's eigh, the ``.contiguous()`` copy
+    of its U and K12, each three ways (by events, device time, host us); the
+    GGR and AGB init walls (``walls`` runs each after a warm-up) with
+    their eigh calls and, where there are some, cuSOLVER's share of the
+    init by events; at the largest leaf trip of phase 32's graphene IAI
+    transport solve, eigh_chunked, K31 and the integrand's call three ways;
+    then that solve's wall (``walls`` runs), its K31 launches (one a trip),
+    eigh calls and, from one more solve under torch.profiler, its device
+    activities (kernels and copies). Where the fused entries exist, each three ways at the same
+    shapes and K12's at the 1e6 points of the grid with its bound. Returns
+    the numbers."""
+    from types import SimpleNamespace
+
+    from autobzcore_torch import FBZ, GGR, IAI, DOSProblem, IntegralProblem, MixedParameters, load_bz, solve
+    from autobzcore_torch.algorithms.ptr import frac_nodes
+    from autobzcore_torch.dos import AdaptiveGaussianBroadening
+    from autobzcore_torch.dos import ggr as G
+    from autobzcore_torch.dos import init as dos_init
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.models.tight_binding import tb_graphene
+    from autobzcore_torch.ops import fourier_eval as fe
+    from autobzcore_torch.ops.eigh3 import EIGH_CHUNK as C
+    from autobzcore_torch.ops.eigh3 import eigh_chunked
+
+    fused12 = getattr(G, "band_velocity_eigh", None)
+    fused31 = getattr(obs, "transport_points_eigh", None)
+    out = {"fused": fused12 is not None and fused31 is not None}
+    bz = load_bz(FBZ(), np.eye(3))
+    orders = fe.jacobian_orders(3)
+    Xg = (frac_nodes(NPT, 3, dev) * torch.as_tensor(h.period, device=dev)).contiguous()
+    Jc = fe.fourier_points_derivs(h.c, Xg[:C].contiguous(), h.offset, h.period, orders).reshape(-1, 4, 3, 3)
+    Hc, dH = Jc[:, 0], Jc[:, 1:]
+    Unc = torch.linalg.eigh(Hc)[1]
+    U = Unc.contiguous()
+    out["chunk"] = {"eigh": three_ways(lambda: torch.linalg.eigh(Hc), 50),
+                    "contiguous": three_ways(lambda: Unc.contiguous(), 50),
+                    "k12": three_ways(lambda: G.band_velocity(U, dH), 50)}
+    if fused12 is not None:
+        out["chunk"]["k12_fused"] = three_ways(lambda: fused12(Jc), 50)
+        Jg = fe.fourier_points_derivs(h.c, Xg, h.offset, h.period, orders).reshape(-1, 4, 3, 3)
+        t = three_ways(lambda: fused12(Jg), 10)
+        K = Jg.shape[0]
+        b = bound(K * k12_eigh_flops(3, 3), nbytes(Jg) + 8 * K * 3 * 4)
+        out["k12_fused_grid"] = dict(t, points=K, bound_ms=b[0], bound_by=b[1])
+        del Jg
+    print(f"route at a GGR init chunk ({C} points, m = 3): " + "; ".join(
+        f"{k} {three_text(v)}" for k, v in out["chunk"].items()), flush=True)
+    if "k12_fused_grid" in out:
+        t = out["k12_fused_grid"]
+        print(f"K12's fused entry at the grid's {t['points']} points: {three_text(t)}; bound {t['bound_ms']:.4f} ms "
+              f"by {t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f} % of it by events", flush=True)
+    del Jc, Hc, dH, Unc, U
+    torch.cuda.empty_cache()
+
+    # the GGR and AGB init walls and their eigh calls
+    for tag, alg in (("ggr", GGR), ("agb", AdaptiveGaussianBroadening)):
+        dos_init(DOSProblem(h, 0.5, bz), alg(npt=NPT))
+        ws_ = []
+        with EighCount() as n_eigh:
+            for _ in range(walls):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dos_init(DOSProblem(h, 0.5, bz), alg(npt=NPT))
+                torch.cuda.synchronize()
+                ws_.append(time.perf_counter() - t0)
+        out[f"{tag}_init_s"], out[f"{tag}_eigh_calls"] = ws_, n_eigh.calls // walls
+    t_init = cuda_ms(lambda: G.spectral_grid(h, bz, NPT), 2)
+    Hs = [fe.fourier_points_derivs(h.c, Xg[s:s + C], h.offset, h.period, orders)[:, 0].reshape(-1, 3, 3)
+          for s in range(0, Xg.shape[0], C)]
+    t_eigh = cuda_ms(lambda: [torch.linalg.eigh(x) for x in Hs], 2)
+    del Hs, Xg
+    torch.cuda.empty_cache()
+    out.update(init_event_ms=t_init, eigh_all_chunks_ms=t_eigh)
+    print(f"GGR init walls {[round(w, 4) for w in out['ggr_init_s']]} s ({out['ggr_eigh_calls']} eigh calls a "
+          f"init), AGB init walls {[round(w, 4) for w in out['agb_init_s']]} s ({out['agb_eigh_calls']} eigh calls); "
+          f"spectral_grid by events {t_init:.3f} ms; eigh of all {-(-NPT**3 // C)} chunks alone {t_eigh:.3f} ms "
+          f"({100 * t_eigh / t_init:.1f} % of the init{'' if out['ggr_eigh_calls'] else ', not on its route'})",
+          flush=True)
+
+    # graphene's largest IAI leaf trip: eigh_chunked, K31 and the integrand's call
+    trip = iai_transport_trip(np, torch, dev)
+    H, V, om = trip["H"], trip["V"], trip["om"]
+    n = H.shape[0]
+    e, Ut = eigh_chunked(H)
+    Ut = Ut.contiguous()
+    om_l = torch.broadcast_to(torch.as_tensor(om, dtype=torch.float64, device=dev), (n,)).contiguous()
+    eta_l = torch.full_like(om_l, 0.3)
+    hv = SimpleNamespace(s=(H, V))
+    out["trip"] = {"points": n, "eigh_chunked": three_ways(lambda: eigh_chunked(H), 50),
+                   "k31": three_ways(lambda: obs.transport_points(e, Ut, V, om_l, eta_l), 50),
+                   "integrand": three_ways(lambda: obs.transport_distribution_points(hv, om, eta=0.3), 50)}
+    if fused31 is not None:
+        out["trip"]["k31_fused"] = three_ways(lambda: fused31(H, V, om, 0.3), 50)
+    print(f"graphene's largest IAI leaf trip ({n} points, m = 2, d = 2): " + "; ".join(
+        f"{k} {three_text(v)}" for k, v in out["trip"].items() if k != "points"), flush=True)
+
+    # the graphene IAI transport solve: wall, trips (K31 launches), eigh calls, device activities
+    bz2 = load_bz(FBZ(), np.eye(2))
+    k31s = [f for f in (obs.transport_points, fused31) if f is not None]
+
+    def gsolve():
+        return solve(IntegralProblem(obs.transport_integrand(tb_graphene(device=dev), eta=0.3), bz2,
+                                     MixedParameters(0.5)), IAI(device=dev), abstol=1e-2)
+
+    gsolve()
+    ws_ = []
+    for f in k31s:
+        f.launches = 0
+    with EighCount() as n_eigh:
+        for _ in range(walls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = gsolve()
+            torch.cuda.synchronize()
+            ws_.append(time.perf_counter() - t0)
+    out["graphene_iai"] = {"wall_s": ws_, "numevals": int(sol.numevals),
+                           "k31_launches": sum(f.launches for f in k31s) // walls,
+                           "eigh_calls": n_eigh.calls // walls, "device_activities": kernel_launches(torch, gsolve)}
+    g = out["graphene_iai"]
+    print(f"graphene IAI transport solve (eta 0.3, omega 0.5, abstol 1e-2): walls {[round(w, 4) for w in ws_]} s, "
+          f"numevals {g['numevals']}, trips (K31 launches) {g['k31_launches']}, eigh calls {g['eigh_calls']}, "
+          f"device activities (profiled) {g['device_activities']}", flush=True)
+    return out
+
+
+def kernel_launches(torch, fn):
+    """The device activities (kernels and copies) of ``fn()``, counted by
+    torch.profiler (None where it recorded none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return n or None
 
 
 def rule_phase(np, torch, dev, h, oms):
@@ -4860,6 +5227,68 @@ def autoptr_dos_ladder(np, torch, dev, h, bz):
             "peak": peak, "last": last, "active": active, "launches": launches}
 
 
+def k31_fused_phase(np, torch, dev, trip):
+    """Phase 31's K31 fused entry (``models.observables.transport_points_eigh``):
+    at graphene's largest IAI leaf trip (``trip``: H and dH views of one K11
+    output, m = 2, d = 2, one om) and on hard H (``hard_hermitian``) with
+    random dH at m = 1, 2, 3 (d = 3, om one a point, eta one value), against
+    the plain route (eigh_chunked, then K31's plain version; 1e-12 relative),
+    symmetric, bit-identical repeats; then three ways at the trip beside the
+    integrand's call, eigh_chunked alone and the library route (eigh, the
+    reference's two einsums), with the bound. Returns (numbers, bound)."""
+    from types import SimpleNamespace
+
+    from autobzcore_torch.models import observables as obs
+    from autobzcore_torch.ops.eigh3 import eigh_chunked
+
+    def check(tag, H, V, om, eta):
+        G = obs.transport_points_eigh(H, V, om, eta)
+        if not (torch.equal(G, obs.transport_points_eigh(H, V, om, eta)) and torch.equal(G, G.transpose(1, 2))):
+            fail(f"K31 transport_points_eigh ({tag}): repeats differ or G is not symmetric")
+        P = obs.transport_points_eigh_plain(H, V, om, eta)
+        err = float((G - P).abs().max())
+        if not err <= 1e-12 * float(P.abs().max()):
+            fail(f"K31 transport_points_eigh ({tag}): max|d| vs the plain route {err:.3e} > 1e-12 x "
+                 f"{float(P.abs().max()):.3e}")
+        return err, err / float(P.abs().max())
+
+    H, V, om = trip["H"], trip["V"], trip["om"]
+    errs = {"trip": check("graphene's leaf trip", H, V, om, 0.3)}
+    rng = np.random.default_rng(1231)
+    for m in (1, 2, 3):
+        Hh = hard_hermitian(np, rng, 900, m, 3.0)
+        K = Hh.shape[0]
+        J = torch.as_tensor(np.stack([Hh] + [random_hermitian(rng, K, m) for _ in range(3)], axis=1), device=dev)
+        w = torch.as_tensor(rng.uniform(-3, 3, K), device=dev)
+        errs[f"hard{m}"] = check(f"hard matrices, m = {m}", J[:, 0], J[:, 1:], w, 0.3)
+    n, m, d = H.shape[0], H.shape[1], V.shape[1]
+    hv = SimpleNamespace(s=(H, V))
+    e, U = eigh_chunked(H)
+    om_l = torch.broadcast_to(torch.as_tensor(om, dtype=torch.float64, device=dev), (n,))
+    eta_l = torch.full((n,), 0.3, dtype=torch.float64, device=dev)
+
+    def library():
+        ee, UU = torch.linalg.eigh(H)
+        v = torch.einsum("kim,kdij,kjn->kdmn", UU.conj(), V, UU)
+        a = (eta_l[:, None] / ((om_l[:, None] - ee) ** 2 + eta_l[:, None] ** 2) / math.pi).to(v.dtype)
+        return torch.einsum("kanm,kbnm,kn,km->kab", v, v.conj(), a, a).real
+
+    t = three_ways(lambda: obs.transport_points_eigh(H, V, om, 0.3), 50)
+    t.update(err=errs["trip"][0], errors={k: v[1] for k, v in errs.items()},
+             integrand=three_ways(lambda: obs.transport_distribution_points(hv, om, eta=0.3), 50),
+             eigh_chunked=three_ways(lambda: eigh_chunked(H), 50),
+             plain_ms=cuda_ms(lambda: obs.transport_points_eigh_plain(H, V, om, 0.3), 20),
+             library_ms=cuda_ms(library, 20))
+    b = bound(n * k31_eigh_flops(m, d), nbytes(H, V) + 8 * n * d * d)
+    print(f"K31 transport_points_eigh against the plain route (max|d| over max|G|): "
+          f"{'; '.join(f'{k} {v[1]:.3e}' for k, v in errs.items())} (<= 1e-12), repeats bit-identical, symmetric; at "
+          f"graphene's leaf trip ({n} points, m = {m}, d = {d}) {three_text(t)}; the integrand's call "
+          f"{three_text(t['integrand'])}; eigh_chunked alone {three_text(t['eigh_chunked'])}; plain route "
+          f"{t['plain_ms']:.4f} ms, library route (eigh, two einsums) {t['library_ms']:.4f} ms; bound {b[0]:.6f} ms "
+          f"by {b[1]}", flush=True)
+    return t, b
+
+
 def slice12_phases(np, torch, dev, h, ladder):
     """Phases 31-32: K29-K31 and K27's matrix mode against their plain
     versions at the main path's shapes, then the AutoPTR family, the PTR
@@ -4957,25 +5386,15 @@ def slice12_phases(np, torch, dev, h, ladder):
           f"{b30[0]:.5f} ms by {b30[1]}, {100 * b30[0] / t30['ms']:.2f} % of it)", flush=True)
     del H2, U4
 
-    # K31 at the largest leaf trip of phase 32's graphene IAI transport solve:
-    # the solve's integrand, recording the points it is handed
-    hg = tb_graphene(device=dev)
-    trip = {}
-
-    def recording(hv, om, eta=None):
-        H, V = hv.s
-        if H.shape[0] > trip.get("n", 0):
-            trip.update(n=H.shape[0], H=H.clone(), V=V.clone(), om=om)
-        return obs.transport_distribution_points(hv, om, eta=eta)
-
-    solve(IntegralProblem(FourierIntegrand(recording, JacobianSeries(hg), eta=0.3, batched=True), bz2,
-                          MixedParameters(0.5)), IAI(device=dev), abstol=1e-2)
+    # K31's first entry at the largest leaf trip of phase 32's Kane-Mele IAI transport solve (m = 4): the
+    # main path sends it no other shape, since m <= 3 takes its fused entry
+    trip = iai_transport_trip(np, torch, dev, kane_mele_transport)
     e31, U31 = eigh_chunked(trip["H"])
     om31 = torch.broadcast_to(torch.as_tensor(trip["om"], dtype=torch.float64, device=dev),
                               (e31.shape[0],)).contiguous()
     a31 = (e31, U31.contiguous(), trip["V"], om31, torch.full_like(om31, 0.3))
     k31 = obs.transport_points(*a31)
-    err31 = check("K31 transport_points (graphene IAI leaf trip)", k31, obs.transport_points_plain(*a31), 1e-12)
+    err31 = check("K31 transport_points (Kane-Mele IAI leaf trip)", k31, obs.transport_points_plain(*a31), 1e-12)
     same("K31 transport_points", k31, obs.transport_points(*a31))
     e31, U31, dH31, om31, eta31 = a31
 
@@ -4988,10 +5407,11 @@ def slice12_phases(np, torch, dev, h, ladder):
     t31 = {"err": err31, "ms": cuda_ms(lambda: obs.transport_points(*a31), 50),
            "plain_ms": cuda_ms(lambda: obs.transport_points_plain(*a31), 10), "library_ms": cuda_ms(library31, 10)}
     b31 = bound(N31 * transport_point_flops(m31, d31), nbytes(*a31) + 8 * N31 * d31 * d31)
-    print(f"K31 transport_points at the largest leaf trip of graphene's IAI transport solve ({N31} points, m = {m31}, "
+    print(f"K31 transport_points at the largest leaf trip of Kane-Mele's IAI transport solve ({N31} points, m = {m31}, "
           f"d = {d31}): max|d| vs plain {err31:.3e} (<= 1e-12 relative), repeat bit-identical, {t31['ms']:.4f} ms "
           f"(plain {t31['plain_ms']:.4f} ms, the reference's two einsums {t31['library_ms']:.4f} ms, bound "
           f"{b31[0]:.6f} ms by {b31[1]}, {100 * b31[0] / t31['ms']:.2f} % of it)", flush=True)
+    t31f, b31f = k31_fused_phase(np, torch, dev, iai_transport_trip(np, torch, dev))
 
     # K27's matrix mode on the flagship's npt=100 grid at 264 lanes z = w + i eta (Z = z I), each time
     # by events, by the profiler's device time (K27 and its column sum) and on the host
@@ -5052,7 +5472,8 @@ def slice12_phases(np, torch, dev, h, ladder):
     recording.launches = 0  # the entry counts its launches on the module's name, here this function
     obs.spectral_points = recording
     try:
-        solve(IntegralProblem(FourierIntegrand(obs.spectral_function, hg, eta=0.2, batched=True), bz2, 0.5),
+        solve(IntegralProblem(FourierIntegrand(obs.spectral_function, tb_graphene(device=dev), eta=0.2, batched=True),
+                              bz2, 0.5),
               IAI(device=dev), abstol=1e-4)
     finally:
         obs.spectral_points = entry
@@ -5074,11 +5495,13 @@ def slice12_phases(np, torch, dev, h, ladder):
           f"{time.perf_counter() - t_phases:.3f} s", flush=True)
     k27_numbers = {"sum": dict(t27, bound=b27[0], first_bound=b27_first), "points_ptr48": dict(t27p, bound=b27p[0]),
                    "points_graphene": dict(t27g, bound=t27g["bound"][0])}
-    del H, w, z, k27, k2, Hp, Zn, zn, zp, Hg, zg, U3, a31, e31, U31, dH31
+    k27_numbers["k31_eigh"] = {k: v for k, v in t31f.items() if k != "bound"}
+    del H, w, z, k27, k2, Hp, Zn, zn, zp, Hg, zg, U3, a31, e31, U31, dH31, trip
     torch.cuda.empty_cache()
 
     # 32. the slice's paths at full width ------------------------------------------------------
-    kernels = (kp.spectral_map, kp.band_expect, obs.transport_points, obs.spectral_weighted_sum, obs.spectral_points)
+    kernels = (kp.spectral_map, kp.band_expect, obs.transport_points, obs.transport_points_eigh,
+               obs.spectral_weighted_sum, obs.spectral_points)
     for k in kernels + (obs.dos_trace_weighted_sum, obs.velocity_pairs, obs.transport_gamma):
         k.launches = 0
     t_main = time.perf_counter()
@@ -5199,24 +5622,47 @@ def slice12_phases(np, torch, dev, h, ladder):
                                    MixedParameters(0.4)), AutoPTR(nmin=20, nmax=200, device=dev), abstol=1e-8)
              for kind in (CubicSymIBZ(), FBZ())]
     wedge_err = float((wedge[0].u - wedge[1].u).abs().max())
-    # graphene under IAI at one omega: K31 at every leaf trip, the card against the CPU
-    n31 = obs.transport_points.launches
-    gi = [solve(IntegralProblem(obs.transport_integrand(tb_graphene(device=dv), eta=0.3), bz2, MixedParameters(0.5)),
-                IAI(device=dv), abstol=1e-2) for dv in (dev, "cpu")]
-    n31 = obs.transport_points.launches - n31
-    gi_rel = float((gi[0].u.cpu() - gi[1].u).abs().max() / gi[1].u.abs().max())
+    # under IAI at one omega, the card against the CPU: graphene (m = 2) and a
+    # 3-band model, K31's fused entry at every leaf trip with no cuSOLVER call,
+    # then Kane-Mele (m = 4) on eigh_chunked and K31's first entry
+    iai_tr = {}
+    for tag, build, tol in (("graphene", tb_graphene, 1e-2),
+                            ("bands3", lambda device: synthetic_wannier(3, nr=3, ndim=2, seed=3, device=device), 1e-3),
+                            ("kane_mele", kane_mele_transport, 1e-2)):
+        n31 = (obs.transport_points.launches, obs.transport_points_eigh.launches)
+        with EighCount() as n_eigh:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gc = solve(IntegralProblem(obs.transport_integrand(build(device=dev), eta=0.3), bz2, MixedParameters(0.5)),
+                       IAI(device=dev), abstol=tol)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n31 = (obs.transport_points.launches - n31[0], obs.transport_points_eigh.launches - n31[1])
+        gp = solve(IntegralProblem(obs.transport_integrand(build(device="cpu"), eta=0.3), bz2, MixedParameters(0.5)),
+                   IAI(device="cpu"), abstol=tol)
+        rel = float((gc.u.cpu() - gp.u).abs().max() / gp.u.abs().max())
+        iai_tr[tag] = {"wall_s": wall, "rel": rel, "numevals": [int(gc.numevals), int(gp.numevals)],
+                       "k31": n31[0], "k31_eigh": n31[1], "eigh_calls": n_eigh.calls, "abstol": tol}
+        fused = tag != "kane_mele"
+        if not (rel <= 1e-10 and gc.numevals == gp.numevals and (n31[1] > 0 and n31[0] == 0 and n_eigh.calls == 0
+                                                                 if fused else n31[0] > 0 and n31[1] == 0)):
+            fail(f"the transport integrand under IAI ({tag}): {iai_tr[tag]}")
+    gi_rel = iai_tr["graphene"]["rel"]
     print(f"transport integrand (B11d): PTR(npt={NPT}) at {TR_PTR_OMEGAS} omegas {t_ptr:.4f} s vs TransportSolver "
           f"max rel {tr_rel:.3e} (<= 1e-12), numevals {int(net[0])} a lane; AutoPTR({TR_AUTOPTR_KW}) at "
           f"{TR_AUTOPTR_OMEGAS} omegas, reltol 1e-3: {t_auto:.3f} s, rungs {tr_rungs} with active lanes {active_t}, "
           f"flags {conva.astype(int).tolist()}, peak {peak_t:.2f} GiB; tb_integer(3), eta 0.5, AutoPTR(nmin=20, "
           f"nmax=200), abstol 1e-8: CubicSymIBZ vs FBZ {wedge_err:.3e} (<= 1e-8), numevals {wedge[0].numevals} vs "
-          f"{wedge[1].numevals}, retcodes {wedge[0].retcode}, {wedge[1].retcode}; graphene IAI (eta 0.3, abstol "
-          f"1e-2) card vs CPU {gi_rel:.3e} (<= 1e-10), numevals {gi[0].numevals} vs {gi[1].numevals}, K31 launches "
-          f"{n31}; K18 launches {obs.velocity_pairs.launches}, K19 {obs.transport_gamma.launches}", flush=True)
+          f"{wedge[1].numevals}, retcodes {wedge[0].retcode}, {wedge[1].retcode}; under IAI at eta 0.3, omega 0.5 "
+          f"card vs CPU (<= 1e-10, equal numevals; K31's fused entry a trip and no eigh call at m <= 3): "
+          + "; ".join(f"{tag} (abstol {v['abstol']:g}) {v['rel']:.3e}, numevals {v['numevals']}, wall "
+                      f"{v['wall_s']:.4f} s, fused K31 launches {v['k31_eigh']}, K31 {v['k31']}, eigh calls "
+                      f"{v['eigh_calls']}" for tag, v in iai_tr.items())
+          + f"; K18 launches {obs.velocity_pairs.launches}, K19 {obs.transport_gamma.launches}", flush=True)
     if not (tr_rel <= 1e-12 and convt.all() and conva.any() and np.all(neva > 0) and wedge_err <= 1e-8
-            and wedge[0].retcode and wedge[1].retcode and gi_rel <= 1e-10 and gi[0].numevals == gi[1].numevals
-            and n31 > 0):
+            and wedge[0].retcode and wedge[1].retcode and gi_rel <= 1e-10):
         fail("transport integrand checks")
+    k27_numbers["transport_iai"] = iai_tr
 
     # the matrix spectral function under PTR(100) at 264 omegas, against the PTR DOS (K2)
     t0 = time.perf_counter()
@@ -5301,6 +5747,8 @@ def slice12_phases(np, torch, dev, h, ladder):
             entry("band_expect", "band_expect.cu", "autobzcore_tpu/models/kpath.py:86", t30, b30, t30["library_ms"]),
             entry("transport_points", "transport_points.cu", "autobzcore_tpu/models/observables.py:175", t31, b31,
                   t31["library_ms"]),
+            entry("transport_points_eigh", "transport_points.cu", "autobzcore_tpu/models/observables.py:184", t31f,
+                  b31f, t31f["library_ms"]),
             entry("spectral_weighted_sum", "sigma_trace.cu", "autobzcore_tpu/models/observables.py:160", t27, b27),
             entry("spectral_points", "sigma_trace.cu", "autobzcore_tpu/models/observables.py:160", t27p, b27p)], \
         k27_numbers

@@ -325,7 +325,7 @@ def test_leaf_dos_kernel_refuses_more_than_three_bands(cuda_device):
     z = torch.zeros((1, 2), dtype=torch.float64, device=cuda_device)
     om = torch.zeros(1, dtype=torch.float64, device=cuda_device)
     xk, wk, wg = tad.gk_rule(7, cuda_device)
-    with pytest.raises(NotImplementedError, match="B2"):
+    with pytest.raises(NotImplementedError, match="above three bands the IAI nest evaluates the leaf by its generic"):
         tobs.gk_leaf_dos(c, torch.zeros(1, dtype=torch.int64, device=cuda_device), -1, 1.0, z, z,
                          om, om + 0.1, torch.ones(1, dtype=torch.bool, device=cuda_device),
                          xk, wk, wg)
@@ -2942,3 +2942,173 @@ def test_slice_wrappers_refuse_more_bands_on_card(cuda_device):
     U = torch.as_tensor(random_hermitian(rng, 4, 33), device=cuda_device)
     with pytest.raises(ValueError):
         band_expect(U, U[0].contiguous())
+
+
+def _hard_hermitian(rng, K, m, scale=1.0):
+    """K Hermitian m x m matrices: random ones, then (m > 1) exactly
+    degenerate pairs, pairs 1e-9 apart, scalar matrices and zeros, rotated by
+    random unitaries, at ``scale``."""
+    parts = [random_hermitian(rng, K, m)]
+    if m > 1:
+        Q, _ = np.linalg.qr(rng.normal(size=(K, m, m)) + 1j * rng.normal(size=(K, m, m)))
+        for gap in (0.0, 1e-9):
+            e = np.sort(rng.uniform(-1, 1, size=(K, m)), axis=1)
+            e[:, 1] = e[:, 0] + gap
+            parts.append(np.einsum("kij,kj,klj->kil", Q, e, Q.conj()))
+    parts.append(np.eye(m)[None] * rng.normal(size=(K, 1, 1)) + 0j)
+    parts.append(np.zeros((K // 10, m, m), complex))
+    return np.concatenate(parts) * scale
+
+
+def _cluster_check(e, v, pv, scale, vmax):
+    """Per-band velocities v against pv where a band's gap to its nearest
+    neighbour g (over the energy scale) is at least 1e-6: within 1e-13 /
+    min(g, 1) of max|v|; below, the sums over each cluster of such bands within 1e-12 of
+    max|v|. e (K, m) ascending; v, pv (K, d, m) numpy."""
+    K, m = e.shape
+    de = np.diff(e, axis=1) / scale if m > 1 else np.zeros((K, 0))
+    g = np.full((K, m), np.inf)
+    if m > 1:
+        g[:, 1:] = de
+        g[:, :-1] = np.minimum(g[:, :-1], de)
+    sep = g >= 1e-6
+    tol = 1e-13 / np.minimum(np.where(sep, g, 1.0), 1.0) * vmax
+    assert np.all((np.abs(v - pv) <= tol[:, None, :]) | ~sep[:, None, :])
+    label = np.concatenate([np.zeros((K, 1), int), np.cumsum(de >= 1e-6, axis=1)], axis=1)
+    for c in range(m):
+        mask = (label == c)[:, None, :]
+        assert np.abs((v * mask).sum(-1) - (pv * mask).sum(-1)).max() <= 1e-12 * vmax
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(1, 1), (1, 3), (2, 2), (2, 3), (3, 1), (3, 3)])
+def test_band_velocity_eigh_kernel_matches_plain_on_card(cuda_device, m, d):
+    """K12's fused entry on hard H (degenerate, 1e-9 gaps, scalar, zero) and
+    random dH in one contiguous J: the energies bit-equal to the register
+    solver's mirror and within 1e-12 of the scale of cuSOLVER's, the
+    velocities within 1e-13 of max|v| of the mirror's eigenvectors' and
+    against cuSOLVER's by each band's gap (or its cluster's sum), bit-identical
+    repeats, one launch."""
+    from autobzcore_torch.dos import ggr as tggr
+    from autobzcore_torch.ops.eigh3 import eigh3_jacobi
+
+    rng = np.random.default_rng(150 + 10 * m + d)
+    H = _hard_hermitian(rng, 1_500, m, 2.5)
+    K = H.shape[0]
+    J = torch.as_tensor(np.stack([H] + [random_hermitian(rng, K, m) for _ in range(d)], axis=1), device=cuda_device)
+    before = tggr.band_velocity_eigh.launches
+    e, v = tggr.band_velocity_eigh(J)
+    assert tggr.band_velocity_eigh.launches == before + 1
+    e2, v2 = tggr.band_velocity_eigh(J)
+    assert torch.equal(e, e2) and torch.equal(v, v2)
+    me, mU = eigh3_jacobi(J[:, 0])
+    assert torch.equal(e, me)
+    mv = tggr.band_velocity_plain(mU, J[:, 1:])
+    vmax = float(mv.abs().max())
+    assert float((v - mv).abs().max()) <= 1e-13 * vmax
+    pe, pv = tggr.band_velocity_eigh_plain(J)
+    scale = float(pe.abs().max())
+    assert float((e - pe).abs().max()) <= 1e-12 * scale
+    _cluster_check(pe.cpu().numpy(), v.cpu().numpy(), pv.cpu().numpy(), scale, vmax)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(1, 1), (2, 2), (2, 3), (3, 2), (3, 3)])
+def test_transport_points_eigh_kernel_matches_plain_on_card(cuda_device, m, d):
+    """K31's fused entry on hard H and random dH as views of one K11-shaped
+    tensor, om and eta as numbers, one-value tensors and one a point: 1e-12
+    relative against eigh + K31's plain version, symmetric, bit-identical
+    repeats, one launch a call."""
+    rng = np.random.default_rng(160 + 10 * m + d)
+    H = _hard_hermitian(rng, 900, m)
+    K = H.shape[0]
+    J = torch.as_tensor(np.stack([H] + [random_hermitian(rng, K, m) for _ in range(d)], axis=1), device=cuda_device)
+    om = torch.as_tensor(rng.uniform(-2, 2, K), device=cuda_device)
+    one = torch.tensor(0.4, dtype=torch.float64, device=cuda_device)
+    for w, g in ((0.4, 0.2), (om, 0.2), (one, om.abs() + 0.05), (om, one)):
+        before = tobs.transport_points_eigh.launches
+        got = tobs.transport_points_eigh(J[:, 0], J[:, 1:], w, g)
+        assert tobs.transport_points_eigh.launches == before + 1
+        want = tobs.transport_points_eigh_plain(J[:, 0], J[:, 1:], w, g)
+        assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+        assert torch.equal(got, got.transpose(1, 2))
+        assert torch.equal(got, tobs.transport_points_eigh(J[:, 0], J[:, 1:], w, g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("scale", [1e-8, 1e8])
+def test_band_velocity_eigh_kernel_matches_mirror_across_scales_on_card(cuda_device, m, scale):
+    """K12's fused entry on hard H at scales 1e-8 and 1e8 (dH at unit
+    scale) against the register solver's mirror on the same card tensors:
+    the energies bit-equal, the velocities within 1e-13 of max|v| of the
+    mirror's eigenvectors'."""
+    from autobzcore_torch.dos import ggr as tggr
+    from autobzcore_torch.ops.eigh3 import eigh3_jacobi
+
+    rng = np.random.default_rng(170 + m)
+    H = _hard_hermitian(rng, 2_000, m, scale)
+    K = H.shape[0]
+    J = torch.as_tensor(np.stack([H] + [random_hermitian(rng, K, m) for _ in range(3)], axis=1), device=cuda_device)
+    e, v = tggr.band_velocity_eigh(J)
+    me, mU = eigh3_jacobi(J[:, 0])
+    assert torch.equal(e, me)
+    mv = tggr.band_velocity_plain(mU, J[:, 1:])
+    assert float((v - mv).abs().max()) <= 1e-13 * float(mv.abs().max())
+
+
+@pytest.mark.gpu
+def test_fused_routes_make_no_eigh_call_on_card(cuda_device, monkeypatch):
+    """At m <= 3 spectral_grid is one K11 and one fused K12 launch (the
+    plain route within 1e-12 of the energy scale, the velocities per band by
+    its gap or by its cluster's sum) and a batched transport
+    integrand call one fused K31 launch (the CPU's route within 1e-12), with
+    no torch.linalg.eigh call."""
+    from autobzcore_torch.dos import ggr as tggr
+
+    calls = []
+    real = torch.linalg.eigh
+    h = ttb.flagship_series(device=cuda_device)
+    bz = T.load_bz(T.FBZ(), np.eye(3))
+    pe, pv, _ = tggr.spectral_grid(h, bz, 12, velocities=tggr.band_velocity_plain)
+    monkeypatch.setattr(torch.linalg, "eigh", lambda *a, **k: calls.append(1) or real(*a, **k))
+    before = (tggr.band_velocity_eigh.launches, tggr.band_velocity.launches)
+    e, v, _ = tggr.spectral_grid(h, bz, 12)
+    assert (tggr.band_velocity_eigh.launches, tggr.band_velocity.launches) == (before[0] + 1, before[1])
+    assert float((e - pe).abs().max()) <= 1e-12 * float(pe.abs().max())
+    _cluster_check(pe.cpu().numpy(), v.cpu().numpy(), pv.cpu().numpy(), float(pe.abs().max()),
+                   float(pv.abs().max()))
+    g = ttb.tb_graphene(device=cuda_device)
+    X = torch.rand(700, 2, dtype=torch.float64, generator=torch.Generator().manual_seed(3))
+    Hv = T.JacobianSeries(g).eval_points(X.to(cuda_device))
+    before = tobs.transport_points_eigh.launches
+    G = tobs.transport_distribution_points(T.FourierValue(X, Hv), 0.5, eta=0.3)
+    assert tobs.transport_points_eigh.launches == before + 1 and not calls
+    gc = ttb.tb_graphene(device="cpu")
+    Gc = tobs.transport_distribution_points(T.FourierValue(X, T.JacobianSeries(gc).eval_points(X)), 0.5, eta=0.3)
+    assert float((G.cpu() - Gc).abs().max()) <= 1e-12 * float(Gc.abs().max())
+
+
+@pytest.mark.gpu
+def test_transport_integrand_broadcasts_as_the_cpu_route_on_card(cuda_device):
+    """The batched transport integrand on a (20, 35) batch of graphene
+    points: om and eta broadcast to the batch as on the CPU (the card's fused
+    route within 1e-12 of the CPU's), and an om the CPU route refuses is
+    refused on the card too."""
+    g, gc = ttb.tb_graphene(device=cuda_device), ttb.tb_graphene(device="cpu")
+    X = torch.rand(700, 2, dtype=torch.float64, generator=torch.Generator().manual_seed(4))
+    rng = np.random.default_rng(5)
+    cases = ((torch.as_tensor(rng.uniform(-1, 1, 35)), 0.3), (torch.as_tensor(rng.uniform(-1, 1, (20, 1))), 0.3),
+             (0.5, torch.as_tensor(rng.uniform(0.1, 0.5, (20, 35)))), (torch.tensor(0.5, dtype=torch.float64), 0.3))
+
+    def run(dev, series):
+        H, V = T.JacobianSeries(series).eval_points(X.to(dev))
+        hv = T.FourierValue(X, (H.reshape(20, 35, 2, 2), V.reshape(20, 35, 2, 2, 2)))
+        with pytest.raises(RuntimeError):
+            tobs.transport_distribution_points(hv, torch.zeros((700, 1), dtype=torch.float64, device=dev), eta=0.3)
+        return [tobs.transport_distribution_points(hv, *(x.to(dev) if isinstance(x, torch.Tensor) else x for x in c))
+                for c in cases]
+
+    for G, Gc in zip(run(cuda_device, g), run("cpu", gc)):
+        assert G.shape == Gc.shape == (20, 35, 2, 2)
+        assert float((G.cpu() - Gc).abs().max()) <= 1e-12 * float(Gc.abs().max())

@@ -3,7 +3,7 @@
 ``autobzcore_torch`` package of any checkout, on one NVIDIA GPU.
 
     python3 tools/kernel_ab.py TREE LABEL
-        --phases fourier|rule_transport|iai|k24|warm_plain|selfenergy|spectral|ltm|ggr|tai|pools [--iai]
+        --phases fourier|rule_transport|iai|k24|warm_plain|selfenergy|spectral|ltm|ggr|tai|pools|eigh [--iai]
         [--out DIR]
 
 It imports ``autobzcore_torch`` from the checkout at TREE (its kernels
@@ -58,7 +58,10 @@ phase functions on it:
 - ``--phases ggr``: the spectral-grid DOS (K11-K13): phases 19-21 (K13 in
   box and Gaussian mode at the flagship's 3e6 terms x 1001 energies, on
   them shuffled, and at the bands30 shape; the GGR and AGB main path's init
-  and sweep walls, checked against an LTM sweep at npt 100; config 5);
+  and sweep walls, checked against an LTM sweep at npt 100; config 5); it
+  and ``spectral`` need a checkout with K12's and K31's fused entries
+  (``band_velocity_eigh``, ``transport_points_eigh``): on an older one take
+  ``eigh`` for that route;
 - ``--phases tai``: the Genz-Malik box pool (K14-K17): phases 22-24 (K16's
   entries and its step against the plain route, by events and by device
   time beside ``torch.topk``; the TAI chunk's three walls, its counts, K16's
@@ -70,6 +73,13 @@ phase functions on it:
   K5's by entry and nest level (each launch through the checkout's library
   tagged in order and paired with the profiler's kernels of its name), and
   all kernel launches of each leg;
+- ``--phases eigh``: the route around K12 and K31 (``eigh_route_phase``):
+  at a GGR init chunk cuSOLVER's eigh, the copy of its U and K12, at the
+  largest leaf trip of phase 32's graphene IAI transport solve eigh, K31
+  and the integrand's call, each three ways (events, device time, host us),
+  and the fused entries where the checkout has them (K12's also at the 1e6
+  points of the flagship grid); the GGR and AGB init walls and the graphene
+  IAI solve's wall with their eigh calls and launches;
 - ``--phases warm_plain``: phase 10's first warm call (the 33 frequencies
   of phase 7's cold chunk) on the kernels and then on the plain versions of
   every kernel (``plain_kernels=True``), each with its wall, numevals,
@@ -215,6 +225,10 @@ def ggr(cs, np, torch, dev, h):
     torch.cuda.empty_cache()
     entries, numbers = cs.ggr_phases(np, torch, dev, h, ltm_dos)
     return {"ggr": numbers, "kernels": entries}
+
+
+def eigh(cs, np, torch, dev, h):
+    return {"eigh": cs.eigh_route_phase(np, torch, dev, h)}
 
 
 def phase7_frequencies(cs, np, torch, dev, h):
@@ -591,7 +605,8 @@ def pools(cs, np, torch, dev, h):
 
 
 PHASES = {"fourier": fourier, "rule_transport": rule_transport, "iai": iai, "k24": k24, "warm_plain": warm_plain,
-          "selfenergy": selfenergy, "spectral": spectral, "ltm": ltm, "ggr": ggr, "tai": tai, "pools": pools}
+          "selfenergy": selfenergy, "spectral": spectral, "ltm": ltm, "ggr": ggr, "tai": tai, "pools": pools,
+          "eigh": eigh}
 
 
 def compare(tree, label, phases, iai):
